@@ -15,3 +15,5 @@ def pytest_configure(config):
     # tier-1 runs `-m "not slow"` (ROADMAP): 'slow' holds the compile-heavy
     # deep parallel-combo parity tests that would blow the tier-1 time budget
     config.addinivalue_line("markers", "slow: excluded from the tier-1 suite")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
