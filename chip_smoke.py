@@ -21,8 +21,24 @@ Phases, one JSON line each (with its seconds):
 5. first_token — phases 3 and 4's first tokens for two prompts against the
                argmax of the dense `forward` at the last prompt position,
                held equal where the top-2 margin exceeds 0.05 (ties printed).
+6. kernels_bwd — the flash backward pair (dkv and dq kernels) against
+               `_flash_bwd_ref` at [1,1024,32,128] causal, the training
+               shape [4,2048,16,128] causal and [2,333,8,64] full, in bf16
+               and float32: max abs errors, dkv/dq/pair/plain ms, the
+               backward alone of SDPA as the library yardstick, bounds;
+               then RMSNorm's dx, dw through its autograd Function against
+               autograd through `_rms_ref`.
+7. train_parity — float32, TF32 off, Llama-3-8B width with 2 layers, B=1,
+               S=1024: `loss_fn` and its gradients through the kernels
+               against the same with `attn_impl=attention_ref`.
+8. train       — GPT-3 1.3B (`gpt3_1p3b`, 24 layers), bf16 params and
+               moments, remat, B=4, S=2048, through `HybridParallelTrainer`:
+               1 warm-up and 4 timed steps on one repeated batch; tokens/s,
+               step ms, peak memory, losses, launches per step.
 
-Then one line `{"kernels": [...]}` and, last, `{"ok": true, "device": ...}`.
+Then one line `{"kernels": [...]}` (launches summed over the main-path
+phases 3, 4, 7 and 8, each run with the counts zeroed just before it and
+read just after) and, last, `{"ok": true, "device": ...}`.
 Exits non-zero, with no result line, without CUDA, outside the repository,
 or when any phase fails.
 """
@@ -36,6 +52,8 @@ import numpy as np
 
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 rounding of P before PV
 F32_TOL = 1e-4                          # same math, other summation order
+BWD_BF16_REL = 2e-2     # backward, bf16: max abs err <= 2e-2 * max|ref|
+BWD_F32_REL = 1e-4      # backward, f32: <= 1e-4 * max(1, max|ref|)
 H100_BYTES_S = 3.35e12                  # HBM3, NVIDIA data sheet (SXM)
 H100_BF16_FLOPS = 989e12                # dense tensor-core bf16
 H100_F32_FLOPS = 67e12                  # float32 outside the tensor cores
@@ -216,6 +234,93 @@ def paged_case(dtype, dev, T):
         "bound_ms": b_ms, "bound_by": by}
 
 
+def bwd_case(dtype, dev, shape, causal):
+    """The backward pair against its plain version on the plain forward's
+    out and lse; times of each kernel, the pair, the plain version and
+    SDPA's backward alone."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.incubate.kernels.flash_attention import (
+        _delta, _flash_bwd_dkv_ref, _flash_bwd_dq_ref, _flash_bwd_ref,
+        _flash_fwd_ref, flash_attention_bwd, flash_bwd_dkv, flash_bwd_dq)
+    rng = np.random.RandomState(shape[1])
+    B, S, H, D = shape
+    q, k, v, g = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                  .to(dev, dtype) for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    out, lse = _flash_fwd_ref(q, k, v, causal, scale)
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal, scale)
+    ref = _flash_bwd_ref(q, k, v, out, lse, g, causal, scale)
+    errs = {}
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        err = float((a.float() - r.float()).abs().max())
+        top = float(r.float().abs().max())
+        lim = (BWD_F32_REL * max(1.0, top) if dtype == torch.float32
+               else BWD_BF16_REL * top)
+        if not err <= lim:
+            raise AssertionError(f"flash backward {name} {shape} {dtype}: "
+                                 f"max abs err {err:.3g} > {lim:.3g}")
+        errs[name] = err
+    del got, ref
+    delta = _delta(out, g).contiguous()
+    isz = q.element_size()
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)   # visible (q,k)
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t = B * S * H * D * isz                     # one [B, S, H, D] tensor
+    stats = B * H * S * 4                       # one [B*H, S] f32 row stat
+    bounds = {                                  # (bytes, matmuls)
+        "dkv": (6 * t + 2 * stats, 4), "dq": (5 * t + 2 * stats, 3),
+        "pair": (8 * t + stats, 5)}
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    gt = g.transpose(1, 2).contiguous()
+    rec = {"kernel": "flash_attention_bwd", "shape": list(shape),
+           "causal": causal, "max_abs_err": errs,
+           "dkv_ms": time_ms(lambda: flash_bwd_dkv(q, k, v, g, lse, delta,
+                                                   causal, scale)),
+           "dq_ms": time_ms(lambda: flash_bwd_dq(q, k, v, g, lse, delta,
+                                                 causal, scale)),
+           "pair_ms": time_ms(lambda: flash_attention_bwd(
+               q, k, v, out, lse, g, causal, scale)),
+           "dkv_plain_ms": time_ms(lambda: _flash_bwd_dkv_ref(
+               q, k, v, g, lse, delta, causal, scale), iters=5),
+           "dq_plain_ms": time_ms(lambda: _flash_bwd_dq_ref(
+               q, k, v, g, lse, delta, causal, scale), iters=5),
+           "pair_plain_ms": time_ms(lambda: _flash_bwd_ref(
+               q, k, v, out, lse, g, causal, scale), iters=5),
+           "library_ms": time_ms(lambda: torch.autograd.grad(
+               lib_out, (qt, kt, vt), gt, retain_graph=True))}
+    for name, (nbytes, mm) in bounds.items():
+        rec[f"{name}_bound_ms"], rec[f"{name}_bound_by"] = bound(
+            nbytes, mm * 2 * pairs * D, peak)
+    return rec
+
+
+def rms_grad_case(dtype, dev):
+    """dx, dw through the RMSNorm Function (Triton forward) against
+    autograd through `_rms_ref`, on the card."""
+    import torch
+    from paddle_tpu_torch.incubate.kernels.rms_norm import _rms_ref, \
+        rms_norm_fused
+    rng = np.random.RandomState(1)
+    x, gy = (torch.from_numpy(rng.randn(1024, 4096).astype(np.float32))
+             .to(dev, dtype) for _ in range(2))
+    w = torch.from_numpy(rng.randn(4096).astype(np.float32)).to(dev, dtype)
+    grads = []
+    for fn in (rms_norm_fused, lambda a, b: _rms_ref(a, b, 1e-6)):
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(xs, ws)
+        if y.grad_fn is None:
+            raise AssertionError("RMSNorm output has no grad_fn")
+        y.backward(gy)
+        grads.append((xs.grad, ws.grad))
+    errs = {n: check_close(f"rms_norm {n}", a, b, dtype)
+            for n, a, b in zip(("dx", "dw"), *grads)}
+    return {"kernel": "rms_norm_grad", "shape": [1024, 4096],
+            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": errs}
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the serving engine at Llama-3-8B width
 # ---------------------------------------------------------------------------
@@ -274,6 +379,106 @@ def serve(params, cfg, prompts, chunk, dev):
            "fused_dispatches": fused, "launches": launches,
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
     return outs, rec
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: the trainer
+# ---------------------------------------------------------------------------
+
+def train_parity(dev):
+    """loss_fn and its grads through the kernels vs `attn_impl=
+    attention_ref`, float32 (TF32 is off), Llama-3-8B width, 2 layers."""
+    import torch
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.incubate.kernels.flash_attention import \
+        attention_ref
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel.hybrid import _leaves
+    cfg = gpt.llama3_8b()
+    cfg.num_layers = 2
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                             dev)
+    leaves = _leaves(params)
+    for p in leaves:
+        p.requires_grad_()
+    rng = np.random.RandomState(1)
+    tok = rng.randint(0, cfg.vocab_size, (1, 1024))
+    lab = np.roll(tok, -1, axis=1)
+    runs, launches = [], None
+    for impl in (None, lambda q, k, v: attention_ref(q, k, v, causal=True)):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        loss = gpt.loss_fn(params, tok, lab, cfg, remat=True, attn_impl=impl)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        torch.cuda.synchronize()
+        if impl is None:
+            launches = K.launches()
+        runs.append((loss.item(), grads))
+        del loss
+    (lk, gk), (lr, gr) = runs
+    rel = abs(lk - lr) / abs(lr)
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(gk, gr) if float(b.abs().max()) > 0)
+    if not (math.isfinite(lk) and rel <= 1e-4 and worst <= 1e-3):
+        raise AssertionError(f"train_parity: loss {lk} vs {lr} (rel {rel:.3g})"
+                             f", worst grad leaf {worst:.3g}")
+    if (launches["flash_attention_fwd"], launches["flash_bwd_dkv"],
+            launches["flash_bwd_dq"]) != (2, 2, 2) or \
+            launches["rms_norm_fused"] == 0:
+        raise AssertionError(f"train_parity launches {launches}")
+    return {"model": "llama3_8b", "layers": 2, "dtype": "float32",
+            "batch": [1, 1024], "loss_kernels": lk, "loss_plain": lr,
+            "loss_rel_diff": rel, "worst_grad_leaf_rel_err": worst,
+            "grad_leaves": len(gk), "launches": launches}
+
+
+def train(dev):
+    """GPT-3 1.3B through the trainer: 1 warm-up + 4 timed steps."""
+    import torch
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
+    cfg = gpt.gpt3_1p3b()
+    cfg.dtype = torch.bfloat16
+    B, S, steps = 4, 2048, 4
+    trainer = HybridParallelTrainer(cfg, MeshConfig(remat=True),
+                                    moment_dtype=torch.bfloat16, device=dev)
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    lab = np.roll(tok, -1, axis=1).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launches()
+    losses = [float(trainer.train_step(tok, lab))]          # warm-up
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(tok, lab)))  # syncs
+        times.append(time.perf_counter() - t0)
+    launches = K.launches()
+    per_step = {k: v / (steps + 1) for k, v in launches.items()}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        raise AssertionError(f"train: step-0 loss {losses[0]} is not near "
+                             f"ln(V) = {math.log(cfg.vocab_size):.3f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall {losses}")
+    want = cfg.num_layers * (steps + 1)
+    for name in ("flash_attention_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        if launches[name] != want:
+            raise AssertionError(f"train: {name} launched {launches[name]} "
+                                 f"times, want {want}")
+    return {"model": "gpt3_1p3b", "layers": cfg.num_layers, "dtype": "bf16",
+            "moments": "bf16", "remat": True, "batch": [B, S],
+            "params": gpt.count_params(trainer.params),
+            "tokens_per_s": B * S * steps / sum(times),
+            "mean_step_ms": 1e3 * sum(times) / steps,
+            "median_step_ms": 1e3 * float(np.median(times)),
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "losses": losses, "launches": launches,
+            "launches_per_step": per_step}
 
 
 def main():
@@ -358,13 +563,53 @@ def main():
     emit({"phase": "first_token", "seconds": time.perf_counter() - t,
           "checks": checks})
 
+    t = time.perf_counter()
+    bwd = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, causal in (((1, 1024, 32, 128), True),
+                              ((4, 2048, 16, 128), True),
+                              ((2, 333, 8, 64), False)):
+            r = bwd_case(dtype, dev, shape, causal)
+            r["dtype"] = str(dtype).replace("torch.", "")
+            bwd.append(r)
+            torch.cuda.empty_cache()
+    rms_grads = [rms_grad_case(d, dev) for d in (torch.bfloat16,
+                                                 torch.float32)]
+    emit({"phase": "kernels_bwd", "seconds": time.perf_counter() - t,
+          "results": bwd, "rms_norm_grad": rms_grads})
+
+    t = time.perf_counter()
+    rec7 = train_parity(dev)
+    torch.cuda.empty_cache()
+    emit({"phase": "train_parity", "seconds": time.perf_counter() - t,
+          **rec7})
+
+    t = time.perf_counter()
+    rec8 = train(dev)
+    emit({"phase": "train", "seconds": time.perf_counter() - t, **rec8})
+
     def main_shape(kernel, **match):
         return next(r for r in results
                     if r["kernel"] == kernel and r["dtype"] == "bfloat16"
                     and all(r.get(k) == v for k, v in match.items()))
 
+    train_bwd = next(r for r in bwd if r["dtype"] == "bfloat16" and
+                     r["shape"] == [4, 2048, 16, 128])
+
+    def bwd_row(part, errs):
+        # the library yardstick is the pair's: SDPA's backward computes
+        # dq, dk and dv in one call
+        return {"kernel": f"flash_attention_bwd_{part}",
+                "max_abs_err": max(train_bwd["max_abs_err"][e]
+                                   for e in errs),
+                "kernel_ms": train_bwd[f"{part}_ms"],
+                "plain_ms": train_bwd[f"{part}_plain_ms"],
+                "library_ms": train_bwd["library_ms"],
+                "bound_ms": train_bwd[f"{part}_bound_ms"],
+                "bound_by": train_bwd[f"{part}_bound_by"]}
+
     # (result row at the main path's bf16 shape, counter, route, source,
-    #  replaced TPU kernel); launches sum phases 3 and 4
+    #  replaced TPU kernel)
     table = (
         (main_shape("paged_prefill_attention", T=1),
          "paged_prefill_attention_kernel", "cuda",
@@ -376,11 +621,18 @@ def main():
         (main_shape("rms_norm"), "rms_norm_fused", "triton",
          "paddle_tpu_torch/incubate/kernels/_rms_norm_triton.py",
          "paddle_tpu/incubate/kernels/rms_norm.py:15"),
+        (bwd_row("dkv", ("dk", "dv")), "flash_bwd_dkv", "cuda",
+         "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+         "paddle_tpu/incubate/kernels/flash_attention.py:195"),
+        (bwd_row("dq", ("dq",)), "flash_bwd_dq", "cuda",
+         "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+         "paddle_tpu/incubate/kernels/flash_attention.py:241"),
     )
+    runs = (rec3, rec4, rec7, rec8)
     kernels = [{
         "name": r["kernel"], "route": route, "source": source,
         "replaces": replaces,
-        "launches": rec3["launches"][counter] + rec4["launches"][counter],
+        "launches": sum(rec["launches"][counter] for rec in runs),
         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}

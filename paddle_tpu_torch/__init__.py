@@ -1,12 +1,13 @@
-"""PyTorch/CUDA port of `paddle_tpu`'s serving path.
+"""PyTorch/CUDA port of `paddle_tpu`'s serving path and single-device
+trainer.
 
 The JAX package `paddle_tpu` stays the reference; this package mirrors its
-module paths (`models/gpt.py`, `incubate/kernels/*`, `inference/*`) and
-keeps its layouts at every public function.  It imports torch and numpy,
-never jax and nothing of `paddle_tpu`.  Entry points run on the CUDA card
-unless the caller passes `device="cpu"`, which takes every kernel's plain
-PyTorch version.
+module paths (`models/gpt.py`, `incubate/kernels/*`, `inference/*`,
+`parallel/hybrid.py`) and keeps its layouts at every public function.  It
+imports torch and numpy, never jax and nothing of `paddle_tpu`.  Entry
+points run on the CUDA card unless the caller passes `device="cpu"`, which
+takes every kernel's plain PyTorch version.
 """
-from . import incubate, inference, models  # noqa: F401
+from . import incubate, inference, models, parallel  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,6 +1,8 @@
-// Shared body of the port's two attention kernels (paged_attention.cu,
-// flash_attention.cu): a block stages up to kBlockRows query rows in shared
-// memory, then walks the keys in tiles of kKeys with an f32 online softmax.
+// Shared body of the port's two attention forward kernels
+// (paged_attention.cu, flash_attention.cu), whose helpers the backward
+// kernels (flash_attention_bwd.cu) reuse: a block stages up to kBlockRows
+// query rows in shared memory, then walks the keys in tiles of kKeys with
+// an f32 online softmax.
 //
 // Work split: 4 warps x 4 rows each.  Within a key tile lane j owns key j:
 // it computes the 4 scores of its warp's rows against key j (q rows are
@@ -198,14 +200,14 @@ __device__ __forceinline__ void attend(const float* qs, float* ks, float* vs,
 }
 
 // Raise the dynamic shared-memory cap of `kern` (above 48 KB it must be
-// requested explicitly), then launch on `stream`.
+// requested explicitly), then launch `threads` threads a block on `stream`.
 template <typename Kern, typename... Args>
-cudaError_t launch(Kern kern, size_t smem, dim3 grid, cudaStream_t stream,
-                   Args... args) {
+cudaError_t launch(Kern kern, int threads, size_t smem, dim3 grid,
+                   cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kern<<<grid, kThreads, smem, stream>>>(args...);
+  kern<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 

@@ -78,8 +78,8 @@ static cudaError_t run(const void* q, const void* k, const void* v, void* out,
                        void* lse, int B, int S, int Sk, int H, int causal,
                        float scale, cudaStream_t stream) {
   dim3 grid((S + kBlockRows - 1) / kBlockRows, B * H);
-  return launch(flash_fwd_kernel<T, HD>, Smem<HD>::kBytes, grid, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
+  return launch(flash_fwd_kernel<T, HD>, kThreads, Smem<HD>::kBytes, grid,
+                stream, static_cast<const T*>(q), static_cast<const T*>(k),
                 static_cast<const T*>(v), static_cast<T*>(out),
                 static_cast<float*>(lse), S, Sk, H, causal, scale);
 }

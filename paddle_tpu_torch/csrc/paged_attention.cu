@@ -91,9 +91,10 @@ static cudaError_t run(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   const int rows = Tq * (H / KVH);
   dim3 grid((rows + kBlockRows - 1) / kBlockRows, KVH, B);
-  return launch(paged_prefill_kernel<T, HD>, Smem<HD>::kBytes, grid, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const int*>(table),
+  return launch(paged_prefill_kernel<T, HD>, kThreads, Smem<HD>::kBytes,
+                grid, stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const int*>(table),
                 static_cast<const int*>(q_offset),
                 static_cast<const int*>(valid), static_cast<T*>(out), Tq, H,
                 KVH, page, max_pages, scale);

@@ -21,7 +21,7 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
-SOURCES = ("paged_attention", "flash_attention")
+SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +36,14 @@ SIGNATURES = {
         _F, _I, _P),                            # scale dtype stream
     "flash_attention_fwd": (
         _P, _P, _P, _P, _P,                     # q k v out lse
+        _I, _I, _I, _I, _I, _I,                 # B S Sk H D causal
+        _F, _I, _P),                            # scale dtype stream
+    "flash_attention_bwd_dkv": (
+        _P, _P, _P, _P, _P, _P, _P, _P,         # q k v dout lse delta dk dv
+        _I, _I, _I, _I, _I, _I,                 # B S Sk H D causal
+        _F, _I, _P),                            # scale dtype stream
+    "flash_attention_bwd_dq": (
+        _P, _P, _P, _P, _P, _P, _P,             # q k v dout lse delta dq
         _I, _I, _I, _I, _I, _I,                 # B S Sk H D causal
         _F, _I, _P),                            # scale dtype stream
 }

@@ -1,17 +1,25 @@
 """Dense attention — port of `paddle_tpu/incubate/kernels/flash_attention.py`
-(forward only: the backward and varlen kernels belong to later slices).
+(forward and backward; the varlen kernels belong to a later slice).
 
 - `attention_ref`: the plain PyTorch version, counterpart of `attention_xla`.
 - `flash_attention_fwd`: `(out, lse)` through the hand-written CUDA kernel
   `csrc/flash_attention.cu` (the port of `_flash_fwd_kernel`) on a CUDA
   tensor, or its plain version on a CPU tensor.
-- `flash_attention_fused`: the entry the model calls.
+- `flash_attention_bwd`: `(dq, dk, dv)` through the two kernels of
+  `csrc/flash_attention_bwd.cu` (the ports of `_flash_bwd_dkv_kernel` and
+  `_flash_bwd_dq_kernel`), or `_flash_bwd_ref` on a CPU tensor.
+- `flash_attention_fused`: the entry the model calls; differentiable
+  through `FlashAttention`, the counterpart of `_flash_attention_core`'s
+  `custom_vjp`, which saves `q, k, v, out, lse` for the backward.
+- `remat_policy_save_attention`: block remat that keeps those tensors and
+  replays the rest of the block.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import _cuda
 
@@ -59,7 +67,74 @@ def _flash_fwd_ref(q, k, v, causal, scale):
     return out, lse.reshape(B * H, S, 1)
 
 
+def _delta(out, g):
+    """rowsum(dO * O) in f32, [B*H, S]: the backward's one residual beyond
+    lse (the reference computes it in jnp outside its kernels)."""
+    B, S, H, _ = out.shape
+    d = (g.float() * out.float()).sum(-1)                      # [B, S, H]
+    return d.transpose(1, 2).reshape(B * H, S)
+
+
+def _bwd_tiles(q, k, v, g, lse, delta, causal, scale):
+    """The backward's recomputed tiles [B, H, S, Sk]: p = exp(s - lse) in
+    f32, and dS = p * (dP - delta) * scale rounded to q's dtype."""
+    B, S, H, _ = q.shape
+    p = torch.exp(_scores(q, k, causal, scale) - lse.reshape(B, H, S, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
+    ds = p * (dp - delta.reshape(B, H, S, 1)) * scale
+    return p, ds.to(q.dtype).float()
+
+
+def _flash_bwd_dkv_ref(q, k, v, g, lse, delta, causal, scale):
+    """Plain version of the dkv kernel: p enters dV in dO's dtype; every
+    product accumulates in f32."""
+    p, ds = _bwd_tiles(q, k, v, g, lse, delta, causal, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).float(), g.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_dq_ref(q, k, v, g, lse, delta, causal, scale):
+    """Plain version of the dq kernel."""
+    _, ds = _bwd_tiles(q, k, v, g, lse, delta, causal, scale)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
+
+
+def _flash_bwd_ref(q, k, v, out, lse, g, causal, scale):
+    """Plain version of the backward pair: (dq, dk, dv) in q/k/v's dtypes,
+    rounding where the kernels do: p enters dV in dO's dtype, dS is cast to
+    q's dtype before both dK and dQ."""
+    delta = _delta(out, g)
+    dk, dv = _flash_bwd_dkv_ref(q, k, v, g, lse, delta, causal, scale)
+    return _flash_bwd_dq_ref(q, k, v, g, lse, delta, causal, scale), dk, dv
+
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_card(name, q, k, v, causal, *more):
+    """The kernels' contract on the card: one CUDA device, float32 or
+    bfloat16, [B, S|Sk, H, D] with D in {64, 128, 256}, S == Sk when
+    causal, 16-byte aligned rows.  Returns the contiguous inputs."""
+    B, S, H, D = q.shape
+    Sk = k.shape[1]
+    ts = (q, k, v) + more
+    if q.device.type != "cuda" or any(t.device != q.device for t in ts):
+        raise ValueError(f"{name}: q, k, v must share one CUDA device")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"{name} takes float32/bfloat16 tensors of one "
+                        f"dtype, got {[t.dtype for t in ts]}")
+    if D not in (64, 128, 256) or k.shape != (B, Sk, H, D) or \
+            v.shape != k.shape or any(t.shape != q.shape for t in more):
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if causal and Sk != S:
+        raise ValueError(f"causal flash attention needs S == Sk, got {S} "
+                         f"and {Sk}")
+    ts = tuple(t.contiguous() for t in ts)
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name} needs 16-byte aligned tensors")
+    return ts
 
 
 def flash_attention_fwd(q, k, v, causal, scale):
@@ -70,33 +145,15 @@ def flash_attention_fwd(q, k, v, causal, scale):
     raise.  `flash_attention_fwd.launches` counts kernel launches."""
     if q.device.type == "cpu":
         return _flash_fwd_ref(q, k, v, causal, scale)
+    q, k, v = _check_card("flash_attention_fwd", q, k, v, causal)
     B, S, H, D = q.shape
-    Sk = k.shape[1]
-    if q.device.type != "cuda" or k.device != q.device or \
-            v.device != q.device:
-        raise ValueError("flash_attention_fwd: q, k, v must share one CUDA "
-                         "device")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_fwd takes float32/bfloat16 q/k/v "
-                        f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in (64, 128, 256) or k.shape != (B, Sk, H, D) or \
-            v.shape != k.shape:
-        raise ValueError(f"flash_attention_fwd: unsupported shapes q "
-                         f"{tuple(q.shape)} k {tuple(k.shape)} v "
-                         f"{tuple(v.shape)}")
-    if causal and Sk != S:
-        raise ValueError(f"causal flash attention needs S == Sk, got {S} "
-                         f"and {Sk}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention_fwd needs 16-byte aligned tensors")
     out = torch.empty_like(q)
     lse = torch.empty((B * H, S, 1), dtype=torch.float32, device=q.device)
     fn = _cuda.entry("flash_attention", "flash_attention_fwd")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), B, S, Sk, H, D, int(bool(causal)), float(scale),
-             _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device)
-             .cuda_stream)
+             lse.data_ptr(), B, S, k.shape[1], H, D, int(bool(causal)),
+             float(scale), _DTYPE_CODE[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -105,18 +162,115 @@ def flash_attention_fwd(q, k, v, causal, scale):
 flash_attention_fwd.launches = 0
 
 
+def _bwd_launch_args(name, q, k, v, g, lse, delta, causal, scale):
+    """Checked, contiguous inputs of a backward kernel as (pointers,
+    sizes and flags)."""
+    q, k, v, g = _check_card(name, q, k, v, causal, g)
+    B, S, H, D = q.shape
+    for t, want in ((lse, (B * H, S, 1)), (delta, (B * H, S))):
+        if tuple(t.shape) != want or t.dtype != torch.float32 or \
+                t.device != q.device:
+            raise ValueError(f"{name}: lse/delta {tuple(t.shape)} {t.dtype} "
+                             f"is not {want} float32 on {q.device}")
+    lse, delta = lse.contiguous(), delta.contiguous()
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr()), \
+        (B, S, k.shape[1], H, D, int(bool(causal)), float(scale),
+         _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale):
+    """(dk, dv) given dO = g, lse [B*H, S, 1] and delta = rowsum(dO * O)
+    [B*H, S]: the kernel port of `_flash_bwd_dkv_kernel` on the card (under
+    the forward kernel's contract, or raise), its plain version on the
+    CPU.  `.launches` counts kernel launches."""
+    if q.device.type == "cpu":
+        return _flash_bwd_dkv_ref(q, k, v, g, lse, delta, causal, scale)
+    ptrs, dims = _bwd_launch_args("flash_bwd_dkv", q, k, v, g, lse, delta,
+                                  causal, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _cuda.entry("flash_attention_bwd", "flash_attention_bwd_dkv")
+    _cuda.check(fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims),
+                "flash_attention_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, causal, scale):
+    """dq, as `flash_bwd_dkv` (the port of `_flash_bwd_dq_kernel`)."""
+    if q.device.type == "cpu":
+        return _flash_bwd_dq_ref(q, k, v, g, lse, delta, causal, scale)
+    ptrs, dims = _bwd_launch_args("flash_bwd_dq", q, k, v, g, lse, delta,
+                                  causal, scale)
+    dq = torch.empty_like(q)
+    fn = _cuda.entry("flash_attention_bwd", "flash_attention_bwd_dq")
+    _cuda.check(fn(*ptrs, dq.data_ptr(), *dims), "flash_attention_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dkv.launches = 0
+flash_bwd_dq.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, causal, scale):
+    """Gradients (dq, dk, dv) of `flash_attention_fwd`'s out, given its
+    residuals out, lse [B*H, S, 1] and the output gradient g [B,S,H,D]:
+    delta = rowsum(dO * O) in plain torch (as the reference), then the dkv
+    and dq kernels on the card or their plain versions on the CPU."""
+    g = g.contiguous()
+    delta = _delta(out, g)
+    dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale)
+    return flash_bwd_dq(q, k, v, g, lse, delta, causal, scale), dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel, saving
+    `q, k, v, out, lse`, and the backward pair (plain versions on the CPU).
+    Under `run_blocks(remat=True)` these saved tensors are what a block
+    keeps, so the backward never re-runs attention."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_fused(q, k, v, mask=None, causal=False, scale=None,
                           dropout_p=0.0, generator=None):
-    """Entry used by the model.  q,k,v: [B, S, H, D].  On the card a mask or
-    dropout is not on the serving path and raises; the CPU keeps the plain
-    `attention_ref` for them."""
+    """Entry used by the model.  q,k,v: [B, S, H, D].  Differentiable.  On
+    the card a mask or dropout raises (their lanes are not ported yet); the
+    CPU keeps the plain `attention_ref` for them."""
     D = q.shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(D)
     if mask is None and dropout_p == 0.0:
-        return flash_attention_fwd(q, k, v, causal, s)[0]
+        return FlashAttention.apply(q, k, v, causal, s)
     if q.device.type != "cpu":
         raise NotImplementedError(
             "flash_attention_fused with mask/dropout on the card arrives "
-            "with a later slice (ROADMAP Queue 1: training path)")
+            "with a later slice (ROADMAP Queue 1: the rest of training, "
+            "mask and dropout lanes)")
     return attention_ref(q, k, v, mask=mask, causal=causal, scale=s,
                          dropout_p=dropout_p, generator=generator)
+
+
+def remat_policy_save_attention(qkv_fn, attend, tail_fn, x):
+    """The port's counterpart of the reference's policy of the same name
+    (a block's `jax.checkpoint` saves only `flash_qkv`, `flash_out` and
+    `flash_lse`): runs `qkv_fn(x) -> (q, k, v)` and `tail_fn(x, out)` each
+    under a non-reentrant `torch.utils.checkpoint`, and `attend(q, k, v)
+    -> out` between them outside any checkpoint.  The block then keeps x
+    and what `FlashAttention` saves (q, k, v, out, lse); its backward
+    replays the norm/qkv/rope and the proj/FFN chains but never re-runs
+    attention."""
+    q, k, v = checkpoint(qkv_fn, x, use_reentrant=False)
+    return checkpoint(tail_fn, x, attend(q, k, v), use_reentrant=False)

@@ -11,6 +11,15 @@ the window's host wall time per step, the device-busy time per step (union
 of kernel intervals) and idle share, the device time per step by kernel
 group (paged attention, RMSNorm, GEMM, other) and the top kernels by device
 time with their launch counts.  Needs a card; exits non-zero without one.
+
+    python3 -m paddle_tpu_torch.inference.step_profile --train
+
+Profiles one train step of GPT-3 1.3B instead (bf16 params and moments,
+remat, B=4, S=2048, one warm-up step first, as `chip_smoke.py`'s train
+phase): the device time of the step by group (attention forward, attention
+backward, GEMM, optimizer, other) beside the host wall and idle share.  The
+optimizer is every kernel launched after the gradients are ready (the
+script synchronizes between the two halves of the step).
 """
 import json
 import subprocess
@@ -24,6 +33,10 @@ def _group(name):
     n = name.lower()
     if "paged_prefill_kernel" in n:
         return "paged_attention"
+    if "flash_fwd_kernel" in n:
+        return "attention_fwd"
+    if "flash_bwd_" in n:
+        return "attention_bwd"
     if "rms_kernel" in n:
         return "rms_norm"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "cutlass", "sm90_",
@@ -33,6 +46,89 @@ def _group(name):
 
 
 STEPS = 8
+OPT_MARK = "step_profile.optimizer"     # record_function range of the update
+
+
+def _kernels(prof):
+    """Device events, without the profiler's GPU copy of OPT_MARK."""
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and
+            e.name != OPT_MARK]
+
+
+def _busy_us(kernels):
+    """Union of the kernels' device intervals, in us."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def _by_name(kernels, steps):
+    by_name = {}
+    for e in kernels:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return [{"name": n[:90], "ms_per_step": t * 1e-3 / steps,
+             "launches_per_step": c / steps} for n, (t, c) in top]
+
+
+def train_profile(dev, smi):
+    """One GPT-3 1.3B train step under the profiler (see the module
+    docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ..models import gpt
+    from ..parallel import HybridParallelTrainer, MeshConfig
+    cfg = gpt.gpt3_1p3b()
+    cfg.dtype = torch.bfloat16
+    trainer = HybridParallelTrainer(cfg, MeshConfig(remat=True),
+                                    moment_dtype=torch.bfloat16, device=dev)
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, cfg.vocab_size, (4, 2048)).astype(np.int32)
+    lab = np.roll(tok, -1, axis=1)
+    trainer.train_step(tok, lab)                        # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, grads = trainer.loss_and_grads(tok, lab)
+        torch.cuda.synchronize()
+        with record_function(OPT_MARK):
+            trainer.apply_gradients(grads)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    opt_start = next(e.time_range.start for e in prof.events()
+                     if e.name == OPT_MARK and
+                     e.device_type == torch.autograd.DeviceType.CPU)
+    kernels = _kernels(prof)
+    groups = {}
+    for e in kernels:
+        g = "optimizer" if e.time_range.start >= opt_start else \
+            _group(e.name)
+        groups[g] = groups.get(g, 0.0) + e.time_range.end - e.time_range.start
+    busy = _busy_us(kernels)
+    return {
+        "nvidia_smi": smi, "model": "gpt3_1p3b", "layers": cfg.num_layers,
+        "dtype": "bf16", "batch": [4, 2048], "remat": True, "steps": 1,
+        "host_wall_ms_per_step": wall * 1e3,
+        "device_busy_ms_per_step": busy * 1e-3,
+        "device_idle_share": 1.0 - busy * 1e-6 / wall,
+        "kernel_launches_per_step": len(kernels),
+        "device_ms_per_step_by_group": {k: v * 1e-3 for k, v in
+                                        sorted(groups.items())},
+        "top_kernels": _by_name(kernels, 1)}
 
 
 def main():
@@ -50,6 +146,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    if "--train" in sys.argv[1:]:
+        print(json.dumps(train_profile(dev, smi)))
+        return 0
     cfg = gpt.llama3_8b()
     cfg.dtype = torch.bfloat16
     params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -70,27 +169,13 @@ def main():
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:                  # union of kernel intervals, in us
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    by_name, groups = {}, {}
+    kernels = _kernels(prof)
+    busy = _busy_us(kernels)
+    groups = {}
     for e in kernels:
         d = e.time_range.end - e.time_range.start
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + d, c + 1)
         groups[_group(e.name)] = groups.get(_group(e.name), 0.0) + d
     per = 1e-3 / STEPS            # us over the window -> ms per step
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     print(json.dumps({
         "nvidia_smi": smi, "model": "llama3_8b", "layers": cfg.num_layers,
         "dtype": "bf16", "slots": 8, "steps": STEPS,
@@ -101,9 +186,7 @@ def main():
         "kernel_launches_per_step": len(kernels) / STEPS,
         "device_ms_per_step_by_group": {k: v * per for k, v in
                                         sorted(groups.items())},
-        "top_kernels": [{"name": n[:90], "ms_per_step": t * per,
-                         "launches_per_step": c / STEPS}
-                        for n, (t, c) in top]}))
+        "top_kernels": _by_name(kernels, STEPS)}))
     return 0
 
 

@@ -15,13 +15,16 @@ presets through the RMSNorm kernel; the large projections are plain
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..incubate.kernels.flash_attention import flash_attention_fused
+from ..incubate.kernels.flash_attention import (flash_attention_fused,
+                                                remat_policy_save_attention)
 from ..incubate.kernels.paged_attention import (paged_prefill_attention,
                                                 paged_serve_attention)
 from ..incubate.kernels.rms_norm import rms_norm_fused
@@ -131,7 +134,8 @@ def param_spec(config: GPTConfig) -> Dict[str, Any]:
     c = config
     if c.moe_num_experts > 0:
         raise NotImplementedError("MoE blocks arrive with a later slice "
-                                  "(ROADMAP Queue 1: training path)")
+                                  "(ROADMAP Queue 1: the rest of training, "
+                                  "MoE and ep)")
     D, L, F_, V, Q = (c.hidden_size, c.num_layers, c.ffn_size, c.vocab_size,
                       c.qkv_dim)
     std = c.initializer_range
@@ -231,46 +235,50 @@ def _layer(blocks, l):
     return {k: v[l] for k, v in blocks.items()}
 
 
-def block_forward(bp, x, config: GPTConfig, pos_offset=None):
-    """One dense transformer block (no MoE, no remat); bp holds this
-    block's unstacked weights.  Returns the block output."""
-    c = config
-    B, S, D = x.shape
-    H, KVH, hd = c.num_heads, c.kv_heads, c.head_dim
-    pre = c.norm_position == "pre"
-    h = _norm(x, bp["ln1_w"], bp["ln1_b"], c) if pre else x
-    qkv = torch.matmul(h, bp["qkv_w"])
-    if "qkv_b" in bp:
-        qkv = qkv + bp["qkv_b"]
-    q, kk, v = _unpack_qkv(qkv, c)
-    q = q.reshape(B, S, H, hd)
-    kk = kk.reshape(B, S, KVH, hd)
-    v = v.reshape(B, S, KVH, hd)
-    if c.use_rope:
-        sin, cos = _rope_tables(c, S, pos_offset, device=x.device)
-        q = apply_rope(q, sin, cos)
-        kk = apply_rope(kk, sin, cos)
+def _block_qkv(bp, x, c: GPTConfig, pos_offset=None):
+    """Pre-norm + packed qkv + rope, k/v repeated to H heads: the post-rope
+    q, k, v [B, S, H, hd] that attention reads (the reference's
+    `flash_qkv`)."""
+    q, k, v = _prefill_qkv(bp, x, c, pos_offset=pos_offset)
+    H, KVH = c.num_heads, c.kv_heads
     if KVH != H:
-        kk = torch.repeat_interleave(kk, H // KVH, dim=2)
+        k = torch.repeat_interleave(k, H // KVH, dim=2)
         v = torch.repeat_interleave(v, H // KVH, dim=2)
-    attn = flash_attention_fused(q, kk, v, causal=c.causal).reshape(B, S, D)
-    attn = torch.matmul(attn, bp["proj_w"])
-    if "proj_b" in bp:
-        attn = attn + bp["proj_b"]
-    x = x + attn
-    if not pre:
-        x = _norm(x, bp["ln1_w"], bp["ln1_b"], c)
-    h = _norm(x, bp["ln2_w"], bp["ln2_b"], c) if pre else x
-    x = x + _ffn_dense(bp, h, c)
-    if not pre:
-        x = _norm(x, bp["ln2_w"], bp["ln2_b"], c)
-    return x
+    return q, k, v
 
 
-def run_blocks(blocks, x, config, pos_offset=None):
-    """The reference's `lax.scan` over stacked blocks, as a loop."""
-    for l in range(config.num_layers):
-        x = block_forward(_layer(blocks, l), x, config, pos_offset)
+def _attend(q, k, v, c: GPTConfig, attn_impl=None):
+    """[B, S, H, hd] attention: `attn_impl(q, k, v)` when given, else the
+    differentiable flash kernels."""
+    if attn_impl is not None:
+        return attn_impl(q, k, v)
+    return flash_attention_fused(q, k, v, causal=c.causal)
+
+
+def block_forward(bp, x, config: GPTConfig, pos_offset=None, attn_impl=None):
+    """One dense transformer block (no MoE); bp holds this block's unstacked
+    weights.  attn_impl: optional callable (q, k, v) -> out overriding flash
+    attention.  Returns the block output."""
+    q, k, v = _block_qkv(bp, x, config, pos_offset)
+    return _layer_tail(bp, x, _attend(q, k, v, config, attn_impl), config)
+
+
+def run_blocks(blocks, x, config, pos_offset=None, remat=False,
+               attn_impl=None):
+    """The reference's `lax.scan` over stacked blocks, as a loop.  The
+    stacked leaves are unbound once, so their gradients are stacked once.
+    remat=True keeps, per block, what `remat_policy_save_attention` keeps:
+    the block input, the post-rope q, k, v and attention's out and lse."""
+    for ws in zip(*(w.unbind(0) for w in blocks.values())):
+        bp = dict(zip(blocks, ws))
+        if not remat:
+            x = block_forward(bp, x, config, pos_offset, attn_impl)
+            continue
+        x = remat_policy_save_attention(
+            functools.partial(_block_qkv, bp, c=config,
+                              pos_offset=pos_offset),
+            functools.partial(_attend, c=config, attn_impl=attn_impl),
+            functools.partial(_layer_tail, bp, c=config), x)
     return x
 
 
@@ -306,12 +314,14 @@ def head_matrix(params, config: GPTConfig):
     return params["lm_head"]
 
 
-def backbone(params, tokens, config: GPTConfig, type_ids=None):
+def backbone(params, tokens, config: GPTConfig, type_ids=None, remat=False,
+             attn_impl=None):
     """tokens [B, S] -> (activations [B, S, D], head matrix)."""
     wte = params["wte"]
     x = wte[torch.as_tensor(tokens, device=wte.device).long()]
     x = embed_prologue(params, x, config, type_ids)
-    x = run_blocks(params["blocks"], x, config)
+    x = run_blocks(params["blocks"], x, config, remat=remat,
+                   attn_impl=attn_impl)
     return epilogue(params, x, config), head_matrix(params, config)
 
 
@@ -319,6 +329,49 @@ def forward(params, tokens, config: GPTConfig):
     """tokens [B, S] int -> logits [B, S, V], on the params' device."""
     x, head = backbone(params, tokens, config)
     return torch.matmul(x, head)
+
+
+def _ce_sums(logits, labels):
+    """(-sum log p[label], count) over valid labels (-100 = ignore)."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    safe = torch.where(labels < 0, 0, labels)
+    picked = torch.gather(lp, -1, safe[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return -(picked * mask).sum(), mask.sum()
+
+
+def _chunk_ce(x, head, labels):
+    return _ce_sums(torch.matmul(x, head), labels)
+
+
+def loss_fn(params, tokens, labels, config: GPTConfig, remat=False,
+            loss_chunk: Optional[int] = 512, attn_impl=None):
+    """Causal LM loss (dense blocks); labels [B, S] with -100 = ignore.
+
+    loss_chunk: when it divides S and is smaller, the LM head and
+    log-softmax run per sequence chunk, each under a non-reentrant
+    checkpoint, so the backward replays the chunk's head matmul and no
+    [B, S, V] f32 log-probs are kept.  attn_impl overrides flash attention
+    (e.g. a plain reference)."""
+    x, head = backbone(params, tokens, config, remat=remat,
+                       attn_impl=attn_impl)
+    labels = torch.as_tensor(labels, device=x.device).long()
+    S = x.shape[1]
+    if not loss_chunk or S % loss_chunk != 0 or S <= loss_chunk:
+        loss_sum, n = _ce_sums(torch.matmul(x, head), labels)
+        return loss_sum / torch.clamp(n, min=1.0)
+    loss_sum = n = 0.0
+    for i in range(0, S, loss_chunk):
+        part = slice(i, i + loss_chunk)
+        ls, c = checkpoint(_chunk_ce, x[:, part], head, labels[:, part],
+                           use_reentrant=False)
+        loss_sum, n = loss_sum + ls, n + c
+    return loss_sum / torch.clamp(n, min=1.0)
+
+
+def count_params(params):
+    return sum(count_params(v) if isinstance(v, dict) else v.numel()
+               for v in params.values())
 
 
 # ---------------------------------------------------------------------------
@@ -350,9 +403,9 @@ def _unpack_qkv(qkv, c: GPTConfig):
     return torch.split(qkv, [H * hd, KVH * hd, KVH * hd], dim=-1)
 
 
-def _prefill_qkv(bp, x, c: GPTConfig, pos=None):
-    """Pre-norm + packed qkv + rope over [B, T, D] (positions 0..T-1, or
-    explicit per-slot positions `pos` [B, T]).  Returns post-rope
+def _prefill_qkv(bp, x, c: GPTConfig, pos=None, pos_offset=None):
+    """Pre-norm + packed qkv + rope over [B, T, D] (positions pos_offset +
+    0..T-1, or explicit per-slot positions `pos` [B, T]).  Returns post-rope
     q [B, T, H, hd], k, v [B, T, KVH, hd]."""
     B, T, _ = x.shape
     H, KVH, hd = c.num_heads, c.kv_heads, c.head_dim
@@ -366,16 +419,17 @@ def _prefill_qkv(bp, x, c: GPTConfig, pos=None):
     k = k.reshape(B, T, KVH, hd)
     v = v.reshape(B, T, KVH, hd)
     if c.use_rope:
-        sin, cos = (_rope_tables(c, T, device=x.device) if pos is None
-                    else _rope_tables_at(c, pos))
+        sin, cos = (_rope_tables(c, T, pos_offset, device=x.device)
+                    if pos is None else _rope_tables_at(c, pos))
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
     return q, k, v
 
 
 def _layer_tail(bp, x, attn, c: GPTConfig):
-    """Out-proj + residual (+ post-LN) + FFN + residual (+ post-LN)."""
-    attn = torch.matmul(attn, bp["proj_w"])
+    """Out-proj + residual (+ post-LN) + FFN + residual (+ post-LN); attn
+    is [B, T, D] or per head [B, T, H, hd]."""
+    attn = torch.matmul(attn.reshape(x.shape), bp["proj_w"])
     if "proj_b" in bp:
         attn = attn + bp["proj_b"]
     x = x + attn
@@ -477,7 +531,7 @@ def prefill_paged(params, input_ids, config: GPTConfig, cache, pages, length,
     c = config
     assert c.causal, "KV-cache decoding requires a causal model"
     B, Sb = input_ids.shape
-    D, H, KVH, hd = c.hidden_size, c.num_heads, c.kv_heads, c.head_dim
+    H, KVH, hd = c.num_heads, c.kv_heads, c.head_dim
     page = cache["k"].shape[2]
     n_chunks = Sb // page
     pages = pages.long()
@@ -494,8 +548,7 @@ def prefill_paged(params, input_ids, config: GPTConfig, cache, pages, length,
         if KVH != H:
             k = torch.repeat_interleave(k, H // KVH, dim=2)
             v = torch.repeat_interleave(v, H // KVH, dim=2)
-        attn = flash_attention_fused(q, k, v, causal=True).reshape(B, Sb, D)
-        x = _layer_tail(bp, x, attn, c)
+        x = _layer_tail(bp, x, flash_attention_fused(q, k, v, causal=True), c)
     x = x[torch.arange(B, device=x.device), length.long() - 1]
     x = epilogue(params, x, c)
     return head_logits(x, params, c, mesh=mesh), cache
@@ -534,7 +587,7 @@ def _paged_chunk_hidden(params, input_ids, config: GPTConfig, cache,
         cache["v"][l][pidx, off] = v
         attn = attn_fn(q, cache["k"][l], cache["v"][l], page_table, q_offset,
                        valid, mesh=mesh)
-        x = _layer_tail(bp, x, attn.reshape(B, C, D), c)
+        x = _layer_tail(bp, x, attn, c)
     return x, cache
 
 

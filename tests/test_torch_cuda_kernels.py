@@ -6,7 +6,11 @@ the card and no jax, run them without the repo's conftest:
 
 Tolerances: float32 1e-4 abs/rel (the same math summed in another order);
 bfloat16 2e-2 abs/rel (the kernels round the unnormalized probabilities to
-bf16 before the PV product, the plain versions the normalized ones).
+bf16 before the PV product, the plain versions the normalized ones).  The
+attention backward: max abs error within 1e-4 * max(1, max|ref|) in
+float32 and 2e-2 * max(1, max|ref|) in bfloat16 (p and dS round to bf16 at
+the same points in both, so only a flipped rounding of a term differs; the
+floor of 1 covers gradients that are rounding noise, as at S = 1).
 """
 import math
 
@@ -15,7 +19,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.incubate.kernels.flash_attention import (
-    _flash_fwd_ref, flash_attention_fwd)
+    _flash_bwd_ref, _flash_fwd_ref, attention_ref, flash_attention_bwd,
+    flash_attention_fused, flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq)
 from paddle_tpu_torch.incubate.kernels.paged_attention import (
     paged_prefill_attention_kernel, paged_prefill_attention_ref)
 from paddle_tpu_torch.incubate.kernels.rms_norm import _rms_ref, \
@@ -78,6 +83,103 @@ def test_flash_kernel_matches_plain(dev, dtype, D, S, Sk, causal):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
 
 
+def _grad_close(name, got, ref, dtype):
+    err = float((got.float() - ref.float()).abs().max())
+    top = float(ref.float().abs().max())
+    lim = (1e-4 if dtype == torch.float32 else 2e-2) * max(1.0, top)
+    assert err <= lim, f"{name}: max abs err {err:.3g} > {lim:.3g}"
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S,Sk,causal", [(1, 1, True), (17, 17, True),
+                                         (130, 130, True), (200, 200, True),
+                                         (17, 40, False), (70, 33, False)])
+def test_flash_bwd_kernels_match_plain(dev, dtype, D, S, Sk, causal):
+    """dkv and dq against `_flash_bwd_ref` on the plain forward's out and
+    lse; ragged tiles on both axes, causal and full."""
+    rng = np.random.RandomState(S + Sk + D)
+    q = _randn(rng, (2, S, 3, D), dtype, dev)
+    k = _randn(rng, (2, Sk, 3, D), dtype, dev)
+    v = _randn(rng, (2, Sk, 3, D), dtype, dev)
+    g = _randn(rng, (2, S, 3, D), dtype, dev)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = _flash_fwd_ref(q, k, v, causal, scale)
+    before = (flash_bwd_dkv.launches, flash_bwd_dq.launches)
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal, scale)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dkv.launches, flash_bwd_dq.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = _flash_bwd_ref(q, k, v, out, lse, g, causal, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        _grad_close(name, a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_kernel_entries_are_differentiable(dev, dtype):
+    """`flash_attention_fused` and `rms_norm_fused` return a tensor with a
+    grad_fn whenever an input requires grad, and their gradients match
+    autograd through the plain versions on the same inputs."""
+    rng = np.random.RandomState(5)
+    q, k, v, g = (_randn(rng, (2, 77, 4, 64), dtype, dev) for _ in range(4))
+    grads = []
+    for fn in (flash_attention_fused, attention_ref):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ts, causal=True)
+        assert out.grad_fn is not None
+        out.backward(g)
+        grads.append([t.grad for t in ts])
+    for name, a, b in zip(("dq", "dk", "dv"), *grads):
+        _grad_close(name, a, b, dtype)
+    x, gy = (_randn(rng, (5, 300), dtype, dev) * 2 for _ in range(2))
+    w = _randn(rng, (300,), dtype, dev)
+    grads = []
+    for fn in (rms_norm_fused, lambda a, b: _rms_ref(a, b, 1e-6)):
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(xs, ws)
+        assert y.grad_fn is not None
+        y.backward(gy)
+        grads.append((xs.grad, ws.grad))
+    for a, b in zip(*grads):
+        _close(a, b, dtype)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One float32 AdamW step at a gpt_tiny-shaped config whose head_dim
+    (64) the kernels take: the card (flash forward, dkv and dq kernels,
+    once per layer each) agrees with the CPU plain path.  The first Adam
+    step moves each element by ~lr * sign(g), so an element whose
+    gradient is numerically zero may move 2 * lr apart."""
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
+    from paddle_tpu_torch.parallel.hybrid import _leaves
+
+    cfg = gpt.GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                        num_heads=2, max_seq_len=128)
+    cpu = gpt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    trainers = [HybridParallelTrainer(
+        cfg, MeshConfig(remat=True), device=d,
+        params={k: ({kk: vv.clone() for kk, vv in v.items()}
+                    if isinstance(v, dict) else v.clone())
+                for k, v in cpu.items()}) for d in ("cpu", dev)]
+    tok = np.random.RandomState(0).randint(0, 256, (2, 128))
+    lab = np.roll(tok, -1, axis=1)
+    losses = [float(trainers[0].train_step(tok, lab))]
+    K.reset_launches()
+    losses.append(float(trainers[1].train_step(tok, lab)))
+    n = K.launches()
+    assert (n["flash_attention_fwd"], n["flash_bwd_dkv"],
+            n["flash_bwd_dq"]) == (2, 2, 2)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    diff = torch.cat([(a.detach().cpu() - b.detach()).abs().reshape(-1)
+                      for a, b in zip(_leaves(trainers[1].params),
+                                      _leaves(trainers[0].params))])
+    assert float((diff <= 1e-6).float().mean()) >= 0.999
+    assert float(diff.max()) <= 2 * trainers[0].lr
+
+
 def _paged_inputs(rng, dtype, dev, T, hd, page, B=5, H=8, KVH=2,
                   max_pages=12):
     """Mixed q_offset/valid, non-contiguous table rows and one null-table
@@ -121,6 +223,12 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         flash_attention_fwd(q, q, q, True, 0.1)
     with pytest.raises(TypeError):
         flash_attention_fwd(q.half(), q.half(), q.half(), True, 0.1)
+    lse = torch.zeros((2, 4, 1), device=dev)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        flash_attention_bwd(q, q, q, q, lse, q, True, 0.1)
+    q = _randn(rng, (1, 4, 2, 64), torch.float32, dev)
+    with pytest.raises(ValueError, match="lse/delta"):
+        flash_attention_bwd(q, q, q, q, lse[:, :-1], q, True, 0.1)
     args, _ = _paged_inputs(rng, torch.float32, dev, 1, 64, 16)
     with pytest.raises(ValueError, match="int32"):
         paged_prefill_attention_kernel(*args[:3], args[3].long(), *args[4:])

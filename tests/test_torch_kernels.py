@@ -167,8 +167,10 @@ def test_paged_entries_refuse_later_slices():
 
 
 def test_launch_counters_cover_the_three_kernels():
+    """The three forward kernels, and the backward pair since it was
+    ported."""
     names = set(K.launches())
     assert names == {"paged_prefill_attention_kernel", "flash_attention_fwd",
-                     "rms_norm_fused"}
+                     "rms_norm_fused", "flash_bwd_dkv", "flash_bwd_dq"}
     K.reset_launches()
     assert set(K.launches().values()) == {0}
