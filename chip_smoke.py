@@ -18,27 +18,47 @@ Phases, one JSON line each (with its seconds):
                and read just after.
 4. engine_chunked  — the same requests with `prefill_chunk=16`, the chunk
                riding the fused step; greedy agreement with phase 3 printed.
-5. first_token — phases 3 and 4's first tokens for two prompts against the
-               argmax of the dense `forward` at the last prompt position,
-               held equal where the top-2 margin exceeds 0.05 (ties printed).
-6. kernels_bwd — the flash backward pair (dkv and dq kernels) against
+5. engine_unfused — the same requests through `LLMEngine(fuse=False)`, the
+               three-program step, bucketed and chunked (`prefill_chunk=16`):
+               tokens/s, step ms, peak memory, and exact launch counts (the
+               paged decode kernel 32 x decode dispatches, paged prefill 32 x
+               chunk dispatches, flash forward 32 x bucketed prefills);
+               greedy agreement with phases 3 and 4 printed, not required
+               (the kernels sum in other orders in bf16).
+6. first_token — the first tokens of phases 3, 4 and both modes of 5 for
+               two prompts against the argmax of the dense `forward` at the
+               last prompt position, held equal where the top-2 margin
+               exceeds 0.05 (ties printed).
+7. decode_logits — one `prefill_paged` of prompt 0, then `decode_step_paged`
+               on its greedy next token: argmax equal to the dense
+               `forward`'s over prompt + token where the margin exceeds 0.05.
+8. kernels_bwd — the flash backward pair (dkv and dq kernels) against
                `_flash_bwd_ref` at [1,1024,32,128] causal, the training
                shape [4,2048,16,128] causal and [2,333,8,64] full, in bf16
                and float32: max abs errors, dkv/dq/pair/plain ms, the
                backward alone of SDPA as the library yardstick, bounds;
                then RMSNorm's dx, dw through its autograd Function against
                autograd through `_rms_ref`.
-7. train_parity — float32, TF32 off, Llama-3-8B width with 2 layers, B=1,
+9. varlen      — GPT-3 1.3B attention width (H 16, D 128), bf16 and float32:
+               8192 packed tokens in segments of 128-2048 through
+               `flash_attn_unpadded(causal=True)` forward and backward (the
+               segment-masked forward, dkv and dq kernels; its composed route
+               must not run), held against the plain versions; a non-causal
+               case with other key offsets and `flash_attention(segment_ids=)`
+               at [4,2048,16,128]; kernel, plain, SDPA (block-diagonal mask)
+               and bound times, beside the dense kernels at [4,2048,16,128].
+10. train_parity — float32, TF32 off, Llama-3-8B width with 2 layers, B=1,
                S=1024: `loss_fn` and its gradients through the kernels
                against the same with `attn_impl=attention_ref`.
-8. train       — GPT-3 1.3B (`gpt3_1p3b`, 24 layers), bf16 params and
+11. train      — GPT-3 1.3B (`gpt3_1p3b`, 24 layers), bf16 params and
                moments, remat, B=4, S=2048, through `HybridParallelTrainer`:
                1 warm-up and 4 timed steps on one repeated batch; tokens/s,
                step ms, peak memory, losses, launches per step.
 
-Then one line `{"kernels": [...]}` (launches summed over the main-path
-phases 3, 4, 7 and 8, each run with the counts zeroed just before it and
-read just after) and, last, `{"ok": true, "device": ...}`.
+Then one line `{"kernels": [...]}` for all nine kernels (launches summed over
+the main-path runs of phases 3, 4, 5, 9, 10 and 11, each with the counts
+zeroed just before it and read just after) and, last,
+`{"ok": true, "device": ...}`.
 Exits non-zero, with no result line, without CUDA, outside the repository,
 or when any phase fails.
 """
@@ -234,6 +254,58 @@ def paged_case(dtype, dev, T):
         "bound_ms": b_ms, "bound_by": by}
 
 
+def decode_case(dtype, dev, lengths, hd=128, G=4, KVH=8, page=16):
+    """The paged decode kernel against `paged_attention_ref`: one query a
+    slot over `lengths` cached tokens through non-contiguous table rows."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.incubate.kernels.paged_attention import (
+        paged_attention_kernel, paged_attention_ref)
+    rng = np.random.RandomState(hd + G)
+    lengths = np.asarray(lengths)
+    B, H = len(lengths), KVH * G
+    need = [-(-int(n) // page) for n in lengths]
+    max_pages, P = max(need), 1 + sum(need)
+    perm = list(rng.permutation(np.arange(1, P)))
+    table = np.zeros((B, max_pages), np.int32)
+    for b, n in enumerate(need):
+        table[b, :n] = [perm.pop() for _ in range(n)]
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)) \
+            .to(dev, dtype)
+
+    tbl = torch.from_numpy(table).to(dev)
+    lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    args = (rnd(B, H, hd), rnd(P, page, KVH, hd), rnd(P, page, KVH, hd), tbl,
+            lens)
+    err = check_close("paged_decode_attention", paged_attention_kernel(*args),
+                      paged_attention_ref(*args), dtype)
+    isz = args[0].element_size()
+    keys = int(lengths.sum())
+    nbytes = 2 * keys * KVH * hd * isz + 2 * B * H * hd * isz + \
+        4 * (table.size + B)
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    b_ms, by = bound(nbytes, 4 * H * hd * keys, peak)
+    # library yardstick: SDPA with enable_gqa over a gathered copy
+    S = max_pages * page
+    kg, vg = (x[tbl.long()].reshape(B, S, KVH, hd).transpose(1, 2)
+              .contiguous() for x in args[1:3])
+    qt = args[0][:, :, None]
+    mask = (torch.arange(S, device=dev)[None] < lens.long()[:, None])
+    mask = mask[:, None, None]
+    return {
+        "kernel": "paged_decode_attention", "hd": hd, "G": G,
+        "shape": {"q": [B, H, hd], "pool": list(args[1].shape),
+                  "lengths": lengths.tolist()},
+        "max_abs_err": err,
+        "kernel_ms": time_ms(lambda: paged_attention_kernel(*args)),
+        "plain_ms": time_ms(lambda: paged_attention_ref(*args)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask, enable_gqa=True)),
+        "bound_ms": b_ms, "bound_by": by}
+
+
 def bwd_case(dtype, dev, shape, causal):
     """The backward pair against its plain version on the plain forward's
     out and lse; times of each kernel, the pair, the plain version and
@@ -325,7 +397,7 @@ def rms_grad_case(dtype, dev):
 # phases 3-5: the serving engine at Llama-3-8B width
 # ---------------------------------------------------------------------------
 
-def serve(params, cfg, prompts, chunk, dev):
+def serve(params, cfg, prompts, chunk, dev, fuse=True):
     """Warm up on one short request, zero the launch counts, serve the
     prompts, read the counts.  Returns (outputs, phase record)."""
     import torch
@@ -334,7 +406,8 @@ def serve(params, cfg, prompts, chunk, dev):
 
     def engine():
         return LLMEngine(params, cfg, num_slots=8, page_size=16,
-                         max_model_len=2048, prefill_chunk=chunk, device=dev)
+                         max_model_len=2048, prefill_chunk=chunk, fuse=fuse,
+                         device=dev)
 
     warm = engine()
     warm.add_request(prompts[0][:16], max_new_tokens=2)
@@ -361,10 +434,21 @@ def serve(params, cfg, prompts, chunk, dev):
             raise AssertionError(f"request {rid}: {o.finish_reason}, "
                                  f"{len(o.token_ids)} tokens")
     fused = st["fused_dispatches"]
-    if launches["paged_prefill_attention_kernel"] < cfg.num_layers * fused \
-            or fused == 0:
+    L = cfg.num_layers
+    if fuse and (launches["paged_prefill_attention_kernel"] < L * fused or
+                 fused == 0):
         raise AssertionError(f"paged attention launched {launches} times "
                              f"over {fused} fused steps")
+    if not fuse:
+        # one launch a layer a program: decode, chunk, bucketed prefill
+        want = {"paged_attention_kernel": L * st["decode_dispatches"],
+                "paged_prefill_attention_kernel": L * st["chunk_dispatches"],
+                "flash_attention_fwd": L * st["prefill_dispatches"]}
+        if any(launches[n] != w for n, w in want.items()) or fused or \
+                st["decode_dispatches"] != st["decode_iterations"] or \
+                st["decode_dispatches"] == 0:
+            raise AssertionError(f"unfused launches {launches}, want {want}"
+                                 f" ({st})")
     if launches["rms_norm_fused"] == 0:
         raise AssertionError("RMSNorm kernel never launched")
     if chunk is None and launches["flash_attention_fwd"] == 0:
@@ -376,13 +460,278 @@ def serve(params, cfg, prompts, chunk, dev):
            "tokens_per_s": gen / wall, "engine_steps": len(steps),
            "mean_step_ms": 1e3 * wall / len(steps),
            "median_step_ms": 1e3 * float(np.median(steps)),
-           "fused_dispatches": fused, "launches": launches,
+           "fused_dispatches": fused,
+           **{k: st[k] for k in ("decode_iterations", "decode_dispatches",
+                                 "chunk_dispatches", "prefill_dispatches")},
+           "launches": launches,
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
     return outs, rec
 
 
+def agreement(a, b):
+    """Greedy agreement of two runs' outputs {rid: RequestOutput}."""
+    same = [a[r].token_ids == b[r].token_ids for r in a]
+    tok = [x == y for r in a for x, y in zip(a[r].token_ids, b[r].token_ids)]
+    return {"identical_streams": sum(same),
+            "first_tokens_identical": sum(a[r].token_ids[0] ==
+                                          b[r].token_ids[0] for r in a),
+            "of": len(same), "token_rate": sum(tok) / len(tok)}
+
+
+def decode_logits(params, cfg, prompt, dev):
+    """`prefill_paged` of one prompt into a fresh pool, then one
+    `decode_step_paged` on its greedy next token, against the dense
+    `forward` over prompt + token."""
+    import torch
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.models import gpt
+    page, n = 16, len(prompt)
+    pages = -(-(n + 1) // page)
+    cache = gpt.init_paged_cache(cfg, 1 + pages, page, device=dev)
+    table = torch.arange(1, 1 + pages, dtype=torch.int32, device=dev)[None]
+    ids = np.zeros((1, -(-n // page) * page), np.int32)
+    ids[0, :n] = prompt
+    with torch.no_grad():
+        logits, cache = gpt.prefill_paged(
+            params, torch.from_numpy(ids).to(dev), cfg, cache,
+            table[:, :ids.shape[1] // page],
+            torch.tensor([n], dtype=torch.int32, device=dev))
+        tok = int(torch.argmax(logits[0]))
+        K.reset_launches()
+        got, _ = gpt.decode_step_paged(
+            params, torch.tensor([tok], dtype=torch.int32, device=dev), cache,
+            table, torch.tensor([n], dtype=torch.int32, device=dev), cfg)
+        torch.cuda.synchronize()
+        launches = K.launches()["paged_attention_kernel"]
+        ref = gpt.forward(params, np.append(prompt, tok)[None], cfg)[0, -1]
+    got, ref = got[0].float(), ref.float()
+    top2 = torch.topk(ref, 2)
+    margin = float(top2.values[0] - top2.values[1])
+    pick, want = int(torch.argmax(got)), int(top2.indices[0])
+    if margin > 0.05 and pick != want:
+        raise AssertionError(f"decode_step_paged argmax {pick} != forward's "
+                             f"{want} (margin {margin:.3g})")
+    if launches != cfg.num_layers:
+        raise AssertionError(f"decode kernel launched {launches} times in "
+                             f"one decode step of {cfg.num_layers} layers")
+    return {"prompt_len": n, "token": tok, "decode_argmax": pick,
+            "forward_argmax": want, "margin": margin,
+            "result": "match" if pick == want else "tie",
+            "logits_max_abs_diff": float((got - ref).abs().max()),
+            "forward_logits_max_abs": float(ref.abs().max()),
+            "decode_kernel_launches": launches}
+
+
 # ---------------------------------------------------------------------------
-# phases 7-8: the trainer
+# phase 9: varlen attention
+# ---------------------------------------------------------------------------
+
+def _seg_bounds(dtype, isz, pairs, D, tokens_q, tokens_k, H):
+    """Bounds of the segment forward, dkv and dq kernels: the bytes each
+    moves (one [tokens, H, D] tensor is t; row stats are f32; segment ids
+    int32) and the products of the pairs the mask keeps (2, 4 and 3
+    matmuls of 2*D flops a pair), as for the dense kernels."""
+    import torch
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    tq, tk = tokens_q * H * D * isz, tokens_k * H * D * isz
+    stats, seg = tokens_q * H * 4, 4 * (tokens_q + tokens_k)
+    nbytes = {"fwd": 2 * tq + 2 * tk + stats + seg,
+              "dkv": 2 * tq + 4 * tk + 2 * stats + seg,
+              "dq": 3 * tq + 2 * tk + 2 * stats + seg}
+    mms = {"fwd": 2, "dkv": 4, "dq": 3}
+    return {n: bound(nbytes[n], mms[n] * 2 * pairs * D, peak)
+            for n in nbytes}
+
+
+def _grad_errs(name, got, ref, dtype):
+    import torch
+    errs = {}
+    for part, a, r in zip(("dq", "dk", "dv"), got, ref):
+        err = float((a.float() - r.float()).abs().max())
+        top = float(r.float().abs().max())
+        lim = (BWD_F32_REL * max(1.0, top) if dtype == torch.float32
+               else BWD_BF16_REL * top)
+        if not err <= lim:
+            raise AssertionError(f"{name} {part} ({dtype}): max abs err "
+                                 f"{err:.3g} > {lim:.3g}")
+        errs[part] = err
+    return errs
+
+
+def _packed_lengths(rng, total):
+    """Segment lengths drawn in [128, 2048], the last cut to fit."""
+    lens = []
+    while sum(lens) < total:
+        lens.append(int(rng.randint(128, 2049)))
+    lens[-1] -= sum(lens) - total
+    return lens
+
+
+def varlen_case(dtype, dev, total=8192, H=16, D=128):
+    """8192 packed tokens through `flash_attn_unpadded(causal=True)`
+    forward and backward (the main path: counts zeroed before, read after),
+    then held against the plain versions and timed."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.incubate.kernels.flash_attention import (
+        _delta, _flash_bwd_ref, _flash_bwd_seg_dkv_ref, _flash_bwd_seg_dq_ref,
+        _flash_fwd_seg_ref, flash_attention_seg_fwd, flash_bwd_seg_dkv,
+        flash_bwd_seg_dq)
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    rng = np.random.RandomState(0)
+    lens = _packed_lengths(rng, total)
+    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    q, k, v, g = (torch.from_numpy(rng.randn(total, H, D).astype(np.float32))
+                  .to(dev, dtype) for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    ts = [x.clone().requires_grad_() for x in (q, k, v)]
+    composed = flash_attn_unpadded.composed_calls
+    torch.cuda.synchronize()
+    K.reset_launches()
+    out, _ = flash_attn_unpadded(*ts, cu, cu, max(lens), max(lens), scale,
+                                 causal=True)
+    out.backward(g)
+    torch.cuda.synchronize()
+    launches = K.launches()
+    if flash_attn_unpadded.composed_calls != composed:
+        raise AssertionError("flash_attn_unpadded took its composed route")
+    if (launches["flash_attention_seg_fwd"], launches["flash_bwd_seg_dkv"],
+            launches["flash_bwd_seg_dq"]) != (1, 1, 1):
+        raise AssertionError(f"varlen launches {launches}")
+    seg = torch.from_numpy(np.repeat(np.arange(len(lens)), lens)
+                           .astype(np.int32)).to(dev)[None]
+    q4, k4, v4, g4 = (x[None] for x in (q, k, v, g))
+    ref_out, ref_lse = _flash_fwd_seg_ref(q4, k4, v4, seg, seg, True, scale)
+    err = check_close("flash_attention_seg_fwd", out.detach()[None], ref_out,
+                      dtype)
+    ref = _flash_bwd_ref(q4, k4, v4, ref_out, ref_lse, g4, True, scale,
+                         seg=(seg, seg))
+    errs = _grad_errs("varlen backward", [t.grad[None] for t in ts], ref,
+                      dtype)
+    del ref, ts, out
+    torch.cuda.empty_cache()
+    # times of each kernel and its plain version on the same inputs
+    o, lse = flash_attention_seg_fwd(q4, k4, v4, seg, seg, True, scale)
+    delta = _delta(o, g4).contiguous()
+    bwd = (q4, k4, v4, g4, lse, delta, seg, seg, True, scale)
+    pairs = H * sum(n * (n + 1) // 2 for n in lens)
+    bounds = _seg_bounds(dtype, q.element_size(), pairs, D, total, total, H)
+    rec = {"kernel": "flash_attention_varlen", "tokens": total, "H": H,
+           "D": D, "segments": lens, "launches": launches,
+           "max_abs_err": {"out": err, **errs},
+           "fwd_ms": time_ms(lambda: flash_attention_seg_fwd(
+               q4, k4, v4, seg, seg, True, scale), iters=5),
+           "dkv_ms": time_ms(lambda: flash_bwd_seg_dkv(*bwd), iters=5),
+           "dq_ms": time_ms(lambda: flash_bwd_seg_dq(*bwd), iters=5),
+           "fwd_plain_ms": time_ms(lambda: _flash_fwd_seg_ref(
+               q4, k4, v4, seg, seg, True, scale), iters=2, warmup=1),
+           "dkv_plain_ms": time_ms(lambda: _flash_bwd_seg_dkv_ref(*bwd),
+                                   iters=2, warmup=1),
+           "dq_plain_ms": time_ms(lambda: _flash_bwd_seg_dq_ref(*bwd),
+                                  iters=2, warmup=1)}
+    for n, (b_ms, by) in bounds.items():
+        rec[f"{n}_bound_ms"], rec[f"{n}_bound_by"] = b_ms, by
+    del bwd, o, lse, delta
+    torch.cuda.empty_cache()
+    # library yardstick: SDPA under the boolean block-diagonal mask
+    mask = seg[0][:, None] == seg[0][None, :]
+    mask = mask & torch.ones(total, total, dtype=torch.bool,
+                             device=dev).tril()
+    qt, kt, vt = (x.transpose(0, 1)[None].contiguous().requires_grad_()
+                  for x in (q, k, v))
+    gt = g.transpose(0, 1)[None].contiguous()
+    rec["sdpa_fwd_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), iters=5)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    rec["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), gt, retain_graph=True), iters=5)
+
+    def fwd_bwd():
+        o_ = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        torch.autograd.grad(o_, (qt, kt, vt), gt)
+    rec["sdpa_fwd_bwd_ms"] = time_ms(fwd_bwd, iters=5)
+    del lib_out, qt, kt, vt, gt, mask
+    torch.cuda.empty_cache()
+    return rec
+
+
+def varlen_cross_case(dtype, dev, total=4096, H=16, D=128):
+    """Non-causal `flash_attn_unpadded` with key offsets other than the
+    query offsets (the kernel route; rows whose sequence has no key would
+    give 0), against the plain version."""
+    import torch
+    from paddle_tpu_torch.incubate.kernels.flash_attention import \
+        _flash_fwd_seg_ref
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    rng = np.random.RandomState(1)
+    lq = _packed_lengths(rng, total)
+    lk = [int(rng.randint(64, 1025)) for _ in lq]
+    cq = np.concatenate([[0], np.cumsum(lq)]).astype(np.int32)
+    ck = np.concatenate([[0], np.cumsum(lk)]).astype(np.int32)
+    q = torch.from_numpy(rng.randn(cq[-1], H, D).astype(np.float32)) \
+        .to(dev, dtype)
+    k, v = (torch.from_numpy(rng.randn(ck[-1], H, D).astype(np.float32))
+            .to(dev, dtype) for _ in range(2))
+    composed = flash_attn_unpadded.composed_calls
+    out, _ = flash_attn_unpadded(q, k, v, cq, ck, max(lq), max(lk), 0.088,
+                                 causal=False)
+    if flash_attn_unpadded.composed_calls != composed:
+        raise AssertionError("non-causal cross layout took the composed route")
+    sq, sk = (torch.from_numpy(np.repeat(np.arange(len(x)), x)
+                               .astype(np.int32)).to(dev)[None]
+              for x in (lq, lk))
+    ref, _ = _flash_fwd_seg_ref(q[None], k[None], v[None], sq, sk, False,
+                                0.088)
+    return {"kernel": "flash_attn_unpadded", "causal": False,
+            "q_tokens": int(cq[-1]), "k_tokens": int(ck[-1]),
+            "segments": len(lq),
+            "max_abs_err": check_close("varlen non-causal", out[None], ref,
+                                       dtype)}
+
+
+def segment_ids_case(dtype, dev, shape=(4, 2048, 16, 128)):
+    """`flash_attention(segment_ids=, causal=True)` forward and backward at
+    the training shape with 1-4 segments a row, against the plain versions;
+    the dense kernels' times on the same tensors beside it."""
+    import torch
+    from paddle_tpu_torch.incubate.kernels.flash_attention import (
+        _flash_bwd_ref, _flash_fwd_seg_ref, flash_attention_fwd,
+        flash_attention_seg_fwd)
+    from paddle_tpu_torch.nn.functional import flash_attention
+    rng = np.random.RandomState(2)
+    B, S, H, D = shape
+    ids = np.zeros((B, S), np.int32)
+    for b in range(B):
+        cuts = np.sort(rng.choice(np.arange(1, S), b, replace=False))
+        ids[b] = np.searchsorted(cuts, np.arange(S), side="right")
+    seg = torch.from_numpy(ids).to(dev)
+    q, k, v, g = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                  .to(dev, dtype) for _ in range(4))
+    ts = [x.clone().requires_grad_() for x in (q, k, v)]
+    out, none = flash_attention(*ts, causal=True, segment_ids=seg)
+    out.backward(g)
+    scale = 1.0 / math.sqrt(D)
+    ref_out, ref_lse = _flash_fwd_seg_ref(q, k, v, seg, seg, True, scale)
+    err = check_close("flash_attention(segment_ids=)", out.detach(), ref_out,
+                      dtype)
+    errs = _grad_errs("segment_ids backward", [t.grad for t in ts],
+                      _flash_bwd_ref(q, k, v, ref_out, ref_lse, g, True,
+                                     scale, seg=(seg, seg)), dtype)
+    rec = {"kernel": "flash_attention(segment_ids=)", "shape": list(shape),
+           "segments_per_row": [b + 1 for b in range(B)],
+           "max_abs_err": {"out": err, **errs},
+           "seg_fwd_ms": time_ms(lambda: flash_attention_seg_fwd(
+               q, k, v, seg, seg, True, scale), iters=5),
+           "dense_fwd_ms": time_ms(lambda: flash_attention_fwd(
+               q, k, v, True, scale), iters=5)}
+    del ts, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phases 10-11: the trainer
 # ---------------------------------------------------------------------------
 
 def train_parity(dev):
@@ -498,11 +847,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     reports = _cuda.build_all()
-    ptxas = {k: [ln.strip() for ln in v.splitlines() if "Used" in ln
-                 or "spill" in ln] for k, v in reports.items()}
+    ptxas = {k: [ln.strip() for ln in log.splitlines() if "Used" in ln
+                 or "spill" in ln] for k, (_, log) in reports.items()}
     emit({"phase": "device", "seconds": time.perf_counter() - t,
           "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "built": sorted(reports),
+          "cuda": torch.version.cuda,
+          "built_s": {k: sec for k, (sec, _) in reports.items()},
           "ptxas": ptxas})
 
     t = time.perf_counter()
@@ -511,6 +861,11 @@ def main():
         rows = [rms_case(dtype, dev)]
         rows += [flash_case(dtype, dev, S) for S in (16, 1024)]
         rows += [paged_case(dtype, dev, T) for T in (1, 16)]
+        # decode: the smoke prompts' lengths at Llama-3-8B's heads, then
+        # hd 64 and 256 at G 1 and 8 with lengths ending mid-page
+        rows.append(decode_case(dtype, dev, PROMPT_LENS))
+        rows += [decode_case(dtype, dev, (37, 1000, 16, 1), hd=hd, G=G,
+                             KVH=4) for hd in (64, 256) for G in (1, 8)]
         for r in rows:
             r["dtype"] = str(dtype).replace("torch.", "")
         results += rows
@@ -531,27 +886,33 @@ def main():
 
     t = time.perf_counter()
     chunked, rec4 = serve(params, cfg, prompts, 16, dev)
-    same = [bucketed[r].token_ids == chunked[r].token_ids for r in bucketed]
-    tok = [a == b for r in bucketed for a, b in
-           zip(bucketed[r].token_ids, chunked[r].token_ids)]
     emit({"phase": "engine_chunked", "seconds": time.perf_counter() - t,
           "prefill_chunk": 16, **rec4,
-          "greedy_agreement": {"identical_streams": sum(same),
-                               "first_tokens_identical": sum(
-                                   bucketed[r].token_ids[0] ==
-                                   chunked[r].token_ids[0] for r in bucketed),
-                               "of": len(same),
-                               "token_rate": sum(tok) / len(tok)}})
+          "greedy_agreement": agreement(bucketed, chunked)})
+
+    t = time.perf_counter()
+    unfused, rec5 = {}, {}
+    for mode, chunk, fused_outs in (("bucketed", None, bucketed),
+                                    ("chunked", 16, chunked)):
+        unfused[mode], rec5[mode] = serve(params, cfg, prompts, chunk, dev,
+                                          fuse=False)
+        rec5[mode]["greedy_agreement_with_fused"] = agreement(fused_outs,
+                                                              unfused[mode])
+    emit({"phase": "engine_unfused", "seconds": time.perf_counter() - t,
+          "fuse": False, **rec5})
 
     t = time.perf_counter()
     checks = []
+    modes = (("bucketed", bucketed), ("chunked", chunked),
+             ("unfused_bucketed", unfused["bucketed"]),
+             ("unfused_chunked", unfused["chunked"]))
     for rid in (0, 1):
         with torch.no_grad():
             logits = gpt.forward(params, prompts[rid][None], cfg)[0, -1]
         top2 = torch.topk(logits.float(), 2)
         margin = float(top2.values[0] - top2.values[1])
         pick = int(top2.indices[0])
-        for mode, outs in (("bucketed", bucketed), ("chunked", chunked)):
+        for mode, outs in modes:
             first = outs[rid].token_ids[0]
             if margin > 0.05 and pick != first:
                 raise AssertionError(
@@ -562,6 +923,13 @@ def main():
                            "result": "match" if pick == first else "tie"})
     emit({"phase": "first_token", "seconds": time.perf_counter() - t,
           "checks": checks})
+
+    t = time.perf_counter()
+    rec = decode_logits(params, cfg, prompts[0], dev)
+    emit({"phase": "decode_logits", "seconds": time.perf_counter() - t,
+          **rec})
+    del params
+    torch.cuda.empty_cache()
 
     t = time.perf_counter()
     bwd = []
@@ -577,6 +945,17 @@ def main():
                                                  torch.float32)]
     emit({"phase": "kernels_bwd", "seconds": time.perf_counter() - t,
           "results": bwd, "rms_norm_grad": rms_grads})
+
+    t = time.perf_counter()
+    varlen = [varlen_case(d, dev) for d in (torch.bfloat16, torch.float32)]
+    for r, d in zip(varlen, ("bfloat16", "float32")):
+        r["dtype"] = d
+    extra = [f(d, dev) for d in (torch.bfloat16, torch.float32)
+             for f in (varlen_cross_case, segment_ids_case)]
+    rec9 = {"launches": {n: sum(r["launches"][n] for r in varlen)
+                         for n in varlen[0]["launches"]}}
+    emit({"phase": "varlen", "seconds": time.perf_counter() - t,
+          "results": varlen, "more": extra})
 
     t = time.perf_counter()
     rec7 = train_parity(dev)
@@ -610,6 +989,21 @@ def main():
 
     # (result row at the main path's bf16 shape, counter, route, source,
     #  replaced TPU kernel)
+    vl = next(r for r in varlen if r["dtype"] == "bfloat16")
+
+    def seg_row(part, errs):
+        # library yardsticks: SDPA forward, and SDPA's backward alone (it
+        # computes dq, dk and dv together), under the block-diagonal mask
+        return {"kernel": "flash_attention_seg_" +
+                          (part if part == "fwd" else f"bwd_{part}"),
+                "max_abs_err": max(vl["max_abs_err"][e] for e in errs),
+                "kernel_ms": vl[f"{part}_ms"],
+                "plain_ms": vl[f"{part}_plain_ms"],
+                "library_ms": vl["sdpa_fwd_ms" if part == "fwd"
+                                 else "sdpa_bwd_ms"],
+                "bound_ms": vl[f"{part}_bound_ms"],
+                "bound_by": vl[f"{part}_bound_by"]}
+
     table = (
         (main_shape("paged_prefill_attention", T=1),
          "paged_prefill_attention_kernel", "cuda",
@@ -627,8 +1021,21 @@ def main():
         (bwd_row("dq", ("dq",)), "flash_bwd_dq", "cuda",
          "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
          "paddle_tpu/incubate/kernels/flash_attention.py:241"),
+        (main_shape("paged_decode_attention", hd=128, G=4),
+         "paged_attention_kernel", "cuda",
+         "paddle_tpu_torch/csrc/paged_decode.cu",
+         "paddle_tpu/incubate/kernels/paged_attention.py:247"),
+        (seg_row("fwd", ("out",)), "flash_attention_seg_fwd", "cuda",
+         "paddle_tpu_torch/csrc/flash_attention.cu",
+         "paddle_tpu/incubate/kernels/flash_attention.py:439"),
+        (seg_row("dkv", ("dk", "dv")), "flash_bwd_seg_dkv", "cuda",
+         "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+         "paddle_tpu/incubate/kernels/flash_attention.py:487"),
+        (seg_row("dq", ("dq",)), "flash_bwd_seg_dq", "cuda",
+         "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+         "paddle_tpu/incubate/kernels/flash_attention.py:530"),
     )
-    runs = (rec3, rec4, rec7, rec8)
+    runs = (rec3, rec4, rec5["bucketed"], rec5["chunked"], rec9, rec7, rec8)
     kernels = [{
         "name": r["kernel"], "route": route, "source": source,
         "replaces": replaces,

@@ -1,8 +1,8 @@
-// Shared body of the port's two attention forward kernels
+// Shared body of the port's two tiled attention forward kernels
 // (paged_attention.cu, flash_attention.cu), whose helpers the backward
-// kernels (flash_attention_bwd.cu) reuse: a block stages up to kBlockRows
-// query rows in shared memory, then walks the keys in tiles of kKeys with
-// an f32 online softmax.
+// kernels (flash_attention_bwd.cu) and the decode kernel (paged_decode.cu)
+// reuse: a block stages up to kBlockRows query rows in shared memory, then
+// walks the keys in tiles of kKeys with an f32 online softmax.
 //
 // Work split: 4 warps x 4 rows each.  Within a key tile lane j owns key j:
 // it computes the 4 scores of its warp's rows against key j (q rows are
@@ -124,16 +124,33 @@ __device__ __forceinline__ void stage_rows(float* qs, RowPtr row_ptr) {
   }
 }
 
-// Attend the warp's rows over keys [0, kv_end): limit[r] is the last key
-// position row r may see (scores past it are masked to kNegInf).  Key 0 is
-// visible to every row, so the running max is finite after the first tile
-// and a later fully masked tile contributes exp(-1e30 - m) = 0.
-template <typename T, int HD, typename KeyOff>
+// The dense kernels' mask: row r sees the keys up to position limit[r]
+// (< kv_end).  Key 0 is visible to every row, so the running max is finite
+// after the first tile and a later masked score adds exp(-1e30 - m) = 0:
+// no zeroing needed (kZeroMasked false).
+struct Horizon {
+  static constexpr bool kZeroMasked = false;
+  int limit[kRowsPerWarp];
+  __device__ __forceinline__ int tag(int) const { return 0; }
+  __device__ __forceinline__ bool operator()(int r, int pos, int) const {
+    return pos <= limit[r];
+  }
+};
+
+// Attend the warp's rows over keys [0, kv_end).  The mask says which keys a
+// row sees: mask.tag(pos) is read once per key, for every lane of the last
+// tile too (what the mask needs to know of it, e.g. its segment id), and
+// mask(r, pos, tag) decides for row r.  A masked score enters the running
+// max as kNegInf.  A mask under which a row may see no key of a tile (or at
+// all) sets kZeroMasked: its masked probabilities are zeroed after the exp,
+// as in the TPU's segment kernels, so such a row gains no mass from them,
+// ends with acc = l = 0 if it sees nothing, and the first key it does see
+// resets m.
+template <typename T, int HD, typename KeyOff, typename Mask>
 __device__ __forceinline__ void attend(const float* qs, float* ks, float* vs,
                                        const T* __restrict__ k,
                                        const T* __restrict__ v, KeyOff key_off,
-                                       int kv_end,
-                                       const int (&limit)[kRowsPerWarp],
+                                       int kv_end, Mask mask,
                                        float scale, RowState<HD>& st) {
   constexpr int VN = Vec<T>::N, CH = HD / VN, KS = Smem<HD>::kStride;
   constexpr int DPL = HD / 32;
@@ -171,13 +188,17 @@ __device__ __forceinline__ void attend(const float* qs, float* ks, float* vs,
         s[r] = fmaf(qs[local_row(r) * HD + d], kd, s[r]);
     }
 
+    const int pos = k0 + lane;
+    const int tag = mask.tag(pos);
     float p[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float x = (k0 + lane <= limit[r]) ? s[r] * scale : kNegInf;
+      const bool vis = mask(r, pos, tag);
+      const float x = vis ? s[r] * scale : kNegInf;
       const float mn = fmaxf(st.m[r], warp_max(x));
       const float corr = expf(st.m[r] - mn);
-      const float pr = expf(x - mn);
+      const float e = expf(x - mn);     // unconditional: a select, no branch
+      const float pr = (Mask::kZeroMasked && !vis) ? 0.f : e;
       st.l[r] = st.l[r] * corr + warp_sum(pr);
       st.m[r] = mn;
       p[r] = round_to<T>(pr);

@@ -1,10 +1,18 @@
-// Dense attention forward with per-row logsumexp.
+// Attention forward with per-row logsumexp, dense or segment-masked.
 //
-// Replaces the TPU kernel paddle_tpu/incubate/kernels/flash_attention.py::
-// _flash_fwd_kernel (launched by _flash_fwd_impl).  q, k, v are [B, S, H, D]
-// read in place (no transpose to [B*H, S, D]); out is [B, S, H, D] and
-// lse is [B*H, S] float32.  Causal means row + (Sk - S) >= col, which is the
-// TPU kernel's row >= col on equal lengths.
+// Replaces the TPU kernels paddle_tpu/incubate/kernels/flash_attention.py::
+// _flash_fwd_kernel (launched by _flash_fwd_impl) and _flash_fwd_seg_kernel
+// (launched by _flash_seg_fwd_impl).  q, k, v are [B, S, H, D] read in place
+// (no transpose to [B*H, S, D]); out is [B, S, H, D] and lse is [B*H, S]
+// float32.  Dense causal means row + (Sk - S) >= col, which is the TPU
+// kernel's row >= col on equal lengths.  The segment-masked instantiation
+// (SEG) takes seg_q [B, S] and seg_k [B, Sk] int32 and lets row i see key j
+// only where seg_q[b, i] == seg_k[b, j] (and i >= j when causal, which needs
+// S == Sk): the TPU's _seg_mask.  Masked probabilities are zeroed after the
+// exp, so a row that sees no key gives out = 0 and lse = -1e30 + log(1e-30),
+// the TPU kernel's finalize.  The seg ids are read per row and per key as
+// they are; nothing is broadcast to [B*H, S, 1] as the TPU's BlockSpecs
+// needed.  No tile is skipped across segments: the ids need not be sorted.
 //
 // Grid (ceil(S / 16), B*H): one block per (batch-head, tile of 16 query
 // rows); the TPU grid's sequential K axis becomes the key loop inside the
@@ -19,15 +27,34 @@
 // gap to its bound; the design's answer so far is to keep every
 // intermediate on chip (scores and probabilities in registers, one K/V tile
 // in shared memory, nothing S x S in device memory).  wgmma with TMA-fed
-// tiles is the later step.
+// tiles is the later step; for packed segments, skipping key tiles that no
+// row of the query tile can see (needs a per-tile segment range) too.
 #include "attention_tile.cuh"
 
 using namespace ptt;
 
-template <typename T, int HD>
+// The segment kernels' mask: segment equality, AND row >= col when causal;
+// keys at or past Sk (the last tile's tail) are masked.
+struct SegMask {
+  static constexpr bool kZeroMasked = true;
+  const int* seg_k;                  // this batch row's key segment ids
+  int Sk;
+  int seg[kRowsPerWarp];             // each of the warp's rows' segment id
+  int row[kRowsPerWarp];
+  int causal;
+  __device__ __forceinline__ int tag(int pos) const {
+    return pos < Sk ? seg_k[pos] : 0;
+  }
+  __device__ __forceinline__ bool operator()(int r, int pos, int t) const {
+    return pos < Sk && t == seg[r] && (!causal || row[r] >= pos);
+  }
+};
+
+template <typename T, int HD, bool SEG>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+                 const T* __restrict__ v, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_k, T* __restrict__ out,
                  float* __restrict__ lse, int S, int Sk, int H, int causal,
                  float scale) {
   extern __shared__ float smem[];
@@ -45,20 +72,33 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return q + (((size_t)b * S + row) * H + h) * HD;
   });
 
-  int limit[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-    limit[r] = causal ? min(r0 + local_row(r) + shift, Sk - 1) : Sk - 1;
   const int kv_end =
       causal ? min(min(r0 + kBlockRows, S) - 1 + shift, Sk - 1) + 1 : Sk;
-
+  auto key_off = [&](int pos) -> size_t {
+    return (((size_t)b * Sk + pos) * H + h) * HD;
+  };
   RowState<HD> st;
   st.init();
-  attend<T, HD>(qs, ks, vs, k, v,
-                [&](int pos) -> size_t {
-                  return (((size_t)b * Sk + pos) * H + h) * HD;
-                },
-                kv_end, limit, scale, st);
+  if constexpr (SEG) {
+    SegMask mask;
+    mask.seg_k = seg_k + (size_t)b * Sk;
+    mask.Sk = Sk;
+    mask.causal = causal;
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int row = r0 + local_row(r);
+      mask.row[r] = row;
+      mask.seg[r] = row < S ? seg_q[(size_t)b * S + row] : 0;
+    }
+    attend<T, HD>(qs, ks, vs, k, v, key_off, kv_end, mask, scale, st);
+  } else {
+    Horizon mask;
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r)
+      mask.limit[r] =
+          causal ? min(r0 + local_row(r) + shift, Sk - 1) : Sk - 1;
+    attend<T, HD>(qs, ks, vs, k, v, key_off, kv_end, mask, scale, st);
+  }
 
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -73,36 +113,55 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-static cudaError_t run(const void* q, const void* k, const void* v, void* out,
+template <typename T, int HD, bool SEG>
+static cudaError_t run(const void* q, const void* k, const void* v,
+                       const void* seg_q, const void* seg_k, void* out,
                        void* lse, int B, int S, int Sk, int H, int causal,
                        float scale, cudaStream_t stream) {
   dim3 grid((S + kBlockRows - 1) / kBlockRows, B * H);
-  return launch(flash_fwd_kernel<T, HD>, kThreads, Smem<HD>::kBytes, grid,
-                stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<T*>(out),
-                static_cast<float*>(lse), S, Sk, H, causal, scale);
+  return launch(flash_fwd_kernel<T, HD, SEG>, kThreads, Smem<HD>::kBytes,
+                grid, stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
+                static_cast<T*>(out), static_cast<float*>(lse), S, Sk, H,
+                causal, scale);
 }
 
-// dtype: 0 float32, 1 bfloat16.  Returns cudaGetLastError() after launch.
+#define PTT_DISPATCH(SEG_)                                                   \
+  if (dtype == 0) {                                                          \
+    if (D == 64) return (int)PTT_RUN(float, 64, SEG_);                       \
+    if (D == 128) return (int)PTT_RUN(float, 128, SEG_);                     \
+    if (D == 256) return (int)PTT_RUN(float, 256, SEG_);                     \
+  } else if (dtype == 1) {                                                   \
+    if (D == 64) return (int)PTT_RUN(__nv_bfloat16, 64, SEG_);               \
+    if (D == 128) return (int)PTT_RUN(__nv_bfloat16, 128, SEG_);             \
+    if (D == 256) return (int)PTT_RUN(__nv_bfloat16, 256, SEG_);             \
+  }                                                                          \
+  return (int)cudaErrorInvalidValue;
+
+#define PTT_RUN(TY, HD_, SEG_)                                               \
+  run<TY, HD_, SEG_>(q, k, v, seg_q, seg_k, out, lse, B, S, Sk, H, causal,   \
+                     scale, static_cast<cudaStream_t>(stream))
+
+// dtype: 0 float32, 1 bfloat16.  Each returns cudaGetLastError() after its
+// launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse, int B,
                                    int S, int Sk, int H, int D, int causal,
                                    float scale, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_CASE(TY, HD_)                                                    \
-  if (D == HD_)                                                            \
-    return (int)run<TY, HD_>(q, k, v, out, lse, B, S, Sk, H, causal, scale, \
-                             s);
-  if (dtype == 0) {
-    PTT_CASE(float, 64)
-    PTT_CASE(float, 128)
-    PTT_CASE(float, 256)
-  } else if (dtype == 1) {
-    PTT_CASE(__nv_bfloat16, 64)
-    PTT_CASE(__nv_bfloat16, 128)
-    PTT_CASE(__nv_bfloat16, 256)
-  }
-#undef PTT_CASE
-  return (int)cudaErrorInvalidValue;
+  const void* seg_q = nullptr;
+  const void* seg_k = nullptr;
+  PTT_DISPATCH(false)
 }
+
+// seg_q [B, S], seg_k [B, Sk] int32.
+extern "C" int flash_attention_seg_fwd(const void* q, const void* k,
+                                       const void* v, const void* seg_q,
+                                       const void* seg_k, void* out,
+                                       void* lse, int B, int S, int Sk, int H,
+                                       int D, int causal, float scale,
+                                       int dtype, void* stream) {
+  PTT_DISPATCH(true)
+}
+#undef PTT_RUN
+#undef PTT_DISPATCH

@@ -1,13 +1,20 @@
-// Dense attention backward: dK/dV and dQ, with p recomputed from lse.
+// Attention backward: dK/dV and dQ, with p recomputed from lse, dense or
+// segment-masked.
 //
 // Replaces the TPU kernels paddle_tpu/incubate/kernels/flash_attention.py::
 // _flash_bwd_dkv_kernel and _flash_bwd_dq_kernel (launched by
-// _flash_bwd_impl).  q, k, v, dO are [B, S, H, D] read in place (no
-// transpose to [B*H, S, D]); lse and delta = rowsum(dO * O) are [B*H, S]
-// float32; dq, dk, dv come out [B, S, H, D] in the input dtype.  Causal is
-// row >= col and needs S == Sk (the wrapper checks), which is the forward
-// kernel's row + (Sk - S) >= col on equal lengths.  Any S works: ragged
-// query and key tiles are masked.
+// _flash_bwd_impl), and their segment-masked twins _flash_bwd_seg_dkv_kernel
+// and _flash_bwd_seg_dq_kernel (launched by _flash_seg_bwd_impl).  q, k, v,
+// dO are [B, S, H, D] read in place (no transpose to [B*H, S, D]); lse and
+// delta = rowsum(dO * O) are [B*H, S] float32; dq, dk, dv come out
+// [B, S, H, D] in the input dtype.  Causal is row >= col and needs S == Sk
+// (the wrapper checks), which is the forward kernel's row + (Sk - S) >= col
+// on equal lengths.  Any S works: ragged query and key tiles are masked.
+// The SEG instantiations also take seg_q [B, S] and seg_k [B, Sk] int32 and
+// AND seg_q[row] == seg_k[col] into the same per-element mask, staged per
+// tile beside lse and delta; the causal tile ranges stay those of the dense
+// kernels, and no tile is skipped across segments (the ids need not be
+// sorted).
 //
 // Order of rounding, as in the TPU kernels: s = (q . k) * scale and
 // p = exp(s - lse) in f32; p is rounded to dO's dtype before dV += p^T dO;
@@ -96,6 +103,15 @@ __device__ __forceinline__ void stage_stats(float* lse_s, float* dl_s,
   }
 }
 
+// Segment ids of the ROWS positions p0.. of one batch row into smem (0
+// past n, where the row/col bound masks them anyway).
+template <int ROWS>
+__device__ __forceinline__ void stage_seg(int* dst, const int* __restrict__ seg,
+                                          int p0, int n) {
+  for (int r = threadIdx.x; r < ROWS; r += kBwdThreads)
+    dst[r] = p0 + r < n ? seg[p0 + r] : 0;
+}
+
 __device__ __forceinline__ float comp(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
@@ -116,12 +132,14 @@ __device__ __forceinline__ void load_row(const float* p, float (&r)[N]) {
 // k0..): S = Q K^T and dP = dO V^T, then p = exp(S * scale - lse) and
 // dS = p * (dP - delta) * scale, zero where masked or past the end.
 // Writes dS rounded to T into dss[BQ][PS] and, for kWantP, p rounded to T
-// into ps[BQ][PS].
-template <typename T, int HD, bool kWantP>
+// into ps[BQ][PS].  SEG also masks where sq_s[row] != sk_s[key] (the
+// tiles' staged segment ids).
+template <typename T, int HD, bool kWantP, bool SEG>
 __device__ __forceinline__ void score_tiles(
     const float* qs, const float* dos, const float* ks, const float* vs,
-    const float* lse_s, const float* dl_s, float* ps, float* dss, int q0,
-    int k0, int S, int Sk, int causal, float scale) {
+    const float* lse_s, const float* dl_s, const int* sq_s, const int* sk_s,
+    float* ps, float* dss, int q0, int k0, int S, int Sk, int causal,
+    float scale) {
   using G = Bwd<HD>;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float s[G::RQ][G::RK], dp[G::RQ][G::RK];
@@ -165,7 +183,8 @@ __device__ __forceinline__ void score_tiles(
 #pragma unroll
     for (int j = 0; j < G::RK; ++j) {
       const int col = k0 + tx + 16 * j;
-      const bool ok = row < S && col < Sk && (!causal || row >= col);
+      const bool ok = row < S && col < Sk && (!causal || row >= col) &&
+                      (!SEG || sq_s[r] == sk_s[tx + 16 * j]);
       const float p = ok ? expf(s[i][j] * scale - l) : 0.f;
       dss[r * G::PS + tx + 16 * j] =
           ok ? round_to<T>(p * (dp[i][j] - dl) * scale) : 0.f;
@@ -174,12 +193,14 @@ __device__ __forceinline__ void score_tiles(
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool SEG>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
+                     const float* __restrict__ delta,
+                     const int* __restrict__ seg_q,
+                     const int* __restrict__ seg_k, T* __restrict__ dk,
                      T* __restrict__ dv, int S, int Sk, int H, int causal,
                      float scale) {
   using G = Bwd<HD>;
@@ -192,6 +213,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dss = ps + G::BQ * G::PS;
   float* lse_s = dss + G::BQ * G::PS;
   float* dl_s = lse_s + G::BQ;
+  int* sq_s = reinterpret_cast<int*>(dl_s + G::BQ);
+  int* sk_s = sq_s + G::BQ;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * G::BK;
@@ -202,6 +225,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
   stage<T, HD, G::BK>(ks, k, key_row);
   stage<T, HD, G::BK>(vs, v, key_row);
+  if constexpr (SEG) stage_seg<G::BK>(sk_s, seg_k + (size_t)b * Sk, k0, Sk);
 
   float dk_acc[G::RK][4 * G::CD], dv_acc[G::RK][4 * G::CD];
 #pragma unroll
@@ -219,9 +243,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage<T, HD, G::BQ>(qs, q, query_row);
     stage<T, HD, G::BQ>(dos, dout, query_row);
     stage_stats<G::BQ>(lse_s, dl_s, lse, delta, bh, q0, S);
+    if constexpr (SEG) stage_seg<G::BQ>(sq_s, seg_q + (size_t)b * S, q0, S);
     __syncthreads();
-    score_tiles<T, HD, true>(qs, dos, ks, vs, lse_s, dl_s, ps, dss, q0, k0,
-                             S, Sk, causal, scale);
+    score_tiles<T, HD, true, SEG>(qs, dos, ks, vs, lse_s, dl_s, sq_s, sk_s,
+                                  ps, dss, q0, k0, S, Sk, causal, scale);
     __syncthreads();
     // dV += P^T dO and dK += dS^T Q over the tile's query rows
 #pragma unroll 2
@@ -261,12 +286,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool SEG>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ seg_q,
+                    const int* __restrict__ seg_k, T* __restrict__ dq,
                     int S, int Sk, int H, int causal, float scale) {
   using G = Bwd<HD>;
   extern __shared__ __align__(16) float smem[];
@@ -277,6 +304,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dss = vs + G::BK * G::RS;
   float* lse_s = dss + G::BQ * G::PS;
   float* dl_s = lse_s + G::BQ;
+  int* sq_s = reinterpret_cast<int*>(dl_s + G::BQ);
+  int* sk_s = sq_s + G::BQ;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * G::BQ;
@@ -288,6 +317,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   stage<T, HD, G::BQ>(qs, q, query_row);
   stage<T, HD, G::BQ>(dos, dout, query_row);
   stage_stats<G::BQ>(lse_s, dl_s, lse, delta, bh, q0, S);
+  if constexpr (SEG) stage_seg<G::BQ>(sq_s, seg_q + (size_t)b * S, q0, S);
 
   float acc[G::RQ][4 * G::CD];
 #pragma unroll
@@ -304,9 +334,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     };
     stage<T, HD, G::BK>(ks, k, key_row);
     stage<T, HD, G::BK>(vs, v, key_row);
+    if constexpr (SEG) stage_seg<G::BK>(sk_s, seg_k + (size_t)b * Sk, k0, Sk);
     __syncthreads();
-    score_tiles<T, HD, false>(qs, dos, ks, vs, lse_s, dl_s, nullptr, dss, q0,
-                              k0, S, Sk, causal, scale);
+    score_tiles<T, HD, false, SEG>(qs, dos, ks, vs, lse_s, dl_s, sq_s, sk_s,
+                                   nullptr, dss, q0, k0, S, Sk, causal,
+                                   scale);
     __syncthreads();
     // dQ += dS K over the tile's keys
 #pragma unroll 1
@@ -348,56 +380,72 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int HD> constexpr size_t dkv_smem() {
   using G = Bwd<HD>;
   return ((2 * G::BK + 2 * G::BQ) * G::RS + 2 * G::BQ * G::PS + 2 * G::BQ) *
-         sizeof(float);
+             sizeof(float) +
+         (G::BQ + G::BK) * sizeof(int);
 }
 
 template <int HD> constexpr size_t dq_smem() {
   using G = Bwd<HD>;
   return ((2 * G::BK + 2 * G::BQ) * G::RS + G::BQ * G::PS + 2 * G::BQ) *
-         sizeof(float);
+             sizeof(float) +
+         (G::BQ + G::BK) * sizeof(int);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool SEG>
 cudaError_t run_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
-                    void* dk, void* dv, int B, int S, int Sk, int H,
-                    int causal, float scale, cudaStream_t stream) {
+                    const void* seg_q, const void* seg_k, void* dk, void* dv,
+                    int B, int S, int Sk, int H, int causal, float scale,
+                    cudaStream_t stream) {
   dim3 grid(B * H, (Sk + Bwd<HD>::BK - 1) / Bwd<HD>::BK);
-  return launch(flash_bwd_dkv_kernel<T, HD>, kBwdThreads, dkv_smem<HD>(),
-                grid, stream, static_cast<const T*>(q),
+  return launch(flash_bwd_dkv_kernel<T, HD, SEG>, kBwdThreads,
+                dkv_smem<HD>(), grid, stream, static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(dout), static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dk),
-                static_cast<T*>(dv), S, Sk, H, causal, scale);
+                static_cast<const float*>(delta),
+                static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
+                static_cast<T*>(dk), static_cast<T*>(dv), S, Sk, H, causal,
+                scale);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool SEG>
 cudaError_t run_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
-                   void* dq, int B, int S, int Sk, int H, int causal,
-                   float scale, cudaStream_t stream) {
+                   const void* seg_q, const void* seg_k, void* dq, int B,
+                   int S, int Sk, int H, int causal, float scale,
+                   cudaStream_t stream) {
   dim3 grid(B * H, (S + Bwd<HD>::BQ - 1) / Bwd<HD>::BQ);
-  return launch(flash_bwd_dq_kernel<T, HD>, kBwdThreads, dq_smem<HD>(),
+  return launch(flash_bwd_dq_kernel<T, HD, SEG>, kBwdThreads, dq_smem<HD>(),
                 grid, stream, static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const T*>(dout), static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<T*>(dq), S, Sk,
-                H, causal, scale);
+                static_cast<const float*>(delta),
+                static_cast<const int*>(seg_q), static_cast<const int*>(seg_k),
+                static_cast<T*>(dq), S, Sk, H, causal, scale);
 }
 
 }  // namespace
 
-#define PTT_DISPATCH(CALL)                                                   \
+#define PTT_DISPATCH(CALL, SEG_)                                             \
   if (dtype == 0) {                                                          \
-    if (D == 64) return (int)CALL(float, 64);                                \
-    if (D == 128) return (int)CALL(float, 128);                              \
-    if (D == 256) return (int)CALL(float, 256);                              \
+    if (D == 64) return (int)CALL(float, 64, SEG_);                          \
+    if (D == 128) return (int)CALL(float, 128, SEG_);                        \
+    if (D == 256) return (int)CALL(float, 256, SEG_);                        \
   } else if (dtype == 1) {                                                   \
-    if (D == 64) return (int)CALL(__nv_bfloat16, 64);                        \
-    if (D == 128) return (int)CALL(__nv_bfloat16, 128);                      \
-    if (D == 256) return (int)CALL(__nv_bfloat16, 256);                      \
+    if (D == 64) return (int)CALL(__nv_bfloat16, 64, SEG_);                  \
+    if (D == 128) return (int)CALL(__nv_bfloat16, 128, SEG_);                \
+    if (D == 256) return (int)CALL(__nv_bfloat16, 256, SEG_);                \
   }                                                                          \
   return (int)cudaErrorInvalidValue;
+
+#define PTT_DKV(TY, HD_, SEG_)                                               \
+  run_dkv<TY, HD_, SEG_>(q, k, v, dout, lse, delta, seg_q, seg_k, dk, dv, B, \
+                         S, Sk, H, causal, scale,                            \
+                         static_cast<cudaStream_t>(stream))
+#define PTT_DQ(TY, HD_, SEG_)                                                \
+  run_dq<TY, HD_, SEG_>(q, k, v, dout, lse, delta, seg_q, seg_k, dq, B, S,   \
+                        Sk, H, causal, scale,                                \
+                        static_cast<cudaStream_t>(stream))
 
 // dtype: 0 float32, 1 bfloat16.  Each returns cudaGetLastError() after its
 // launch.
@@ -407,12 +455,9 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        void* dk, void* dv, int B, int S,
                                        int Sk, int H, int D, int causal,
                                        float scale, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_DKV(TY, HD_)                                                     \
-  run_dkv<TY, HD_>(q, k, v, dout, lse, delta, dk, dv, B, S, Sk, H, causal,   \
-                   scale, s)
-  PTT_DISPATCH(PTT_DKV)
-#undef PTT_DKV
+  const void* seg_q = nullptr;
+  const void* seg_k = nullptr;
+  PTT_DISPATCH(PTT_DKV, false)
 }
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
@@ -421,11 +466,27 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       void* dq, int B, int S, int Sk, int H,
                                       int D, int causal, float scale,
                                       int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_DQ(TY, HD_)                                                      \
-  run_dq<TY, HD_>(q, k, v, dout, lse, delta, dq, B, S, Sk, H, causal, scale, \
-                  s)
-  PTT_DISPATCH(PTT_DQ)
-#undef PTT_DQ
+  const void* seg_q = nullptr;
+  const void* seg_k = nullptr;
+  PTT_DISPATCH(PTT_DQ, false)
 }
+
+// seg_q [B, S], seg_k [B, Sk] int32.
+extern "C" int flash_attention_seg_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* seg_q, const void* seg_k,
+    void* dk, void* dv, int B, int S, int Sk, int H, int D, int causal,
+    float scale, int dtype, void* stream) {
+  PTT_DISPATCH(PTT_DKV, true)
+}
+
+extern "C" int flash_attention_seg_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* seg_q, const void* seg_k,
+    void* dq, int B, int S, int Sk, int H, int D, int causal, float scale,
+    int dtype, void* stream) {
+  PTT_DISPATCH(PTT_DQ, true)
+}
+#undef PTT_DQ
+#undef PTT_DKV
 #undef PTT_DISPATCH

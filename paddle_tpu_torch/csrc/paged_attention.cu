@@ -53,11 +53,11 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   // padding rows are clamped to the last real row's horizon, so nothing
   // past last_q is ever read
-  int limit[kRowsPerWarp];
+  Horizon mask;
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int t = min((r0 + local_row(r)) / G, valid - 1);
-    limit[r] = min(qoff + t, last_q);
+    mask.limit[r] = min(qoff + t, last_q);
   }
   const int t_hi = min((min(r0 + kBlockRows, R) - 1) / G, valid - 1);
   const int kv_end = min(qoff + t_hi, last_q) + 1;
@@ -69,7 +69,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                   const int p = trow[pos / page];
                   return (((size_t)p * page + pos % page) * KVH + kh) * HD;
                 },
-                kv_end, limit, scale, st);
+                kv_end, mask, scale, st);
 
   const int lane = threadIdx.x & 31;
 #pragma unroll

@@ -15,13 +15,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 _PKG = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
-SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd")
+SOURCES = ("paged_attention", "paged_decode", "flash_attention",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,8 +36,16 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P,             # q k v table q_offset valid out
         _I, _I, _I, _I, _I, _I, _I,             # B T H KVH hd page max_pages
         _F, _I, _P),                            # scale dtype stream
+    "paged_decode_attention": (
+        _P, _P, _P, _P, _P, _P,                 # q k v table lengths out
+        _I, _I, _I, _I, _I, _I,                 # B H KVH hd page max_pages
+        _F, _I, _P),                            # scale dtype stream
     "flash_attention_fwd": (
         _P, _P, _P, _P, _P,                     # q k v out lse
+        _I, _I, _I, _I, _I, _I,                 # B S Sk H D causal
+        _F, _I, _P),                            # scale dtype stream
+    "flash_attention_seg_fwd": (
+        _P, _P, _P, _P, _P, _P, _P,             # q k v seg_q seg_k out lse
         _I, _I, _I, _I, _I, _I,                 # B S Sk H D causal
         _F, _I, _P),                            # scale dtype stream
     "flash_attention_bwd_dkv": (
@@ -44,6 +54,16 @@ SIGNATURES = {
         _F, _I, _P),                            # scale dtype stream
     "flash_attention_bwd_dq": (
         _P, _P, _P, _P, _P, _P, _P,             # q k v dout lse delta dq
+        _I, _I, _I, _I, _I, _I,                 # B S Sk H D causal
+        _F, _I, _P),                            # scale dtype stream
+    "flash_attention_seg_bwd_dkv": (
+        _P, _P, _P, _P, _P, _P, _P, _P,         # q k v dout lse delta seg_q/k
+        _P, _P,                                 # dk dv
+        _I, _I, _I, _I, _I, _I,                 # B S Sk H D causal
+        _F, _I, _P),                            # scale dtype stream
+    "flash_attention_seg_bwd_dq": (
+        _P, _P, _P, _P, _P, _P, _P, _P,         # q k v dout lse delta seg_q/k
+        _P,                                     # dq
         _I, _I, _I, _I, _I, _I,                 # B S Sk H D causal
         _F, _I, _P),                            # scale dtype stream
 }
@@ -74,11 +94,13 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{source_hash()}.so"
 
 
-def build_all() -> Dict[str, str]:
+def build_all() -> Dict[str, Tuple[float, str]]:
     """Compile every source whose library is missing, all `nvcc` processes
-    started together.  Returns {source: ptxas report} for what was built
-    (empty when everything was already built); raises on a failed build."""
+    started together.  Returns {source: (seconds, ptxas report)} for what
+    was built (empty when everything was already built); raises on a failed
+    build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
     for name in SOURCES:
         out = lib_path(name)
@@ -90,14 +112,21 @@ def build_all() -> Dict[str, str]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (nvcc rc {proc.returncode})\n{log}")
-            continue
-        os.replace(tmp, out)                # atomic: readers never see halves
-        reports[name] = log
+    reports, failed, logs = {}, [], {}
+    while procs:                        # reap in finishing order, timed
+        for name, (proc, tmp, out) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            logs[name] = proc.stdout.read()
+            proc.stdout.close()
+            del procs[name]
+            if proc.returncode != 0:
+                failed.append(f"--- {name}.cu (nvcc rc {proc.returncode})\n"
+                              f"{logs[name]}")
+                continue
+            os.replace(tmp, out)        # atomic: readers never see halves
+            reports[name] = (time.perf_counter() - t0, logs[name])
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports

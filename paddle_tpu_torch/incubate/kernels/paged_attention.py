@@ -1,11 +1,22 @@
-"""Paged attention for the fused serving step — port of the fp, `mp=1` part
-of `paddle_tpu/incubate/kernels/paged_attention.py`.
+"""Paged attention for the serving steps — port of the fp, `mp=1` part of
+`paddle_tpu/incubate/kernels/paged_attention.py`.
 
 The pool layout is the reference's: one layer's pages `[P, page, KVH, hd]`
 with page 0 as the null page, a page table `[B, max_pages]` int32, and per
 slot `q_offset`/`valid` `[B]` int32.  Query t of slot b sits at position
 `q_offset[b] + t` and sees kv positions `<= q_offset[b] + t`; rows
-`t >= valid[b]` are padding whose output the caller ignores.
+`t >= valid[b]` are padding whose output the caller ignores.  The unfused
+decode step's one query per slot, q `[B, H, hd]`, sees the kv positions
+`< lengths[b]` instead.
+
+- `paged_attention_ref`: the plain PyTorch version of decode (counterpart
+  of `paged_attention_xla`).  A slot with length 0 gets the mean of V
+  there (every score masked), the kernel 0; the decode step always passes
+  lengths >= 1.
+- `paged_attention_kernel`: the hand-written CUDA kernel
+  `csrc/paged_decode.cu` (the port of `_paged_attn_kernel`) on a CUDA
+  tensor, the plain version on a CPU tensor.
+- `paged_attention_decode`: the reference's decode entry, same arguments.
 
 - `paged_prefill_attention_ref`: the plain PyTorch version (counterpart of
   `paged_prefill_attention_xla`): gathers the pool through the table.
@@ -51,22 +62,18 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, page_table, q_offset,
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd)
 
 
-def paged_prefill_attention_kernel(q, k_pages, v_pages, page_table, q_offset,
-                                   valid, scale=None):
-    """Same contract as `paged_prefill_attention_ref` (valid rows).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel (hd in
-    {64, 128, 256}, float32 or bfloat16, any page size and T) or raise.
-    `paged_prefill_attention_kernel.launches` counts kernel launches."""
-    if q.device.type == "cpu":
-        return paged_prefill_attention_ref(q, k_pages, v_pages, page_table,
-                                           q_offset, valid, scale)
-    B, T, H, hd = q.shape
+def _check_card(name, q, k_pages, v_pages, page_table, *per_slot):
+    """The paged kernels' contract on the card: one CUDA device, float32 or
+    bfloat16 q and pool of one dtype, hd in {64, 128, 256}, H a multiple of
+    KVH, an int32 page_table [B, max_pages] and int32 per-slot vectors [B],
+    16-byte aligned rows.  Returns the contiguous q, pool, table and
+    vectors."""
+    B, H, hd = q.shape[0], q.shape[-2], q.shape[-1]
     P, page, KVH, _ = k_pages.shape
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in (
-            k_pages, v_pages, page_table, q_offset, valid)):
-        raise ValueError("paged_prefill_attention_kernel: every tensor must "
-                         "lie on q's CUDA device")
+            k_pages, v_pages, page_table) + per_slot):
+        raise ValueError(f"{name}: every tensor must lie on q's CUDA device")
     if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype or \
             v_pages.dtype != q.dtype:
         raise TypeError(f"paged attention takes float32/bfloat16 q and pool "
@@ -76,30 +83,99 @@ def paged_prefill_attention_kernel(q, k_pages, v_pages, page_table, q_offset,
             v_pages.shape != k_pages.shape:
         raise ValueError(f"paged attention: unsupported shapes q "
                          f"{tuple(q.shape)} pool {tuple(k_pages.shape)}")
-    if page_table.dtype != torch.int32 or q_offset.dtype != torch.int32 or \
-            valid.dtype != torch.int32 or page_table.shape[0] != B or \
-            q_offset.shape != (B,) or valid.shape != (B,):
-        raise ValueError("paged attention: page_table [B, max_pages], "
-                         "q_offset [B] and valid [B] must be int32")
-    q = q.contiguous()
-    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
-    page_table = page_table.contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+    if page_table.dtype != torch.int32 or page_table.dim() != 2 or \
+            page_table.shape[0] != B or \
+            any(t.dtype != torch.int32 or t.shape != (B,) for t in per_slot):
+        raise ValueError(f"{name}: page_table [B, max_pages] and the "
+                         f"per-slot vectors [B] must be int32")
+    ts = tuple(t.contiguous() for t in (q, k_pages, v_pages, page_table) +
+               per_slot)
+    if any(t.data_ptr() % 16 for t in ts[:3]):
         raise ValueError("paged attention needs 16-byte aligned tensors")
+    return ts
+
+
+def paged_prefill_attention_kernel(q, k_pages, v_pages, page_table, q_offset,
+                                   valid, scale=None):
+    """Same contract as `paged_prefill_attention_ref` (valid rows).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (hd in
+    {64, 128, 256}, float32 or bfloat16, any page size and T) or raise.
+    `paged_prefill_attention_kernel.launches` counts kernel launches."""
+    if q.device.type == "cpu":
+        return paged_prefill_attention_ref(q, k_pages, v_pages, page_table,
+                                           q_offset, valid, scale)
+    q, k_pages, v_pages, page_table, q_offset, valid = _check_card(
+        "paged_prefill_attention_kernel", q, k_pages, v_pages, page_table,
+        q_offset, valid)
+    B, T, H, hd = q.shape
     s = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)
     fn = _cuda.entry("paged_attention", "paged_prefill_attention")
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), q_offset.contiguous().data_ptr(),
-             valid.contiguous().data_ptr(), out.data_ptr(), B, T, H, KVH, hd,
-             page, page_table.shape[1], float(s), _DTYPE_CODE[q.dtype],
-             torch.cuda.current_stream(dev).cuda_stream)
+             page_table.data_ptr(), q_offset.data_ptr(), valid.data_ptr(),
+             out.data_ptr(), B, T, H, k_pages.shape[2], hd, k_pages.shape[1],
+             page_table.shape[1], float(s), _DTYPE_CODE[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.check(err, "paged_prefill_attention")
     paged_prefill_attention_kernel.launches += 1
     return out
 
 
 paged_prefill_attention_kernel.launches = 0
+
+
+def paged_attention_ref(q, k_pages, v_pages, page_table, lengths,
+                        scale=None):
+    """q [B, H, hd]; k/v_pages [P, page, KVH, hd]; page_table
+    [B, max_pages] int; lengths [B] int (keys at positions < lengths[b]).
+    Returns [B, H, hd]."""
+    B, H, hd = q.shape
+    page, KVH = k_pages.shape[1], k_pages.shape[2]
+    G = H // KVH
+    S = page_table.shape[1] * page
+    s = scale if scale is not None else 1.0 / math.sqrt(hd)
+    tbl = page_table.long()
+    k = k_pages[tbl].reshape(B, S, KVH, hd)
+    v = v_pages[tbl].reshape(B, S, KVH, hd)
+    qg = q.reshape(B, KVH, G, hd)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * s
+    mask = torch.arange(S, device=q.device)[None] < lengths.long()[:, None]
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype), v)
+    return out.reshape(B, H, hd)
+
+
+def paged_attention_kernel(q, k_pages, v_pages, page_table, lengths,
+                           scale=None):
+    """Same contract as `paged_attention_ref` for lengths >= 1 (0 gives 0,
+    as the TPU kernel does).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (hd in {64, 128, 256}, float32 or bfloat16,
+    any page size and G) or raise.  `paged_attention_kernel.launches`
+    counts kernel launches."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, page_table, lengths,
+                                   scale)
+    if q.dim() != 3:
+        raise ValueError(f"paged_attention_kernel: q must be [B, H, hd], got "
+                         f"{tuple(q.shape)}")
+    q, k_pages, v_pages, page_table, lengths = _check_card(
+        "paged_attention_kernel", q, k_pages, v_pages, page_table, lengths)
+    B, H, hd = q.shape
+    s = scale if scale is not None else 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    fn = _cuda.entry("paged_decode", "paged_decode_attention")
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
+             k_pages.shape[2], hd, k_pages.shape[1], page_table.shape[1],
+             float(s), _DTYPE_CODE[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _cuda.check(err, "paged_decode_attention")
+    paged_attention_kernel.launches += 1
+    return out
+
+
+paged_attention_kernel.launches = 0
 
 
 def _single_chip_fp(mesh, kv_scales):
@@ -137,3 +213,13 @@ def paged_serve_attention(q, k_pages, v_pages, page_table, q_offset, valid,
     return paged_prefill_attention(q, k_pages, v_pages, page_table, q_offset,
                                    valid, scale=scale, mesh=mesh,
                                    kv_scales=kv_scales)
+
+
+def paged_attention_decode(q, k_pages, v_pages, page_table, lengths,
+                           scale=None, mesh=None, kv_scales=None):
+    """Entry of the unfused decode step (`models.gpt.decode_step_paged`,
+    reference `paged_attention_decode`): one query per slot over its
+    lengths[b] cached positions."""
+    _single_chip_fp(mesh, kv_scales)
+    return paged_attention_kernel(q, k_pages, v_pages, page_table, lengths,
+                                  scale=scale)

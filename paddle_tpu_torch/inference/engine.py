@@ -1,5 +1,5 @@
 """Continuous-batching serving engine — port of
-`paddle_tpu/inference/engine.py::LLMEngine` in its fused configuration.
+`paddle_tpu/inference/engine.py::LLMEngine`, fused and unfused.
 
 Paged KV pool (`models.gpt.init_paged_cache`) + per-slot page tables
 (`inference.cache.PagedKVCache`), reservation admission, and ONE fused
@@ -14,11 +14,18 @@ host fetches only the [B, T] int32 token buffer.  With `double_buffer=True`
 (default) that fetch happens at the top of the NEXT step, so the device
 computes while the host schedules.
 
-Knobs of later slices (prefix cache, speculative decoding, `fuse=False`,
-optimistic admission and preemption, KV tiering, roles, fault injection,
-int8, tensor parallelism, request tracing, injectable clocks) are accepted
-only at their off values and raise `NotImplementedError` otherwise.
-`prefix_cache` defaults to False here (True in the reference).
+`fuse=False` is the reference's three-program step, the A/B baseline of the
+fused one: each iteration advances the oldest mid-prefill prompt by one
+chunk through `prefill_chunk_paged` (chunked mode), then runs one
+`decode_step_paged` over every decoding slot (mid-prefill slots get null
+table rows, so their KV writes land on the null page); both fetch their
+token before the step returns (no double buffering).
+
+Knobs of later slices (prefix cache, speculative decoding, optimistic
+admission and preemption, KV tiering, roles, fault injection, int8, tensor
+parallelism, request tracing, injectable clocks) are accepted only at their
+off values and raise `NotImplementedError` otherwise.  `prefix_cache`
+defaults to False here (True in the reference).
 """
 from __future__ import annotations
 
@@ -134,9 +141,8 @@ class LLMEngine:
         if prefix_cache:
             raise _later("prefix_cache=True", "prefix cache and COW copy")
         if spec_len:
-            raise _later(f"spec_len={spec_len}", "speculative decoding")
-        if not fuse:
-            raise _later("fuse=False", "decode_step_paged and kernel 4")
+            raise _later(f"spec_len={spec_len} (fused or not)",
+                         "speculative decoding")
         if admission != "reservation" or preempt != "recompute" or \
                 fault_plan is not None:
             raise _later("optimistic admission, preempt='swap' and "
@@ -190,8 +196,10 @@ class LLMEngine:
                              f"[1, {max_model_len}]")
         self.prefill_chunk = prefill_chunk
         self.chunked = prefill_chunk is not None
-        self.double_buffer = True if double_buffer is None \
-            else bool(double_buffer)
+        self.fused = bool(fuse)
+        # the unfused programs fetch their tokens at once (reference rule)
+        self.double_buffer = self.fused and \
+            (True if double_buffer is None else bool(double_buffer))
         # the fused program's token width: the chunk lane in chunked mode,
         # a single decode token otherwise
         self._fused_T = prefill_chunk if self.chunked else 1
@@ -215,9 +223,10 @@ class LLMEngine:
         self._now = time.perf_counter
         self._c = dict.fromkeys(
             ("engine_steps", "decode_iterations", "decode_tokens",
-             "fused_dispatches", "prefill_dispatches", "prefill_chunks",
-             "prefilled_tokens", "admitted_requests", "finished_requests",
-             "rejected_requests"), 0)
+             "fused_dispatches", "decode_dispatches", "chunk_dispatches",
+             "prefill_dispatches", "prefill_chunks", "prefilled_tokens",
+             "admitted_requests", "finished_requests", "rejected_requests"),
+            0)
 
     # ---- request intake ---------------------------------------------------
     def add_request(self, prompt, max_new_tokens: int = 16,
@@ -301,14 +310,20 @@ class LLMEngine:
         """One engine iteration: harvest the previous fused dispatch
         (double-buffered mode), admit queued requests into free slots, stage
         at most one prefill chunk (chunked mode), then dispatch ONE fused
-        program over every decode slot and the chunk.  Returns the requests
-        that finished this iteration."""
+        program over every decode slot and the chunk.  Unfused: one chunk
+        program (chunked mode), then one decode program.  Returns the
+        requests that finished this iteration."""
         finished: List[RequestOutput] = []
         self._harvest(finished)         # step n-1's tokens land first
         self._admit(finished)
-        chunk_job = self._stage_chunk() if self.chunked else None
-        if self._running or chunk_job is not None:
-            self._fused_iter(chunk_job, finished)
+        if self.fused:
+            chunk_job = self._stage_chunk() if self.chunked else None
+            if self._running or chunk_job is not None:
+                self._fused_iter(chunk_job, finished)
+        else:
+            self._prefill_tick(finished)
+            if self._running:
+                self._decode_iter(finished)
         self._c["engine_steps"] += 1
         return finished
 
@@ -349,6 +364,70 @@ class LLMEngine:
             self._c["prefilled_tokens"] += lp
             first = int(first[0])       # blocks on the result
             self._start_decoding(req, slot, first, finished)
+
+    def _prefill_tick(self, finished: List[RequestOutput]) -> None:
+        """Unfused chunked mode: advance the oldest mid-prefill prompt by
+        ONE chunk through the standalone chunk program; the chunk that
+        completes the prompt picks its first token and joins the decode
+        set."""
+        if not self._prefilling:
+            return
+        slot, st = next(iter(self._prefilling.items()))
+        req = st.request
+        lp, C = req.prompt.size, self.prefill_chunk
+        n = min(C, lp - st.filled)
+        ids = np.zeros((1, C), np.int32)
+        ids[0, :n] = req.prompt[st.filled:st.filled + n]
+        logits, self._pool = gpt_mod.prefill_chunk_paged(
+            self.params, self._h2d(ids), self.config, self._pool,
+            self._h2d(self.cache.page_table[slot][None, :]),
+            self._h2d([st.filled], np.int32), self._h2d([n], np.int32))
+        # every chunk picks (and draws noise), as the reference's chunk
+        # program does; only the last chunk's token is used
+        tok = self._pick(logits, self._h2d([self._req_greedy(req)]))
+        self._c["chunk_dispatches"] += 1
+        self._c["prefill_chunks"] += 1
+        self._c["prefilled_tokens"] += n
+        st.filled += n
+        if st.filled == lp:
+            del self._prefilling[slot]
+            self._start_decoding(req, slot, int(tok[0]), finished)
+
+    def _decode_iter(self, finished: List[RequestOutput]) -> None:
+        """Unfused decode iteration (speculative decoding off): every
+        running slot rides one `decode_step_paged` dispatch."""
+        self._c["decode_iterations"] += 1
+        self._vanilla_decode_iter(list(self._running), finished)
+
+    def _vanilla_decode_iter(self, slots: List[int],
+                             finished: List[RequestOutput]) -> None:
+        mgr = self.cache
+        tokens = np.zeros((mgr.num_slots,), np.int32)
+        greedy = np.zeros((mgr.num_slots,), bool)
+        for slot in slots:
+            seq = self._running[slot]
+            tokens[slot] = seq.generated[-1]
+            greedy[slot] = seq.greedy
+        # mid-prefill slots and running slots outside `slots` must look
+        # inactive: a null table row routes their (garbage) KV write to the
+        # null page instead of a position inside the slot's real pages
+        table = mgr.page_table.copy()
+        for slot in range(mgr.num_slots):
+            if slot in self._prefilling or \
+                    (slot in self._running and slot not in slots):
+                table[slot, :] = 0
+        logits, self._pool = gpt_mod.decode_step_paged(
+            self.params, self._h2d(tokens), self._pool, self._h2d(table),
+            self._h2d(mgr.lengths), self.config)
+        nxt = self._pick(logits, self._h2d(greedy)).cpu().numpy()
+        self._c["decode_dispatches"] += 1
+        self._c["decode_tokens"] += len(slots)
+        for slot in slots:
+            seq = self._running[slot]
+            mgr.lengths[slot] += 1          # the token just fed is cached
+            seq.generated.append(int(nxt[slot]))
+            if self._maybe_finish(seq, finished):
+                del self._running[slot]
 
     def _stage_chunk(self) -> Optional[Dict[str, object]]:
         """Chunked mode: describe the oldest mid-prefill slot's next chunk
@@ -497,6 +576,7 @@ class LLMEngine:
             **self._c,
             "buckets": list(self.buckets),
             "prefill_chunk": self.prefill_chunk,
+            "fuse": self.fused,
             "device": str(self.device),
             "pages_in_use": self.cache.pages_in_use(),
             "pages_free": self.cache.num_free_pages,

@@ -12,6 +12,12 @@ of kernel intervals) and idle share, the device time per step by kernel
 group (paged attention, RMSNorm, GEMM, other) and the top kernels by device
 time with their launch counts.  Needs a card; exits non-zero without one.
 
+    python3 -m paddle_tpu_torch.inference.step_profile --no-fuse
+
+The same with `LLMEngine(fuse=False)`: each traced step is one unfused
+`decode_step_paged` dispatch, through the paged decode kernel (group
+`paged_decode`), beside the fused step's numbers.
+
     python3 -m paddle_tpu_torch.inference.step_profile --train
 
 Profiles one train step of GPT-3 1.3B instead (bf16 params and moments,
@@ -33,6 +39,8 @@ def _group(name):
     n = name.lower()
     if "paged_prefill_kernel" in n:
         return "paged_attention"
+    if "paged_decode_kernel" in n:
+        return "paged_decode"
     if "flash_fwd_kernel" in n:
         return "attention_fwd"
     if "flash_bwd_" in n:
@@ -149,12 +157,13 @@ def main():
     if "--train" in sys.argv[1:]:
         print(json.dumps(train_profile(dev, smi)))
         return 0
+    fuse = "--no-fuse" not in sys.argv[1:]
     cfg = gpt.llama3_8b()
     cfg.dtype = torch.bfloat16
     params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              dev)
     eng = LLMEngine(params, cfg, num_slots=8, page_size=16,
-                    max_model_len=2048, device=dev)
+                    max_model_len=2048, fuse=fuse, device=dev)
     rng = np.random.RandomState(0)
     for n in (64, 96, 160, 256, 384, 512, 768, 1024):
         eng.add_request(rng.randint(0, cfg.vocab_size, n),
@@ -178,7 +187,7 @@ def main():
     per = 1e-3 / STEPS            # us over the window -> ms per step
     print(json.dumps({
         "nvidia_smi": smi, "model": "llama3_8b", "layers": cfg.num_layers,
-        "dtype": "bf16", "slots": 8, "steps": STEPS,
+        "dtype": "bf16", "slots": 8, "steps": STEPS, "fuse": fuse,
         "running": eng.stats()["running"],
         "host_wall_ms_per_step": wall * 1e3 / STEPS,
         "device_busy_ms_per_step": busy * per,

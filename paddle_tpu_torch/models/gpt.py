@@ -25,7 +25,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..incubate.kernels.flash_attention import (flash_attention_fused,
                                                 remat_policy_save_attention)
-from ..incubate.kernels.paged_attention import (paged_prefill_attention,
+from ..incubate.kernels.paged_attention import (paged_attention_decode,
+                                                paged_prefill_attention,
                                                 paged_serve_attention)
 from ..incubate.kernels.rms_norm import rms_norm_fused
 from ..incubate.kernels.rope import apply_rope
@@ -426,6 +427,13 @@ def _prefill_qkv(bp, x, c: GPTConfig, pos=None, pos_offset=None):
     return q, k, v
 
 
+def _decode_qkv(bp, x, c: GPTConfig, pos):
+    """`_prefill_qkv` for one token a slot: x [B, D] at per-slot positions
+    pos [B].  Returns post-rope q [B, H, hd], k, v [B, KVH, hd]."""
+    q, k, v = _prefill_qkv(bp, x[:, None], c, pos=pos[:, None])
+    return q[:, 0], k[:, 0], v[:, 0]
+
+
 def _layer_tail(bp, x, attn, c: GPTConfig):
     """Out-proj + residual (+ post-LN) + FFN + residual (+ post-LN); attn
     is [B, T, D] or per head [B, T, H, hd]."""
@@ -554,6 +562,40 @@ def prefill_paged(params, input_ids, config: GPTConfig, cache, pages, length,
     return head_logits(x, params, c, mesh=mesh), cache
 
 
+def decode_step_paged(params, tokens, cache, page_table, lengths,
+                      config: GPTConfig, mesh=None):
+    """Slot-indexed decode against the paged pool (the unfused engine's
+    decode program).  tokens [B] int — the last emitted token per slot;
+    page_table [B, max_pages] int32 (0 = null page); lengths [B] int32 —
+    tokens already cached per slot.  Each layer writes the new token's k/v
+    in place at page_table[b, lengths[b] // page][lengths[b] % page], then
+    attends over lengths[b] + 1 positions.  Inactive slots (length 0,
+    all-null row) compute garbage the scheduler ignores.  Returns
+    (logits [B, V], cache)."""
+    c = config
+    assert c.causal, "KV-cache decoding requires a causal model"
+    B = tokens.shape[0]
+    page = cache["k"].shape[2]
+    pos = lengths.long()
+    x = _embed(params, tokens, c, mesh=mesh)                 # [B, D]
+    if not c.use_rope:
+        x = x + params["wpe"][pos.clamp(max=params["wpe"].shape[0] - 1)]
+    pslot = (pos // page).clamp(max=page_table.shape[1] - 1)
+    pidx = torch.gather(page_table.long(), 1, pslot[:, None])[:, 0]
+    off = pos % page
+    seen = (lengths + 1).to(torch.int32)
+    for l in range(c.num_layers):
+        bp = _layer(params["blocks"], l)
+        q, k, v = _decode_qkv(bp, x, c, pos)
+        cache["k"][l][pidx, off] = k        # in place (the reference donates)
+        cache["v"][l][pidx, off] = v
+        attn = paged_attention_decode(q, cache["k"][l], cache["v"][l],
+                                      page_table, seen, mesh=mesh)
+        x = _layer_tail(bp, x, attn, c)
+    x = epilogue(params, x, c)
+    return head_logits(x, params, c, mesh=mesh), cache
+
+
 def _paged_chunk_hidden(params, input_ids, config: GPTConfig, cache,
                         page_table, q_offset, valid, attn_entry=None,
                         mesh=None):
@@ -589,6 +631,20 @@ def _paged_chunk_hidden(params, input_ids, config: GPTConfig, cache,
                        valid, mesh=mesh)
         x = _layer_tail(bp, x, attn, c)
     return x, cache
+
+
+def prefill_chunk_paged(params, input_ids, config: GPTConfig, cache,
+                        page_table, q_offset, valid, mesh=None):
+    """Chunked paged prefill (the unfused engine's chunk program): one pass
+    over a [B, C] right-padded chunk starting at per-slot position q_offset,
+    attending through the slot's FULL table row to everything below it.
+    Returns (logits [B, V] at chunk index valid-1, cache)."""
+    B = input_ids.shape[0]
+    x, cache = _paged_chunk_hidden(params, input_ids, config, cache,
+                                   page_table, q_offset, valid, mesh=mesh)
+    x = x[torch.arange(B, device=x.device), valid.long() - 1]
+    x = epilogue(params, x, config)
+    return head_logits(x, params, config, mesh=mesh), cache
 
 
 def serve_step_paged(params, tokens, cache, page_table, q_offset, valid,

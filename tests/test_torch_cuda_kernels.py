@@ -10,7 +10,8 @@ bf16 before the PV product, the plain versions the normalized ones).  The
 attention backward: max abs error within 1e-4 * max(1, max|ref|) in
 float32 and 2e-2 * max(1, max|ref|) in bfloat16 (p and dS round to bf16 at
 the same points in both, so only a flipped rounding of a term differs; the
-floor of 1 covers gradients that are rounding noise, as at S = 1).
+floor of 1 covers gradients that are rounding noise, as at S = 1).  The
+segment-masked kernels are held to the same tolerances as the dense ones.
 """
 import math
 
@@ -19,9 +20,13 @@ import pytest
 import torch
 
 from paddle_tpu_torch.incubate.kernels.flash_attention import (
-    _flash_bwd_ref, _flash_fwd_ref, attention_ref, flash_attention_bwd,
-    flash_attention_fused, flash_attention_fwd, flash_bwd_dkv, flash_bwd_dq)
+    _flash_bwd_ref, _flash_fwd_ref, _flash_fwd_seg_ref, attention_ref,
+    attention_ref_segmented, flash_attention_bwd, flash_attention_fused,
+    flash_attention_fwd, flash_attention_seg_bwd, flash_attention_seg_fwd,
+    flash_attention_varlen, flash_bwd_dkv, flash_bwd_dq, flash_bwd_seg_dkv,
+    flash_bwd_seg_dq)
 from paddle_tpu_torch.incubate.kernels.paged_attention import (
+    paged_attention_kernel, paged_attention_ref,
     paged_prefill_attention_kernel, paged_prefill_attention_ref)
 from paddle_tpu_torch.incubate.kernels.rms_norm import _rms_ref, \
     rms_norm_fused
@@ -268,6 +273,184 @@ def test_engine_on_card_matches_cpu_plain_path(dev, chunk):
     assert launches["paged_prefill_attention_kernel"] > 0
     assert launches["rms_norm_fused"] > 0
     assert (launches["flash_attention_fwd"] > 0) == (chunk is None)
+    for rid, ref in outs["cpu"].items():
+        a, b = ref.token_ids, outs[str(dev)][rid].token_ids
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = np.concatenate([ref.prompt, np.asarray(a[:i], np.int32)])
+        top2 = torch.topk(gpt.forward(cpu, seq[None], cfg)[0, -1], 2).values
+        assert float(top2[0] - top2[1]) < 1e-4, (rid, i, a, b)
+
+
+def _decode_inputs(rng, dtype, dev, hd, G, page, KVH=2, max_pages=9):
+    """Six slots: lengths ending mid-page, on a page boundary, a single
+    token, the whole row, and 0 (the kernel gives 0 there); non-contiguous
+    table rows."""
+    lengths = np.array([page * 3 + 5, page * 2, 1, page * max_pages,
+                        page + 1, 0])
+    B, H = len(lengths), KVH * G
+    table = np.zeros((B, max_pages), np.int32)
+    free = list(rng.permutation(np.arange(1, B * max_pages)))
+    for b in range(B):
+        n = -(-lengths[b] // page)
+        table[b, :n] = [free.pop() for _ in range(n)]
+    P = B * max_pages
+    args = (_randn(rng, (B, H, hd), dtype, dev),
+            _randn(rng, (P, page, KVH, hd), dtype, dev),
+            _randn(rng, (P, page, KVH, hd), dtype, dev),
+            torch.from_numpy(table).to(dev),
+            torch.from_numpy(lengths.astype(np.int32)).to(dev))
+    return args, lengths
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 3, 4, 8, 16])
+@pytest.mark.parametrize("page", [16, 8])
+def test_paged_decode_kernel_matches_plain(dev, dtype, hd, G, page):
+    rng = np.random.RandomState(hd + G + page)
+    args, lengths = _decode_inputs(rng, dtype, dev, hd, G, page)
+    before = paged_attention_kernel.launches
+    got = paged_attention_kernel(*args)
+    torch.cuda.synchronize()
+    assert paged_attention_kernel.launches == before + 1
+    ref = paged_attention_ref(*args)
+    live = lengths > 0          # length 0: the kernel's 0, the oracle's mean
+    _close(got[live], ref[live], dtype)
+    assert float(got[~live].abs().max()) == 0.0
+
+
+def _seg_inputs(rng, dtype, dev, S, Sk, D, causal):
+    """Random (unsorted) segment ids in [0, 4); non-causal cross layouts
+    draw the key ids from [0, 3), so segment-3 rows see no key."""
+    B, H = 2, 3
+    seg_q = rng.randint(0, 4, (B, S)).astype(np.int32)
+    seg_k = seg_q if causal else rng.randint(0, 3, (B, Sk)).astype(np.int32)
+    if causal:
+        seg_q = np.sort(seg_q, axis=1)          # packed runs, one unsorted
+        seg_q[1] = rng.randint(0, 4, S)
+        seg_k = seg_q
+    qkv = [_randn(rng, (B, L, H, D), dtype, dev) for L in (S, Sk, Sk, S)]
+    segs = [torch.from_numpy(a).to(dev) for a in (seg_q, seg_k)]
+    return qkv, segs
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S,Sk,causal", [(1, 1, True), (77, 77, True),
+                                         (200, 200, True), (70, 33, False),
+                                         (130, 130, False)])
+def test_seg_flash_kernels_match_plain(dev, dtype, D, S, Sk, causal):
+    """Forward (out, lse) and the backward pair under the segment mask,
+    ragged tiles, rows with no visible key (out 0, lse -1e30)."""
+    rng = np.random.RandomState(S + Sk + D)
+    (q, k, v, g), (sq, sk) = _seg_inputs(rng, dtype, dev, S, Sk, D, causal)
+    scale = 1.0 / math.sqrt(D)
+    before = (flash_attention_seg_fwd.launches, flash_bwd_seg_dkv.launches,
+              flash_bwd_seg_dq.launches)
+    out, lse = flash_attention_seg_fwd(q, k, v, sq, sk, causal, scale)
+    ref_out, ref_lse = _flash_fwd_seg_ref(q, k, v, sq, sk, causal, scale)
+    _close(out, ref_out, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    got = flash_attention_seg_bwd(q, k, v, sq, sk, ref_out, ref_lse, g,
+                                  causal, scale)
+    torch.cuda.synchronize()
+    assert (flash_attention_seg_fwd.launches, flash_bwd_seg_dkv.launches,
+            flash_bwd_seg_dq.launches) == tuple(n + 1 for n in before)
+    ref = _flash_bwd_ref(q, k, v, ref_out, ref_lse, g, causal, scale,
+                         seg=(sq, sk))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        _grad_close(name, a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_varlen_entries_are_differentiable(dev, dtype):
+    """`flash_attention_varlen` and `flash_attn_unpadded` (kernel route)
+    return a grad_fn, and their gradients match autograd through the plain
+    `attention_ref_segmented` where every row sees a key."""
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    rng = np.random.RandomState(7)
+    q, k, v, g = (_randn(rng, (1, 150, 4, 64), dtype, dev) for _ in range(4))
+    cu = [0, 40, 41, 150]
+    seg = torch.tensor([[0] * 40 + [1] + [2] * 109], device=dev,
+                       dtype=torch.int32)
+    grads = []
+    for fn in (lambda a, b, c: flash_attention_varlen(a, b, c, seg),
+               lambda a, b, c: flash_attn_unpadded(
+                   a[0], b[0], c[0], cu, cu, 109, 109, 0.125,
+                   causal=True)[0][None],
+               lambda a, b, c: attention_ref_segmented(a, b, c, seg, seg,
+                                                       True, 0.125)):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ts)
+        assert out.grad_fn is not None
+        out.backward(g)
+        grads.append([t.grad for t in ts])
+    for other in grads[:2]:
+        for name, a, b in zip(("dq", "dk", "dv"), other, grads[2]):
+            _grad_close(name, a, b, dtype)
+
+
+def test_new_kernels_refuse_what_they_do_not_take(dev):
+    from paddle_tpu_torch.nn.functional import flash_attention
+    rng = np.random.RandomState(2)
+    args, _ = _decode_inputs(rng, torch.float32, dev, 64, 4, 16)
+    with pytest.raises(ValueError, match=r"\[B, H, hd\]"):
+        paged_attention_kernel(args[0][:, None], *args[1:])
+    with pytest.raises(ValueError, match="int32"):
+        paged_attention_kernel(*args[:4], args[4].long())
+    q = _randn(rng, (1, 8, 2, 64), torch.float32, dev)
+    seg = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        flash_attention_seg_fwd(q, q, q, seg.long(), seg, True, 0.1)
+    with pytest.raises(ValueError, match="S == Sk"):
+        flash_attention_seg_fwd(q, q[:, :4], q[:, :4], seg, seg[:, :4],
+                                True, 0.1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention(q, q, q, dropout=0.1, segment_ids=seg)
+
+
+@pytest.mark.parametrize("chunk", [None, 8], ids=["bucketed", "chunked"])
+def test_unfused_engine_on_card_matches_cpu_plain_path(dev, chunk):
+    """`LLMEngine(fuse=False)` in fp32 on the card emits the greedy streams
+    of the same engine on the CPU; the decode kernel launches once a layer
+    a decode dispatch.  A divergence passes only as a tie."""
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=4, num_kv_heads=2, max_seq_len=128,
+                        use_rms_norm=True, activation="silu",
+                        gated_ffn=True, use_bias=False,
+                        tie_word_embeddings=False, intermediate_size=512)
+    cpu = gpt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                if isinstance(v, dict) else v.to(dev))
+            for k, v in cpu.items()}
+    rng = np.random.RandomState(1)
+    reqs = [(rng.randint(0, 512, rng.randint(2, 60)), int(rng.randint(1, 12)))
+            for _ in range(7)]
+    outs, stats = {}, {}
+    for params, d in ((cpu, "cpu"), (card, dev)):
+        K.reset_launches()
+        eng = LLMEngine(params, cfg, num_slots=3, page_size=16,
+                        max_model_len=128, prefill_chunk=chunk, fuse=False,
+                        device=d)
+        for prompt, n in reqs:
+            eng.add_request(prompt, max_new_tokens=n)
+        outs[str(d)] = eng.run()
+        stats[str(d)] = eng.stats()
+    launches = K.launches()
+    st = stats[str(dev)]
+    assert launches["paged_attention_kernel"] == \
+        cfg.num_layers * st["decode_dispatches"] > 0
+    assert launches["paged_prefill_attention_kernel"] == \
+        cfg.num_layers * st["chunk_dispatches"]
+    assert launches["flash_attention_fwd"] == \
+        cfg.num_layers * st["prefill_dispatches"]
     for rid, ref in outs["cpu"].items():
         a, b = ref.token_ids, outs[str(dev)][rid].token_ids
         if a == b:

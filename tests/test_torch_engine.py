@@ -175,7 +175,7 @@ def test_add_request_validation(reference):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(prefix_cache=True), dict(spec_len=2), dict(fuse=False),
+    dict(prefix_cache=True), dict(spec_len=2), dict(fuse=False, spec_len=2),
     dict(admission="optimistic"), dict(preempt="swap"),
     dict(fault_plan=object()), dict(kv_tier=True), dict(spill_dir="x"),
     dict(page_store=object()), dict(role="prefill"),

@@ -12,6 +12,7 @@ import torch
 
 from paddle_tpu_torch.inference.engine import LLMEngine
 from paddle_tpu_torch.models import gpt as TG
+from paddle_tpu_torch.nn.functional import flash_attn_unpadded
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
@@ -62,6 +63,8 @@ def test_import_leaves_jax_out_of_sys_modules():
 
 
 def test_entry_points_refuse_to_run_without_a_card():
+    """The builders default to the card; the tensor-taking entries run the
+    plain versions only for CPU tensors and never for others."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     cfg = TG.gpt_tiny(32)
@@ -70,8 +73,13 @@ def test_entry_points_refuse_to_run_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TG.init_paged_cache(cfg, 4, 8)
     params = TG.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        LLMEngine(params, cfg, max_model_len=32, page_size=8)
+    for fuse in (True, False):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LLMEngine(params, cfg, max_model_len=32, page_size=8, fuse=fuse)
+    q = torch.empty((6, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attn_unpadded(q, q, q, [0, 2, 6], [0, 2, 6], 4, 4, 0.125,
+                            causal=True)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])

@@ -167,10 +167,13 @@ def test_paged_entries_refuse_later_slices():
 
 
 def test_launch_counters_cover_the_three_kernels():
-    """The three forward kernels, and the backward pair since it was
-    ported."""
+    """The three forward kernels of the fused serving step, and every
+    kernel ported since: the backward pair, paged decode and the three
+    segment-masked flash kernels — nine counters, one per TPU kernel."""
     names = set(K.launches())
     assert names == {"paged_prefill_attention_kernel", "flash_attention_fwd",
-                     "rms_norm_fused", "flash_bwd_dkv", "flash_bwd_dq"}
+                     "rms_norm_fused", "flash_bwd_dkv", "flash_bwd_dq",
+                     "paged_attention_kernel", "flash_attention_seg_fwd",
+                     "flash_bwd_seg_dkv", "flash_bwd_seg_dq"}
     K.reset_launches()
     assert set(K.launches().values()) == {0}
