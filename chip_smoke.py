@@ -8,9 +8,12 @@ Phases, one JSON line each (with its seconds):
                disables TF32 for the float32 references, builds the CUDA
                kernels (one nvcc per source, in parallel).
 2. kernels  — each hand-written kernel against its plain PyTorch version on
-               the same numpy-seeded inputs at the serving shapes, in bf16
-               and float32: max abs error (valid rows only for paged
-               attention), kernel/plain/library times (CUDA events).
+               the same numpy-seeded inputs at the serving shapes (and the
+               flash forward at the training shape [4,2048,16,128] too), in
+               bf16 and float32: max abs error (valid rows only for paged
+               attention), kernel/plain/library times (CUDA events); each
+               flash-forward result names the body that ran (`body`: the
+               tensor-core `wgmma` body in bf16, `cuda_core` in float32).
 3. engine_bucketed — Llama-3-8B at full width (all 32 layers), bf16, random
                weights from a seeded generator, 8 greedy requests of 64-1024
                prompt tokens x 32 new tokens through `LLMEngine` with
@@ -145,13 +148,13 @@ def rms_case(dtype, dev):
         "bound_ms": b, "bound_by": by}
 
 
-def flash_case(dtype, dev, S):
+def flash_case(dtype, dev, shape):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.incubate.kernels.flash_attention import (
-        _flash_fwd_ref, flash_attention_fwd)
+        FWD_BODY, _flash_fwd_ref, flash_attention_fwd)
+    B, S, H, D = shape
     rng = np.random.RandomState(S)
-    B, H, D = 1, 32, 128
     q, k, v = (torch.from_numpy(rng.randn(B, S, H, D).astype(np.float32))
                .to(dev, dtype) for _ in range(3))
     scale = 1.0 / math.sqrt(D)
@@ -168,7 +171,8 @@ def flash_case(dtype, dev, S):
     b, by = bound(4 * B * S * H * D * isz + B * H * S * 4, flops, peak)
     return {
         "kernel": "flash_attention_fwd", "S": S, "shape": [B, S, H, D],
-        "max_abs_err": err, "lse_max_abs_err": lse_err,
+        "body": FWD_BODY[dtype], "max_abs_err": err,
+        "lse_max_abs_err": lse_err,
         "kernel_ms": time_ms(lambda: flash_attention_fwd(q, k, v, True,
                                                          scale)),
         "plain_ms": time_ms(lambda: _flash_fwd_ref(q, k, v, True, scale)),
@@ -575,9 +579,9 @@ def varlen_case(dtype, dev, total=8192, H=16, D=128):
     import torch.nn.functional as F
     from paddle_tpu_torch.incubate import kernels as K
     from paddle_tpu_torch.incubate.kernels.flash_attention import (
-        _delta, _flash_bwd_ref, _flash_bwd_seg_dkv_ref, _flash_bwd_seg_dq_ref,
-        _flash_fwd_seg_ref, flash_attention_seg_fwd, flash_bwd_seg_dkv,
-        flash_bwd_seg_dq)
+        FWD_BODY, _delta, _flash_bwd_ref, _flash_bwd_seg_dkv_ref,
+        _flash_bwd_seg_dq_ref, _flash_fwd_seg_ref, flash_attention_seg_fwd,
+        flash_bwd_seg_dkv, flash_bwd_seg_dq)
     from paddle_tpu_torch.nn.functional import flash_attn_unpadded
     rng = np.random.RandomState(0)
     lens = _packed_lengths(rng, total)
@@ -618,7 +622,8 @@ def varlen_case(dtype, dev, total=8192, H=16, D=128):
     pairs = H * sum(n * (n + 1) // 2 for n in lens)
     bounds = _seg_bounds(dtype, q.element_size(), pairs, D, total, total, H)
     rec = {"kernel": "flash_attention_varlen", "tokens": total, "H": H,
-           "D": D, "segments": lens, "launches": launches,
+           "D": D, "segments": lens, "fwd_body": FWD_BODY[dtype],
+           "launches": launches,
            "max_abs_err": {"out": err, **errs},
            "fwd_ms": time_ms(lambda: flash_attention_seg_fwd(
                q4, k4, v4, seg, seg, True, scale), iters=5),
@@ -696,7 +701,7 @@ def segment_ids_case(dtype, dev, shape=(4, 2048, 16, 128)):
     the dense kernels' times on the same tensors beside it."""
     import torch
     from paddle_tpu_torch.incubate.kernels.flash_attention import (
-        _flash_bwd_ref, _flash_fwd_seg_ref, flash_attention_fwd,
+        FWD_BODY, _flash_bwd_ref, _flash_fwd_seg_ref, flash_attention_fwd,
         flash_attention_seg_fwd)
     from paddle_tpu_torch.nn.functional import flash_attention
     rng = np.random.RandomState(2)
@@ -720,6 +725,7 @@ def segment_ids_case(dtype, dev, shape=(4, 2048, 16, 128)):
                                      scale, seg=(seg, seg)), dtype)
     rec = {"kernel": "flash_attention(segment_ids=)", "shape": list(shape),
            "segments_per_row": [b + 1 for b in range(B)],
+           "fwd_body": FWD_BODY[dtype],
            "max_abs_err": {"out": err, **errs},
            "seg_fwd_ms": time_ms(lambda: flash_attention_seg_fwd(
                q, k, v, seg, seg, True, scale), iters=5),
@@ -848,7 +854,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     reports = _cuda.build_all()
     ptxas = {k: [ln.strip() for ln in log.splitlines() if "Used" in ln
-                 or "spill" in ln] for k, (_, log) in reports.items()}
+                 or "spill" in ln or "Performance Loss" in ln]
+             for k, (_, log) in reports.items()}
     emit({"phase": "device", "seconds": time.perf_counter() - t,
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
@@ -859,7 +866,8 @@ def main():
     results = []
     for dtype in (torch.bfloat16, torch.float32):
         rows = [rms_case(dtype, dev)]
-        rows += [flash_case(dtype, dev, S) for S in (16, 1024)]
+        rows += [flash_case(dtype, dev, shape) for shape in
+                 ((1, 16, 32, 128), (1, 1024, 32, 128), (4, 2048, 16, 128))]
         rows += [paged_case(dtype, dev, T) for T in (1, 16)]
         # decode: the smoke prompts' lengths at Llama-3-8B's heads, then
         # hd 64 and 256 at G 1 and 8 with lengths ending mid-page

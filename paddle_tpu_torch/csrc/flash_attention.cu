@@ -10,26 +10,32 @@
 // only where seg_q[b, i] == seg_k[b, j] (and i >= j when causal, which needs
 // S == Sk): the TPU's _seg_mask.  Masked probabilities are zeroed after the
 // exp, so a row that sees no key gives out = 0 and lse = -1e30 + log(1e-30),
-// the TPU kernel's finalize.  The seg ids are read per row and per key as
-// they are; nothing is broadcast to [B*H, S, 1] as the TPU's BlockSpecs
-// needed.  No tile is skipped across segments: the ids need not be sorted.
+// the TPU kernel's finalize.  Any S >= 1 works: ragged query and key tiles
+// are masked.
 //
-// Grid (ceil(S / 16), B*H): one block per (batch-head, tile of 16 query
-// rows); the TPU grid's sequential K axis becomes the key loop inside the
-// block (attention_tile.cuh), which stops at the tile's last visible key, so
-// whole tiles above the diagonal are skipped.  Any S >= 1 works: the last
-// query tile and the last key tile are masked, there is no S >= 128 gate.
+// Bound on the H100: in bf16 the causal forward does ~S/4 flops per byte
+// of q, k, v and out, against the card's ~295 (989 TFLOP/s on the tensor
+// cores over 3.35 TB/s): at the training S = 2048 it is bound by operations
+// on the tensor cores, at the prefill S = 1024 the two bounds nearly meet.
+// Either way the work must run on the tensor cores.  Two bodies:
 //
-// Bound on the H100: at the prefill shapes (S up to 2048, D = 128) the
-// causal forward does ~S/2 * 4 flops per byte of q/k/v, so an ideal kernel
-// is bound by operations on the tensor cores.  This first kernel computes in
-// f32 on the CUDA cores (FMA, 67 TFLOP/s peak, not 989), which is the main
-// gap to its bound; the design's answer so far is to keep every
-// intermediate on chip (scores and probabilities in registers, one K/V tile
-// in shared memory, nothing S x S in device memory).  wgmma with TMA-fed
-// tiles is the later step; for packed segments, skipping key tiles that no
-// row of the query tile can see (needs a per-tile segment range) too.
+// - bf16: attention_wgmma.cuh.  Both products on the tensor cores (wgmma
+//   m64n64k16, bf16 operands, f32 accumulators in registers: the TPU
+//   kernel's jnp.dot(..., preferred_element_type=f32) with p rounded to bf16
+//   before PV), K/V tiles of 64 keys fed by TMA into a ring of 2-4 shared
+//   stages by a producer warp while two consumer warpgroups (one for
+//   D = 256) of 64 query rows each compute, softmax on the accumulator
+//   fragments.  Grid (B*H, ceil(S / rows a block)), the longest causal query
+//   tiles first; a block walks key tiles only up to its last visible key,
+//   and under SEG skips every tile whose segment-id range misses the
+//   block's (exact for unsorted ids).
+// - f32: the CUDA-core body of attention_tile.cuh (tensor cores in f32
+//   would mean TF32, outside the f32 tolerance).  Grid (ceil(S / 16), B*H):
+//   one block per (batch-head, tile of 16 query rows); the TPU grid's
+//   sequential K axis becomes the key loop inside the block, which stops at
+//   the tile's last visible key.  No tile is skipped across segments.
 #include "attention_tile.cuh"
+#include "attention_wgmma.cuh"
 
 using namespace ptt;
 
@@ -133,14 +139,17 @@ static cudaError_t run(const void* q, const void* k, const void* v,
     if (D == 128) return (int)PTT_RUN(float, 128, SEG_);                     \
     if (D == 256) return (int)PTT_RUN(float, 256, SEG_);                     \
   } else if (dtype == 1) {                                                   \
-    if (D == 64) return (int)PTT_RUN(__nv_bfloat16, 64, SEG_);               \
-    if (D == 128) return (int)PTT_RUN(__nv_bfloat16, 128, SEG_);             \
-    if (D == 256) return (int)PTT_RUN(__nv_bfloat16, 256, SEG_);             \
+    if (D == 64) return (int)PTT_RUN_WG(64, SEG_);                           \
+    if (D == 128) return (int)PTT_RUN_WG(128, SEG_);                         \
+    if (D == 256) return (int)PTT_RUN_WG(256, SEG_);                         \
   }                                                                          \
   return (int)cudaErrorInvalidValue;
 
 #define PTT_RUN(TY, HD_, SEG_)                                               \
   run<TY, HD_, SEG_>(q, k, v, seg_q, seg_k, out, lse, B, S, Sk, H, causal,   \
+                     scale, static_cast<cudaStream_t>(stream))
+#define PTT_RUN_WG(HD_, SEG_)                                                \
+  wg::run<HD_, SEG_>(q, k, v, seg_q, seg_k, out, lse, B, S, Sk, H, causal,   \
                      scale, static_cast<cudaStream_t>(stream))
 
 // dtype: 0 float32, 1 bfloat16.  Each returns cudaGetLastError() after its
@@ -164,4 +173,5 @@ extern "C" int flash_attention_seg_fwd(const void* q, const void* k,
   PTT_DISPATCH(true)
 }
 #undef PTT_RUN
+#undef PTT_RUN_WG
 #undef PTT_DISPATCH

@@ -3,8 +3,9 @@ dense and segment-masked (varlen), forward and backward.
 
 - `attention_ref`: the plain PyTorch version, counterpart of `attention_xla`.
 - `flash_attention_fwd`: `(out, lse)` through the hand-written CUDA kernel
-  `csrc/flash_attention.cu` (the port of `_flash_fwd_kernel`) on a CUDA
-  tensor, or its plain version on a CPU tensor.
+  `csrc/flash_attention.cu` (the port of `_flash_fwd_kernel`; bf16 on the
+  tensor cores, float32 on the CUDA cores, `FWD_BODY`) on a CUDA tensor,
+  or its plain version on a CPU tensor.
 - `flash_attention_bwd`: `(dq, dk, dv)` through the two kernels of
   `csrc/flash_attention_bwd.cu` (the ports of `_flash_bwd_dkv_kernel` and
   `_flash_bwd_dq_kernel`), or `_flash_bwd_ref` on a CPU tensor.
@@ -179,6 +180,10 @@ def _flash_bwd_seg_dq_ref(q, k, v, g, lse, delta, seg_q, seg_k, causal,
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The forward body each dtype runs on the card (flash_attention.cu's
+# dispatch): bf16 the tensor-core body (attention_wgmma.cuh), float32 the
+# CUDA-core one (attention_tile.cuh), since tensor cores in f32 mean TF32.
+FWD_BODY = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}
 
 
 def _check_card(name, q, k, v, causal, *more):

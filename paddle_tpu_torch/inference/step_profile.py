@@ -41,7 +41,7 @@ def _group(name):
         return "paged_attention"
     if "paged_decode_kernel" in n:
         return "paged_decode"
-    if "flash_fwd_kernel" in n:
+    if "flash_fwd_" in n:               # flash_fwd_kernel, flash_fwd_wgmma
         return "attention_fwd"
     if "flash_bwd_" in n:
         return "attention_bwd"

@@ -12,6 +12,8 @@ float32 and 2e-2 * max(1, max|ref|) in bfloat16 (p and dS round to bf16 at
 the same points in both, so only a flipped rounding of a term differs; the
 floor of 1 covers gradients that are rounding noise, as at S = 1).  The
 segment-masked kernels are held to the same tolerances as the dense ones.
+In bf16 the forward runs the tensor-core body (wgmma, `FWD_BODY`), in
+float32 the CUDA-core one; both are held to the same plain versions.
 """
 import math
 
@@ -71,8 +73,12 @@ def test_rms_kernel_matches_plain(dev, dtype, shape):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("D", [64, 128, 256])
-@pytest.mark.parametrize("S,Sk,causal", [(1, 1, True), (17, 17, True),
-                                         (130, 130, True), (17, 40, False)])
+@pytest.mark.parametrize("S,Sk,causal", [
+    (1, 1, True), (17, 17, True), (130, 130, True), (17, 40, False),
+    # one tile less, exactly and one more; many tiles of the K/V ring and
+    # the diagonal tiles of both warpgroups; ragged keys, no mask
+    (63, 63, True), (64, 64, True), (65, 65, True), (1000, 1000, True),
+    (2048, 2048, True), (100, 333, False)])
 def test_flash_kernel_matches_plain(dev, dtype, D, S, Sk, causal):
     rng = np.random.RandomState(S + D)
     q = _randn(rng, (2, S, 3, D), dtype, dev)
@@ -363,6 +369,58 @@ def test_seg_flash_kernels_match_plain(dev, dtype, D, S, Sk, causal):
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert a.dtype == dtype and a.shape == b.shape
         _grad_close(name, a, b, dtype)
+
+
+def _skip_patterns(name, rng):
+    """(causal, seg_q [1, S], seg_k [1, Sk]) whose 64-key tiles the bf16
+    forward either skips (segment-id range disjoint from the query block's)
+    or masks element by element."""
+    if name == "interleaved":           # 0, 5, 0, 5, ...: every range overlaps
+        ids = np.tile([0, 5], 550)
+        return True, ids, ids
+    if name == "length_one":            # each row sees itself only
+        ids = np.arange(1024)
+        return True, ids, ids
+    if name == "every_offset":          # a boundary at each offset of a tile
+        ids = np.repeat(np.arange(64), 65)
+        return True, ids, ids
+    if name == "unsorted_runs":         # packed runs, ids shuffled
+        lens = []
+        while sum(lens) < 2048:
+            lens.append(int(rng.randint(1, 300)))
+        lens[-1] -= sum(lens) - 2048
+        ids = np.repeat(rng.permutation(len(lens)), lens)
+        return True, ids, ids
+    # blind: long runs of query rows whose id no key has (across many
+    # tiles), beside rows that see some keys
+    sq = np.repeat([7, 0, 7, 2, 1, 9], [300, 100, 200, 150, 74, 200])
+    sk = np.repeat([0, 1, 2, 3], [400, 300, 500, 300])
+    return False, sq, sk
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("name", ["interleaved", "length_one",
+                                  "every_offset", "unsorted_runs", "blind"])
+def test_seg_fwd_kernel_skips_tiles_exactly(dev, dtype, D, name):
+    """The segment forward at S >= 1024, where the bf16 body skips key
+    tiles by segment-id range: out, lse (rows that see nothing: out 0, lse
+    -1e30 + log(1e-30)) against `_flash_fwd_seg_ref`; one launch."""
+    rng = np.random.RandomState(D)
+    causal, sq, sk = _skip_patterns(name, rng)
+    S, Sk = len(sq), len(sk)
+    q = _randn(rng, (1, S, 2, D), dtype, dev)
+    k, v = (_randn(rng, (1, Sk, 2, D), dtype, dev) for _ in range(2))
+    sq, sk = (torch.from_numpy(a.astype(np.int32)[None]).to(dev)
+              for a in (sq, sk))
+    scale = 1.0 / math.sqrt(D)
+    before = flash_attention_seg_fwd.launches
+    out, lse = flash_attention_seg_fwd(q, k, v, sq, sk, causal, scale)
+    torch.cuda.synchronize()
+    assert flash_attention_seg_fwd.launches == before + 1
+    ref_out, ref_lse = _flash_fwd_seg_ref(q, k, v, sq, sk, causal, scale)
+    _close(out, ref_out, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

@@ -51,6 +51,15 @@ CASES = {
     "full_cross": (False, [[0, 0, 1, 1, 1, 3, 2, 2, 2],
                            [0, 0, 0, 1, 1, 1, 1, 1, 1]],
                    [[0, 0, 0, 1, 1, 2, 2], [1, 1, 1, 1, 1, 1, 1]]),
+    # the id patterns the card's tile-skipping tests use, at this size:
+    # interleaved ids, segments of one token, runs of blind rows
+    "causal_interleaved": (True, [[0, 5, 0, 5, 0, 5, 0, 5, 0],
+                                  [5, 0, 5, 0, 5, 0, 5, 0, 5]], None),
+    "causal_length_one": (True, [[0, 1, 2, 3, 4, 5, 6, 7, 8],
+                                 [3, 1, 4, 0, 5, 9, 2, 6, 8]], None),
+    "full_blind_runs": (False, [[7, 7, 7, 0, 0, 1, 7, 1, 1],
+                                [0, 1, 0, 1, 0, 1, 0, 1, 0]],
+                        [[0, 0, 0, 0, 1, 1, 1], [2, 2, 2, 2, 2, 2, 2]]),
 }
 
 
