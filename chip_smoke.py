@@ -6,7 +6,9 @@
 Phases, one JSON line each (with its seconds):
 1. device   — requires CUDA, prints the card's name and power limit,
                disables TF32 for the float32 references, builds the CUDA
-               kernels (one nvcc per source, in parallel).
+               kernels (one nvcc per source, in parallel); each source's
+               build seconds, ptxas's register/spill/serialization lines,
+               and per tensor-core backward kernel its registers and spills.
 2. kernels  — each hand-written kernel against its plain PyTorch version on
                the same numpy-seeded inputs at the serving shapes (and the
                flash forward at the training shape [4,2048,16,128] too), in
@@ -39,9 +41,11 @@ Phases, one JSON line each (with its seconds):
                `_flash_bwd_ref` at [1,1024,32,128] causal, the training
                shape [4,2048,16,128] causal and [2,333,8,64] full, in bf16
                and float32: max abs errors, dkv/dq/pair/plain ms, the
-               backward alone of SDPA as the library yardstick, bounds;
-               then RMSNorm's dx, dw through its autograd Function against
-               autograd through `_rms_ref`.
+               backward alone of SDPA as the library yardstick, bounds, the
+               body that ran (`body`: `wgmma` for the dense bf16 pair at D 64
+               and 128, `BWD_BODY`), and at the training shape two calls'
+               dq, dk, dv bitwise equal; then RMSNorm's dx, dw through its
+               autograd Function against autograd through `_rms_ref`.
 9. varlen      — GPT-3 1.3B attention width (H 16, D 128), bf16 and float32:
                8192 packed tokens in segments of 128-2048 through
                `flash_attn_unpadded(causal=True)` forward and backward (the
@@ -67,6 +71,7 @@ or when any phase fails.
 """
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -101,6 +106,24 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_kernels(log, match):
+    """[entry function, its "Used ... registers" line, its spill line] for
+    each entry function whose mangled name contains `match`, from the
+    `nvcc -Xptxas -v` report `log`."""
+    found, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '(\S+)'", ln)
+        if m:
+            fn = m.group(1)
+            if match in fn:
+                found.setdefault(fn, ["", ""])
+        elif fn in found and "Used" in ln:
+            found[fn][0] = ln.strip()
+        elif fn in found and "spill" in ln:
+            found[fn][1] = ln.strip()
+    return [[fn, *v] for fn, v in found.items()]
 
 
 def bound(nbytes, flops, peak_flops):
@@ -317,8 +340,9 @@ def bwd_case(dtype, dev, shape, causal):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.incubate.kernels.flash_attention import (
-        _delta, _flash_bwd_dkv_ref, _flash_bwd_dq_ref, _flash_bwd_ref,
-        _flash_fwd_ref, flash_attention_bwd, flash_bwd_dkv, flash_bwd_dq)
+        BWD_BODY, _delta, _flash_bwd_dkv_ref, _flash_bwd_dq_ref,
+        _flash_bwd_ref, _flash_fwd_ref, flash_attention_bwd, flash_bwd_dkv,
+        flash_bwd_dq)
     rng = np.random.RandomState(shape[1])
     B, S, H, D = shape
     q, k, v, g = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
@@ -337,7 +361,13 @@ def bwd_case(dtype, dev, shape, causal):
             raise AssertionError(f"flash backward {name} {shape} {dtype}: "
                                  f"max abs err {err:.3g} > {lim:.3g}")
         errs[name] = err
-    del got, ref
+    # one owner per output tile, no atomics: the same bits on every call
+    again = flash_attention_bwd(q, k, v, out, lse, g, causal, scale)
+    bitwise = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    if not bitwise:
+        raise AssertionError(f"flash backward {shape} {dtype}: two calls on "
+                             f"the same inputs differ")
+    del got, ref, again
     delta = _delta(out, g).contiguous()
     isz = q.element_size()
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)   # visible (q,k)
@@ -352,7 +382,8 @@ def bwd_case(dtype, dev, shape, causal):
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     gt = g.transpose(1, 2).contiguous()
     rec = {"kernel": "flash_attention_bwd", "shape": list(shape),
-           "causal": causal, "max_abs_err": errs,
+           "causal": causal, "body": BWD_BODY[(dtype, D, False)],
+           "bitwise_deterministic": bitwise, "max_abs_err": errs,
            "dkv_ms": time_ms(lambda: flash_bwd_dkv(q, k, v, g, lse, delta,
                                                    causal, scale)),
            "dq_ms": time_ms(lambda: flash_bwd_dq(q, k, v, g, lse, delta,
@@ -856,11 +887,13 @@ def main():
     ptxas = {k: [ln.strip() for ln in log.splitlines() if "Used" in ln
                  or "spill" in ln or "Performance Loss" in ln]
              for k, (_, log) in reports.items()}
+    bwd_wgmma = ptxas_kernels(reports.get("flash_attention_bwd", (0, ""))[1],
+                              "wgmma")
     emit({"phase": "device", "seconds": time.perf_counter() - t,
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "built_s": {k: sec for k, (sec, _) in reports.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "ptxas_bwd_wgmma": bwd_wgmma})
 
     t = time.perf_counter()
     results = []
@@ -987,6 +1020,7 @@ def main():
         # the library yardstick is the pair's: SDPA's backward computes
         # dq, dk and dv in one call
         return {"kernel": f"flash_attention_bwd_{part}",
+                "body": train_bwd["body"],
                 "max_abs_err": max(train_bwd["max_abs_err"][e]
                                    for e in errs),
                 "kernel_ms": train_bwd[f"{part}_ms"],
@@ -1037,10 +1071,10 @@ def main():
          "paddle_tpu_torch/csrc/flash_attention.cu",
          "paddle_tpu/incubate/kernels/flash_attention.py:439"),
         (seg_row("dkv", ("dk", "dv")), "flash_bwd_seg_dkv", "cuda",
-         "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+         "paddle_tpu_torch/csrc/flash_attention_seg_bwd.cu",
          "paddle_tpu/incubate/kernels/flash_attention.py:487"),
         (seg_row("dq", ("dq",)), "flash_bwd_seg_dq", "cuda",
-         "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+         "paddle_tpu_torch/csrc/flash_attention_seg_bwd.cu",
          "paddle_tpu/incubate/kernels/flash_attention.py:530"),
     )
     runs = (rec3, rec4, rec5["bucketed"], rec5["chunked"], rec9, rec7, rec8)
@@ -1050,7 +1084,8 @@ def main():
         "launches": sum(rec["launches"][counter] for rec in runs),
         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        **({"body": r["body"]} if "body" in r else {})}
         for r, counter, route, source, replaces in table]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
 SOURCES = ("paged_attention", "paged_decode", "flash_attention",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "flash_attention_seg_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -8,7 +8,8 @@ dense and segment-masked (varlen), forward and backward.
   or its plain version on a CPU tensor.
 - `flash_attention_bwd`: `(dq, dk, dv)` through the two kernels of
   `csrc/flash_attention_bwd.cu` (the ports of `_flash_bwd_dkv_kernel` and
-  `_flash_bwd_dq_kernel`), or `_flash_bwd_ref` on a CPU tensor.
+  `_flash_bwd_dq_kernel`; bf16 at D 64/128 on the tensor cores, the rest on
+  the CUDA cores, `BWD_BODY`), or `_flash_bwd_ref` on a CPU tensor.
 - `flash_attention_fused`: the entry the model calls; differentiable
   through `FlashAttention`, the counterpart of `_flash_attention_core`'s
   `custom_vjp`, which saves `q, k, v, out, lse` for the backward.
@@ -17,7 +18,8 @@ dense and segment-masked (varlen), forward and backward.
 - Varlen: row i sees key j only where `seg_q[b, i] == seg_k[b, j]` (and
   `i >= j` when causal, which needs S == Sk): the TPU's `_seg_mask`.
   `flash_attention_seg_fwd`, `flash_bwd_seg_dkv` and `flash_bwd_seg_dq`
-  are the segment-masked instantiations of the same CUDA kernels (ports of
+  are the segment-masked instantiations of the CUDA kernels (the backward
+  pair's in `csrc/flash_attention_seg_bwd.cu`; ports of
   `_flash_fwd_seg_kernel`, `_flash_bwd_seg_dkv_kernel`,
   `_flash_bwd_seg_dq_kernel`), with plain versions `_flash_fwd_seg_ref`,
   `_flash_bwd_seg_dkv_ref`, `_flash_bwd_seg_dq_ref`.  Masked probabilities
@@ -184,6 +186,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # dispatch): bf16 the tensor-core body (attention_wgmma.cuh), float32 the
 # CUDA-core one (attention_tile.cuh), since tensor cores in f32 mean TF32.
 FWD_BODY = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}
+# The backward pair's body by (dtype, D, segment-masked), from the dispatch
+# of csrc/flash_attention_bwd.cu and flash_attention_seg_bwd.cu: the dense
+# bf16 pair at D = 64 and 128 runs the tensor-core body
+# (attention_bwd_wgmma.cuh); float32, the segment-masked pair and D = 256
+# (whose dK and dV accumulators fill a thread's registers) the CUDA-core one
+# (attention_bwd_tile.cuh).
+BWD_BODY = {(dtype, D, seg): "wgmma" if dtype == torch.bfloat16 and
+            D != 256 and not seg else "cuda_core"
+            for dtype in _DTYPE_CODE for D in (64, 128, 256)
+            for seg in (False, True)}
 
 
 def _check_card(name, q, k, v, causal, *more):
@@ -336,7 +348,7 @@ def flash_bwd_seg_dkv(q, k, v, g, lse, delta, seg_q, seg_k, causal, scale):
                                   delta, causal, scale)
     seg_q, seg_k = _check_seg("flash_bwd_seg_dkv", q, k, seg_q, seg_k)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _cuda.entry("flash_attention_bwd", "flash_attention_seg_bwd_dkv")
+    fn = _cuda.entry("flash_attention_seg_bwd", "flash_attention_seg_bwd_dkv")
     _cuda.check(fn(*ptrs, seg_q.data_ptr(), seg_k.data_ptr(), dk.data_ptr(),
                    dv.data_ptr(), *dims), "flash_attention_seg_bwd_dkv")
     flash_bwd_seg_dkv.launches += 1
@@ -352,7 +364,7 @@ def flash_bwd_seg_dq(q, k, v, g, lse, delta, seg_q, seg_k, causal, scale):
                                   causal, scale)
     seg_q, seg_k = _check_seg("flash_bwd_seg_dq", q, k, seg_q, seg_k)
     dq = torch.empty_like(q)
-    fn = _cuda.entry("flash_attention_bwd", "flash_attention_seg_bwd_dq")
+    fn = _cuda.entry("flash_attention_seg_bwd", "flash_attention_seg_bwd_dq")
     _cuda.check(fn(*ptrs, seg_q.data_ptr(), seg_k.data_ptr(), dq.data_ptr(),
                    *dims), "flash_attention_seg_bwd_dq")
     flash_bwd_seg_dq.launches += 1

@@ -13,7 +13,9 @@ the same points in both, so only a flipped rounding of a term differs; the
 floor of 1 covers gradients that are rounding noise, as at S = 1).  The
 segment-masked kernels are held to the same tolerances as the dense ones.
 In bf16 the forward runs the tensor-core body (wgmma, `FWD_BODY`), in
-float32 the CUDA-core one; both are held to the same plain versions.
+float32 the CUDA-core one; the dense backward pair runs the tensor-core
+body in bf16 at D 64 and 128 and the CUDA-core one otherwise (`BWD_BODY`).
+Each body is held to the same plain versions.
 """
 import math
 
@@ -22,7 +24,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.incubate.kernels.flash_attention import (
-    _flash_bwd_ref, _flash_fwd_ref, _flash_fwd_seg_ref, attention_ref,
+    BWD_BODY, _flash_bwd_ref, _flash_fwd_ref, _flash_fwd_seg_ref, attention_ref,
     attention_ref_segmented, flash_attention_bwd, flash_attention_fused,
     flash_attention_fwd, flash_attention_seg_bwd, flash_attention_seg_fwd,
     flash_attention_varlen, flash_bwd_dkv, flash_bwd_dq, flash_bwd_seg_dkv,
@@ -103,9 +105,14 @@ def _grad_close(name, got, ref, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("D", [64, 128, 256])
-@pytest.mark.parametrize("S,Sk,causal", [(1, 1, True), (17, 17, True),
-                                         (130, 130, True), (200, 200, True),
-                                         (17, 40, False), (70, 33, False)])
+@pytest.mark.parametrize("S,Sk,causal", [
+    (1, 1, True), (17, 17, True), (130, 130, True), (200, 200, True),
+    (17, 40, False), (70, 33, False),
+    # the tensor-core body's 64-row tiles: one less, exactly, one more, at
+    # one and two tiles; many tiles of the rings; ragged keys, no mask
+    (63, 63, True), (64, 64, True), (65, 65, True), (127, 127, True),
+    (128, 128, True), (129, 129, True), (1000, 1000, True),
+    (2048, 2048, True), (100, 333, False)])
 def test_flash_bwd_kernels_match_plain(dev, dtype, D, S, Sk, causal):
     """dkv and dq against `_flash_bwd_ref` on the plain forward's out and
     lse; ragged tiles on both axes, causal and full."""
@@ -125,6 +132,52 @@ def test_flash_bwd_kernels_match_plain(dev, dtype, D, S, Sk, causal):
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
         assert a.dtype == dtype and a.shape == b.shape
         _grad_close(name, a, b, dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S,Sk,causal", [(1000, 1000, True),
+                                         (100, 333, False)])
+def test_flash_bwd_is_bitwise_deterministic(dev, D, S, Sk, causal):
+    """One owner per output tile and no atomics: two bf16 backward calls on
+    the same inputs give the same bits of dq, dk and dv."""
+    rng = np.random.RandomState(S + D)
+    q, g = (_randn(rng, (2, S, 3, D), torch.bfloat16, dev) for _ in range(2))
+    k, v = (_randn(rng, (2, Sk, 3, D), torch.bfloat16, dev) for _ in range(2))
+    scale = 1.0 / math.sqrt(D)
+    out, lse = _flash_fwd_ref(q, k, v, causal, scale)
+    first = flash_attention_bwd(q, k, v, out, lse, g, causal, scale)
+    for _ in range(2):
+        again = flash_attention_bwd(q, k, v, out, lse, g, causal, scale)
+        for name, a, b in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("seg", [False, True], ids=["dense", "seg"])
+def test_bwd_body_names_the_kernels_that_run(dev, dtype, D, seg):
+    """`BWD_BODY[(dtype, D, seg)]` names the body whose two kernels the
+    backward launches, read from the profiler's device kernel names."""
+    rng = np.random.RandomState(D)
+    q, k, v, g = (_randn(rng, (1, 130, 2, D), dtype, dev) for _ in range(4))
+    ids = torch.zeros((1, 130), dtype=torch.int32, device=dev)
+    ids[:, 70:] = 1
+    out, lse = _flash_fwd_ref(q, k, v, True, 0.1)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        if seg:
+            flash_attention_seg_bwd(q, k, v, ids, ids, out, lse, g, True, 0.1)
+        else:
+            flash_attention_bwd(q, k, v, out, lse, g, True, 0.1)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    suffix = {"wgmma": "_wgmma", "cuda_core": "_kernel"}[
+        BWD_BODY[(dtype, D, seg)]]
+    for part in ("flash_bwd_dkv", "flash_bwd_dq"):
+        ran = [n for n in names if part in n]
+        assert len(ran) == 1 and part + suffix in ran[0], (part, names)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

@@ -177,3 +177,41 @@ def test_launch_counters_cover_the_three_kernels():
                      "flash_bwd_seg_dkv", "flash_bwd_seg_dq"}
     K.reset_launches()
     assert set(K.launches().values()) == {0}
+
+
+def test_cuda_entries_name_the_library_that_defines_them():
+    """Each C entry of `_cuda.SIGNATURES` is defined in exactly one source
+    of `_cuda.SOURCES` (every `csrc/*.cu` is one), and every wrapper's
+    `_cuda.entry(library, function)` names that source: a wrong library
+    name would show only on the card."""
+    import re
+    from pathlib import Path
+
+    from paddle_tpu_torch.incubate.kernels import _cuda
+    defined = {}
+    for src in sorted(_cuda.CSRC.glob("*.cu")):
+        for fn in re.findall(r'extern "C" int (\w+)\(', src.read_text()):
+            assert fn not in defined, fn
+            defined[fn] = src.stem
+    assert set(_cuda.SOURCES) == set(defined.values())
+    assert set(defined) == set(_cuda.SIGNATURES)
+    calls = []
+    for py in Path(K.__file__).parent.glob("*.py"):
+        calls += re.findall(r'_cuda\.entry\("(\w+)",\s*"(\w+)"\)',
+                            py.read_text())
+    assert {fn for _, fn in calls} == set(defined)
+    for lib, fn in calls:
+        assert defined[fn] == lib, (lib, fn)
+
+
+def test_bwd_body_covers_every_instantiation():
+    """`BWD_BODY` names a body for each (dtype, D, segment-masked) the
+    backward kernels take: the tensor-core one only for the dense bf16 pair
+    at D 64 and 128."""
+    from paddle_tpu_torch.incubate.kernels.flash_attention import BWD_BODY
+    assert set(BWD_BODY) == {(dt, D, seg)
+                             for dt in (torch.float32, torch.bfloat16)
+                             for D in (64, 128, 256) for seg in (False, True)}
+    assert {k for k, v in BWD_BODY.items() if v == "wgmma"} == {
+        (torch.bfloat16, 64, False), (torch.bfloat16, 128, False)}
+    assert set(BWD_BODY.values()) == {"wgmma", "cuda_core"}
