@@ -8,7 +8,8 @@ Phases, one JSON line each (with its seconds):
                disables TF32 for the float32 references, builds the CUDA
                kernels (one nvcc per source, in parallel); each source's
                build seconds, ptxas's register/spill/serialization lines,
-               and per tensor-core backward kernel its registers and spills.
+               and per tensor-core backward kernel (dense and SEG) its
+               registers and spills, none of which may spill.
 2. kernels  — each hand-written kernel against its plain PyTorch version on
                the same numpy-seeded inputs at the serving shapes (and the
                flash forward at the training shape [4,2048,16,128] too), in
@@ -49,11 +50,16 @@ Phases, one JSON line each (with its seconds):
 9. varlen      — GPT-3 1.3B attention width (H 16, D 128), bf16 and float32:
                8192 packed tokens in segments of 128-2048 through
                `flash_attn_unpadded(causal=True)` forward and backward (the
-               segment-masked forward, dkv and dq kernels; its composed route
-               must not run), held against the plain versions; a non-causal
-               case with other key offsets and `flash_attention(segment_ids=)`
-               at [4,2048,16,128]; kernel, plain, SDPA (block-diagonal mask)
-               and bound times, beside the dense kernels at [4,2048,16,128].
+               segment-masked forward, dkv and dq kernels, once each; no
+               composed route may run), held against the plain versions;
+               two calls of the segment backward pair bitwise equal; the
+               tiles the bf16 bodies keep after skipping by segment-id range
+               (counted on the host from the ids) beside the causal walk's;
+               the body each half runs (`fwd_body`, `bwd_body`); a
+               non-causal case with other key offsets and
+               `flash_attention(segment_ids=)` at [4,2048,16,128]; kernel,
+               plain, SDPA (block-diagonal mask) and bound times, beside the
+               dense kernels at [4,2048,16,128].
 10. train_parity — float32, TF32 off, Llama-3-8B width with 2 layers, B=1,
                S=1024: `loss_fn` and its gradients through the kernels
                against the same with `attn_impl=attention_ref`.
@@ -64,7 +70,8 @@ Phases, one JSON line each (with its seconds):
 
 Then one line `{"kernels": [...]}` for all nine kernels (launches summed over
 the main-path runs of phases 3, 4, 5, 9, 10 and 11, each with the counts
-zeroed just before it and read just after) and, last,
+zeroed just before it and read just after; none of them may take an
+entry's composed route for shapes the kernels do not take) and, last,
 `{"ok": true, "device": ...}`.
 Exits non-zero, with no result line, without CUDA, outside the repository,
 or when any phase fails.
@@ -124,6 +131,24 @@ def ptxas_kernels(log, match):
         elif fn in found and "spill" in ln:
             found[fn][1] = ln.strip()
     return [[fn, *v] for fn, v in found.items()]
+
+
+def no_spills(rows):
+    """Raise if a `ptxas_kernels` row reports spill stores or loads."""
+    for fn, _, spill in rows:
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      spill)
+        if m is None or m.groups() != ("0", "0"):
+            raise AssertionError(f"{fn} spills: {spill!r}")
+
+
+def no_composed(what):
+    """Raise if a model-facing entry took its composed route since the
+    counts were zeroed (the full-width paths run the kernels only)."""
+    from paddle_tpu_torch.incubate import kernels as K
+    routed = K.composed_calls()
+    if any(routed.values()):
+        raise AssertionError(f"{what}: composed routes taken {routed}")
 
 
 def bound(nbytes, flops, peak_flops):
@@ -461,6 +486,7 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.launches()
+    no_composed("serve")
     outs = eng.outputs
     st = eng.stats()
     for rid, o in outs.items():
@@ -538,6 +564,7 @@ def decode_logits(params, cfg, prompt, dev):
             table, torch.tensor([n], dtype=torch.int32, device=dev), cfg)
         torch.cuda.synchronize()
         launches = K.launches()["paged_attention_kernel"]
+        no_composed("decode_step_paged")
         ref = gpt.forward(params, np.append(prompt, tok)[None], cfg)[0, -1]
     got, ref = got[0].float(), ref.float()
     top2 = torch.topk(ref, 2)
@@ -593,6 +620,34 @@ def _grad_errs(name, got, ref, dtype):
     return errs
 
 
+def seg_kept_tiles(ids, causal):
+    """Tiles the bf16 segment backward pair walks for one head of one
+    packed row of segment ids (self-attention: S == Sk), as its producers
+    judge them: dq blocks of 128 query rows over 64-key tiles, dkv blocks
+    of 64 keys over 64-query tiles; a tile is kept where its [min, max] of
+    ids meets the block's.  Returns the kept counts and the counts of the
+    causal (or full) walk without skipping."""
+    S = len(ids)
+
+    def rng_(a, b):
+        return int(ids[a:b].min()), int(ids[a:b].max())
+
+    def walk(r0, r1, first, end):         # owned rows r0..r1 - 1
+        lo, hi = rng_(r0, r1)
+        kept = 0
+        for t in range(first, (end + 63) // 64):
+            a, b = rng_(64 * t, min(64 * t + 64, end))
+            kept += b >= lo and a <= hi
+        return kept, (end + 63) // 64 - first
+
+    dq = [walk(r0, min(r0 + 128, S), 0, min(r0 + 128, S) if causal else S)
+          for r0 in range(0, S, 128)]
+    dkv = [walk(k0, min(k0 + 64, S), k0 // 64 if causal else 0, S)
+           for k0 in range(0, S, 64)]
+    return {"dq": sum(k for k, _ in dq), "dq_walk": sum(n for _, n in dq),
+            "dkv": sum(k for k, _ in dkv), "dkv_walk": sum(n for _, n in dkv)}
+
+
 def _packed_lengths(rng, total):
     """Segment lengths drawn in [128, 2048], the last cut to fit."""
     lens = []
@@ -610,7 +665,7 @@ def varlen_case(dtype, dev, total=8192, H=16, D=128):
     import torch.nn.functional as F
     from paddle_tpu_torch.incubate import kernels as K
     from paddle_tpu_torch.incubate.kernels.flash_attention import (
-        FWD_BODY, _delta, _flash_bwd_ref, _flash_bwd_seg_dkv_ref,
+        BWD_BODY, FWD_BODY, _delta, _flash_bwd_ref, _flash_bwd_seg_dkv_ref,
         _flash_bwd_seg_dq_ref, _flash_fwd_seg_ref, flash_attention_seg_fwd,
         flash_bwd_seg_dkv, flash_bwd_seg_dq)
     from paddle_tpu_torch.nn.functional import flash_attn_unpadded
@@ -629,6 +684,7 @@ def varlen_case(dtype, dev, total=8192, H=16, D=128):
     out.backward(g)
     torch.cuda.synchronize()
     launches = K.launches()
+    no_composed("varlen")
     if flash_attn_unpadded.composed_calls != composed:
         raise AssertionError("flash_attn_unpadded took its composed route")
     if (launches["flash_attention_seg_fwd"], launches["flash_bwd_seg_dkv"],
@@ -650,11 +706,21 @@ def varlen_case(dtype, dev, total=8192, H=16, D=128):
     o, lse = flash_attention_seg_fwd(q4, k4, v4, seg, seg, True, scale)
     delta = _delta(o, g4).contiguous()
     bwd = (q4, k4, v4, g4, lse, delta, seg, seg, True, scale)
+    # one owner per output tile, no atomics: the same bits on every call
+    first, again = ((flash_bwd_seg_dq(*bwd), *flash_bwd_seg_dkv(*bwd))
+                    for _ in range(2))
+    if not all(bool(torch.equal(a, b)) for a, b in zip(first, again)):
+        raise AssertionError(f"varlen backward ({dtype}): two calls on the "
+                             f"same inputs differ")
+    del first, again
     pairs = H * sum(n * (n + 1) // 2 for n in lens)
     bounds = _seg_bounds(dtype, q.element_size(), pairs, D, total, total, H)
+    kept = seg_kept_tiles(np.repeat(np.arange(len(lens)), lens), True)
     rec = {"kernel": "flash_attention_varlen", "tokens": total, "H": H,
            "D": D, "segments": lens, "fwd_body": FWD_BODY[dtype],
-           "launches": launches,
+           "bwd_body": BWD_BODY[(dtype, D, True)],
+           "bwd_bitwise_deterministic": True,
+           "bwd_tiles_per_head": kept, "launches": launches,
            "max_abs_err": {"out": err, **errs},
            "fwd_ms": time_ms(lambda: flash_attention_seg_fwd(
                q4, k4, v4, seg, seg, True, scale), iters=5),
@@ -800,6 +866,7 @@ def train_parity(dev):
         torch.cuda.synchronize()
         if impl is None:
             launches = K.launches()
+            no_composed("train_parity")
         runs.append((loss.item(), grads))
         del loss
     (lk, gk), (lr, gr) = runs
@@ -843,6 +910,7 @@ def train(dev):
         losses.append(float(trainer.train_step(tok, lab)))  # syncs
         times.append(time.perf_counter() - t0)
     launches = K.launches()
+    no_composed("train")
     per_step = {k: v / (steps + 1) for k, v in launches.items()}
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train: non-finite loss {losses}")
@@ -887,8 +955,11 @@ def main():
     ptxas = {k: [ln.strip() for ln in log.splitlines() if "Used" in ln
                  or "spill" in ln or "Performance Loss" in ln]
              for k, (_, log) in reports.items()}
-    bwd_wgmma = ptxas_kernels(reports.get("flash_attention_bwd", (0, ""))[1],
-                              "wgmma")
+    bwd_wgmma = [row for src in ("flash_attention_bwd",
+                                 "flash_attention_seg_bwd")
+                 for row in ptxas_kernels(reports.get(src, (0, ""))[1],
+                                          "wgmma")]
+    no_spills(bwd_wgmma)
     emit({"phase": "device", "seconds": time.perf_counter() - t,
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
@@ -1038,6 +1109,7 @@ def main():
         # computes dq, dk and dv together), under the block-diagonal mask
         return {"kernel": "flash_attention_seg_" +
                           (part if part == "fwd" else f"bwd_{part}"),
+                "body": vl["fwd_body" if part == "fwd" else "bwd_body"],
                 "max_abs_err": max(vl["max_abs_err"][e] for e in errs),
                 "kernel_ms": vl[f"{part}_ms"],
                 "plain_ms": vl[f"{part}_plain_ms"],

@@ -1,9 +1,9 @@
 // The CUDA-core body of the attention backward (dK/dV and dQ, dense or
 // segment-masked): f32 math on tiles staged by ordinary loads.  The f32
-// kernels, the SEG instantiations and D = 256 in bf16 run it; the bf16
-// dense pair at D = 64 and 128 runs the tensor-core body of
-// attention_bwd_wgmma.cuh.  Included by flash_attention_bwd.cu (dense) and
-// flash_attention_seg_bwd.cu (SEG), so nvcc builds the two in parallel.
+// kernels and D = 256 in bf16 run it; the bf16 pair at D = 64 and 128,
+// dense and SEG, runs the tensor-core body of attention_bwd_wgmma.cuh.
+// Included by flash_attention_bwd.cu (dense) and flash_attention_seg_bwd.cu
+// (SEG), so nvcc builds the two in parallel.
 //
 // q, k, v, dO are [B, S, H, D] read in place (no transpose to [B*H, S, D]);
 // lse and delta = rowsum(dO * O) are [B*H, S] float32; dq, dk, dv come out
@@ -11,9 +11,10 @@
 // (the wrapper checks).  Any S works: ragged query and key tiles are masked.
 // The SEG instantiations also take seg_q [B, S] and seg_k [B, Sk] int32 and
 // AND seg_q[row] == seg_k[col] into the same per-element mask, staged per
-// tile beside lse and delta; the causal tile ranges stay those of the dense
-// kernels, and no tile is skipped across segments (the ids need not be
-// sorted).
+// tile beside lse and delta.  Within the causal tile ranges of the dense
+// kernels they skip each walked tile whose segment-id range is disjoint
+// from the owned tile's (no equal pair there, so this is exact for
+// unsorted ids), as the tensor-core body does.
 //
 // Order of rounding, as in the TPU kernels: s = (q . k) * scale and
 // p = exp(s - lse) in f32; p is rounded to dO's dtype before dV += p^T dO;
@@ -43,6 +44,8 @@
 // (4x4 scores, 4x8 outputs at D=128) gives several FMAs per shared-memory
 // load.
 #pragma once
+
+#include <climits>
 
 #include "attention_tile.cuh"
 
@@ -106,6 +109,31 @@ __device__ __forceinline__ void stage_seg(int* dst, const int* __restrict__ seg,
                                           int p0, int n) {
   for (int r = threadIdx.x; r < ROWS; r += kBwdThreads)
     dst[r] = p0 + r < n ? seg[p0 + r] : 0;
+}
+
+// [min, max] of ids[p0 .. p1 - 1], computed by every thread (the owned
+// tile's range, once a block).
+__device__ __forceinline__ int2 owned_range(const int* __restrict__ ids,
+                                            int p0, int p1) {
+  int2 r = make_int2(INT_MAX, INT_MIN);
+  for (int p = p0; p < p1; ++p) {
+    r.x = min(r.x, ids[p]);
+    r.y = max(r.y, ids[p]);
+  }
+  return r;
+}
+
+// Does the walked tile ids[p0 .. min(p0 + ROWS, n) - 1] hold an id <=
+// own.y and one >= own.x, i.e. does its range meet own?  A barrier: the
+// answer is the same on every thread of the block.
+template <int ROWS>
+__device__ __forceinline__ bool tile_meets(const int* __restrict__ ids,
+                                           int p0, int n, int2 own) {
+  const int p = p0 + threadIdx.x;
+  const bool in = threadIdx.x < ROWS && p < n;
+  const int x = in ? ids[p] : 0;
+  const bool below = __syncthreads_or(in && x <= own.y);
+  return __syncthreads_or(in && x >= own.x) && below;
 }
 
 __device__ __forceinline__ float comp(const float4& v, int e) {
@@ -229,8 +257,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 4 * G::CD; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
+  int2 own = make_int2(0, 0);
+  if constexpr (SEG)
+    own = owned_range(seg_k + (size_t)b * Sk, k0, min(k0 + G::BK, Sk));
   const int q_first = causal ? (k0 / G::BQ) * G::BQ : 0;
   for (int q0 = q_first; q0 < S; q0 += G::BQ) {
+    if constexpr (SEG)
+      if (!tile_meets<G::BQ>(seg_q + (size_t)b * S, q0, S, own)) continue;
     __syncthreads();              // K/V staged, or the previous tile consumed
     auto query_row = [&](int r) -> long long {
       const int pos = q0 + r;
@@ -321,8 +354,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 4 * G::CD; ++c) acc[i][c] = 0.f;
 
+  int2 own = make_int2(0, 0);
+  if constexpr (SEG)
+    own = owned_range(seg_q + (size_t)b * S, q0, min(q0 + G::BQ, S));
   const int kv_end = causal ? min(q0 + G::BQ, S) : Sk;
   for (int k0 = 0; k0 < kv_end; k0 += G::BK) {
+    if constexpr (SEG)
+      if (!tile_meets<G::BK>(seg_k + (size_t)b * Sk, k0, kv_end, own))
+        continue;
     __syncthreads();              // Q/dO staged, or the previous tile consumed
     auto key_row = [&](int r) -> long long {
       const int pos = k0 + r;

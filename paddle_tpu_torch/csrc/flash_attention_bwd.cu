@@ -13,8 +13,8 @@
 //   the f32 tolerance; at D = 256 the dkv kernel's dK and dV accumulators
 //   alone fill a thread's 255 registers).
 //
-// The segment-masked twins are flash_attention_seg_bwd.cu's, built in
-// parallel with this file.
+// The segment-masked twins are flash_attention_seg_bwd.cu's (the same two
+// bodies, chosen the same way), built in parallel with this file.
 #include "attention_bwd_tile.cuh"
 #include "attention_bwd_wgmma.cuh"
 
@@ -44,11 +44,13 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
     if (D == 256) return (int)PTT_DKV(float, 256);
   } else if (dtype == 1) {
     if (D == 64)
-      return (int)wg::run_bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, S,
-                                      Sk, H, causal, scale, st);
+      return (int)wg::run_bwd_dkv<64, false>(q, k, v, dout, lse, delta,
+                                             nullptr, nullptr, dk, dv, B, S,
+                                             Sk, H, causal, scale, st);
     if (D == 128)
-      return (int)wg::run_bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B,
-                                       S, Sk, H, causal, scale, st);
+      return (int)wg::run_bwd_dkv<128, false>(q, k, v, dout, lse, delta,
+                                              nullptr, nullptr, dk, dv, B, S,
+                                              Sk, H, causal, scale, st);
     if (D == 256) return (int)PTT_DKV(__nv_bfloat16, 256);
   }
   return (int)cudaErrorInvalidValue;
@@ -67,11 +69,13 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
     if (D == 256) return (int)PTT_DQ(float, 256);
   } else if (dtype == 1) {
     if (D == 64)
-      return (int)wg::run_bwd_dq<64>(q, k, v, dout, lse, delta, dq, B, S, Sk,
-                                     H, causal, scale, st);
+      return (int)wg::run_bwd_dq<64, false>(q, k, v, dout, lse, delta,
+                                            nullptr, nullptr, dq, B, S, Sk, H,
+                                            causal, scale, st);
     if (D == 128)
-      return (int)wg::run_bwd_dq<128>(q, k, v, dout, lse, delta, dq, B, S, Sk,
-                                      H, causal, scale, st);
+      return (int)wg::run_bwd_dq<128, false>(q, k, v, dout, lse, delta,
+                                             nullptr, nullptr, dq, B, S, Sk,
+                                             H, causal, scale, st);
     if (D == 256) return (int)PTT_DQ(__nv_bfloat16, 256);
   }
   return (int)cudaErrorInvalidValue;

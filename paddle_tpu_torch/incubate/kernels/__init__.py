@@ -1,10 +1,15 @@
 """The port's kernels.  `LAUNCH_COUNTED` lists the wrappers that launch a
-hand-written kernel, each with a plain integer `launches` counter; the
-kernel modules import triton and build CUDA code only inside a launch."""
-from .flash_attention import (flash_attention_fwd, flash_attention_seg_fwd,
+hand-written kernel, each with a plain integer `launches` counter; `ROUTED`
+lists the model-facing entries that send shapes the kernels do not take to
+their plain versions on the card, each counting those calls in
+`composed_calls`.  The kernel modules import triton and build CUDA code
+only inside a launch."""
+from .flash_attention import (flash_attention_fused, flash_attention_fwd,
+                              flash_attention_seg_fwd, flash_attention_varlen,
                               flash_bwd_dkv, flash_bwd_dq, flash_bwd_seg_dkv,
                               flash_bwd_seg_dq)
-from .paged_attention import (paged_attention_kernel,
+from .paged_attention import (paged_attention_decode, paged_attention_kernel,
+                              paged_prefill_attention,
                               paged_prefill_attention_kernel)
 from .rms_norm import rms_norm_fused
 
@@ -12,12 +17,21 @@ LAUNCH_COUNTED = (paged_prefill_attention_kernel, flash_attention_fwd,
                   rms_norm_fused, paged_attention_kernel, flash_bwd_dkv,
                   flash_bwd_dq, flash_attention_seg_fwd, flash_bwd_seg_dkv,
                   flash_bwd_seg_dq)
+ROUTED = (flash_attention_fused, flash_attention_varlen,
+          paged_prefill_attention, paged_attention_decode)
 
 
 def reset_launches() -> None:
+    """Zero every launch count and every composed-route count."""
     for fn in LAUNCH_COUNTED:
         fn.launches = 0
+    for fn in ROUTED:
+        fn.composed_calls = 0
 
 
 def launches() -> dict:
     return {fn.__name__: fn.launches for fn in LAUNCH_COUNTED}
+
+
+def composed_calls() -> dict:
+    return {fn.__name__: fn.composed_calls for fn in ROUTED}

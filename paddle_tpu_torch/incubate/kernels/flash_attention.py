@@ -12,22 +12,29 @@ dense and segment-masked (varlen), forward and backward.
   the CUDA cores, `BWD_BODY`), or `_flash_bwd_ref` on a CPU tensor.
 - `flash_attention_fused`: the entry the model calls; differentiable
   through `FlashAttention`, the counterpart of `_flash_attention_core`'s
-  `custom_vjp`, which saves `q, k, v, out, lse` for the backward.
+  `custom_vjp`, which saves `q, k, v, out, lse` for the backward.  On the
+  card, shapes the kernels do not take (`kernel_takes`) go to
+  `attention_ref`, as the reference sends them to `attention_xla`, counted
+  in `flash_attention_fused.composed_calls`.
 - `remat_policy_save_attention`: block remat that keeps those tensors and
   replays the rest of the block.
 - Varlen: row i sees key j only where `seg_q[b, i] == seg_k[b, j]` (and
   `i >= j` when causal, which needs S == Sk): the TPU's `_seg_mask`.
   `flash_attention_seg_fwd`, `flash_bwd_seg_dkv` and `flash_bwd_seg_dq`
   are the segment-masked instantiations of the CUDA kernels (the backward
-  pair's in `csrc/flash_attention_seg_bwd.cu`; ports of
-  `_flash_fwd_seg_kernel`, `_flash_bwd_seg_dkv_kernel`,
-  `_flash_bwd_seg_dq_kernel`), with plain versions `_flash_fwd_seg_ref`,
+  pair's in `csrc/flash_attention_seg_bwd.cu`, on the same bodies as the
+  dense pair, `BWD_BODY`; ports of `_flash_fwd_seg_kernel`,
+  `_flash_bwd_seg_dkv_kernel`, `_flash_bwd_seg_dq_kernel`; the bf16
+  forward and both backward bodies skip the tiles whose segment-id ranges
+  are disjoint, where the TPU's skip only causal ones), with plain
+  versions `_flash_fwd_seg_ref`,
   `_flash_bwd_seg_dkv_ref`, `_flash_bwd_seg_dq_ref`.  Masked probabilities
   are zeroed after the exp, so a row that sees no key gives out 0 and
   lse = NEG_INF + log(1e-30); `attention_ref_segmented` (the counterpart
   of `attention_xla_segmented`) gives the mean of V there instead.
   `FlashAttentionSeg` is the autograd Function, `flash_attention_varlen`
-  the entry.
+  the entry (on the card, shapes the kernels do not take go to
+  `attention_ref_segmented`, counted in its `composed_calls`).
 """
 from __future__ import annotations
 
@@ -187,15 +194,24 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # CUDA-core one (attention_tile.cuh), since tensor cores in f32 mean TF32.
 FWD_BODY = {torch.bfloat16: "wgmma", torch.float32: "cuda_core"}
 # The backward pair's body by (dtype, D, segment-masked), from the dispatch
-# of csrc/flash_attention_bwd.cu and flash_attention_seg_bwd.cu: the dense
-# bf16 pair at D = 64 and 128 runs the tensor-core body
-# (attention_bwd_wgmma.cuh); float32, the segment-masked pair and D = 256
-# (whose dK and dV accumulators fill a thread's registers) the CUDA-core one
+# of csrc/flash_attention_bwd.cu and flash_attention_seg_bwd.cu: the bf16
+# pair at D = 64 and 128, dense and segment-masked, runs the tensor-core
+# body (attention_bwd_wgmma.cuh); float32 and D = 256 (whose dK and dV
+# accumulators fill a thread's registers) the CUDA-core one
 # (attention_bwd_tile.cuh).
 BWD_BODY = {(dtype, D, seg): "wgmma" if dtype == torch.bfloat16 and
-            D != 256 and not seg else "cuda_core"
+            D != 256 else "cuda_core"
             for dtype in _DTYPE_CODE for D in (64, 128, 256)
             for seg in (False, True)}
+
+
+def kernel_takes(q, k, causal):
+    """Whether the attention kernels take these shapes ([B, S|Sk, H, D]):
+    D in {64, 128, 256}, and S == Sk when causal.  The entries send other
+    shapes on the card to the plain route, as the reference's
+    `_shapes_ok_for_pallas` sends them to its XLA twin."""
+    return q.shape[-1] in (64, 128, 256) and \
+        (not causal or q.shape[1] == k.shape[1])
 
 
 def _check_card(name, q, k, v, causal, *more):
@@ -410,11 +426,16 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention_fused(q, k, v, mask=None, causal=False, scale=None,
                           dropout_p=0.0, generator=None):
     """Entry used by the model.  q,k,v: [B, S, H, D].  Differentiable.  On
-    the card a mask or dropout raises (their lanes are not ported yet); the
-    CPU keeps the plain `attention_ref` for them."""
+    the card, shapes the kernels do not take go to `attention_ref` (causal
+    keeps row + (Sk - Sq) >= col), counted in `.composed_calls`; a mask or
+    dropout raises (their lanes are not ported yet).  The CPU keeps the
+    plain versions for all of them."""
     D = q.shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(D)
     if mask is None and dropout_p == 0.0:
+        if q.device.type != "cpu" and not kernel_takes(q, k, causal):
+            flash_attention_fused.composed_calls += 1
+            return attention_ref(q, k, v, causal=causal, scale=s)
         return FlashAttention.apply(q, k, v, causal, s)
     if q.device.type != "cpu":
         raise NotImplementedError(
@@ -423,6 +444,9 @@ def flash_attention_fused(q, k, v, mask=None, causal=False, scale=None,
             "mask and dropout lanes)")
     return attention_ref(q, k, v, mask=mask, causal=causal, scale=s,
                          dropout_p=dropout_p, generator=generator)
+
+
+flash_attention_fused.composed_calls = 0
 
 
 def flash_attention_seg_bwd(q, k, v, seg_q, seg_k, out, lse, g, causal,
@@ -465,13 +489,20 @@ def flash_attention_varlen(q, k, v, segment_ids, kv_segment_ids=None,
     """Segment-masked attention (varlen packing): q, k, v [B, S, H, D],
     segment_ids [B, S] (kv_segment_ids [B, Sk], default the same) — tokens
     attend only within their own segment.  Differentiable.  The kernels on
-    the card (D in {64, 128, 256}, float32 or bfloat16, causal needs
-    S == Sk, or raise); their plain versions on the CPU."""
+    the card (float32 or bfloat16, or raise) where `kernel_takes` the
+    shapes, else `attention_ref_segmented`, counted in `.composed_calls`;
+    their plain versions on the CPU."""
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     seg_q = torch.as_tensor(segment_ids, device=q.device).to(torch.int32)
     seg_k = seg_q if kv_segment_ids is None else \
         torch.as_tensor(kv_segment_ids, device=q.device).to(torch.int32)
+    if q.device.type != "cpu" and not kernel_takes(q, k, causal):
+        flash_attention_varlen.composed_calls += 1
+        return attention_ref_segmented(q, k, v, seg_q, seg_k, causal, s)
     return FlashAttentionSeg.apply(q, k, v, seg_q, seg_k, causal, s)
+
+
+flash_attention_varlen.composed_calls = 0
 
 
 def remat_policy_save_attention(qkv_fn, attend, tail_fn, x):

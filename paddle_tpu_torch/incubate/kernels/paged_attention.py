@@ -29,6 +29,11 @@ decode step's one query per slot, q `[B, H, hd]`, sees the kv positions
   `paged_serve_attention`: the reference's entries, same argument order.
   `mesh` (tensor-parallel) and `kv_scales` (int8 pool) belong to later
   slices and raise.
+
+On the card the entries send a head dim the kernels do not take (hd not
+in {64, 128, 256}) to the plain versions, as the reference sends it to its
+XLA twins, counted in `paged_prefill_attention.composed_calls` (all three
+prefill-contract entries) and `paged_attention_decode.composed_calls`.
 """
 from __future__ import annotations
 
@@ -189,12 +194,24 @@ def _single_chip_fp(mesh, kv_scales):
             "Queue 1: int8 weights and KV)")
 
 
+def _kernel_takes(q):
+    """Whether the paged kernels take q's head dim."""
+    return q.shape[-1] in (64, 128, 256)
+
+
 def paged_prefill_attention(q, k_pages, v_pages, page_table, q_offset, valid,
                             scale=None, mesh=None, kv_scales=None):
     """Chunked-prefill entry (reference `paged_prefill_attention`)."""
     _single_chip_fp(mesh, kv_scales)
+    if q.device.type != "cpu" and not _kernel_takes(q):
+        paged_prefill_attention.composed_calls += 1
+        return paged_prefill_attention_ref(q, k_pages, v_pages, page_table,
+                                           q_offset, valid, scale=scale)
     return paged_prefill_attention_kernel(q, k_pages, v_pages, page_table,
                                           q_offset, valid, scale=scale)
+
+
+paged_prefill_attention.composed_calls = 0
 
 
 def paged_verify_attention(q, k_pages, v_pages, page_table, lengths, valid,
@@ -221,5 +238,12 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, lengths,
     reference `paged_attention_decode`): one query per slot over its
     lengths[b] cached positions."""
     _single_chip_fp(mesh, kv_scales)
+    if q.device.type != "cpu" and not _kernel_takes(q):
+        paged_attention_decode.composed_calls += 1
+        return paged_attention_ref(q, k_pages, v_pages, page_table, lengths,
+                                   scale=scale)
     return paged_attention_kernel(q, k_pages, v_pages, page_table, lengths,
                                   scale=scale)
+
+
+paged_attention_decode.composed_calls = 0

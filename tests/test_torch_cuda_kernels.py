@@ -13,9 +13,9 @@ the same points in both, so only a flipped rounding of a term differs; the
 floor of 1 covers gradients that are rounding noise, as at S = 1).  The
 segment-masked kernels are held to the same tolerances as the dense ones.
 In bf16 the forward runs the tensor-core body (wgmma, `FWD_BODY`), in
-float32 the CUDA-core one; the dense backward pair runs the tensor-core
-body in bf16 at D 64 and 128 and the CUDA-core one otherwise (`BWD_BODY`).
-Each body is held to the same plain versions.
+float32 the CUDA-core one; the backward pair, dense and segment-masked,
+runs the tensor-core body in bf16 at D 64 and 128 and the CUDA-core one
+otherwise (`BWD_BODY`).  Each body is held to the same plain versions.
 """
 import math
 
@@ -397,12 +397,17 @@ def _seg_inputs(rng, dtype, dev, S, Sk, D, causal):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("D", [64, 128, 256])
-@pytest.mark.parametrize("S,Sk,causal", [(1, 1, True), (77, 77, True),
-                                         (200, 200, True), (70, 33, False),
-                                         (130, 130, False)])
+@pytest.mark.parametrize("S,Sk,causal", [
+    (1, 1, True), (77, 77, True), (200, 200, True), (70, 33, False),
+    (130, 130, False),
+    # the tensor-core backward's 64-row tiles (128-row dq blocks): one less,
+    # exactly, one more, at one and two tiles; many tiles of the rings
+    (63, 63, True), (64, 64, True), (65, 65, True), (127, 127, True),
+    (128, 128, True), (129, 129, True), (1000, 1000, True)])
 def test_seg_flash_kernels_match_plain(dev, dtype, D, S, Sk, causal):
     """Forward (out, lse) and the backward pair under the segment mask,
-    ragged tiles, rows with no visible key (out 0, lse -1e30)."""
+    ragged tiles, rows with no visible key (out 0, lse -1e30); causal
+    cases hold one batch row of sorted ids and one of unsorted ids."""
     rng = np.random.RandomState(S + Sk + D)
     (q, k, v, g), (sq, sk) = _seg_inputs(rng, dtype, dev, S, Sk, D, causal)
     scale = 1.0 / math.sqrt(D)
@@ -474,6 +479,172 @@ def test_seg_fwd_kernel_skips_tiles_exactly(dev, dtype, D, name):
     ref_out, ref_lse = _flash_fwd_seg_ref(q, k, v, sq, sk, causal, scale)
     _close(out, ref_out, dtype)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+def _skip_case(rng, dtype, dev, D, name):
+    """A `_skip_patterns` case at one batch row, two heads: (causal, q,
+    k, v, dO, seg_q, seg_k)."""
+    causal, sq, sk = _skip_patterns(name, rng)
+    S, Sk = len(sq), len(sk)
+    q, g = (_randn(rng, (1, S, 2, D), dtype, dev) for _ in range(2))
+    k, v = (_randn(rng, (1, Sk, 2, D), dtype, dev) for _ in range(2))
+    sq, sk = (torch.from_numpy(a.astype(np.int32)[None]).to(dev)
+              for a in (sq, sk))
+    return causal, q, k, v, g, sq, sk
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("name", ["interleaved", "length_one",
+                                  "every_offset", "unsorted_runs", "blind"])
+def test_seg_bwd_kernels_skip_tiles_exactly(dev, dtype, D, name):
+    """The segment backward pair on the forward's tile-skip patterns, where
+    both bodies skip walked tiles by segment-id range (query tiles in dkv,
+    key tiles in dq): dq, dk, dv against `_flash_bwd_ref` on the plain
+    forward's out and lse (blind rows: lse ~ -1e30, gradient 0); one launch
+    of each kernel."""
+    rng = np.random.RandomState(D + 1)
+    causal, q, k, v, g, sq, sk = _skip_case(rng, dtype, dev, D, name)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = _flash_fwd_seg_ref(q, k, v, sq, sk, causal, scale)
+    before = (flash_bwd_seg_dkv.launches, flash_bwd_seg_dq.launches)
+    got = flash_attention_seg_bwd(q, k, v, sq, sk, out, lse, g, causal,
+                                  scale)
+    torch.cuda.synchronize()
+    assert (flash_bwd_seg_dkv.launches, flash_bwd_seg_dq.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = _flash_bwd_ref(q, k, v, out, lse, g, causal, scale, seg=(sq, sk))
+    for part, a, b in zip(("dq", "dk", "dv"), got, ref):
+        _grad_close(part, a, b, dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("name", ["unsorted_runs", "blind"])
+def test_seg_flash_bwd_is_bitwise_deterministic(dev, D, name):
+    """One owner per output tile and no atomics under the segment mask too:
+    two bf16 calls of the pair give the same bits of dq, dk and dv."""
+    rng = np.random.RandomState(D + 2)
+    causal, q, k, v, g, sq, sk = _skip_case(rng, torch.bfloat16, dev, D,
+                                            name)
+    out, lse = _flash_fwd_seg_ref(q, k, v, sq, sk, causal, 0.1)
+    first = flash_attention_seg_bwd(q, k, v, sq, sk, out, lse, g, causal, 0.1)
+    for _ in range(2):
+        again = flash_attention_seg_bwd(q, k, v, sq, sk, out, lse, g, causal,
+                                        0.1)
+        for part, a, b in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(a, b), part
+
+
+# (D, S, Sk, causal) the kernels do not take: the entries route them to the
+# plain versions on the card, as the reference routes them to XLA
+ROUTED_CASES = {"hd16": (16, 40, 40, True), "hd96": (96, 40, 40, True),
+                "causal_short_q": (64, 24, 40, True),
+                "causal_long_q": (128, 40, 24, True)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(ROUTED_CASES))
+def test_entries_route_shapes_the_kernels_do_not_take(dev, dtype, name):
+    """`flash_attention_fused` (forward and gradients), `flash_attention_
+    varlen` and, at hd 16 and 96, the four paged entries give their plain
+    versions' values on the card through the counted composed route, and
+    launch no kernel."""
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.incubate.kernels.paged_attention import (
+        paged_attention_decode, paged_prefill_attention,
+        paged_serve_attention, paged_verify_attention)
+    D, S, Sk, causal = ROUTED_CASES[name]
+    rng = np.random.RandomState(D + S)
+    q, g = (_randn(rng, (2, S, 3, D), dtype, dev) for _ in range(2))
+    k, v = (_randn(rng, (2, Sk, 3, D), dtype, dev) for _ in range(2))
+    seg_q, seg_k = (torch.from_numpy(np.sort(rng.randint(0, 3, (2, L)), 1)
+                                     .astype(np.int32)).to(dev)
+                    for L in (S, Sk))
+    K.reset_launches()
+    results = []
+    for fn in (flash_attention_fused, attention_ref):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ts, causal=causal)
+        out.backward(g)
+        results.append([out.detach()] + [t.grad for t in ts])
+    for got, ref in zip(*results):
+        _close(got, ref, dtype)
+    _close(flash_attention_varlen(q, k, v, seg_q, seg_k, causal=causal),
+           attention_ref_segmented(q, k, v, seg_q, seg_k, causal,
+                                   1.0 / math.sqrt(D)), dtype)
+    paged = D not in (64, 128, 256)
+    if paged:
+        args, valid = _paged_inputs(rng, dtype, dev, 5, D, 8)
+        ref = paged_prefill_attention_ref(*args)
+        for entry in (paged_prefill_attention, paged_verify_attention,
+                      paged_serve_attention):
+            got = entry(*args)
+            for b, n in enumerate(valid):
+                _close(got[b, :n], ref[b, :n], dtype)
+        args, lengths = _decode_inputs(rng, dtype, dev, D, 4, 16)
+        live = lengths > 0
+        _close(paged_attention_decode(*args)[live],
+               paged_attention_ref(*args)[live], dtype)
+    torch.cuda.synchronize()
+    assert K.composed_calls() == {
+        "flash_attention_fused": 1, "flash_attention_varlen": 1,
+        "paged_prefill_attention": 3 if paged else 0,
+        "paged_attention_decode": 1 if paged else 0}
+    assert set(K.launches().values()) == {0}
+
+
+def test_hd16_model_trains_and_serves_on_card(dev):
+    """A `gpt_tiny` config (head dim 16, which no attention kernel takes)
+    takes a float32 train step on the card with the CPU's loss, and serves
+    greedy requests with the CPU's streams (a divergence passes only as a
+    tie), every attention call on the counted plain route."""
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
+
+    cfg = gpt.gpt_tiny()
+    cpu = gpt.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def on(d):
+        return {k: ({kk: vv.clone().to(d) for kk, vv in v.items()}
+                    if isinstance(v, dict) else v.clone().to(d))
+                for k, v in cpu.items()}
+
+    tok = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 64))
+    lab = np.roll(tok, -1, axis=1)
+    losses = [float(HybridParallelTrainer(
+        cfg, MeshConfig(remat=True), device="cpu", params=on("cpu"))
+        .train_step(tok, lab))]
+    K.reset_launches()
+    losses.append(float(HybridParallelTrainer(
+        cfg, MeshConfig(remat=True), device=dev, params=on(dev))
+        .train_step(tok, lab)))
+    assert K.composed_calls()["flash_attention_fused"] == cfg.num_layers
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    rng = np.random.RandomState(3)
+    reqs = [(rng.randint(0, cfg.vocab_size, n), 6) for n in (5, 23, 40)]
+    outs = {}
+    for params, d in ((on("cpu"), "cpu"), (on(dev), dev)):
+        K.reset_launches()
+        eng = LLMEngine(params, cfg, num_slots=2, page_size=16,
+                        max_model_len=128, device=d)
+        for prompt, n in reqs:
+            eng.add_request(prompt, max_new_tokens=n)
+        outs[str(d)] = eng.run()
+    routed = K.composed_calls()
+    assert routed["flash_attention_fused"] > 0
+    assert routed["paged_prefill_attention"] > 0
+    assert set(K.launches().values()) == {0}
+    for rid, ref in outs["cpu"].items():
+        a, b = ref.token_ids, outs[str(dev)][rid].token_ids
+        assert len(b) == len(a) == 6
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = np.concatenate([ref.prompt, np.asarray(a[:i], np.int32)])
+        top2 = torch.topk(gpt.forward(cpu, seq[None], cfg)[0, -1], 2).values
+        assert float(top2[0] - top2[1]) < 1e-4, (rid, i, a, b)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

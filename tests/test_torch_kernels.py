@@ -206,12 +206,12 @@ def test_cuda_entries_name_the_library_that_defines_them():
 
 def test_bwd_body_covers_every_instantiation():
     """`BWD_BODY` names a body for each (dtype, D, segment-masked) the
-    backward kernels take: the tensor-core one only for the dense bf16 pair
-    at D 64 and 128."""
+    backward kernels take: the tensor-core one for the bf16 pair at D 64
+    and 128, dense and segment-masked."""
     from paddle_tpu_torch.incubate.kernels.flash_attention import BWD_BODY
     assert set(BWD_BODY) == {(dt, D, seg)
                              for dt in (torch.float32, torch.bfloat16)
                              for D in (64, 128, 256) for seg in (False, True)}
     assert {k for k, v in BWD_BODY.items() if v == "wgmma"} == {
-        (torch.bfloat16, 64, False), (torch.bfloat16, 128, False)}
+        (torch.bfloat16, D, seg) for D in (64, 128) for seg in (False, True)}
     assert set(BWD_BODY.values()) == {"wgmma", "cuda_core"}
