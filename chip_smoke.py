@@ -8,15 +8,25 @@ Phases, one JSON line each (with its seconds):
                disables TF32 for the float32 references, builds the CUDA
                kernels (one nvcc per source, in parallel); each source's
                build seconds, ptxas's register/spill/serialization lines,
-               and per tensor-core backward kernel (dense and SEG) its
-               registers and spills, none of which may spill.
+               and per tensor-core backward kernel (dense and SEG) and per
+               paged prefill kernel (`ptxas_paged_prefill`, 24
+               instantiations) its registers and spills, none of which may
+               spill.
 2. kernels  — each hand-written kernel against its plain PyTorch version on
                the same numpy-seeded inputs at the serving shapes (and the
                flash forward at the training shape [4,2048,16,128] too), in
                bf16 and float32: max abs error (valid rows only for paged
                attention), kernel/plain/library times (CUDA events); each
                flash-forward result names the body that ran (`body`: the
-               tensor-core `wgmma` body in bf16, `cuda_core` in float32).
+               tensor-core `wgmma` body in bf16, `cuda_core` in float32);
+               the paged prefill rows (T 1 and 16) give the split plan
+               (ck, nsplit, gc, row tiles), each slot's lane, the kernel's
+               device time at other ck (`ck_sweep_device_ms`), and hold
+               padding rows 0 and two calls bitwise equal.  The paged and
+               decode rows also give the kernel's and the library call's
+               device time (`device_ms`, `library_device_ms`: the calls
+               timed behind a sleep kernel, without the host's launch
+               cost).
 3. engine_bucketed — Llama-3-8B at full width (all 32 layers), bf16, random
                weights from a seeded generator, 8 greedy requests of 64-1024
                prompt tokens x 32 new tokens through `LLMEngine` with
@@ -107,6 +117,26 @@ def time_ms(fn, iters=20, warmup=3):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Device time of one call: a sleep kernel holds the card while the
+    host enqueues the calls, so the events time them back to back on the
+    device, without the host's launch cost that `time_ms` includes where
+    the kernel is shorter than it."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)           # ~10 ms; 20 calls enqueue in ~1
     start.record()
     for _ in range(iters):
         fn()
@@ -262,16 +292,28 @@ def paged_inputs(dtype, dev, T):
 def paged_case(dtype, dev, T):
     import torch
     import torch.nn.functional as F
+    from paddle_tpu_torch.incubate.kernels import paged_attention as PA
     from paddle_tpu_torch.incubate.kernels.paged_attention import (
-        paged_prefill_attention_kernel, paged_prefill_attention_ref)
+        _prefill_split_plan, paged_prefill_attention_kernel,
+        paged_prefill_attention_ref)
     args, q_offset, valid = paged_inputs(dtype, dev, T)
     got = paged_prefill_attention_kernel(*args)
     ref = paged_prefill_attention_ref(*args)
     err = max(check_close("paged_attention", got[b, :n], ref[b, :n], dtype)
               for b, n in enumerate(valid))
+    if any(bool(got[b, n:].any()) for b, n in enumerate(valid)):
+        raise AssertionError(f"paged_attention T={T} ({dtype}): padding "
+                             f"rows are not 0")
+    # the split merge reads the partials in split order: the same bits on
+    # every call
+    if not torch.equal(got, paged_prefill_attention_kernel(*args)):
+        raise AssertionError(f"paged_attention T={T} ({dtype}): two calls "
+                             f"on the same inputs differ")
     q, kp, vp, table, qo, vl = args
     B, _, H, hd = q.shape
     P, page, KVH, _ = kp.shape
+    plan = _prefill_split_plan(B, T, H, KVH, hd, page, table.shape[1],
+                               PA.PREFILL_CK)
     isz = q.element_size()
     # what this data needs: each slot's keys up to its last real query,
     # each valid row's causal span
@@ -282,6 +324,20 @@ def paged_case(dtype, dev, T):
                 for b in range(B) for t in range(int(valid[b])))
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     b_ms, by = bound(nbytes, flops, peak)
+    kernel_ms = time_ms(lambda: paged_prefill_attention_kernel(*args))
+    # the kernel at other keys a block, for tuning the plan's ck (keyed by
+    # the ck the plan takes, which grows where the workspace would pass
+    # its cap)
+    sweep, base = {}, PA.PREFILL_CK
+    for ck in (64, 128, 256, 512):
+        PA.PREFILL_CK = ck
+        try:
+            took = _prefill_split_plan(B, T, H, KVH, hd, page,
+                                       table.shape[1], ck).ck
+            sweep[took] = device_ms(
+                lambda: paged_prefill_attention_kernel(*args))
+        finally:
+            PA.PREFILL_CK = base
     # library yardstick: SDPA over a gathered copy (the gather is not timed)
     S = table.shape[1] * page
     kg = torch.repeat_interleave(
@@ -298,10 +354,18 @@ def paged_case(dtype, dev, T):
         "kernel": "paged_prefill_attention", "T": T,
         "shape": {"q": list(q.shape), "pool": list(kp.shape),
                   "q_offset": q_offset.tolist(), "valid": valid.tolist()},
-        "max_abs_err": err,
-        "kernel_ms": time_ms(lambda: paged_prefill_attention_kernel(*args)),
+        "plan": {"ck": plan.ck, "nsplit": plan.nsplit, "gc": plan.gc,
+                 "row_tiles": plan.row_tiles},
+        "lanes": ["stream" if H // KVH * int(n) <= plan.gc else "tile"
+                  for n in valid],
+        "padding_rows_zero": True, "bitwise_deterministic": True,
+        "max_abs_err": err, "kernel_ms": kernel_ms,
+        "device_ms": device_ms(lambda: paged_prefill_attention_kernel(*args)),
+        "ck_sweep_device_ms": sweep,
         "plain_ms": time_ms(lambda: paged_prefill_attention_ref(*args)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask)),
+        "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
             qt, kg, vg, attn_mask=mask)),
         "bound_ms": b_ms, "bound_by": by}
 
@@ -352,8 +416,11 @@ def decode_case(dtype, dev, lengths, hd=128, G=4, KVH=8, page=16):
                   "lengths": lengths.tolist()},
         "max_abs_err": err,
         "kernel_ms": time_ms(lambda: paged_attention_kernel(*args)),
+        "device_ms": device_ms(lambda: paged_attention_kernel(*args)),
         "plain_ms": time_ms(lambda: paged_attention_ref(*args)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask, enable_gqa=True)),
+        "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
             qt, kg, vg, attn_mask=mask, enable_gqa=True)),
         "bound_ms": b_ms, "bound_by": by}
 
@@ -960,11 +1027,18 @@ def main():
                  for row in ptxas_kernels(reports.get(src, (0, ""))[1],
                                           "wgmma")]
     no_spills(bwd_wgmma)
+    paged = ptxas_kernels(reports.get("paged_attention", (0, ""))[1],
+                          "paged_prefill_kernel")
+    if "paged_attention" in reports and len(paged) != 24:
+        raise AssertionError(f"ptxas reports {len(paged)} paged prefill "
+                             f"kernels, want 24")
+    no_spills(paged)
     emit({"phase": "device", "seconds": time.perf_counter() - t,
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "built_s": {k: sec for k, (sec, _) in reports.items()},
-          "ptxas": ptxas, "ptxas_bwd_wgmma": bwd_wgmma})
+          "ptxas": ptxas, "ptxas_bwd_wgmma": bwd_wgmma,
+          "ptxas_paged_prefill": paged})
 
     t = time.perf_counter()
     results = []

@@ -137,8 +137,10 @@ struct Horizon {
   }
 };
 
-// Attend the warp's rows over keys [0, kv_end).  The mask says which keys a
-// row sees: mask.tag(pos) is read once per key, for every lane of the last
+// Attend the warp's rows over keys [kv_begin, kv_end) (the paged kernel
+// walks one split of a slot's keys; every other caller starts at 0).  The
+// mask says which keys a row sees: mask.tag(pos) is read once per key, for
+// every lane of the last
 // tile too (what the mask needs to know of it, e.g. its segment id), and
 // mask(r, pos, tag) decides for row r.  A masked score enters the running
 // max as kNegInf.  A mask under which a row may see no key of a tile (or at
@@ -151,11 +153,12 @@ __device__ __forceinline__ void attend(const float* qs, float* ks, float* vs,
                                        const T* __restrict__ k,
                                        const T* __restrict__ v, KeyOff key_off,
                                        int kv_end, Mask mask,
-                                       float scale, RowState<HD>& st) {
+                                       float scale, RowState<HD>& st,
+                                       int kv_begin = 0) {
   constexpr int VN = Vec<T>::N, CH = HD / VN, KS = Smem<HD>::kStride;
   constexpr int DPL = HD / 32;
   const int lane = threadIdx.x & 31;
-  for (int k0 = 0; k0 < kv_end; k0 += kKeys) {
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kKeys) {
     __syncthreads();                    // q staged / previous tile consumed
     for (int c = threadIdx.x; c < kKeys * CH; c += kThreads) {
       const int j = c / CH, d = (c % CH) * VN, pos = k0 + j;

@@ -34,7 +34,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "paged_prefill_attention": (
         _P, _P, _P, _P, _P, _P, _P,             # q k v table q_offset valid out
+        _P, _P,                                 # ws count
         _I, _I, _I, _I, _I, _I, _I,             # B T H KVH hd page max_pages
+        _I, _I, _I,                             # ck nsplit gc
         _F, _I, _P),                            # scale dtype stream
     "paged_decode_attention": (
         _P, _P, _P, _P, _P, _P,                 # q k v table lengths out

@@ -22,9 +22,11 @@ decode step's one query per slot, q `[B, H, hd]`, sees the kv positions
   `paged_prefill_attention_xla`): gathers the pool through the table.
 - `paged_prefill_attention_kernel`: the hand-written CUDA kernel
   `csrc/paged_attention.cu` (the port of `_paged_prefill_kernel`) on a CUDA
-  tensor, the plain version on a CPU tensor.  The kernel skips keys past a
-  slot's last real query, so padding rows differ from the plain version by
-  design: compare rows t < valid only.
+  tensor, the plain version on a CPU tensor.  The kernel writes 0 to padding
+  rows (t >= valid), where the plain version attends under the row's
+  horizon: compare rows t < valid only.  `_prefill_split_plan` gives its
+  grid: each slot's key range split across blocks of `ck` keys, merged in
+  the kernel by the last block of each row tile.
 - `paged_prefill_attention` / `paged_verify_attention` /
   `paged_serve_attention`: the reference's entries, same argument order.
   `mesh` (tensor-parallel) and `kv_scales` (int8 pool) belong to later
@@ -37,7 +39,9 @@ prefill-contract entries) and `paged_attention_decode.composed_calls`.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -100,11 +104,82 @@ def _check_card(name, q, k_pages, v_pages, page_table, *per_slot):
     return ts
 
 
+PREFILL_CK = 128        # keys a block walks (tuned on the card, PERF.md)
+ROW_TILE = 16           # query rows of the tile lane (kBlockRows)
+PARTIAL_BYTES = 64 << 20    # cap on the split workspace
+
+
+class PrefillSplitPlan(NamedTuple):
+    """The grid of `csrc/paged_attention.cu`, from host-known shapes only.
+
+    The kernel's grid is (nsplit, row_tiles, B * KVH).  ck: keys a block
+    walks; nsplit: blocks over one row tile's key range (ceil(max_pages *
+    page / ck)); gc: the stream lane's row capacity, the smallest of 1, 2,
+    4, 8 that holds min(G * T, 8); row_tiles: the tile lane's
+    ceil(T * G / 16); ws_acc / ws_ml: the f32 partials
+    [tiles, nsplit, 16, hd] and (m, l) [2, tiles, 16, nsplit] (tiles =
+    B * KVH * row_tiles); counters: one int32 per tile."""
+    ck: int
+    nsplit: int
+    gc: int
+    row_tiles: int
+    ws_acc: Tuple[int, int, int, int]
+    ws_ml: Tuple[int, int, int, int]
+    counters: int
+
+    @property
+    def ws_numel(self):
+        """f32 elements of the workspace; 0 when no tile splits."""
+        if self.nsplit == 1:
+            return 0
+        return math.prod(self.ws_acc) + math.prod(self.ws_ml)
+
+
+@functools.lru_cache(maxsize=64)
+def _prefill_split_plan(B, T, H, KVH, hd, page, max_pages, ck=PREFILL_CK):
+    """The split plan for q [B, T, H, hd] over a [*, page, KVH, hd] pool
+    with `max_pages` table columns.  Where B * KVH * row_tiles * nsplit
+    partials of [16, hd + 2] f32 would pass PARTIAL_BYTES (long chunks:
+    many row tiles, which fill the card anyway), the blocks walk more keys
+    (ck grows in steps of 32) so the workspace stays under it."""
+    G = H // KVH
+    S = max_pages * page
+    row_tiles = -(-(T * G) // ROW_TILE)
+    tiles = B * KVH * row_tiles
+    cap = max(1, PARTIAL_BYTES // (tiles * ROW_TILE * (hd + 2) * 4))
+    nsplit = -(-S // ck)
+    if nsplit > cap:
+        ck = -(-S // cap)
+        ck = -(-ck // 32) * 32
+        nsplit = -(-S // ck)
+    gc = next(c for c in (1, 2, 4, 8) if c >= min(G * T, 8))
+    return PrefillSplitPlan(
+        ck=ck, nsplit=nsplit, gc=gc, row_tiles=row_tiles,
+        ws_acc=(tiles, nsplit, ROW_TILE, hd),
+        ws_ml=(2, tiles, ROW_TILE, nsplit), counters=tiles)
+
+
+_split_counters = {}    # (device index, stream) -> int32 counters, 0 at rest
+
+
+def _counters(dev, stream, n):
+    """Per-tile arrival counters of the split merge on `stream`: zeroed
+    once, reset to 0 by the kernel's merging blocks, replaced only when a
+    call needs more of them."""
+    key = (dev.index, stream.cuda_stream)
+    c = _split_counters.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(n, dtype=torch.int32, device=dev)
+        _split_counters[key] = c
+    return c
+
+
 def paged_prefill_attention_kernel(q, k_pages, v_pages, page_table, q_offset,
                                    valid, scale=None):
-    """Same contract as `paged_prefill_attention_ref` (valid rows).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel (hd in
-    {64, 128, 256}, float32 or bfloat16, any page size and T) or raise.
+    """Same contract as `paged_prefill_attention_ref` on rows t < valid;
+    the kernel writes 0 to padding rows.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (hd in {64, 128, 256}, float32
+    or bfloat16, any page size and T) or raise.
     `paged_prefill_attention_kernel.launches` counts kernel launches."""
     if q.device.type == "cpu":
         return paged_prefill_attention_ref(q, k_pages, v_pages, page_table,
@@ -113,14 +188,21 @@ def paged_prefill_attention_kernel(q, k_pages, v_pages, page_table, q_offset,
         "paged_prefill_attention_kernel", q, k_pages, v_pages, page_table,
         q_offset, valid)
     B, T, H, hd = q.shape
+    page, KVH = k_pages.shape[1], k_pages.shape[2]
+    max_pages = page_table.shape[1]
+    plan = _prefill_split_plan(B, T, H, KVH, hd, page, max_pages,
+                               PREFILL_CK)
     s = scale if scale is not None else 1.0 / math.sqrt(hd)
+    stream = torch.cuda.current_stream(q.device)
     out = torch.empty_like(q)
+    ws = torch.empty(plan.ws_numel, dtype=torch.float32, device=q.device)
+    count = _counters(q.device, stream, plan.counters)
     fn = _cuda.entry("paged_attention", "paged_prefill_attention")
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), q_offset.data_ptr(), valid.data_ptr(),
-             out.data_ptr(), B, T, H, k_pages.shape[2], hd, k_pages.shape[1],
-             page_table.shape[1], float(s), _DTYPE_CODE[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             out.data_ptr(), ws.data_ptr(), count.data_ptr(), B, T, H, KVH,
+             hd, page, max_pages, plan.ck, plan.nsplit, plan.gc, float(s),
+             _DTYPE_CODE[q.dtype], stream.cuda_stream)
     _cuda.check(err, "paged_prefill_attention")
     paged_prefill_attention_kernel.launches += 1
     return out

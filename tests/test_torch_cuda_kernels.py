@@ -30,8 +30,9 @@ from paddle_tpu_torch.incubate.kernels.flash_attention import (
     flash_attention_varlen, flash_bwd_dkv, flash_bwd_dq, flash_bwd_seg_dkv,
     flash_bwd_seg_dq)
 from paddle_tpu_torch.incubate.kernels.paged_attention import (
-    paged_attention_kernel, paged_attention_ref,
-    paged_prefill_attention_kernel, paged_prefill_attention_ref)
+    PREFILL_CK, _prefill_split_plan, paged_attention_kernel,
+    paged_attention_ref, paged_prefill_attention_kernel,
+    paged_prefill_attention_ref)
 from paddle_tpu_torch.incubate.kernels.rms_norm import _rms_ref, \
     rms_norm_fused
 
@@ -244,19 +245,27 @@ def test_train_step_on_card_matches_cpu(dev):
     assert float(diff.max()) <= 2 * trainers[0].lr
 
 
-def _paged_inputs(rng, dtype, dev, T, hd, page, B=5, H=8, KVH=2,
-                  max_pages=12):
-    """Mixed q_offset/valid, non-contiguous table rows and one null-table
-    slot (valid 1, q_offset 0)."""
-    q_offset = np.array([0, 3, page * 5 + 1, page * max_pages - T, 0])
-    valid = np.array([T, min(T, 2), T, T, 1])
+def _paged_inputs(rng, dtype, dev, T, hd, page, G=4, KVH=2):
+    """Mixed q_offset/valid over rows of at least 3 * PREFILL_CK + T
+    positions, non-contiguous table rows and one null-table slot (valid 1,
+    q_offset 0).  Slots 1, 4 and 5 hold G * valid at, just below and just
+    above the stream lane's capacity (GC), so both lanes run in one call;
+    slot 3 ends on its row's last position and slot 4 starts past 2 * CK
+    (several splits); slot 5's chunk starts 3 keys below a split."""
+    max_pages = -(-(3 * PREFILL_CK + T) // page)
+    S, CK = page * max_pages, PREFILL_CK
+    gc = _prefill_split_plan(7, T, G * KVH, KVH, hd, page, max_pages).gc
+    q_offset = np.array([0, 3, page * 5 + 1, S - T, 2 * CK + 5, CK - 3, 0])
+    valid = np.array([T, gc // G, T, T, max(gc // G - 1, 1), gc // G + 1, 1])
+    valid = np.clip(valid, 1, T)
+    B = len(valid)
     table = np.zeros((B, max_pages), np.int32)
     free = list(rng.permutation(np.arange(1, B * max_pages)))
     for b in range(B - 1):
         n = -(-(q_offset[b] + valid[b]) // page)
         table[b, :n] = [free.pop() for _ in range(n)]
     P = B * max_pages
-    args = (_randn(rng, (B, T, H, hd), dtype, dev),
+    args = (_randn(rng, (B, T, G * KVH, hd), dtype, dev),
             _randn(rng, (P, page, KVH, hd), dtype, dev),
             _randn(rng, (P, page, KVH, hd), dtype, dev),
             torch.from_numpy(table).to(dev),
@@ -268,9 +277,12 @@ def _paged_inputs(rng, dtype, dev, T, hd, page, B=5, H=8, KVH=2,
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("T,page", [(1, 16), (16, 16), (5, 8), (33, 32)])
-def test_paged_kernel_matches_plain_on_valid_rows(dev, dtype, hd, T, page):
-    rng = np.random.RandomState(T * hd + page)
-    args, valid = _paged_inputs(rng, dtype, dev, T, hd, page)
+@pytest.mark.parametrize("G", [4, 1, 8])
+def test_paged_kernel_matches_plain_on_valid_rows(dev, dtype, hd, T, page,
+                                                  G):
+    """Valid rows against the plain version, padding rows 0, one launch."""
+    rng = np.random.RandomState(T * hd + page + G)
+    args, valid = _paged_inputs(rng, dtype, dev, T, hd, page, G=G)
     before = paged_prefill_attention_kernel.launches
     got = paged_prefill_attention_kernel(*args)
     torch.cuda.synchronize()
@@ -278,6 +290,45 @@ def test_paged_kernel_matches_plain_on_valid_rows(dev, dtype, hd, T, page):
     ref = paged_prefill_attention_ref(*args)
     for b, n in enumerate(valid):
         _close(got[b, :n], ref[b, :n], dtype)
+        assert not got[b, n:].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("T", [1, 16])
+def test_paged_kernel_is_bitwise_deterministic(dev, dtype, T):
+    """The split merge reads the partials in split order, whichever block
+    finishes last: two calls give the same bits."""
+    rng = np.random.RandomState(T)
+    args, _ = _paged_inputs(rng, dtype, dev, T, 128, 16)
+    before = paged_prefill_attention_kernel.launches
+    first = paged_prefill_attention_kernel(*args)
+    again = paged_prefill_attention_kernel(*args)
+    torch.cuda.synchronize()
+    assert paged_prefill_attention_kernel.launches == before + 2
+    assert torch.equal(first, again)
+
+
+def test_paged_kernel_shapes_back_to_back(dev):
+    """Calls of other shapes between two of the same shape: the merge
+    counters return to 0 after every call (a stale count would make the
+    wrong block merge), so each call matches the plain version and the
+    repeated call repeats its bits."""
+    cases = [(torch.bfloat16, 16, 128, 16, 4), (torch.float32, 1, 64, 8, 8),
+             (torch.bfloat16, 33, 256, 32, 1), (torch.float32, 5, 128, 16, 4)]
+    firsts = []
+    for rnd in range(2):
+        for i, (dtype, T, hd, page, G) in enumerate(cases):
+            rng = np.random.RandomState(i)
+            args, valid = _paged_inputs(rng, dtype, dev, T, hd, page, G=G)
+            got = paged_prefill_attention_kernel(*args)
+            torch.cuda.synchronize()
+            if rnd == 0:
+                ref = paged_prefill_attention_ref(*args)
+                for b, n in enumerate(valid):
+                    _close(got[b, :n], ref[b, :n], dtype)
+                firsts.append(got)
+            else:
+                assert torch.equal(got, firsts[i])
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
