@@ -8,10 +8,12 @@ Phases, one JSON line each (with its seconds):
                disables TF32 for the float32 references, builds the CUDA
                kernels (one nvcc per source, in parallel); each source's
                build seconds, ptxas's register/spill/serialization lines,
-               and per tensor-core backward kernel (dense and SEG) and per
+               and per tensor-core backward kernel (dense and SEG), per
                paged prefill kernel (`ptxas_paged_prefill`, 24
-               instantiations) its registers and spills, none of which may
-               spill.
+               instantiations), per paged decode kernel
+               (`ptxas_paged_decode`, 48) and per RMSNorm kernel
+               (`ptxas_rms_norm`, 40 register and 4 ring kernels) its
+               registers and spills, none of which may spill.
 2. kernels  — each hand-written kernel against its plain PyTorch version on
                the same numpy-seeded inputs at the serving shapes (and the
                flash forward at the training shape [4,2048,16,128] too), in
@@ -22,11 +24,16 @@ Phases, one JSON line each (with its seconds):
                the paged prefill rows (T 1 and 16) give the split plan
                (ck, nsplit, gc, row tiles), each slot's lane, the kernel's
                device time at other ck (`ck_sweep_device_ms`), and hold
-               padding rows 0 and two calls bitwise equal.  The paged and
-               decode rows also give the kernel's and the library call's
-               device time (`device_ms`, `library_device_ms`: the calls
-               timed behind a sleep kernel, without the host's launch
-               cost).
+               padding rows 0 and two calls bitwise equal; the decode rows
+               give their split plan, hold two calls bitwise equal and, at
+               Llama-3-8B's heads, sweep ck and warps a block
+               (`ck_warps_sweep_device_ms`); RMSNorm runs at [4096, 4096],
+               [8, 4096] and [128, 4096], holds two calls bitwise equal,
+               and sweeps its wide-row launch shape
+               (`launch_sweep_device_ms`).  The paged, decode and RMSNorm
+               rows also give the kernel's and the library call's device
+               time (`device_ms`, `library_device_ms`: the calls timed
+               behind a sleep kernel, without the host's launch cost).
 3. engine_bucketed — Llama-3-8B at full width (all 32 layers), bf16, random
                weights from a seeded generator, 8 greedy requests of 64-1024
                prompt tokens x 32 new tokens through `LLMEngine` with
@@ -204,26 +211,61 @@ def check_close(name, got, ref, dtype):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def rms_case(dtype, dev):
+def rms_case(dtype, dev, N, D=4096):
+    """RMSNorm at [N, D] through `rms_norm_fused` alone: `kernel_ms` (CUDA
+    events around 20 host calls: the wrapper's host cost per call where the
+    kernel is shorter than it, as at the serving step's N = 8),
+    `device_ms`, and the library call's two readings."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.incubate.kernels.rms_norm import _rms_ref, \
         rms_norm_fused
     rng = np.random.RandomState(0)
-    N, D = 4096, 4096
     x = torch.from_numpy(rng.randn(N, D).astype(np.float32)).to(dev, dtype)
     w = torch.from_numpy(rng.randn(D).astype(np.float32)).to(dev, dtype)
     got = rms_norm_fused(x, w)
     ref = _rms_ref(x, w, 1e-6)
+    if not torch.equal(got, rms_norm_fused(x, w)):
+        raise AssertionError(f"rms_norm [{N}, {D}] ({dtype}): two calls on "
+                             f"the same inputs differ")
     isz = x.element_size()
     b, by = bound((2 * N * D + D) * isz, 4 * N * D, H100_F32_FLOPS)
     return {
-        "kernel": "rms_norm", "shape": [N, D],
+        "kernel": "rms_norm", "shape": [N, D], "bitwise_deterministic": True,
         "max_abs_err": check_close("rms_norm", got, ref, dtype),
         "kernel_ms": time_ms(lambda: rms_norm_fused(x, w)),
+        "device_ms": device_ms(lambda: rms_norm_fused(x, w)),
         "plain_ms": time_ms(lambda: _rms_ref(x, w, 1e-6)),
         "library_ms": time_ms(lambda: F.rms_norm(x, (D,), w, 1e-6)),
+        "library_device_ms": device_ms(lambda: F.rms_norm(x, (D,), w, 1e-6)),
         "bound_ms": b, "bound_by": by}
+
+
+def rms_launch_sweep(dtype, dev, N, D=4096):
+    """RMSNorm's launch shape at [N, D] and its device time under other
+    launch shapes, keyed "threads x rows / s stages" by the shape the plan
+    takes: threads a wide row and rows of x in flight on the ring kernel
+    (s0: the register kernel instead)."""
+    import torch
+    from paddle_tpu_torch.incubate.kernels import rms_norm as RN
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(N, D).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy(rng.randn(D).astype(np.float32)).to(dev, dtype)
+    isz = x.element_size()
+    plan = RN._rms_launch(D, isz, isz, True, RN.RMS_NARROW, RN.RMS_WIDE,
+                          RN.RMS_STAGES)
+    sweep, base = {}, (RN.RMS_WIDE, RN.RMS_STAGES)
+    for threads in (128, 256, 512, 1024):
+        for stages in (0, 2, 4, 8):
+            took = RN._rms_launch(D, isz, isz, True, RN.RMS_NARROW,
+                                  (threads, 1), stages)
+            RN.RMS_WIDE, RN.RMS_STAGES = (threads, 1), stages
+            try:
+                sweep[f"{took.threads}x{took.rows}/s{took.stages}"] = \
+                    device_ms(lambda: RN.rms_norm_fused(x, w))
+            finally:
+                RN.RMS_WIDE, RN.RMS_STAGES = base
+    return {"launch": dict(plan._asdict()), "launch_sweep_device_ms": sweep}
 
 
 def flash_case(dtype, dev, shape):
@@ -372,11 +414,15 @@ def paged_case(dtype, dev, T):
 
 def decode_case(dtype, dev, lengths, hd=128, G=4, KVH=8, page=16):
     """The paged decode kernel against `paged_attention_ref`: one query a
-    slot over `lengths` cached tokens through non-contiguous table rows."""
+    slot over `lengths` cached tokens through non-contiguous table rows;
+    two calls bitwise equal; the split plan; and, at Llama-3-8B's heads,
+    the kernel's device time at other keys and warps a block
+    (`ck_warps_sweep_device_ms`)."""
     import torch
     import torch.nn.functional as F
+    from paddle_tpu_torch.incubate.kernels import paged_attention as PA
     from paddle_tpu_torch.incubate.kernels.paged_attention import (
-        paged_attention_kernel, paged_attention_ref)
+        _decode_split_plan, paged_attention_kernel, paged_attention_ref)
     rng = np.random.RandomState(hd + G)
     lengths = np.asarray(lengths)
     B, H = len(lengths), KVH * G
@@ -395,8 +441,30 @@ def decode_case(dtype, dev, lengths, hd=128, G=4, KVH=8, page=16):
     lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
     args = (rnd(B, H, hd), rnd(P, page, KVH, hd), rnd(P, page, KVH, hd), tbl,
             lens)
-    err = check_close("paged_decode_attention", paged_attention_kernel(*args),
+    got = paged_attention_kernel(*args)
+    err = check_close("paged_decode_attention", got,
                       paged_attention_ref(*args), dtype)
+    # the split merge reads the partials in split order: the same bits on
+    # every call
+    if not torch.equal(got, paged_attention_kernel(*args)):
+        raise AssertionError(f"paged_decode_attention hd={hd} G={G} "
+                             f"({dtype}): two calls on the same inputs "
+                             f"differ")
+    plan = _decode_split_plan(B, H, KVH, hd, page, max_pages, PA.DECODE_CK)
+    sweep = {}
+    if (hd, G, KVH) == (128, 4, 8):
+        # keyed "ck x warps" by the ck the plan takes
+        base_ck, base_w = PA.DECODE_CK, PA.DECODE_WARPS
+        try:
+            for ck in (64, 128, 256, 512):
+                for warps in (4, 8):
+                    PA.DECODE_CK, PA.DECODE_WARPS = ck, warps
+                    took = _decode_split_plan(B, H, KVH, hd, page,
+                                              max_pages, ck).ck
+                    sweep[f"{took}x{warps}"] = device_ms(
+                        lambda: paged_attention_kernel(*args))
+        finally:
+            PA.DECODE_CK, PA.DECODE_WARPS = base_ck, base_w
     isz = args[0].element_size()
     keys = int(lengths.sum())
     nbytes = 2 * keys * KVH * hd * isz + 2 * B * H * hd * isz + \
@@ -414,9 +482,12 @@ def decode_case(dtype, dev, lengths, hd=128, G=4, KVH=8, page=16):
         "kernel": "paged_decode_attention", "hd": hd, "G": G,
         "shape": {"q": [B, H, hd], "pool": list(args[1].shape),
                   "lengths": lengths.tolist()},
-        "max_abs_err": err,
+        "plan": {"ck": plan.ck, "nsplit": plan.nsplit, "gc": plan.gc,
+                 "chunks": plan.row_tiles, "warps": PA.DECODE_WARPS},
+        "bitwise_deterministic": True, "max_abs_err": err,
         "kernel_ms": time_ms(lambda: paged_attention_kernel(*args)),
         "device_ms": device_ms(lambda: paged_attention_kernel(*args)),
+        "ck_warps_sweep_device_ms": sweep,
         "plain_ms": time_ms(lambda: paged_attention_ref(*args)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qt, kg, vg, attn_mask=mask, enable_gqa=True)),
@@ -497,7 +568,7 @@ def bwd_case(dtype, dev, shape, causal):
 
 
 def rms_grad_case(dtype, dev):
-    """dx, dw through the RMSNorm Function (Triton forward) against
+    """dx, dw through the RMSNorm Function (CUDA forward) against
     autograd through `_rms_ref`, on the card."""
     import torch
     from paddle_tpu_torch.incubate.kernels.rms_norm import _rms_ref, \
@@ -1033,17 +1104,35 @@ def main():
         raise AssertionError(f"ptxas reports {len(paged)} paged prefill "
                              f"kernels, want 24")
     no_spills(paged)
+    # the decode kernel: 2 dtypes x 3 head dims x 4 GC x 2 warp counts;
+    # RMSNorm's register kernel: 4 dtype pairs x 2 piece widths x 5
+    # register depths; its ring kernel: 4 dtype pairs
+    more = {}
+    for src, kern, want in (("paged_decode", "paged_decode_kernel", 48),
+                            ("rms_norm", "rms_kernel", 40),
+                            ("rms_norm", "rms_tma_kernel", 4)):
+        more[kern] = ptxas_kernels(reports.get(src, (0, ""))[1], kern)
+        if src in reports and len(more[kern]) != want:
+            raise AssertionError(f"ptxas reports {len(more[kern])} {kern} "
+                                 f"instantiations, want {want}")
+        no_spills(more[kern])
     emit({"phase": "device", "seconds": time.perf_counter() - t,
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "built_s": {k: sec for k, (sec, _) in reports.items()},
           "ptxas": ptxas, "ptxas_bwd_wgmma": bwd_wgmma,
-          "ptxas_paged_prefill": paged})
+          "ptxas_paged_prefill": paged,
+          "ptxas_paged_decode": more["paged_decode_kernel"],
+          "ptxas_rms_norm": more["rms_kernel"] + more["rms_tma_kernel"]})
 
     t = time.perf_counter()
     results = []
     for dtype in (torch.bfloat16, torch.float32):
-        rows = [rms_case(dtype, dev)]
+        # RMSNorm at the fused bucketed step's [8, 4096], the chunked
+        # step's [128, 4096] (B 8, T 16) and a prefill-sized [4096, 4096]
+        rows = [{**rms_case(dtype, dev, N),
+                 **(rms_launch_sweep(dtype, dev, N) if N != 128 else {})}
+                for N in (4096, 8, 128)]
         rows += [flash_case(dtype, dev, shape) for shape in
                  ((1, 16, 32, 128), (1, 1024, 32, 128), (4, 2048, 16, 128))]
         rows += [paged_case(dtype, dev, T) for T in (1, 16)]
@@ -1200,8 +1289,8 @@ def main():
         (main_shape("flash_attention_fwd", S=1024), "flash_attention_fwd",
          "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
          "paddle_tpu/incubate/kernels/flash_attention.py:78"),
-        (main_shape("rms_norm"), "rms_norm_fused", "triton",
-         "paddle_tpu_torch/incubate/kernels/_rms_norm_triton.py",
+        (main_shape("rms_norm", shape=[4096, 4096]), "rms_norm_fused",
+         "cuda", "paddle_tpu_torch/csrc/rms_norm.cu",
          "paddle_tpu/incubate/kernels/rms_norm.py:15"),
         (bwd_row("dkv", ("dk", "dv")), "flash_bwd_dkv", "cuda",
          "paddle_tpu_torch/csrc/flash_attention_bwd.cu",

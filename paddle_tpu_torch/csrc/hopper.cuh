@@ -1,7 +1,8 @@
 // Hopper primitives shared by the tensor-core attention bodies (the forward
-// in attention_wgmma.cuh, the backward pair in attention_bwd_wgmma.cuh):
-// mbarriers, TMA tile loads through 4-d tensor maps, shared-memory matrix
-// descriptors, and the two wgmma shapes both bodies use.
+// in attention_wgmma.cuh, the backward pair in attention_bwd_wgmma.cuh) and
+// RMSNorm's wide-row kernel (rms_norm.cu): mbarriers, TMA tile loads
+// through 4-d tensor maps, 1-d bulk loads, shared-memory matrix
+// descriptors, and the two wgmma shapes both attention bodies use.
 //
 // Tiles.  A [64 x D] bf16 tile sits in shared memory as D/64 blocks of
 // [64 rows x 128 bytes] (8 KB each, 1024-byte aligned), written by TMA with
@@ -82,6 +83,23 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A 1-d bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Order this thread's earlier shared-memory accesses before later copies
+// of the async proxy (a bulk load into a buffer that threads just read).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // Shared-memory matrix descriptor, 128-byte swizzle.

@@ -2,8 +2,8 @@
 hand-written kernel, each with a plain integer `launches` counter; `ROUTED`
 lists the model-facing entries that send shapes the kernels do not take to
 their plain versions on the card, each counting those calls in
-`composed_calls`.  The kernel modules import triton and build CUDA code
-only inside a launch."""
+`composed_calls`.  The kernel modules build their CUDA code (nvcc,
+`_cuda.py`) only inside a launch."""
 from .flash_attention import (flash_attention_fused, flash_attention_fwd,
                               flash_attention_seg_fwd, flash_attention_varlen,
                               flash_bwd_dkv, flash_bwd_dq, flash_bwd_seg_dkv,

@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
 SOURCES = ("paged_attention", "paged_decode", "flash_attention",
-           "flash_attention_bwd", "flash_attention_seg_bwd")
+           "flash_attention_bwd", "flash_attention_seg_bwd", "rms_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,7 +40,9 @@ SIGNATURES = {
         _F, _I, _P),                            # scale dtype stream
     "paged_decode_attention": (
         _P, _P, _P, _P, _P, _P,                 # q k v table lengths out
+        _P, _P,                                 # ws count
         _I, _I, _I, _I, _I, _I,                 # B H KVH hd page max_pages
+        _I, _I, _I,                             # ck nsplit warps
         _F, _I, _P),                            # scale dtype stream
     "flash_attention_fwd": (
         _P, _P, _P, _P, _P,                     # q k v out lse
@@ -68,6 +70,11 @@ SIGNATURES = {
         _P,                                     # dq
         _I, _I, _I, _I, _I, _I,                 # B S Sk H D causal
         _F, _I, _P),                            # scale dtype stream
+    "rms_norm": (
+        _P, _P, _P,                             # x w out
+        _I, _I, _I, _I, _I, _I, _I,             # N D vec nv threads rows
+        #                                         stages
+        _F, _I, _I, _P),                        # eps x_dtype w_dtype stream
 }
 
 _entries: Dict[str, ctypes._CFuncPtr] = {}      # loaded C entries, by name
@@ -149,5 +156,10 @@ def entry(name: str, fn: str):
 
 
 def check(err: int, what: str) -> None:
+    """Raise on a C entry's nonzero return: a cudaError_t, or a negative
+    code for a launch the entry refused before it."""
+    if err < 0:
+        raise RuntimeError(f"{what}: the entry refused the launch (code "
+                           f"{err})")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")

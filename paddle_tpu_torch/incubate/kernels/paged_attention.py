@@ -15,7 +15,9 @@ decode step's one query per slot, q `[B, H, hd]`, sees the kv positions
   lengths >= 1.
 - `paged_attention_kernel`: the hand-written CUDA kernel
   `csrc/paged_decode.cu` (the port of `_paged_attn_kernel`) on a CUDA
-  tensor, the plain version on a CPU tensor.
+  tensor, the plain version on a CPU tensor.  `_decode_split_plan` gives
+  its grid: each slot's keys split across blocks of `ck` keys, merged in
+  the kernel as the prefill kernel's are.
 - `paged_attention_decode`: the reference's decode entry, same arguments.
 
 - `paged_prefill_attention_ref`: the plain PyTorch version (counterpart of
@@ -105,20 +107,24 @@ def _check_card(name, q, k_pages, v_pages, page_table, *per_slot):
 
 
 PREFILL_CK = 128        # keys a block walks (tuned on the card, PERF.md)
+DECODE_CK = 256         # the same for the decode kernel (PERF.md)
+DECODE_WARPS = 8        # warps a decode block: 4 or 8 (PERF.md)
 ROW_TILE = 16           # query rows of the tile lane (kBlockRows)
 PARTIAL_BYTES = 64 << 20    # cap on the split workspace
 
 
-class PrefillSplitPlan(NamedTuple):
-    """The grid of `csrc/paged_attention.cu`, from host-known shapes only.
+class SplitPlan(NamedTuple):
+    """The grid of `csrc/paged_attention.cu` or `csrc/paged_decode.cu`, from
+    host-known shapes only.
 
     The kernel's grid is (nsplit, row_tiles, B * KVH).  ck: keys a block
     walks; nsplit: blocks over one row tile's key range (ceil(max_pages *
     page / ck)); gc: the stream lane's row capacity, the smallest of 1, 2,
-    4, 8 that holds min(G * T, 8); row_tiles: the tile lane's
-    ceil(T * G / 16); ws_acc / ws_ml: the f32 partials
-    [tiles, nsplit, 16, hd] and (m, l) [2, tiles, 16, nsplit] (tiles =
-    B * KVH * row_tiles); counters: one int32 per tile."""
+    4, 8 that holds min(G * T, 8); row_tiles: the prefill tile lane's
+    ceil(T * G / 16), or the decode kernel's chunks of gc query heads,
+    ceil(G / gc); ws_acc / ws_ml: the f32 partials [tiles, nsplit, 16, hd]
+    and (m, l) [2, tiles, 16, nsplit] (tiles = B * KVH * row_tiles);
+    counters: one int32 per tile."""
     ck: int
     nsplit: int
     gc: int
@@ -135,16 +141,11 @@ class PrefillSplitPlan(NamedTuple):
         return math.prod(self.ws_acc) + math.prod(self.ws_ml)
 
 
-@functools.lru_cache(maxsize=64)
-def _prefill_split_plan(B, T, H, KVH, hd, page, max_pages, ck=PREFILL_CK):
-    """The split plan for q [B, T, H, hd] over a [*, page, KVH, hd] pool
-    with `max_pages` table columns.  Where B * KVH * row_tiles * nsplit
-    partials of [16, hd + 2] f32 would pass PARTIAL_BYTES (long chunks:
-    many row tiles, which fill the card anyway), the blocks walk more keys
-    (ck grows in steps of 32) so the workspace stays under it."""
-    G = H // KVH
-    S = max_pages * page
-    row_tiles = -(-(T * G) // ROW_TILE)
+def _split_plan(B, KVH, hd, S, ck, gc, row_tiles):
+    """The plan over S key positions a slot.  Where B * KVH * row_tiles *
+    nsplit partials of [16, hd + 2] f32 would pass PARTIAL_BYTES, the
+    blocks walk more keys (ck grows in steps of 32) so the workspace stays
+    under it."""
     tiles = B * KVH * row_tiles
     cap = max(1, PARTIAL_BYTES // (tiles * ROW_TILE * (hd + 2) * 4))
     nsplit = -(-S // ck)
@@ -152,20 +153,48 @@ def _prefill_split_plan(B, T, H, KVH, hd, page, max_pages, ck=PREFILL_CK):
         ck = -(-S // cap)
         ck = -(-ck // 32) * 32
         nsplit = -(-S // ck)
-    gc = next(c for c in (1, 2, 4, 8) if c >= min(G * T, 8))
-    return PrefillSplitPlan(
+    return SplitPlan(
         ck=ck, nsplit=nsplit, gc=gc, row_tiles=row_tiles,
         ws_acc=(tiles, nsplit, ROW_TILE, hd),
         ws_ml=(2, tiles, ROW_TILE, nsplit), counters=tiles)
+
+
+def _stream_rows(rows):
+    """The stream lane's capacity for `rows` rows: the smallest of 1, 2, 4,
+    8 that holds min(rows, 8)."""
+    return next(c for c in (1, 2, 4, 8) if c >= min(rows, 8))
+
+
+@functools.lru_cache(maxsize=64)
+def _prefill_split_plan(B, T, H, KVH, hd, page, max_pages, ck=PREFILL_CK):
+    """The split plan of the prefill kernel for q [B, T, H, hd] over a
+    [*, page, KVH, hd] pool with `max_pages` table columns (long chunks
+    have many row tiles, which fill the card anyway, and so walk more keys
+    a block under the workspace cap)."""
+    G = H // KVH
+    return _split_plan(B, KVH, hd, max_pages * page, ck, _stream_rows(G * T),
+                       -(-(T * G) // ROW_TILE))
+
+
+@functools.lru_cache(maxsize=64)
+def _decode_split_plan(B, H, KVH, hd, page, max_pages, ck=DECODE_CK):
+    """The split plan of the decode kernel for q [B, H, hd]: a block takes
+    gc query heads of one kv head over ck keys.  Lengths live on the
+    device, so the splits cover the table's max_pages * page positions; a
+    block past its slot's length returns at once."""
+    G = H // KVH
+    gc = _stream_rows(G)
+    return _split_plan(B, KVH, hd, max_pages * page, ck, gc, -(-G // gc))
 
 
 _split_counters = {}    # (device index, stream) -> int32 counters, 0 at rest
 
 
 def _counters(dev, stream, n):
-    """Per-tile arrival counters of the split merge on `stream`: zeroed
-    once, reset to 0 by the kernel's merging blocks, replaced only when a
-    call needs more of them."""
+    """Per-tile arrival counters of the split merge on `stream`, shared by
+    the prefill and decode kernels (stream order keeps their calls apart):
+    zeroed once, reset to 0 by the kernels' merging blocks, replaced only
+    when a call needs more of them."""
     key = (dev.index, stream.cuda_stream)
     c = _split_counters.get(key)
     if c is None or c.numel() < n:
@@ -249,14 +278,20 @@ def paged_attention_kernel(q, k_pages, v_pages, page_table, lengths,
     q, k_pages, v_pages, page_table, lengths = _check_card(
         "paged_attention_kernel", q, k_pages, v_pages, page_table, lengths)
     B, H, hd = q.shape
+    page, KVH = k_pages.shape[1], k_pages.shape[2]
+    max_pages = page_table.shape[1]
+    plan = _decode_split_plan(B, H, KVH, hd, page, max_pages, DECODE_CK)
     s = scale if scale is not None else 1.0 / math.sqrt(hd)
+    stream = torch.cuda.current_stream(q.device)
     out = torch.empty_like(q)
+    ws = torch.empty(plan.ws_numel, dtype=torch.float32, device=q.device)
+    count = _counters(q.device, stream, plan.counters)
     fn = _cuda.entry("paged_decode", "paged_decode_attention")
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
-             k_pages.shape[2], hd, k_pages.shape[1], page_table.shape[1],
-             float(s), _DTYPE_CODE[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             ws.data_ptr(), count.data_ptr(), B, H, KVH, hd, page, max_pages,
+             plan.ck, plan.nsplit, DECODE_WARPS, float(s),
+             _DTYPE_CODE[q.dtype], stream.cuda_stream)
     _cuda.check(err, "paged_decode_attention")
     paged_attention_kernel.launches += 1
     return out

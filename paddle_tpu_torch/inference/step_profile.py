@@ -45,7 +45,7 @@ def _group(name):
         return "attention_fwd"
     if "flash_bwd_" in n:
         return "attention_bwd"
-    if "rms_kernel" in n:
+    if "rms_kernel" in n or "rms_tma_kernel" in n:
         return "rms_norm"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "cutlass", "sm90_",
                             "ampere_", "cublas")):

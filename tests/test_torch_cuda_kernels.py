@@ -30,11 +30,11 @@ from paddle_tpu_torch.incubate.kernels.flash_attention import (
     flash_attention_varlen, flash_bwd_dkv, flash_bwd_dq, flash_bwd_seg_dkv,
     flash_bwd_seg_dq)
 from paddle_tpu_torch.incubate.kernels.paged_attention import (
-    PREFILL_CK, _prefill_split_plan, paged_attention_kernel,
-    paged_attention_ref, paged_prefill_attention_kernel,
-    paged_prefill_attention_ref)
-from paddle_tpu_torch.incubate.kernels.rms_norm import _rms_ref, \
-    rms_norm_fused
+    DECODE_CK, PREFILL_CK, _decode_split_plan, _prefill_split_plan,
+    paged_attention_kernel, paged_attention_ref,
+    paged_prefill_attention_kernel, paged_prefill_attention_ref)
+from paddle_tpu_torch.incubate.kernels.rms_norm import (
+    RING_BYTES, _padded, _rms_launch, _rms_ref, rms_norm_fused)
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -72,6 +72,127 @@ def test_rms_kernel_matches_plain(dev, dtype, shape):
     torch.cuda.synchronize()
     assert rms_norm_fused.launches == before + 1
     _close(got, _rms_ref(x, w, 1e-6), dtype)
+
+
+RMS_DTYPES = [(torch.float32, torch.float32),
+              (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32),
+              (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("xw", RMS_DTYPES,
+                         ids=["f32", "bf16", "bf16_f32w", "f32_bf16w"])
+@pytest.mark.parametrize("shape,offset", [
+    ((8, 4096), 0), ((4096, 4096), 0), ((2, 14336), 0), ((128, 4096), 1),
+    ((3, 40000), 0), ((33, 100), 0), ((5, 4100), 0)],
+    ids=["decode", "square", "ffn_width", "unaligned", "two_pass", "odd",
+         "ragged_w"])
+def test_rms_kernel_launch_shapes_and_dtypes(dev, xw, shape, offset):
+    """Every launch shape of `_rms_launch` (the ring kernel for wide
+    rows, with 2 or 4 stages; on the register kernel one warp a row,
+    single-element pieces for a pointer off 16 bytes, a w row of no whole
+    16 bytes, a row read twice) in each dtype pair: the product in
+    promote(x, w), the plain version's values, and the same bits from two
+    calls."""
+    xd, wd = xw
+    rng = np.random.RandomState(shape[0] + offset)
+    N, D = shape
+    flat = _randn(rng, (N * D + offset,), xd, dev) * 3
+    x = flat[offset:].view(N, D)
+    w = _randn(rng, (D,), wd, dev)
+    xs, wsz = x.element_size(), w.element_size()
+    plan = _rms_launch(D, xs, wsz, x.data_ptr() % 16 == 0)
+    vec = 16 // xs if offset == 0 and D % (16 // xs) == 0 else 1
+    ring = vec > 1 and D > 1024 and D * wsz % 16 == 0 and \
+        2 * _padded(D * xs) <= RING_BYTES - _padded(D * wsz)
+    assert plan.vec == vec and (plan.stages > 0) == ring
+    before = rms_norm_fused.launches
+    got = rms_norm_fused(x, w)
+    again = rms_norm_fused(x, w)
+    torch.cuda.synchronize()
+    assert rms_norm_fused.launches == before + 2
+    assert got.dtype == torch.promote_types(xd, wd)
+    ref = _rms_ref(x, w, 1e-6)
+    assert ref.dtype == got.dtype
+    _close(got, ref, xd)        # y rounds to x's dtype before the product
+    assert torch.equal(got, again)
+
+
+def _split_decode_inputs(rng, dtype, dev, hd, G, ck, page=16, KVH=2):
+    """Lengths on the split edges (1, ck - 1, ck, ck + 1), several splits,
+    0, and the whole table row; non-contiguous table rows."""
+    max_pages = -(-(3 * ck + 7) // page)
+    S = max_pages * page
+    lengths = np.array([1, ck - 1, ck, ck + 1, 3 * ck + 5, 0, S])
+    B, H = len(lengths), KVH * G
+    table = np.zeros((B, max_pages), np.int32)
+    free = list(rng.permutation(np.arange(1, B * max_pages)))
+    for b in range(B):
+        n = -(-lengths[b] // page)
+        table[b, :n] = [free.pop() for _ in range(n)]
+    P = B * max_pages
+    args = (_randn(rng, (B, H, hd), dtype, dev),
+            _randn(rng, (P, page, KVH, hd), dtype, dev),
+            _randn(rng, (P, page, KVH, hd), dtype, dev),
+            torch.from_numpy(table).to(dev),
+            torch.from_numpy(lengths.astype(np.int32)).to(dev))
+    return args, lengths
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 16])
+def test_paged_decode_splits_merge_on_the_card(dev, dtype, hd, G):
+    """Slots of one split (written out directly) and of several (merged by
+    the last block) against the plain version, length 0 giving 0, and two
+    calls giving the same bits."""
+    rng = np.random.RandomState(hd + G)
+    args, lengths = _split_decode_inputs(rng, dtype, dev, hd, G, DECODE_CK)
+    B, H, _ = args[0].shape
+    plan = _decode_split_plan(B, H, args[1].shape[2], hd, args[1].shape[1],
+                              args[3].shape[1])
+    assert plan.nsplit >= 4 and plan.ck == DECODE_CK
+    before = paged_attention_kernel.launches
+    got = paged_attention_kernel(*args)
+    again = paged_attention_kernel(*args)
+    torch.cuda.synchronize()
+    assert paged_attention_kernel.launches == before + 2
+    live = lengths > 0
+    _close(got[live], paged_attention_ref(*args)[live], dtype)
+    assert float(got[~live].abs().max()) == 0.0
+    assert torch.equal(got, again)
+
+
+def test_decode_and_prefill_share_the_merge_counters(dev):
+    """Decode, then the prefill kernel, then decode again on one stream,
+    with shapes that change between calls: each kernel's merging blocks
+    leave the shared counters at 0, so every call matches the plain
+    version and a repeated call repeats its bits."""
+    firsts = {}
+    for rnd in range(2):
+        for i, (dtype, hd, G) in enumerate([(torch.bfloat16, 128, 4),
+                                            (torch.float32, 64, 16),
+                                            (torch.bfloat16, 256, 1)]):
+            rng = np.random.RandomState(i)
+            dargs, lengths = _split_decode_inputs(rng, dtype, dev, hd, G,
+                                                  DECODE_CK)
+            pargs, valid = _paged_inputs(rng, dtype, dev, 16, hd, 16, G=G)
+            outs = [paged_attention_kernel(*dargs),
+                    paged_prefill_attention_kernel(*pargs),
+                    paged_attention_kernel(*dargs)]
+            torch.cuda.synchronize()
+            assert torch.equal(outs[0], outs[2])
+            if rnd == 0:
+                live = lengths > 0
+                _close(outs[0][live], paged_attention_ref(*dargs)[live],
+                       dtype)
+                ref = paged_prefill_attention_ref(*pargs)
+                for b, n in enumerate(valid):
+                    _close(outs[1][b, :n], ref[b, :n], dtype)
+                firsts[i] = outs
+            else:
+                assert all(torch.equal(a, b)
+                           for a, b in zip(outs, firsts[i]))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])

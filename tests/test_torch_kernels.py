@@ -24,8 +24,9 @@ from paddle_tpu_torch.incubate.kernels.paged_attention import (
     paged_prefill_attention, paged_prefill_attention_kernel,
     paged_prefill_attention_ref, paged_serve_attention,
     paged_verify_attention)
-from paddle_tpu_torch.incubate.kernels.rms_norm import _rms_ref, \
-    rms_norm_fused
+from paddle_tpu_torch.incubate.kernels.rms_norm import (
+    MAX_PIECES, MAX_STAGES, RING_BYTES, RmsLaunch, _max_threads, _padded,
+    _rms_launch, _rms_ref, rms_norm_fused)
 from paddle_tpu_torch.incubate.kernels.rope import apply_rope
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -77,6 +78,132 @@ def test_rms_norm_casts_before_weight_multiply():
     got = rms_norm_fused(_t(x).bfloat16(), _t(w).bfloat16())
     assert got.dtype == torch.bfloat16
     assert np.mean(got.float().numpy() != ref) < 0.02
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::rms_kernel<__nv_bfloat16, __nv_bfloat16, "
+     "__nv_bfloat16, 8, 1>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16*, int, int, int, float)", "rms_norm"),
+    ("void (anonymous namespace)::rms_tma_kernel<__nv_bfloat16, "
+     "__nv_bfloat16, __nv_bfloat16>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, float)",
+     "rms_norm"),
+    ("void (anonymous namespace)::paged_decode_kernel<__nv_bfloat16, 128, 4, "
+     "8>(__nv_bfloat16 const*, int)", "paged_decode"),
+    ("void (anonymous namespace)::paged_prefill_kernel<__nv_bfloat16, 128, "
+     "4>(__nv_bfloat16 const*, int)", "paged_attention"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32", "gemm")])
+def test_step_profile_files_kernels_by_group(name, group):
+    from paddle_tpu_torch.inference.step_profile import _group
+    assert _group(name) == group
+
+
+# (D, itemsize) -> (vec, nv, threads, rows, stages) of `csrc/rms_norm.cu`,
+# w of x's dtype: narrow rows on the register kernel, a warp a row, 8 rows a
+# block; wide rows on the ring kernel, one a block of 256 threads, 2 rows in
+# flight; 16-byte pieces where D is a multiple of them, single elements
+# otherwise
+RMS_LAUNCHES = {
+    (64, 4): (4, 1, 32, 8, 0), (64, 2): (8, 1, 32, 8, 0),
+    (100, 4): (4, 1, 32, 8, 0), (100, 2): (1, 4, 32, 8, 0),
+    (4096, 4): (4, 0, 256, 1, 2), (4096, 2): (8, 0, 256, 1, 2),
+    (14336, 4): (4, 0, 256, 1, 2), (14336, 2): (8, 0, 256, 1, 2),
+}
+
+
+def _ring_bytes(plan, D, itemsize, w_itemsize):
+    return _padded(D * w_itemsize) + plan.stages * _padded(D * itemsize)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 100, 4096, 14336])
+def test_rms_launch_shape(D, itemsize):
+    """Wide aligned rows take the ring within its shared-memory budget;
+    the register kernel covers the row in registers within its launch
+    bounds; an unaligned pointer takes single-element pieces on the
+    register kernel, and a row that no shape holds in registers is read
+    twice (nv 0)."""
+    for aligned in (True, False):
+        plan = _rms_launch(D, itemsize, itemsize, aligned)
+        if aligned:
+            assert tuple(plan) == RMS_LAUNCHES[D, itemsize]
+        else:
+            assert plan.vec == 1 and plan.stages == 0
+        assert isinstance(plan, RmsLaunch)
+        assert plan.threads % 32 == 0 and plan.rows >= 1
+        if plan.stages:
+            assert 2 <= plan.stages <= MAX_STAGES
+            assert plan.rows == 1 and plan.threads >= 64 and D > 1024
+            assert _ring_bytes(plan, D, itemsize, itemsize) <= RING_BYTES
+            continue
+        assert plan.threads * plan.rows <= _max_threads(plan.nv * plan.vec)
+        if plan.nv == 0:
+            assert plan.threads == 1024
+            pieces = D // plan.vec
+            for t in (32, 64, 128, 256, 512, 1024):
+                need = -(-pieces // t)
+                nv = next((n for n in (1, 2, 4, 8) if n >= need), None)
+                assert nv is None or t > _max_threads(nv * plan.vec)
+            continue
+        assert plan.nv <= MAX_PIECES
+        assert plan.nv * plan.threads * plan.vec >= D
+
+
+def test_rms_launch_ring_needs_whole_16_byte_rows_of_w():
+    """f32 x with bf16 w: a w row of 4100 * 2 bytes is not a multiple of 16,
+    so the ring kernel's bulk copy cannot take it."""
+    assert _rms_launch(4096, 4, 2).stages == 2
+    assert _rms_launch(4100, 4, 2).stages == 0
+    assert _rms_launch(4100, 4, 4).stages == 2
+
+
+def test_rms_launch_ring_takes_the_stages_that_fit():
+    """Up to the stages asked for, as many rows of x as fit the ring's
+    budget beside w; under 2 the register kernel takes the row."""
+    assert _rms_launch(4096, 2, 2, stages=8).stages == 8
+    assert _rms_launch(14336, 4, 4, stages=8).stages == 2
+    assert _rms_launch(40000, 2, 2, stages=8).stages == 0
+
+
+def test_rms_launch_reads_rows_too_wide_for_registers_twice():
+    plan = _rms_launch(40000, 2, 2, False)
+    assert plan.nv == 0 and plan.threads == 1024 and plan.rows == 1
+    assert plan.stages == 0
+
+
+def test_rms_norm_runs_no_autograd_node_without_grad():
+    """Serving (grad off, or no input requiring grad) runs the forward
+    alone; training goes through the Function."""
+    rng = np.random.RandomState(3)
+    x = _t(rng.randn(8, 64).astype(np.float32))
+    w = _t(rng.randn(64).astype(np.float32))
+    assert rms_norm_fused(x, w).grad_fn is None
+    with torch.no_grad():
+        assert rms_norm_fused(x.requires_grad_(), w).grad_fn is None
+    assert rms_norm_fused(x, w).grad_fn is not None
+    with torch.no_grad():
+        y = rms_norm_fused(x, w)
+    np.testing.assert_array_equal(y.numpy(),
+                                  _rms_ref(x, w, 1e-6).detach().numpy())
+
+
+@pytest.mark.parametrize("grad_of", ["x", "w", "both"])
+def test_rms_norm_grads_match_jax_vjp(grad_of):
+    rng = np.random.RandomState(4)
+    x = rng.randn(3, 96).astype(np.float32) * 2
+    w = rng.randn(96).astype(np.float32)
+    g = rng.randn(3, 96).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: jax_rms_ref(a, b, 1e-6), jnp.asarray(x),
+                     jnp.asarray(w))
+    rdx, rdw = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    tx, tw = _t(x), _t(w)
+    tx.requires_grad_(grad_of in ("x", "both"))
+    tw.requires_grad_(grad_of in ("w", "both"))
+    rms_norm_fused(tx, tw).backward(_t(g))
+    for t, ref in ((tx, rdx), (tw, rdw)):
+        if t.requires_grad:
+            np.testing.assert_allclose(t.grad.numpy(), ref, atol=1e-5,
+                                       rtol=1e-5)
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
