@@ -37,25 +37,38 @@ Phases, one JSON line each (with its seconds):
 3. engine_bucketed — Llama-3-8B at full width (all 32 layers), bf16, random
                weights from a seeded generator, 8 greedy requests of 64-1024
                prompt tokens x 32 new tokens through `LLMEngine` with
-               one-shot bucketed prefill; launch counts are zeroed just before
-               and read just after.
+               one-shot bucketed prefill (buckets 512, 1024 and 2048, so the
+               prompts take two prefill programs, the reference's budget);
+               the engine's decode-side program is warmed (`warm_decode`:
+               its CUDA graph captured) before launch counts are zeroed, and
+               the counts are read just after.  Every fused step is one
+               graph replay (`graph_replays` = fused dispatches, the
+               replays adding their captures' launch counts), the program
+               counts (`*_executables`) stay within `SERVE_PROGRAM_BUDGET`
+               with one decode-side program, and the engine's memory (pool,
+               graphs) is released when it is dropped.
 4. engine_chunked  — the same requests with `prefill_chunk=16`, the chunk
                riding the fused step; greedy agreement with phase 3 printed.
 5. engine_unfused — the same requests through `LLMEngine(fuse=False)`, the
-               three-program step, bucketed and chunked (`prefill_chunk=16`):
-               tokens/s, step ms, peak memory, and exact launch counts (the
-               paged decode kernel 32 x decode dispatches, paged prefill 32 x
-               chunk dispatches, flash forward 32 x bucketed prefills);
-               greedy agreement with phases 3 and 4 printed, not required
-               (the kernels sum in other orders in bf16).
-6. first_token — the first tokens of phases 3, 4 and both modes of 5 for
+               three-program step, bucketed and chunked (`prefill_chunk=16`),
+               the decode and chunk programs one replay each: tokens/s, step
+               ms, peak memory, and exact launch counts (the paged decode
+               kernel 32 x decode dispatches, paged prefill 32 x chunk
+               dispatches, flash forward 32 x bucketed prefills); greedy
+               agreement with phases 3 and 4 printed, not required (the
+               kernels sum in other orders in bf16).
+6. engine_graphs — phases 3 and 4 again without CUDA graphs (the engine's
+               private `_eager` switch), in the same process: both modes'
+               tokens/s, step ms, peak memory, replays and program counts;
+               the streams must be identical and the launch counts equal.
+7. first_token — the first tokens of phases 3, 4 and both modes of 5 for
                two prompts against the argmax of the dense `forward` at the
                last prompt position, held equal where the top-2 margin
                exceeds 0.05 (ties printed).
-7. decode_logits — one `prefill_paged` of prompt 0, then `decode_step_paged`
+8. decode_logits — one `prefill_paged` of prompt 0, then `decode_step_paged`
                on its greedy next token: argmax equal to the dense
                `forward`'s over prompt + token where the margin exceeds 0.05.
-8. kernels_bwd — the flash backward pair (dkv and dq kernels) against
+9. kernels_bwd — the flash backward pair (dkv and dq kernels) against
                `_flash_bwd_ref` at [1,1024,32,128] causal, the training
                shape [4,2048,16,128] causal and [2,333,8,64] full, in bf16
                and float32: max abs errors, dkv/dq/pair/plain ms, the
@@ -64,7 +77,7 @@ Phases, one JSON line each (with its seconds):
                and 128, `BWD_BODY`), and at the training shape two calls'
                dq, dk, dv bitwise equal; then RMSNorm's dx, dw through its
                autograd Function against autograd through `_rms_ref`.
-9. varlen      — GPT-3 1.3B attention width (H 16, D 128), bf16 and float32:
+10. varlen     — GPT-3 1.3B attention width (H 16, D 128), bf16 and float32:
                8192 packed tokens in segments of 128-2048 through
                `flash_attn_unpadded(causal=True)` forward and backward (the
                segment-masked forward, dkv and dq kernels, once each; no
@@ -77,16 +90,16 @@ Phases, one JSON line each (with its seconds):
                `flash_attention(segment_ids=)` at [4,2048,16,128]; kernel,
                plain, SDPA (block-diagonal mask) and bound times, beside the
                dense kernels at [4,2048,16,128].
-10. train_parity — float32, TF32 off, Llama-3-8B width with 2 layers, B=1,
+11. train_parity — float32, TF32 off, Llama-3-8B width with 2 layers, B=1,
                S=1024: `loss_fn` and its gradients through the kernels
                against the same with `attn_impl=attention_ref`.
-11. train      — GPT-3 1.3B (`gpt3_1p3b`, 24 layers), bf16 params and
+12. train      — GPT-3 1.3B (`gpt3_1p3b`, 24 layers), bf16 params and
                moments, remat, B=4, S=2048, through `HybridParallelTrainer`:
                1 warm-up and 4 timed steps on one repeated batch; tokens/s,
                step ms, peak memory, losses, launches per step.
 
 Then one line `{"kernels": [...]}` for all nine kernels (launches summed over
-the main-path runs of phases 3, 4, 5, 9, 10 and 11, each with the counts
+the main-path runs of phases 3, 4, 5, 10, 11 and 12, each with the counts
 zeroed just before it and read just after; none of them may take an
 entry's composed route for shapes the kernels do not take) and, last,
 `{"ok": true, "device": ...}`.
@@ -111,6 +124,9 @@ H100_BF16_FLOPS = 989e12                # dense tensor-core bf16
 H100_F32_FLOPS = 67e12                  # float32 outside the tensor cores
 MAX_NEW = 32
 PROMPT_LENS = (64, 96, 160, 256, 384, 512, 768, 1024)
+SERVE_BUCKETS = [512, 1024, 2048]       # the prompts take two of them
+RELEASE_SLACK = 128 << 20   # bytes a dropped engine may leave (cuBLAS's
+#                             workspace on the capture stream, made once)
 
 
 def emit(obj):
@@ -595,22 +611,35 @@ def rms_grad_case(dtype, dev):
 # phases 3-5: the serving engine at Llama-3-8B width
 # ---------------------------------------------------------------------------
 
-def serve(params, cfg, prompts, chunk, dev, fuse=True):
-    """Warm up on one short request, zero the launch counts, serve the
-    prompts, read the counts.  Returns (outputs, phase record)."""
+def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False):
+    """Warm up on one short request, build the engine and warm its
+    decode-side program, zero the launch counts, serve the prompts, read
+    the counts; drop the engines and check their memory is released.
+    `eager`: no CUDA graphs (the engine's private comparison switch).
+    Returns (outputs, phase record)."""
+    import gc
+
     import torch
+    from paddle_tpu_torch.analysis.registry import over_budget
     from paddle_tpu_torch.incubate import kernels as K
     from paddle_tpu_torch.inference.engine import LLMEngine
 
     def engine():
         return LLMEngine(params, cfg, num_slots=8, page_size=16,
-                         max_model_len=2048, prefill_chunk=chunk, fuse=fuse,
-                         device=dev)
+                         max_model_len=2048, prefill_buckets=SERVE_BUCKETS,
+                         prefill_chunk=chunk, fuse=fuse, device=dev,
+                         _eager=eager)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     warm = engine()
     warm.add_request(prompts[0][:16], max_new_tokens=2)
     warm.run()
+    del warm
     eng = engine()
+    eng.warm_decode()
     for p in prompts:
         eng.add_request(p, max_new_tokens=MAX_NEW)
     torch.cuda.synchronize()
@@ -627,6 +656,7 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True):
     no_composed("serve")
     outs = eng.outputs
     st = eng.stats()
+    peak = torch.cuda.max_memory_allocated(dev)
     for rid, o in outs.items():
         if o.finish_reason != "length" or len(o.token_ids) != MAX_NEW or \
                 not all(0 <= t < cfg.vocab_size for t in o.token_ids):
@@ -634,7 +664,7 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True):
                                  f"{len(o.token_ids)} tokens")
     fused = st["fused_dispatches"]
     L = cfg.num_layers
-    if fuse and (launches["paged_prefill_attention_kernel"] < L * fused or
+    if fuse and (launches["paged_prefill_attention_kernel"] != L * fused or
                  fused == 0):
         raise AssertionError(f"paged attention launched {launches} times "
                              f"over {fused} fused steps")
@@ -652,18 +682,39 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True):
         raise AssertionError("RMSNorm kernel never launched")
     if chunk is None and launches["flash_attention_fwd"] == 0:
         raise AssertionError("flash kernel never launched in bucketed mode")
+    # one replay a step program dispatch (none when eager); the programs
+    # within the reference's budget
+    replays = 0 if eager else fused + st["decode_dispatches"] + \
+        st["chunk_dispatches"]
+    over = over_budget(st)
+    if st["graph_replays"] != replays or st["decode_executables"] > 1 or \
+            over:
+        raise AssertionError(f"graph replays {st['graph_replays']}, want "
+                             f"{replays}; programs over budget {over} ({st})")
+    execs = {k: st[k] for k in st if k.endswith("_executables")}
     gen = sum(len(o.token_ids) for o in outs.values())
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev) - held
+    if left > RELEASE_SLACK:
+        raise AssertionError(f"the dropped engines left {left / 2**20:.1f} "
+                             f"MiB allocated")
     rec = {"requests": len(outs), "prompt_lens": [int(p.size) for p in
                                                   prompts],
+           "buckets": SERVE_BUCKETS if chunk is None else None,
+           "graphs": not eager,
            "generated_tokens": gen, "wall_s": wall,
            "tokens_per_s": gen / wall, "engine_steps": len(steps),
            "mean_step_ms": 1e3 * wall / len(steps),
            "median_step_ms": 1e3 * float(np.median(steps)),
            "fused_dispatches": fused,
            **{k: st[k] for k in ("decode_iterations", "decode_dispatches",
-                                 "chunk_dispatches", "prefill_dispatches")},
-           "launches": launches,
-           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+                                 "chunk_dispatches", "prefill_dispatches",
+                                 "graph_replays")},
+           "executables": execs, "launches": launches,
+           "held_gib": held / 2 ** 30, "peak_mem_gib": peak / 2 ** 30,
+           "left_after_release_mib": left / 2 ** 20}
     return outs, rec
 
 
@@ -1175,6 +1226,27 @@ def main():
                                                               unfused[mode])
     emit({"phase": "engine_unfused", "seconds": time.perf_counter() - t,
           "fuse": False, **rec5})
+
+    t = time.perf_counter()
+    rec6 = {}
+    keys = ("tokens_per_s", "median_step_ms", "mean_step_ms", "peak_mem_gib",
+            "graph_replays", "executables")
+    for mode, chunk, outs, rec in (("bucketed", None, bucketed, rec3),
+                                   ("chunked", 16, chunked, rec4)):
+        eager, erec = serve(params, cfg, prompts, chunk, dev, eager=True)
+        agree = agreement(outs, eager)
+        if agree["identical_streams"] != agree["of"]:
+            raise AssertionError(f"engine_graphs {mode}: graph and eager "
+                                 f"streams differ {agree}")
+        if erec["launches"] != rec["launches"]:
+            raise AssertionError(f"engine_graphs {mode}: launches "
+                                 f"{rec['launches']} on graphs, "
+                                 f"{erec['launches']} eager")
+        rec6[mode] = {"graphs": {k: rec[k] for k in keys},
+                      "eager": {k: erec[k] for k in keys},
+                      "agreement": agree, "launches_equal": True}
+    emit({"phase": "engine_graphs", "seconds": time.perf_counter() - t,
+          **rec6})
 
     t = time.perf_counter()
     checks = []

@@ -9,6 +9,6 @@ imports torch and numpy, never jax and nothing of `paddle_tpu`.  Entry
 points run on the CUDA card unless the caller passes `device="cpu"`, which
 takes every kernel's plain PyTorch version.
 """
-from . import incubate, inference, models, nn, parallel  # noqa: F401
+from . import analysis, incubate, inference, models, nn, parallel  # noqa: F401
 
 __version__ = "0.1.0"

@@ -2,8 +2,10 @@
 hand-written kernel, each with a plain integer `launches` counter; `ROUTED`
 lists the model-facing entries that send shapes the kernels do not take to
 their plain versions on the card, each counting those calls in
-`composed_calls`.  The kernel modules build their CUDA code (nvcc,
-`_cuda.py`) only inside a launch."""
+`composed_calls`.  Both count Python calls: a CUDA graph's replay calls no
+wrapper, so its owner (`inference.graphs`) adds the counts its capture
+made (`counts`, `add_counts`) at every replay.  The kernel modules build
+their CUDA code (nvcc, `_cuda.py`) only inside a launch."""
 from .flash_attention import (flash_attention_fused, flash_attention_fwd,
                               flash_attention_seg_fwd, flash_attention_varlen,
                               flash_bwd_dkv, flash_bwd_dq, flash_bwd_seg_dkv,
@@ -35,3 +37,15 @@ def launches() -> dict:
 
 def composed_calls() -> dict:
     return {fn.__name__: fn.composed_calls for fn in ROUTED}
+
+
+def counts() -> dict:
+    """Every launch and composed-route count, keyed by (entry, attribute)."""
+    return {**{(fn, "launches"): fn.launches for fn in LAUNCH_COUNTED},
+            **{(fn, "composed_calls"): fn.composed_calls for fn in ROUTED}}
+
+
+def add_counts(delta: dict) -> None:
+    """Add a `counts`-keyed delta (negative parts take counts back)."""
+    for (fn, attr), n in delta.items():
+        setattr(fn, attr, getattr(fn, attr) + n)

@@ -194,13 +194,28 @@ def _counters(dev, stream, n):
     """Per-tile arrival counters of the split merge on `stream`, shared by
     the prefill and decode kernels (stream order keeps their calls apart):
     zeroed once, reset to 0 by the kernels' merging blocks, replaced only
-    when a call needs more of them."""
+    when a call needs more of them.  A CUDA graph bakes in the counters it
+    saw at capture, so a capture must find them sized (an eager call of the
+    same shapes on the capturing stream first) and its owner keeps them
+    alive (`split_counters`) should a later call replace them."""
     key = (dev.index, stream.cuda_stream)
     c = _split_counters.get(key)
     if c is None or c.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged attention: the split counters of the capturing stream "
+                "are not sized; run the captured step once eagerly on that "
+                "stream before capture")
         c = torch.zeros(n, dtype=torch.int32, device=dev)
         _split_counters[key] = c
     return c
+
+
+def split_counters(dev, stream):
+    """The merge counters the paged kernels use on `stream` now (None before
+    their first call there)."""
+    index = torch.cuda._get_device_index(dev, optional=True)
+    return _split_counters.get((index, stream.cuda_stream))
 
 
 def paged_prefill_attention_kernel(q, k_pages, v_pages, page_table, q_offset,

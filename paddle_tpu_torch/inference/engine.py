@@ -8,11 +8,22 @@ ride at valid=1, and in chunked mode (`prefill_chunk=N`) the oldest prompt's
 next chunk rides the same batch at valid=chunk tokens.  Bucketed mode
 (`prefill_chunk=None`, the default) prefills a whole prompt at admission
 with one `prefill_paged` pass padded to a power-of-2 bucket.  Argmax,
-temperature/top-k sampling (Gumbel noise from the engine's
-`torch.Generator`) and the per-request greedy mask run on the device; the
-host fetches only the [B, T] int32 token buffer.  With `double_buffer=True`
-(default) that fetch happens at the top of the NEXT step, so the device
-computes while the host schedules.
+temperature/top-k sampling and the per-request greedy mask run on the
+device; the Gumbel noise is drawn from the engine's `torch.Generator` before
+each step into the step's noise input.  The host fetches only the [B, T]
+int32 token buffer.  With `double_buffer=True` (default) that fetch happens
+at the top of the NEXT step, so the device computes while the host
+schedules.
+
+Each step program (the fused step; the unfused decode and chunk programs)
+is a `graphs.StepProgram`: its inputs are staged into static buffers and,
+on the card, the step is ONE `CUDAGraph.replay()` (the reference's one
+jitted executable a step).  `warm_decode()` builds the decode-side program
+on inert inputs; an engine that is not warmed builds each program at its
+first dispatch.  `stats()` counts the programs under the reference's keys
+(`decode_executables`, ..., held within
+`analysis.registry.SERVE_PROGRAM_BUDGET`) beside `graph_replays`.  The
+bucketed one-shot prefill stays eager (one program per bucket shape).
 
 `fuse=False` is the reference's three-program step, the A/B baseline of the
 fused one: each iteration advances the oldest mid-prefill prompt by one
@@ -30,6 +41,7 @@ defaults to False here (True in the reference).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import time
 from collections import deque
@@ -40,6 +52,7 @@ import torch
 
 from ..models import gpt as gpt_mod
 from .cache import PagedKVCache
+from .graphs import StepProgram
 
 _FP_NAMES = (None, "fp", "fp32", "f32", "bf16", "bfloat16", "float32")
 
@@ -110,7 +123,9 @@ class LLMEngine:
     """Continuous-batching engine over the functional GPT core, on
     `device` (None: the CUDA card, raising without one).  `params` must
     already lie on that device (`models.gpt.init_params` or
-    `models.convert.params_from_numpy`)."""
+    `models.convert.params_from_numpy`).  `_eager=True` runs the step
+    programs without CUDA graphs on the card (a comparison switch for the
+    card tests and `chip_smoke.py`; the reference has no such engine)."""
 
     def __init__(self, params, config: gpt_mod.GPTConfig, *,
                  num_slots: int = 4, page_size: int = 16,
@@ -137,7 +152,7 @@ class LLMEngine:
                  seed: int = 0,
                  clock=None,
                  request_tracing: bool = False,
-                 device=None):
+                 device=None, _eager: bool = False):
         if prefix_cache:
             raise _later("prefix_cache=True", "prefix cache and COW copy")
         if spec_len:
@@ -215,9 +230,12 @@ class LLMEngine:
         self._outputs: Dict[int, RequestOutput] = {}
         self._sample = bool(temperature and temperature > 0.0)
         self._temperature = temperature
-        self._top_k = top_k
+        self._sampling = (self._sample, temperature, top_k)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
+        self._capture = not _eager
+        self._programs: Dict[str, StepProgram] = {}
+        self._seen_buckets: set = set()
         # the un-synced result of the last fused dispatch (double_buffer)
         self._inflight: Optional[Dict[str, object]] = None
         self._now = time.perf_counter
@@ -295,15 +313,65 @@ class LLMEngine:
         later host edits of the numpy source cannot reach it)."""
         return torch.from_numpy(np.array(a, dtype)).to(self.device)
 
-    def _pick(self, logits, greedy) -> torch.Tensor:
-        """[B, V] logits -> [B] int32 on device: argmax, or a sample with
-        the greedy mask routing temperature=0.0 requests to the argmax."""
-        if not self._sample:
-            return gpt_mod.sharded_argmax(logits)
-        ids = gpt_mod.sample_token(logits, self._generator, sample=True,
-                                   temperature=self._temperature,
-                                   top_k=self._top_k)
-        return torch.where(greedy, gpt_mod.sharded_argmax(logits), ids)
+    def _noise(self, rows: int) -> torch.Tensor:
+        """Gumbel noise [rows, V] for one pick, from the engine's
+        generator."""
+        return gpt_mod.gumbel_noise((rows, self.config.vocab_size),
+                                    self.config.dtype, self._generator,
+                                    self.device)
+
+    # ---- step programs ----------------------------------------------------
+    def _program(self, role: str) -> StepProgram:
+        """The step program of `role` ("fused", or the unfused "decode" and
+        "chunk"), made at first use (built at its first staging)."""
+        prog = self._programs.get(role)
+        if prog is not None:
+            return prog
+        mgr, c = self.cache, self.config
+        B, P = mgr.num_slots, mgr.max_pages_per_slot
+        i32 = torch.int32
+        if role == "fused":
+            rows, T = B, self._fused_T
+            inputs = {"tokens": ((B, T), i32, 0),
+                      "table": ((B, P), i32, 0),
+                      "q_offset": ((B,), i32, 0), "valid": ((B,), i32, 1)}
+        elif role == "decode":
+            rows = B
+            inputs = {"tokens": ((B,), i32, 0), "table": ((B, P), i32, 0),
+                      "lengths": ((B,), i32, 0)}
+        else:
+            rows = 1
+            inputs = {"tokens": ((1, self.prefill_chunk), i32, 0),
+                      "table": ((1, P), i32, 0),
+                      "q_offset": ((1,), i32, 0), "valid": ((1,), i32, 1)}
+        inputs["greedy"] = ((rows,), torch.bool, False)
+        if self._sample:
+            inputs["noise"] = ((rows, c.vocab_size), c.dtype, 0.0)
+        # the body holds params, pool and config, never the engine, so the
+        # graphs go with the engine
+        body = functools.partial(_BODIES[role], self.params, c, self._pool,
+                                 self._sampling)
+        prog = StepProgram(role, body, inputs, self.device,
+                           capture=self._capture, device_fed=("noise",))
+        self._programs[role] = prog
+        return prog
+
+    def _dispatch(self, role: str, **values) -> StepProgram:
+        """Stage one step's inputs (and its noise) and run it."""
+        prog = self._program(role)
+        if self._sample:
+            values["noise"] = self._noise(prog.inputs["greedy"].shape[0])
+        prog.stage(**values)
+        prog.run()
+        return prog
+
+    def warm_decode(self) -> None:
+        """Build the decode-side program (the fused step, or the unfused
+        decode program) on inert inputs, every table row on the null page:
+        on the card its warm-up run and its graph capture.  Reference name
+        and contract; here the generator is not drawn from, so sampled
+        streams do not change."""
+        self._program("fused" if self.fused else "decode").build()
 
     # ---- scheduler --------------------------------------------------------
     def step(self) -> List[RequestOutput]:
@@ -359,7 +427,10 @@ class LLMEngine:
             logits, self._pool = gpt_mod.prefill_paged(
                 self.params, self._h2d(ids), self.config, self._pool,
                 self._h2d(pages), self._h2d([lp], np.int32))
-            first = self._pick(logits, self._h2d([self._req_greedy(req)]))
+            first = pick_tokens(logits, self._h2d([self._req_greedy(req)]),
+                                self._noise(1) if self._sample else None,
+                                self._sampling)
+            self._seen_buckets.add(bucket)
             self._c["prefill_dispatches"] += 1
             self._c["prefilled_tokens"] += lp
             first = int(first[0])       # blocks on the result
@@ -378,13 +449,12 @@ class LLMEngine:
         n = min(C, lp - st.filled)
         ids = np.zeros((1, C), np.int32)
         ids[0, :n] = req.prompt[st.filled:st.filled + n]
-        logits, self._pool = gpt_mod.prefill_chunk_paged(
-            self.params, self._h2d(ids), self.config, self._pool,
-            self._h2d(self.cache.page_table[slot][None, :]),
-            self._h2d([st.filled], np.int32), self._h2d([n], np.int32))
         # every chunk picks (and draws noise), as the reference's chunk
         # program does; only the last chunk's token is used
-        tok = self._pick(logits, self._h2d([self._req_greedy(req)]))
+        prog = self._dispatch(
+            "chunk", tokens=ids, table=self.cache.page_table[slot][None, :],
+            q_offset=st.filled, valid=n, greedy=self._req_greedy(req))
+        tok = prog.result()
         self._c["chunk_dispatches"] += 1
         self._c["prefill_chunks"] += 1
         self._c["prefilled_tokens"] += n
@@ -416,10 +486,8 @@ class LLMEngine:
             if slot in self._prefilling or \
                     (slot in self._running and slot not in slots):
                 table[slot, :] = 0
-        logits, self._pool = gpt_mod.decode_step_paged(
-            self.params, self._h2d(tokens), self._pool, self._h2d(table),
-            self._h2d(mgr.lengths), self.config)
-        nxt = self._pick(logits, self._h2d(greedy)).cpu().numpy()
+        nxt = self._dispatch("decode", tokens=tokens, table=table,
+                             lengths=mgr.lengths, greedy=greedy).result()
         self._c["decode_dispatches"] += 1
         self._c["decode_tokens"] += len(slots)
         for slot in slots:
@@ -480,14 +548,10 @@ class LLMEngine:
                 greedy[slot] = self._req_greedy(st.request)
             else:
                 table[slot, :] = 0          # inactive: KV to the null page
-        out, _, self._pool = gpt_mod.serve_step_paged(
-            self.params, self._h2d(tokens), self._pool, self._h2d(table),
-            self._h2d(qoff), self._h2d(valid), self.config,
-            generator=self._generator, greedy=self._h2d(greedy),
-            sample=self._sample, temperature=self._temperature,
-            top_k=self._top_k)
+        prog = self._dispatch("fused", tokens=tokens, table=table,
+                              q_offset=qoff, valid=valid, greedy=greedy)
         self._c["fused_dispatches"] += 1
-        inflight = {"out": out, "slots": slots, "chunk": chunk_job}
+        inflight = {"prog": prog, "slots": slots, "chunk": chunk_job}
         if self.double_buffer:
             self._inflight = inflight
         else:
@@ -496,14 +560,15 @@ class LLMEngine:
     def _harvest(self, finished: List[RequestOutput],
                  inflight: Optional[Dict[str, object]] = None) -> None:
         """Fetch the [B, T] token buffer of a fused dispatch (the step's only
-        device->host transfer), emit each running slot's token, move a
-        completed chunk's slot into the decode set, retire finishers."""
+        device->host transfer, waited for on an event), emit each running
+        slot's token, move a completed chunk's slot into the decode set,
+        retire finishers."""
         inf = inflight if inflight is not None else self._inflight
         if inflight is None:
             self._inflight = None
         if inf is None:
             return
-        out = inf["out"].cpu().numpy()          # blocks on the device result
+        out = inf["prog"].result()              # waits for the device result
         for slot in inf["slots"]:
             seq = self._running[slot]
             if self._emit_slot(seq, slot, [int(out[slot, 0])], finished):
@@ -571,9 +636,23 @@ class LLMEngine:
 
     def stats(self) -> Dict[str, object]:
         """Plain counters (the reference's key names where the meaning is
-        the same) plus the pool and queue levels."""
+        the same), the program counts, plus the pool and queue levels.
+        Programs count as the reference's executables do: each built step
+        program 1 (on the card, its captured graph), each eager bucket
+        shape of the one-shot prefill 1; the unfused chunk program counts
+        toward prefill.  Verify, copy and swap programs belong to later
+        slices (0)."""
+        built = {r for r, p in self._programs.items() if p.built}
         return {
             **self._c,
+            "decode_executables": int(("fused" if self.fused else "decode")
+                                      in built),
+            "verify_executables": 0,
+            "prefill_executables": len(self._seen_buckets) +
+                                   int("chunk" in built),
+            "copy_executables": 0,
+            "swap_executables": 0,
+            "graph_replays": sum(p.replays for p in self._programs.values()),
             "buckets": list(self.buckets),
             "prefill_chunk": self.prefill_chunk,
             "fuse": self.fused,
@@ -585,3 +664,47 @@ class LLMEngine:
             "prefilling": len(self._prefilling),
             "running": len(self._running),
         }
+
+
+def pick_tokens(logits, greedy, noise, sampling) -> torch.Tensor:
+    """[B, V] logits -> [B] int32 on the device: argmax, or the Gumbel pick
+    under `noise` [B, V] with the greedy mask routing temperature=0.0
+    requests to the argmax.  sampling: (sample, temperature, top_k)."""
+    sample, temperature, top_k = sampling
+    if not sample:
+        return gpt_mod.sharded_argmax(logits)
+    ids = gpt_mod.sample_token(logits, None, sample=True,
+                               temperature=temperature, top_k=top_k,
+                               noise=noise)
+    return torch.where(greedy, gpt_mod.sharded_argmax(logits), ids)
+
+
+# the step programs' bodies: (params, config, pool, sampling) bound by the
+# engine, the static inputs by name
+
+
+def _fused_body(params, config, pool, sampling, tokens, table, q_offset,
+                valid, greedy, noise=None):
+    sample, temperature, top_k = sampling
+    out, _, _ = gpt_mod.serve_step_paged(
+        params, tokens, pool, table, q_offset, valid, config, greedy=greedy,
+        sample=sample, temperature=temperature, top_k=top_k, noise=noise)
+    return out
+
+
+def _decode_body(params, config, pool, sampling, tokens, table, lengths,
+                 greedy, noise=None):
+    logits, _ = gpt_mod.decode_step_paged(params, tokens, pool, table,
+                                          lengths, config)
+    return pick_tokens(logits, greedy, noise, sampling)
+
+
+def _chunk_body(params, config, pool, sampling, tokens, table, q_offset,
+                valid, greedy, noise=None):
+    logits, _ = gpt_mod.prefill_chunk_paged(params, tokens, config, pool,
+                                            table, q_offset, valid)
+    return pick_tokens(logits, greedy, noise, sampling)
+
+
+_BODIES = {"fused": _fused_body, "decode": _decode_body,
+           "chunk": _chunk_body}

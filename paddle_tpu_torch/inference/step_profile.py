@@ -5,12 +5,19 @@
 Builds Llama-3-8B (bf16, random weights from a seeded generator) in
 `paddle_tpu_torch`'s `LLMEngine` on one CUDA card with the same geometry as
 `chip_smoke.py` (8 slots, page 16, bucketed prefill), admits 8 requests of
-64-1024 prompt tokens, lets every slot reach decode, then traces 8
-fused decode steps with `torch.profiler`.  Prints one JSON line: the card,
-the window's host wall time per step, the device-busy time per step (union
-of kernel intervals) and idle share, the device time per step by kernel
-group (paged attention, RMSNorm, GEMM, other) and the top kernels by device
-time with their launch counts.  Needs a card; exits non-zero without one.
+64-1024 prompt tokens, lets every slot reach decode, times 8 fused decode
+steps without the profiler, then traces 8 more with `torch.profiler`.
+Each step is one CUDA-graph replay (the engine's default); the profiler
+reports the graph's kernels by name, as it does eager launches.  Prints
+one JSON line: the card, the host wall time per step of both windows, the
+device-busy time per step (union of kernel intervals) and idle share of
+the traced window (and the idle share of the untraced window against the
+same busy time), the idle time between kernels split at GAP_US (short
+gaps lie between kernels the card runs back to back, long ones wait on
+the host), the kernels and graph replays per step, the device time per
+step by kernel group (paged attention, RMSNorm, GEMM, other) and the top
+kernels by device time with their launch counts.  Needs a card; exits
+non-zero without one.
 
     python3 -m paddle_tpu_torch.inference.step_profile --no-fuse
 
@@ -54,6 +61,7 @@ def _group(name):
 
 
 STEPS = 8
+GAP_US = 20.0           # idle gaps shorter than this: between queued kernels
 OPT_MARK = "step_profile.optimizer"     # record_function range of the update
 
 
@@ -79,6 +87,22 @@ def _busy_us(kernels):
     if cur_e is not None:
         busy += cur_e - cur_s
     return busy
+
+
+def _gaps_us(kernels):
+    """Idle time between the kernels' merged device intervals, in us:
+    (gaps under GAP_US, gaps of GAP_US or more)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    short = long_ = 0.0
+    end = None
+    for s, e in spans:
+        if end is not None and s > end:
+            if s - end < GAP_US:
+                short += s - end
+            else:
+                long_ += s - end
+        end = e if end is None else max(end, e)
+    return short, long_
 
 
 def _by_name(kernels, steps):
@@ -167,10 +191,16 @@ def main():
     rng = np.random.RandomState(0)
     for n in (64, 96, 160, 256, 384, 512, 768, 1024):
         eng.add_request(rng.randint(0, cfg.vocab_size, n),
-                        max_new_tokens=STEPS + 8)
+                        max_new_tokens=2 * STEPS + 8)
     for _ in range(4):                  # admission + warm decode steps
         eng.step()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()            # the untraced window
+    for _ in range(STEPS):
+        eng.step()
+    torch.cuda.synchronize()
+    bare = (time.perf_counter() - t0) / STEPS
+    replays = eng.stats()["graph_replays"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -180,6 +210,7 @@ def main():
         wall = time.perf_counter() - t0
     kernels = _kernels(prof)
     busy = _busy_us(kernels)
+    short, long_ = _gaps_us(kernels)
     groups = {}
     for e in kernels:
         d = e.time_range.end - e.time_range.start
@@ -192,7 +223,13 @@ def main():
         "host_wall_ms_per_step": wall * 1e3 / STEPS,
         "device_busy_ms_per_step": busy * per,
         "device_idle_share": 1.0 - busy * 1e-6 / wall,
+        "host_wall_ms_per_step_untraced": bare * 1e3,
+        "device_idle_share_untraced": 1.0 - busy * 1e-6 / STEPS / bare,
+        f"device_gap_ms_per_step_under_{GAP_US:g}us": short * per,
+        f"device_gap_ms_per_step_over_{GAP_US:g}us": long_ * per,
         "kernel_launches_per_step": len(kernels) / STEPS,
+        "graph_replays_per_step":
+            (eng.stats()["graph_replays"] - replays) / STEPS,
         "device_ms_per_step_by_group": {k: v * per for k, v in
                                         sorted(groups.items())},
         "top_kernels": _by_name(kernels, STEPS)}))

@@ -16,6 +16,10 @@ In bf16 the forward runs the tensor-core body (wgmma, `FWD_BODY`), in
 float32 the CUDA-core one; the backward pair, dense and segment-masked,
 runs the tensor-core body in bf16 at D 64 and 128 and the CUDA-core one
 otherwise (`BWD_BODY`).  Each body is held to the same plain versions.
+The serving engine's step programs (`inference/graphs.py`) are held on
+the card too: each program's graph replay bitwise equal to the eager step
+(tokens and pool), sampled streams with and without graphs, a warmed
+chunked loop under `torch.cuda.set_sync_debug_mode("error")`.
 """
 import math
 
@@ -913,3 +917,223 @@ def test_unfused_engine_on_card_matches_cpu_plain_path(dev, chunk):
         seq = np.concatenate([ref.prompt, np.asarray(a[:i], np.int32)])
         top2 = torch.topk(gpt.forward(cpu, seq[None], cfg)[0, -1], 2).values
         assert float(top2[0] - top2[1]) < 1e-4, (rid, i, a, b)
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's step programs as CUDA graphs (`inference/graphs.py`)
+# ---------------------------------------------------------------------------
+
+def _small_llama(dtype):
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=4, num_kv_heads=2, max_seq_len=128,
+                        use_rms_norm=True, activation="silu",
+                        gated_ffn=True, use_bias=False,
+                        tie_word_embeddings=False, intermediate_size=512)
+    cfg.dtype = dtype
+    return cfg
+
+
+def _card_params(cfg, dev, seed=0):
+    from paddle_tpu_torch.models import gpt
+    return gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           dev)
+
+
+# role -> (fuse, prefill_chunk); 3 slots, page 16, 8 pages a slot
+STEP_ROLES = {"fused_t1": ("fused", True, None),
+              "fused_t16": ("fused", True, 16),
+              "decode": ("decode", False, 16),
+              "chunk": ("chunk", False, 16)}
+
+
+def _step_inputs(role, rng, eng, offsets=(37, 16)):
+    """Identical staged inputs for one program: slot 0 decodes at
+    offsets[0], slot 1 runs a chunk (or decodes) at offsets[1], slot 2 is
+    inactive (null row); the active rows hold the pages they reach."""
+    mgr = eng.cache
+    P = mgr.max_pages_per_slot
+    T = 16 if role == "chunk" else eng._fused_T if role == "fused" else 1
+    table = np.zeros((mgr.num_slots, P), np.int32)
+    pages = list(rng.permutation(np.arange(1, mgr.num_pages)))
+    for b, q0 in enumerate(offsets):
+        n = (q0 + T) // mgr.page_size + 1
+        table[b, :n] = [pages.pop() for _ in range(n)]
+    if role == "chunk":
+        return dict(tokens=rng.randint(0, 512, (1, 16)), table=table[1:2],
+                    q_offset=[offsets[1]], valid=[11], greedy=[True])
+    if role == "decode":
+        return dict(tokens=rng.randint(0, 512, 3), table=table,
+                    lengths=np.array([*offsets, 0]),
+                    greedy=np.ones(3, bool))
+    return dict(tokens=rng.randint(0, 512, (3, T)), table=table,
+                q_offset=np.array([*offsets, 0]),
+                valid=np.array([1, T, 1]), greedy=np.ones(3, bool))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("role", list(STEP_ROLES))
+def test_step_replay_is_bitwise_the_eager_step(dev, dtype, role):
+    """One replay of each step program (fused at T 1 and 16, unfused decode
+    and chunk) against the eager step on identical staged inputs and an
+    identical pool: output tokens and the pool after the step bitwise
+    equal, and the same kernel launch counts."""
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    name, fuse, chunk = STEP_ROLES[role]
+    cfg = _small_llama(dtype)
+    params = _card_params(cfg, dev)
+    rng = np.random.RandomState(7)
+    pool = {n: _randn(rng, (cfg.num_layers, 13, 16, 2, 64), dtype, dev)
+            for n in ("k", "v")}
+    runs = {}
+    for eager in (False, True):
+        eng = LLMEngine(params, cfg, num_slots=3, page_size=16,
+                        max_model_len=128, num_pages=13, prefill_chunk=chunk,
+                        fuse=fuse, device=dev, _eager=eager)
+        for n in ("k", "v"):
+            eng._pool[n].copy_(pool[n])
+        prog = eng._program(name)
+        prog.build()
+        for n in ("k", "v"):                # the warm-up wrote page 0 only
+            assert torch.equal(eng._pool[n][:, 1:], pool[n][:, 1:])
+            eng._pool[n].copy_(pool[n])
+        prog.stage(**_step_inputs(name, np.random.RandomState(3), eng))
+        torch.cuda.synchronize()
+        K.reset_launches()
+        prog.run()
+        out = prog.result()
+        runs[eager] = (out, {n: t.clone() for n, t in eng._pool.items()},
+                       K.launches(), prog.replays)
+        assert (prog.graph is None) == eager
+    (g_out, g_pool, g_n, g_rep), (e_out, e_pool, e_n, e_rep) = \
+        runs[False], runs[True]
+    assert np.array_equal(g_out, e_out)
+    for n in ("k", "v"):
+        assert torch.equal(g_pool[n], e_pool[n])
+    assert g_n == e_n and (g_rep, e_rep) == (1, 0)
+    kern = "paged_attention_kernel" if name == "decode" else \
+        "paged_prefill_attention_kernel"
+    assert g_n[kern] == cfg.num_layers and g_n["rms_norm_fused"] > 0
+
+
+@pytest.mark.parametrize("mode", ["fused_bucketed", "fused_chunked",
+                                  "unfused_chunked"])
+def test_sampled_streams_equal_with_and_without_graphs(dev, mode):
+    """A sampling engine (temperature 0.8, top-k 20, one seed) gives the
+    same streams with graphs and eagerly: the noise is drawn from the
+    generator outside the graph, the same draws either way.  On graphs,
+    every program dispatch is one replay, and the program counts stay
+    within the budget."""
+    from paddle_tpu_torch.analysis.registry import over_budget
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    cfg = _small_llama(torch.bfloat16)
+    params = _card_params(cfg, dev, seed=1)
+    fuse, chunk = mode.startswith("fused"), \
+        None if mode.endswith("bucketed") else 8
+    rng = np.random.RandomState(2)
+    reqs = [(rng.randint(0, 512, rng.randint(2, 60)), int(rng.randint(1, 12)))
+            for _ in range(7)]
+    streams, stats = {}, {}
+    for eager in (False, True):
+        eng = LLMEngine(params, cfg, num_slots=3, page_size=16,
+                        max_model_len=128, prefill_chunk=chunk, fuse=fuse,
+                        temperature=0.8, top_k=20, seed=9, device=dev,
+                        _eager=eager)
+        for i, (prompt, n) in enumerate(reqs):
+            eng.add_request(prompt, max_new_tokens=n,
+                            temperature=0.0 if i % 3 == 0 else None)
+        streams[eager] = {r: o.token_ids for r, o in eng.run().items()}
+        stats[eager] = eng.stats()
+    assert streams[False] == streams[True]
+    st = stats[False]
+    assert st["graph_replays"] == st["fused_dispatches"] + \
+        st["decode_dispatches"] + st["chunk_dispatches"] > 0
+    assert stats[True]["graph_replays"] == 0
+    assert st["decode_executables"] == 1 and not over_budget(st)
+
+
+def test_warmed_chunked_fused_loop_never_syncs(dev):
+    """After `warm_decode()`, the chunked fused loop (admission, staging,
+    replay, the harvest's event wait) runs under
+    `torch.cuda.set_sync_debug_mode("error")`."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    cfg = _small_llama(torch.bfloat16)
+    eng = LLMEngine(_card_params(cfg, dev), cfg, num_slots=3, page_size=16,
+                    max_model_len=128, prefill_chunk=16, device=dev)
+    eng.warm_decode()
+    rng = np.random.RandomState(4)
+    for n in (5, 40, 70, 17):
+        eng.add_request(rng.randint(0, 512, n), max_new_tokens=9)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        while eng.has_work:
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(len(o.token_ids) == 9 for o in eng.outputs.values())
+    st = eng.stats()
+    assert st["graph_replays"] == st["fused_dispatches"] > 0
+
+
+def test_eager_call_after_capture_leaves_the_replay_unchanged(dev):
+    """An eager paged call on the capture stream that needs more split
+    counters than the graph baked in replaces them; the graph keeps its
+    own alive, so memory allocated and written afterwards cannot reach the
+    next replay's merge (512 positions a slot: the graph's blocks split
+    each slot's keys 4 ways and merge through the counters)."""
+    from paddle_tpu_torch.incubate.kernels.paged_attention import \
+        split_counters
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.inference.graphs import side_stream
+    cfg = _small_llama(torch.bfloat16)
+    eng = LLMEngine(_card_params(cfg, dev), cfg, num_slots=3, page_size=16,
+                    max_model_len=512, prefill_chunk=16, device=dev)
+    rng = np.random.RandomState(5)
+    for n in ("k", "v"):
+        eng._pool[n].copy_(_randn(rng, tuple(eng._pool[n].shape),
+                                  torch.bfloat16, dev))
+    prog = eng._program("fused")
+    feed = _step_inputs("fused", np.random.RandomState(6), eng,
+                        offsets=(300, 200))  # past the first key split
+    prog.stage(**feed)
+    prog.run()
+    first = prog.result()
+    side = side_stream(dev)
+    baked = split_counters(dev, side)
+    assert baked is not None and prog._keep is baked
+    # 32 counters a slot (8 kv heads x 4 row tiles of 16 x 4 rows)
+    B = baked.numel() // 32 + 2
+    pages = rng.permutation(np.arange(1, 2 * B + 1)).astype(np.int32)
+    args = (_randn(rng, (B, 16, 32, 128), torch.bfloat16, dev),
+            _randn(rng, (2 * B + 1, 16, 8, 128), torch.bfloat16, dev),
+            _randn(rng, (2 * B + 1, 16, 8, 128), torch.bfloat16, dev),
+            torch.from_numpy(pages.reshape(B, 2)).to(dev),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            torch.full((B,), 16, dtype=torch.int32, device=dev))
+    with torch.cuda.stream(side):
+        big = paged_prefill_attention_kernel(*args)
+        junk = [torch.full((baked.numel(),), 7, dtype=torch.int32,
+                           device=dev) for _ in range(64)]
+    torch.cuda.synchronize()
+    assert split_counters(dev, side) is not baked       # replaced
+    assert int(baked.abs().sum()) == 0                  # still at rest
+    _close(big, paged_prefill_attention_ref(*args), torch.bfloat16)
+    prog.stage(**feed)
+    prog.run()
+    assert np.array_equal(prog.result(), first)
+    del junk
+
+
+def test_a_capture_that_syncs_raises(dev):
+    """A body that reads a value on the host cannot be captured: the build
+    raises, it does not fall back to the eager step."""
+    from paddle_tpu_torch.inference.graphs import StepProgram
+
+    def body(x):
+        return x * int(x.sum())             # a device-to-host read
+    prog = StepProgram("bad", body, {"x": ((4,), torch.int32, 1)}, dev)
+    with pytest.raises(RuntimeError):
+        prog.build()
+    assert not prog.built and prog.graph is None
