@@ -9,9 +9,10 @@ Phases, one JSON line each (with its seconds):
                kernels (one nvcc per source, in parallel); each source's
                build seconds, ptxas's register/spill/serialization lines,
                and per tensor-core backward kernel (dense and SEG), per
-               paged prefill kernel (`ptxas_paged_prefill`, 24
-               instantiations), per paged decode kernel
-               (`ptxas_paged_decode`, 48) and per RMSNorm kernel
+               paged prefill kernel (`ptxas_paged_prefill`, 48
+               instantiations: 24 over a pool of q's dtype, 24 over an
+               int8 pool), per paged decode kernel (`ptxas_paged_decode`,
+               96: 48 and 48) and per RMSNorm kernel
                (`ptxas_rms_norm`, 40 register and 4 ring kernels) its
                registers and spills, none of which may spill.
 2. kernels  — each hand-written kernel against its plain PyTorch version on
@@ -34,6 +35,14 @@ Phases, one JSON line each (with its seconds):
                rows also give the kernel's and the library call's device
                time (`device_ms`, `library_device_ms`: the calls timed
                behind a sleep kernel, without the host's launch cost).
+               The int8 lanes of both paged kernels (`"kv": "int8"` rows:
+               an int8 pool with f32 scales as `_quantize_kv` writes it) run
+               at the same shapes, page 16 and 32, bf16 and float32 q,
+               against their plain versions (float32 F32_TOL; bf16
+               INT8_BF16_TOL, one bf16 rounding of the output, since
+               neither rounds p), with their own ck sweeps; the library
+               yardstick is SDPA over a gathered copy dequantized outside
+               the timed call.
 3. engine_bucketed — Llama-3-8B at full width (all 32 layers), bf16, random
                weights from a seeded generator, 8 greedy requests of 64-1024
                prompt tokens x 32 new tokens through `LLMEngine` with
@@ -61,6 +70,18 @@ Phases, one JSON line each (with its seconds):
                private `_eager` switch), in the same process: both modes'
                tokens/s, step ms, peak memory, replays and program counts;
                the streams must be identical and the launch counts equal.
+6b. engine_int8 — the same requests through `LLMEngine(weight_dtype=
+               "int8", kv_dtype="int8")`, page 32, on graphs: fused
+               bucketed, fused chunked (`prefill_chunk=16`) and `fuse=False`
+               bucketed.  Each: tokens/s, step ms, peak memory,
+               `kv_pool_bytes` beside the bf16 pool's at the same geometry,
+               the int8 lanes' launches (`launches_int8`: 32 x the
+               dispatches that reach each lane, no fp paged launch), no
+               composed call, the programs within the budget, greedy
+               agreement with the bf16 phases (printed, not required); and
+               the bucketed engine's first token of prompts 0 and 1 equal to
+               the argmax of the dense `forward` over the dequantized
+               weights where the top-2 margin exceeds 0.05.
 7. first_token — the first tokens of phases 3, 4 and both modes of 5 for
                two prompts against the argmax of the dense `forward` at the
                last prompt position, held equal where the top-2 margin
@@ -98,8 +119,9 @@ Phases, one JSON line each (with its seconds):
                1 warm-up and 4 timed steps on one repeated batch; tokens/s,
                step ms, peak memory, losses, launches per step.
 
-Then one line `{"kernels": [...]}` for all nine kernels (launches summed over
-the main-path runs of phases 3, 4, 5, 10, 11 and 12, each with the counts
+Then one line `{"kernels": [...]}` for all nine kernels and the int8 lanes of
+the two paged ones (launches summed over the main-path runs of phases 3, 4,
+5, 6b, 10, 11 and 12, each with the counts
 zeroed just before it and read just after; none of them may take an
 entry's composed route for shapes the kernels do not take) and, last,
 `{"ok": true, "device": ...}`.
@@ -116,6 +138,8 @@ import time
 import numpy as np
 
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 rounding of P before PV
+INT8_BF16_TOL = dict(atol=1e-2, rtol=1e-2)  # int8 lanes, bf16 q: p stays
+#                                             f32, one bf16 output rounding
 F32_TOL = 1e-4                          # same math, other summation order
 BWD_BF16_REL = 2e-2     # backward, bf16: max abs err <= 2e-2 * max|ref|
 BWD_F32_REL = 1e-4      # backward, f32: <= 1e-4 * max(1, max|ref|)
@@ -125,6 +149,7 @@ H100_F32_FLOPS = 67e12                  # float32 outside the tensor cores
 MAX_NEW = 32
 PROMPT_LENS = (64, 96, 160, 256, 384, 512, 768, 1024)
 SERVE_BUCKETS = [512, 1024, 2048]       # the prompts take two of them
+INT8_PAGE = 32          # the int8 engines' page (the reference's int8 gate)
 RELEASE_SLACK = 128 << 20   # bytes a dropped engine may leave (cuBLAS's
 #                             workspace on the capture stream, made once)
 
@@ -210,13 +235,13 @@ def bound(nbytes, flops, peak_flops):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_close(name, got, ref, dtype):
+def check_close(name, got, ref, dtype, bf16_tol=BF16_TOL):
     import torch
     err = float((got.float() - ref.float()).abs().max())
     if dtype == torch.float32:
         ok = err <= F32_TOL
     else:
-        ok = bool(torch.allclose(got.float(), ref.float(), **BF16_TOL))
+        ok = bool(torch.allclose(got.float(), ref.float(), **bf16_tol))
     if not ok:
         raise AssertionError(f"{name} ({dtype}): kernel disagrees with its "
                              f"plain version, max abs err {err:.3g}")
@@ -317,12 +342,12 @@ def flash_case(dtype, dev, shape):
         "bound_ms": b, "bound_by": by}
 
 
-def paged_inputs(dtype, dev, T):
-    """B=8, page 16, H=32, KVH=8, hd=128, max_pages 128 (2048 tokens), mixed
+def paged_inputs(dtype, dev, T, page=16):
+    """B=8, H=32, KVH=8, hd=128, 2048 tokens a table row, mixed
     q_offset/valid; slots 6 and 7 are null-table slots (valid 1, offset 0)."""
     import torch
     rng = np.random.RandomState(T)
-    B, H, KVH, hd, page, max_pages = 8, 32, 8, 128, 16, 128
+    B, H, KVH, hd, max_pages = 8, 32, 8, 128, 2048 // page
     if T == 1:
         q_offset = np.array([0, 37, 300, 1000, 1500, 2040, 0, 0])
         valid = np.ones(B, np.int64)
@@ -347,24 +372,52 @@ def paged_inputs(dtype, dev, T):
     return args, q_offset, valid
 
 
-def paged_case(dtype, dev, T):
+def int8_pool(kp, vp):
+    """The int8 pool and (k_scale, v_scale) that `_quantize_kv` writes for
+    the float pool kp, vp."""
+    from paddle_tpu_torch.models.gpt import _quantize_kv
+    (kq, ks), (vq, vs) = (_quantize_kv(x.float()) for x in (kp, vp))
+    return kq, vq, (ks, vs)
+
+
+def dequantized(pages, scales, dtype):
+    """An int8 pool dequantized into `dtype` (the library yardstick's
+    input, made outside the timed call)."""
+    return (pages.float() * scales[..., None]).to(dtype)
+
+
+def paged_case(dtype, dev, T, page=16, int8=False):
+    """The paged prefill kernel against its plain version; `int8`: its int8
+    lane over the int8 pool `_quantize_kv` makes of the same inputs."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.incubate.kernels import paged_attention as PA
     from paddle_tpu_torch.incubate.kernels.paged_attention import (
         _prefill_split_plan, paged_prefill_attention_kernel,
         paged_prefill_attention_ref)
-    args, q_offset, valid = paged_inputs(dtype, dev, T)
-    got = paged_prefill_attention_kernel(*args)
-    ref = paged_prefill_attention_ref(*args)
-    err = max(check_close("paged_attention", got[b, :n], ref[b, :n], dtype)
+    args, q_offset, valid = paged_inputs(dtype, dev, T, page)
+    kw, kd, vd = {}, args[1], args[2]
+    if int8:
+        kq, vq, scales = int8_pool(args[1], args[2])
+        args = (args[0], kq, vq, *args[3:])
+        kw = {"kv_scales": scales}
+        kd, vd = (dequantized(x, sc, dtype) for x, sc in zip((kq, vq),
+                                                             scales))
+
+    def call():
+        return paged_prefill_attention_kernel(*args, **kw)
+    got = call()
+    ref = paged_prefill_attention_ref(*args, **kw)
+    tol = INT8_BF16_TOL if int8 else BF16_TOL
+    err = max(check_close("paged_attention", got[b, :n], ref[b, :n], dtype,
+                          tol)
               for b, n in enumerate(valid))
     if any(bool(got[b, n:].any()) for b, n in enumerate(valid)):
         raise AssertionError(f"paged_attention T={T} ({dtype}): padding "
                              f"rows are not 0")
     # the split merge reads the partials in split order: the same bits on
     # every call
-    if not torch.equal(got, paged_prefill_attention_kernel(*args)):
+    if not torch.equal(got, call()):
         raise AssertionError(f"paged_attention T={T} ({dtype}): two calls "
                              f"on the same inputs differ")
     q, kp, vp, table, qo, vl = args
@@ -373,16 +426,19 @@ def paged_case(dtype, dev, T):
     plan = _prefill_split_plan(B, T, H, KVH, hd, page, table.shape[1],
                                PA.PREFILL_CK)
     isz = q.element_size()
-    # what this data needs: each slot's keys up to its last real query,
-    # each valid row's causal span
+    # what this data needs: each slot's keys up to its last real query
+    # (K and V rows, with their f32 scales for an int8 pool), each valid
+    # row's causal span; the int8 lane's math is f32 (the reference's lane)
     keys = sum(int(q_offset[b] + valid[b]) for b in range(B))
-    nbytes = (2 * B * T * H * hd * isz + 2 * keys * KVH * hd * isz
+    row = hd + 4 if int8 else hd * isz
+    nbytes = (2 * B * T * H * hd * isz + 2 * keys * KVH * row
               + table.numel() * 4 + 2 * B * 4)
     flops = sum(4 * H * hd * (int(q_offset[b]) + t + 1)
                 for b in range(B) for t in range(int(valid[b])))
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 and not int8 else \
+        H100_F32_FLOPS
     b_ms, by = bound(nbytes, flops, peak)
-    kernel_ms = time_ms(lambda: paged_prefill_attention_kernel(*args))
+    kernel_ms = time_ms(call)
     # the kernel at other keys a block, for tuning the plan's ck (keyed by
     # the ck the plan takes, which grows where the workspace would pass
     # its cap)
@@ -392,24 +448,25 @@ def paged_case(dtype, dev, T):
         try:
             took = _prefill_split_plan(B, T, H, KVH, hd, page,
                                        table.shape[1], ck).ck
-            sweep[took] = device_ms(
-                lambda: paged_prefill_attention_kernel(*args))
+            sweep[took] = device_ms(call)
         finally:
             PA.PREFILL_CK = base
-    # library yardstick: SDPA over a gathered copy (the gather is not timed)
+    # library yardstick: SDPA over a gathered (dequantized) copy, made
+    # outside the timed call
     S = table.shape[1] * page
     kg = torch.repeat_interleave(
-        kp[table.long()].reshape(B, S, KVH, hd), H // KVH, dim=2) \
+        kd[table.long()].reshape(B, S, KVH, hd), H // KVH, dim=2) \
         .transpose(1, 2).contiguous()
     vg = torch.repeat_interleave(
-        vp[table.long()].reshape(B, S, KVH, hd), H // KVH, dim=2) \
+        vd[table.long()].reshape(B, S, KVH, hd), H // KVH, dim=2) \
         .transpose(1, 2).contiguous()
     qt = q.transpose(1, 2).contiguous()
     mask = (torch.arange(S, device=dev)[None, None, :] <=
             (qo.long()[:, None] + torch.arange(T, device=dev))[:, :, None])
     mask = mask[:, None]
     return {
-        "kernel": "paged_prefill_attention", "T": T,
+        "kernel": "paged_prefill_attention", "T": T, "page": page,
+        **({"kv": "int8"} if int8 else {}),
         "shape": {"q": list(q.shape), "pool": list(kp.shape),
                   "q_offset": q_offset.tolist(), "valid": valid.tolist()},
         "plan": {"ck": plan.ck, "nsplit": plan.nsplit, "gc": plan.gc,
@@ -418,9 +475,9 @@ def paged_case(dtype, dev, T):
                   for n in valid],
         "padding_rows_zero": True, "bitwise_deterministic": True,
         "max_abs_err": err, "kernel_ms": kernel_ms,
-        "device_ms": device_ms(lambda: paged_prefill_attention_kernel(*args)),
-        "ck_sweep_device_ms": sweep,
-        "plain_ms": time_ms(lambda: paged_prefill_attention_ref(*args)),
+        "device_ms": device_ms(call), "ck_sweep_device_ms": sweep,
+        "plain_ms": time_ms(lambda: paged_prefill_attention_ref(*args,
+                                                                **kw)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qt, kg, vg, attn_mask=mask)),
         "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
@@ -428,12 +485,14 @@ def paged_case(dtype, dev, T):
         "bound_ms": b_ms, "bound_by": by}
 
 
-def decode_case(dtype, dev, lengths, hd=128, G=4, KVH=8, page=16):
+def decode_case(dtype, dev, lengths, hd=128, G=4, KVH=8, page=16,
+                int8=False):
     """The paged decode kernel against `paged_attention_ref`: one query a
     slot over `lengths` cached tokens through non-contiguous table rows;
     two calls bitwise equal; the split plan; and, at Llama-3-8B's heads,
     the kernel's device time at other keys and warps a block
-    (`ck_warps_sweep_device_ms`)."""
+    (`ck_warps_sweep_device_ms`).  `int8`: its int8 lane over the int8
+    pool `_quantize_kv` makes of the same inputs."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.incubate.kernels import paged_attention as PA
@@ -457,12 +516,23 @@ def decode_case(dtype, dev, lengths, hd=128, G=4, KVH=8, page=16):
     lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
     args = (rnd(B, H, hd), rnd(P, page, KVH, hd), rnd(P, page, KVH, hd), tbl,
             lens)
-    got = paged_attention_kernel(*args)
+    kw, kd, vd = {}, args[1], args[2]
+    if int8:
+        kq, vq, scales = int8_pool(args[1], args[2])
+        args = (args[0], kq, vq, tbl, lens)
+        kw = {"kv_scales": scales}
+        kd, vd = (dequantized(x, sc, dtype) for x, sc in zip((kq, vq),
+                                                             scales))
+
+    def call():
+        return paged_attention_kernel(*args, **kw)
+    got = call()
     err = check_close("paged_decode_attention", got,
-                      paged_attention_ref(*args), dtype)
+                      paged_attention_ref(*args, **kw), dtype,
+                      INT8_BF16_TOL if int8 else BF16_TOL)
     # the split merge reads the partials in split order: the same bits on
     # every call
-    if not torch.equal(got, paged_attention_kernel(*args)):
+    if not torch.equal(got, call()):
         raise AssertionError(f"paged_decode_attention hd={hd} G={G} "
                              f"({dtype}): two calls on the same inputs "
                              f"differ")
@@ -477,34 +547,36 @@ def decode_case(dtype, dev, lengths, hd=128, G=4, KVH=8, page=16):
                     PA.DECODE_CK, PA.DECODE_WARPS = ck, warps
                     took = _decode_split_plan(B, H, KVH, hd, page,
                                               max_pages, ck).ck
-                    sweep[f"{took}x{warps}"] = device_ms(
-                        lambda: paged_attention_kernel(*args))
+                    sweep[f"{took}x{warps}"] = device_ms(call)
         finally:
             PA.DECODE_CK, PA.DECODE_WARPS = base_ck, base_w
     isz = args[0].element_size()
     keys = int(lengths.sum())
-    nbytes = 2 * keys * KVH * hd * isz + 2 * B * H * hd * isz + \
+    row = hd + 4 if int8 else hd * isz      # a K or V row (+ its scale)
+    nbytes = 2 * keys * KVH * row + 2 * B * H * hd * isz + \
         4 * (table.size + B)
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 and not int8 else \
+        H100_F32_FLOPS
     b_ms, by = bound(nbytes, 4 * H * hd * keys, peak)
-    # library yardstick: SDPA with enable_gqa over a gathered copy
+    # library yardstick: SDPA with enable_gqa over a gathered (dequantized)
+    # copy, made outside the timed call
     S = max_pages * page
     kg, vg = (x[tbl.long()].reshape(B, S, KVH, hd).transpose(1, 2)
-              .contiguous() for x in args[1:3])
+              .contiguous() for x in (kd, vd))
     qt = args[0][:, :, None]
     mask = (torch.arange(S, device=dev)[None] < lens.long()[:, None])
     mask = mask[:, None, None]
     return {
-        "kernel": "paged_decode_attention", "hd": hd, "G": G,
+        "kernel": "paged_decode_attention", "hd": hd, "G": G, "page": page,
+        **({"kv": "int8"} if int8 else {}),
         "shape": {"q": [B, H, hd], "pool": list(args[1].shape),
                   "lengths": lengths.tolist()},
         "plan": {"ck": plan.ck, "nsplit": plan.nsplit, "gc": plan.gc,
                  "chunks": plan.row_tiles, "warps": PA.DECODE_WARPS},
         "bitwise_deterministic": True, "max_abs_err": err,
-        "kernel_ms": time_ms(lambda: paged_attention_kernel(*args)),
-        "device_ms": device_ms(lambda: paged_attention_kernel(*args)),
+        "kernel_ms": time_ms(call), "device_ms": device_ms(call),
         "ck_warps_sweep_device_ms": sweep,
-        "plain_ms": time_ms(lambda: paged_attention_ref(*args)),
+        "plain_ms": time_ms(lambda: paged_attention_ref(*args, **kw)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qt, kg, vg, attn_mask=mask, enable_gqa=True)),
         "library_device_ms": device_ms(lambda: F.scaled_dot_product_attention(
@@ -611,24 +683,29 @@ def rms_grad_case(dtype, dev):
 # phases 3-5: the serving engine at Llama-3-8B width
 # ---------------------------------------------------------------------------
 
-def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False):
+def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
+          int8=False):
     """Warm up on one short request, build the engine and warm its
     decode-side program, zero the launch counts, serve the prompts, read
     the counts; drop the engines and check their memory is released.
-    `eager`: no CUDA graphs (the engine's private comparison switch).
-    Returns (outputs, phase record)."""
+    `eager`: no CUDA graphs (the engine's private comparison switch);
+    `int8`: int8 weights and KV pages, page INT8_PAGE.  Returns (outputs,
+    phase record)."""
     import gc
 
     import torch
     from paddle_tpu_torch.analysis.registry import over_budget
     from paddle_tpu_torch.incubate import kernels as K
     from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.quantization import kv_page_bytes
+    page = INT8_PAGE if int8 else 16
+    quant = dict(weight_dtype="int8", kv_dtype="int8") if int8 else {}
 
     def engine():
-        return LLMEngine(params, cfg, num_slots=8, page_size=16,
+        return LLMEngine(params, cfg, num_slots=8, page_size=page,
                          max_model_len=2048, prefill_buckets=SERVE_BUCKETS,
                          prefill_chunk=chunk, fuse=fuse, device=dev,
-                         _eager=eager)
+                         _eager=eager, **quant)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -652,10 +729,11 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False):
         steps.append(time.perf_counter() - s)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = K.launches()
+    launches, launches_int8 = K.launches(), K.launches_int8()
     no_composed("serve")
     outs = eng.outputs
     st = eng.stats()
+    num_pages = eng.cache.num_pages
     peak = torch.cuda.max_memory_allocated(dev)
     for rid, o in outs.items():
         if o.finish_reason != "length" or len(o.token_ids) != MAX_NEW or \
@@ -664,20 +742,28 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False):
                                  f"{len(o.token_ids)} tokens")
     fused = st["fused_dispatches"]
     L = cfg.num_layers
-    if fuse and (launches["paged_prefill_attention_kernel"] != L * fused or
+    # the paged kernels' launches on the pool's lane; none on the other
+    lane, other = (launches_int8, launches) if int8 else \
+        (launches, launches_int8)
+    paged = ("paged_prefill_attention_kernel", "paged_attention_kernel")
+    if any(other[n] for n in paged):
+        raise AssertionError(f"paged launches on the wrong lane: fp "
+                             f"{launches}, int8 {launches_int8}")
+    if fuse and (lane["paged_prefill_attention_kernel"] != L * fused or
                  fused == 0):
-        raise AssertionError(f"paged attention launched {launches} times "
-                             f"over {fused} fused steps")
+        raise AssertionError(f"paged attention launched {lane} times "
+                             f"over {fused} fused steps (int8 {int8})")
     if not fuse:
         # one launch a layer a program: decode, chunk, bucketed prefill
         want = {"paged_attention_kernel": L * st["decode_dispatches"],
-                "paged_prefill_attention_kernel": L * st["chunk_dispatches"],
-                "flash_attention_fwd": L * st["prefill_dispatches"]}
-        if any(launches[n] != w for n, w in want.items()) or fused or \
+                "paged_prefill_attention_kernel": L * st["chunk_dispatches"]}
+        if any(lane[n] != w for n, w in want.items()) or fused or \
+                launches["flash_attention_fwd"] != \
+                L * st["prefill_dispatches"] or \
                 st["decode_dispatches"] != st["decode_iterations"] or \
                 st["decode_dispatches"] == 0:
-            raise AssertionError(f"unfused launches {launches}, want {want}"
-                                 f" ({st})")
+            raise AssertionError(f"unfused launches {launches}, int8 "
+                                 f"{launches_int8}, want {want} ({st})")
     if launches["rms_norm_fused"] == 0:
         raise AssertionError("RMSNorm kernel never launched")
     if chunk is None and launches["flash_attention_fwd"] == 0:
@@ -703,7 +789,11 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False):
     rec = {"requests": len(outs), "prompt_lens": [int(p.size) for p in
                                                   prompts],
            "buckets": SERVE_BUCKETS if chunk is None else None,
-           "graphs": not eager,
+           "graphs": not eager, "page_size": page,
+           "weight_dtype": st["weight_dtype"], "kv_dtype": st["kv_dtype"],
+           "kv_pool_bytes": st["kv_pool_bytes"],
+           # the bf16 pool of the same geometry (pages x page bytes)
+           "kv_pool_bytes_bf16": num_pages * kv_page_bytes(cfg, page),
            "generated_tokens": gen, "wall_s": wall,
            "tokens_per_s": gen / wall, "engine_steps": len(steps),
            "mean_step_ms": 1e3 * wall / len(steps),
@@ -713,9 +803,44 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False):
                                  "chunk_dispatches", "prefill_dispatches",
                                  "graph_replays")},
            "executables": execs, "launches": launches,
+           "launches_int8": launches_int8,
            "held_gib": held / 2 ** 30, "peak_mem_gib": peak / 2 ** 30,
            "left_after_release_mib": left / 2 ** 20}
     return outs, rec
+
+
+def int8_first_tokens(params, cfg, prompts, outs):
+    """The bucketed int8 engine's first tokens of prompts 0 and 1 against
+    the argmax of the dense `forward` over the dequantized weights (the
+    table and head dequantized here, the blocks layer by layer in the
+    forward), held equal where the top-2 margin exceeds 0.05."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.quantization import quantize_serving_params
+    qp = quantize_serving_params(params, cfg)
+    dense = {k: v for k, v in qp.items()
+             if not k.startswith(("wte_", "lm_head_"))}
+    dense["wte"] = gpt._deq(qp["wte_q"], qp["wte_scale"], cfg.dtype)
+    dense["lm_head"] = gpt._deq(qp["lm_head_q"], qp["lm_head_scale"],
+                                cfg.dtype)
+    checks = []
+    for rid in (0, 1):
+        with torch.no_grad():
+            logits = gpt.forward(dense, prompts[rid][None], cfg)[0, -1]
+        top2 = torch.topk(logits.float(), 2)
+        margin = float(top2.values[0] - top2.values[1])
+        pick, first = int(top2.indices[0]), outs[rid].token_ids[0]
+        if margin > 0.05 and pick != first:
+            raise AssertionError(
+                f"prompt {rid}: the int8 engine's first token {first} != "
+                f"the dequantized forward's argmax {pick} (margin "
+                f"{margin:.3g})")
+        checks.append({"prompt": rid, "engine": first, "forward": pick,
+                       "margin": margin,
+                       "result": "match" if pick == first else "tie"})
+    del qp, dense
+    torch.cuda.empty_cache()
+    return checks
 
 
 def agreement(a, b):
@@ -1149,17 +1274,19 @@ def main():
                  for row in ptxas_kernels(reports.get(src, (0, ""))[1],
                                           "wgmma")]
     no_spills(bwd_wgmma)
+    # the prefill kernel: 4 (q, pool) dtype pairs (f32/f32, bf16/bf16,
+    # f32/int8, bf16/int8) x 3 head dims x 4 GC
     paged = ptxas_kernels(reports.get("paged_attention", (0, ""))[1],
                           "paged_prefill_kernel")
-    if "paged_attention" in reports and len(paged) != 24:
+    if "paged_attention" in reports and len(paged) != 48:
         raise AssertionError(f"ptxas reports {len(paged)} paged prefill "
-                             f"kernels, want 24")
+                             f"kernels, want 48")
     no_spills(paged)
-    # the decode kernel: 2 dtypes x 3 head dims x 4 GC x 2 warp counts;
-    # RMSNorm's register kernel: 4 dtype pairs x 2 piece widths x 5
-    # register depths; its ring kernel: 4 dtype pairs
+    # the decode kernel: 4 (q, pool) dtype pairs x 3 head dims x 4 GC x 2
+    # warp counts; RMSNorm's register kernel: 4 dtype pairs x 2 piece widths
+    # x 5 register depths; its ring kernel: 4 dtype pairs
     more = {}
-    for src, kern, want in (("paged_decode", "paged_decode_kernel", 48),
+    for src, kern, want in (("paged_decode", "paged_decode_kernel", 96),
                             ("rms_norm", "rms_kernel", 40),
                             ("rms_norm", "rms_tma_kernel", 4)):
         more[kern] = ptxas_kernels(reports.get(src, (0, ""))[1], kern)
@@ -1192,6 +1319,12 @@ def main():
         rows.append(decode_case(dtype, dev, PROMPT_LENS))
         rows += [decode_case(dtype, dev, (37, 1000, 16, 1), hd=hd, G=G,
                              KVH=4) for hd in (64, 256) for G in (1, 8)]
+        # the int8 lanes at the same serving shapes, page 16 and 32
+        for page in (16, INT8_PAGE):
+            rows += [paged_case(dtype, dev, T, page, int8=True)
+                     for T in (1, 16)]
+            rows.append(decode_case(dtype, dev, PROMPT_LENS, page=page,
+                                    int8=True))
         for r in rows:
             r["dtype"] = str(dtype).replace("torch.", "")
         results += rows
@@ -1247,6 +1380,21 @@ def main():
                       "agreement": agree, "launches_equal": True}
     emit({"phase": "engine_graphs", "seconds": time.perf_counter() - t,
           **rec6})
+
+    t = time.perf_counter()
+    int8_runs, rec_q = {}, {}
+    for mode, chunk, fuse, bf16_outs in (
+            ("bucketed", None, True, bucketed),
+            ("chunked", 16, True, chunked),
+            ("unfused_bucketed", None, False, unfused["bucketed"])):
+        int8_runs[mode], rec_q[mode] = serve(params, cfg, prompts, chunk,
+                                             dev, fuse=fuse, int8=True)
+        rec_q[mode]["greedy_agreement_with_bf16"] = agreement(
+            bf16_outs, int8_runs[mode])
+    emit({"phase": "engine_int8", "seconds": time.perf_counter() - t,
+          "page_size": INT8_PAGE, **rec_q,
+          "first_token": int8_first_tokens(params, cfg, prompts,
+                                           int8_runs["bucketed"])})
 
     t = time.perf_counter()
     checks = []
@@ -1354,7 +1502,7 @@ def main():
                 "bound_by": vl[f"{part}_bound_by"]}
 
     table = (
-        (main_shape("paged_prefill_attention", T=1),
+        (main_shape("paged_prefill_attention", T=1, kv=None),
          "paged_prefill_attention_kernel", "cuda",
          "paddle_tpu_torch/csrc/paged_attention.cu",
          "paddle_tpu/incubate/kernels/paged_attention.py:411"),
@@ -1370,7 +1518,7 @@ def main():
         (bwd_row("dq", ("dq",)), "flash_bwd_dq", "cuda",
          "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
          "paddle_tpu/incubate/kernels/flash_attention.py:241"),
-        (main_shape("paged_decode_attention", hd=128, G=4),
+        (main_shape("paged_decode_attention", hd=128, G=4, kv=None),
          "paged_attention_kernel", "cuda",
          "paddle_tpu_torch/csrc/paged_decode.cu",
          "paddle_tpu/incubate/kernels/paged_attention.py:247"),
@@ -1384,16 +1532,30 @@ def main():
          "paddle_tpu_torch/csrc/flash_attention_seg_bwd.cu",
          "paddle_tpu/incubate/kernels/flash_attention.py:530"),
     )
-    runs = (rec3, rec4, rec5["bucketed"], rec5["chunked"], rec9, rec7, rec8)
+    # the int8 lanes (launches_int8), at the int8 engines' page
+    table_int8 = (
+        (main_shape("paged_prefill_attention", T=1, kv="int8",
+                    page=INT8_PAGE),
+         "paged_prefill_attention_kernel", "cuda",
+         "paddle_tpu_torch/csrc/paged_attention.cu",
+         "paddle_tpu/incubate/kernels/paged_attention.py:411"),
+        (main_shape("paged_decode_attention", kv="int8", page=INT8_PAGE),
+         "paged_attention_kernel", "cuda",
+         "paddle_tpu_torch/csrc/paged_decode.cu",
+         "paddle_tpu/incubate/kernels/paged_attention.py:247"),
+    )
+    runs = (rec3, rec4, rec5["bucketed"], rec5["chunked"], *rec_q.values(),
+            rec9, rec7, rec8)
     kernels = [{
-        "name": r["kernel"], "route": route, "source": source,
-        "replaces": replaces,
-        "launches": sum(rec["launches"][counter] for rec in runs),
+        "name": r["kernel"] + ("_int8" if key == "launches_int8" else ""),
+        "route": route, "source": source, "replaces": replaces,
+        "launches": sum(rec.get(key, {}).get(counter, 0) for rec in runs),
         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         **({"body": r["body"]} if "body" in r else {})}
-        for r, counter, route, source, replaces in table]
+        for rows, key in ((table, "launches"), (table_int8, "launches_int8"))
+        for r, counter, route, source, replaces in rows]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

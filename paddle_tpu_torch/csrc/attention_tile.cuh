@@ -18,6 +18,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace ptt {
 
@@ -71,6 +74,42 @@ __device__ __forceinline__ void load16(const T* src, float* dst) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < Vec<T>::N; ++i) dst[i] = to_f(e[i]);
+}
+
+// The pool rows of the paged kernels: float32 or bfloat16 like q, or int8
+// with one f32 scale a row (key or value of one token and kv head), as the
+// reference's quantized lane.  A vector load takes 16 bytes of a float
+// type and 8 of int8, so an int8 row keeps the bf16 row's loads a lane.
+template <typename KV> struct KVec { static constexpr int N = 16 / sizeof(KV); };
+template <> struct KVec<int8_t> { static constexpr int N = 8; };
+
+template <typename KV>
+constexpr bool kQuantized = std::is_same<KV, int8_t>::value;
+
+// One vector load of a pool row, widened to float: a float type as it is,
+// int8 values times their row's scale `s` (the reference's dequant on
+// read, `k.astype(f32) * k_scale`: one f32 multiply each).
+template <typename KV>
+__device__ __forceinline__ void load_kv(const KV* src, float, float* dst) {
+  load16(src, dst);
+}
+template <>
+__device__ __forceinline__ void load_kv<int8_t>(const int8_t* src, float s,
+                                                float* dst) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dst[i] = static_cast<float>(e[i]) * s;
+}
+
+// p enters the PV product in the dtype of the values it weighs: the
+// pool's for a float pool; float32 for int8, whose values dequantize to
+// f32 (the reference's `p.astype(v.dtype)` with v in f32 keeps p whole).
+template <typename KV> __device__ __forceinline__ float round_p(float x) {
+  return round_to<KV>(x);
+}
+template <> __device__ __forceinline__ float round_p<int8_t>(float x) {
+  return x;
 }
 
 template <int HD> struct Smem {
@@ -148,14 +187,22 @@ struct Horizon {
 // as in the TPU's segment kernels, so such a row gains no mass from them,
 // ends with acc = l = 0 if it sees nothing, and the first key it does see
 // resets m.
-template <typename T, int HD, typename KeyOff, typename Mask>
+//
+// k and v are q's dtype, or int8 (the paged kernels' quantized lane) with
+// their rows' f32 scales k_scale / v_scale at key_off(pos) / HD: each key
+// row dequantizes as it is staged into the f32 tiles.
+template <typename T, int HD, typename KeyOff, typename Mask, typename KV>
 __device__ __forceinline__ void attend(const float* qs, float* ks, float* vs,
-                                       const T* __restrict__ k,
-                                       const T* __restrict__ v, KeyOff key_off,
+                                       const KV* __restrict__ k,
+                                       const KV* __restrict__ v, KeyOff key_off,
                                        int kv_end, Mask mask,
                                        float scale, RowState<HD>& st,
-                                       int kv_begin = 0) {
-  constexpr int VN = Vec<T>::N, CH = HD / VN, KS = Smem<HD>::kStride;
+                                       int kv_begin = 0,
+                                       const float* __restrict__ k_scale =
+                                           nullptr,
+                                       const float* __restrict__ v_scale =
+                                           nullptr) {
+  constexpr int VN = KVec<KV>::N, CH = HD / VN, KS = Smem<HD>::kStride;
   constexpr int DPL = HD / 32;
   const int lane = threadIdx.x & 31;
   for (int k0 = kv_begin; k0 < kv_end; k0 += kKeys) {
@@ -165,8 +212,13 @@ __device__ __forceinline__ void attend(const float* qs, float* ks, float* vs,
       float kb[VN], vb[VN];
       if (pos < kv_end) {
         const size_t o = key_off(pos);
-        load16(k + o + d, kb);
-        load16(v + o + d, vb);
+        float sk = 1.f, sv = 1.f;
+        if constexpr (kQuantized<KV>) {
+          sk = k_scale[o / HD];
+          sv = v_scale[o / HD];
+        }
+        load_kv<KV>(k + o + d, sk, kb);
+        load_kv<KV>(v + o + d, sv, vb);
       } else {
 #pragma unroll
         for (int i = 0; i < VN; ++i) kb[i] = vb[i] = 0.f;
@@ -204,7 +256,7 @@ __device__ __forceinline__ void attend(const float* qs, float* ks, float* vs,
       const float pr = (Mask::kZeroMasked && !vis) ? 0.f : e;
       st.l[r] = st.l[r] * corr + warp_sum(pr);
       st.m[r] = mn;
-      p[r] = round_to<T>(pr);
+      p[r] = round_p<KV>(pr);
 #pragma unroll
       for (int i = 0; i < DPL; ++i) st.acc[r][i] *= corr;
     }

@@ -43,6 +43,14 @@
 // masked probabilities are zeroed after the exp in both lanes (the tile
 // lane through SplitHorizon), as paged_split.cuh sets out.
 //
+// The int8 lane (the TPU kernel's `quantized` lane, an int8 pool with
+// per-token, per-kv-head f32 scales [P, page, KVH]) is the same kernel over
+// a pool of KV = int8: each key row dequantizes to f32 as it is read, by one
+// multiply with its scale (the stream lane in registers, the tile lane while
+// staging the f32 shared-memory tiles), and p enters the PV product in f32,
+// as the reference's lane keeps it.  Its key rows are half a bf16 row's
+// bytes; the split plan is the fp lane's (PERF.md holds its ck sweep).
+//
 // Not yet done: the tile lane on the tensor cores (wgmma) for chunk slots,
 // and TMA or cp.async rings for the page gathers of both lanes.
 #include "paged_split.cuh"
@@ -51,8 +59,8 @@ using namespace ptt;
 
 namespace {
 
-template <typename T, int HD, int GC> constexpr size_t smem_bytes() {
-  constexpr size_t strm = strm_smem_bytes<T, HD, GC>();
+template <typename KV, int HD, int GC> constexpr size_t smem_bytes() {
+  constexpr size_t strm = strm_smem_bytes<KV, HD, GC>();
   return strm > Smem<HD>::kBytes ? strm : Smem<HD>::kBytes;
 }
 
@@ -63,10 +71,11 @@ struct SplitHorizon : Horizon {
 
 // The tile lane: attention_tile.cuh's 16 rows (real rows < `real`) over
 // keys [kv_begin, kv_stop); padding rows take the last real row's horizon.
-template <typename T, int HD>
+template <typename T, typename KV, int HD>
 __device__ __forceinline__ void tile_lane(
-    const Blk<T>& k, float* smem, const T* __restrict__ kp,
-    const T* __restrict__ vp, const int* __restrict__ trow, int page,
+    const Blk<T>& k, float* smem, const KV* __restrict__ kp,
+    const KV* __restrict__ vp, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const int* __restrict__ trow, int page,
     int KVH, int rows, int real, int qoff, int valid, int last_q,
     int kv_begin, int kv_stop, float scale) {
   float* qs = smem;
@@ -89,7 +98,7 @@ __device__ __forceinline__ void tile_lane(
                   const int p = trow[pos / page];
                   return (((size_t)p * page + pos % page) * KVH + kh) * HD;
                 },
-                kv_stop, mask, scale, st, kv_begin);
+                kv_stop, mask, scale, st, kv_begin, ksc, vsc);
 
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -105,11 +114,15 @@ __device__ __forceinline__ void tile_lane(
 // Grid (nsplit, ceil(Tq*G / 16), B*KVH): block (s, x, b*KVH + kh) owns
 // query rows x*16 .. x*16+15 of (b, kh) and keys [s*ck, (s+1)*ck).
 // ws: [tiles][nsplit][16][HD] acc, then [tiles][16][nsplit] m and l (f32);
-// count: [tiles] int32, 0 between calls.
-template <typename T, int HD, int GC>
+// count: [tiles] int32, 0 between calls.  ksc / vsc: the int8 pool's
+// scales [P, page, KVH] (unread for a float pool).
+template <typename T, typename KV, int HD, int GC>
 __global__ void __launch_bounds__(kThreads, 1)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                     const T* __restrict__ vp, const int* __restrict__ table,
+paged_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                     const KV* __restrict__ vp,
+                     const float* __restrict__ ksc,
+                     const float* __restrict__ vsc,
+                     const int* __restrict__ table,
                      const int* __restrict__ q_offset,
                      const int* __restrict__ valid_, T* __restrict__ out,
                      float* __restrict__ ws, int* __restrict__ count, int Tq,
@@ -149,46 +162,51 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   const int* trow = table + (size_t)b * max_pages;
   if (G * valid <= GC)            // decode and short verify: all in tile 0
-    stream_lane<T, HD, GC>(k, smem, kp, vp, trow, page, KVH, real, qoff,
-                           last_q, kv_begin, kv_stop, scale);
+    stream_lane<T, KV, HD, GC>(k, smem, kp, vp, ksc, vsc, trow, page, KVH,
+                               real, qoff, last_q, kv_begin, kv_stop, scale);
   else
-    tile_lane<T, HD>(k, smem, kp, vp, trow, page, KVH, rows, real, qoff,
-                     valid, last_q, kv_begin, kv_stop, scale);
+    tile_lane<T, KV, HD>(k, smem, kp, vp, ksc, vsc, trow, page, KVH, rows,
+                         real, qoff, valid, last_q, kv_begin, kv_stop,
+                         scale);
 
   // a tile over several splits: its last block merges, the others are done
   if (n > 1 && !merge_when_last<T, HD>(k, count, tile, n, real)) return;
   zero_rows<T, HD>(k, real, rows);
 }
 
-template <typename T, int HD, int GC>
+template <typename T, typename KV, int HD, int GC>
 cudaError_t run_gc(const void* q, const void* k, const void* v,
+                   const void* ksc, const void* vsc,
                    const void* table, const void* q_offset,
                    const void* valid, void* out, void* ws, void* count,
                    int B, int Tq, int H, int KVH, int page, int max_pages,
                    int ck, int nsplit, float scale, cudaStream_t stream) {
   const int rows = Tq * (H / KVH);
   dim3 grid(nsplit, (rows + kBlockRows - 1) / kBlockRows, B * KVH);
-  return launch(paged_prefill_kernel<T, HD, GC>, kThreads,
-                smem_bytes<T, HD, GC>(), grid, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const int*>(table),
+  return launch(paged_prefill_kernel<T, KV, HD, GC>, kThreads,
+                smem_bytes<KV, HD, GC>(), grid, stream,
+                static_cast<const T*>(q), static_cast<const KV*>(k),
+                static_cast<const KV*>(v), static_cast<const float*>(ksc),
+                static_cast<const float*>(vsc),
+                static_cast<const int*>(table),
                 static_cast<const int*>(q_offset),
                 static_cast<const int*>(valid), static_cast<T*>(out),
                 static_cast<float*>(ws), static_cast<int*>(count), Tq, H,
                 KVH, page, max_pages, ck, scale);
 }
 
-template <typename T, int HD>
-cudaError_t run(const void* q, const void* k, const void* v,
-                const void* table, const void* q_offset, const void* valid,
-                void* out, void* ws, void* count, int B, int Tq, int H,
-                int KVH, int page, int max_pages, int ck, int nsplit, int gc,
-                float scale, cudaStream_t stream) {
+template <typename T, typename KV, int HD>
+cudaError_t run(const void* q, const void* k, const void* v, const void* ksc,
+                const void* vsc, const void* table, const void* q_offset,
+                const void* valid, void* out, void* ws, void* count, int B,
+                int Tq, int H, int KVH, int page, int max_pages, int ck,
+                int nsplit, int gc, float scale, cudaStream_t stream) {
 #define PTT_GC(GC_)                                                          \
   if (gc == GC_)                                                             \
-    return run_gc<T, HD, GC_>(q, k, v, table, q_offset, valid, out, ws,      \
-                              count, B, Tq, H, KVH, page, max_pages, ck,     \
-                              nsplit, scale, stream);
+    return run_gc<T, KV, HD, GC_>(q, k, v, ksc, vsc, table, q_offset,     \
+                                  valid, out, ws, count, B, Tq, H, KVH,     \
+                                  page, max_pages, ck, nsplit, scale,       \
+                                  stream);
   PTT_GC(1)
   PTT_GC(2)
   PTT_GC(4)
@@ -199,32 +217,44 @@ cudaError_t run(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  The split plan (ck keys a block, nsplit
-// blocks a tile's key range, stream-lane capacity gc) comes from the caller,
-// which sizes ws and count by it.  Returns cudaGetLastError() after launch.
+// dtype: q's, 0 float32 or 1 bfloat16; kv_dtype: the pool's, q's code or
+// 2 for int8, whose f32 scales k_scale / v_scale [P, page, KVH] the int8
+// lane reads (null for a float pool).  The split plan (ck keys a block,
+// nsplit blocks a tile's key range, stream-lane capacity gc) comes from the
+// caller, which sizes ws and count by it.  Returns cudaGetLastError() after
+// launch, or -1 for a combination of dtypes and head dim it does not
+// instantiate.
 extern "C" int paged_prefill_attention(
-    const void* q, const void* k, const void* v, const void* table,
-    const void* q_offset, const void* valid, void* out, void* ws,
-    void* count, int B, int Tq, int H, int KVH, int hd, int page,
-    int max_pages, int ck, int nsplit, int gc, float scale, int dtype,
-    void* stream) {
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* table, const void* q_offset,
+    const void* valid, void* out, void* ws, void* count, int B, int Tq,
+    int H, int KVH, int hd, int page, int max_pages, int ck, int nsplit,
+    int gc, float scale, int dtype, int kv_dtype, void* stream) {
   if (ck <= 0 || (long long)ck * nsplit < (long long)max_pages * page)
     return (int)cudaErrorInvalidValue;
+  if (kv_dtype == 2 && (k_scale == nullptr || v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_CASE(TY, HD_)                                                     \
+#define PTT_CASE(TY, KV, HD_)                                                 \
   if (hd == HD_)                                                            \
-    return (int)run<TY, HD_>(q, k, v, table, q_offset, valid, out, ws,      \
-                             count, B, Tq, H, KVH, page, max_pages, ck,     \
-                             nsplit, gc, scale, s);
-  if (dtype == 0) {
-    PTT_CASE(float, 64)
-    PTT_CASE(float, 128)
-    PTT_CASE(float, 256)
-  } else if (dtype == 1) {
-    PTT_CASE(__nv_bfloat16, 64)
-    PTT_CASE(__nv_bfloat16, 128)
-    PTT_CASE(__nv_bfloat16, 256)
+    return (int)run<TY, KV, HD_>(q, k, v, k_scale, v_scale, table,          \
+                                 q_offset, valid, out, ws, count, B, Tq, H, \
+                                 KVH, page, max_pages, ck, nsplit, gc,      \
+                                 scale, s);
+#define PTT_HDS(TY, KV)                                                       \
+  PTT_CASE(TY, KV, 64)                                                      \
+  PTT_CASE(TY, KV, 128)                                                     \
+  PTT_CASE(TY, KV, 256)
+  if (dtype == 0 && kv_dtype == 0) {
+    PTT_HDS(float, float)
+  } else if (dtype == 1 && kv_dtype == 1) {
+    PTT_HDS(__nv_bfloat16, __nv_bfloat16)
+  } else if (dtype == 0 && kv_dtype == 2) {
+    PTT_HDS(float, int8_t)
+  } else if (dtype == 1 && kv_dtype == 2) {
+    PTT_HDS(__nv_bfloat16, int8_t)
   }
+#undef PTT_HDS
 #undef PTT_CASE
-  return (int)cudaErrorInvalidValue;
+  return -1;
 }

@@ -30,6 +30,12 @@
 // finish merges them in split order (merge_when_last), so two calls give
 // the same bits.  The workspace layout and the merge counters are the
 // prefill kernel's (paged_attention.cu), which runs on the same stream.
+//
+// The int8 lane (the TPU kernel's `quantized` lane: int8 pages with
+// per-token, per-kv-head f32 scales [P, page, KVH]) is the same kernel over
+// a pool of KV = int8: the key streams load 8 int8 a lane (the bf16 lane's
+// geometry), dequantize each row by one f32 multiply with its scale, and
+// weigh the values by p in f32, as the reference's lane does.
 #include "paged_split.cuh"
 
 using namespace ptt;
@@ -40,10 +46,14 @@ namespace {
 // heads kh*G + c*GC .. + GC - 1 of slot b and keys [s*ck, (s+1)*ck).
 // ws: [tiles][nsplit][16][HD] acc, then [tiles][16][nsplit] m and l (f32);
 // count: [tiles] int32, 0 between calls (tiles = B * KVH * chunks).
-template <typename T, int HD, int GC, int NW>
+// ksc / vsc: the int8 pool's scales [P, page, KVH] (unread for a float
+// pool).
+template <typename T, typename KV, int HD, int GC, int NW>
 __global__ void __launch_bounds__(NW * 32, 1)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ table,
+paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                    const KV* __restrict__ vp, const float* __restrict__ ksc,
+                    const float* __restrict__ vsc,
+                    const int* __restrict__ table,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ ws, int* __restrict__ count, int H,
                     int KVH, int page, int max_pages, int ck, float scale) {
@@ -75,42 +85,47 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   k.bind(ws, tile, tiles, HD, s, n == 1);
 
   // every row sees keys < len: horizon len - 1
-  stream_lane<T, HD, GC, NW>(k, smem, kp, vp, table + (size_t)b * max_pages,
-                             page, KVH, nrows, len - 1, len - 1, s * ck,
-                             min(s * ck + ck, len), scale);
+  stream_lane<T, KV, HD, GC, NW>(k, smem, kp, vp, ksc, vsc,
+                                 table + (size_t)b * max_pages, page, KVH,
+                                 nrows, len - 1, len - 1, s * ck,
+                                 min(s * ck + ck, len), scale);
   if (n > 1) merge_when_last<T, HD, NW>(k, count, tile, n, nrows);
 }
 
-template <typename T, int HD, int GC, int NW>
+template <typename T, typename KV, int HD, int GC, int NW>
 cudaError_t run_nw(const void* q, const void* k, const void* v,
+                   const void* ksc, const void* vsc,
                    const void* table, const void* lengths, void* out,
                    void* ws, void* count, int B, int H, int KVH, int page,
                    int max_pages, int ck, int nsplit, float scale,
                    cudaStream_t stream) {
   const int G = H / KVH;
   dim3 grid(nsplit, (G + GC - 1) / GC, B * KVH);
-  return launch(paged_decode_kernel<T, HD, GC, NW>, NW * 32,
-                strm_smem_bytes<T, HD, GC, NW>(), grid, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const int*>(table),
+  return launch(paged_decode_kernel<T, KV, HD, GC, NW>, NW * 32,
+                strm_smem_bytes<KV, HD, GC, NW>(), grid, stream,
+                static_cast<const T*>(q), static_cast<const KV*>(k),
+                static_cast<const KV*>(v), static_cast<const float*>(ksc),
+                static_cast<const float*>(vsc),
+                static_cast<const int*>(table),
                 static_cast<const int*>(lengths), static_cast<T*>(out),
                 static_cast<float*>(ws), static_cast<int*>(count), H, KVH,
                 page, max_pages, ck, scale);
 }
 
-template <typename T, int HD>
-cudaError_t run(const void* q, const void* k, const void* v,
-                const void* table, const void* lengths, void* out, void* ws,
-                void* count, int B, int H, int KVH, int page, int max_pages,
-                int ck, int nsplit, int warps, float scale,
-                cudaStream_t stream) {
+template <typename T, typename KV, int HD>
+cudaError_t run(const void* q, const void* k, const void* v, const void* ksc,
+                const void* vsc, const void* table, const void* lengths,
+                void* out, void* ws, void* count, int B, int H, int KVH,
+                int page, int max_pages, int ck, int nsplit, int warps,
+                float scale, cudaStream_t stream) {
   const int G = H / KVH;
   const int gc = G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8;
 #define PTT_GC(GC_, NW_)                                                     \
   if (gc == GC_ && warps == NW_)                                             \
-    return run_nw<T, HD, GC_, NW_>(q, k, v, table, lengths, out, ws, count,  \
-                                   B, H, KVH, page, max_pages, ck, nsplit,   \
-                                   scale, stream);
+    return run_nw<T, KV, HD, GC_, NW_>(q, k, v, ksc, vsc, table, lengths,  \
+                                       out, ws, count, B, H, KVH, page,      \
+                                       max_pages, ck, nsplit, scale,         \
+                                       stream);
   PTT_GC(1, 4)
   PTT_GC(2, 4)
   PTT_GC(4, 4)
@@ -125,35 +140,46 @@ cudaError_t run(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  The split plan (ck keys a block, nsplit
-// blocks over a slot's max_pages * page positions) comes from the caller,
-// which sizes ws and count by it; warps: 4 or 8 a block.  Returns
-// cudaGetLastError() after launch.
+// dtype: q's, 0 float32 or 1 bfloat16; kv_dtype: the pool's, q's code or
+// 2 for int8, whose f32 scales k_scale / v_scale [P, page, KVH] the int8
+// lane reads (null for a float pool).  The split plan (ck keys a block,
+// nsplit blocks over a slot's max_pages * page positions) comes from the
+// caller, which sizes ws and count by it; warps: 4 or 8 a block.  Returns
+// cudaGetLastError() after launch, or -1 for a combination of dtypes and
+// head dim it does not instantiate.
 extern "C" int paged_decode_attention(const void* q, const void* k,
-                                      const void* v, const void* table,
+                                      const void* v, const void* k_scale,
+                                      const void* v_scale, const void* table,
                                       const void* lengths, void* out,
                                       void* ws, void* count, int B, int H,
                                       int KVH, int hd, int page,
                                       int max_pages, int ck, int nsplit,
                                       int warps, float scale, int dtype,
-                                      void* stream) {
+                                      int kv_dtype, void* stream) {
   if (ck <= 0 || (long long)ck * nsplit < (long long)max_pages * page)
     return (int)cudaErrorInvalidValue;
+  if (kv_dtype == 2 && (k_scale == nullptr || v_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_CASE(TY, HD_)                                                    \
+#define PTT_CASE(TY, KV, HD_)                                                \
   if (hd == HD_)                                                           \
-    return (int)run<TY, HD_>(q, k, v, table, lengths, out, ws, count, B, H, \
-                             KVH, page, max_pages, ck, nsplit, warps, scale, \
-                             s);
-  if (dtype == 0) {
-    PTT_CASE(float, 64)
-    PTT_CASE(float, 128)
-    PTT_CASE(float, 256)
-  } else if (dtype == 1) {
-    PTT_CASE(__nv_bfloat16, 64)
-    PTT_CASE(__nv_bfloat16, 128)
-    PTT_CASE(__nv_bfloat16, 256)
+    return (int)run<TY, KV, HD_>(q, k, v, k_scale, v_scale, table, lengths, \
+                                 out, ws, count, B, H, KVH, page, max_pages,\
+                                 ck, nsplit, warps, scale, s);
+#define PTT_HDS(TY, KV)                                                      \
+  PTT_CASE(TY, KV, 64)                                                     \
+  PTT_CASE(TY, KV, 128)                                                    \
+  PTT_CASE(TY, KV, 256)
+  if (dtype == 0 && kv_dtype == 0) {
+    PTT_HDS(float, float)
+  } else if (dtype == 1 && kv_dtype == 1) {
+    PTT_HDS(__nv_bfloat16, __nv_bfloat16)
+  } else if (dtype == 0 && kv_dtype == 2) {
+    PTT_HDS(float, int8_t)
+  } else if (dtype == 1 && kv_dtype == 2) {
+    PTT_HDS(__nv_bfloat16, int8_t)
   }
+#undef PTT_HDS
 #undef PTT_CASE
-  return (int)cudaErrorInvalidValue;
+  return -1;
 }

@@ -9,8 +9,11 @@
 //
 // - Blk: one block's place in the call (its rows, its split, its partials).
 // - stream_lane: up to GC rows in registers over NW*32/LPK key streams of
-//   LPK lanes each (16-byte loads), every stream with two keys in flight and
-//   its own online softmax; the streams merge once through shared memory.
+//   LPK lanes each (16-byte loads; 8-byte ones of an int8 pool, so it keeps
+//   the bf16 pool's lanes and streams), every stream with two keys in flight
+//   and its own online softmax; the streams merge once through shared
+//   memory.  An int8 pool's rows dequantize by their f32 scales as they
+//   load (load_key), each lane reading its key row's two scales once.
 // - merge_splits / merge_when_last: the cross-block merge.
 //
 // Under a split a row may see no key of its range, so masked probabilities
@@ -23,18 +26,18 @@
 
 namespace ptt {
 
-// The stream lane's geometry at NW warps a block.
-template <typename T, int HD, int NW = kWarps> struct Strm {
-  static constexpr int VN = Vec<T>::N;                    // elements a load
+// The stream lane's geometry over a pool of KV at NW warps a block.
+template <typename KV, int HD, int NW = kWarps> struct Strm {
+  static constexpr int VN = KVec<KV>::N;                  // elements a load
   static constexpr int LPK = HD / VN < 32 ? HD / VN : 32; // lanes a key row
   static constexpr int EPL = HD / LPK;                    // elements a lane
   static constexpr int KPW = 32 / LPK;                    // key rows a warp
   static constexpr int NS = NW * KPW;                     // key streams
 };
 
-template <typename T, int HD, int GC, int NW = kWarps>
+template <typename KV, int HD, int GC, int NW = kWarps>
 constexpr size_t strm_smem_bytes() {
-  return (2 + HD) * Strm<T, HD, NW>::NS * GC * sizeof(float);
+  return (2 + HD) * Strm<KV, HD, NW>::NS * GC * sizeof(float);
 }
 
 // One block's place in the call.  Local row rr of the tile is query row
@@ -95,21 +98,31 @@ __device__ __forceinline__ void put(const Blk<T>& k, int rr, int d, float m,
   }
 }
 
-template <typename T, int HD, int NW>
-__device__ __forceinline__ void load_key(const T* __restrict__ kp,
-                                         const T* __restrict__ vp,
+// Key `pos` of the slot's table row `trow`: this lane's EPL dims of its K
+// and V rows, in f32 (an int8 row times its scale in ksc / vsc).
+template <typename KV, int HD, int NW>
+__device__ __forceinline__ void load_key(const KV* __restrict__ kp,
+                                         const KV* __restrict__ vp,
+                                         const float* __restrict__ ksc,
+                                         const float* __restrict__ vsc,
                                          const int* __restrict__ trow,
                                          int page, int KVH, int kh, int d0,
                                          int pos, bool in, float* kr,
                                          float* vr) {
-  using D = Strm<T, HD, NW>;
+  using D = Strm<KV, HD, NW>;
   if (in) {
-    const size_t o =
-        (((size_t)trow[pos / page] * page + pos % page) * KVH + kh) * HD + d0;
+    const size_t row =
+        ((size_t)trow[pos / page] * page + pos % page) * KVH + kh;
+    const size_t o = row * HD + d0;
+    float sk = 1.f, sv = 1.f;
+    if constexpr (kQuantized<KV>) {
+      sk = ksc[row];
+      sv = vsc[row];
+    }
 #pragma unroll
     for (int c = 0; c < D::EPL / D::VN; ++c) {
-      load16(kp + o + c * D::VN, kr + c * D::VN);
-      load16(vp + o + c * D::VN, vr + c * D::VN);
+      load_kv<KV>(kp + o + c * D::VN, sk, kr + c * D::VN);
+      load_kv<KV>(vp + o + c * D::VN, sv, vr + c * D::VN);
     }
   } else {
 #pragma unroll
@@ -118,15 +131,19 @@ __device__ __forceinline__ void load_key(const T* __restrict__ kp,
 }
 
 // The stream lane: the tile's nrows <= GC rows over keys [kv_begin,
-// kv_stop); row rr's horizon is min(qoff + rr / G, last_q).  smem holds
-// strm_smem_bytes<T, HD, GC, NW>().
-template <typename T, int HD, int GC, int NW = kWarps>
+// kv_stop); row rr's horizon is min(qoff + rr / G, last_q).  q is T, the
+// pool KV (T, or int8 with scales ksc / vsc).  smem holds
+// strm_smem_bytes<KV, HD, GC, NW>().
+template <typename T, typename KV, int HD, int GC, int NW = kWarps>
 __device__ __forceinline__ void stream_lane(
-    const Blk<T>& k, float* smem, const T* __restrict__ kp,
-    const T* __restrict__ vp, const int* __restrict__ trow, int page,
+    const Blk<T>& k, float* smem, const KV* __restrict__ kp,
+    const KV* __restrict__ vp, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const int* __restrict__ trow, int page,
     int KVH, int nrows, int qoff, int last_q, int kv_begin, int kv_stop,
     float scale) {
-  using D = Strm<T, HD, NW>;
+  using D = Strm<KV, HD, NW>;
+  constexpr int QV = Vec<T>::N;                 // q elements a load
+  static_assert(D::EPL % QV == 0, "a lane's q dims are whole loads");
   float* ms = smem;                          // [NS][GC] running max
   float* ls = ms + D::NS * GC;               // [NS][GC] running sum
   float* accs = ls + D::NS * GC;             // [NS][GC][HD]
@@ -147,8 +164,8 @@ __device__ __forceinline__ void stream_lane(
     if (r < nrows) {
       const T* src = k.q + k.row_off(r) * HD + d0;
 #pragma unroll
-      for (int c = 0; c < D::EPL / D::VN; ++c)
-        load16(src + c * D::VN, qr[r] + c * D::VN);
+      for (int c = 0; c < D::EPL / QV; ++c)
+        load16(src + c * QV, qr[r] + c * QV);
     }
   }
 
@@ -160,8 +177,10 @@ __device__ __forceinline__ void stream_lane(
     const int p0 = base + grp, p1 = p0 + D::NS;
     const bool in0 = p0 < kv_stop, in1 = p1 < kv_stop;
     float k0[D::EPL], v0[D::EPL], k1[D::EPL], v1[D::EPL];
-    load_key<T, HD, NW>(kp, vp, trow, page, KVH, k.kh, d0, p0, in0, k0, v0);
-    load_key<T, HD, NW>(kp, vp, trow, page, KVH, k.kh, d0, p1, in1, k1, v1);
+    load_key<KV, HD, NW>(kp, vp, ksc, vsc, trow, page, KVH, k.kh, d0, p0,
+                         in0, k0, v0);
+    load_key<KV, HD, NW>(kp, vp, ksc, vsc, trow, page, KVH, k.kh, d0, p1,
+                         in1, k1, v1);
 #pragma unroll
     for (int r = 0; r < GC; ++r) {
       if (r >= nrows) continue;           // block-uniform
@@ -185,7 +204,7 @@ __device__ __forceinline__ void stream_lane(
       const float pr0 = vis0 ? e0 : 0.f, pr1 = vis1 ? e1 : 0.f;
       l[r] = l[r] * corr + pr0 + pr1;
       m[r] = mn;
-      const float pv0 = round_to<T>(pr0), pv1 = round_to<T>(pr1);
+      const float pv0 = round_p<KV>(pr0), pv1 = round_p<KV>(pr1);
 #pragma unroll
       for (int e = 0; e < D::EPL; ++e)
         acc[r][e] = fmaf(pv1, v1[e], fmaf(pv0, v0[e], acc[r][e] * corr));

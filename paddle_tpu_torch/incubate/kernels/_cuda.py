@@ -33,17 +33,19 @@ _F = ctypes.c_float
 # C entry -> argument types; every entry returns cudaGetLastError() as int
 SIGNATURES = {
     "paged_prefill_attention": (
-        _P, _P, _P, _P, _P, _P, _P,             # q k v table q_offset valid out
+        _P, _P, _P, _P, _P,                     # q k v k_scale v_scale
+        _P, _P, _P, _P,                         # table q_offset valid out
         _P, _P,                                 # ws count
         _I, _I, _I, _I, _I, _I, _I,             # B T H KVH hd page max_pages
         _I, _I, _I,                             # ck nsplit gc
-        _F, _I, _P),                            # scale dtype stream
+        _F, _I, _I, _P),                        # scale dtype kv_dtype stream
     "paged_decode_attention": (
-        _P, _P, _P, _P, _P, _P,                 # q k v table lengths out
+        _P, _P, _P, _P, _P,                     # q k v k_scale v_scale
+        _P, _P, _P,                             # table lengths out
         _P, _P,                                 # ws count
         _I, _I, _I, _I, _I, _I,                 # B H KVH hd page max_pages
         _I, _I, _I,                             # ck nsplit warps
-        _F, _I, _P),                            # scale dtype stream
+        _F, _I, _I, _P),                        # scale dtype kv_dtype stream
     "flash_attention_fwd": (
         _P, _P, _P, _P, _P,                     # q k v out lse
         _I, _I, _I, _I, _I, _I,                 # B S Sk H D causal

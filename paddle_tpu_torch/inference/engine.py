@@ -32,11 +32,18 @@ chunk through `prefill_chunk_paged` (chunked mode), then runs one
 table rows, so their KV writes land on the null page); both fetch their
 token before the step returns (no double buffering).
 
+Quantized serving, as the reference's: `weight_dtype="int8"` quantizes the
+serving matmul weights once at init (`quantization.quantize_serving_params`,
+dequantized one layer at a time inside the step programs), `kv_dtype="int8"`
+makes the pool int8 with per-token scale lanes, which the paged kernels'
+int8 lanes dequantize on read.  Neither adds a program.
+
 Knobs of later slices (prefix cache, speculative decoding, optimistic
-admission and preemption, KV tiering, roles, fault injection, int8, tensor
-parallelism, request tracing, injectable clocks) are accepted only at their
-off values and raise `NotImplementedError` otherwise.  `prefix_cache`
-defaults to False here (True in the reference).
+admission and preemption, KV tiering, roles, fault injection, tensor
+parallelism, request tracing, injectable clocks) are accepted only at the
+reference's defaults or off values and raise `NotImplementedError`
+otherwise.  `prefix_cache`, `kv_tier` and `request_tracing` default to False
+here (True in the reference).
 """
 from __future__ import annotations
 
@@ -51,10 +58,10 @@ import numpy as np
 import torch
 
 from ..models import gpt as gpt_mod
+from ..quantization.serving import (normalize_quant_dtype,
+                                    quantize_serving_params)
 from .cache import PagedKVCache
 from .graphs import StepProgram
-
-_FP_NAMES = (None, "fp", "fp32", "f32", "bf16", "bfloat16", "float32")
 
 
 @dataclasses.dataclass(eq=False)
@@ -137,12 +144,16 @@ class LLMEngine:
                  eos_token_id: Optional[int] = None,
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  spec_len: int = 0,
+                 draft_proposer=None,
+                 spec_backoff_window: int = 8,
                  fuse: bool = True,
                  double_buffer: Optional[bool] = None,
                  admission: str = "reservation",
                  preempt: str = "recompute",
+                 swap_pool_pages: Optional[int] = None,
                  kv_tier: bool = False,
                  spill_dir: Optional[str] = None,
+                 spill_disk_pages: Optional[int] = None,
                  page_store=None,
                  role: Optional[str] = None,
                  fault_plan=None,
@@ -151,33 +162,44 @@ class LLMEngine:
                  mesh=None, mp: Optional[int] = None,
                  seed: int = 0,
                  clock=None,
+                 trace_ring: int = 512,
                  request_tracing: bool = False,
+                 trace_retention: Optional[int] = 4096,
                  device=None, _eager: bool = False):
+        self.weight_dtype = normalize_quant_dtype(weight_dtype,
+                                                  "weight_dtype")
+        self.kv_dtype = normalize_quant_dtype(kv_dtype, "kv_dtype")
         if prefix_cache:
             raise _later("prefix_cache=True", "prefix cache and COW copy")
-        if spec_len:
-            raise _later(f"spec_len={spec_len} (fused or not)",
+        if spec_len or draft_proposer is not None or \
+                spec_backoff_window != 8:
+            raise _later(f"spec_len={spec_len} (fused or not), "
+                         f"draft_proposer and spec_backoff_window",
                          "speculative decoding")
         if admission != "reservation" or preempt != "recompute" or \
-                fault_plan is not None:
-            raise _later("optimistic admission, preempt='swap' and "
-                         "fault_plan", "optimistic admission and preemption")
-        if weight_dtype not in _FP_NAMES or kv_dtype not in _FP_NAMES:
-            raise _later("int8 weight_dtype/kv_dtype", "int8 weights and KV")
+                fault_plan is not None or swap_pool_pages is not None:
+            raise _later("optimistic admission, preempt='swap', fault_plan "
+                         "and swap_pool_pages",
+                         "optimistic admission and preemption")
         if mesh is not None or (mp is not None and mp > 1):
             raise _later("mesh/mp>1", "tensor-parallel serving")
         if kv_tier or spill_dir is not None or page_store is not None or \
-                role is not None:
-            raise _later("kv_tier, spill_dir, page_store and role",
-                         "KV tiering, durable store and roles")
-        if request_tracing or clock is not None:
-            raise _later("request_tracing and clock",
-                         "metrics, tracing and health")
+                role is not None or spill_disk_pages is not None:
+            raise _later("kv_tier, spill_dir, spill_disk_pages, page_store "
+                         "and role", "KV tiering, durable store and roles")
+        if request_tracing or clock is not None or trace_ring != 512 or \
+                trace_retention != 4096:
+            raise _later("request_tracing, clock, trace_ring and "
+                         "trace_retention", "metrics, tracing and health")
 
         self.device = gpt_mod.resolve_device(device)
-        if params["wte"].device != self.device:
-            raise ValueError(f"params live on {params['wte'].device}, the "
-                             f"engine on {self.device}")
+        table = params["wte_q" if "wte_q" in params else "wte"]
+        if table.device != self.device:
+            raise ValueError(f"params live on {table.device}, the engine on "
+                             f"{self.device}")
+        if self.weight_dtype == "int8":
+            # once, on the device (dequant rides inside the step programs)
+            params = quantize_serving_params(params, config)
         self.params = params
         self.config = config
         self.eos_token_id = eos_token_id
@@ -221,7 +243,8 @@ class LLMEngine:
         self.cache = PagedKVCache(num_pages, page_size, num_slots,
                                   max_pages_per_slot)
         self._pool = gpt_mod.init_paged_cache(config, num_pages, page_size,
-                                              device=self.device)
+                                              device=self.device,
+                                              kv_dtype=self.kv_dtype)
         self._queue: deque = deque()
         self._running: Dict[int, _Running] = {}
         self._prefilling: Dict[int, _Prefilling] = {}   # slot -> state, FIFO
@@ -663,7 +686,17 @@ class LLMEngine:
             "queued": len(self._queue),
             "prefilling": len(self._prefilling),
             "running": len(self._running),
+            # the quantization knobs (None: full precision) and the pool's
+            # at-rest bytes the capacity math is about
+            "weight_dtype": self.weight_dtype,
+            "kv_dtype": self.kv_dtype,
+            "kv_pool_bytes": self.kv_pool_bytes(),
         }
+
+    def kv_pool_bytes(self) -> int:
+        """At-rest bytes of the device KV pool, every leaf (the scale lanes
+        of an int8 pool too)."""
+        return sum(t.numel() * t.element_size() for t in self._pool.values())
 
 
 def pick_tokens(logits, greedy, noise, sampling) -> torch.Tensor:

@@ -13,7 +13,8 @@ queues its output's copy to the host; `result` waits for that copy on an
 event, not a stream sync.  The pool and the parameters are used in place.
 
 `build` (called by the first `stage`) runs the body once eagerly on inert
-inputs (every table row on the null page, which it may write).  On the card
+inputs (every table row on the null page, which it may write, in every
+leaf of the pool: k and v, and the scale lanes of an int8 pool).  On the card
 that run goes on a side stream and builds the kernels and everything their
 wrappers cache (RMSNorm's shared-memory attribute and occupancy, the paged
 kernels' split counters, cuBLAS's handle and workspace); then the body is

@@ -25,6 +25,18 @@ The same with `LLMEngine(fuse=False)`: each traced step is one unfused
 `decode_step_paged` dispatch, through the paged decode kernel (group
 `paged_decode`), beside the fused step's numbers.
 
+    python3 -m paddle_tpu_torch.inference.step_profile \
+        --weight-dtype int8 --kv-dtype int8 --page-size 32
+
+The int8 serving step (`LLMEngine(weight_dtype=, kv_dtype=)`, any page
+size with `--page-size`): the paged kernels' int8 instantiations fall in
+`paged_attention_int8` / `paged_decode_int8`, and the weight dequant in
+`dequant`: every kernel whose name the step's dequant expressions launch
+(`models.gpt._w` of each quantized block weight and the head's upcast,
+profiled alone once before the window; small elementwise kernels of the
+step with the same names land there too).  `dequant_device_ms_per_step`
+times those expressions alone, one step's worth, on CUDA events.
+
     python3 -m paddle_tpu_torch.inference.step_profile --train
 
 Profiles one train step of GPT-3 1.3B instead (bf16 params and moments,
@@ -42,12 +54,15 @@ import time
 import numpy as np
 
 
-def _group(name):
+def _group(name, dequant=frozenset()):
     n = name.lower()
+    int8 = "_int8" if "signed char" in n else ""
     if "paged_prefill_kernel" in n:
-        return "paged_attention"
+        return "paged_attention" + int8
     if "paged_decode_kernel" in n:
-        return "paged_decode"
+        return "paged_decode" + int8
+    if name in dequant:
+        return "dequant"
     if "flash_fwd_" in n:               # flash_fwd_kernel, flash_fwd_wgmma
         return "attention_fwd"
     if "flash_bwd_" in n:
@@ -163,8 +178,52 @@ def train_profile(dev, smi):
         "top_kernels": _by_name(kernels, 1)}
 
 
-def main():
+def _dequant_work(eng):
+    """One step's weight dequant of an int8 engine, as its step programs
+    run it: `_w` of every quantized block weight, the head's upcast."""
+    from ..models import gpt
+    params, cfg = eng.params, eng.config
+    names = [k[:-2] for k in params["blocks"] if k.endswith("_q")]
+    for l in range(cfg.num_layers):
+        bp = gpt._layer(params["blocks"], l)
+        for n in names:
+            gpt._w(bp, n, cfg.dtype)
+    head = params.get("lm_head_q", params.get("wte_q"))
+    head.to(cfg.dtype)
+
+
+def _dequant_profile(eng):
+    """(names of the kernels the dequant launches, its device ms a step on
+    CUDA events)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+    _dequant_work(eng)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _dequant_work(eng)
+        torch.cuda.synchronize()
+    names = frozenset(e.name for e in _kernels(prof))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        _dequant_work(eng)
+    end.record()
+    torch.cuda.synchronize()
+    return names, start.elapsed_time(end) / 3
+
+
+def main():
+    import argparse
+
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--train", action="store_true")
+    ap.add_argument("--no-fuse", action="store_true")
+    ap.add_argument("--weight-dtype", default=None)
+    ap.add_argument("--kv-dtype", default=None)
+    ap.add_argument("--page-size", type=int, default=16)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_profile: no CUDA device", file=sys.stderr)
         return 2
@@ -178,16 +237,20 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    if "--train" in sys.argv[1:]:
+    if args.train:
         print(json.dumps(train_profile(dev, smi)))
         return 0
-    fuse = "--no-fuse" not in sys.argv[1:]
+    fuse = not args.no_fuse
     cfg = gpt.llama3_8b()
     cfg.dtype = torch.bfloat16
     params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              dev)
-    eng = LLMEngine(params, cfg, num_slots=8, page_size=16,
-                    max_model_len=2048, fuse=fuse, device=dev)
+    eng = LLMEngine(params, cfg, num_slots=8, page_size=args.page_size,
+                    max_model_len=2048, fuse=fuse, device=dev,
+                    weight_dtype=args.weight_dtype, kv_dtype=args.kv_dtype)
+    del params                          # an int8 engine keeps its own copy
+    dequant, dequant_ms = _dequant_profile(eng) \
+        if eng.weight_dtype else (frozenset(), None)
     rng = np.random.RandomState(0)
     for n in (64, 96, 160, 256, 384, 512, 768, 1024):
         eng.add_request(rng.randint(0, cfg.vocab_size, n),
@@ -211,15 +274,17 @@ def main():
     kernels = _kernels(prof)
     busy = _busy_us(kernels)
     short, long_ = _gaps_us(kernels)
-    groups = {}
+    groups, counts = {}, {}
     for e in kernels:
-        d = e.time_range.end - e.time_range.start
-        groups[_group(e.name)] = groups.get(_group(e.name), 0.0) + d
+        g = _group(e.name, dequant)
+        groups[g] = groups.get(g, 0.0) + e.time_range.end - e.time_range.start
+        counts[g] = counts.get(g, 0) + 1
     per = 1e-3 / STEPS            # us over the window -> ms per step
     print(json.dumps({
         "nvidia_smi": smi, "model": "llama3_8b", "layers": cfg.num_layers,
         "dtype": "bf16", "slots": 8, "steps": STEPS, "fuse": fuse,
-        "running": eng.stats()["running"],
+        "page_size": args.page_size, "weight_dtype": eng.weight_dtype,
+        "kv_dtype": eng.kv_dtype, "running": eng.stats()["running"],
         "host_wall_ms_per_step": wall * 1e3 / STEPS,
         "device_busy_ms_per_step": busy * per,
         "device_idle_share": 1.0 - busy * 1e-6 / wall,
@@ -232,6 +297,9 @@ def main():
             (eng.stats()["graph_replays"] - replays) / STEPS,
         "device_ms_per_step_by_group": {k: v * per for k, v in
                                         sorted(groups.items())},
+        "launches_per_step_by_group": {k: v / STEPS for k, v in
+                                       sorted(counts.items())},
+        "dequant_device_ms_per_step": dequant_ms,
         "top_kernels": _by_name(kernels, STEPS)}))
     return 0
 

@@ -11,6 +11,17 @@ update the pool in place where the reference donates and rebinds it.
 Attention goes through the flash and paged kernels, norms of the Llama
 presets through the RMSNorm kernel; the large projections are plain
 `torch.matmul`, as the reference leaves them to XLA.
+
+Quantized serving, as the reference's: a params tree from
+`quantization.quantize_serving_params` holds `name_q` (int8) +
+`name_scale` (float32) for each serving matmul weight, which `_w`
+dequantizes one layer at a time at its matmul (plain torch at the site, as
+the reference computes it outside any kernel); the embedding gathers int8
+rows and dequantizes them; the head multiplies the int8 table, upcast, and
+scales the logits' columns.  An int8 pool (`init_paged_cache(...,
+kv_dtype="int8")`) adds `k_scale`/`v_scale` `[L, P, page, KVH]` float32:
+every pool write quantizes per token and kv head (`_quantize_kv`), and the
+paged attention entries dequantize on read (`kv_scales=`).
 """
 from __future__ import annotations
 
@@ -30,6 +41,8 @@ from ..incubate.kernels.paged_attention import (paged_attention_decode,
                                                 paged_serve_attention)
 from ..incubate.kernels.rms_norm import rms_norm_fused
 from ..incubate.kernels.rope import apply_rope
+from ..quantization.serving import (BLOCK_WEIGHT_KEYS, KV_SCALE_DTYPE,
+                                    normalize_quant_dtype)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -128,10 +141,13 @@ def llama3_8b():
 # parameters
 # ---------------------------------------------------------------------------
 
-def param_spec(config: GPTConfig) -> Dict[str, Any]:
+def param_spec(config: GPTConfig, weight_dtype=None) -> Dict[str, Any]:
     """The reference `init_params` tree as {key: (shape, init)}: init is a
     normal std (float), "ones" or "zeros".  One source for `init_params`
-    and the shape check of `convert.params_from_numpy`."""
+    and the shape check of `convert.params_from_numpy`.
+    weight_dtype="int8" describes the tree `quantize_serving_params` makes
+    of it: each quantized weight `name` becomes `name_q` and `name_scale`,
+    whose init is the dtype they are stored in (int8, float32)."""
     c = config
     if c.moe_num_experts > 0:
         raise NotImplementedError("MoE blocks arrive with a later slice "
@@ -167,7 +183,37 @@ def param_spec(config: GPTConfig) -> Dict[str, Any]:
                      "mlm_ln_w": ((D,), "ones"), "mlm_ln_b": ((D,), "zeros")})
     if not c.tie_word_embeddings:
         spec["lm_head"] = ((D, V), std)
+    if normalize_quant_dtype(weight_dtype, "weight_dtype") == "int8":
+        spec = _quantized_spec(spec)
     return spec
+
+
+def _quantized_spec(spec):
+    """`param_spec` after weight-only int8 PTQ: scales [L, 1, out] for the
+    block weights, [V, 1] for `wte` (per vocab row), [1, V] for `lm_head`
+    (per vocab column)."""
+    def pair(name, shape, scale_shape):
+        return {name + "_q": (shape, torch.int8),
+                name + "_scale": (scale_shape, torch.float32)}
+
+    out: Dict[str, Any] = {}
+    for name, leaf in spec.items():
+        if name == "blocks":
+            blocks: Dict[str, Any] = {}
+            for k, (shape, init) in leaf.items():
+                if k in BLOCK_WEIGHT_KEYS:
+                    L, _, n = shape
+                    blocks.update(pair(k, shape, (L, 1, n)))
+                else:
+                    blocks[k] = (shape, init)
+            out["blocks"] = blocks
+        elif name == "wte":
+            out.update(pair(name, leaf[0], (leaf[0][0], 1)))
+        elif name == "lm_head":
+            out.update(pair(name, leaf[0], (1, leaf[0][1])))
+        else:
+            out[name] = leaf
+    return out
 
 
 def init_params(config: GPTConfig, generator: torch.Generator,
@@ -310,8 +356,14 @@ def epilogue(params, h, config: GPTConfig):
 
 
 def head_matrix(params, config: GPTConfig):
+    """The [D, V] vocab head (dequantized for an int8 tree)."""
     if config.tie_word_embeddings:
+        if "wte_q" in params:
+            return _deq(params["wte_q"], params["wte_scale"], config.dtype).T
         return params["wte"].T
+    if "lm_head_q" in params:
+        return _deq(params["lm_head_q"], params["lm_head_scale"],
+                    config.dtype)
     return params["lm_head"]
 
 
@@ -376,22 +428,43 @@ def count_params(params):
 
 
 # ---------------------------------------------------------------------------
-# serving trunk (mp=1, fp weights)
+# serving trunk (mp=1; fp or weight-only int8)
 # ---------------------------------------------------------------------------
 
+def _deq(q, scale, dtype):
+    """int8 values times their float32 scales, cast into the compute dtype:
+    every weight dequant (blocks, embedding rows, head) is this one
+    expression, as in the reference.  One kernel: the product is taken in
+    float32 (the inputs' common dtype) and rounded once into the `dtype`
+    output, the reference's `(q.astype(f32) * scale).astype(dtype)` without
+    its float32 intermediate in memory."""
+    return torch.mul(q, scale, out=torch.empty(q.shape, dtype=dtype,
+                                               device=q.device))
+
+
+def _w(bp, name, dtype):
+    """Weight `name` of a (possibly weight-quantized) layer: `name_q` +
+    `name_scale` dequantized at the matmul, so the full-precision copy of a
+    quantized weight exists one layer at a time."""
+    q = bp.get(name + "_q")
+    if q is None:
+        return bp[name]
+    return _deq(q, bp[name + "_scale"], dtype)
+
+
 def _ffn_dense(bp, h, c: GPTConfig):
-    up = torch.matmul(h, bp["fc1_w"])
+    up = torch.matmul(h, _w(bp, "fc1_w", c.dtype))
     if "fc1_b" in bp:
         up = up + bp["fc1_b"]
     act = _act(c)
     if c.gated_ffn:
-        gate = torch.matmul(h, bp["fcg_w"])
+        gate = torch.matmul(h, _w(bp, "fcg_w", c.dtype))
         if "fcg_b" in bp:
             gate = gate + bp["fcg_b"]
         h = act(gate) * up
     else:
         h = act(up)
-    out = torch.matmul(h, bp["fc2_w"])
+    out = torch.matmul(h, _w(bp, "fc2_w", c.dtype))
     if "fc2_b" in bp:
         out = out + bp["fc2_b"]
     return out
@@ -412,7 +485,7 @@ def _prefill_qkv(bp, x, c: GPTConfig, pos=None, pos_offset=None):
     H, KVH, hd = c.num_heads, c.kv_heads, c.head_dim
     h = _norm(x, bp["ln1_w"], bp["ln1_b"], c) if c.norm_position == "pre" \
         else x
-    qkv = torch.matmul(h, bp["qkv_w"])
+    qkv = torch.matmul(h, _w(bp, "qkv_w", c.dtype))
     if "qkv_b" in bp:
         qkv = qkv + bp["qkv_b"]
     q, k, v = _unpack_qkv(qkv, c)
@@ -437,7 +510,7 @@ def _decode_qkv(bp, x, c: GPTConfig, pos):
 def _layer_tail(bp, x, attn, c: GPTConfig):
     """Out-proj + residual (+ post-LN) + FFN + residual (+ post-LN); attn
     is [B, T, D] or per head [B, T, H, hd]."""
-    attn = torch.matmul(attn.reshape(x.shape), bp["proj_w"])
+    attn = torch.matmul(attn.reshape(x.shape), _w(bp, "proj_w", c.dtype))
     if "proj_b" in bp:
         attn = attn + bp["proj_b"]
     x = x + attn
@@ -452,18 +525,32 @@ def _layer_tail(bp, x, attn, c: GPTConfig):
 
 
 def _embed(params, tokens, config: GPTConfig, mesh=None):
-    """Token-table lookup (mp=1, fp table)."""
+    """Token-table lookup (mp=1): an int8 table's rows are gathered with
+    their scales and dequantized, so the fp table never exists."""
     if mesh is not None:
         raise NotImplementedError("vocab-sharded embedding arrives with "
                                   "tensor-parallel serving")
-    return params["wte"][tokens.long()]
+    t = tokens.long()
+    if "wte_q" in params:
+        return _deq(params["wte_q"][t], params["wte_scale"][t], config.dtype)
+    return params["wte"][t]
 
 
 def head_logits(x, params, config: GPTConfig, mesh=None):
-    """Vocab projection `x @ head` (mp=1, fp head)."""
+    """Vocab projection `x @ head` (mp=1).  An int8 head enters the matmul
+    upcast to the compute dtype (int8 values are exact there) and its
+    per-vocab scales multiply the logits' columns afterwards, the same math
+    since a scale is constant along the contraction; the transient is
+    logits-shaped, not [V, D] dequantized."""
     if mesh is not None:
         raise NotImplementedError("vocab-sharded head arrives with "
                                   "tensor-parallel serving")
+    if config.tie_word_embeddings and "wte_q" in params:
+        return (torch.matmul(x, params["wte_q"].T.to(config.dtype)) *
+                params["wte_scale"].T).to(config.dtype)
+    if not config.tie_word_embeddings and "lm_head_q" in params:
+        return (torch.matmul(x, params["lm_head_q"].to(config.dtype)) *
+                params["lm_head_scale"]).to(config.dtype)
     return torch.matmul(x, head_matrix(params, config))
 
 
@@ -517,15 +604,57 @@ def sample_token(logits, generator, *, sample, temperature, top_k, mesh=None,
 # ---------------------------------------------------------------------------
 
 def init_paged_cache(config: GPTConfig, num_pages: int, page_size: int,
-                     device=None):
+                     device=None, kv_dtype=None):
     """Per-layer paged KV pool {"k","v"} [L, num_pages, page_size, KVH, hd]
-    in the model dtype (the int8 pool is a later slice); page 0 is the null
-    page (inactive slots and padded rows write there)."""
+    in the model dtype; page 0 is the null page (inactive slots and padded
+    rows write there).  kv_dtype="int8": int8 k/v plus float32 scale lanes
+    `k_scale`/`v_scale` [L, num_pages, page_size, KVH], one a token and kv
+    head (the reference's layout)."""
     c = config
     shape = (c.num_layers, num_pages, page_size, c.kv_heads, c.head_dim)
     device = resolve_device(device)
+    if normalize_quant_dtype(kv_dtype, "kv_dtype") == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=KV_SCALE_DTYPE,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=KV_SCALE_DTYPE,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
             "v": torch.zeros(shape, dtype=c.dtype, device=device)}
+
+
+def _quantize_kv(x):
+    """Symmetric per-token, per-head int8 quantization of a KV write
+    [..., hd] -> (int8 [..., hd], float32 scale [...]), the reference's
+    math: absmax in float32, `max(absmax, 1e-30) / 127`, round half to
+    even, clip to +-127."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-30) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127.0, 127.0) \
+        .to(torch.int8)
+    return q, scale
+
+
+def _kv_scales(cache, l):
+    """Layer l's (k_scale, v_scale) of an int8 pool; None for a float
+    pool."""
+    if "k_scale" in cache:
+        return cache["k_scale"][l], cache["v_scale"][l]
+    return None
+
+
+def _write_kv(cache, l, idx, k, v):
+    """Write k, v (the compute dtype) into layer l's pool at `idx` (an
+    index tuple into [P, page]), in place; an int8 pool takes them
+    quantized, with their scales."""
+    if "k_scale" in cache:
+        k, ks = _quantize_kv(k)
+        v, vs = _quantize_kv(v)
+        cache["k_scale"][l][idx] = ks
+        cache["v_scale"][l][idx] = vs
+    cache["k"][l][idx] = k
+    cache["v"][l][idx] = v
 
 
 def prefill_paged(params, input_ids, config: GPTConfig, cache, pages, length,
@@ -534,8 +663,10 @@ def prefill_paged(params, input_ids, config: GPTConfig, cache, pages, length,
     prompt that writes KV into the slot's pages and returns logits at the
     last REAL position.  input_ids [B, Sb]; pages [B, Sb // page] page ids
     (entries past the reserved pages are the null page); length [B].
-    Attention reads the full-precision k/v, GQA-repeated, not the pool.
-    Returns (logits [B, V], cache) — the pool is written in place."""
+    Attention reads the full-precision k/v, GQA-repeated, not the pool: an
+    int8 pool quantizes only the write, so the prompt's own logits see no
+    KV quantization.  Returns (logits [B, V], cache) — the pool is written
+    in place."""
     c = config
     assert c.causal, "KV-cache decoding requires a causal model"
     B, Sb = input_ids.shape
@@ -551,8 +682,8 @@ def prefill_paged(params, input_ids, config: GPTConfig, cache, pages, length,
         q, k, v = _prefill_qkv(bp, x, c)
         # in-place page writes (the reference donates the pool and rebinds
         # the `.at[pages].set` result)
-        cache["k"][l][pages] = k.reshape(B, n_chunks, page, KVH, hd)
-        cache["v"][l][pages] = v.reshape(B, n_chunks, page, KVH, hd)
+        _write_kv(cache, l, (pages,), k.reshape(B, n_chunks, page, KVH, hd),
+                  v.reshape(B, n_chunks, page, KVH, hd))
         if KVH != H:
             k = torch.repeat_interleave(k, H // KVH, dim=2)
             v = torch.repeat_interleave(v, H // KVH, dim=2)
@@ -587,10 +718,10 @@ def decode_step_paged(params, tokens, cache, page_table, lengths,
     for l in range(c.num_layers):
         bp = _layer(params["blocks"], l)
         q, k, v = _decode_qkv(bp, x, c, pos)
-        cache["k"][l][pidx, off] = k        # in place (the reference donates)
-        cache["v"][l][pidx, off] = v
+        _write_kv(cache, l, (pidx, off), k, v)  # in place (reference donates)
         attn = paged_attention_decode(q, cache["k"][l], cache["v"][l],
-                                      page_table, seen, mesh=mesh)
+                                      page_table, seen, mesh=mesh,
+                                      kv_scales=_kv_scales(cache, l))
         x = _layer_tail(bp, x, attn, c)
     x = epilogue(params, x, c)
     return head_logits(x, params, c, mesh=mesh), cache
@@ -625,10 +756,9 @@ def _paged_chunk_hidden(params, input_ids, config: GPTConfig, cache,
         bp = _layer(params["blocks"], l)
         q, k, v = _prefill_qkv(bp, x, c, pos=pos)
         # token-granular in-place writes (the reference donates the pool)
-        cache["k"][l][pidx, off] = k
-        cache["v"][l][pidx, off] = v
+        _write_kv(cache, l, (pidx, off), k, v)
         attn = attn_fn(q, cache["k"][l], cache["v"][l], page_table, q_offset,
-                       valid, mesh=mesh)
+                       valid, mesh=mesh, kv_scales=_kv_scales(cache, l))
         x = _layer_tail(bp, x, attn, c)
     return x, cache
 

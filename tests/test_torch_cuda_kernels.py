@@ -20,6 +20,12 @@ The serving engine's step programs (`inference/graphs.py`) are held on
 the card too: each program's graph replay bitwise equal to the eager step
 (tokens and pool), sampled streams with and without graphs, a warmed
 chunked loop under `torch.cuda.set_sync_debug_mode("error")`.
+The int8 lanes of the two paged kernels (an int8 pool with f32 scales, as
+`models.gpt._quantize_kv` writes it) are held to their plain versions at
+float32 1e-4 and, for bfloat16 q, 1e-2 (no p rounding in either: the two
+differ by the output's one bf16 rounding, and sums in another order); an
+int8 serving step replayed from its graph equals the eager step bitwise on
+tokens and all four pool leaves.
 """
 import math
 
@@ -44,6 +50,8 @@ pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+INT8_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+            torch.bfloat16: dict(atol=1e-2, rtol=1e-2)}
 
 
 @pytest.fixture
@@ -454,6 +462,112 @@ def test_paged_kernel_shapes_back_to_back(dev):
                 firsts.append(got)
             else:
                 assert torch.equal(got, firsts[i])
+
+
+def _quantized(args):
+    """Paged kernel arguments with their float pool replaced by the int8
+    pool and scales `models.gpt._quantize_kv` makes of it: (args,
+    kv_scales)."""
+    from paddle_tpu_torch.models.gpt import _quantize_kv
+    (kq, ks), (vq, vs) = (_quantize_kv(x.float()) for x in args[1:3])
+    return (args[0], kq, vq, *args[3:]), (ks, vs)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("T,page", [(1, 16), (16, 16), (1, 32), (16, 32)])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_int8_paged_kernel_matches_plain_on_valid_rows(dev, dtype, hd, T,
+                                                       page, G):
+    """The prefill kernel's int8 lane (stream and tile lanes, key splits,
+    a null-table slot): valid rows against the plain version, padding rows
+    0, one launch counted on `launches_int8`."""
+    rng = np.random.RandomState(T * hd + page + G)
+    fargs, valid = _paged_inputs(rng, dtype, dev, T, hd, page, G=G)
+    args, scales = _quantized(fargs)
+    before = (paged_prefill_attention_kernel.launches,
+              paged_prefill_attention_kernel.launches_int8)
+    got = paged_prefill_attention_kernel(*args, kv_scales=scales)
+    torch.cuda.synchronize()
+    assert (paged_prefill_attention_kernel.launches,
+            paged_prefill_attention_kernel.launches_int8) == \
+        (before[0], before[1] + 1)
+    assert got.dtype == dtype
+    ref = paged_prefill_attention_ref(*args, kv_scales=scales)
+    for b, n in enumerate(valid):
+        torch.testing.assert_close(got[b, :n].float(), ref[b, :n].float(),
+                                   **INT8_TOL[dtype])
+        assert not got[b, n:].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("page", [16, 32])
+def test_int8_decode_kernel_matches_plain(dev, dtype, hd, G, page):
+    """The decode kernel's int8 lane over slots of one split and of several
+    (lengths on the split edges), length 0 giving 0."""
+    rng = np.random.RandomState(hd + G + page)
+    fargs, lengths = _split_decode_inputs(rng, dtype, dev, hd, G, DECODE_CK,
+                                          page=page)
+    args, scales = _quantized(fargs)
+    before = paged_attention_kernel.launches_int8
+    got = paged_attention_kernel(*args, kv_scales=scales)
+    torch.cuda.synchronize()
+    assert paged_attention_kernel.launches_int8 == before + 1
+    ref = paged_attention_ref(*args, kv_scales=scales)
+    live = lengths > 0
+    torch.testing.assert_close(got[live].float(), ref[live].float(),
+                               **INT8_TOL[dtype])
+    assert float(got[~live].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_int8_paged_kernels_are_bitwise_deterministic(dev, dtype):
+    """Both int8 lanes merge their splits in split order: two calls give
+    the same bits (prefill at T 1 and 16, decode)."""
+    rng = np.random.RandomState(11)
+    for T in (1, 16):
+        args, scales = _quantized(_paged_inputs(rng, dtype, dev, T, 128,
+                                                16)[0])
+        first = paged_prefill_attention_kernel(*args, kv_scales=scales)
+        again = paged_prefill_attention_kernel(*args, kv_scales=scales)
+        assert torch.equal(first, again)
+    args, scales = _quantized(_split_decode_inputs(rng, dtype, dev, 128, 4,
+                                                   DECODE_CK)[0])
+    first = paged_attention_kernel(*args, kv_scales=scales)
+    again = paged_attention_kernel(*args, kv_scales=scales)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def test_int8_lanes_refuse_what_they_do_not_take(dev):
+    rng = np.random.RandomState(3)
+    args, scales = _quantized(_paged_inputs(rng, torch.float32, dev, 1, 64,
+                                            16)[0])
+    with pytest.raises(TypeError, match="dtype"):
+        paged_prefill_attention_kernel(*args)               # no scales
+    with pytest.raises(TypeError, match="kv_scales"):
+        paged_prefill_attention_kernel(
+            *args, kv_scales=(scales[0].half(), scales[1]))
+    with pytest.raises(TypeError, match="kv_scales"):
+        paged_prefill_attention_kernel(
+            *args, kv_scales=(scales[0][:, :8], scales[1]))
+    dargs, _ = _decode_inputs(rng, torch.float32, dev, 64, 4, 16)
+    with pytest.raises(TypeError, match="kv_scales"):
+        paged_attention_kernel(*dargs, kv_scales=scales)    # float pool
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_weight_dequant_is_one_rounding_of_the_f32_product(dev, dtype):
+    """`models.gpt._deq` (one multiply into the compute dtype) gives the
+    bits of the reference's two-step `(q.astype(f32) * scale).astype()`."""
+    from paddle_tpu_torch.models.gpt import _deq
+    rng = np.random.RandomState(4)
+    q = torch.from_numpy(rng.randint(-127, 128, (4096, 1024)).astype(
+        np.int8)).to(dev)
+    s = torch.from_numpy(rng.rand(1, 1024).astype(np.float32) * 0.03).to(dev)
+    assert torch.equal(_deq(q, s, dtype), (q.float() * s).to(dtype))
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -971,31 +1085,37 @@ def _step_inputs(role, rng, eng, offsets=(37, 16)):
                 valid=np.array([1, T, 1]), greedy=np.ones(3, bool))
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("role", list(STEP_ROLES))
-def test_step_replay_is_bitwise_the_eager_step(dev, dtype, role):
-    """One replay of each step program (fused at T 1 and 16, unfused decode
-    and chunk) against the eager step on identical staged inputs and an
-    identical pool: output tokens and the pool after the step bitwise
-    equal, and the same kernel launch counts."""
+def _replay_and_eager(dev, dtype, role, int8=False):
+    """One replay of the step program `role` and one eager step on
+    identical staged inputs and an identical random pool (int8 weights and
+    pool with `int8`): {eager: (tokens, pool after, launches, int8
+    launches, replays)}.  The warm-up may write page 0 only."""
     from paddle_tpu_torch.incubate import kernels as K
     from paddle_tpu_torch.inference.engine import LLMEngine
     name, fuse, chunk = STEP_ROLES[role]
     cfg = _small_llama(dtype)
     params = _card_params(cfg, dev)
     rng = np.random.RandomState(7)
-    pool = {n: _randn(rng, (cfg.num_layers, 13, 16, 2, 64), dtype, dev)
-            for n in ("k", "v")}
+    shape = (cfg.num_layers, 13, 16, 2, 64)
+    if int8:
+        pool = {n: torch.from_numpy(rng.randint(-127, 128, shape).astype(
+            np.int8)).to(dev) for n in ("k", "v")}
+        pool.update({n: torch.rand(shape[:-1], device=dev) * 0.05
+                     for n in ("k_scale", "v_scale")})
+    else:
+        pool = {n: _randn(rng, shape, dtype, dev) for n in ("k", "v")}
+    quant = dict(weight_dtype="int8", kv_dtype="int8") if int8 else {}
     runs = {}
     for eager in (False, True):
         eng = LLMEngine(params, cfg, num_slots=3, page_size=16,
                         max_model_len=128, num_pages=13, prefill_chunk=chunk,
-                        fuse=fuse, device=dev, _eager=eager)
-        for n in ("k", "v"):
+                        fuse=fuse, device=dev, _eager=eager, **quant)
+        assert set(eng._pool) == set(pool)
+        for n in pool:
             eng._pool[n].copy_(pool[n])
         prog = eng._program(name)
         prog.build()
-        for n in ("k", "v"):                # the warm-up wrote page 0 only
+        for n in pool:                      # the warm-up wrote page 0 only
             assert torch.equal(eng._pool[n][:, 1:], pool[n][:, 1:])
             eng._pool[n].copy_(pool[n])
         prog.stage(**_step_inputs(name, np.random.RandomState(3), eng))
@@ -1004,9 +1124,20 @@ def test_step_replay_is_bitwise_the_eager_step(dev, dtype, role):
         prog.run()
         out = prog.result()
         runs[eager] = (out, {n: t.clone() for n, t in eng._pool.items()},
-                       K.launches(), prog.replays)
+                       K.launches(), K.launches_int8(), prog.replays)
         assert (prog.graph is None) == eager
-    (g_out, g_pool, g_n, g_rep), (e_out, e_pool, e_n, e_rep) = \
+    return cfg, name, runs
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("role", list(STEP_ROLES))
+def test_step_replay_is_bitwise_the_eager_step(dev, dtype, role):
+    """One replay of each step program (fused at T 1 and 16, unfused decode
+    and chunk) against the eager step on identical staged inputs and an
+    identical pool: output tokens and the pool after the step bitwise
+    equal, and the same kernel launch counts."""
+    cfg, name, runs = _replay_and_eager(dev, dtype, role)
+    (g_out, g_pool, g_n, _, g_rep), (e_out, e_pool, e_n, _, e_rep) = \
         runs[False], runs[True]
     assert np.array_equal(g_out, e_out)
     for n in ("k", "v"):
@@ -1015,6 +1146,27 @@ def test_step_replay_is_bitwise_the_eager_step(dev, dtype, role):
     kern = "paged_attention_kernel" if name == "decode" else \
         "paged_prefill_attention_kernel"
     assert g_n[kern] == cfg.num_layers and g_n["rms_norm_fused"] > 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("role", list(STEP_ROLES))
+def test_int8_step_replay_is_bitwise_the_eager_step(dev, dtype, role):
+    """The same over int8 weights and an int8 pool: tokens and all four
+    pool leaves bitwise equal, every paged launch on the int8 lane.  Page 0
+    is left out: inactive and padded rows write there at colliding
+    positions, whose winner the scatter does not fix (the null page is
+    read only for outputs the scheduler drops)."""
+    cfg, name, runs = _replay_and_eager(dev, dtype, role, int8=True)
+    (g_out, g_pool, g_n, g_q, g_rep), (e_out, e_pool, e_n, e_q, e_rep) = \
+        runs[False], runs[True]
+    assert np.array_equal(g_out, e_out)
+    assert set(g_pool) == {"k", "v", "k_scale", "v_scale"}
+    for n in g_pool:
+        assert torch.equal(g_pool[n][:, 1:], e_pool[n][:, 1:]), n
+    assert (g_n, g_q) == (e_n, e_q) and (g_rep, e_rep) == (1, 0)
+    kern = "paged_attention_kernel" if name == "decode" else \
+        "paged_prefill_attention_kernel"
+    assert g_q[kern] == cfg.num_layers and g_n[kern] == 0
 
 
 @pytest.mark.parametrize("mode", ["fused_bucketed", "fused_chunked",

@@ -179,7 +179,7 @@ def test_add_request_validation(reference):
     dict(admission="optimistic"), dict(preempt="swap"),
     dict(fault_plan=object()), dict(kv_tier=True), dict(spill_dir="x"),
     dict(page_store=object()), dict(role="prefill"),
-    dict(weight_dtype="int8"), dict(kv_dtype="int8"), dict(mesh=object()),
+    dict(mesh=object()),
     dict(mp=2), dict(request_tracing=True), dict(clock=lambda: 0.0),
 ], ids=lambda d: next(iter(d)))
 def test_later_slice_knobs_raise(reference, knob):

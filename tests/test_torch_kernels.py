@@ -286,11 +286,11 @@ def test_paged_plain_matches_pallas_kernel_on_valid_rows(kvh):
 
 
 def test_paged_entries_refuse_later_slices():
+    """Tensor-parallel attention raises; int8 pools (`kv_scales=`) are this
+    slice's (tests/test_torch_quantized.py)."""
     args = tuple(map(_t, _paged_case(2, 1)))
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         paged_serve_attention(*args, mesh=object())
-    with pytest.raises(NotImplementedError, match="int8"):
-        paged_serve_attention(*args, kv_scales=(args[1], args[2]))
 
 
 def test_launch_counters_cover_the_three_kernels():
