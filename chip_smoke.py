@@ -42,7 +42,9 @@ Phases, one JSON line each (with its seconds):
                INT8_BF16_TOL, one bf16 rounding of the output, since
                neither rounds p), with their own ck sweeps; the library
                yardstick is SDPA over a gathered copy dequantized outside
-               the timed call.
+               the timed call.  The paged prefill kernel also runs as a
+               bucketed prefix-hit tail calls it (T 2048, one slot,
+               q_offset 1000, 200 valid rows; fp at page 16, int8 at 32).
 3. engine_bucketed — Llama-3-8B at full width (all 32 layers), bf16, random
                weights from a seeded generator, 8 greedy requests of 64-1024
                prompt tokens x 32 new tokens through `LLMEngine` with
@@ -50,12 +52,16 @@ Phases, one JSON line each (with its seconds):
                prompts take two prefill programs, the reference's budget);
                the engine's decode-side program is warmed (`warm_decode`:
                its CUDA graph captured) before launch counts are zeroed, and
-               the counts are read just after.  Every fused step is one
-               graph replay (`graph_replays` = fused dispatches, the
-               replays adding their captures' launch counts), the program
-               counts (`*_executables`) stay within `SERVE_PROGRAM_BUDGET`
-               with one decode-side program, and the engine's memory (pool,
-               graphs) is released when it is dropped.
+               the counts are read just after.  Every fused step and every
+               one-shot prefill (one graph per bucket, built at its first
+               use) is one graph replay (`graph_replays` = the dispatches,
+               the replays adding their captures' launch counts), the
+               program counts (`*_executables`) stay within
+               `SERVE_PROGRAM_BUDGET` with one decode-side program, and the
+               engine's memory (pool, graphs) is released when it is
+               dropped.  The engine runs at its default `prefix_cache=True`;
+               the random prompts share no prefix, and phases 3-6b fail on
+               any prefix hit.
 4. engine_chunked  — the same requests with `prefill_chunk=16`, the chunk
                riding the fused step; greedy agreement with phase 3 printed.
 5. engine_unfused — the same requests through `LLMEngine(fuse=False)`, the
@@ -69,7 +75,8 @@ Phases, one JSON line each (with its seconds):
 6. engine_graphs — phases 3 and 4 again without CUDA graphs (the engine's
                private `_eager` switch), in the same process: both modes'
                tokens/s, step ms, peak memory, replays and program counts;
-               the streams must be identical and the launch counts equal.
+               the streams must be identical and the launch counts equal,
+               and each bucket's prefill a graph in phase 3, eager here.
 6b. engine_int8 — the same requests through `LLMEngine(weight_dtype=
                "int8", kv_dtype="int8")`, page 32, on graphs: fused
                bucketed, fused chunked (`prefill_chunk=16`) and `fuse=False`
@@ -82,6 +89,28 @@ Phases, one JSON line each (with its seconds):
                the bucketed engine's first token of prompts 0 and 1 equal to
                the argmax of the dense `forward` over the dequantized
                weights where the top-2 margin exceeds 0.05.
+6c. engine_prefix — the prefix cache: a 1000-token system prompt (62 full
+               pages of 16 and 8 tokens), a donor (it + 24 own tokens)
+               served to its first token, then six requests together (the
+               system prompt itself: a rolling-hash partial hit; its first
+               992 tokens + a tail: a page-aligned hit; it + the donor's
+               first 10 own tokens + a tail: a COW hit on the donor's own
+               page; two tails of 17 and 200 tokens; an unrelated prompt
+               missing into bucket 1024), and once the donor has finished
+               its returning session (its prompt + 32 generated + 20 new
+               tokens: a hit on the finish-time registration); 32 new tokens
+               each, fused bucketed (the tails through the 2048-wide chunk
+               program), fused chunked (`prefill_chunk=16`), `fuse=False`
+               bucketed, and int8 fused bucketed at page 32.  Each request's
+               cached tokens equal the page geometry's, the hit and COW
+               counts the plan's, launches 32 x the dispatches on the pool's
+               lane, graph replays the dispatches, one copy and at most two
+               prefill programs, 0 pages in use after the drain, the
+               cache's invariants hold, and each hit request's first token
+               equals the dense `forward`'s argmax over its prompt where
+               the margin exceeds 0.05.  Beside them, the same traffic
+               without the cache: prefilled tokens, TTFT per request,
+               tokens/s and step ms.
 7. first_token — the first tokens of phases 3, 4 and both modes of 5 for
                two prompts against the argmax of the dense `forward` at the
                last prompt position, held equal where the top-2 margin
@@ -121,7 +150,7 @@ Phases, one JSON line each (with its seconds):
 
 Then one line `{"kernels": [...]}` for all nine kernels and the int8 lanes of
 the two paged ones (launches summed over the main-path runs of phases 3, 4,
-5, 6b, 10, 11 and 12, each with the counts
+5, 6b, 6c, 10, 11 and 12, each with the counts
 zeroed just before it and read just after; none of them may take an
 entry's composed route for shapes the kernels do not take) and, last,
 `{"ok": true, "device": ...}`.
@@ -147,8 +176,13 @@ H100_BYTES_S = 3.35e12                  # HBM3, NVIDIA data sheet (SXM)
 H100_BF16_FLOPS = 989e12                # dense tensor-core bf16
 H100_F32_FLOPS = 67e12                  # float32 outside the tensor cores
 MAX_NEW = 32
+# step_profile.py --window keeps a copy of these two: change them together
 PROMPT_LENS = (64, 96, 160, 256, 384, 512, 768, 1024)
 SERVE_BUCKETS = [512, 1024, 2048]       # the prompts take two of them
+# the paged prefill kernel as the bucketed prefix-hit tail calls it: one
+# slot, T = the largest bucket, a match ending mid-page, the longest tail of
+# the engine_prefix traffic
+TAIL_T, TAIL_OFFSET, TAIL_VALID = 2048, 1000, 200
 INT8_PAGE = 32          # the int8 engines' page (the reference's int8 gate)
 RELEASE_SLACK = 128 << 20   # bytes a dropped engine may leave (cuBLAS's
 #                             workspace on the capture stream, made once)
@@ -343,22 +377,28 @@ def flash_case(dtype, dev, shape):
 
 
 def paged_inputs(dtype, dev, T, page=16):
-    """B=8, H=32, KVH=8, hd=128, 2048 tokens a table row, mixed
-    q_offset/valid; slots 6 and 7 are null-table slots (valid 1, offset 0)."""
+    """H=32, KVH=8, hd=128, 2048 tokens a table row.  T 1 and 16: B=8, mixed
+    q_offset/valid, slots 6 and 7 null-table slots (valid 1, offset 0);
+    T = TAIL_T: the bucketed prefix-hit tail, one slot at q_offset
+    TAIL_OFFSET (mid-page) with TAIL_VALID valid rows."""
     import torch
     rng = np.random.RandomState(T)
-    B, H, KVH, hd, max_pages = 8, 32, 8, 128, 2048 // page
+    H, KVH, hd, max_pages = 32, 8, 128, 2048 // page
     if T == 1:
         q_offset = np.array([0, 37, 300, 1000, 1500, 2040, 0, 0])
-        valid = np.ones(B, np.int64)
+        valid = np.ones(8, np.int64)
+    elif T == TAIL_T:
+        q_offset, valid = np.array([TAIL_OFFSET]), np.array([TAIL_VALID])
     else:
         q_offset = np.array([0, 37, 300, 1000, 1500, 63, 0, 0])
         valid = np.array([16, 5, 16, 1, 9, 16, 1, 1])
+    B = len(valid)
+    real = min(B, 6)                    # the slots with table rows
     table = np.zeros((B, max_pages), np.int32)
-    need = [-(-(q_offset[b] + valid[b]) // page) for b in range(6)]
+    need = [-(-(q_offset[b] + valid[b]) // page) for b in range(real)]
     P = 1 + sum(need)
     perm = list(rng.permutation(np.arange(1, P)))
-    for b in range(6):
+    for b in range(real):
         table[b, :need[b]] = [perm.pop() for _ in range(need[b])]
 
     def rnd(*shape):
@@ -426,12 +466,15 @@ def paged_case(dtype, dev, T, page=16, int8=False):
     plan = _prefill_split_plan(B, T, H, KVH, hd, page, table.shape[1],
                                PA.PREFILL_CK)
     isz = q.element_size()
-    # what this data needs: each slot's keys up to its last real query
-    # (K and V rows, with their f32 scales for an int8 pool), each valid
-    # row's causal span; the int8 lane's math is f32 (the reference's lane)
+    # what this data needs: q of the valid rows only, every output row
+    # (padding rows are written 0), each slot's keys up to its last real
+    # query (K and V rows, with their f32 scales for an int8 pool), each
+    # valid row's causal span; the int8 lane's math is f32 (the
+    # reference's lane)
     keys = sum(int(q_offset[b] + valid[b]) for b in range(B))
+    rows = sum(int(n) for n in valid)
     row = hd + 4 if int8 else hd * isz
-    nbytes = (2 * B * T * H * hd * isz + 2 * keys * KVH * row
+    nbytes = ((rows + B * T) * H * hd * isz + 2 * keys * KVH * row
               + table.numel() * 4 + 2 * B * 4)
     flops = sum(4 * H * hd * (int(q_offset[b]) + t + 1)
                 for b in range(B) for t in range(int(valid[b])))
@@ -768,16 +811,20 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
         raise AssertionError("RMSNorm kernel never launched")
     if chunk is None and launches["flash_attention_fwd"] == 0:
         raise AssertionError("flash kernel never launched in bucketed mode")
-    # one replay a step program dispatch (none when eager); the programs
-    # within the reference's budget
-    replays = 0 if eager else fused + st["decode_dispatches"] + \
-        st["chunk_dispatches"]
+    # random prompts over a 128k vocabulary share no prefix: the launch
+    # counts above hold only without prefix hits
+    if st["prefix_hit_requests"] or st["cow_page_copies"]:
+        raise AssertionError(f"unplanned prefix hits ({st})")
+    # one replay a program dispatch (none when eager): the step programs
+    # and the bucketed prefills; the programs within the reference's budget
+    replays = 0 if eager else dispatches(st)
     over = over_budget(st)
     if st["graph_replays"] != replays or st["decode_executables"] > 1 or \
             over:
         raise AssertionError(f"graph replays {st['graph_replays']}, want "
                              f"{replays}; programs over budget {over} ({st})")
     execs = {k: st[k] for k in st if k.endswith("_executables")}
+    bucket_graphs = bucket_graph_count(eng)
     gen = sum(len(o.token_ids) for o in outs.values())
     del eng
     gc.collect()
@@ -802,19 +849,46 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
            **{k: st[k] for k in ("decode_iterations", "decode_dispatches",
                                  "chunk_dispatches", "prefill_dispatches",
                                  "graph_replays")},
-           "executables": execs, "launches": launches,
-           "launches_int8": launches_int8,
+           "executables": execs, "bucket_graphs": bucket_graphs,
+           "launches": launches, "launches_int8": launches_int8,
            "held_gib": held / 2 ** 30, "peak_mem_gib": peak / 2 ** 30,
            "left_after_release_mib": left / 2 ** 20}
     return outs, rec
 
 
-def int8_first_tokens(params, cfg, prompts, outs):
-    """The bucketed int8 engine's first tokens of prompts 0 and 1 against
-    the argmax of the dense `forward` over the dequantized weights (the
+def admission_replay_ms(eng):
+    """Device ms of one replay of each admission-side program on its inert
+    inputs (the null page): the COW copy, the tail (chunk) program at its
+    full width, each bucket's prefill.  A function of its own, so that no
+    reference to a program (and through its body, the pool) outlives it."""
+    out = {}
+    for role, prog in eng._programs.items():
+        if role in ("fused", "decode") or prog.graph is None:
+            continue
+        for n, t in prog.inputs.items():
+            t.fill_(prog._inert[n])
+        out[role] = device_ms(prog.graph.replay, iters=5, warmup=1)
+    return out
+
+
+def dispatches(st):
+    """Every program dispatch an engine made: the step programs, the
+    bucketed one-shot prefills and the COW copies."""
+    return st["fused_dispatches"] + st["decode_dispatches"] + \
+        st["chunk_dispatches"] + st["prefill_dispatches"] + \
+        st["cow_page_copies"]
+
+
+def bucket_graph_count(eng):
+    """The engine's one-shot prefill programs that run as CUDA graphs."""
+    return sum(1 for role, prog in eng._programs.items()
+               if role.startswith("prefill:") and prog.graph is not None)
+
+
+def dequantized_params(params, cfg):
+    """The int8 engine's weights dequantized for the dense `forward`: the
     table and head dequantized here, the blocks layer by layer in the
-    forward), held equal where the top-2 margin exceeds 0.05."""
-    import torch
+    forward (`models.gpt._w`)."""
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.quantization import quantize_serving_params
     qp = quantize_serving_params(params, cfg)
@@ -823,24 +897,232 @@ def int8_first_tokens(params, cfg, prompts, outs):
     dense["wte"] = gpt._deq(qp["wte_q"], qp["wte_scale"], cfg.dtype)
     dense["lm_head"] = gpt._deq(qp["lm_head_q"], qp["lm_head_scale"],
                                 cfg.dtype)
-    checks = []
-    for rid in (0, 1):
+    return dense
+
+
+def forward_picks(params, cfg, prompts):
+    """{name: (argmax, top-2 margin)} of the dense `forward` at each
+    prompt's last position."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    picks = {}
+    for name, prompt in prompts.items():
         with torch.no_grad():
-            logits = gpt.forward(dense, prompts[rid][None], cfg)[0, -1]
+            logits = gpt.forward(params, prompt[None], cfg)[0, -1]
         top2 = torch.topk(logits.float(), 2)
-        margin = float(top2.values[0] - top2.values[1])
-        pick, first = int(top2.indices[0]), outs[rid].token_ids[0]
+        picks[name] = (int(top2.indices[0]),
+                       float(top2.values[0] - top2.values[1]))
+    return picks
+
+
+def check_first_tokens(picks, outs, what):
+    """Each engine's first token against the forward's argmax, held equal
+    where the top-2 margin exceeds 0.05 (ties reported)."""
+    checks = []
+    for name, (pick, margin) in picks.items():
+        first = outs[name].token_ids[0]
         if margin > 0.05 and pick != first:
             raise AssertionError(
-                f"prompt {rid}: the int8 engine's first token {first} != "
-                f"the dequantized forward's argmax {pick} (margin "
-                f"{margin:.3g})")
-        checks.append({"prompt": rid, "engine": first, "forward": pick,
+                f"{what} {name}: the engine's first token {first} != the "
+                f"forward's argmax {pick} (margin {margin:.3g})")
+        checks.append({"prompt": name, "engine": first, "forward": pick,
                        "margin": margin,
                        "result": "match" if pick == first else "tie"})
-    del qp, dense
+    return checks
+
+
+def int8_first_tokens(params, cfg, prompts, outs):
+    """The bucketed int8 engine's first tokens of prompts 0 and 1 against
+    the argmax of the dense `forward` over the dequantized weights."""
+    import torch
+    dense = dequantized_params(params, cfg)
+    checks = check_first_tokens(
+        forward_picks(dense, cfg, {rid: prompts[rid] for rid in (0, 1)}),
+        outs, "int8 bucketed")
+    del dense
     torch.cuda.empty_cache()
     return checks
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: the prefix cache at Llama-3-8B width
+# ---------------------------------------------------------------------------
+
+PREFIX_SYSTEM = 1000    # the shared system prompt: 62 full pages of 16 + 8
+PREFIX_OWN = 24         # the donor's own tokens after it
+
+
+def prefix_traffic(vocab):
+    """(the donor's prompt, [(name, prompt)] of the six requests sent
+    together once the donor has its first token, the 20 new tokens of the
+    donor's returning session)."""
+    rng = np.random.RandomState(1)
+
+    def rand(n):
+        return rng.randint(0, vocab, n).astype(np.int32)
+
+    system, own = rand(PREFIX_SYSTEM), rand(PREFIX_OWN)
+    six = [("system", system.copy()),       # ends inside the donor's page
+           ("aligned", np.concatenate([system[:992], rand(50)])),
+           ("cow", np.concatenate([system, own[:10], rand(40)])),
+           ("tail_a", np.concatenate([system, rand(17)])),
+           ("tail_b", np.concatenate([system, rand(TAIL_VALID)])),
+           # a miss in the donor's bucket (1024): one bucket program
+           ("unrelated", rand(int(rng.randint(600, 1001))))]
+    return np.concatenate([system, own]), six, rand(20)
+
+
+def want_cached(prompt, cached, page):
+    """The prompt tokens a hit takes from the cache, by the page geometry:
+    the common prefix with the cached sequence, at most len(prompt) - 1; a
+    match ending fewer than 2 tokens into a page (the index's shortest
+    partial match) stops at the page boundary."""
+    n = min(len(prompt) - 1, len(cached))
+    common = next((i for i in range(n) if prompt[i] != cached[i]), n)
+    aligned = common // page * page
+    return common if common - aligned >= 2 else aligned
+
+
+def serve_prefix(params, cfg, dev, chunk=None, fuse=True, int8=False,
+                 prefix_cache=True):
+    """The prefix traffic through one engine (8 slots, page 16, int8 page
+    INT8_PAGE, buckets SERVE_BUCKETS): the donor (system prompt + 24 own
+    tokens) served to its first token, then six requests together, then,
+    once the donor has finished, its returning session (prompt + 32
+    generated + 20 new tokens); 32 new tokens each.  The programs the
+    traffic dispatches are built first on inert inputs, as their first
+    dispatch would build them, so TTFT reads serving and not capture.
+    Holds each request's cached tokens to the page geometry, the hit and
+    COW counts, the launches to 32 x the dispatches on the pool's lane, the
+    graph replays to the dispatches, the programs to the budget, the
+    drained pool to 0 pages in use and the cache's invariants.  Returns
+    ({name: output}, {name: prompt}, phase record)."""
+    import gc
+
+    import torch
+    from paddle_tpu_torch.analysis.registry import over_budget
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    page = INT8_PAGE if int8 else 16
+    quant = dict(weight_dtype="int8", kv_dtype="int8") if int8 else {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = LLMEngine(params, cfg, num_slots=8, page_size=page,
+                    max_model_len=2048, prefill_buckets=SERVE_BUCKETS,
+                    prefill_chunk=chunk, fuse=fuse, prefix_cache=prefix_cache,
+                    device=dev, **quant)
+    eng.warm_decode()
+    roles = [] if chunk is not None else ["prefill:1024"] if prefix_cache \
+        else ["prefill:1024", "prefill:2048"]   # without hits, 2 buckets
+    if prefix_cache:
+        roles += ["copy"] + (["chunk"] if chunk is None or not fuse else [])
+    for role in roles:
+        eng._program(role).build()
+    donor, six, new = prefix_traffic(cfg.vocab_size)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    steps = []
+
+    def step():
+        s = time.perf_counter()
+        eng.step()
+        steps.append(time.perf_counter() - s)
+
+    t0 = time.perf_counter()
+    rid = {"donor": eng.add_request(donor, max_new_tokens=MAX_NEW)}
+    while not eng.stats()["running"]:
+        step()
+    for name, prompt in six:
+        rid[name] = eng.add_request(prompt, max_new_tokens=MAX_NEW)
+    while rid["donor"] not in eng.outputs:
+        step()
+    gen = np.asarray(eng.outputs[rid["donor"]].token_ids, np.int32)
+    back = np.concatenate([donor, gen, new])
+    rid["back"] = eng.add_request(back, max_new_tokens=MAX_NEW)
+    while eng.has_work:
+        step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, launches_int8 = K.launches(), K.launches_int8()
+    no_composed("engine_prefix")
+    st = eng.stats()
+    outs = {name: eng.outputs[r] for name, r in rid.items()}
+    prompts = {"donor": donor, **dict(six), "back": back}
+    for name, o in outs.items():
+        if o.finish_reason != "length" or len(o.token_ids) != MAX_NEW or \
+                not all(0 <= t < cfg.vocab_size for t in o.token_ids):
+            raise AssertionError(f"engine_prefix {name}: {o.finish_reason}, "
+                                 f"{len(o.token_ids)} tokens")
+    # the donor registered its prompt, and at its finish the KV of its
+    # prompt + generated tokens, all but the last
+    conv = np.concatenate([donor, gen])[:donor.size + MAX_NEW - 1]
+    want = {name: 0 if name in ("donor", "unrelated") or not prefix_cache
+            else want_cached(p, conv if name == "back" else donor, page)
+            for name, p in prompts.items()}
+    got = {name: o.cached_tokens for name, o in outs.items()}
+    hits = sum(1 for n in want.values() if n)
+    cows = sum(1 for n in want.values() if n % page)
+    if got != want or st["prefix_hit_requests"] != hits or \
+            st["cow_page_copies"] != cows:
+        raise AssertionError(f"engine_prefix: cached tokens {got}, want "
+                             f"{want}; {hits} hits and {cows} COW copies "
+                             f"planned ({st})")
+    L = cfg.num_layers
+    lane, other = (launches_int8, launches) if int8 else \
+        (launches, launches_int8)
+    want_l = {"paged_prefill_attention_kernel":
+              L * (st["fused_dispatches"] + st["chunk_dispatches"]),
+              "paged_attention_kernel": L * st["decode_dispatches"]}
+    if any(lane[n] != w for n, w in want_l.items()) or \
+            any(other[n] for n in want_l) or \
+            launches["flash_attention_fwd"] != L * st["prefill_dispatches"]:
+        raise AssertionError(f"engine_prefix launches {launches}, int8 "
+                             f"{launches_int8}, want {want_l} ({st})")
+    over = over_budget(st)
+    if st["graph_replays"] != dispatches(st) or over or \
+            st["decode_executables"] != 1 or \
+            st["copy_executables"] != int(prefix_cache):
+        raise AssertionError(f"engine_prefix: graph replays "
+                             f"{st['graph_replays']}, programs over budget "
+                             f"{over} ({st})")
+    if st["pages_in_use"]:
+        raise AssertionError(f"engine_prefix: {st['pages_in_use']} pages "
+                             f"in use after the drain")
+    eng.cache.check_invariants()
+    execs = {k: st[k] for k in st if k.endswith("_executables")}
+    peak = torch.cuda.max_memory_allocated(dev)
+    gen_tokens = sum(len(o.token_ids) for o in outs.values())
+    replay_ms = admission_replay_ms(eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev) - held
+    if left > RELEASE_SLACK:
+        raise AssertionError(f"the dropped engine left {left / 2**20:.1f} "
+                             f"MiB allocated")
+    rec = {"prefix_cache": prefix_cache, "page_size": page,
+           "prefill_chunk": chunk, "fuse": fuse,
+           "weight_dtype": st["weight_dtype"], "kv_dtype": st["kv_dtype"],
+           "prompt_lens": {n: int(p.size) for n, p in prompts.items()},
+           "cached_tokens": got,
+           "ttft_ms": {n: 1e3 * o.ttft_s for n, o in outs.items()},
+           **{k: st[k] for k in (
+               "prefilled_tokens", "prefix_cached_tokens",
+               "prefix_hit_requests", "prefix_hit_rate", "cow_page_copies",
+               "prefix_evictions", "pages_evictable", "prefill_chunks",
+               "fused_dispatches", "decode_dispatches", "chunk_dispatches",
+               "prefill_dispatches", "graph_replays")},
+           "generated_tokens": gen_tokens, "wall_s": wall,
+           "tokens_per_s": gen_tokens / wall, "engine_steps": len(steps),
+           "mean_step_ms": 1e3 * wall / len(steps),
+           "median_step_ms": 1e3 * float(np.median(steps)),
+           "executables": execs, "replay_device_ms": replay_ms,
+           "launches": launches, "launches_int8": launches_int8,
+           "peak_mem_gib": peak / 2 ** 30,
+           "left_after_release_mib": left / 2 ** 20}
+    return outs, prompts, rec
 
 
 def agreement(a, b):
@@ -1313,7 +1595,7 @@ def main():
                 for N in (4096, 8, 128)]
         rows += [flash_case(dtype, dev, shape) for shape in
                  ((1, 16, 32, 128), (1, 1024, 32, 128), (4, 2048, 16, 128))]
-        rows += [paged_case(dtype, dev, T) for T in (1, 16)]
+        rows += [paged_case(dtype, dev, T) for T in (1, 16, TAIL_T)]
         # decode: the smoke prompts' lengths at Llama-3-8B's heads, then
         # hd 64 and 256 at G 1 and 8 with lengths ending mid-page
         rows.append(decode_case(dtype, dev, PROMPT_LENS))
@@ -1325,6 +1607,7 @@ def main():
                      for T in (1, 16)]
             rows.append(decode_case(dtype, dev, PROMPT_LENS, page=page,
                                     int8=True))
+        rows.append(paged_case(dtype, dev, TAIL_T, INT8_PAGE, int8=True))
         for r in rows:
             r["dtype"] = str(dtype).replace("torch.", "")
         results += rows
@@ -1375,8 +1658,16 @@ def main():
             raise AssertionError(f"engine_graphs {mode}: launches "
                                  f"{rec['launches']} on graphs, "
                                  f"{erec['launches']} eager")
+        # bucketed: every one-shot prefill bucket is a graph on graphs
+        want = rec["executables"]["prefill_executables"] if chunk is None \
+            else 0
+        if (rec["bucket_graphs"], erec["bucket_graphs"]) != (want, 0):
+            raise AssertionError(f"engine_graphs {mode}: bucket graphs "
+                                 f"{rec['bucket_graphs']} / "
+                                 f"{erec['bucket_graphs']}, want {want}")
         rec6[mode] = {"graphs": {k: rec[k] for k in keys},
                       "eager": {k: erec[k] for k in keys},
+                      "bucket_graphs": rec["bucket_graphs"],
                       "agreement": agree, "launches_equal": True}
     emit({"phase": "engine_graphs", "seconds": time.perf_counter() - t,
           **rec6})
@@ -1397,25 +1688,47 @@ def main():
                                            int8_runs["bucketed"])})
 
     t = time.perf_counter()
-    checks = []
+    rec_p, firsts = {}, []
+    hit_names = None
+    for mode, chunk, fuse, int8 in (("bucketed", None, True, False),
+                                    ("chunked", 16, True, False),
+                                    ("unfused_bucketed", None, False, False),
+                                    ("int8_bucketed", None, True, True)):
+        outs, sent, rec_p[mode] = serve_prefix(params, cfg, dev, chunk,
+                                               fuse, int8)
+        # the first token of every hit request against the dense forward
+        # over its whole prompt (over the dequantized weights for int8)
+        hit_names = [n for n, c in rec_p[mode]["cached_tokens"].items() if c]
+        ref_params = dequantized_params(params, cfg) if int8 else params
+        picks = forward_picks(ref_params, cfg,
+                              {n: sent[n] for n in hit_names})
+        del ref_params
+        firsts += [{"mode": mode, **c}
+                   for c in check_first_tokens(picks, outs, mode)]
+        torch.cuda.empty_cache()
+    off = {mode: serve_prefix(params, cfg, dev, chunk,
+                              prefix_cache=False)[2]
+           for mode, chunk in (("bucketed", None), ("chunked", 16))}
+    cmp_keys = ("prefilled_tokens", "prefix_cached_tokens", "ttft_ms",
+                "tokens_per_s", "mean_step_ms", "median_step_ms",
+                "engine_steps", "prefill_dispatches", "chunk_dispatches",
+                "prefill_chunks")
+    emit({"phase": "engine_prefix", "seconds": time.perf_counter() - t,
+          "system_prompt": PREFIX_SYSTEM, "donor_own": PREFIX_OWN,
+          "hit_requests": hit_names, **rec_p,
+          "with_and_without_cache": {
+              mode: {"with": {k: rec_p[mode][k] for k in cmp_keys},
+                     "without": {k: rec[k] for k in cmp_keys}}
+              for mode, rec in off.items()},
+          "no_prefix_cache": off, "first_token": firsts})
+
+    t = time.perf_counter()
     modes = (("bucketed", bucketed), ("chunked", chunked),
              ("unfused_bucketed", unfused["bucketed"]),
              ("unfused_chunked", unfused["chunked"]))
-    for rid in (0, 1):
-        with torch.no_grad():
-            logits = gpt.forward(params, prompts[rid][None], cfg)[0, -1]
-        top2 = torch.topk(logits.float(), 2)
-        margin = float(top2.values[0] - top2.values[1])
-        pick = int(top2.indices[0])
-        for mode, outs in modes:
-            first = outs[rid].token_ids[0]
-            if margin > 0.05 and pick != first:
-                raise AssertionError(
-                    f"prompt {rid}: {mode} engine's first token {first} != "
-                    f"forward argmax {pick} (margin {margin:.3g})")
-            checks.append({"prompt": rid, "mode": mode, "engine": first,
-                           "forward": pick, "margin": margin,
-                           "result": "match" if pick == first else "tie"})
+    picks = forward_picks(params, cfg, {rid: prompts[rid] for rid in (0, 1)})
+    checks = [{"mode": mode, **c} for mode, outs in modes
+              for c in check_first_tokens(picks, outs, mode)]
     emit({"phase": "first_token", "seconds": time.perf_counter() - t,
           "checks": checks})
 
@@ -1545,7 +1858,7 @@ def main():
          "paddle_tpu/incubate/kernels/paged_attention.py:247"),
     )
     runs = (rec3, rec4, rec5["bucketed"], rec5["chunked"], *rec_q.values(),
-            rec9, rec7, rec8)
+            *rec_p.values(), rec9, rec7, rec8)
     kernels = [{
         "name": r["kernel"] + ("_int8" if key == "launches_int8" else ""),
         "route": route, "source": source, "replaces": replaces,

@@ -6,9 +6,9 @@ decode side is one fused program (vanilla decode, verify and the
 interleaved prefill chunk ride it), the prefill budget covers the cold paths
 (one-shot bucketed prefill, and the chunk program where it exists), plus
 one COW page copy and the swap gather and scatter.  The port's programs are
-its CUDA graphs, one per fixed step shape, and each eager bucket shape of
-the one-shot prefill; `LLMEngine.stats()` counts them under the reference's
-keys, and `program_counts` folds those into the budget's.
+its CUDA graphs, one per fixed shape: the step programs, the COW copy and
+each bucket's one-shot prefill; `LLMEngine.stats()` counts them under the
+reference's keys, and `program_counts` folds those into the budget's.
 """
 from __future__ import annotations
 

@@ -15,22 +15,40 @@ int32 token buffer.  With `double_buffer=True` (default) that fetch happens
 at the top of the NEXT step, so the device computes while the host
 schedules.
 
-Each step program (the fused step; the unfused decode and chunk programs)
-is a `graphs.StepProgram`: its inputs are staged into static buffers and,
-on the card, the step is ONE `CUDAGraph.replay()` (the reference's one
-jitted executable a step).  `warm_decode()` builds the decode-side program
-on inert inputs; an engine that is not warmed builds each program at its
-first dispatch.  `stats()` counts the programs under the reference's keys
-(`decode_executables`, ..., held within
-`analysis.registry.SERVE_PROGRAM_BUDGET`) beside `graph_replays`.  The
-bucketed one-shot prefill stays eager (one program per bucket shape).
+Prefix cache (`prefix_cache=True`, the default, as in the reference):
+admission matches the prompt against the cache's prefix index in the same
+call that reserves its pages (`PagedKVCache.allocate_prefixed`).  Matched
+full pages are mapped read-only into the slot's table row; a match ending
+inside a cached page is copied on the device into the slot's own page (the
+"copy" program, dispatched before anything writes the slot), and only the
+uncached tail is prefilled.  A hit never takes the one-shot bucketed
+prefill: its tail goes through the chunk program, which in fused bucketed
+mode is as wide as the largest bucket and runs before the fused step.
+Pages are registered in the index as their KV lands (after each chunk and
+each one-shot prefill) and, when a request finishes, once more over its
+generated tokens (`register_prefix(upgrade=True)`), so a returning
+session's whole conversation is a hit.  Every program runs on one stream in
+dispatch order, which is what makes registering a chunk's pages before the
+fused step that writes them safe.
+
+Each program (the fused step; the unfused decode and chunk programs; the
+COW copy; one one-shot prefill per bucket, "prefill:<bucket>") is a
+`graphs.StepProgram`: its inputs are staged into static buffers and, on the
+card, a dispatch is ONE `CUDAGraph.replay()` (the reference's one jitted
+executable a step).  The bucket programs share one graph memory pool: they
+never run at once.  `warm_decode()` builds the decode-side program on inert
+inputs; any other program is built at its first dispatch, on inert inputs
+that touch only the null page.  `stats()` counts the programs under the
+reference's keys (`decode_executables`, ..., held within
+`analysis.registry.SERVE_PROGRAM_BUDGET`) beside `graph_replays`.
 
 `fuse=False` is the reference's three-program step, the A/B baseline of the
 fused one: each iteration advances the oldest mid-prefill prompt by one
-chunk through `prefill_chunk_paged` (chunked mode), then runs one
-`decode_step_paged` over every decoding slot (mid-prefill slots get null
-table rows, so their KV writes land on the null page); both fetch their
-token before the step returns (no double buffering).
+chunk through `prefill_chunk_paged` (chunked mode, and prefix-hit tails in
+bucketed mode), then runs one `decode_step_paged` over every decoding slot
+(mid-prefill slots get null table rows, so their KV writes land on the null
+page); both fetch their token before the step returns (no double
+buffering).
 
 Quantized serving, as the reference's: `weight_dtype="int8"` quantizes the
 serving matmul weights once at init (`quantization.quantize_serving_params`,
@@ -38,12 +56,11 @@ dequantized one layer at a time inside the step programs), `kv_dtype="int8"`
 makes the pool int8 with per-token scale lanes, which the paged kernels'
 int8 lanes dequantize on read.  Neither adds a program.
 
-Knobs of later slices (prefix cache, speculative decoding, optimistic
-admission and preemption, KV tiering, roles, fault injection, tensor
-parallelism, request tracing, injectable clocks) are accepted only at the
-reference's defaults or off values and raise `NotImplementedError`
-otherwise.  `prefix_cache`, `kv_tier` and `request_tracing` default to False
-here (True in the reference).
+Knobs of later slices (speculative decoding, optimistic admission and
+preemption, KV tiering, roles, fault injection, tensor parallelism, request
+tracing, injectable clocks) are accepted only at the reference's defaults
+or off values and raise `NotImplementedError` otherwise.  `kv_tier` and
+`request_tracing` default to False here (True in the reference).
 """
 from __future__ import annotations
 
@@ -82,8 +99,9 @@ class RequestOutput:
     request_id: int
     prompt: np.ndarray
     token_ids: List[int]            # generated tokens (prompt excluded)
-    finish_reason: str              # "stop" | "length" | "rejected"
-    cached_tokens: int = 0          # prefix-cache hits: 0 in this slice
+    finish_reason: str              # "stop" | "length" | "abort" |
+                                    # "rejected"
+    cached_tokens: int = 0          # prompt tokens from the prefix cache
     ttft_s: Optional[float] = None
 
     @property
@@ -98,6 +116,7 @@ class _Running:
     request: Request
     slot: int
     generated: List[int]
+    cached_tokens: int = 0
     ttft_s: Optional[float] = None
     greedy: bool = True
 
@@ -105,10 +124,11 @@ class _Running:
 @dataclasses.dataclass
 class _Prefilling:
     """A slot whose prompt KV is still landing: `filled` prompt tokens
-    are in pages."""
+    are in pages (prefix-cache hits and completed chunks)."""
     request: Request
     slot: int
     filled: int = 0
+    cached_tokens: int = 0
 
 
 def _pow2_buckets(lo: int, hi: int) -> List[int]:
@@ -140,7 +160,7 @@ class LLMEngine:
                  max_model_len: Optional[int] = None,
                  prefill_buckets: Optional[List[int]] = None,
                  prefill_chunk=None,
-                 prefix_cache: bool = False,
+                 prefix_cache: bool = True,
                  eos_token_id: Optional[int] = None,
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  spec_len: int = 0,
@@ -169,8 +189,6 @@ class LLMEngine:
         self.weight_dtype = normalize_quant_dtype(weight_dtype,
                                                   "weight_dtype")
         self.kv_dtype = normalize_quant_dtype(kv_dtype, "kv_dtype")
-        if prefix_cache:
-            raise _later("prefix_cache=True", "prefix cache and COW copy")
         if spec_len or draft_proposer is not None or \
                 spec_backoff_window != 8:
             raise _later(f"spec_len={spec_len} (fused or not), "
@@ -233,6 +251,10 @@ class LLMEngine:
                              f"[1, {max_model_len}]")
         self.prefill_chunk = prefill_chunk
         self.chunked = prefill_chunk is not None
+        # the chunk program's width: in bucketed mode it serves prefix-hit
+        # tails, which the largest bucket bounds
+        self._chunk = prefill_chunk if self.chunked else self.buckets[-1]
+        self.prefix_cache = bool(prefix_cache)
         self.fused = bool(fuse)
         # the unfused programs fetch their tokens at once (reference rule)
         self.double_buffer = self.fused and \
@@ -258,15 +280,20 @@ class LLMEngine:
         self._generator.manual_seed(seed)
         self._capture = not _eager
         self._programs: Dict[str, StepProgram] = {}
-        self._seen_buckets: set = set()
-        # the un-synced result of the last fused dispatch (double_buffer)
+        self._bucket_pool = None        # graph memory pool of the buckets
+        # the un-synced result of the last fused dispatch (double_buffer),
+        # and the requests an abort-time harvest finished (returned by the
+        # next step())
         self._inflight: Optional[Dict[str, object]] = None
+        self._orphan_finished: List[RequestOutput] = []
         self._now = time.perf_counter
         self._c = dict.fromkeys(
             ("engine_steps", "decode_iterations", "decode_tokens",
              "fused_dispatches", "decode_dispatches", "chunk_dispatches",
              "prefill_dispatches", "prefill_chunks", "prefilled_tokens",
-             "admitted_requests", "finished_requests", "rejected_requests"),
+             "prefix_cached_tokens", "prefix_hit_requests", "cow_page_copies",
+             "partial_page_hits", "admitted_requests", "finished_requests",
+             "aborted_requests", "rejected_requests"),
             0)
 
     # ---- request intake ---------------------------------------------------
@@ -309,7 +336,7 @@ class LLMEngine:
                       priority)
         if self.cache.pages_needed(total) > self.cache.num_pages - 1:
             self._c["rejected_requests"] += 1
-            self._finish_output(req, [], "rejected", None)
+            self._finish_output(req, [], "rejected", 0, None)
             return rid
         self._queue.append(req)
         return rid
@@ -319,9 +346,13 @@ class LLMEngine:
         return (not self._sample) if t is None else t <= 0.0
 
     def _finish_output(self, req: Request, token_ids: List[int], reason: str,
-                       ttft: Optional[float]) -> RequestOutput:
+                       cached: int, ttft: Optional[float]) -> RequestOutput:
+        if reason == "abort":
+            self._c["aborted_requests"] += 1
+        elif reason != "rejected":      # counted at intake
+            self._c["finished_requests"] += 1
         out = RequestOutput(req.request_id, req.prompt, token_ids, reason,
-                            ttft_s=ttft)
+                            cached, ttft)
         self._outputs[out.request_id] = out
         return out
 
@@ -330,11 +361,6 @@ class LLMEngine:
             if n <= b:
                 return b
         raise ValueError(f"no bucket for prompt length {n}")
-
-    def _h2d(self, a, dtype=None) -> torch.Tensor:
-        """Per-step scheduler input -> device tensor (a private copy, so
-        later host edits of the numpy source cannot reach it)."""
-        return torch.from_numpy(np.array(a, dtype)).to(self.device)
 
     def _noise(self, rows: int) -> torch.Tensor:
         """Gumbel noise [rows, V] for one pick, from the engine's
@@ -345,44 +371,62 @@ class LLMEngine:
 
     # ---- step programs ----------------------------------------------------
     def _program(self, role: str) -> StepProgram:
-        """The step program of `role` ("fused", or the unfused "decode" and
-        "chunk"), made at first use (built at its first staging)."""
+        """The program of `role`, made at first use (built at its first
+        staging): "fused", the unfused "decode", the "chunk" program, the
+        COW "copy", or the one-shot prefill of one bucket,
+        "prefill:<bucket>"."""
         prog = self._programs.get(role)
         if prog is not None:
             return prog
         mgr, c = self.cache, self.config
         B, P = mgr.num_slots, mgr.max_pages_per_slot
         i32 = torch.int32
-        if role == "fused":
+        kind, _, bucket = role.partition(":")
+        mempool = None
+        if kind == "fused":
             rows, T = B, self._fused_T
             inputs = {"tokens": ((B, T), i32, 0),
                       "table": ((B, P), i32, 0),
                       "q_offset": ((B,), i32, 0), "valid": ((B,), i32, 1)}
-        elif role == "decode":
+        elif kind == "decode":
             rows = B
             inputs = {"tokens": ((B,), i32, 0), "table": ((B, P), i32, 0),
                       "lengths": ((B,), i32, 0)}
-        else:
+        elif kind == "chunk":
             rows = 1
-            inputs = {"tokens": ((1, self.prefill_chunk), i32, 0),
+            inputs = {"tokens": ((1, self._chunk), i32, 0),
                       "table": ((1, P), i32, 0),
                       "q_offset": ((1,), i32, 0), "valid": ((1,), i32, 1)}
-        inputs["greedy"] = ((rows,), torch.bool, False)
-        if self._sample:
-            inputs["noise"] = ((rows, c.vocab_size), c.dtype, 0.0)
+        elif kind == "prefill":
+            rows, width = 1, int(bucket)
+            inputs = {"ids": ((1, width), i32, 0),
+                      "pages": ((1, width // mgr.page_size), i32, 0),
+                      "length": ((1,), i32, 1)}
+            if self._capture and self.device.type == "cuda":
+                if self._bucket_pool is None:
+                    self._bucket_pool = torch.cuda.graph_pool_handle()
+                mempool = self._bucket_pool
+        else:                           # "copy": page src -> page dst
+            rows = 0
+            inputs = {"src": ((1,), i32, 0), "dst": ((1,), i32, 0)}
+        if rows:
+            inputs["greedy"] = ((rows,), torch.bool, False)
+            if self._sample:
+                inputs["noise"] = ((rows, c.vocab_size), c.dtype, 0.0)
         # the body holds params, pool and config, never the engine, so the
         # graphs go with the engine
-        body = functools.partial(_BODIES[role], self.params, c, self._pool,
+        body = functools.partial(_BODIES[kind], self.params, c, self._pool,
                                  self._sampling)
         prog = StepProgram(role, body, inputs, self.device,
-                           capture=self._capture, device_fed=("noise",))
+                           capture=self._capture, device_fed=("noise",),
+                           mempool=mempool)
         self._programs[role] = prog
         return prog
 
     def _dispatch(self, role: str, **values) -> StepProgram:
-        """Stage one step's inputs (and its noise) and run it."""
+        """Stage one dispatch's inputs (and its noise) and run it."""
         prog = self._program(role)
-        if self._sample:
+        if "noise" in prog.inputs:
             values["noise"] = self._noise(prog.inputs["greedy"].shape[0])
         prog.stage(**values)
         prog.run()
@@ -399,16 +443,23 @@ class LLMEngine:
     # ---- scheduler --------------------------------------------------------
     def step(self) -> List[RequestOutput]:
         """One engine iteration: harvest the previous fused dispatch
-        (double-buffered mode), admit queued requests into free slots, stage
-        at most one prefill chunk (chunked mode), then dispatch ONE fused
+        (double-buffered mode), admit queued requests into free slots
+        (prefix match, page reservation, COW copy), then, fused: stage at
+        most one prefill chunk (chunked mode) or advance one prefix-hit tail
+        through the chunk program (bucketed mode), and dispatch ONE fused
         program over every decode slot and the chunk.  Unfused: one chunk
-        program (chunked mode), then one decode program.  Returns the
-        requests that finished this iteration."""
-        finished: List[RequestOutput] = []
+        program, then one decode program.  Returns the requests that
+        finished this iteration (and those an `abort` harvest finished)."""
+        finished: List[RequestOutput] = self._orphan_finished
+        self._orphan_finished = []
         self._harvest(finished)         # step n-1's tokens land first
         self._admit(finished)
         if self.fused:
-            chunk_job = self._stage_chunk() if self.chunked else None
+            if self.chunked:
+                chunk_job = self._stage_chunk()
+            else:
+                self._prefill_tick(finished)    # prefix-hit tails
+                chunk_job = None
             if self._running or chunk_job is not None:
                 self._fused_iter(chunk_job, finished)
         else:
@@ -420,14 +471,23 @@ class LLMEngine:
 
     def _admit(self, finished: List[RequestOutput]) -> None:
         """Reservation admission: a request enters a free slot once the pool
-        holds its whole prompt + max_new_tokens footprint."""
+        holds its whole prompt + max_new_tokens footprint, less the pages
+        the prefix cache shares.  A hit copies its matched partial page
+        (COW) and goes to the prefill queue with its matched tokens filled;
+        a miss in bucketed mode is prefilled at once by its bucket's
+        program."""
         mgr = self.cache
         while self._queue and self._free_slots:
             req = self._queue[0]
             slot = self._free_slots[-1]
-            lp = req.prompt.size
+            prompt = req.prompt
+            lp = prompt.size
             try:
-                row = mgr.allocate(slot, lp + req.max_new_tokens)
+                # the prefix match and the reservation in one call (a failed
+                # attempt rolls its sharing back)
+                row, matched, cow = mgr.allocate_prefixed(
+                    slot, lp + req.max_new_tokens,
+                    prompt if self.prefix_cache else None)
             except RuntimeError:        # out of KV pages
                 if not self._running and not self._prefilling and \
                         mgr.pages_in_use() == 0:
@@ -439,36 +499,46 @@ class LLMEngine:
             self._queue.popleft()
             self._free_slots.pop()
             self._c["admitted_requests"] += 1
-            if self.chunked:
-                self._prefilling[slot] = _Prefilling(req, slot)
+            if cow is not None:
+                # the matched partial page is shared: copy it into the
+                # slot's own page before anything is appended to it
+                src, dst = cow
+                self._dispatch("copy", src=src, dst=dst)
+                self._c["cow_page_copies"] += 1
+                self._c["partial_page_hits"] += 1
+            if matched:
+                self._c["prefix_cached_tokens"] += matched
+                self._c["prefix_hit_requests"] += 1
+            if self.chunked or matched:
+                self._prefilling[slot] = _Prefilling(req, slot, matched,
+                                                     matched)
                 continue
             # one-shot bucketed prefill, synchronous at admission
             bucket = self._bucket_for(lp)
             ids = np.zeros((1, bucket), np.int32)
-            ids[0, :lp] = req.prompt
-            pages = row[:bucket // mgr.page_size][None, :]
-            logits, self._pool = gpt_mod.prefill_paged(
-                self.params, self._h2d(ids), self.config, self._pool,
-                self._h2d(pages), self._h2d([lp], np.int32))
-            first = pick_tokens(logits, self._h2d([self._req_greedy(req)]),
-                                self._noise(1) if self._sample else None,
-                                self._sampling)
-            self._seen_buckets.add(bucket)
+            ids[0, :lp] = prompt
+            prog = self._dispatch(
+                f"prefill:{bucket}", ids=ids,
+                pages=row[:bucket // mgr.page_size][None, :], length=lp,
+                greedy=self._req_greedy(req))
             self._c["prefill_dispatches"] += 1
             self._c["prefilled_tokens"] += lp
-            first = int(first[0])       # blocks on the result
-            self._start_decoding(req, slot, first, finished)
+            if self.prefix_cache:
+                mgr.register_prefix(slot, prompt, lp)
+            first = int(prog.result()[0])       # waits for the result
+            self._start_decoding(req, slot, first, 0, finished)
 
     def _prefill_tick(self, finished: List[RequestOutput]) -> None:
-        """Unfused chunked mode: advance the oldest mid-prefill prompt by
-        ONE chunk through the standalone chunk program; the chunk that
-        completes the prompt picks its first token and joins the decode
-        set."""
+        """Advance the oldest mid-prefill prompt by ONE chunk through the
+        standalone chunk program: the unfused engine's chunks, and the
+        prefix-hit tails of bucketed mode (fused or not), one call each.
+        The chunk that completes the prompt picks its first token and joins
+        the decode set."""
         if not self._prefilling:
             return
         slot, st = next(iter(self._prefilling.items()))
         req = st.request
-        lp, C = req.prompt.size, self.prefill_chunk
+        lp, C = req.prompt.size, self._chunk
         n = min(C, lp - st.filled)
         ids = np.zeros((1, C), np.int32)
         ids[0, :n] = req.prompt[st.filled:st.filled + n]
@@ -477,14 +547,16 @@ class LLMEngine:
         prog = self._dispatch(
             "chunk", tokens=ids, table=self.cache.page_table[slot][None, :],
             q_offset=st.filled, valid=n, greedy=self._req_greedy(req))
-        tok = prog.result()
         self._c["chunk_dispatches"] += 1
         self._c["prefill_chunks"] += 1
         self._c["prefilled_tokens"] += n
         st.filled += n
+        if self.prefix_cache:
+            self.cache.register_prefix(slot, req.prompt, st.filled)
         if st.filled == lp:
             del self._prefilling[slot]
-            self._start_decoding(req, slot, int(tok[0]), finished)
+            self._start_decoding(req, slot, int(prog.result()[0]),
+                                 st.cached_tokens, finished)
 
     def _decode_iter(self, finished: List[RequestOutput]) -> None:
         """Unfused decode iteration (speculative decoding off): every
@@ -522,9 +594,11 @@ class LLMEngine:
 
     def _stage_chunk(self) -> Optional[Dict[str, object]]:
         """Chunked mode: describe the oldest mid-prefill slot's next chunk
-        for the fused batch.  A chunk that completes its prompt leaves
-        `_prefilling` now and joins the decode set at harvest, when its
-        first token is known."""
+        for the fused batch and register its pages (the fused step that
+        writes them is dispatched before any later program could read
+        them).  A chunk that completes its prompt leaves `_prefilling` now
+        and joins the decode set at harvest, when its first token is
+        known."""
         if not self._prefilling:
             return None
         slot, st = next(iter(self._prefilling.items()))
@@ -535,6 +609,8 @@ class LLMEngine:
         st.filled += n
         self._c["prefill_chunks"] += 1
         self._c["prefilled_tokens"] += n
+        if self.prefix_cache:
+            self.cache.register_prefix(slot, st.request.prompt, st.filled)
         if job["done"]:
             del self._prefilling[slot]
         return job
@@ -598,8 +674,10 @@ class LLMEngine:
                 del self._running[slot]
         cj = inf["chunk"]
         if cj is not None and cj["done"]:
-            self._start_decoding(cj["st"].request, cj["slot"],
-                                 int(out[cj["slot"], cj["n"] - 1]), finished)
+            st = cj["st"]
+            self._start_decoding(st.request, cj["slot"],
+                                 int(out[cj["slot"], cj["n"] - 1]),
+                                 st.cached_tokens, finished)
 
     def _emit_slot(self, seq: _Running, slot: int, emitted: List[int],
                    finished: List[RequestOutput]) -> bool:
@@ -616,12 +694,12 @@ class LLMEngine:
         return self._maybe_finish(seq, finished)
 
     def _start_decoding(self, req: Request, slot: int, first: int,
-                        finished: List[RequestOutput]) -> None:
+                        cached: int, finished: List[RequestOutput]) -> None:
         """Prompt fully in pages + first token picked: join the decode
         set."""
         self.cache.lengths[slot] = req.prompt.size
-        seq = _Running(req, slot, [first], self._now() - req.t_enqueue,
-                       self._req_greedy(req))
+        seq = _Running(req, slot, [first], cached,
+                       self._now() - req.t_enqueue, self._req_greedy(req))
         if not self._maybe_finish(seq, finished):
             self._running[slot] = seq
 
@@ -635,12 +713,69 @@ class LLMEngine:
             reason = "length"
         if reason is None:
             return False
+        if self.prefix_cache:
+            # finish-time registration: publish the generated pages beside
+            # the prompt's before the slot releases, so a returning
+            # session's last reply is a hit.  `lengths[slot]` counts the
+            # positions whose KV landed (prompt + generated, less the last
+            # token, whose KV is never computed)
+            kvlen = int(self.cache.lengths[seq.slot])
+            conv = np.concatenate([
+                np.asarray(seq.request.prompt, np.int32),
+                np.asarray(seq.generated, np.int32)])[:kvlen]
+            self.cache.register_prefix(seq.slot, conv, kvlen, upgrade=True)
         self.cache.release(seq.slot)
         self._free_slots.append(seq.slot)
-        self._c["finished_requests"] += 1
         finished.append(self._finish_output(seq.request, seq.generated,
-                                            reason, seq.ttft_s))
+                                            reason, seq.cached_tokens,
+                                            seq.ttft_s))
         return True
+
+    def abort(self, request_id: int) -> bool:
+        """Cancel a queued, mid-prefill or running request and release its
+        pages at once (shared prefix pages are only dereferenced).  The
+        request lands in the outputs with finish_reason "abort" and the
+        tokens it had produced.  Returns False when the id is unknown or
+        already finished.  Under double buffering the in-flight fused step
+        is harvested first, so the abort sees exact bookkeeping; requests
+        that harvest finishes are returned by the next step()."""
+        if self._inflight is not None:
+            self._harvest(self._orphan_finished)
+        for i, req in enumerate(self._queue):
+            if req.request_id == request_id:
+                del self._queue[i]      # by index: prompts have no __eq__
+                self._finish_output(req, [], "abort", 0, None)
+                return True
+        for slot, st in list(self._prefilling.items()):
+            if st.request.request_id == request_id:
+                del self._prefilling[slot]
+                self.cache.release(slot)
+                self._free_slots.append(slot)
+                self._finish_output(st.request, [], "abort",
+                                    st.cached_tokens, None)
+                return True
+        for slot, seq in list(self._running.items()):
+            if seq.request.request_id == request_id:
+                del self._running[slot]
+                self.cache.release(slot)
+                self._free_slots.append(slot)
+                self._finish_output(seq.request, seq.generated, "abort",
+                                    seq.cached_tokens, seq.ttft_s)
+                return True
+        return False
+
+    def probe_affinity(self, tokens) -> Dict[str, int]:
+        """Router probe: the longest cached prefix of `tokens` this engine
+        holds, in tokens.  A pure read: no LRU touch, no COW, no
+        refcount."""
+        if not self.prefix_cache:
+            return {"cached_tokens": 0}
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        full, partial = self.cache._match(tokens)
+        matched = len(full) * self.cache.page_size
+        if partial is not None:
+            matched += partial[1]
+        return {"cached_tokens": int(matched)}
 
     def run(self) -> Dict[int, RequestOutput]:
         """Step until every request completes; {request_id: output}."""
@@ -651,7 +786,7 @@ class LLMEngine:
     @property
     def has_work(self) -> bool:
         return bool(self._queue or self._running or self._prefilling or
-                    self._inflight is not None)
+                    self._inflight is not None or self._orphan_finished)
 
     @property
     def outputs(self) -> Dict[int, RequestOutput]:
@@ -660,28 +795,36 @@ class LLMEngine:
     def stats(self) -> Dict[str, object]:
         """Plain counters (the reference's key names where the meaning is
         the same), the program counts, plus the pool and queue levels.
-        Programs count as the reference's executables do: each built step
-        program 1 (on the card, its captured graph), each eager bucket
-        shape of the one-shot prefill 1; the unfused chunk program counts
-        toward prefill.  Verify, copy and swap programs belong to later
-        slices (0)."""
+        Programs count as the reference's executables do: each built
+        program 1 (on the card, its captured graph).  Prefill counts each
+        bucket's one-shot program and the chunk program where it is
+        standalone (unfused, or the prefix-hit tails of fused bucketed
+        mode); copy counts the COW copy.  Verify and swap programs belong to
+        later slices (0)."""
         built = {r for r, p in self._programs.items() if p.built}
+        cached, computed = self._c["prefix_cached_tokens"], \
+            self._c["prefilled_tokens"]
         return {
             **self._c,
             "decode_executables": int(("fused" if self.fused else "decode")
                                       in built),
             "verify_executables": 0,
-            "prefill_executables": len(self._seen_buckets) +
-                                   int("chunk" in built),
-            "copy_executables": 0,
+            "prefill_executables": sum(r.startswith("prefill:")
+                                       for r in built) + int("chunk" in built),
+            "copy_executables": int("copy" in built),
             "swap_executables": 0,
             "graph_replays": sum(p.replays for p in self._programs.values()),
             "buckets": list(self.buckets),
             "prefill_chunk": self.prefill_chunk,
             "fuse": self.fused,
+            "prefix_cache": self.prefix_cache,
             "device": str(self.device),
+            "prefix_hit_rate": cached / (cached + computed)
+                               if cached + computed else 0.0,
             "pages_in_use": self.cache.pages_in_use(),
             "pages_free": self.cache.num_free_pages,
+            "pages_evictable": self.cache.num_evictable_pages,
+            "prefix_evictions": self.cache.prefix_evictions,
             "kv_token_capacity": self.cache.token_capacity(),
             "queued": len(self._queue),
             "prefilling": len(self._prefilling),
@@ -712,8 +855,8 @@ def pick_tokens(logits, greedy, noise, sampling) -> torch.Tensor:
     return torch.where(greedy, gpt_mod.sharded_argmax(logits), ids)
 
 
-# the step programs' bodies: (params, config, pool, sampling) bound by the
-# engine, the static inputs by name
+# the programs' bodies: (params, config, pool, sampling) bound by the engine,
+# the static inputs by name
 
 
 def _fused_body(params, config, pool, sampling, tokens, table, q_offset,
@@ -739,5 +882,21 @@ def _chunk_body(params, config, pool, sampling, tokens, table, q_offset,
     return pick_tokens(logits, greedy, noise, sampling)
 
 
+def _prefill_body(params, config, pool, sampling, ids, pages, length, greedy,
+                  noise=None):
+    logits, _ = gpt_mod.prefill_paged(params, ids, config, pool, pages,
+                                      length)
+    return pick_tokens(logits, greedy, noise, sampling)
+
+
+def _copy_body(params, config, pool, sampling, src, dst):
+    """COW page copy: page `src` into page `dst` in every leaf of the pool
+    (k and v, and the scale lanes of an int8 pool), in place."""
+    src, dst = src.long(), dst.long()
+    for leaf in pool.values():
+        leaf.index_copy_(1, dst, leaf.index_select(1, src))
+
+
 _BODIES = {"fused": _fused_body, "decode": _decode_body,
-           "chunk": _chunk_body}
+           "chunk": _chunk_body, "prefill": _prefill_body,
+           "copy": _copy_body}

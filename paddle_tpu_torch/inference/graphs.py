@@ -21,7 +21,14 @@ kernels' split counters, cuBLAS's handle and workspace); then the body is
 captured on the same stream into a `torch.cuda.CUDAGraph`, and every `run`
 is one `replay()`.  A failed capture or replay raises: nothing falls back to
 the eager step.  With `capture=False`, and always on the CPU, `run` calls
-the body eagerly over the same static buffers.
+the body eagerly over the same static buffers.  A program built in the
+middle of serving (the COW copy, a new prefill bucket) warms up and
+captures behind everything queued on the current stream, and the current
+stream waits for it before the program's first run.  `mempool` (a
+`torch.cuda.graph_pool_handle()`) lets programs that never run at once
+share one graph memory pool; a program's output is copied to the host
+right after its replay, before another program of the pool runs.  A body
+that returns None (the COW copy) has no output to fetch.
 
 The kernel wrappers count launches in Python, so each replay adds the counts
 its capture made (`incubate.kernels.add_counts`), and the build takes back
@@ -60,10 +67,11 @@ class StepProgram:
     def __init__(self, name: str, body: Callable[..., torch.Tensor],
                  inputs: Dict[str, Tuple[tuple, torch.dtype, object]],
                  device: torch.device, capture: bool = True,
-                 device_fed: Tuple[str, ...] = ()):
+                 device_fed: Tuple[str, ...] = (), mempool=None):
         self.name = name
         self.device = device
         self.capture = capture and device.type == "cuda"
+        self.mempool = mempool
         self._body = body
         self._inert = {n: v for n, (_, _, v) in inputs.items()}
         self.inputs = {n: torch.empty(shape, dtype=dtype, device=device)
@@ -101,7 +109,7 @@ class StepProgram:
                 self._body(**self.inputs)
                 mid = K.counts()
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, stream=side):
+                with torch.cuda.graph(graph, pool=self.mempool, stream=side):
                     out = self._body(**self.inputs)
             cur.wait_stream(side)
             after = K.counts()
@@ -112,8 +120,10 @@ class StepProgram:
         else:
             self.out = self._body(**self.inputs)
         K.add_counts({k: before[k] - n for k, n in K.counts().items()})
-        self._host_out = torch.empty(self.out.shape, dtype=self.out.dtype,
-                                     pin_memory=self.device.type == "cuda")
+        if self.out is not None:
+            self._host_out = torch.empty(
+                self.out.shape, dtype=self.out.dtype,
+                pin_memory=self.device.type == "cuda")
         self.built = True
 
     def stage(self, **values) -> None:
@@ -139,7 +149,8 @@ class StepProgram:
     def run(self) -> torch.Tensor:
         """One step over the staged inputs: a graph replay on the card (or
         the eager body), then the output's copy to the host is queued.
-        Returns the device output (overwritten by the next run)."""
+        Returns the device output (overwritten by the next run), or
+        None."""
         if not self._fresh:
             raise RuntimeError(f"{self.name}: stage the inputs before each "
                                f"run")
@@ -150,6 +161,8 @@ class StepProgram:
             K.add_counts(self._delta)
         else:
             self.out = self._body(**self.inputs)
+        if self.out is None:
+            return None
         self._host_out.copy_(self.out, non_blocking=True)
         if self._fetched is not None:
             self._fetched.record()

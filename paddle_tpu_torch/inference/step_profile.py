@@ -37,6 +37,22 @@ profiled alone once before the window; small elementwise kernels of the
 step with the same names land there too).  `dequant_device_ms_per_step`
 times those expressions alone, one step's worth, on CUDA events.
 
+    python3 -m paddle_tpu_torch.inference.step_profile --window
+
+The bucketed serving window of `chip_smoke.py`'s `engine_bucketed` phase,
+twice on one engine (8 slots, page 16, buckets 512/1024/2048, the decode
+program warmed first): 8 requests of 64-1024 prompt tokens x 32 new
+tokens, the first pass building each bucket's prefill program at its first
+use, the second (other prompts of the same lengths) finding them built.
+Prints, per pass, the wall time, tokens/s, the mean and median step and
+the mean of the steps that ran a one-shot prefill.  It takes only
+`LLMEngine`'s public surface, so it also measures older trees of the
+package (run it with that tree's root as the working directory).  Its
+traffic and geometry (`PROMPT_LENS`, the buckets, the engine's slots and
+page) are a copy of `chip_smoke.py`'s `PROMPT_LENS`, `SERVE_BUCKETS` and
+`serve()`, kept here so that the older trees need nothing of this one:
+change them together.
+
     python3 -m paddle_tpu_torch.inference.step_profile --train
 
 Profiles one train step of GPT-3 1.3B instead (bf16 params and moments,
@@ -213,12 +229,73 @@ def _dequant_profile(eng):
     return names, start.elapsed_time(end) / 3
 
 
+# the same traffic as chip_smoke.py's PROMPT_LENS / SERVE_BUCKETS: change
+# them together
+PROMPT_LENS = (64, 96, 160, 256, 384, 512, 768, 1024)
+WINDOW_NEW = 32
+
+
+def window_profile(dev, smi):
+    """Two passes of the bucketed serving window on one engine, after the
+    kernels are built (`_cuda.build_all`, as `chip_smoke.py` does)."""
+    import torch
+
+    from ..incubate.kernels import _cuda
+    from ..models import gpt
+    from .engine import LLMEngine
+    _cuda.build_all()
+    cfg = gpt.llama3_8b()
+    cfg.dtype = torch.bfloat16
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    eng = LLMEngine(params, cfg, num_slots=8, page_size=16,
+                    max_model_len=2048, prefill_buckets=[512, 1024, 2048],
+                    device=dev)
+    eng.warm_decode()
+    passes = []
+    for seed in (0, 1):
+        rng = np.random.RandomState(seed)
+        for n in PROMPT_LENS:
+            eng.add_request(rng.randint(0, cfg.vocab_size, n),
+                            max_new_tokens=WINDOW_NEW)
+        torch.cuda.synchronize()
+        before = eng.stats()
+        steps, prefill_steps = [], []
+        t0 = time.perf_counter()
+        while eng.has_work:
+            n = eng.stats()["prefill_dispatches"]
+            s = time.perf_counter()
+            eng.step()
+            dt = time.perf_counter() - s
+            steps.append(dt)
+            if eng.stats()["prefill_dispatches"] > n:
+                prefill_steps.append(dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        gen = len(PROMPT_LENS) * WINDOW_NEW
+        passes.append({
+            "seed": seed, "wall_s": wall, "tokens_per_s": gen / wall,
+            "engine_steps": len(steps),
+            "mean_step_ms": 1e3 * wall / len(steps),
+            "median_step_ms": 1e3 * float(np.median(steps)),
+            "prefill_steps": len(prefill_steps),
+            "mean_prefill_step_ms": 1e3 * float(np.mean(prefill_steps)),
+            "prefill_dispatches": st["prefill_dispatches"] -
+                                  before["prefill_dispatches"],
+            "prefill_executables": st["prefill_executables"],
+            "graph_replays": st["graph_replays"] - before["graph_replays"]})
+    return {"nvidia_smi": smi, "model": "llama3_8b", "dtype": "bf16",
+            "window": "engine_bucketed", "passes": passes}
+
+
 def main():
     import argparse
 
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--window", action="store_true")
     ap.add_argument("--no-fuse", action="store_true")
     ap.add_argument("--weight-dtype", default=None)
     ap.add_argument("--kv-dtype", default=None)
@@ -239,6 +316,9 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     if args.train:
         print(json.dumps(train_profile(dev, smi)))
+        return 0
+    if args.window:
+        print(json.dumps(window_profile(dev, smi)))
         return 0
     fuse = not args.no_fuse
     cfg = gpt.llama3_8b()

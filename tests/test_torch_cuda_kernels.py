@@ -1054,11 +1054,15 @@ def _card_params(cfg, dev, seed=0):
                            dev)
 
 
-# role -> (fuse, prefill_chunk); 3 slots, page 16, 8 pages a slot
+# role -> (program, fuse, prefill_chunk); 3 slots, page 16, 8 pages a slot
 STEP_ROLES = {"fused_t1": ("fused", True, None),
               "fused_t16": ("fused", True, 16),
               "decode": ("decode", False, 16),
-              "chunk": ("chunk", False, 16)}
+              "chunk": ("chunk", False, 16),
+              "prefill_b64": ("prefill:64", True, None)}
+# the attention kernel each program launches once a layer
+ATTENTION_OF = {"decode": "paged_attention_kernel",
+                "prefill:64": "flash_attention_fwd"}
 
 
 def _step_inputs(role, rng, eng, offsets=(37, 16)):
@@ -1076,6 +1080,11 @@ def _step_inputs(role, rng, eng, offsets=(37, 16)):
     if role == "chunk":
         return dict(tokens=rng.randint(0, 512, (1, 16)), table=table[1:2],
                     q_offset=[offsets[1]], valid=[11], greedy=[True])
+    if role.startswith("prefill:"):         # a 51-token prompt, bucket 64
+        width = int(role.split(":")[1])
+        rows = [pages.pop() for _ in range(width // mgr.page_size)]
+        return dict(ids=rng.randint(0, 512, (1, width)), pages=[rows],
+                    length=[width - 13], greedy=[True])
     if role == "decode":
         return dict(tokens=rng.randint(0, 512, 3), table=table,
                     lengths=np.array([*offsets, 0]),
@@ -1133,9 +1142,10 @@ def _replay_and_eager(dev, dtype, role, int8=False):
 @pytest.mark.parametrize("role", list(STEP_ROLES))
 def test_step_replay_is_bitwise_the_eager_step(dev, dtype, role):
     """One replay of each step program (fused at T 1 and 16, unfused decode
-    and chunk) against the eager step on identical staged inputs and an
-    identical pool: output tokens and the pool after the step bitwise
-    equal, and the same kernel launch counts."""
+    and chunk, the one-shot prefill of bucket 64) against the eager step on
+    identical staged inputs and an identical pool: output tokens and the
+    pool after the step bitwise equal, and the same kernel launch
+    counts."""
     cfg, name, runs = _replay_and_eager(dev, dtype, role)
     (g_out, g_pool, g_n, _, g_rep), (e_out, e_pool, e_n, _, e_rep) = \
         runs[False], runs[True]
@@ -1143,8 +1153,7 @@ def test_step_replay_is_bitwise_the_eager_step(dev, dtype, role):
     for n in ("k", "v"):
         assert torch.equal(g_pool[n], e_pool[n])
     assert g_n == e_n and (g_rep, e_rep) == (1, 0)
-    kern = "paged_attention_kernel" if name == "decode" else \
-        "paged_prefill_attention_kernel"
+    kern = ATTENTION_OF.get(name, "paged_prefill_attention_kernel")
     assert g_n[kern] == cfg.num_layers and g_n["rms_norm_fused"] > 0
 
 
@@ -1164,9 +1173,11 @@ def test_int8_step_replay_is_bitwise_the_eager_step(dev, dtype, role):
     for n in g_pool:
         assert torch.equal(g_pool[n][:, 1:], e_pool[n][:, 1:]), n
     assert (g_n, g_q) == (e_n, e_q) and (g_rep, e_rep) == (1, 0)
-    kern = "paged_attention_kernel" if name == "decode" else \
-        "paged_prefill_attention_kernel"
-    assert g_q[kern] == cfg.num_layers and g_n[kern] == 0
+    kern = ATTENTION_OF.get(name, "paged_prefill_attention_kernel")
+    if kern in g_q:         # a paged kernel: on the int8 lane only
+        assert g_q[kern] == cfg.num_layers and g_n[kern] == 0
+    else:                   # the prefill attends to its fp k/v
+        assert g_n[kern] == cfg.num_layers and set(g_q.values()) == {0}
 
 
 @pytest.mark.parametrize("mode", ["fused_bucketed", "fused_chunked",
@@ -1200,7 +1211,8 @@ def test_sampled_streams_equal_with_and_without_graphs(dev, mode):
     assert streams[False] == streams[True]
     st = stats[False]
     assert st["graph_replays"] == st["fused_dispatches"] + \
-        st["decode_dispatches"] + st["chunk_dispatches"] > 0
+        st["decode_dispatches"] + st["chunk_dispatches"] + \
+        st["prefill_dispatches"] + st["cow_page_copies"] > 0
     assert stats[True]["graph_replays"] == 0
     assert st["decode_executables"] == 1 and not over_budget(st)
 
@@ -1289,3 +1301,100 @@ def test_a_capture_that_syncs_raises(dev):
     with pytest.raises(RuntimeError):
         prog.build()
     assert not prog.built and prog.graph is None
+
+
+def _random_pool(eng, seed):
+    """Fill every leaf of the engine's pool from a seeded generator (int8
+    leaves with int8 values, scale lanes in [0, 0.05))."""
+    rng = np.random.RandomState(seed)
+    for n, t in eng._pool.items():
+        if t.dtype == torch.int8:
+            t.copy_(torch.from_numpy(rng.randint(-127, 128, tuple(t.shape))
+                                     .astype(np.int8)))
+        else:
+            t.copy_(torch.from_numpy(rng.rand(*t.shape).astype(np.float32)
+                                     * 0.05 if n.endswith("scale") else
+                                     rng.randn(*t.shape).astype(np.float32)))
+    return {n: t.clone() for n, t in eng._pool.items()}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_copy_program_is_a_bitwise_page_copy(dev, int8):
+    """The COW copy program: its build (inert src = dst = the null page)
+    changes nothing; two dispatches copy page 5 into page 9 and page 2 into
+    page 11 in every leaf of the pool (k, v, and the scale lanes of an int8
+    pool) bitwise, leave every other page as it was, launch no kernel, and
+    the replays equal the eager body."""
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    cfg = _small_llama(torch.bfloat16)
+    params = _card_params(cfg, dev)
+    quant = dict(weight_dtype="int8", kv_dtype="int8") if int8 else {}
+    pools = {}
+    for eager in (False, True):
+        eng = LLMEngine(params, cfg, num_slots=3, page_size=16,
+                        max_model_len=128, num_pages=13, device=dev,
+                        _eager=eager, **quant)
+        before = _random_pool(eng, 8)
+        assert len(before) == (4 if int8 else 2)
+        prog = eng._program("copy")
+        prog.build()
+        torch.cuda.synchronize()
+        for n, t in eng._pool.items():
+            assert torch.equal(t, before[n]), n
+        K.reset_launches()
+        for src, dst in ((5, 9), (2, 11)):
+            prog.stage(src=src, dst=dst)
+            assert prog.run() is None
+        torch.cuda.synchronize()
+        for n, t in eng._pool.items():
+            want = before[n].clone()
+            want[:, 9], want[:, 11] = before[n][:, 5], before[n][:, 2]
+            assert torch.equal(t, want), n
+        assert set(K.counts().values()) == {0}
+        assert (prog.graph is None) == eager
+        assert prog.replays == (0 if eager else 2)
+        assert eng.stats()["copy_executables"] == 1
+        pools[eager] = {n: t.clone() for n, t in eng._pool.items()}
+    for n in pools[True]:
+        assert torch.equal(pools[False][n], pools[True][n])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_paged_kernel_at_the_prefix_tail_shape(dev, dtype, int8):
+    """Row 1 as a bucketed prefix-hit tail calls it: one slot, T 2048 (the
+    largest bucket of max_model_len 2048), Llama-3-8B's heads (32 over 8
+    kv heads, hd 128), page 16, a match ending mid-page (q_offset 1000)
+    and a 700-token tail over its pages.  The split workspace cap leaves
+    one split of 2048 keys.  Valid rows against the plain version, padding
+    rows 0, two calls bitwise equal, one launch each on the pool's lane."""
+    rng = np.random.RandomState(12)
+    T, page, H, KVH, hd, P = 2048, 16, 32, 8, 128, 128
+    q_offset, valid = 1000, 700
+    plan = _prefill_split_plan(1, T, H, KVH, hd, page, P)
+    assert plan.nsplit == 1 and plan.ck == T
+    n = -(-(q_offset + valid) // page)
+    table = np.zeros((1, P), np.int32)
+    table[0, :n] = rng.permutation(np.arange(1, P + 1))[:n]
+    args = (_randn(rng, (1, T, H, hd), dtype, dev),
+            _randn(rng, (P + 1, page, KVH, hd), dtype, dev),
+            _randn(rng, (P + 1, page, KVH, hd), dtype, dev),
+            torch.from_numpy(table).to(dev),
+            torch.tensor([q_offset], dtype=torch.int32, device=dev),
+            torch.tensor([valid], dtype=torch.int32, device=dev))
+    kw, tol, lane = {}, TOL[dtype], "launches"
+    if int8:
+        args, scales = _quantized(args)
+        kw, tol, lane = dict(kv_scales=scales), INT8_TOL[dtype], \
+            "launches_int8"
+    before = getattr(paged_prefill_attention_kernel, lane)
+    got = paged_prefill_attention_kernel(*args, **kw)
+    again = paged_prefill_attention_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert getattr(paged_prefill_attention_kernel, lane) == before + 2
+    assert torch.equal(got, again)
+    ref = paged_prefill_attention_ref(*args, **kw)
+    torch.testing.assert_close(got[0, :valid].float(),
+                               ref[0, :valid].float(), **tol)
+    assert not got[0, valid:].any()

@@ -3,10 +3,11 @@
 Both engines serve the same request stream on the reference's weights
 (bridged through numpy) at `gpt_tiny` and `llama_tiny`, fp32.  The
 reference runs `LLMEngine(prefix_cache=False, spec_len=0)`, never warmed
-(its warm-up path needs an API jax 0.9 dropped).  Greedy streams must match
-token for token; a divergence is accepted only as an exact tie (top-2
-margin of the reference's logits < 1e-4 at the diverging position), which
-is reported as a warning instead of failing.
+(its warm-up path needs an API jax 0.9 dropped), and the port's engines
+turn the prefix cache off too (`test_torch_prefix_cache.py` holds it).
+Greedy streams must match token for token; a divergence is accepted only
+as an exact tie (top-2 margin of the reference's logits < 1e-4 at the
+diverging position), which is reported as a warning instead of failing.
 """
 import warnings
 
@@ -98,7 +99,7 @@ def _assert_greedy_parity(ref_outs, got_outs, params, cfg):
 def test_greedy_streams_match_reference_engine(reference, name, chunk,
                                                double_buffer):
     cfg, params, tcfg, tparams, reqs, streams = reference[name]
-    eng = LLMEngine(tparams, tcfg, prefill_chunk=chunk,
+    eng = LLMEngine(tparams, tcfg, prefill_chunk=chunk, prefix_cache=False,
                     double_buffer=double_buffer, device="cpu", **GEOMETRY)
     outs = _serve(eng, reqs)
     _assert_greedy_parity(streams[chunk], outs, params, cfg)
@@ -123,7 +124,8 @@ def test_sampling_engine_keeps_greedy_requests_exact(reference):
 
     def serve(seed):
         eng = LLMEngine(tparams, tcfg, temperature=0.8, top_k=20, seed=seed,
-                        prefill_chunk=8, device="cpu", **GEOMETRY)
+                        prefill_chunk=8, prefix_cache=False, device="cpu",
+                        **GEOMETRY)
         for i, (prompt, max_new) in enumerate(reqs):
             eng.add_request(prompt, max_new_tokens=max_new,
                             temperature=0.0 if i % 2 else None)
@@ -175,7 +177,7 @@ def test_add_request_validation(reference):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(prefix_cache=True), dict(spec_len=2), dict(fuse=False, spec_len=2),
+    dict(spec_len=2), dict(fuse=False, spec_len=2),
     dict(admission="optimistic"), dict(preempt="swap"),
     dict(fault_plan=object()), dict(kv_tier=True), dict(spill_dir="x"),
     dict(page_store=object()), dict(role="prefill"),

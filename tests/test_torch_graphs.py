@@ -76,7 +76,7 @@ def reference():
 def _engine(tparams, tcfg, mode, **kw):
     fuse, chunk = MODES[mode]
     return LLMEngine(tparams, tcfg, prefill_chunk=chunk, fuse=fuse,
-                     device="cpu", **GEOMETRY, **kw)
+                     prefix_cache=False, device="cpu", **GEOMETRY, **kw)
 
 
 @pytest.mark.parametrize("mode", list(MODES))

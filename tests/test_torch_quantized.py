@@ -452,8 +452,8 @@ def test_int8_engine_streams_match_reference(quant_models, int8_reference,
     # the port quantizes fp params itself, as the reference engine does
     tparams = params_from_numpy(_np(quant_models[2]), tcfg, "cpu")
     eng = LLMEngine(tparams, tcfg, prefill_chunk=chunk, fuse=fuse,
-                    weight_dtype="int8", kv_dtype="int8", device="cpu",
-                    **GEOMETRY)
+                    prefix_cache=False, weight_dtype="int8", kv_dtype="int8",
+                    device="cpu", **GEOMETRY)
     assert all(torch.equal(a, b) for a, b in zip(
         jax.tree_util.tree_leaves(eng.params), jax.tree_util.tree_leaves(tq)))
     outs = _serve(eng, _requests(cfg.vocab_size))
@@ -466,7 +466,7 @@ def test_int8_engine_streams_match_reference(quant_models, int8_reference,
     assert eng._pool["k"].dtype == torch.int8 and set(eng._pool) == {
         "k", "v", "k_scale", "v_scale"}
     fp = LLMEngine(tparams, tcfg, prefill_chunk=chunk, fuse=fuse,
-                   device="cpu", **GEOMETRY)
+                   prefix_cache=False, device="cpu", **GEOMETRY)
     _serve(fp, _requests(cfg.vocab_size))
     for k in st:
         if k.endswith("_executables"):
@@ -509,8 +509,8 @@ def test_int8_engine_top1_agreement_with_fp(quant_models, chunk):
     tparams = params_from_numpy(_np(params), tcfg, "cpu")
     reqs = _requests(cfg.vocab_size)
     fp, q = ({r: o.token_ids for r, o in _serve(LLMEngine(
-        tparams, tcfg, prefill_chunk=chunk, device="cpu", **GEOMETRY, **kw),
-        reqs).items()}
+        tparams, tcfg, prefill_chunk=chunk, prefix_cache=False, device="cpu",
+        **GEOMETRY, **kw), reqs).items()}
         for kw in ({}, dict(weight_dtype="int8", kv_dtype="int8")))
     total = sum(max(len(fp[r]), len(q[r])) for r in fp)
     agree = sum(int(a == b) for r in fp for a, b in zip(fp[r], q[r]))

@@ -149,7 +149,7 @@ def test_unfused_streams_match_reference_unfused_engine(reference_unfused,
                                                         name, chunk):
     cfg, params, tcfg, tparams, reqs, streams = reference_unfused[name]
     eng = LLMEngine(tparams, tcfg, prefill_chunk=chunk, fuse=False,
-                    device="cpu", **GEOMETRY)
+                    prefix_cache=False, device="cpu", **GEOMETRY)
     assert not eng.double_buffer
     outs = _serve(eng, reqs)
     _assert_greedy_parity(streams[chunk], outs, params, cfg)
@@ -178,7 +178,8 @@ def test_unfused_streams_equal_fused_streams(reference_unfused, chunk):
     reference holds its own fused and unfused steps byte-equal)."""
     _, _, tcfg, tparams, reqs, _ = reference_unfused["llama_tiny"]
     outs = [_serve(LLMEngine(tparams, tcfg, prefill_chunk=chunk, fuse=fuse,
-                             device="cpu", **GEOMETRY), reqs)
+                             prefix_cache=False, device="cpu", **GEOMETRY),
+                   reqs)
             for fuse in (True, False)]
     for rid, out in outs[0].items():
         assert outs[1][rid].token_ids == out.token_ids
@@ -193,8 +194,8 @@ def test_unfused_sampling_keeps_greedy_requests_exact(reference_unfused):
 
     def serve(seed):
         eng = LLMEngine(tparams, tcfg, temperature=0.8, top_k=20, seed=seed,
-                        prefill_chunk=8, fuse=False, device="cpu",
-                        **GEOMETRY)
+                        prefill_chunk=8, fuse=False, prefix_cache=False,
+                        device="cpu", **GEOMETRY)
         for i, (prompt, max_new) in enumerate(reqs):
             eng.add_request(prompt, max_new_tokens=max_new,
                             temperature=0.0 if i % 2 else None)
