@@ -44,7 +44,11 @@ Phases, one JSON line each (with its seconds):
                yardstick is SDPA over a gathered copy dequantized outside
                the timed call.  The paged prefill kernel also runs as a
                bucketed prefix-hit tail calls it (T 2048, one slot,
-               q_offset 1000, 200 valid rows; fp at page 16, int8 at 32).
+               q_offset 1000, 200 valid rows; fp at page 16, int8 at 32),
+               and at the verify width of the fused spec step (row "1v":
+               T = SPEC_LEN + 1, the prompt lengths as q_offset, drafted
+               and undrafted slots in one batch, SPEC_VALID, two null-row
+               slots; fp at page 16, int8 at 32).
 3. engine_bucketed — Llama-3-8B at full width (all 32 layers), bf16, random
                weights from a seeded generator, 8 greedy requests of 64-1024
                prompt tokens x 32 new tokens through `LLMEngine` with
@@ -111,6 +115,38 @@ Phases, one JSON line each (with its seconds):
                the margin exceeds 0.05.  Beside them, the same traffic
                without the cache: prefilled tokens, TTFT per request,
                tokens/s and step ms.
+6d. engine_spec — speculative decoding (`spec_len=SPEC_LEN`) on prompts
+               that repeat: each request a seeded SPEC_PATTERN-token
+               pattern tiled to the PROMPT_LENS lengths, 32 new tokens.
+               First spec off (the baselines: bf16 bucketed and chunked,
+               int8, and float32, the bf16 weights computed in f32); then
+               the n-gram proposer on the same traffic (its hits and the
+               spec counters reported, not required: with random weights
+               no token of a greedy stream recurs, so it drafts nothing);
+               then drafts replayed from the spec-off streams
+               (`step_profile.ReplayProposer`, a draft model that is right
+               until the stream leaves the baseline's at a near-tie): bf16
+               fused bucketed (the fused step SPEC_LEN + 1 rows wide),
+               fused chunked (`prefill_chunk=16`), `fuse=False` bucketed
+               (the verify program beside the decode program), int8 fused
+               bucketed at page 32 (SPEC_INT8_REQUESTS requests), and f32
+               fused and unfused bucketed.  Each: tokens/s, step ms, decode
+               iterations, graph replays, the spec counters and the
+               proposer's; `spec_events` > 0 in the replay modes; graph
+               replays = dispatches; decode-side programs 1 fused (within
+               the budget), 2 unfused (decode + verify, outside it as in
+               the reference); paged prefill launches 32 x (fused + chunk +
+               verify dispatches), paged decode 32 x decode dispatches, on
+               the pool's lane, no composed call.  Lossless: every token of
+               requests 0 and 1 against the dense `forward`'s argmax over
+               prompt + generated (over the dequantized weights for int8;
+               its last hidden states' logits in f32), the positions that
+               differ listed with their top-2 margins; in f32 none may have
+               a margin above 0.05; in bf16 and int8 they are reported
+               beside the spec-off engine's own (the bf16 engine's rounding
+               flips tokens of the random model at margins up to ~0.12
+               with spec off too).  Agreement with the spec-off streams
+               printed, not required.
 7. first_token — the first tokens of phases 3, 4 and both modes of 5 for
                two prompts against the argmax of the dense `forward` at the
                last prompt position, held equal where the top-2 margin
@@ -150,7 +186,7 @@ Phases, one JSON line each (with its seconds):
 
 Then one line `{"kernels": [...]}` for all nine kernels and the int8 lanes of
 the two paged ones (launches summed over the main-path runs of phases 3, 4,
-5, 6b, 6c, 10, 11 and 12, each with the counts
+5, 6b, 6c, 6d, 10, 11 and 12, each with the counts
 zeroed just before it and read just after; none of them may take an
 entry's composed route for shapes the kernels do not take) and, last,
 `{"ok": true, "device": ...}`.
@@ -184,6 +220,16 @@ SERVE_BUCKETS = [512, 1024, 2048]       # the prompts take two of them
 # the engine_prefix traffic
 TAIL_T, TAIL_OFFSET, TAIL_VALID = 2048, 1000, 200
 INT8_PAGE = 32          # the int8 engines' page (the reference's int8 gate)
+# speculative decoding (engine_spec): the reference's test value, so the
+# fused bucketed step and the verify program are SPEC_LEN + 1 wide; each
+# prompt a seeded SPEC_PATTERN-token pattern tiled to PROMPT_LENS
+SPEC_LEN, SPEC_PATTERN = 4, 16
+# requests of 6d's int8 modes: 4, cut from 8 when the smoke with 6d ran
+# past the time the smoke took before it (PERF.md)
+SPEC_INT8_REQUESTS = 4
+# row 1 at the verify width: the fused spec step's valid per slot (1: no
+# draft), slots 6 and 7 inactive (null table row, offset 0)
+SPEC_VALID = (5, 1, 5, 3, 1, 5, 1, 1)
 RELEASE_SLACK = 128 << 20   # bytes a dropped engine may leave (cuBLAS's
 #                             workspace on the capture stream, made once)
 
@@ -379,8 +425,11 @@ def flash_case(dtype, dev, shape):
 def paged_inputs(dtype, dev, T, page=16):
     """H=32, KVH=8, hd=128, 2048 tokens a table row.  T 1 and 16: B=8, mixed
     q_offset/valid, slots 6 and 7 null-table slots (valid 1, offset 0);
-    T = TAIL_T: the bucketed prefix-hit tail, one slot at q_offset
-    TAIL_OFFSET (mid-page) with TAIL_VALID valid rows."""
+    T = SPEC_LEN + 1: the fused spec step, the smoke's prompt lengths as
+    q_offset of slots 0-5 and SPEC_VALID (drafted and undrafted slots),
+    slots 6 and 7 null-table slots; T = TAIL_T: the bucketed prefix-hit
+    tail, one slot at q_offset TAIL_OFFSET (mid-page) with TAIL_VALID valid
+    rows."""
     import torch
     rng = np.random.RandomState(T)
     H, KVH, hd, max_pages = 32, 8, 128, 2048 // page
@@ -389,6 +438,9 @@ def paged_inputs(dtype, dev, T, page=16):
         valid = np.ones(8, np.int64)
     elif T == TAIL_T:
         q_offset, valid = np.array([TAIL_OFFSET]), np.array([TAIL_VALID])
+    elif T == SPEC_LEN + 1:
+        q_offset = np.array([*PROMPT_LENS[:6], 0, 0])
+        valid = np.array(SPEC_VALID)
     else:
         q_offset = np.array([0, 37, 300, 1000, 1500, 63, 0, 0])
         valid = np.array([16, 5, 16, 1, 9, 16, 1, 1])
@@ -727,13 +779,14 @@ def rms_grad_case(dtype, dev):
 # ---------------------------------------------------------------------------
 
 def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
-          int8=False):
+          int8=False, spec_len=0, proposer=None):
     """Warm up on one short request, build the engine and warm its
-    decode-side program, zero the launch counts, serve the prompts, read
-    the counts; drop the engines and check their memory is released.
-    `eager`: no CUDA graphs (the engine's private comparison switch);
-    `int8`: int8 weights and KV pages, page INT8_PAGE.  Returns (outputs,
-    phase record)."""
+    decode-side programs (`warm_decode`, `warm_spec`), zero the launch
+    counts, serve the prompts, read the counts; drop the engines and check
+    their memory is released.  `eager`: no CUDA graphs (the engine's
+    private comparison switch); `int8`: int8 weights and KV pages, page
+    INT8_PAGE; `spec_len`: speculative decoding, drafts from `proposer`
+    (None: the n-gram proposer).  Returns (outputs, phase record)."""
     import gc
 
     import torch
@@ -747,8 +800,9 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
     def engine():
         return LLMEngine(params, cfg, num_slots=8, page_size=page,
                          max_model_len=2048, prefill_buckets=SERVE_BUCKETS,
-                         prefill_chunk=chunk, fuse=fuse, device=dev,
-                         _eager=eager, **quant)
+                         prefill_chunk=chunk, fuse=fuse, spec_len=spec_len,
+                         draft_proposer=proposer, device=dev, _eager=eager,
+                         **quant)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -760,10 +814,13 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
     del warm
     eng = engine()
     eng.warm_decode()
+    eng.warm_spec()                     # unfused spec: the verify program
     for p in prompts:
         eng.add_request(p, max_new_tokens=MAX_NEW)
     torch.cuda.synchronize()
     K.reset_launches()
+    if spec_len:
+        eng.proposer.reset_stats()      # the warm-up engine's calls
     steps = []
     t0 = time.perf_counter()
     while eng.has_work:
@@ -792,21 +849,22 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
     if any(other[n] for n in paged):
         raise AssertionError(f"paged launches on the wrong lane: fp "
                              f"{launches}, int8 {launches_int8}")
-    if fuse and (lane["paged_prefill_attention_kernel"] != L * fused or
-                 fused == 0):
-        raise AssertionError(f"paged attention launched {lane} times "
-                             f"over {fused} fused steps (int8 {int8})")
-    if not fuse:
-        # one launch a layer a program: decode, chunk, bucketed prefill
-        want = {"paged_attention_kernel": L * st["decode_dispatches"],
-                "paged_prefill_attention_kernel": L * st["chunk_dispatches"]}
-        if any(lane[n] != w for n, w in want.items()) or fused or \
-                launches["flash_attention_fwd"] != \
-                L * st["prefill_dispatches"] or \
-                st["decode_dispatches"] != st["decode_iterations"] or \
-                st["decode_dispatches"] == 0:
-            raise AssertionError(f"unfused launches {launches}, int8 "
-                                 f"{launches_int8}, want {want} ({st})")
+    # one launch a layer a program: the paged prefill kernel in the fused,
+    # chunk and verify programs, the paged decode kernel in the unfused
+    # decode program, the flash forward in the bucketed prefills; unfused,
+    # each decode iteration is one decode or one verify dispatch (the
+    # requests are greedy: no iteration takes both)
+    want = {"paged_attention_kernel": L * st["decode_dispatches"],
+            "paged_prefill_attention_kernel":
+                L * (fused + st["chunk_dispatches"] +
+                     st["verify_dispatches"])}
+    if any(lane[n] != w for n, w in want.items()) or \
+            launches["flash_attention_fwd"] != L * st["prefill_dispatches"] \
+            or (fuse and fused == 0) or (not fuse and (
+                fused or st["decode_dispatches"] + st["verify_dispatches"] !=
+                st["decode_iterations"] or st["decode_iterations"] == 0)):
+        raise AssertionError(f"launches {launches}, int8 {launches_int8}, "
+                             f"want {want} on the pool's lane ({st})")
     if launches["rms_norm_fused"] == 0:
         raise AssertionError("RMSNorm kernel never launched")
     if chunk is None and launches["flash_attention_fwd"] == 0:
@@ -816,16 +874,23 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
     if st["prefix_hit_requests"] or st["cow_page_copies"]:
         raise AssertionError(f"unplanned prefix hits ({st})")
     # one replay a program dispatch (none when eager): the step programs
-    # and the bucketed prefills; the programs within the reference's budget
+    # and the bucketed prefills; the programs within the reference's budget,
+    # but for the unfused spec engine's 2 decode-side programs (decode and
+    # verify), which the reference also places outside it
     replays = 0 if eager else dispatches(st)
     over = over_budget(st)
-    if st["graph_replays"] != replays or st["decode_executables"] > 1 or \
-            over:
+    side = 2 if spec_len and not fuse else 1
+    if side == 2:
+        over.pop("decode_side_executables", None)
+    if st["graph_replays"] != replays or over or \
+            st["decode_executables"] + st["verify_executables"] != side:
         raise AssertionError(f"graph replays {st['graph_replays']}, want "
-                             f"{replays}; programs over budget {over} ({st})")
+                             f"{replays}; {side} decode-side programs "
+                             f"wanted; programs over budget {over} ({st})")
     execs = {k: st[k] for k in st if k.endswith("_executables")}
     bucket_graphs = bucket_graph_count(eng)
     gen = sum(len(o.token_ids) for o in outs.values())
+    proposer = eng.proposer.stats() if spec_len else None
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -853,6 +918,8 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
            "launches": launches, "launches_int8": launches_int8,
            "held_gib": held / 2 ** 30, "peak_mem_gib": peak / 2 ** 30,
            "left_after_release_mib": left / 2 ** 20}
+    if spec_len:
+        rec.update({k: st[k] for k in SPEC_KEYS}, proposer=proposer)
     return outs, rec
 
 
@@ -875,8 +942,14 @@ def dispatches(st):
     """Every program dispatch an engine made: the step programs, the
     bucketed one-shot prefills and the COW copies."""
     return st["fused_dispatches"] + st["decode_dispatches"] + \
-        st["chunk_dispatches"] + st["prefill_dispatches"] + \
-        st["cow_page_copies"]
+        st["chunk_dispatches"] + st["verify_dispatches"] + \
+        st["prefill_dispatches"] + st["cow_page_copies"]
+
+
+# the spec counters of an engine's stats() that engine_spec prints
+SPEC_KEYS = ("spec_len", "verify_steps", "verify_dispatches", "spec_events",
+             "spec_drafted_tokens", "spec_accepted_tokens",
+             "spec_emitted_tokens", "accepted_per_step", "spec_backoffs")
 
 
 def bucket_graph_count(eng):
@@ -1133,6 +1206,117 @@ def agreement(a, b):
             "first_tokens_identical": sum(a[r].token_ids[0] ==
                                           b[r].token_ids[0] for r in a),
             "of": len(same), "token_rate": sum(tok) / len(tok)}
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: speculative decoding at Llama-3-8B width
+# ---------------------------------------------------------------------------
+
+def spec_traffic(vocab):
+    """Prompts that repeat, as code and structured text do: a seeded random
+    SPEC_PATTERN-token pattern for each request, tiled to PROMPT_LENS
+    (`step_profile.py --spec-len` keeps a copy: change them together)."""
+    rng = np.random.RandomState(3)
+    return [np.resize(rng.randint(0, vocab, SPEC_PATTERN).astype(np.int32),
+                      n) for n in PROMPT_LENS]
+
+
+def lossless(params, cfg, prompts, outs, what, rids=(0, 1), required=True):
+    """Each generated token of requests `rids` against the argmax of one
+    dense `forward` over prompt + generated at the position before it (the
+    logits of its last hidden states taken in float32, so the margin is
+    not one of the logits' own bf16 steps).  Positions where they differ
+    are listed with the top-2 margin; `required`: raise if one of them has
+    a margin above 0.05."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    checks = []
+    for rid in rids:
+        prompt, gen = prompts[rid], outs[rid].token_ids
+        seq = np.concatenate([prompt, np.asarray(gen[:-1], np.int32)])
+        with torch.no_grad():
+            x, head = gpt.backbone(params, seq[None], cfg)
+            logits = x[0, prompt.size - 1:].float() @ head.float()
+        top2 = torch.topk(logits, 2)
+        picks = top2.indices[:, 0].tolist()
+        margins = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+        del x, head, logits
+        off = [{"position": t, "engine": tok, "forward": pick,
+                "margin": margin}
+               for t, (tok, pick, margin) in enumerate(zip(gen, picks,
+                                                           margins))
+               if tok != pick]
+        checks.append({"request": rid, "tokens": len(gen),
+                       "min_margin": min(margins), "differ": off,
+                       "max_differ_margin": max((d["margin"] for d in off),
+                                                default=None)})
+        if required and any(d["margin"] > 0.05 for d in off):
+            raise AssertionError(f"{what} request {rid}: the engine's tokens "
+                                 f"differ from the forward's argmax above "
+                                 f"the 0.05 margin: {off}")
+    return checks
+
+
+def engine_spec(params, cfg, dev):
+    """Phase 6d (see the module docstring): ({mode: phase record}, {spec-off
+    baseline: its `lossless` record}).  Spec off first (the baselines,
+    whose streams the replay modes draft), then the n-gram proposer on the
+    same traffic, then the modes with replayed drafts."""
+    import torch
+    from paddle_tpu_torch.inference.step_profile import ReplayProposer
+    from paddle_tpu_torch.models import gpt
+    prompts_s = spec_traffic(cfg.vocab_size)
+    cfg32 = gpt.GPTConfig(**{**cfg.__dict__, "dtype": torch.float32})
+    # float32 (the bf16 weights, computed in f32): rounding far below the
+    # random model's top-2 margins, where lossless is a strict check
+    params32 = {k: ({n: w.float() for n, w in v.items()}
+                    if isinstance(v, dict) else v.float())
+                for k, v in params.items()}
+    weights = {"bf16": (params, cfg, False), "int8": (params, cfg, True),
+               "f32": (params32, cfg32, False)}
+    sent = {w: prompts_s[:SPEC_INT8_REQUESTS] if w == "int8" else prompts_s
+            for w in weights}
+    spec_off, rec_s, lossless_off = {}, {}, {}
+    for key, w, chunk in (("bf16", "bf16", None), ("bf16_chunked", "bf16", 16),
+                          ("int8", "int8", None), ("f32", "f32", None)):
+        p_, c_, int8 = weights[w]
+        spec_off[key], rec = serve(p_, c_, sent[w], chunk, dev, int8=int8)
+        rec_s[f"spec_off_{key}"] = rec
+        if chunk is None:
+            lossless_off[key] = lossless(
+                dequantized_params(params, cfg) if int8 else p_, c_,
+                sent[w], spec_off[key], f"spec_off_{key}", required=False)
+    outs, rec = serve(params, cfg, sent["bf16"], None, dev,
+                      spec_len=SPEC_LEN)
+    rec["agreement_with_spec_off"] = agreement(spec_off["bf16"], outs)
+    rec_s["ngram_bucketed"] = rec
+    for mode, chunk, fuse, w, base in (
+            ("bucketed", None, True, "bf16", "bf16"),
+            ("chunked", 16, True, "bf16", "bf16_chunked"),
+            ("unfused_bucketed", None, False, "bf16", "bf16"),
+            ("int8_bucketed", None, True, "int8", "int8"),
+            ("f32_bucketed", None, True, "f32", "f32"),
+            ("f32_unfused_bucketed", None, False, "f32", "f32")):
+        p_, c_, int8 = weights[w]
+        replay = ReplayProposer([(p, spec_off[base][r].token_ids)
+                                 for r, p in enumerate(sent[w])])
+        outs, rec = serve(p_, c_, sent[w], chunk, dev, fuse=fuse, int8=int8,
+                          spec_len=SPEC_LEN, proposer=replay)
+        if rec["spec_events"] == 0:
+            raise AssertionError(f"engine_spec {mode}: no draft was "
+                                 f"verified ({rec})")
+        # requests 0 and 1 against the dense forward (over the dequantized
+        # weights for int8): required in f32; in bf16 and int8 reported
+        # beside the spec-off engine's own record on the same traffic (the
+        # bf16 engine's rounding already exceeds the 0.05 margin there)
+        ref_params = dequantized_params(params, cfg) if int8 else p_
+        rec["lossless"] = lossless(ref_params, c_, sent[w], outs, mode,
+                                   required=w == "f32")
+        del ref_params
+        torch.cuda.empty_cache()
+        rec["agreement_with_spec_off"] = agreement(spec_off[base], outs)
+        rec_s[mode] = rec
+    return rec_s, lossless_off
 
 
 def decode_logits(params, cfg, prompt, dev):
@@ -1595,7 +1779,8 @@ def main():
                 for N in (4096, 8, 128)]
         rows += [flash_case(dtype, dev, shape) for shape in
                  ((1, 16, 32, 128), (1, 1024, 32, 128), (4, 2048, 16, 128))]
-        rows += [paged_case(dtype, dev, T) for T in (1, 16, TAIL_T)]
+        rows += [paged_case(dtype, dev, T) for T in (1, 16, SPEC_LEN + 1,
+                                                     TAIL_T)]
         # decode: the smoke prompts' lengths at Llama-3-8B's heads, then
         # hd 64 and 256 at G 1 and 8 with lengths ending mid-page
         rows.append(decode_case(dtype, dev, PROMPT_LENS))
@@ -1605,6 +1790,9 @@ def main():
         for page in (16, INT8_PAGE):
             rows += [paged_case(dtype, dev, T, page, int8=True)
                      for T in (1, 16)]
+            if page == INT8_PAGE:       # the int8 spec engine's page
+                rows.append(paged_case(dtype, dev, SPEC_LEN + 1, page,
+                                       int8=True))
             rows.append(decode_case(dtype, dev, PROMPT_LENS, page=page,
                                     int8=True))
         rows.append(paged_case(dtype, dev, TAIL_T, INT8_PAGE, int8=True))
@@ -1721,6 +1909,13 @@ def main():
                      "without": {k: rec[k] for k in cmp_keys}}
               for mode, rec in off.items()},
           "no_prefix_cache": off, "first_token": firsts})
+
+    t = time.perf_counter()
+    rec_s, lossless_off = engine_spec(params, cfg, dev)
+    emit({"phase": "engine_spec", "seconds": time.perf_counter() - t,
+          "spec_len": SPEC_LEN, "pattern": SPEC_PATTERN,
+          "int8_requests": SPEC_INT8_REQUESTS, **rec_s,
+          "lossless_spec_off": lossless_off})
 
     t = time.perf_counter()
     modes = (("bucketed", bucketed), ("chunked", chunked),
@@ -1858,7 +2053,7 @@ def main():
          "paddle_tpu/incubate/kernels/paged_attention.py:247"),
     )
     runs = (rec3, rec4, rec5["bucketed"], rec5["chunked"], *rec_q.values(),
-            *rec_p.values(), rec9, rec7, rec8)
+            *rec_p.values(), *rec_s.values(), rec9, rec7, rec8)
     kernels = [{
         "name": r["kernel"] + ("_int8" if key == "launches_int8" else ""),
         "route": route, "source": source, "replaces": replaces,

@@ -56,10 +56,27 @@ dequantized one layer at a time inside the step programs), `kv_dtype="int8"`
 makes the pool int8 with per-token scale lanes, which the paged kernels'
 int8 lanes dequantize on read.  Neither adds a program.
 
-Knobs of later slices (speculative decoding, optimistic admission and
-preemption, KV tiering, roles, fault injection, tensor parallelism, request
-tracing, injectable clocks) are accepted only at the reference's defaults
-or off values and raise `NotImplementedError` otherwise.  `kv_tier` and
+Speculative decoding (`spec_len=K > 0`, as the reference's): before each
+decode iteration a `DraftProposer` (default `inference.spec.NgramProposer`,
+prompt-lookup self-drafting over the slot's own history) guesses up to K
+tokens for each greedy slot, capped at its remaining budget so the draft's
+KV writes stay inside its reservation.  Fused, a drafted slot rides the
+one fused program (`_fused_T = max(K + 1, chunk)` rows) at valid = 1 +
+draft, and the program returns its tokens and the on-device greedy
+longest-prefix accept count as one `[B, T + 1]` int32 buffer, so the
+step's one host fetch stays one copy.  Unfused, greedy slots ride the
+"verify" program (`verify_step_paged` + argmax, acceptance on the host)
+and sampled slots the decode program in the same iteration: 2
+decode-side programs, outside the default budget, as in the reference.
+A slot emits its accepted draft and the bonus token; rejected candidates
+roll back as the length that does not advance (their stale KV lies in the
+slot's own pages, overwritten before it is read).  A slot whose drafts
+are rejected `spec_backoff_window` verify events in a row stops drafting.
+
+Knobs of later slices (optimistic admission and preemption, KV tiering,
+roles, fault injection, tensor parallelism, request tracing, injectable
+clocks) are accepted only at the reference's defaults or off values and
+raise `NotImplementedError` otherwise.  `kv_tier` and
 `request_tracing` default to False here (True in the reference).
 """
 from __future__ import annotations
@@ -79,6 +96,7 @@ from ..quantization.serving import (normalize_quant_dtype,
                                     quantize_serving_params)
 from .cache import PagedKVCache
 from .graphs import StepProgram
+from .spec import NgramProposer
 
 
 @dataclasses.dataclass(eq=False)
@@ -119,6 +137,8 @@ class _Running:
     cached_tokens: int = 0
     ttft_s: Optional[float] = None
     greedy: bool = True
+    spec_zero_streak: int = 0       # verify events in a row accepting 0
+    spec_off: bool = False          # backed off: no more drafts
 
 
 @dataclasses.dataclass
@@ -189,11 +209,6 @@ class LLMEngine:
         self.weight_dtype = normalize_quant_dtype(weight_dtype,
                                                   "weight_dtype")
         self.kv_dtype = normalize_quant_dtype(kv_dtype, "kv_dtype")
-        if spec_len or draft_proposer is not None or \
-                spec_backoff_window != 8:
-            raise _later(f"spec_len={spec_len} (fused or not), "
-                         f"draft_proposer and spec_backoff_window",
-                         "speculative decoding")
         if admission != "reservation" or preempt != "recompute" or \
                 fault_plan is not None or swap_pool_pages is not None:
             raise _later("optimistic admission, preempt='swap', fault_plan "
@@ -242,9 +257,13 @@ class LLMEngine:
             if b % page_size or b > max_model_len:
                 raise ValueError(f"bucket {b} incompatible with page_size "
                                  f"{page_size} / max_model_len {max_model_len}")
+        if spec_len < 0:
+            raise ValueError(f"spec_len must be >= 0, got {spec_len}")
         if prefill_chunk == "auto":
-            # spec off: one page per chunk (the reference's rule)
-            prefill_chunk = min(page_size, max_model_len)
+            # the reference's rule: the verify lane's width with spec on
+            # (no padding of decode rows), one page per chunk without
+            prefill_chunk = min(spec_len + 1 if spec_len else page_size,
+                                max_model_len)
         if prefill_chunk is not None and \
                 not 1 <= prefill_chunk <= max_model_len:
             raise ValueError(f"prefill_chunk {prefill_chunk} outside "
@@ -255,13 +274,23 @@ class LLMEngine:
         # tails, which the largest bucket bounds
         self._chunk = prefill_chunk if self.chunked else self.buckets[-1]
         self.prefix_cache = bool(prefix_cache)
+        if spec_len and spec_len + 1 > max_model_len:
+            raise ValueError(f"spec_len {spec_len} + 1 exceeds max_model_len")
+        self.spec_len = spec_len
+        self.proposer = (draft_proposer or NgramProposer()) if spec_len \
+            else draft_proposer
+        if spec_backoff_window < 0:
+            raise ValueError(f"spec_backoff_window must be >= 0, got "
+                             f"{spec_backoff_window}")
+        self.spec_backoff_window = spec_backoff_window
         self.fused = bool(fuse)
         # the unfused programs fetch their tokens at once (reference rule)
         self.double_buffer = self.fused and \
             (True if double_buffer is None else bool(double_buffer))
-        # the fused program's token width: the chunk lane in chunked mode,
-        # a single decode token otherwise
-        self._fused_T = prefill_chunk if self.chunked else 1
+        # the fused program's token width: the widest lane that rides it,
+        # K + 1 verify rows or the chunk
+        self._fused_T = max(spec_len + 1, prefill_chunk if self.chunked
+                            else 1)
         self.cache = PagedKVCache(num_pages, page_size, num_slots,
                                   max_pages_per_slot)
         self._pool = gpt_mod.init_paged_cache(config, num_pages, page_size,
@@ -290,7 +319,10 @@ class LLMEngine:
         self._c = dict.fromkeys(
             ("engine_steps", "decode_iterations", "decode_tokens",
              "fused_dispatches", "decode_dispatches", "chunk_dispatches",
-             "prefill_dispatches", "prefill_chunks", "prefilled_tokens",
+             "verify_dispatches", "prefill_dispatches", "prefill_chunks",
+             "prefilled_tokens", "verify_steps", "spec_events",
+             "spec_drafted_tokens", "spec_accepted_tokens",
+             "spec_emitted_tokens", "spec_backoffs",
              "prefix_cached_tokens", "prefix_hit_requests", "cow_page_copies",
              "partial_page_hits", "admitted_requests", "finished_requests",
              "aborted_requests", "rejected_requests"),
@@ -372,8 +404,8 @@ class LLMEngine:
     # ---- step programs ----------------------------------------------------
     def _program(self, role: str) -> StepProgram:
         """The program of `role`, made at first use (built at its first
-        staging): "fused", the unfused "decode", the "chunk" program, the
-        COW "copy", or the one-shot prefill of one bucket,
+        staging): "fused", the unfused "decode" and "verify", the "chunk"
+        program, the COW "copy", or the one-shot prefill of one bucket,
         "prefill:<bucket>"."""
         prog = self._programs.get(role)
         if prog is not None:
@@ -392,6 +424,11 @@ class LLMEngine:
             rows = B
             inputs = {"tokens": ((B,), i32, 0), "table": ((B, P), i32, 0),
                       "lengths": ((B,), i32, 0)}
+        elif kind == "verify":          # greedy only: no mask, no noise
+            rows = 0
+            inputs = {"tokens": ((B, self.spec_len + 1), i32, 0),
+                      "table": ((B, P), i32, 0),
+                      "q_offset": ((B,), i32, 0), "valid": ((B,), i32, 1)}
         elif kind == "chunk":
             rows = 1
             inputs = {"tokens": ((1, self._chunk), i32, 0),
@@ -439,6 +476,13 @@ class LLMEngine:
         and contract; here the generator is not drawn from, so sampled
         streams do not change."""
         self._program("fused" if self.fused else "decode").build()
+
+    def warm_spec(self) -> None:
+        """Build the unfused verify program on inert inputs (reference name
+        and contract).  A no-op when fused, where drafts ride the one fused
+        program, and with spec off."""
+        if self.spec_len and not self.fused:
+            self._program("verify").build()
 
     # ---- scheduler --------------------------------------------------------
     def step(self) -> List[RequestOutput]:
@@ -559,10 +603,90 @@ class LLMEngine:
                                  st.cached_tokens, finished)
 
     def _decode_iter(self, finished: List[RequestOutput]) -> None:
-        """Unfused decode iteration (speculative decoding off): every
-        running slot rides one `decode_step_paged` dispatch."""
+        """Unfused decode iteration: when any greedy slot has a draft, the
+        greedy slots ride the verify program (undrafted ones at valid=1)
+        and the sampled slots the decode program in the same iteration;
+        otherwise every running slot rides one `decode_step_paged`
+        dispatch."""
+        drafts = self._propose_drafts() if self.spec_len else {}
         self._c["decode_iterations"] += 1
-        self._vanilla_decode_iter(list(self._running), finished)
+        if drafts:
+            self._verify_iter(drafts, finished)
+            rest = [s for s, seq in self._running.items() if not seq.greedy]
+        else:
+            rest = list(self._running)
+        if rest:
+            self._vanilla_decode_iter(rest, finished)
+
+    def _propose_drafts(self) -> Dict[int, np.ndarray]:
+        """Up to spec_len draft tokens for each greedy slot that has not
+        backed off, capped at the slot's remaining budget so the draft's
+        KV writes stay inside its reservation (prompt + max_new_tokens).
+        Only the proposer's `max_lookback` tail of prompt + generated is
+        built, so a slot's host work does not grow with its length."""
+        drafts: Dict[int, np.ndarray] = {}
+        win = getattr(self.proposer, "max_lookback", 0)
+        for slot, seq in self._running.items():
+            if not seq.greedy or seq.spec_off:
+                continue        # acceptance needs the argmax; backed off
+            cap = min(self.spec_len,
+                      seq.request.max_new_tokens - len(seq.generated))
+            if cap < 1:
+                continue
+            if win:
+                gen = np.asarray(seq.generated[-win:], np.int32)
+                head = seq.request.prompt[-(win - gen.size):] \
+                    if gen.size < win else seq.request.prompt[:0]
+                ctx = np.concatenate([head, gen])
+            else:
+                ctx = np.concatenate([seq.request.prompt,
+                                      np.asarray(seq.generated, np.int32)])
+            d = self.proposer.propose(ctx, cap)
+            if d is not None and len(d):
+                drafts[slot] = np.asarray(d, np.int32).reshape(-1)[:cap]
+        return drafts
+
+    def _verify_iter(self, drafts: Dict[int, np.ndarray],
+                     finished: List[RequestOutput]) -> None:
+        """Unfused: score spec_len + 1 positions of every greedy slot in
+        one verify dispatch, then emit each slot's longest drafted prefix
+        the argmax agrees with plus the bonus token after it.  Free,
+        mid-prefill and sampled slots get null table rows (their KV goes to
+        the null page)."""
+        mgr = self.cache
+        B, T = mgr.num_slots, self.spec_len + 1
+        tokens = np.zeros((B, T), np.int32)
+        valid = np.ones((B,), np.int32)
+        qoff = np.zeros((B,), np.int32)
+        table = mgr.page_table.copy()
+        active = []
+        for slot in range(B):
+            seq = self._running.get(slot)
+            if seq is None or not seq.greedy:
+                table[slot, :] = 0
+                continue
+            active.append(slot)
+            tokens[slot, 0] = seq.generated[-1]
+            d = drafts.get(slot)
+            if d is not None:
+                tokens[slot, 1:1 + d.size] = d
+                valid[slot] = 1 + d.size
+            qoff[slot] = mgr.lengths[slot]
+        preds = self._dispatch("verify", tokens=tokens, table=table,
+                               q_offset=qoff, valid=valid).result()
+        self._c["verify_dispatches"] += 1
+        self._c["verify_steps"] += 1
+        for slot in active:
+            seq = self._running[slot]
+            d = drafts.get(slot)
+            nd = 0 if d is None else d.size
+            a = 0
+            while a < nd and int(d[a]) == int(preds[slot, a]):
+                a += 1              # greedy longest-prefix acceptance
+            emitted = [int(x) for x in d[:a]] if nd else []
+            emitted.append(int(preds[slot, a]))            # bonus token
+            if self._emit_slot(seq, slot, emitted, finished, nd, a):
+                del self._running[slot]
 
     def _vanilla_decode_iter(self, slots: List[int],
                              finished: List[RequestOutput]) -> None:
@@ -618,10 +742,13 @@ class LLMEngine:
     def _fused_iter(self, chunk_job: Optional[Dict[str, object]],
                     finished: List[RequestOutput]) -> None:
         """Build and dispatch the fused program: running slots decode at
-        valid=1, the staged chunk rides at valid=chunk tokens, every other
-        slot gets a null table row (its KV goes to the null page)."""
+        valid=1, drafted (greedy) slots at valid=1+draft with the draft in
+        tokens[slot, 1:], the staged chunk at valid=chunk tokens, every
+        other slot gets a null table row (its KV goes to the null page)."""
         mgr = self.cache
         B, T = mgr.num_slots, self._fused_T
+        drafts = self._propose_drafts() \
+            if self.spec_len and self._running else {}
         if self._running:
             self._c["decode_iterations"] += 1
         tokens = np.zeros((B, T), np.int32)
@@ -638,6 +765,10 @@ class LLMEngine:
                 tokens[slot, 0] = seq.generated[-1]
                 qoff[slot] = mgr.lengths[slot]
                 greedy[slot] = seq.greedy
+                d = drafts.get(slot)
+                if d is not None:
+                    tokens[slot, 1:1 + d.size] = d
+                    valid[slot] = 1 + d.size
             elif slot == chunk_slot:
                 st, n, q0 = chunk_job["st"], chunk_job["n"], \
                     chunk_job["q_offset"]
@@ -650,7 +781,11 @@ class LLMEngine:
         prog = self._dispatch("fused", tokens=tokens, table=table,
                               q_offset=qoff, valid=valid, greedy=greedy)
         self._c["fused_dispatches"] += 1
-        inflight = {"prog": prog, "slots": slots, "chunk": chunk_job}
+        if drafts:
+            # the dispatch carried a draft: it is this step's verify
+            self._c["verify_steps"] += 1
+        inflight = {"prog": prog, "slots": slots, "drafts": drafts,
+                    "chunk": chunk_job}
         if self.double_buffer:
             self._inflight = inflight
         else:
@@ -658,19 +793,27 @@ class LLMEngine:
 
     def _harvest(self, finished: List[RequestOutput],
                  inflight: Optional[Dict[str, object]] = None) -> None:
-        """Fetch the [B, T] token buffer of a fused dispatch (the step's only
-        device->host transfer, waited for on an event), emit each running
-        slot's token, move a completed chunk's slot into the decode set,
-        retire finishers."""
+        """Fetch the [B, T + 1] buffer of a fused dispatch, the tokens and
+        the accept count of each slot (the step's only device->host
+        transfer, waited for on an event), emit each running slot's
+        accepted draft and bonus token (or its one decoded token), move a
+        completed chunk's slot into the decode set, retire finishers."""
         inf = inflight if inflight is not None else self._inflight
         if inflight is None:
             self._inflight = None
         if inf is None:
             return
         out = inf["prog"].result()              # waits for the device result
+        accept = out[:, -1]
         for slot in inf["slots"]:
             seq = self._running[slot]
-            if self._emit_slot(seq, slot, [int(out[slot, 0])], finished):
+            d = inf["drafts"].get(slot)
+            # accepted drafts equal the predictions they matched: the run
+            # is out[:a] and the bonus out[a]
+            a = int(accept[slot])
+            emitted = [int(x) for x in out[slot, :a + 1]]
+            if self._emit_slot(seq, slot, emitted, finished,
+                               0 if d is None else d.size, a):
                 del self._running[slot]
         cj = inf["chunk"]
         if cj is not None and cj["done"]:
@@ -680,9 +823,14 @@ class LLMEngine:
                                  st.cached_tokens, finished)
 
     def _emit_slot(self, seq: _Running, slot: int, emitted: List[int],
-                   finished: List[RequestOutput]) -> bool:
-        """Apply one slot's emission (budget truncation, EOS cut, length
-        advance) and retire it if it finished.  Returns True when the
+                   finished: List[RequestOutput], nd: int = 0,
+                   a: int = 0) -> bool:
+        """Apply one slot's emission: budget truncation, EOS cut, length
+        advance (a rejected candidate's KV above the new length is stale,
+        inside the slot's own pages), and, for a slot that drafted nd
+        tokens and had a accepted, the spec counters and the zero-accept
+        back-off streak.  Retire the slot if it finished.  The one copy the
+        fused harvest and the unfused verify share.  Returns True when the
         caller must drop the slot from the running set."""
         room = seq.request.max_new_tokens - len(seq.generated)
         emitted = emitted[:room]
@@ -690,7 +838,21 @@ class LLMEngine:
             emitted = emitted[:emitted.index(self.eos_token_id) + 1]
         self.cache.lengths[slot] += len(emitted)
         seq.generated.extend(emitted)
-        self._c["decode_tokens"] += len(emitted)
+        c = self._c
+        c["decode_tokens"] += len(emitted)
+        if nd:
+            c["spec_events"] += 1
+            c["spec_drafted_tokens"] += nd
+            c["spec_accepted_tokens"] += a
+            c["spec_emitted_tokens"] += len(emitted)
+            if a:
+                seq.spec_zero_streak = 0
+            else:
+                seq.spec_zero_streak += 1
+                if self.spec_backoff_window and not seq.spec_off and \
+                        seq.spec_zero_streak >= self.spec_backoff_window:
+                    seq.spec_off = True
+                    c["spec_backoffs"] += 1
         return self._maybe_finish(seq, finished)
 
     def _start_decoding(self, req: Request, slot: int, first: int,
@@ -799,16 +961,19 @@ class LLMEngine:
         program 1 (on the card, its captured graph).  Prefill counts each
         bucket's one-shot program and the chunk program where it is
         standalone (unfused, or the prefix-hit tails of fused bucketed
-        mode); copy counts the COW copy.  Verify and swap programs belong to
-        later slices (0)."""
+        mode); copy counts the COW copy; verify the unfused verify program
+        (fused, drafts ride the one fused program).  Swap programs belong to
+        a later slice (0).  `accepted_per_step` is the reference's: tokens
+        emitted per verify event that carried a draft."""
         built = {r for r, p in self._programs.items() if p.built}
         cached, computed = self._c["prefix_cached_tokens"], \
             self._c["prefilled_tokens"]
+        events = self._c["spec_events"]
         return {
             **self._c,
             "decode_executables": int(("fused" if self.fused else "decode")
                                       in built),
-            "verify_executables": 0,
+            "verify_executables": int("verify" in built),
             "prefill_executables": sum(r.startswith("prefill:")
                                        for r in built) + int("chunk" in built),
             "copy_executables": int("copy" in built),
@@ -816,6 +981,9 @@ class LLMEngine:
             "graph_replays": sum(p.replays for p in self._programs.values()),
             "buckets": list(self.buckets),
             "prefill_chunk": self.prefill_chunk,
+            "spec_len": self.spec_len,
+            "accepted_per_step": self._c["spec_emitted_tokens"] / events
+                                 if events else 0.0,
             "fuse": self.fused,
             "prefix_cache": self.prefix_cache,
             "device": str(self.device),
@@ -861,11 +1029,13 @@ def pick_tokens(logits, greedy, noise, sampling) -> torch.Tensor:
 
 def _fused_body(params, config, pool, sampling, tokens, table, q_offset,
                 valid, greedy, noise=None):
+    """[B, T + 1] int32: the step's tokens, then each slot's accept count
+    (one output, so one host copy)."""
     sample, temperature, top_k = sampling
-    out, _, _ = gpt_mod.serve_step_paged(
+    out, accept, _ = gpt_mod.serve_step_paged(
         params, tokens, pool, table, q_offset, valid, config, greedy=greedy,
         sample=sample, temperature=temperature, top_k=top_k, noise=noise)
-    return out
+    return torch.cat([out, accept[:, None]], dim=1)
 
 
 def _decode_body(params, config, pool, sampling, tokens, table, lengths,
@@ -873,6 +1043,14 @@ def _decode_body(params, config, pool, sampling, tokens, table, lengths,
     logits, _ = gpt_mod.decode_step_paged(params, tokens, pool, table,
                                           lengths, config)
     return pick_tokens(logits, greedy, noise, sampling)
+
+
+def _verify_body(params, config, pool, sampling, tokens, table, q_offset,
+                 valid):
+    """Greedy only: the argmax at every position, [B, T] int32."""
+    logits, _ = gpt_mod.verify_step_paged(params, tokens, pool, table,
+                                          q_offset, valid, config)
+    return gpt_mod.sharded_argmax(logits)
 
 
 def _chunk_body(params, config, pool, sampling, tokens, table, q_offset,
@@ -898,5 +1076,5 @@ def _copy_body(params, config, pool, sampling, src, dst):
 
 
 _BODIES = {"fused": _fused_body, "decode": _decode_body,
-           "chunk": _chunk_body, "prefill": _prefill_body,
-           "copy": _copy_body}
+           "verify": _verify_body, "chunk": _chunk_body,
+           "prefill": _prefill_body, "copy": _copy_body}

@@ -37,6 +37,21 @@ profiled alone once before the window; small elementwise kernels of the
 step with the same names land there too).  `dequant_device_ms_per_step`
 times those expressions alone, one step's worth, on CUDA events.
 
+    python3 -m paddle_tpu_torch.inference.step_profile --spec-len 4
+
+The fused step with speculative decoding (`LLMEngine(spec_len=K)`: the
+fused program K + 1 rows wide, drafted slots at valid 1 + draft) on
+`chip_smoke.py`'s `engine_spec` traffic (each request a seeded
+SPEC_PATTERN-token pattern tiled to its PROMPT_LENS length), one engine
+after the other in one process: "spec", drafts from a `ReplayProposer`
+over the streams a spec-off engine generated first, filled where a slot
+left its stream, and no back-off, so that every slot carries a K-token
+draft every step (the step a draft model makes); "spec_ngram", the
+n-gram proposer (with random weights it finds nothing to draft, so this
+is the K + 1-wide step's cost without drafts); "spec_off".  Each prints
+the fields above, with the tokens the window emitted a step and the
+engine's spec counters over the window.
+
     python3 -m paddle_tpu_torch.inference.step_profile --window
 
 The bucketed serving window of `chip_smoke.py`'s `engine_bucketed` phase,
@@ -68,6 +83,55 @@ import sys
 import time
 
 import numpy as np
+
+from .spec import DraftProposer
+
+
+class ReplayProposer(DraftProposer):
+    """Drafts each request's known greedy continuation: `streams` is
+    [(prompt, generated tokens)] from a spec-off engine.  While a request's
+    history is its prompt followed by a prefix of its stream, the draft is
+    the stream's next tokens.  Off the stream (a near-tie the spec program
+    rounded the other way) it drafts nothing, or with `fill` max_tokens
+    copies of the last token (a draft that is there and wrong), so that
+    every greedy slot carries a full draft every step.  A measurement
+    stand-in for a draft model: with random weights no token of a greedy
+    stream recurs, so the n-gram proposer never drafts."""
+
+    max_lookback = 0            # the whole history: its prompt names it
+
+    def __init__(self, streams, fill=False):
+        self.streams = [(np.asarray(p, np.int32), np.asarray(g, np.int32))
+                        for p, g in streams]
+        self.fill = fill
+        self.reset_stats()
+
+    def propose(self, context, max_tokens):
+        self.calls += 1
+        ctx = np.asarray(context).reshape(-1)
+        for prompt, gen in self.streams:
+            n = ctx.size - prompt.size
+            if 0 <= n <= gen.size and \
+                    np.array_equal(ctx[:prompt.size], prompt) and \
+                    np.array_equal(ctx[prompt.size:], gen[:n]):
+                draft = gen[n:n + max_tokens]
+                if not draft.size:
+                    break
+                self.hits += 1
+                self.tokens_proposed += draft.size
+                return draft.copy()
+        if not self.fill:
+            return None
+        self.tokens_proposed += max_tokens
+        return np.full((max_tokens,), ctx[-1], np.int32)
+
+    def stats(self):
+        return {"propose_calls": self.calls, "propose_hits": self.hits,
+                "tokens_proposed": self.tokens_proposed,
+                "hit_rate": self.hits / self.calls if self.calls else 0.0}
+
+    def reset_stats(self):
+        self.calls = self.hits = self.tokens_proposed = 0
 
 
 def _group(name, dequant=frozenset()):
@@ -229,10 +293,14 @@ def _dequant_profile(eng):
     return names, start.elapsed_time(end) / 3
 
 
-# the same traffic as chip_smoke.py's PROMPT_LENS / SERVE_BUCKETS: change
-# them together
+# the same traffic as chip_smoke.py's PROMPT_LENS / SERVE_BUCKETS (and its
+# SPEC_PATTERN and spec_traffic's seed): change them together
 PROMPT_LENS = (64, 96, 160, 256, 384, 512, 768, 1024)
 WINDOW_NEW = 32
+SPEC_PATTERN = 16
+SPEC_COUNTERS = ("decode_tokens", "verify_steps", "spec_events",
+                 "spec_drafted_tokens", "spec_accepted_tokens",
+                 "spec_emitted_tokens")
 
 
 def window_profile(dev, smi):
@@ -300,12 +368,11 @@ def main():
     ap.add_argument("--weight-dtype", default=None)
     ap.add_argument("--kv-dtype", default=None)
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--spec-len", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step_profile: no CUDA device", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
     from ..models import gpt
     from .engine import LLMEngine
 
@@ -320,21 +387,66 @@ def main():
     if args.window:
         print(json.dumps(window_profile(dev, smi)))
         return 0
-    fuse = not args.no_fuse
     cfg = gpt.llama3_8b()
     cfg.dtype = torch.bfloat16
     params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              dev)
-    eng = LLMEngine(params, cfg, num_slots=8, page_size=args.page_size,
-                    max_model_len=2048, fuse=fuse, device=dev,
+    if not args.spec_len:
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+        print(json.dumps(serve_profile(dev, smi, params, cfg, args, prompts,
+                                       0)))
+        return 0
+    # chip_smoke.py's spec_traffic
+    rng = np.random.RandomState(3)
+    prompts = [np.resize(rng.randint(0, cfg.vocab_size, SPEC_PATTERN), n)
+               for n in PROMPT_LENS]
+    off = LLMEngine(params, cfg, num_slots=8, page_size=args.page_size,
+                    max_model_len=2048, fuse=not args.no_fuse, device=dev,
                     weight_dtype=args.weight_dtype, kv_dtype=args.kv_dtype)
-    del params                          # an int8 engine keeps its own copy
+    for p in prompts:
+        off.add_request(p, max_new_tokens=_window_new(args.spec_len))
+    streams = off.run()
+    del off
+    replay = ReplayProposer([(p, streams[r].token_ids)
+                             for r, p in enumerate(prompts)], fill=True)
+    out = {"nvidia_smi": smi}
+    for key, spec_len, proposer in (("spec", args.spec_len, replay),
+                                    ("spec_ngram", args.spec_len, None),
+                                    ("spec_off", 0, None)):
+        out[key] = serve_profile(dev, smi, params, cfg, args, prompts,
+                                 spec_len, proposer)
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
+
+
+def _window_new(spec_len):
+    """New tokens a request: a spec step emits up to spec_len + 1 tokens a
+    slot, so enough that every slot still decodes through both windows."""
+    return (2 * STEPS + 8) * (spec_len + 1)
+
+
+def serve_profile(dev, smi, params, cfg, args, prompts, spec_len,
+                  proposer=None):
+    """One serving engine's steady decode steps, untraced and traced (see
+    the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .engine import LLMEngine
+    fuse = not args.no_fuse
+    # a given proposer drafts every step: no back-off from its rejected
+    # drafts
+    eng = LLMEngine(params, cfg, num_slots=8, page_size=args.page_size,
+                    max_model_len=2048, fuse=fuse, spec_len=spec_len,
+                    draft_proposer=proposer,
+                    spec_backoff_window=0 if proposer else 8, device=dev,
+                    weight_dtype=args.weight_dtype, kv_dtype=args.kv_dtype)
     dequant, dequant_ms = _dequant_profile(eng) \
         if eng.weight_dtype else (frozenset(), None)
-    rng = np.random.RandomState(0)
-    for n in (64, 96, 160, 256, 384, 512, 768, 1024):
-        eng.add_request(rng.randint(0, cfg.vocab_size, n),
-                        max_new_tokens=2 * STEPS + 8)
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=_window_new(spec_len))
     for _ in range(4):                  # admission + warm decode steps
         eng.step()
     torch.cuda.synchronize()
@@ -343,7 +455,7 @@ def main():
         eng.step()
     torch.cuda.synchronize()
     bare = (time.perf_counter() - t0) / STEPS
-    replays = eng.stats()["graph_replays"]
+    before = eng.stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -351,6 +463,7 @@ def main():
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    after = eng.stats()
     kernels = _kernels(prof)
     busy = _busy_us(kernels)
     short, long_ = _gaps_us(kernels)
@@ -360,11 +473,15 @@ def main():
         groups[g] = groups.get(g, 0.0) + e.time_range.end - e.time_range.start
         counts[g] = counts.get(g, 0) + 1
     per = 1e-3 / STEPS            # us over the window -> ms per step
-    print(json.dumps({
+    window = {k: after[k] - before[k] for k in SPEC_COUNTERS}
+    proposer_stats = eng.proposer.stats() if spec_len else None
+    del eng
+    return {
         "nvidia_smi": smi, "model": "llama3_8b", "layers": cfg.num_layers,
         "dtype": "bf16", "slots": 8, "steps": STEPS, "fuse": fuse,
-        "page_size": args.page_size, "weight_dtype": eng.weight_dtype,
-        "kv_dtype": eng.kv_dtype, "running": eng.stats()["running"],
+        "page_size": args.page_size, "weight_dtype": after["weight_dtype"],
+        "kv_dtype": after["kv_dtype"], "running": after["running"],
+        "spec_len": spec_len,
         "host_wall_ms_per_step": wall * 1e3 / STEPS,
         "device_busy_ms_per_step": busy * per,
         "device_idle_share": 1.0 - busy * 1e-6 / wall,
@@ -374,14 +491,15 @@ def main():
         f"device_gap_ms_per_step_over_{GAP_US:g}us": long_ * per,
         "kernel_launches_per_step": len(kernels) / STEPS,
         "graph_replays_per_step":
-            (eng.stats()["graph_replays"] - replays) / STEPS,
+            (after["graph_replays"] - before["graph_replays"]) / STEPS,
+        "tokens_per_step": window["decode_tokens"] / STEPS,
+        "spec_window": window, "proposer": proposer_stats,
         "device_ms_per_step_by_group": {k: v * per for k, v in
                                         sorted(groups.items())},
         "launches_per_step_by_group": {k: v / STEPS for k, v in
                                        sorted(counts.items())},
         "dequant_device_ms_per_step": dequant_ms,
-        "top_kernels": _by_name(kernels, STEPS)}))
-    return 0
+        "top_kernels": _by_name(kernels, STEPS)}
 
 
 if __name__ == "__main__":

@@ -38,7 +38,8 @@ from ..incubate.kernels.flash_attention import (flash_attention_fused,
                                                 remat_policy_save_attention)
 from ..incubate.kernels.paged_attention import (paged_attention_decode,
                                                 paged_prefill_attention,
-                                                paged_serve_attention)
+                                                paged_serve_attention,
+                                                paged_verify_attention)
 from ..incubate.kernels.rms_norm import rms_norm_fused
 from ..incubate.kernels.rope import apply_rope
 from ..quantization.serving import (BLOCK_WEIGHT_KEYS, KV_SCALE_DTYPE,
@@ -773,6 +774,25 @@ def prefill_chunk_paged(params, input_ids, config: GPTConfig, cache,
     x, cache = _paged_chunk_hidden(params, input_ids, config, cache,
                                    page_table, q_offset, valid, mesh=mesh)
     x = x[torch.arange(B, device=x.device), valid.long() - 1]
+    x = epilogue(params, x, config)
+    return head_logits(x, params, config, mesh=mesh), cache
+
+
+def verify_step_paged(params, tokens, cache, page_table, lengths, valid,
+                      config: GPTConfig, mesh=None):
+    """Speculative-decode verify (the unfused engine's verify program):
+    score T = spec_len + 1 positions a slot in one pass.  tokens [B, T]:
+    tokens[:, 0] is the slot's last emitted token, tokens[:, 1:] its draft;
+    token t sits at position lengths[b] + t; valid [B] in [1, T] real
+    tokens a slot (1: no draft).  Candidate KV is written into the slot's
+    pages (rows t >= valid go to the null page); the caller rolls rejected
+    positions back by not advancing lengths past the accepted prefix.  An
+    int8 pool is read through its scale lanes, as in `prefill_chunk_paged`.
+    Returns (logits [B, T, V] at every position, cache)."""
+    x, cache = _paged_chunk_hidden(params, tokens, config, cache, page_table,
+                                   lengths, valid,
+                                   attn_entry=paged_verify_attention,
+                                   mesh=mesh)
     x = epilogue(params, x, config)
     return head_logits(x, params, config, mesh=mesh), cache
 

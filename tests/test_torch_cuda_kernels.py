@@ -1054,12 +1054,16 @@ def _card_params(cfg, dev, seed=0):
                            dev)
 
 
-# role -> (program, fuse, prefill_chunk); 3 slots, page 16, 8 pages a slot
-STEP_ROLES = {"fused_t1": ("fused", True, None),
-              "fused_t16": ("fused", True, 16),
-              "decode": ("decode", False, 16),
-              "chunk": ("chunk", False, 16),
-              "prefill_b64": ("prefill:64", True, None)}
+# role -> (program, fuse, prefill_chunk, spec_len); 3 slots, page 16, 8
+# pages a slot.  fused_spec: the fused step at T = 5 with drafts (its output
+# carries the accept column); verify: the unfused verify program
+STEP_ROLES = {"fused_t1": ("fused", True, None, 0),
+              "fused_t16": ("fused", True, 16, 0),
+              "fused_spec": ("fused", True, None, 4),
+              "decode": ("decode", False, 16, 0),
+              "chunk": ("chunk", False, 16, 0),
+              "verify": ("verify", False, None, 4),
+              "prefill_b64": ("prefill:64", True, None, 0)}
 # the attention kernel each program launches once a layer
 ATTENTION_OF = {"decode": "paged_attention_kernel",
                 "prefill:64": "flash_attention_fwd"}
@@ -1071,7 +1075,8 @@ def _step_inputs(role, rng, eng, offsets=(37, 16)):
     inactive (null row); the active rows hold the pages they reach."""
     mgr = eng.cache
     P = mgr.max_pages_per_slot
-    T = 16 if role == "chunk" else eng._fused_T if role == "fused" else 1
+    T = 16 if role == "chunk" else eng._fused_T if role == "fused" else \
+        eng.spec_len + 1 if role == "verify" else 1
     table = np.zeros((mgr.num_slots, P), np.int32)
     pages = list(rng.permutation(np.arange(1, mgr.num_pages)))
     for b, q0 in enumerate(offsets):
@@ -1089,9 +1094,14 @@ def _step_inputs(role, rng, eng, offsets=(37, 16)):
         return dict(tokens=rng.randint(0, 512, 3), table=table,
                     lengths=np.array([*offsets, 0]),
                     greedy=np.ones(3, bool))
-    return dict(tokens=rng.randint(0, 512, (3, T)), table=table,
-                q_offset=np.array([*offsets, 0]),
-                valid=np.array([1, T, 1]), greedy=np.ones(3, bool))
+    # spec: slot 0 drafted 2 tokens, slot 1 a full draft; else slot 0
+    # decodes and slot 1 runs a chunk
+    inputs = dict(tokens=rng.randint(0, 512, (3, T)), table=table,
+                  q_offset=np.array([*offsets, 0]),
+                  valid=np.array([3 if eng.spec_len else 1, T, 1]))
+    if role == "verify":
+        return inputs
+    return dict(inputs, greedy=np.ones(3, bool))
 
 
 def _replay_and_eager(dev, dtype, role, int8=False):
@@ -1101,7 +1111,7 @@ def _replay_and_eager(dev, dtype, role, int8=False):
     launches, replays)}.  The warm-up may write page 0 only."""
     from paddle_tpu_torch.incubate import kernels as K
     from paddle_tpu_torch.inference.engine import LLMEngine
-    name, fuse, chunk = STEP_ROLES[role]
+    name, fuse, chunk, spec_len = STEP_ROLES[role]
     cfg = _small_llama(dtype)
     params = _card_params(cfg, dev)
     rng = np.random.RandomState(7)
@@ -1118,7 +1128,8 @@ def _replay_and_eager(dev, dtype, role, int8=False):
     for eager in (False, True):
         eng = LLMEngine(params, cfg, num_slots=3, page_size=16,
                         max_model_len=128, num_pages=13, prefill_chunk=chunk,
-                        fuse=fuse, device=dev, _eager=eager, **quant)
+                        fuse=fuse, spec_len=spec_len, device=dev,
+                        _eager=eager, **quant)
         assert set(eng._pool) == set(pool)
         for n in pool:
             eng._pool[n].copy_(pool[n])
@@ -1141,10 +1152,11 @@ def _replay_and_eager(dev, dtype, role, int8=False):
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("role", list(STEP_ROLES))
 def test_step_replay_is_bitwise_the_eager_step(dev, dtype, role):
-    """One replay of each step program (fused at T 1 and 16, unfused decode
-    and chunk, the one-shot prefill of bucket 64) against the eager step on
-    identical staged inputs and an identical pool: output tokens and the
-    pool after the step bitwise equal, and the same kernel launch
+    """One replay of each step program (fused at T 1 and 16, fused at T 5
+    with drafts, unfused decode, chunk and verify, the one-shot prefill of
+    bucket 64) against the eager step on identical staged inputs and an
+    identical pool: output tokens (and the fused step's accept column) and
+    the pool after the step bitwise equal, and the same kernel launch
     counts."""
     cfg, name, runs = _replay_and_eager(dev, dtype, role)
     (g_out, g_pool, g_n, _, g_rep), (e_out, e_pool, e_n, _, e_rep) = \
@@ -1239,6 +1251,34 @@ def test_warmed_chunked_fused_loop_never_syncs(dev):
     assert all(len(o.token_ids) == 9 for o in eng.outputs.values())
     st = eng.stats()
     assert st["graph_replays"] == st["fused_dispatches"] > 0
+
+
+def test_warmed_spec_chunked_fused_loop_never_syncs(dev):
+    """The same with speculative decoding (`spec_len=4`, chunk 16) over
+    looping prompts: the proposer's drafts ride the warmed fused graph,
+    and the loop still never syncs."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    cfg = _small_llama(torch.bfloat16)
+    eng = LLMEngine(_card_params(cfg, dev), cfg, num_slots=3, page_size=16,
+                    max_model_len=128, prefill_chunk=16, spec_len=4,
+                    device=dev)
+    eng.warm_decode()
+    eng.warm_spec()                     # fused: nothing to build
+    rng = np.random.RandomState(4)
+    for n in (5, 40, 70, 17):
+        eng.add_request(np.tile(rng.randint(0, 512, 4), -(-n // 4))[:n],
+                        max_new_tokens=9)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        while eng.has_work:
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(len(o.token_ids) == 9 for o in eng.outputs.values())
+    st = eng.stats()
+    assert st["graph_replays"] == st["fused_dispatches"] > 0
+    assert st["spec_events"] > 0 and st["verify_executables"] == 0
 
 
 def test_eager_call_after_capture_leaves_the_replay_unchanged(dev):

@@ -186,6 +186,13 @@ def test_add_request_validation(reference):
 ], ids=lambda d: next(iter(d)))
 def test_later_slice_knobs_raise(reference, knob):
     _, _, tcfg, tparams, _, _ = reference["gpt_tiny"]
+    if "spec_len" in knob:
+        # speculative decoding has landed (test_torch_spec_decode.py): the
+        # knob is taken, fused and unfused
+        eng = LLMEngine(tparams, tcfg, device="cpu", **GEOMETRY, **knob)
+        assert eng.stats()["spec_len"] == knob["spec_len"]
+        assert eng.fused == knob.get("fuse", True)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         LLMEngine(tparams, tcfg, device="cpu", **GEOMETRY, **knob)
 

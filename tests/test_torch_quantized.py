@@ -29,8 +29,9 @@ reference, on the CPU.
   int8 and fp engines agree on at least AGREEMENT_BAR of greedy tokens,
   the reference's bar.
 - The reference's six engine keywords the port had lacked: each at its
-  default builds, any other value raises `NotImplementedError` naming its
-  ROADMAP item.
+  default builds; `draft_proposer` and `spec_backoff_window` take another
+  value (the proposer is called, the window honoured), any other keyword's
+  other value raises `NotImplementedError` naming its ROADMAP item.
 """
 import warnings
 
@@ -51,6 +52,7 @@ from paddle_tpu_torch.incubate.kernels.paged_attention import (
     paged_prefill_attention_kernel, paged_prefill_attention_ref,
     paged_serve_attention)
 from paddle_tpu_torch.inference.engine import LLMEngine
+from paddle_tpu_torch.inference.spec import DraftProposer, NgramProposer
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
 from paddle_tpu_torch.quantization import serving as TQ
@@ -380,6 +382,28 @@ def test_serve_step_paged_int8(quant_models):
     _check_int8_pools(tpool, jpool)
 
 
+def test_verify_step_paged_int8(quant_models):
+    """The unfused verify program's step over int8 weights and pool: slot 0
+    drafted (valid 4, starting mid-page), slot 1 undrafted (valid 1)."""
+    _, cfg, _, qparams, tcfg, tq = quant_models
+    rng = np.random.RandomState(6)
+    page, T = 4, 4
+    tokens = rng.randint(0, cfg.vocab_size, (2, T)).astype(np.int32)
+    table = np.array([[1, 5, 3, 0], [2, 4, 6, 0]], np.int32)
+    lengths = np.array([9, 8], np.int32)
+    valid = np.array([4, 1], np.int32)
+    jpool, tpool = _int8_pools(rng, cfg, 7, page)
+    ref, jpool = G.verify_step_paged(qparams, jnp.asarray(tokens), jpool,
+                                     jnp.asarray(table), jnp.asarray(lengths),
+                                     jnp.asarray(valid), cfg)
+    got, tpool = TG.verify_step_paged(tq, _t(tokens), tpool, _t(table),
+                                      _t(lengths), _t(valid), tcfg)
+    tol = _check_int8_pools(tpool, jpool)
+    for b, n in enumerate(valid):
+        np.testing.assert_allclose(got[b, :n].numpy(),
+                                   np.asarray(ref)[b, :n], rtol=tol, atol=tol)
+
+
 # ---------------------------------------------------------------------------
 # the int8 engine against the reference int8 engine
 # ---------------------------------------------------------------------------
@@ -500,18 +524,28 @@ def test_fp_default_is_byte_identical_to_explicit_fp_knobs(quant_models):
         RQ.kv_page_bytes(cfg, 8, "int8")
 
 
-@pytest.mark.parametrize("chunk", [None, 8], ids=["bucketed", "chunked"])
-def test_int8_engine_top1_agreement_with_fp(quant_models, chunk):
+TOP1_MODES = {   # the reference's MODES that the port serves
+    "bucketed": dict(prefill_chunk=None, prefix_cache=False),
+    "chunked": dict(prefill_chunk=8, prefix_cache=False),
+    "chunked_spec_prefix": dict(num_slots=4, prefill_chunk=8, spec_len=2)}
+
+
+@pytest.mark.parametrize("mode", list(TOP1_MODES))
+def test_int8_engine_top1_agreement_with_fp(quant_models, mode):
     """The reference's bar (`test_quantized_serving.py`): greedy top-1
     agreement of the int8 engine with the fp engine, and every request
-    decodes its whole budget."""
+    decodes its whole budget; `chunked_spec_prefix` drafts (spec_len 2)
+    with the prefix cache on, as the reference's mode of that name."""
     _, cfg, params, _, tcfg, _ = quant_models
     tparams = params_from_numpy(_np(params), tcfg, "cpu")
     reqs = _requests(cfg.vocab_size)
-    fp, q = ({r: o.token_ids for r, o in _serve(LLMEngine(
-        tparams, tcfg, prefill_chunk=chunk, prefix_cache=False, device="cpu",
-        **GEOMETRY, **kw), reqs).items()}
-        for kw in ({}, dict(weight_dtype="int8", kv_dtype="int8")))
+    geo = {**GEOMETRY, **TOP1_MODES[mode]}
+    engines = [LLMEngine(tparams, tcfg, device="cpu", **geo, **kw)
+               for kw in ({}, dict(weight_dtype="int8", kv_dtype="int8"))]
+    fp, q = ({r: o.token_ids for r, o in _serve(eng, reqs).items()}
+             for eng in engines)
+    if geo.get("spec_len"):
+        assert engines[1].stats()["spec_events"] > 0
     total = sum(max(len(fp[r]), len(q[r])) for r in fp)
     agree = sum(int(a == b) for r in fp for a, b in zip(fp[r], q[r]))
     assert agree / total >= AGREEMENT_BAR
@@ -529,9 +563,54 @@ def test_quant_dtype_validation(quant_models, knob):
 # the reference's engine keywords
 # ---------------------------------------------------------------------------
 
+class _CountingProposer(NgramProposer):
+    calls = 0
+
+    def propose(self, context, max_tokens):
+        self.calls += 1
+        return super().propose(context, max_tokens)
+
+
+class _WrongProposer(DraftProposer):
+    """Drafts `token`, which the greedy stream never emits."""
+
+    def __init__(self, token):
+        self.token, self.calls = token, 0
+
+    def propose(self, context, max_tokens):
+        self.calls += 1
+        return np.full((max_tokens,), self.token, np.int32)
+
+
+def _spec_keyword_taken(params, cfg, name, other):
+    """Speculative decoding has landed: `draft_proposer` is the proposer
+    the engine calls; `spec_backoff_window` is the number of zero-accept
+    verify events after which a slot stops drafting."""
+    prompt = np.tile(np.arange(4, dtype=np.int32), 4)
+    base = LLMEngine(params, cfg, device="cpu", **GEOMETRY)
+    base.add_request(prompt, max_new_tokens=16)
+    stream = base.run()[0].token_ids
+    if name == "draft_proposer":
+        prop, kw = other(), {}
+    else:
+        prop = _WrongProposer(next(t for t in range(cfg.vocab_size)
+                                   if t not in stream))
+        kw = {name: other}
+    eng = LLMEngine(params, cfg, device="cpu", spec_len=2,
+                    draft_proposer=prop, **GEOMETRY, **kw)
+    assert eng.proposer is prop
+    eng.add_request(prompt, max_new_tokens=16)
+    assert eng.run()[0].token_ids == stream
+    st = eng.stats()
+    assert prop.calls > 0 and st["spec_events"] > 0
+    if name == "spec_backoff_window":
+        assert prop.calls == other and st["spec_backoffs"] == 1
+
+
 KEYWORDS = {    # keyword: (the reference's default, another value, item)
-    "draft_proposer": (None, object(), "speculative decoding"),
-    "spec_backoff_window": (8, 4, "speculative decoding"),
+    # speculative decoding has landed: the other value is taken
+    "draft_proposer": (None, _CountingProposer, None),
+    "spec_backoff_window": (8, 4, None),
     "swap_pool_pages": (None, 2, "optimistic admission and preemption"),
     "spill_disk_pages": (None, 8, "KV tiering, durable store and roles"),
     "trace_ring": (512, 64, "metrics, tracing and health"),
@@ -548,6 +627,9 @@ def test_reference_keywords_take_their_defaults(name):
                     **{name: default})
     eng.add_request(np.arange(5, dtype=np.int32), max_new_tokens=2)
     assert len(eng.run()) == 1
+    if item is None:
+        _spec_keyword_taken(params, cfg, name, other)
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1: {item}"):
         LLMEngine(params, cfg, device="cpu", **GEOMETRY, **{name: other})
