@@ -147,6 +147,31 @@ Phases, one JSON line each (with its seconds):
                flips tokens of the random model at margins up to ~0.12
                with spec off too).  Agreement with the spec-off streams
                printed, not required.
+6e. engine_overload — optimistic admission and preemption under memory
+               pressure, the PROMPT_LENS traffic x 32 new tokens: (a) fused
+               chunked (`prefill_chunk=16`), default pool, recompute,
+               `FaultPlan(pressure_steps=OVERLOAD_PRESSURE)` at steps where
+               two or three slots decode while a prompt is mid-chunk; (b)
+               fused bucketed, 212 real pages, swap, requests 0 and 1 at the
+               lowest priorities, so that one growth pass preempts both;
+               (c) the same with `fuse=False`; (d) int8 weights and KV at
+               page 32, OVERLOAD_REQUESTS requests, 20 real pages, swap;
+               (e) float32, OVERLOAD_REQUESTS requests, 40 real pages,
+               recompute (a prefix hit: the 2048-wide chunk program), beside
+               their f32 reservation run.  Each: the cache's invariants
+               after every step (outside the step times), preemptions > 0,
+               0 pages in use and 0 swapped after the drain, launches 32 x
+               the dispatches on the pool's lane, graph replays = the
+               dispatches + the swap replays, the programs within the
+               budget, no composed call; in the swap modes swaps > 0, 2
+               swap programs, streams bitwise equal to the undisturbed runs
+               of phases 3, 5 and 6b; a step with two victims in (b) or
+               (c); (e) equal to its reservation run.  Reported: tokens/s
+               and median step ms beside the undisturbed run's, the
+               overload counters, one "swap_out" and one "swap_in" replay's
+               device ms and the pinned d2h ms a page, (a)'s bf16 agreement
+               with phase 4 and the forward's margin where each stream
+               leaves it.
 7. first_token — the first tokens of phases 3, 4 and both modes of 5 for
                two prompts against the argmax of the dense `forward` at the
                last prompt position, held equal where the top-2 margin
@@ -186,7 +211,7 @@ Phases, one JSON line each (with its seconds):
 
 Then one line `{"kernels": [...]}` for all nine kernels and the int8 lanes of
 the two paged ones (launches summed over the main-path runs of phases 3, 4,
-5, 6b, 6c, 6d, 10, 11 and 12, each with the counts
+5, 6b, 6c, 6d, 6e, 10, 11 and 12, each with the counts
 zeroed just before it and read just after; none of them may take an
 entry's composed route for shapes the kernels do not take) and, last,
 `{"ok": true, "device": ...}`.
@@ -779,30 +804,41 @@ def rms_grad_case(dtype, dev):
 # ---------------------------------------------------------------------------
 
 def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
-          int8=False, spec_len=0, proposer=None):
+          int8=False, spec_len=0, proposer=None, overload=None):
     """Warm up on one short request, build the engine and warm its
-    decode-side programs (`warm_decode`, `warm_spec`), zero the launch
-    counts, serve the prompts, read the counts; drop the engines and check
-    their memory is released.  `eager`: no CUDA graphs (the engine's
-    private comparison switch); `int8`: int8 weights and KV pages, page
-    INT8_PAGE; `spec_len`: speculative decoding, drafts from `proposer`
-    (None: the n-gram proposer).  Returns (outputs, phase record)."""
+    decode-side programs (`warm_decode`, `warm_spec`, `warm_swap`), zero
+    the launch counts, serve the prompts, read the counts; drop the engines
+    and check their memory is released.  `eager`: no CUDA graphs (the
+    engine's private comparison switch); `int8`: int8 weights and KV pages,
+    page INT8_PAGE; `spec_len`: speculative decoding, drafts from
+    `proposer` (None: the n-gram proposer); `overload`: optimistic
+    admission, {"preempt", "num_pages" (None: the default pool),
+    "pressure_steps" (a `FaultPlan`'s, or None), "priorities" (one a
+    prompt, or None)}, the cache's invariants held after every step (off
+    the step times) and the steps that preempt two or more counted.
+    Returns (outputs, phase record)."""
     import gc
 
     import torch
     from paddle_tpu_torch.analysis.registry import over_budget
     from paddle_tpu_torch.incubate import kernels as K
     from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.inference.faults import FaultPlan
     from paddle_tpu_torch.quantization import kv_page_bytes
     page = INT8_PAGE if int8 else 16
     quant = dict(weight_dtype="int8", kv_dtype="int8") if int8 else {}
+    over = dict(overload or {})
+    pressure = over.pop("pressure_steps", None)
+    priorities = over.pop("priorities", None) or [0] * len(prompts)
+    if overload:
+        quant.update(admission="optimistic", **over)
 
-    def engine():
+    def engine(**kw):
         return LLMEngine(params, cfg, num_slots=8, page_size=page,
                          max_model_len=2048, prefill_buckets=SERVE_BUCKETS,
                          prefill_chunk=chunk, fuse=fuse, spec_len=spec_len,
                          draft_proposer=proposer, device=dev, _eager=eager,
-                         **quant)
+                         **quant, **kw)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -812,23 +848,32 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
     warm.add_request(prompts[0][:16], max_new_tokens=2)
     warm.run()
     del warm
-    eng = engine()
+    eng = engine(fault_plan=FaultPlan(pressure_steps=pressure)
+                 if pressure else None)
     eng.warm_decode()
     eng.warm_spec()                     # unfused spec: the verify program
-    for p in prompts:
-        eng.add_request(p, max_new_tokens=MAX_NEW)
+    eng.warm_swap()                     # swap preemption: its two programs
+    for p, prio in zip(prompts, priorities):
+        eng.add_request(p, max_new_tokens=MAX_NEW, priority=prio)
     torch.cuda.synchronize()
     K.reset_launches()
     if spec_len:
         eng.proposer.reset_stats()      # the warm-up engine's calls
-    steps = []
+    steps, doubles, checks = [], [], 0.0
     t0 = time.perf_counter()
     while eng.has_work:
+        pre = eng.stats()["preemptions"] if overload else 0
         s = time.perf_counter()
         eng.step()
         steps.append(time.perf_counter() - s)
+        if overload:
+            s = time.perf_counter()
+            eng.cache.check_invariants()
+            if eng.stats()["preemptions"] - pre >= 2:
+                doubles.append(len(steps) - 1)
+            checks += time.perf_counter() - s
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - checks
     launches, launches_int8 = K.launches(), K.launches_int8()
     no_composed("serve")
     outs = eng.outputs
@@ -870,9 +915,16 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
     if chunk is None and launches["flash_attention_fwd"] == 0:
         raise AssertionError("flash kernel never launched in bucketed mode")
     # random prompts over a 128k vocabulary share no prefix: the launch
-    # counts above hold only without prefix hits
-    if st["prefix_hit_requests"] or st["cow_page_copies"]:
+    # counts above hold only without prefix hits, but for a recompute
+    # resume, which matches its own prompt's pages (whole pages: no COW)
+    if st["prefix_hit_requests"] > st["preempt_recomputes"] or \
+            st["cow_page_copies"]:
         raise AssertionError(f"unplanned prefix hits ({st})")
+    if overload and (st["pages_in_use"] or st["swapped"] or
+                     st["preemptions"] == 0):
+        raise AssertionError(f"overload: {st['preemptions']} preemptions, "
+                             f"{st['pages_in_use']} pages in use and "
+                             f"{st['swapped']} swapped after the drain")
     # one replay a program dispatch (none when eager): the step programs
     # and the bucketed prefills; the programs within the reference's budget,
     # but for the unfused spec engine's 2 decode-side programs (decode and
@@ -889,6 +941,7 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
                              f"wanted; programs over budget {over} ({st})")
     execs = {k: st[k] for k in st if k.endswith("_executables")}
     bucket_graphs = bucket_graph_count(eng)
+    swap_ms = swap_replay_ms(eng) if st["swap_executables"] else None
     gen = sum(len(o.token_ids) for o in outs.values())
     proposer = eng.proposer.stats() if spec_len else None
     del eng
@@ -920,7 +973,48 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
            "left_after_release_mib": left / 2 ** 20}
     if spec_len:
         rec.update({k: st[k] for k in SPEC_KEYS}, proposer=proposer)
+    if overload:
+        rec.update({k: st[k] for k in OVERLOAD_KEYS}, num_pages=num_pages,
+                   overload=overload, double_preempt_steps=doubles,
+                   invariant_check_s=checks, swap_replay=swap_ms)
     return outs, rec
+
+
+def swap_replay_ms(eng):
+    """Device ms of one replay of the "swap_out" and "swap_in" programs on
+    inert inputs (the null page at every one of the max_pages positions:
+    the bytes of a full-slot swap, which every replay moves), and the ms a
+    page of a pinned device-to-host copy of 64 gathered pages, the way
+    `LLMEngine._swap_out` copies a victim's pages."""
+    import torch
+    out = {}
+    for role in ("swap_out", "swap_in"):
+        prog = eng._programs[role]
+        for n, t in prog.inputs.items():
+            if n == "ids":
+                t.zero_()
+        out[f"{role}_device_ms"] = device_ms(prog.graph.replay, iters=5,
+                                             warmup=1)
+    gathered = eng._programs["swap_out"].out
+    n = min(64, eng.cache.max_pages_per_slot)
+    host = {k: torch.empty((a.shape[0], n) + tuple(a.shape[2:]),
+                           dtype=a.dtype, pin_memory=True)
+            for k, a in gathered.items()}
+
+    def d2h():
+        for k, a in gathered.items():
+            host[k].copy_(a[:, :n], non_blocking=True)
+    out["d2h_ms_per_page"] = time_ms(d2h, iters=5, warmup=1) / n
+    out["max_pages"] = eng.cache.max_pages_per_slot
+    return out
+
+
+# the overload counters of an engine's stats() that engine_overload prints
+OVERLOAD_KEYS = ("admission", "preempt", "preemptions", "preempt_swaps",
+                 "preempt_recomputes", "swapped_pages", "swap_ms",
+                 "recomputed_tokens", "timeouts", "rejected_requests",
+                 "intake_swap_rejects", "prefix_hit_requests",
+                 "swap_out_dispatches", "swap_in_dispatches")
 
 
 def admission_replay_ms(eng):
@@ -940,10 +1034,12 @@ def admission_replay_ms(eng):
 
 def dispatches(st):
     """Every program dispatch an engine made: the step programs, the
-    bucketed one-shot prefills and the COW copies."""
+    bucketed one-shot prefills, the COW copies and the swap gathers and
+    scatters."""
     return st["fused_dispatches"] + st["decode_dispatches"] + \
         st["chunk_dispatches"] + st["verify_dispatches"] + \
-        st["prefill_dispatches"] + st["cow_page_copies"]
+        st["prefill_dispatches"] + st["cow_page_copies"] + \
+        st["swap_out_dispatches"] + st["swap_in_dispatches"]
 
 
 # the spec counters of an engine's stats() that engine_spec prints
@@ -1264,14 +1360,10 @@ def engine_spec(params, cfg, dev):
     same traffic, then the modes with replayed drafts."""
     import torch
     from paddle_tpu_torch.inference.step_profile import ReplayProposer
-    from paddle_tpu_torch.models import gpt
     prompts_s = spec_traffic(cfg.vocab_size)
-    cfg32 = gpt.GPTConfig(**{**cfg.__dict__, "dtype": torch.float32})
     # float32 (the bf16 weights, computed in f32): rounding far below the
     # random model's top-2 margins, where lossless is a strict check
-    params32 = {k: ({n: w.float() for n, w in v.items()}
-                    if isinstance(v, dict) else v.float())
-                for k, v in params.items()}
+    params32, cfg32 = f32_weights(params, cfg)
     weights = {"bf16": (params, cfg, False), "int8": (params, cfg, True),
                "f32": (params32, cfg32, False)}
     sent = {w: prompts_s[:SPEC_INT8_REQUESTS] if w == "int8" else prompts_s
@@ -1317,6 +1409,133 @@ def engine_spec(params, cfg, dev):
         rec["agreement_with_spec_off"] = agreement(spec_off[base], outs)
         rec_s[mode] = rec
     return rec_s, lossless_off
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: optimistic admission and preemption at Llama-3-8B width
+# ---------------------------------------------------------------------------
+
+# (a) fused chunked, recompute: steps of the PROMPT_LENS schedule at chunk
+# 16 where two or three slots decode while a prompt is mid-chunk
+OVERLOAD_PRESSURE = (12, 25, 45, 62)
+# (b), (c) bucketed swap: 212 real pages.  The prompts take 204, so all 8
+# are admitted and prefilled in the first step; its decode takes the last 8
+# pages, and 16 steps later every slot needs a page again.  Request 0 (5
+# pages, the lowest priority) is the first victim and frees too few, so
+# request 1 is the second of the same growth pass (at one priority the
+# victim with more pages goes first, and request 1's 7 would do alone)
+OVERLOAD_PAGES = 213
+OVERLOAD_PRIORITIES = (-2, -1, 0, 0, 0, 0, 0, 0)
+# (d) int8 at page 32, and (e) float32 at page 16, OVERLOAD_REQUESTS
+# requests: their prompts take 18 (d) and 36 (e) pages and grow once (d),
+# at L and at L + 16 (e); a pool of 20 (d) and 40 (e) real pages fails one
+# growth, and the victim waits for pages until the others finish
+OVERLOAD_REQUESTS = 4
+OVERLOAD_INT8_PAGES = 21
+OVERLOAD_F32_PAGES = 41
+
+
+def f32_weights(params, cfg):
+    """The bf16 weights computed in float32 (engine_spec's and
+    engine_overload's f32 runs): (params, cfg)."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    cfg32 = gpt.GPTConfig(**{**cfg.__dict__, "dtype": torch.float32})
+    params32 = {k: ({n: w.float() for n, w in v.items()}
+                    if isinstance(v, dict) else v.float())
+                for k, v in params.items()}
+    return params32, cfg32
+
+
+def first_divergences(params, cfg, prompts, base, outs):
+    """For each request whose stream leaves `base`'s: the first position
+    that differs, both tokens, and the dense `forward`'s argmax and top-2
+    margin there (its last hidden state's logits in float32), over the
+    prompt and the tokens both streams share."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    found = []
+    for rid, out in outs.items():
+        a, b = base[rid].token_ids, out.token_ids
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = np.concatenate([prompts[rid], np.asarray(a[:i], np.int32)])
+        with torch.no_grad():
+            x, head = gpt.backbone(params, seq[None], cfg)
+            top2 = torch.topk(x[0, -1].float() @ head.float(), 2)
+        found.append({"request": rid, "position": i, "undisturbed": a[i],
+                      "engine": b[i], "forward": int(top2.indices[0]),
+                      "margin": float(top2.values[0] - top2.values[1])})
+        del x, head
+    return found
+
+
+def engine_overload(params, cfg, prompts, dev, base):
+    """Phase 6e (see the module docstring): {mode: phase record}.  `base`:
+    {name: (outputs, record)} of the undisturbed runs of phases 3, 4, 5 and
+    6b that the modes are held against."""
+    import torch
+    few = prompts[:OVERLOAD_REQUESTS]
+    swap = dict(preempt="swap", num_pages=OVERLOAD_PAGES,
+                priorities=OVERLOAD_PRIORITIES)
+    rec = {}
+    for mode, sent, chunk, fuse, int8, over, name in (
+            ("a_chunked_recompute", prompts, 16, True, False,
+             dict(preempt="recompute", num_pages=None,
+                  pressure_steps=OVERLOAD_PRESSURE), "chunked"),
+            ("b_bucketed_swap", prompts, None, True, False, swap, "bucketed"),
+            ("c_unfused_swap", prompts, None, False, False, swap, "unfused"),
+            ("d_int8_swap", few, None, True, True,
+             dict(preempt="swap", num_pages=OVERLOAD_INT8_PAGES), "int8")):
+        outs, r = serve(params, cfg, sent, chunk, dev, fuse=fuse, int8=int8,
+                        overload=over)
+        ref_outs, ref_rec = base[name]
+        agree = agreement({rid: ref_outs[rid] for rid in outs}, outs)
+        r.update(undisturbed=name, agreement_with_undisturbed=agree,
+                 undisturbed_tokens_per_s=ref_rec["tokens_per_s"],
+                 undisturbed_median_step_ms=ref_rec["median_step_ms"])
+        if over["preempt"] == "recompute":
+            # bf16: a recomputed position's KV comes from a prefill lane,
+            # the undisturbed one's from the decode step, and the two round
+            # differently; where a stream leaves, the forward's margin
+            r["first_divergences"] = first_divergences(
+                params, cfg, sent, ref_outs, outs)
+            torch.cuda.empty_cache()
+        if over["preempt"] == "swap":
+            # a swap restores the exact bytes into the same fixed-shape
+            # programs: the stream is the undisturbed one, bitwise
+            if r["preempt_swaps"] == 0 or \
+                    r["executables"]["swap_executables"] != 2 or \
+                    agree["identical_streams"] != agree["of"]:
+                raise AssertionError(f"engine_overload {mode}: swaps "
+                                     f"{r['preempt_swaps']}, programs "
+                                     f"{r['executables']}, agreement {agree}")
+        rec[mode] = r
+    if not (rec["b_bucketed_swap"]["double_preempt_steps"] or
+            rec["c_unfused_swap"]["double_preempt_steps"]):
+        raise AssertionError("engine_overload: no step preempted two victims")
+    # (e) float32, where a recompute's prefill rounds far below the random
+    # model's margins: held equal to the reservation run of its requests
+    params32, cfg32 = f32_weights(params, cfg)
+    base32, rec["e_f32_reservation"] = serve(params32, cfg32, few, None, dev)
+    outs, r = serve(params32, cfg32, few, None, dev,
+                    overload=dict(preempt="recompute",
+                                  num_pages=OVERLOAD_F32_PAGES))
+    del params32
+    torch.cuda.empty_cache()
+    agree = agreement(base32, outs)
+    r.update(undisturbed="e_f32_reservation",
+             agreement_with_undisturbed=agree,
+             undisturbed_tokens_per_s=rec["e_f32_reservation"][
+                 "tokens_per_s"],
+             undisturbed_median_step_ms=rec["e_f32_reservation"][
+                 "median_step_ms"])
+    if agree["identical_streams"] != agree["of"]:
+        raise AssertionError(f"engine_overload e_f32_recompute: streams "
+                             f"differ from the reservation run's {agree}")
+    rec["e_f32_recompute"] = r
+    return rec
 
 
 def decode_logits(params, cfg, prompt, dev):
@@ -1918,6 +2137,15 @@ def main():
           "lossless_spec_off": lossless_off})
 
     t = time.perf_counter()
+    rec_o = engine_overload(params, cfg, prompts, dev, {
+        "chunked": (chunked, rec4), "bucketed": (bucketed, rec3),
+        "unfused": (unfused["bucketed"], rec5["bucketed"]),
+        "int8": (int8_runs["bucketed"], rec_q["bucketed"])})
+    emit({"phase": "engine_overload", "seconds": time.perf_counter() - t,
+          "pressure_steps": OVERLOAD_PRESSURE, "requests_de":
+          OVERLOAD_REQUESTS, **rec_o})
+
+    t = time.perf_counter()
     modes = (("bucketed", bucketed), ("chunked", chunked),
              ("unfused_bucketed", unfused["bucketed"]),
              ("unfused_chunked", unfused["chunked"]))
@@ -2053,7 +2281,8 @@ def main():
          "paddle_tpu/incubate/kernels/paged_attention.py:247"),
     )
     runs = (rec3, rec4, rec5["bucketed"], rec5["chunked"], *rec_q.values(),
-            *rec_p.values(), *rec_s.values(), rec9, rec7, rec8)
+            *rec_p.values(), *rec_s.values(), *rec_o.values(), rec9, rec7,
+            rec8)
     kernels = [{
         "name": r["kernel"] + ("_int8" if key == "launches_int8" else ""),
         "route": route, "source": source, "replaces": replaces,

@@ -23,8 +23,12 @@ hash hit is verified against the node's token bytes before use.
 
 Every real page is exactly one of free, in use (refcount > 0), or parked in
 the LRU; every index node lives on the device (the reference's host and
-disk tier, restore plans, `grow` and the swap partition belong to later
-slices of the port).
+disk tier and its restore plans belong to a later slice of the port).
+
+Optimistic admission grows a slot token-granularly (`grow`); a preemption
+that swaps its victim's KV to the host records the obligation in a fourth,
+host-side partition (`note_swap_out`/`note_swap_in`, keyed by request id),
+which `check_invariants` holds too.
 """
 from __future__ import annotations
 
@@ -97,6 +101,9 @@ class PagedKVCache:
         self._partial: Dict[Tuple[int, int, int], _PrefixNode] = {}
         self._node_ids = itertools.count(1)
         self.prefix_evictions = 0
+        # fourth partition: request id -> pages whose KV lives in the host
+        # swap pool (the device pages themselves were released)
+        self._swapped: Dict[int, int] = {}
 
     # ---- capacity queries -------------------------------------------------
     @property
@@ -135,8 +142,33 @@ class PagedKVCache:
         return (self.num_pages - 1) * self.page_size
 
     def pages_held(self, slot: int) -> int:
-        """Pages mapped into `slot`'s table row (shared and private)."""
+        """Pages mapped into `slot`'s table row (shared and private), one of
+        the victim-selection signals."""
         return len(self._used[slot])
+
+    def slot_pages(self, slot: int) -> List[int]:
+        """The slot's page ids in table-row order (a copy)."""
+        return list(self._used[slot])
+
+    @property
+    def swapped_page_count(self) -> int:
+        """Pages whose KV currently lives in the host swap pool."""
+        return sum(self._swapped.values())
+
+    @property
+    def swapped_requests(self) -> int:
+        """Requests currently parked in the host swap pool."""
+        return len(self._swapped)
+
+    def host_pool_room(self, budget_pages: int) -> int:
+        """Pages of host-pool room left under `budget_pages`: the budget
+        less what swap parking holds.  The reference also subtracts its KV
+        tier's host pages, which the port does not have yet (0)."""
+        return budget_pages - self.swapped_page_count
+
+    def pool_pressure(self) -> float:
+        """Fraction of the real pool in live use (0.0 idle .. 1.0 full)."""
+        return self.pages_in_use() / max(1, self.num_pages - 1)
 
     # ---- prefix index -----------------------------------------------------
     def _match(self, tokens: np.ndarray
@@ -362,6 +394,48 @@ class PagedKVCache:
             matched += pmatch
         return self.page_table[slot], matched, cow
 
+    def grow(self, slot: int, total_tokens: int) -> None:
+        """Optimistic admission's token-granular growth: extend `slot`'s
+        mapping to cover `total_tokens` positions, allocating fresh pages
+        (evicting LRU-parked prefixes on demand) past those it holds.  A
+        no-op when it already covers them.  Raises RuntimeError when the
+        pool cannot supply the pages: the engine's preemption trigger."""
+        n = self.pages_needed(total_tokens)
+        have = len(self._used[slot])
+        if n <= have:
+            return
+        if n > self.max_pages_per_slot:
+            raise ValueError(
+                f"slot {slot} growth to {total_tokens} tokens exceeds slot "
+                f"capacity {self.max_pages_per_slot * self.page_size}")
+        need = n - have
+        self._evict(need)
+        if need > len(self._free):
+            raise RuntimeError(
+                f"out of KV pages growing slot {slot}: need {need}, "
+                f"free {len(self._free)}")
+        fresh = [self._free.pop() for _ in range(need)]
+        for p in fresh:
+            self._ref[p] = 1
+        self.page_table[slot, have:n] = fresh
+        self._used[slot].extend(fresh)
+
+    # ---- host swap pool accounting (fourth partition) ---------------------
+    def note_swap_out(self, request_id: int, n_pages: int) -> None:
+        """Record that `n_pages` of `request_id`'s KV now live in the host
+        swap pool (its device pages are released separately)."""
+        if n_pages < 1:
+            raise ValueError(f"swap-out of {n_pages} pages")
+        if request_id in self._swapped:
+            raise RuntimeError(f"request {request_id} already swapped out")
+        self._swapped[request_id] = n_pages
+
+    def note_swap_in(self, request_id: int) -> int:
+        """Clear `request_id`'s swap-pool obligation (swapped back in,
+        aborted, timed out, or degraded to recompute).  Returns the pages
+        released from the host pool (0 if unknown)."""
+        return self._swapped.pop(request_id, 0)
+
     def release(self, slot: int) -> None:
         """Retire a slot: decrement its pages' refcounts; a page reaching 0
         goes back to the free list, unless it is a registered prefix, which
@@ -389,7 +463,8 @@ class PagedKVCache:
         {free, in use, parked in the LRU}, the null page is none of them,
         refcounts equal the number of table rows mapping each page, each
         row lists exactly its slot's pages, every index node lives on the
-        device, and the partial index points only at registered nodes."""
+        device, the partial index points only at registered nodes, and
+        every host swap-pool obligation is 1..max_pages_per_slot pages."""
         if (self._ref < 0).any():
             raise AssertionError("negative refcount")
         if self._ref[NULL_PAGE] != 0:
@@ -435,6 +510,12 @@ class PagedKVCache:
                                      f"node in the page map")
         if len(self._page_node) != len(self._index):
             raise AssertionError("page map holds a node the index forgot")
+        # fourth (host-side) partition: every swap-pool obligation is a
+        # positive page count a slot could hold
+        for rid, n in self._swapped.items():
+            if not 0 < n <= self.max_pages_per_slot:
+                raise AssertionError(f"swapped request {rid} records {n} "
+                                     f"pages")
         for k, node in self._partial.items():
             if self._index.get(node.key) is not node:
                 raise AssertionError(f"partial-index entry {k} points at an "

@@ -2,10 +2,11 @@
 `paddle_tpu/inference/engine.py::LLMEngine`, fused and unfused.
 
 Paged KV pool (`models.gpt.init_paged_cache`) + per-slot page tables
-(`inference.cache.PagedKVCache`), reservation admission, and ONE fused
-program per steady-state step (`models.gpt.serve_step_paged`): decode slots
-ride at valid=1, and in chunked mode (`prefill_chunk=N`) the oldest prompt's
-next chunk rides the same batch at valid=chunk tokens.  Bucketed mode
+(`inference.cache.PagedKVCache`), reservation (the default) or optimistic
+admission, and ONE fused program per steady-state step
+(`models.gpt.serve_step_paged`): decode slots ride at valid=1, and in
+chunked mode (`prefill_chunk=N`) the oldest prompt's next chunk rides the
+same batch at valid=chunk tokens.  Bucketed mode
 (`prefill_chunk=None`, the default) prefills a whole prompt at admission
 with one `prefill_paged` pass padded to a power-of-2 bucket.  Argmax,
 temperature/top-k sampling and the per-request greedy mask run on the
@@ -32,15 +33,16 @@ dispatch order, which is what makes registering a chunk's pages before the
 fused step that writes them safe.
 
 Each program (the fused step; the unfused decode and chunk programs; the
-COW copy; one one-shot prefill per bucket, "prefill:<bucket>") is a
-`graphs.StepProgram`: its inputs are staged into static buffers and, on the
-card, a dispatch is ONE `CUDAGraph.replay()` (the reference's one jitted
-executable a step).  The bucket programs share one graph memory pool: they
-never run at once.  `warm_decode()` builds the decode-side program on inert
-inputs; any other program is built at its first dispatch, on inert inputs
-that touch only the null page.  `stats()` counts the programs under the
-reference's keys (`decode_executables`, ..., held within
-`analysis.registry.SERVE_PROGRAM_BUDGET`) beside `graph_replays`.
+COW copy; one one-shot prefill per bucket, "prefill:<bucket>"; the swap
+gather and scatter) is a `graphs.StepProgram`: its inputs are staged into
+static buffers and, on the card, a dispatch is ONE `CUDAGraph.replay()`
+(the reference's one jitted executable a step).  The bucket programs share
+one graph memory pool: they never run at once.  `warm_decode()` builds the
+decode-side program on inert inputs; any other program is built at its
+first dispatch, on inert inputs that touch only the null page.  `stats()`
+counts the programs under the reference's keys (`decode_executables`, ...,
+held within `analysis.registry.SERVE_PROGRAM_BUDGET`) beside
+`graph_replays`.
 
 `fuse=False` is the reference's three-program step, the A/B baseline of the
 fused one: each iteration advances the oldest mid-prefill prompt by one
@@ -73,11 +75,33 @@ roll back as the length that does not advance (their stale KV lies in the
 slot's own pages, overwritten before it is read).  A slot whose drafts
 are rejected `spec_backoff_window` verify events in a row stops drafting.
 
-Knobs of later slices (optimistic admission and preemption, KV tiering,
-roles, fault injection, tensor parallelism, request tracing, injectable
-clocks) are accepted only at the reference's defaults or off values and
-raise `NotImplementedError` otherwise.  `kv_tier` and
-`request_tracing` default to False here (True in the reference).
+Overload, as the reference's: `admission="optimistic"` admits on the
+prompt footprint only (less a small global watermark while anything is
+active) and grows each running slot's pages token by token before every
+dispatch (`PagedKVCache.grow`).  A failed growth preempts victims (lowest
+`priority` first, then most pages held, least progress, youngest) until
+it fits: `preempt="recompute"` releases the victim and re-queues it at the
+head, to be replayed as prompt + banked generation (through the prefix
+cache); `preempt="swap"` first gathers its pages with the "swap_out"
+program into a buffer the host fetches after the step's dispatch (each
+victim its own pinned buffer, its copy queued right after its own gather,
+so two victims of one step never share one), and a resume scatters them
+back with the "swap_in" program: no prefill replay.  Both programs are
+`StepProgram`s (`swap_executables`, at most 2).  Every page move runs after
+the step-top harvest, when no fused step is in flight, and every program
+runs on one stream in dispatch order, so a victim's gather is queued
+before any later step writes its released pages.  The host pool holds at
+most `swap_pool_pages` pages; a victim that does not fit is recomputed,
+and a request whose worst case could never park is rejected at intake.
+`add_request(deadline_s=)` retires overdue work as "timeout" wherever it
+is, on the injectable `clock`; `fault_plan` (`inference.faults.FaultPlan`)
+forces pool pressure, failing swap copies (degraded to recompute, the one
+fallback) and clock skew.
+
+Knobs of later slices (KV tiering, roles, tensor parallelism, request
+tracing) are accepted only at the reference's defaults or off values and
+raise `NotImplementedError` otherwise.  `kv_tier` and `request_tracing`
+default to False here (True in the reference).
 """
 from __future__ import annotations
 
@@ -92,9 +116,10 @@ import numpy as np
 import torch
 
 from ..models import gpt as gpt_mod
-from ..quantization.serving import (normalize_quant_dtype,
+from ..quantization.serving import (kv_page_bytes, normalize_quant_dtype,
                                     quantize_serving_params)
 from .cache import PagedKVCache
+from .faults import FaultInjected, FaultPlan
 from .graphs import StepProgram
 from .spec import NgramProposer
 
@@ -109,7 +134,8 @@ class Request:
     request_id: int = -1
     t_enqueue: float = 0.0
     temperature: Optional[float] = None
-    priority: int = 0
+    priority: int = 0               # preemption order: lowest goes first
+    deadline: Optional[float] = None    # absolute engine-clock instant
 
 
 @dataclasses.dataclass
@@ -118,7 +144,7 @@ class RequestOutput:
     prompt: np.ndarray
     token_ids: List[int]            # generated tokens (prompt excluded)
     finish_reason: str              # "stop" | "length" | "abort" |
-                                    # "rejected"
+                                    # "timeout" | "rejected"
     cached_tokens: int = 0          # prompt tokens from the prefix cache
     ttft_s: Optional[float] = None
 
@@ -143,12 +169,27 @@ class _Running:
 
 @dataclasses.dataclass
 class _Prefilling:
-    """A slot whose prompt KV is still landing: `filled` prompt tokens
-    are in pages (prefix-cache hits and completed chunks)."""
+    """A slot whose prompt KV is still landing: `filled` tokens of `prompt`
+    are in pages (prefix-cache hits and completed chunks).  `prompt` is the
+    effective prompt: for a recompute resume, the request's prompt + the
+    generation it had banked (`prior`), replayed as one longer prompt;
+    `ttft`, `spec_off` and `streak` carry its state from before the
+    preemption back into the decode set."""
     request: Request
     slot: int
-    filled: int = 0
-    cached_tokens: int = 0
+    filled: int
+    cached_tokens: int
+    prompt: np.ndarray
+    prior: Optional[List[int]] = None
+    ttft: Optional[float] = None
+    spec_off: bool = False
+    streak: int = 0
+
+    def resume_state(self) -> Dict[str, object]:
+        """`_start_decoding`'s keywords once the prompt is in."""
+        return dict(prompt_len=self.prompt.size, prior=self.prior,
+                    ttft=self.ttft, spec_off=self.spec_off,
+                    streak=self.streak)
 
 
 def _pow2_buckets(lo: int, hi: int) -> List[int]:
@@ -209,21 +250,21 @@ class LLMEngine:
         self.weight_dtype = normalize_quant_dtype(weight_dtype,
                                                   "weight_dtype")
         self.kv_dtype = normalize_quant_dtype(kv_dtype, "kv_dtype")
-        if admission != "reservation" or preempt != "recompute" or \
-                fault_plan is not None or swap_pool_pages is not None:
-            raise _later("optimistic admission, preempt='swap', fault_plan "
-                         "and swap_pool_pages",
-                         "optimistic admission and preemption")
         if mesh is not None or (mp is not None and mp > 1):
             raise _later("mesh/mp>1", "tensor-parallel serving")
         if kv_tier or spill_dir is not None or page_store is not None or \
                 role is not None or spill_disk_pages is not None:
             raise _later("kv_tier, spill_dir, spill_disk_pages, page_store "
                          "and role", "KV tiering, durable store and roles")
-        if request_tracing or clock is not None or trace_ring != 512 or \
-                trace_retention != 4096:
-            raise _later("request_tracing, clock, trace_ring and "
-                         "trace_retention", "metrics, tracing and health")
+        if request_tracing or trace_ring != 512 or trace_retention != 4096:
+            raise _later("request_tracing, trace_ring and trace_retention",
+                         "metrics, tracing and health")
+        if admission not in ("reservation", "optimistic"):
+            raise ValueError(f"admission must be 'reservation' or "
+                             f"'optimistic', got {admission!r}")
+        if preempt not in ("recompute", "swap"):
+            raise ValueError(f"preempt must be 'recompute' or 'swap', "
+                             f"got {preempt!r}")
 
         self.device = gpt_mod.resolve_device(device)
         table = params["wte_q" if "wte_q" in params else "wte"]
@@ -291,8 +332,21 @@ class LLMEngine:
         # K + 1 verify rows or the chunk
         self._fused_T = max(spec_len + 1, prefill_chunk if self.chunked
                             else 1)
+        self.admission = admission
+        self.optimistic = admission == "optimistic"
+        self.preempt = preempt
+        self._faults = fault_plan or FaultPlan()
         self.cache = PagedKVCache(num_pages, page_size, num_slots,
                                   max_pages_per_slot)
+        # the host pool bound, in pages (the reference's default: what the
+        # device pool holds)
+        self.swap_pool_pages = (num_pages - 1) if swap_pool_pages is None \
+            else int(swap_pool_pages)
+        if self.swap_pool_pages < 0:
+            raise ValueError(
+                f"swap_pool_pages must be >= 0, got {swap_pool_pages}")
+        # optimistic admission's global free-page headroom (~1% of the pool)
+        self._watermark = max(1, (num_pages - 1) // 100)
         self._pool = gpt_mod.init_paged_cache(config, num_pages, page_size,
                                               device=self.device,
                                               kv_dtype=self.kv_dtype)
@@ -315,7 +369,14 @@ class LLMEngine:
         # next step())
         self._inflight: Optional[Dict[str, object]] = None
         self._orphan_finished: List[RequestOutput] = []
-        self._now = time.perf_counter
+        self._now = clock or time.perf_counter
+        # overload state: rid -> resume record ("recompute": the banked
+        # generation; "swap": also the parked KV, in pinned host buffers
+        # behind an event until fetched); the swap records whose fetch waits
+        # for the step's dispatch; whether any deadline is live
+        self._preempted: Dict[int, Dict[str, object]] = {}
+        self._pending_d2h: List[Dict[str, object]] = []
+        self._has_deadlines = False
         self._c = dict.fromkeys(
             ("engine_steps", "decode_iterations", "decode_tokens",
              "fused_dispatches", "decode_dispatches", "chunk_dispatches",
@@ -325,8 +386,12 @@ class LLMEngine:
              "spec_emitted_tokens", "spec_backoffs",
              "prefix_cached_tokens", "prefix_hit_requests", "cow_page_copies",
              "partial_page_hits", "admitted_requests", "finished_requests",
-             "aborted_requests", "rejected_requests"),
+             "aborted_requests", "rejected_requests", "intake_swap_rejects",
+             "preemptions", "preempt_swaps", "preempt_recomputes",
+             "swapped_pages", "recomputed_tokens", "timeouts",
+             "swap_out_dispatches", "swap_in_dispatches"),
             0)
+        self._c["swap_ms"] = 0.0
 
     # ---- request intake ---------------------------------------------------
     def add_request(self, prompt, max_new_tokens: int = 16,
@@ -335,7 +400,11 @@ class LLMEngine:
                     deadline_s: Optional[float] = None) -> int:
         """Enqueue one request; same validation as the reference.  A request
         whose worst-case footprint (prompt + max_new_tokens) exceeds the
-        whole pool is rejected at once (finish_reason="rejected")."""
+        whole pool is rejected at once (finish_reason="rejected"), and so,
+        under optimistic admission with swap preemption, is one that could
+        never park in the host swap pool.  `priority` orders preemption
+        victims (lowest first); past `deadline_s` seconds of the engine
+        clock the request is retired as "timeout" wherever it is."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -361,15 +430,29 @@ class LLMEngine:
         if total > self.max_model_len:
             raise ValueError(f"prompt + max_new_tokens = {total} exceeds "
                              f"max_model_len {self.max_model_len}")
-        if deadline_s is not None:
-            raise _later("deadline_s", "optimistic admission and preemption")
+        if deadline_s is not None and deadline_s <= 0.0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         rid = next(self._ids)
-        req = Request(prompt, max_new_tokens, rid, self._now(), temperature,
-                      priority)
-        if self.cache.pages_needed(total) > self.cache.num_pages - 1:
+        t = self._now()
+        deadline = None if deadline_s is None else t + deadline_s
+        req = Request(prompt, max_new_tokens, rid, t, temperature, priority,
+                      deadline)
+        need = self.cache.pages_needed(total)
+        if need > self.cache.num_pages - 1:
             self._c["rejected_requests"] += 1
             self._finish_output(req, [], "rejected", 0, None)
             return rid
+        if self.optimistic and self.preempt == "swap" and \
+                self.swap_pool_pages > 0 and need > self.swap_pool_pages:
+            # every admitted request may be preempted: one that could never
+            # park, even in an empty host pool, would degrade every swap of
+            # it to recompute
+            self._c["intake_swap_rejects"] += 1
+            self._c["rejected_requests"] += 1
+            self._finish_output(req, [], "rejected", 0, None)
+            return rid
+        if deadline is not None:
+            self._has_deadlines = True
         self._queue.append(req)
         return rid
 
@@ -381,6 +464,8 @@ class LLMEngine:
                        cached: int, ttft: Optional[float]) -> RequestOutput:
         if reason == "abort":
             self._c["aborted_requests"] += 1
+        elif reason == "timeout":
+            self._c["timeouts"] += 1
         elif reason != "rejected":      # counted at intake
             self._c["finished_requests"] += 1
         out = RequestOutput(req.request_id, req.prompt, token_ids, reason,
@@ -405,8 +490,9 @@ class LLMEngine:
     def _program(self, role: str) -> StepProgram:
         """The program of `role`, made at first use (built at its first
         staging): "fused", the unfused "decode" and "verify", the "chunk"
-        program, the COW "copy", or the one-shot prefill of one bucket,
-        "prefill:<bucket>"."""
+        program, the COW "copy", the one-shot prefill of one bucket,
+        "prefill:<bucket>", or the preemption swap's gather "swap_out" and
+        scatter "swap_in"."""
         prog = self._programs.get(role)
         if prog is not None:
             return prog
@@ -415,6 +501,7 @@ class LLMEngine:
         i32 = torch.int32
         kind, _, bucket = role.partition(":")
         mempool = None
+        fed = ("noise",)
         if kind == "fused":
             rows, T = B, self._fused_T
             inputs = {"tokens": ((B, T), i32, 0),
@@ -443,6 +530,15 @@ class LLMEngine:
                 if self._bucket_pool is None:
                     self._bucket_pool = torch.cuda.graph_pool_handle()
                 mempool = self._bucket_pool
+        elif kind == "swap_out":        # its output: the pool's leaves
+            rows = 0
+            inputs = {"ids": ((P,), i32, 0)}
+        elif kind == "swap_in":         # the leaves staged from the host
+            rows = 0
+            inputs = {"ids": ((P,), i32, 0)}
+            for n, a in self._pool.items():
+                inputs[n] = ((a.shape[0], P) + tuple(a.shape[2:]), a.dtype, 0)
+            fed = tuple(self._pool)
         else:                           # "copy": page src -> page dst
             rows = 0
             inputs = {"src": ((1,), i32, 0), "dst": ((1,), i32, 0)}
@@ -455,8 +551,8 @@ class LLMEngine:
         body = functools.partial(_BODIES[kind], self.params, c, self._pool,
                                  self._sampling)
         prog = StepProgram(role, body, inputs, self.device,
-                           capture=self._capture, device_fed=("noise",),
-                           mempool=mempool)
+                           capture=self._capture, device_fed=fed,
+                           mempool=mempool, fetch=kind != "swap_out")
         self._programs[role] = prog
         return prog
 
@@ -477,6 +573,15 @@ class LLMEngine:
         streams do not change."""
         self._program("fused" if self.fused else "decode").build()
 
+    def warm_swap(self) -> None:
+        """Build the swap gather and scatter programs on inert inputs (every
+        page id the null page), as the reference's `warm_swap` compiles
+        them, so a first preemption does not pay the build.  A no-op unless
+        the engine can swap (optimistic admission, preempt="swap")."""
+        if self.optimistic and self.preempt == "swap":
+            self._program("swap_out").build()
+            self._program("swap_in").build()
+
     def warm_spec(self) -> None:
         """Build the unfused verify program on inert inputs (reference name
         and contract).  A no-op when fused, where drafts ride the one fused
@@ -492,11 +597,18 @@ class LLMEngine:
         most one prefill chunk (chunked mode) or advance one prefix-hit tail
         through the chunk program (bucketed mode), and dispatch ONE fused
         program over every decode slot and the chunk.  Unfused: one chunk
-        program, then one decode program.  Returns the requests that
-        finished this iteration (and those an `abort` harvest finished)."""
+        program, then one decode program.  Under optimistic admission the
+        running slots grow their pages just before the dispatch, preempting
+        victims where the pool runs short; swapped victims' host copies are
+        waited for after it.  Deadlines expire right after the harvest.
+        Returns the requests that finished this iteration (and those an
+        `abort` harvest finished)."""
         finished: List[RequestOutput] = self._orphan_finished
         self._orphan_finished = []
         self._harvest(finished)         # step n-1's tokens land first
+        if self._has_deadlines:
+            # bookkeeping is exact here: nothing is in flight
+            self._expire_deadlines(finished)
         self._admit(finished)
         if self.fused:
             if self.chunked:
@@ -510,39 +622,72 @@ class LLMEngine:
             self._prefill_tick(finished)
             if self._running:
                 self._decode_iter(finished)
+        if self._pending_d2h:
+            # the swapped victims' host copies, behind the step's dispatch
+            self._drain_swap_d2h()
         self._c["engine_steps"] += 1
         return finished
 
     def _admit(self, finished: List[RequestOutput]) -> None:
-        """Reservation admission: a request enters a free slot once the pool
-        holds its whole prompt + max_new_tokens footprint, less the pages
-        the prefix cache shares.  A hit copies its matched partial page
-        (COW) and goes to the prefill queue with its matched tokens filled;
-        a miss in bucketed mode is prefilled at once by its bucket's
-        program."""
+        """Admit queued requests into free slots, head first.  A swapped
+        victim resumes by one scatter (`_swap_in`).  Otherwise the prompt
+        (for a recompute resume: prompt + banked generation) is matched
+        against the prefix cache in the call that reserves its pages:
+        reservation admission reserves prompt + max_new_tokens, optimistic
+        the prompt alone, and holds a fresh request back while anything is
+        active and the free pages would fall below the watermark.  A hit
+        copies its matched partial page (COW) and goes to the prefill queue
+        with its matched tokens filled; a miss in bucketed mode is
+        prefilled at once by its bucket's program."""
         mgr = self.cache
         while self._queue and self._free_slots:
             req = self._queue[0]
+            rid = req.request_id
             slot = self._free_slots[-1]
-            prompt = req.prompt
+            rec = self._preempted.get(rid)
+            if rec is not None and rec["kind"] == "swap":
+                if self._swap_in(req, rec, slot):
+                    self._queue.popleft()
+                    self._free_slots.pop()
+                    continue
+                if rec["kind"] == "swap":
+                    break               # no pages yet: wait at the head
+                continue                # degraded to recompute: retry now
+            prior = list(rec["generated"]) if rec is not None else None
+            prompt = np.concatenate(
+                [req.prompt, np.asarray(prior, np.int32)]) if prior \
+                else req.prompt
             lp = prompt.size
+            remaining = req.max_new_tokens - len(prior or ())
+            total = lp if self.optimistic else lp + remaining
+            if self.optimistic and rec is None and \
+                    (self._running or self._prefilling) and \
+                    mgr.pages_needed(lp) + self._watermark > \
+                    mgr.num_free_pages + mgr.num_evictable_pages:
+                break       # keep headroom for the running slots' growth
             try:
                 # the prefix match and the reservation in one call (a failed
                 # attempt rolls its sharing back)
                 row, matched, cow = mgr.allocate_prefixed(
-                    slot, lp + req.max_new_tokens,
-                    prompt if self.prefix_cache else None)
+                    slot, total, prompt if self.prefix_cache else None)
             except RuntimeError:        # out of KV pages
                 if not self._running and not self._prefilling and \
                         mgr.pages_in_use() == 0:
                     raise ValueError(
-                        f"request {req.request_id} needs "
-                        f"{mgr.pages_needed(lp + req.max_new_tokens)} pages "
-                        f"but the pool only has {mgr.num_pages - 1}")
+                        f"request {rid} needs {mgr.pages_needed(total)} "
+                        f"pages but the pool only has {mgr.num_pages - 1}")
                 break                   # wait for pages to free up
             self._queue.popleft()
             self._free_slots.pop()
             self._c["admitted_requests"] += 1
+            resume = {}
+            cached = matched
+            if rec is not None:
+                del self._preempted[rid]
+                self._c["recomputed_tokens"] += lp - matched
+                cached = rec["cached_tokens"]
+                resume = dict(prior=prior, ttft=rec["ttft"],
+                              spec_off=rec["spec_off"], streak=rec["streak"])
             if cow is not None:
                 # the matched partial page is shared: copy it into the
                 # slot's own page before anything is appended to it
@@ -555,7 +700,7 @@ class LLMEngine:
                 self._c["prefix_hit_requests"] += 1
             if self.chunked or matched:
                 self._prefilling[slot] = _Prefilling(req, slot, matched,
-                                                     matched)
+                                                     cached, prompt, **resume)
                 continue
             # one-shot bucketed prefill, synchronous at admission
             bucket = self._bucket_for(lp)
@@ -570,7 +715,8 @@ class LLMEngine:
             if self.prefix_cache:
                 mgr.register_prefix(slot, prompt, lp)
             first = int(prog.result()[0])       # waits for the result
-            self._start_decoding(req, slot, first, 0, finished)
+            self._start_decoding(req, slot, first, cached, finished,
+                                 prompt_len=lp, **resume)
 
     def _prefill_tick(self, finished: List[RequestOutput]) -> None:
         """Advance the oldest mid-prefill prompt by ONE chunk through the
@@ -582,10 +728,10 @@ class LLMEngine:
             return
         slot, st = next(iter(self._prefilling.items()))
         req = st.request
-        lp, C = req.prompt.size, self._chunk
+        lp, C = st.prompt.size, self._chunk
         n = min(C, lp - st.filled)
         ids = np.zeros((1, C), np.int32)
-        ids[0, :n] = req.prompt[st.filled:st.filled + n]
+        ids[0, :n] = st.prompt[st.filled:st.filled + n]
         # every chunk picks (and draws noise), as the reference's chunk
         # program does; only the last chunk's token is used
         prog = self._dispatch(
@@ -596,19 +742,24 @@ class LLMEngine:
         self._c["prefilled_tokens"] += n
         st.filled += n
         if self.prefix_cache:
-            self.cache.register_prefix(slot, req.prompt, st.filled)
+            self.cache.register_prefix(slot, st.prompt, st.filled)
         if st.filled == lp:
             del self._prefilling[slot]
             self._start_decoding(req, slot, int(prog.result()[0]),
-                                 st.cached_tokens, finished)
+                                 st.cached_tokens, finished,
+                                 **st.resume_state())
 
     def _decode_iter(self, finished: List[RequestOutput]) -> None:
         """Unfused decode iteration: when any greedy slot has a draft, the
         greedy slots ride the verify program (undrafted ones at valid=1)
         and the sampled slots the decode program in the same iteration;
         otherwise every running slot rides one `decode_step_paged`
-        dispatch."""
+        dispatch.  Growth (optimistic admission) runs first and may preempt
+        slots, whose drafts go with them."""
         drafts = self._propose_drafts() if self.spec_len else {}
+        self._grow_running(drafts)
+        if not self._running:
+            return                      # every slot was preempted
         self._c["decode_iterations"] += 1
         if drafts:
             self._verify_iter(drafts, finished)
@@ -726,7 +877,7 @@ class LLMEngine:
         if not self._prefilling:
             return None
         slot, st = next(iter(self._prefilling.items()))
-        lp = st.request.prompt.size
+        lp = st.prompt.size
         n = min(self.prefill_chunk, lp - st.filled)
         job = {"slot": slot, "n": n, "q_offset": st.filled, "st": st,
                "done": st.filled + n == lp}
@@ -734,7 +885,7 @@ class LLMEngine:
         self._c["prefill_chunks"] += 1
         self._c["prefilled_tokens"] += n
         if self.prefix_cache:
-            self.cache.register_prefix(slot, st.request.prompt, st.filled)
+            self.cache.register_prefix(slot, st.prompt, st.filled)
         if job["done"]:
             del self._prefilling[slot]
         return job
@@ -744,11 +895,16 @@ class LLMEngine:
         """Build and dispatch the fused program: running slots decode at
         valid=1, drafted (greedy) slots at valid=1+draft with the draft in
         tokens[slot, 1:], the staged chunk at valid=chunk tokens, every
-        other slot gets a null table row (its KV goes to the null page)."""
+        other slot gets a null table row (its KV goes to the null page).
+        Growth (optimistic admission) runs before the batch is built and may
+        preempt slots, whose drafts go with them."""
         mgr = self.cache
         B, T = mgr.num_slots, self._fused_T
         drafts = self._propose_drafts() \
             if self.spec_len and self._running else {}
+        self._grow_running(drafts)
+        if not self._running and chunk_job is None:
+            return                      # every slot was preempted
         if self._running:
             self._c["decode_iterations"] += 1
         tokens = np.zeros((B, T), np.int32)
@@ -772,7 +928,7 @@ class LLMEngine:
             elif slot == chunk_slot:
                 st, n, q0 = chunk_job["st"], chunk_job["n"], \
                     chunk_job["q_offset"]
-                tokens[slot, :n] = st.request.prompt[q0:q0 + n]
+                tokens[slot, :n] = st.prompt[q0:q0 + n]
                 valid[slot] = n
                 qoff[slot] = q0
                 greedy[slot] = self._req_greedy(st.request)
@@ -820,7 +976,8 @@ class LLMEngine:
             st = cj["st"]
             self._start_decoding(st.request, cj["slot"],
                                  int(out[cj["slot"], cj["n"] - 1]),
-                                 st.cached_tokens, finished)
+                                 st.cached_tokens, finished,
+                                 **st.resume_state())
 
     def _emit_slot(self, seq: _Running, slot: int, emitted: List[int],
                    finished: List[RequestOutput], nd: int = 0,
@@ -856,12 +1013,24 @@ class LLMEngine:
         return self._maybe_finish(seq, finished)
 
     def _start_decoding(self, req: Request, slot: int, first: int,
-                        cached: int, finished: List[RequestOutput]) -> None:
-        """Prompt fully in pages + first token picked: join the decode
-        set."""
-        self.cache.lengths[slot] = req.prompt.size
-        seq = _Running(req, slot, [first], cached,
-                       self._now() - req.t_enqueue, self._req_greedy(req))
+                        cached: int, finished: List[RequestOutput],
+                        prompt_len: Optional[int] = None,
+                        prior: Optional[List[int]] = None,
+                        ttft: Optional[float] = None,
+                        spec_off: bool = False, streak: int = 0) -> None:
+        """Prompt fully in pages + first token picked: join the decode set.
+        A recompute resume passes its effective prompt length and `prior`
+        tokens, which `first` continues; its TTFT and back-off state carry
+        over from before the preemption."""
+        self.cache.lengths[slot] = \
+            req.prompt.size if prompt_len is None else prompt_len
+        if prior:
+            generated = list(prior) + [first]
+        else:
+            generated = [first]
+            ttft = self._now() - req.t_enqueue
+        seq = _Running(req, slot, generated, cached, ttft,
+                       self._req_greedy(req), streak, spec_off)
         if not self._maybe_finish(seq, finished):
             self._running[slot] = seq
 
@@ -893,28 +1062,268 @@ class LLMEngine:
                                             seq.ttft_s))
         return True
 
+    # ---- oversubscription: growth, preemption, swap, deadlines ------------
+    def _grow_running(self, drafts: Dict[int, np.ndarray]) -> None:
+        """Optimistic admission's pre-dispatch pass: every running slot must
+        own pages for the positions this dispatch writes (its last token's
+        KV at `lengths`, and one a drafted token).  A failed growth preempts
+        victims until it fits, the growing slot among them.  Runs after the
+        step-top harvest, so no fused step is in flight while pages move.
+        `drafts` loses the slots that were preempted.  Reservation admission
+        has every footprint reserved already."""
+        if not self.optimistic or not self._running:
+            return
+        forced = self._faults.pool_pressure(self._c["engine_steps"])
+        for slot in list(self._running):
+            while slot in self._running:
+                d = drafts.get(slot)
+                need = int(self.cache.lengths[slot]) + 1 + \
+                    (d.size if d is not None else 0)
+                try:
+                    if forced:
+                        forced = False
+                        raise RuntimeError("fault-injected pool pressure")
+                    self.cache.grow(slot, need)
+                    break
+                except RuntimeError:
+                    # the growing slot is a candidate too; alone it always
+                    # fits (intake rejects a footprint past the pool)
+                    self._preempt_slot(self._pick_victim())
+        for slot in list(drafts):
+            if slot not in self._running:
+                del drafts[slot]
+
+    def _pick_victim(self) -> int:
+        """The next victim among the running slots: lowest priority, then
+        most pages held, least progress, youngest."""
+        return min(
+            self._running.items(),
+            key=lambda kv: (kv[1].request.priority,
+                            -self.cache.pages_held(kv[0]),
+                            len(kv[1].generated) /
+                            kv[1].request.max_new_tokens,
+                            -kv[1].request.request_id))[0]
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Evict one running slot: bank its generation, park its KV in the
+        host pool (swap mode, room permitting) or leave it to recompute,
+        release its pages and re-queue it at the head."""
+        seq = self._running.pop(slot)
+        req = seq.request
+        rid = req.request_id
+        mgr = self.cache
+        self._c["preemptions"] += 1
+        rec: Dict[str, object] = {
+            "rid": rid, "kind": "recompute",
+            "generated": list(seq.generated),
+            "cached_tokens": seq.cached_tokens, "ttft": seq.ttft_s,
+            "spec_off": seq.spec_off, "streak": seq.spec_zero_streak,
+        }
+        L = int(mgr.lengths[slot])
+        n = mgr.pages_needed(L)
+        if self.preempt == "swap" and \
+                n <= mgr.host_pool_room(self.swap_pool_pages):
+            # gather the pages now, before they go to a new owner; the wait
+            # for their host copy comes after the step's dispatch.  The swap
+            # counters move only once the copy has landed
+            rec.update(kind="swap", L=L, n=n,
+                       **self._swap_out(mgr.slot_pages(slot)[:n]))
+            mgr.note_swap_out(rid, n)
+            self._pending_d2h.append(rec)
+        else:
+            self._c["preempt_recomputes"] += 1
+        self._preempted[rid] = rec
+        mgr.release(slot)
+        self._free_slots.append(slot)
+        self._queue.appendleft(req)
+
+    def _swap_out(self, pages: List[int]) -> Dict[str, object]:
+        """One "swap_out" replay over `pages` (padded with the null page),
+        then the copy of their real rows into pinned host buffers of this
+        victim's own, queued on the same stream right after the replay (the
+        next replay overwrites the program's output), and an event behind
+        it.  Returns the record's "data", "event" and "fetched"."""
+        mgr = self.cache
+        n = len(pages)
+        ids = np.zeros((mgr.max_pages_per_slot,), np.int32)
+        ids[:n] = pages
+        out = self._dispatch("swap_out", ids=ids).out
+        self._c["swap_out_dispatches"] += 1
+        pin = self.device.type == "cuda"
+        data = {}
+        for name, a in out.items():
+            host = torch.empty((a.shape[0], n) + tuple(a.shape[2:]),
+                               dtype=a.dtype, pin_memory=pin)
+            host.copy_(a[:, :n], non_blocking=True)
+            data[name] = host
+        event = None
+        if pin:
+            event = torch.cuda.Event()
+            event.record()
+        return {"data": data, "event": event, "fetched": False}
+
+    def _materialize_swap(self, rec: Dict[str, object]) -> None:
+        """Wait for a swap record's host copy (idempotent; on its event, not
+        a stream sync) and count it delivered.  Raises FaultInjected under
+        an injected d2h failure: the caller degrades it to recompute."""
+        if rec["fetched"]:
+            return
+        self._faults.d2h()
+        t0 = self._now()
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        self._c["swap_ms"] += (self._now() - t0) * 1e3
+        rec["fetched"] = True
+        self._c["swapped_pages"] += rec["n"]
+        self._c["preempt_swaps"] += 1
+
+    def _degrade_to_recompute(self, rec: Dict[str, object]) -> None:
+        """A swap whose copy failed becomes a recompute: the parked KV and
+        its host-pool obligation go, the banked generation stays."""
+        rec["kind"] = "recompute"
+        rec.pop("data", None)
+        rec.pop("event", None)
+        self.cache.note_swap_in(rec["rid"])
+        self._c["preempt_recomputes"] += 1
+
+    def _drain_swap_d2h(self) -> None:
+        """Wait for the host copies of the step's swap-outs, after its
+        dispatch, so they overlap the device's work."""
+        while self._pending_d2h:
+            rec = self._pending_d2h.pop()
+            if rec["kind"] != "swap" or rec["fetched"]:
+                continue            # consumed, degraded or dropped already
+            try:
+                self._materialize_swap(rec)
+            except FaultInjected:
+                self._degrade_to_recompute(rec)
+
+    def _drop_preempted(self, rid: int) -> Optional[Dict[str, object]]:
+        """Remove a resume record on abort or timeout, clearing its host
+        swap-pool obligation; returns it (its banked generation feeds the
+        output) or None."""
+        rec = self._preempted.pop(rid, None)
+        if rec is None:
+            return None
+        if rec["kind"] == "swap":
+            self.cache.note_swap_in(rid)
+            rec["kind"] = "dropped"     # _drain_swap_d2h skips it
+        return rec
+
+    def _swap_in(self, req: Request, rec: Dict[str, object],
+                 slot: int) -> bool:
+        """Restore a swapped victim into `slot`: fresh pages for its parked
+        footprint, its KV staged from its pinned buffers into the "swap_in"
+        program and scattered in one replay (every leaf, an int8 pool's
+        scales too); it rejoins the decode set with no prefill replay.
+        False when it must wait for pages, or was degraded to recompute
+        (the caller looks at the record again)."""
+        rid = req.request_id
+        mgr = self.cache
+        try:
+            self._materialize_swap(rec)
+        except FaultInjected:
+            self._degrade_to_recompute(rec)
+            return False
+        try:
+            mgr.allocate(slot, rec["L"])
+        except RuntimeError:            # no pages yet: stay queued
+            return False
+        try:
+            self._faults.h2d()
+        except FaultInjected:
+            mgr.release(slot)
+            self._degrade_to_recompute(rec)
+            return False
+        n = rec["n"]
+        ids = np.zeros((mgr.max_pages_per_slot,), np.int32)
+        ids[:n] = mgr.slot_pages(slot)[:n]
+        t0 = self._now()
+        self._dispatch("swap_in", ids=ids, **rec["data"])
+        self._c["swap_in_dispatches"] += 1
+        self._c["swap_ms"] += (self._now() - t0) * 1e3
+        mgr.note_swap_in(rid)
+        del self._preempted[rid]
+        mgr.lengths[slot] = rec["L"]
+        self._running[slot] = _Running(
+            req, slot, list(rec["generated"]), rec["cached_tokens"],
+            rec["ttft"], self._req_greedy(req), rec["streak"],
+            rec["spec_off"])
+        return True
+
+    def _expire_deadlines(self, finished: List[RequestOutput]) -> None:
+        """Retire every request past its deadline, wherever it is (queued
+        or swapped, prefilling, decoding), as "timeout", with the tokens it
+        had produced.  Runs right after the step-top harvest; injected
+        clock skew shifts only this reading.  Re-derives `_has_deadlines`,
+        so the scan stops once no deadline is live."""
+        now = self._now() + self._faults.skew()
+        live = False
+        for i in range(len(self._queue) - 1, -1, -1):
+            req = self._queue[i]
+            if req.deadline is not None and now >= req.deadline:
+                del self._queue[i]
+                rec = self._drop_preempted(req.request_id)
+                finished.append(self._finish_output(
+                    req, list(rec["generated"]) if rec is not None else [],
+                    "timeout", rec["cached_tokens"] if rec is not None else 0,
+                    rec["ttft"] if rec is not None else None))
+            elif req.deadline is not None:
+                live = True
+        for slot, st in list(self._prefilling.items()):
+            req = st.request
+            if req.deadline is not None and now >= req.deadline:
+                del self._prefilling[slot]
+                self.cache.release(slot)
+                self._free_slots.append(slot)
+                finished.append(self._finish_output(
+                    req, list(st.prior or []), "timeout", st.cached_tokens,
+                    st.ttft))
+            elif req.deadline is not None:
+                live = True
+        for slot, seq in list(self._running.items()):
+            req = seq.request
+            if req.deadline is not None and now >= req.deadline:
+                del self._running[slot]
+                self.cache.release(slot)
+                self._free_slots.append(slot)
+                finished.append(self._finish_output(
+                    req, seq.generated, "timeout", seq.cached_tokens,
+                    seq.ttft_s))
+            elif req.deadline is not None:
+                live = True
+        self._has_deadlines = live
+
     def abort(self, request_id: int) -> bool:
-        """Cancel a queued, mid-prefill or running request and release its
-        pages at once (shared prefix pages are only dereferenced).  The
-        request lands in the outputs with finish_reason "abort" and the
-        tokens it had produced.  Returns False when the id is unknown or
-        already finished.  Under double buffering the in-flight fused step
-        is harvested first, so the abort sees exact bookkeeping; requests
-        that harvest finishes are returned by the next step()."""
+        """Cancel a queued (preempted ones too), mid-prefill or running
+        request and release its pages, or its host swap-pool obligation, at
+        once (shared prefix pages are only dereferenced).  The request lands
+        in the outputs with finish_reason "abort" and the tokens it had
+        produced (a preempted request's banked generation too).  Returns
+        False when the id is unknown or already finished.  Under double
+        buffering the in-flight fused step is harvested first, so the abort
+        sees exact bookkeeping; requests that harvest finishes are returned
+        by the next step()."""
         if self._inflight is not None:
             self._harvest(self._orphan_finished)
         for i, req in enumerate(self._queue):
             if req.request_id == request_id:
                 del self._queue[i]      # by index: prompts have no __eq__
-                self._finish_output(req, [], "abort", 0, None)
+                rec = self._drop_preempted(request_id)
+                if rec is not None:
+                    self._finish_output(req, list(rec["generated"]), "abort",
+                                        rec["cached_tokens"], rec["ttft"])
+                else:
+                    self._finish_output(req, [], "abort", 0, None)
                 return True
         for slot, st in list(self._prefilling.items()):
             if st.request.request_id == request_id:
                 del self._prefilling[slot]
                 self.cache.release(slot)
                 self._free_slots.append(slot)
-                self._finish_output(st.request, [], "abort",
-                                    st.cached_tokens, None)
+                # a recompute resume mid-replay keeps its banked generation
+                self._finish_output(st.request, list(st.prior or []),
+                                    "abort", st.cached_tokens, st.ttft)
                 return True
         for slot, seq in list(self._running.items()):
             if seq.request.request_id == request_id:
@@ -962,9 +1371,11 @@ class LLMEngine:
         bucket's one-shot program and the chunk program where it is
         standalone (unfused, or the prefix-hit tails of fused bucketed
         mode); copy counts the COW copy; verify the unfused verify program
-        (fused, drafts ride the one fused program).  Swap programs belong to
-        a later slice (0).  `accepted_per_step` is the reference's: tokens
-        emitted per verify event that carried a draft."""
+        (fused, drafts ride the one fused program); swap the gather and the
+        scatter of preemption swaps.  `accepted_per_step` is the
+        reference's: tokens emitted per verify event that carried a draft.
+        The overload keys are the reference's (`swap_ms`: host ms waiting
+        for swap-out copies and staging swap-ins)."""
         built = {r for r, p in self._programs.items() if p.built}
         cached, computed = self._c["prefix_cached_tokens"], \
             self._c["prefilled_tokens"]
@@ -977,7 +1388,8 @@ class LLMEngine:
             "prefill_executables": sum(r.startswith("prefill:")
                                        for r in built) + int("chunk" in built),
             "copy_executables": int("copy" in built),
-            "swap_executables": 0,
+            "swap_executables": int("swap_out" in built) +
+                                int("swap_in" in built),
             "graph_replays": sum(p.replays for p in self._programs.values()),
             "buckets": list(self.buckets),
             "prefill_chunk": self.prefill_chunk,
@@ -997,12 +1409,28 @@ class LLMEngine:
             "queued": len(self._queue),
             "prefilling": len(self._prefilling),
             "running": len(self._running),
+            "admission": self.admission,
+            "preempt": self.preempt,
+            "swapped": self.cache.swapped_requests,
+            "kv_pages_swapped": self.cache.swapped_page_count,
+            "kv_pool_pressure": round(self.cache.pool_pressure(), 4),
             # the quantization knobs (None: full precision) and the pool's
             # at-rest bytes the capacity math is about
             "weight_dtype": self.weight_dtype,
             "kv_dtype": self.kv_dtype,
             "kv_pool_bytes": self.kv_pool_bytes(),
         }
+
+    def host_pool_bytes(self) -> int:
+        """Worst-case host memory of the swap pool: `swap_pool_pages` times
+        one page's bytes across all layers and leaves (an int8 pool parks
+        int8 pages and their scales)."""
+        return self.swap_pool_pages * kv_page_bytes(
+            self.config, self.cache.page_size, self.kv_dtype)
+
+    def swap_pool_bytes(self) -> int:
+        """The reference's older name for `host_pool_bytes`."""
+        return self.host_pool_bytes()
 
     def kv_pool_bytes(self) -> int:
         """At-rest bytes of the device KV pool, every leaf (the scale lanes
@@ -1075,6 +1503,17 @@ def _copy_body(params, config, pool, sampling, src, dst):
         leaf.index_copy_(1, dst, leaf.index_select(1, src))
 
 
+def _swap_out_body(params, config, pool, sampling, ids):
+    """The victim's pages, every leaf, [L, max_pages, ...] each."""
+    return gpt_mod.swap_out_pages(pool, ids)
+
+
+def _swap_in_body(params, config, pool, sampling, ids, **data):
+    """The parked pages back into the pool, every leaf, in place."""
+    gpt_mod.swap_in_pages(pool, ids, data)
+
+
 _BODIES = {"fused": _fused_body, "decode": _decode_body,
            "verify": _verify_body, "chunk": _chunk_body,
-           "prefill": _prefill_body, "copy": _copy_body}
+           "prefill": _prefill_body, "copy": _copy_body,
+           "swap_out": _swap_out_body, "swap_in": _swap_in_body}

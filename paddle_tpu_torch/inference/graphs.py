@@ -28,7 +28,12 @@ stream waits for it before the program's first run.  `mempool` (a
 `torch.cuda.graph_pool_handle()`) lets programs that never run at once
 share one graph memory pool; a program's output is copied to the host
 right after its replay, before another program of the pool runs.  A body
-that returns None (the COW copy) has no output to fetch.
+that returns None (the COW copy) has no output to fetch, nor does one
+built with `fetch=False` (the swap gather, whose output is a dict of pool
+leaves the engine copies to the host itself, one pinned buffer a victim).
+A `device_fed` input may be staged from a smaller tensor, which fills its
+leading corner (the swap scatter's pages, from a victim's pinned host
+buffer of its real pages).
 
 The kernel wrappers count launches in Python, so each replay adds the counts
 its capture made (`incubate.kernels.add_counts`), and the build takes back
@@ -67,11 +72,13 @@ class StepProgram:
     def __init__(self, name: str, body: Callable[..., torch.Tensor],
                  inputs: Dict[str, Tuple[tuple, torch.dtype, object]],
                  device: torch.device, capture: bool = True,
-                 device_fed: Tuple[str, ...] = (), mempool=None):
+                 device_fed: Tuple[str, ...] = (), mempool=None,
+                 fetch: bool = True):
         self.name = name
         self.device = device
         self.capture = capture and device.type == "cuda"
         self.mempool = mempool
+        self.fetch = fetch
         self._body = body
         self._inert = {n: v for n, (_, _, v) in inputs.items()}
         self.inputs = {n: torch.empty(shape, dtype=dtype, device=device)
@@ -120,7 +127,7 @@ class StepProgram:
         else:
             self.out = self._body(**self.inputs)
         K.add_counts({k: before[k] - n for k, n in K.counts().items()})
-        if self.out is not None:
+        if self.out is not None and self.fetch:
             self._host_out = torch.empty(
                 self.out.shape, dtype=self.out.dtype,
                 pin_memory=self.device.type == "cuda")
@@ -128,7 +135,8 @@ class StepProgram:
 
     def stage(self, **values) -> None:
         """Write every input for the next `run`: numpy-like values through
-        the host staging buffers, the `device_fed` ones by a device copy."""
+        the host staging buffers, the `device_fed` ones by a copy into the
+        buffer's leading corner of the value's shape."""
         if set(values) != set(self.inputs):
             raise ValueError(f"{self.name}: stage every input "
                              f"{sorted(self.inputs)}, got {sorted(values)}")
@@ -138,7 +146,10 @@ class StepProgram:
             self._staged.synchronize()
         for n, v in values.items():
             if n not in self._host:
-                self.inputs[n].copy_(v)
+                dst = self.inputs[n]
+                if tuple(v.shape) != tuple(dst.shape):
+                    dst = dst[tuple(slice(0, k) for k in v.shape)]
+                dst.copy_(v, non_blocking=True)
                 continue
             self._host_np[n][...] = v
             self.inputs[n].copy_(self._host[n], non_blocking=True)
@@ -150,7 +161,7 @@ class StepProgram:
         """One step over the staged inputs: a graph replay on the card (or
         the eager body), then the output's copy to the host is queued.
         Returns the device output (overwritten by the next run), or
-        None."""
+        None.  Without `fetch`, no copy is queued."""
         if not self._fresh:
             raise RuntimeError(f"{self.name}: stage the inputs before each "
                                f"run")
@@ -161,8 +172,8 @@ class StepProgram:
             K.add_counts(self._delta)
         else:
             self.out = self._body(**self.inputs)
-        if self.out is None:
-            return None
+        if self._host_out is None:
+            return self.out
         self._host_out.copy_(self.out, non_blocking=True)
         if self._fetched is not None:
             self._fetched.record()

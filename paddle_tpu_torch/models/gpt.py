@@ -829,3 +829,27 @@ def serve_step_paged(params, tokens, cache, page_table, q_offset, valid,
         (torch.arange(T - 1, device=tokens.device)[None, :] < last[:, None])
     accept = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
     return out, accept.to(torch.int32), cache
+
+
+def swap_out_pages(cache, page_ids):
+    """Preemption swap-out gather: the victim's pages copied out of the pool
+    into a standalone buffer the host fetches later, so the pool pages can
+    go to a new owner at once.  cache: every leaf [L, P, page, ...] (k and
+    v, and the scale lanes [L, P, page, KVH] of an int8 pool); page_ids
+    [max_pages] int32, the victim's pages padded with the null page 0, so
+    one fixed-shape program serves every victim (the host drops the padding
+    rows).  Returns {leaf: [L, max_pages, page, ...]}."""
+    ids = page_ids.long()
+    return {n: a.index_select(1, ids) for n, a in cache.items()}
+
+
+def swap_in_pages(cache, page_ids, data):
+    """Preemption swap-in scatter: restore a swapped victim's KV into its
+    freshly allocated pages, in place, every leaf in one call (an int8
+    pool's scale lanes with its pages).  page_ids is padded with the null
+    page 0 as in `swap_out_pages`: the padding rows land on page 0, which
+    inactive slots write anyway and nothing reads.  Returns the cache."""
+    ids = page_ids.long()
+    for n, a in cache.items():
+        a.index_copy_(1, ids, data[n])
+    return cache

@@ -1438,3 +1438,49 @@ def test_paged_kernel_at_the_prefix_tail_shape(dev, dtype, int8):
     torch.testing.assert_close(got[0, :valid].float(),
                                ref[0, :valid].float(), **tol)
     assert not got[0, valid:].any()
+
+
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["bf16", "int8"])
+def test_double_swap_preemption_on_card_keeps_the_stream(dev, kv, fuse):
+    """Two swap victims in one growth pass (the schedule of
+    `test_torch_overload.py::test_double_swap_preemption_in_one_step` on
+    the small llama, bf16, page 8): each victim's pages are gathered by
+    the "swap_out" graph and copied into a pinned buffer of its own right
+    after that replay, so the second replay cannot overwrite the first
+    victim's pages before its copy lands; both resume through the
+    "swap_in" graph (an int8 pool's scale lanes in the same scatter).  The
+    streams equal the undisturbed engine's bitwise, and the replays equal
+    the dispatches."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    cfg = _small_llama(torch.bfloat16)
+    params = _card_params(cfg, dev)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (8, 8, 16, 16)]
+    geo = dict(num_slots=4, page_size=8, max_model_len=64, fuse=fuse,
+               kv_dtype=kv, device=dev)
+    base = LLMEngine(params, cfg, **geo)
+    for p in prompts:
+        base.add_request(p, max_new_tokens=12)
+    want = {r: o.token_ids for r, o in base.run().items()}
+    eng = LLMEngine(params, cfg, num_pages=8, admission="optimistic",
+                    preempt="swap", **geo)
+    for i, p in enumerate(prompts):
+        eng.add_request(p, max_new_tokens=12, priority=-1 if i < 2 else 0)
+    doubles = 0
+    while eng.has_work:
+        pre = eng.stats()["preemptions"]
+        eng.step()
+        eng.cache.check_invariants()
+        doubles += eng.stats()["preemptions"] - pre >= 2
+    st = eng.stats()
+    assert doubles >= 1 and st["preempt_swaps"] == st["preemptions"] >= 2
+    assert st["swap_executables"] == 2
+    assert all(eng._programs[r].graph is not None
+               for r in ("swap_out", "swap_in"))
+    assert st["graph_replays"] == sum(
+        st[k] for k in ("fused_dispatches", "decode_dispatches",
+                        "chunk_dispatches", "prefill_dispatches",
+                        "swap_out_dispatches", "swap_in_dispatches"))
+    assert {r: o.token_ids for r, o in eng.outputs.items()} == want

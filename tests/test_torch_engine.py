@@ -21,6 +21,7 @@ from paddle_tpu.inference.engine import LLMEngine as JaxEngine
 from paddle_tpu.models import gpt as G
 from paddle_tpu_torch.inference.cache import PagedKVCache
 from paddle_tpu_torch.inference.engine import LLMEngine
+from paddle_tpu_torch.inference.faults import FaultPlan
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
 
@@ -168,8 +169,11 @@ def test_add_request_validation(reference):
         eng.add_request([1, 2], temperature=0.5)
     with pytest.raises(ValueError, match="max_model_len"):
         eng.add_request(np.ones(60, np.int32), max_new_tokens=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.add_request([1, 2], deadline_s=1.0)
+    with pytest.raises(ValueError, match="deadline_s"):
+        eng.add_request([1, 2], deadline_s=0.0)
+    # a deadline is taken (test_torch_overload.py serves them)
+    rid = eng.add_request([1, 2], deadline_s=1.0)
+    assert eng._queue[-1].deadline is not None and eng.abort(rid)
     # 40 tokens need 5 pages; the pool has 4 real ones: rejected at intake
     rid = eng.add_request(np.ones(30, np.int32), max_new_tokens=10)
     assert eng.outputs[rid].finish_reason == "rejected"
@@ -179,8 +183,8 @@ def test_add_request_validation(reference):
 @pytest.mark.parametrize("knob", [
     dict(spec_len=2), dict(fuse=False, spec_len=2),
     dict(admission="optimistic"), dict(preempt="swap"),
-    dict(fault_plan=object()), dict(kv_tier=True), dict(spill_dir="x"),
-    dict(page_store=object()), dict(role="prefill"),
+    dict(fault_plan=FaultPlan(pressure_steps=(1,))), dict(kv_tier=True),
+    dict(spill_dir="x"), dict(page_store=object()), dict(role="prefill"),
     dict(mesh=object()),
     dict(mp=2), dict(request_tracing=True), dict(clock=lambda: 0.0),
 ], ids=lambda d: next(iter(d)))
@@ -192,6 +196,18 @@ def test_later_slice_knobs_raise(reference, knob):
         eng = LLMEngine(tparams, tcfg, device="cpu", **GEOMETRY, **knob)
         assert eng.stats()["spec_len"] == knob["spec_len"]
         assert eng.fused == knob.get("fuse", True)
+        return
+    if set(knob) & {"admission", "preempt", "fault_plan", "clock"}:
+        # optimistic admission and preemption have landed
+        # (test_torch_overload.py): the knob is taken
+        eng = LLMEngine(tparams, tcfg, device="cpu", **GEOMETRY, **knob)
+        st = eng.stats()
+        assert st["admission"] == knob.get("admission", "reservation")
+        assert st["preempt"] == knob.get("preempt", "recompute")
+        if "fault_plan" in knob:
+            assert eng._faults is knob["fault_plan"]
+        if "clock" in knob:
+            assert eng._now is knob["clock"]
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         LLMEngine(tparams, tcfg, device="cpu", **GEOMETRY, **knob)

@@ -27,11 +27,18 @@ reference, on the CPU.
   quantization keys equal the reference's, program counts the fp
   engine's; the fp default is byte-identical to the explicit fp knobs;
   int8 and fp engines agree on at least AGREEMENT_BAR of greedy tokens,
-  the reference's bar.
+  the reference's bar (in its "preempt" mode too: optimistic admission
+  over a short pool).
+- Preemption over int8 pools (the reference's
+  `test_quantized_preempt_parity_and_no_leaks`): recompute and swap (all
+  four leaves, the scale lanes too) give the undisturbed int8 stream
+  exactly, the reference int8 engine's counters, and its streams under the
+  near-tie rule.
 - The reference's six engine keywords the port had lacked: each at its
-  default builds; `draft_proposer` and `spec_backoff_window` take another
-  value (the proposer is called, the window honoured), any other keyword's
-  other value raises `NotImplementedError` naming its ROADMAP item.
+  default builds; `draft_proposer`, `spec_backoff_window` and
+  `swap_pool_pages` take another value (the proposer is called, the window
+  honoured, the host pool bounded), any other keyword's other value raises
+  `NotImplementedError` naming its ROADMAP item.
 """
 import warnings
 
@@ -527,7 +534,9 @@ def test_fp_default_is_byte_identical_to_explicit_fp_knobs(quant_models):
 TOP1_MODES = {   # the reference's MODES that the port serves
     "bucketed": dict(prefill_chunk=None, prefix_cache=False),
     "chunked": dict(prefill_chunk=8, prefix_cache=False),
-    "chunked_spec_prefix": dict(num_slots=4, prefill_chunk=8, spec_len=2)}
+    "chunked_spec_prefix": dict(num_slots=4, prefill_chunk=8, spec_len=2),
+    "preempt": dict(num_slots=6, num_pages=9, prefill_chunk=8,
+                    admission="optimistic", preempt="recompute")}
 
 
 @pytest.mark.parametrize("mode", list(TOP1_MODES))
@@ -535,10 +544,13 @@ def test_int8_engine_top1_agreement_with_fp(quant_models, mode):
     """The reference's bar (`test_quantized_serving.py`): greedy top-1
     agreement of the int8 engine with the fp engine, and every request
     decodes its whole budget; `chunked_spec_prefix` drafts (spec_len 2)
-    with the prefix cache on, as the reference's mode of that name."""
-    _, cfg, params, _, tcfg, _ = quant_models
+    with the prefix cache on, `preempt` preempts (optimistic admission,
+    8 real pages), as the reference's modes of those names."""
+    name, cfg, params, _, tcfg, _ = quant_models
     tparams = params_from_numpy(_np(params), tcfg, "cpu")
-    reqs = _requests(cfg.vocab_size)
+    # the preempt mode on the reference's traffic for it, which preempts
+    reqs = [(p, 12) for p in _preempt_prompts(cfg.vocab_size)] \
+        if mode == "preempt" else _requests(cfg.vocab_size)
     geo = {**GEOMETRY, **TOP1_MODES[mode]}
     engines = [LLMEngine(tparams, tcfg, device="cpu", **geo, **kw)
                for kw in ({}, dict(weight_dtype="int8", kv_dtype="int8"))]
@@ -548,8 +560,86 @@ def test_int8_engine_top1_agreement_with_fp(quant_models, mode):
         assert engines[1].stats()["spec_events"] > 0
     total = sum(max(len(fp[r]), len(q[r])) for r in fp)
     agree = sum(int(a == b) for r in fp for a, b in zip(fp[r], q[r]))
-    assert agree / total >= AGREEMENT_BAR
+    if mode == "preempt":
+        assert engines[1].stats()["preemptions"] > 0
+    if mode == "preempt" and name != "gpt_tiny":
+        # the reference holds this mode on gpt_tiny; on llama_tiny's
+        # weights its own int8 engine agrees 59 of 72 on this traffic, so
+        # there the port must agree at least as often as the reference's
+        ref = [JaxEngine(params, cfg, kv_tier=False, **geo, **kw)
+               for kw in ({}, dict(weight_dtype="int8", kv_dtype="int8"))]
+        rfp, rq = ({r: o.token_ids for r, o in _serve(eng, reqs).items()}
+                   for eng in ref)
+        assert agree >= sum(int(a == b) for r in rfp
+                            for a, b in zip(rfp[r], rq[r]))
+    else:
+        assert agree / total >= AGREEMENT_BAR
     assert [len(q[r]) for r in sorted(q)] == [n for _, n in reqs]
+
+
+def _preempt_prompts(vocab):
+    """The reference's `prompts` fixture: four prompts, then a shared
+    13-token prefix alone and with a 4-token tail (sharing and COW)."""
+    rng = np.random.RandomState(7)
+    out = [rng.randint(0, vocab, (n,)).astype(np.int32)
+           for n in (3, 9, 17, 5)]
+    shared = rng.randint(0, vocab, (13,)).astype(np.int32)
+    out.append(shared.copy())
+    out.append(np.concatenate(
+        [shared, rng.randint(0, vocab, (4,)).astype(np.int32)]))
+    return out
+
+
+PREEMPT_STATS = ("preemptions", "preempt_swaps", "preempt_recomputes",
+                 "recomputed_tokens", "swapped_pages", "swap_executables")
+
+
+@pytest.mark.parametrize("preempt", ["recompute", "swap"])
+def test_quantized_preempt_parity_and_no_leaks(quant_models, preempt):
+    """Preempted int8 serving gives the undisturbed int8 stream exactly
+    (a swap restores the int8 pages and their scale lanes bit for bit in
+    one scatter; a recompute quantizes the same values again), holds the
+    cache's invariants after every step, and matches the reference int8
+    engine's counters and, under the near-tie rule, its streams."""
+    _, cfg, params, qparams, tcfg, _ = quant_models
+    tparams = params_from_numpy(_np(params), tcfg, "cpu")
+    prompts = _preempt_prompts(cfg.vocab_size)
+    geo = dict(page_size=8, max_model_len=64, num_slots=6, prefill_chunk=8,
+               weight_dtype="int8", kv_dtype="int8")
+    over = dict(num_pages=9, admission="optimistic", preempt=preempt)
+
+    def serve(eng):
+        rids = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+        for _ in range(2000):
+            if not eng.has_work:
+                break
+            eng.step()
+            eng.cache.check_invariants()
+        assert not eng.has_work
+        assert eng.cache.swapped_page_count == 0
+        return {r: eng._outputs[r] for r in rids}
+
+    base = serve(LLMEngine(tparams, tcfg, device="cpu", **geo))
+    eng = LLMEngine(tparams, tcfg, device="cpu", **geo, **over)
+    if preempt == "swap":
+        eng.warm_swap()
+        assert set(eng._programs["swap_in"].inputs) == {
+            "ids", "k", "v", "k_scale", "v_scale"}
+    got = serve(eng)
+    ref = JaxEngine(params, cfg, kv_tier=False, **geo, **over)
+    ref_outs = serve(ref)
+    st, rst = eng.stats(), ref.stats()
+    assert st["preemptions"] > 0 and st["pages_in_use"] == 0
+    for k in PREEMPT_STATS:
+        assert st[k] == rst[k], (k, st[k], rst[k])
+    if preempt == "swap":
+        # int8 pages swap as int8: the host pool bound shrinks with the pool
+        assert st["preempt_swaps"] > 0
+        assert eng.swap_pool_bytes() == ref.swap_pool_bytes() < \
+            (eng.cache.num_pages - 1) * TQ.kv_page_bytes(tcfg, 8)
+    assert [o.token_ids for o in got.values()] == \
+        [o.token_ids for o in base.values()]
+    _assert_int8_parity(ref_outs, got, qparams, cfg)
 
 
 @pytest.mark.parametrize("knob", ["weight_dtype", "kv_dtype"])
@@ -582,6 +672,23 @@ class _WrongProposer(DraftProposer):
         return np.full((max_tokens,), self.token, np.int32)
 
 
+def _swap_pool_pages_taken(params, cfg, other):
+    """Optimistic admission and preemption have landed: `swap_pool_pages`
+    bounds the host swap pool, and a swap-mode engine rejects at intake a
+    request whose worst case could never park in it."""
+    eng = LLMEngine(params, cfg, device="cpu", admission="optimistic",
+                    preempt="swap", swap_pool_pages=other, **GEOMETRY)
+    assert eng.swap_pool_pages == other
+    assert eng.host_pool_bytes() == other * TQ.kv_page_bytes(cfg, 8)
+    big = eng.add_request(np.arange(8, dtype=np.int32),
+                          max_new_tokens=8 * other)   # 3 pages > other
+    small = eng.add_request(np.arange(4, dtype=np.int32), max_new_tokens=4)
+    outs = eng.run()
+    assert outs[big].finish_reason == "rejected"
+    assert outs[small].finish_reason == "length"
+    assert eng.stats()["intake_swap_rejects"] == 1
+
+
 def _spec_keyword_taken(params, cfg, name, other):
     """Speculative decoding has landed: `draft_proposer` is the proposer
     the engine calls; `spec_backoff_window` is the number of zero-accept
@@ -611,7 +718,8 @@ KEYWORDS = {    # keyword: (the reference's default, another value, item)
     # speculative decoding has landed: the other value is taken
     "draft_proposer": (None, _CountingProposer, None),
     "spec_backoff_window": (8, 4, None),
-    "swap_pool_pages": (None, 2, "optimistic admission and preemption"),
+    # optimistic admission and preemption have landed: taken
+    "swap_pool_pages": (None, 2, None),
     "spill_disk_pages": (None, 8, "KV tiering, durable store and roles"),
     "trace_ring": (512, 64, "metrics, tracing and health"),
     "trace_retention": (4096, None, "metrics, tracing and health"),
@@ -627,6 +735,9 @@ def test_reference_keywords_take_their_defaults(name):
                     **{name: default})
     eng.add_request(np.arange(5, dtype=np.int32), max_new_tokens=2)
     assert len(eng.run()) == 1
+    if name == "swap_pool_pages":
+        _swap_pool_pages_taken(params, cfg, other)
+        return
     if item is None:
         _spec_keyword_taken(params, cfg, name, other)
         return
