@@ -171,7 +171,39 @@ Phases, one JSON line each (with its seconds):
                overload counters, one "swap_out" and one "swap_in" replay's
                device ms and the pinned d2h ms a page, (a)'s bf16 agreement
                with phase 4 and the forward's margin where each stream
-               leaves it.
+               leaves it, and the KV tier's counters (phases 3-6e run at
+               the engine's default `kv_tier=True`).
+6f. engine_tier — the KV tier, the durable store and the roles, on
+               multi-turn sessions: wave 1 the PROMPT_LENS prompts x 32,
+               wave 2 (the flush) 8 fresh seeded prompts of the same
+               lengths x 32, wave 3 the returning turns (each wave-1 prompt
+               + its reply + TIER_FRESH fresh tokens) x 32.  (a) fused
+               chunked (`prefill_chunk=16`), 280 real pages (one wave at a
+               time), the host tier (a host pool of 1024 pages), beside a
+               never-evicting pool (1024 pages, waves 1 and 3) and the same
+               280-page run with `kv_tier=False` (re-prefill); (b) fused
+               bucketed: a `role="prefill"` engine on a temporary
+               `spill_dir` serves wave 1, `export_prefix`es each
+               conversation and is dropped, a `role="decode"` engine on the
+               directory (store nodes merged at init) serves wave 3 from
+               the store level, beside a never-evicting bucketed pool; (c)
+               int8 weights and KV at page 32, TIER_INT8_REQUESTS sessions,
+               36 real pages, host tier, beside a never-evicting pool.
+               Each: the cache's invariants after every step (off the step
+               times), wave-1 and wave-3 streams and cached tokens bitwise
+               equal to the never-evicting pool's (the restored KV is the
+               same bytes, into the same programs), spills and restores in
+               (a) and (c), 8 exports and store restores in (b), the
+               int8 restore carrying all four pool leaves, one "swap_in"
+               replay a restore, at most 2 swap programs and the programs
+               within the budget, launches 32 x the dispatches on the
+               pool's lane, no composed call, 0 pages in use after the
+               drain and the host tier within its pool.  Reported: each
+               wave's TTFT (median, max), prefilled tokens and tokens/s for
+               the tier run, the baseline and the re-prefill run, the tier
+               and handoff counters, a restore's staging ms and the
+               "swap_in" replay's device ms, the npz write and read ms a
+               page, the card's name and power limit.
 7. first_token — the first tokens of phases 3, 4 and both modes of 5 for
                two prompts against the argmax of the dense `forward` at the
                last prompt position, held equal where the top-2 margin
@@ -211,7 +243,7 @@ Phases, one JSON line each (with its seconds):
 
 Then one line `{"kernels": [...]}` for all nine kernels and the int8 lanes of
 the two paged ones (launches summed over the main-path runs of phases 3, 4,
-5, 6b, 6c, 6d, 6e, 10, 11 and 12, each with the counts
+5, 6b, 6c, 6d, 6e, 6f (its tier runs), 10, 11 and 12, each with the counts
 zeroed just before it and read just after; none of them may take an
 entry's composed route for shapes the kernels do not take) and, last,
 `{"ok": true, "device": ...}`.
@@ -941,7 +973,8 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
                              f"wanted; programs over budget {over} ({st})")
     execs = {k: st[k] for k in st if k.endswith("_executables")}
     bucket_graphs = bucket_graph_count(eng)
-    swap_ms = swap_replay_ms(eng) if st["swap_executables"] else None
+    swap_ms = swap_replay_ms(eng) if st["swap_executables"] and not eager \
+        else None
     gen = sum(len(o.token_ids) for o in outs.values())
     proposer = eng.proposer.stats() if spec_len else None
     del eng
@@ -973,6 +1006,7 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
            "left_after_release_mib": left / 2 ** 20}
     if spec_len:
         rec.update({k: st[k] for k in SPEC_KEYS}, proposer=proposer)
+    rec["kv_tier"] = st["kv_tier"]
     if overload:
         rec.update({k: st[k] for k in OVERLOAD_KEYS}, num_pages=num_pages,
                    overload=overload, double_preempt_steps=doubles,
@@ -1535,6 +1569,335 @@ def engine_overload(params, cfg, prompts, dev, base):
         raise AssertionError(f"engine_overload e_f32_recompute: streams "
                              f"differ from the reservation run's {agree}")
     rec["e_f32_recompute"] = r
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 6f: KV tiering, the durable store and roles at Llama-3-8B width
+# ---------------------------------------------------------------------------
+
+# page 16: wave 1 takes 220 pages at prompt + 32, wave 3 268 at prompt + 128
+# (its longest 1152 tokens), so 280 real pages hold one wave at a time.  The
+# host pool holds what the never-evicting pool holds (1024 pages, 2 GiB):
+# at the device pool's 280 (the default) the flush and the returning wave's
+# own evictions push the oldest spilled sessions out before they return
+TIER_PAGES = 281
+TIER_BASE_PAGES = 1025      # never evicts: waves 1 and 3 together, 2 GiB
+TIER_FRESH = 64             # a returning turn's new tokens
+# int8 at page 32, TIER_INT8_REQUESTS sessions: wave 1 takes 22 pages, wave
+# 3 34, and 36 real pages hold one wave at a time
+TIER_INT8_REQUESTS = SPEC_INT8_REQUESTS
+TIER_INT8_PAGES = 37
+TIER_INT8_BASE_PAGES = 129
+TIER_KEYS = ("spills", "restores", "restored_tokens", "partial_page_hits",
+             "disk_spills", "disk_restores", "tier_drops", "pages_host",
+             "pages_disk", "handoff_exports", "handoff_pages",
+             "handoff_tokens", "store_nodes_restored")
+
+
+def tier_waves(vocab, prompts):
+    """Wave 2: fresh seeded prompts of the wave-1 lengths.  Returns
+    (wave 2, fn(wave-1 replies) -> wave 3: each wave-1 prompt + its reply
+    + TIER_FRESH fresh seeded tokens)."""
+    rng = np.random.RandomState(15)
+    flush = [rng.randint(0, vocab, p.size).astype(np.int32) for p in prompts]
+    fresh = [rng.randint(0, vocab, TIER_FRESH).astype(np.int32)
+             for _ in prompts]
+
+    def returning(replies):
+        return [np.concatenate([p, np.asarray(r, np.int32), f])
+                for p, r, f in zip(prompts, replies, fresh)]
+    return flush, returning
+
+
+def tier_engine(params, cfg, dev, chunk, int8=False, **kw):
+    """An engine of the phase (8 slots, page 16 or INT8_PAGE, buckets
+    SERVE_BUCKETS), its decode-side and swap programs built."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    quant = dict(weight_dtype="int8", kv_dtype="int8") if int8 else {}
+    eng = LLMEngine(params, cfg, num_slots=8,
+                    page_size=INT8_PAGE if int8 else 16, max_model_len=2048,
+                    prefill_buckets=SERVE_BUCKETS, prefill_chunk=chunk,
+                    device=dev, **quant, **kw)
+    eng.warm_decode()
+    eng.warm_swap()
+    return eng
+
+
+def tier_wave(eng, prompts, vocab):
+    """Serve one wave to completion: the cache's invariants after every
+    step (off the step times).  Returns ([output] in order, wall s, [step
+    s], invariant-check s)."""
+    import torch
+    rids = [eng.add_request(p, max_new_tokens=MAX_NEW) for p in prompts]
+    steps, checks = [], 0.0
+    t0 = time.perf_counter()
+    while eng.has_work:
+        s = time.perf_counter()
+        eng.step()
+        steps.append(time.perf_counter() - s)
+        s = time.perf_counter()
+        eng.cache.check_invariants()
+        checks += time.perf_counter() - s
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - checks
+    outs = [eng.outputs[r] for r in rids]
+    for r, o in zip(rids, outs):
+        if o.finish_reason != "length" or len(o.token_ids) != MAX_NEW or \
+                not all(0 <= t < vocab for t in o.token_ids):
+            raise AssertionError(f"engine_tier request {r}: "
+                                 f"{o.finish_reason}, {len(o.token_ids)} "
+                                 f"tokens")
+    return outs, wall, steps, checks
+
+
+def tier_launch_check(st, launches, launches_int8, L, int8, budget=True):
+    """Launches 32 x the dispatches on the pool's lane, none on the other,
+    no composed call, graph replays = dispatches, programs within the
+    budget (unless `budget` is False), at most 2 swap programs, one
+    "swap_in" replay a restore."""
+    from paddle_tpu_torch.analysis.registry import over_budget
+    no_composed("engine_tier")
+    lane, other = (launches_int8, launches) if int8 else \
+        (launches, launches_int8)
+    paged = "paged_prefill_attention_kernel"
+    want = L * (st["fused_dispatches"] + st["chunk_dispatches"])
+    tier = st["kv_tier"]
+    if lane[paged] != want or other[paged] or \
+            launches["flash_attention_fwd"] != L * st["prefill_dispatches"] \
+            or launches["rms_norm_fused"] == 0 or \
+            st["graph_replays"] != dispatches(st) or \
+            (budget and over_budget(st)) or \
+            st["swap_executables"] > 2 or \
+            st["swap_in_dispatches"] != tier["restores"] + \
+            st["preempt_swaps"]:
+        raise AssertionError(f"engine_tier: launches {launches}, int8 "
+                             f"{launches_int8}, paged want {want}; programs "
+                             f"over budget {over_budget(st)} ({st})")
+
+
+def tier_run(params, cfg, dev, prompts, chunk, int8=False, waves=(1, 2, 3),
+             role_dirs=None, budget=True, **kw):
+    """One run of the phase: waves 1, 2 (the flush) and 3 (the returning
+    turns), or the subset `waves`, through one engine; with `role_dirs`
+    (the store directory), wave 1 on a role="prefill" engine that exports
+    each conversation and is dropped, wave 3 on a role="decode" engine on
+    the same directory.  Launch counts zeroed just before the waves and
+    read just after; `budget`: hold the programs to the budget.  Returns
+    ({wave: [output]}, run record)."""
+    import gc
+
+    import torch
+    from paddle_tpu_torch.incubate import kernels as K
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    flush, returning = tier_waves(cfg.vocab_size, prompts)
+    roles = role_dirs is not None
+    eng = tier_engine(params, cfg, dev, chunk, int8,
+                      **(dict(role="prefill", spill_dir=role_dirs)
+                         if roles else {}), **kw)
+    outs, rec, exports = {}, {"waves": {}}, []
+    # launches of the run, and of the engine serving now (each engine's
+    # are held to its own dispatches)
+    launches, launches_int8, mine = {}, {}, ({}, {})
+
+    def count():
+        for got, ds in ((K.launches(), (launches, mine[0])),
+                        (K.launches_int8(), (launches_int8, mine[1]))):
+            for d in ds:
+                for n, v in got.items():
+                    d[n] = d.get(n, 0) + v
+
+    def serve(wave, sent):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        o, wall, steps, checks = tier_wave(eng, sent, cfg.vocab_size)
+        count()
+        outs[wave] = o
+        gen = sum(len(x.token_ids) for x in o)
+        ttft = [1e3 * x.ttft_s for x in o]
+        # the first step admits the whole wave: its spills, restores and
+        # store reads, and the one-shot prefills in bucketed mode
+        rec["waves"][wave] = {
+            "wall_s": wall, "engine_steps": len(steps),
+            "first_step_ms": 1e3 * steps[0],
+            "median_step_ms": 1e3 * float(np.median(steps)),
+            "invariant_check_s": checks, "tokens_per_s": gen / wall,
+            "ttft_ms": ttft, "ttft_median_ms": float(np.median(ttft)),
+            "ttft_max_ms": max(ttft),
+            "cached_tokens": [x.cached_tokens for x in o]}
+
+    stats = []
+    for wave in waves:
+        if wave == 3 and roles:
+            for p, o in zip(prompts, outs[1]):
+                exports.append(eng.export_prefix(
+                    np.concatenate([p, np.asarray(o.token_ids, np.int32)])))
+            eng.cache.check_invariants()
+            st = eng.stats()
+            tier_launch_check(st, *mine, cfg.num_layers, int8)
+            stats.append(st)
+            mine = ({}, {})
+            del eng
+            gc.collect()
+            eng = tier_engine(params, cfg, dev, chunk, int8, role="decode",
+                              spill_dir=role_dirs, **kw)
+            rec["decode_store_nodes_restored_at_init"] = \
+                eng.stats()["kv_tier"]["store_nodes_restored"]
+        before = eng.stats()
+        sent = prompts if wave == 1 else flush if wave == 2 else \
+            returning([o.token_ids for o in outs[1]])
+        serve(wave, sent)
+        after = eng.stats()
+        rec["waves"][wave]["prefilled_tokens"] = \
+            after["prefilled_tokens"] - before["prefilled_tokens"]
+        rec["waves"][wave]["restores"] = \
+            after["kv_tier"]["restores"] - before["kv_tier"]["restores"]
+    st = eng.stats()
+    tier_launch_check(st, *mine, cfg.num_layers, int8, budget)
+    stats.append(st)
+    if st["pages_in_use"] or \
+            st["kv_tier"]["pages_host"] > eng.swap_pool_pages:
+        raise AssertionError(f"engine_tier: {st['pages_in_use']} pages in "
+                             f"use after the drain, "
+                             f"{st['kv_tier']['pages_host']} host tier "
+                             f"pages over {eng.swap_pool_pages}")
+    tier = {k: sum(s["kv_tier"][k] for s in stats) for k in TIER_KEYS}
+    restores = tier["restores"]
+    swap = swap_replay_ms(eng) if st["swap_executables"] == 2 else None
+    rec.update(
+        kv_tier_enabled=st["kv_tier"]["enabled"], num_pages=
+        eng.cache.num_pages, swap_pool_pages=eng.swap_pool_pages,
+        page_size=eng.cache.page_size, prefill_chunk=chunk,
+        kv_dtype=st["kv_dtype"], role_handoff=roles, kv_tier=tier,
+        exports=exports,
+        swap_in_inputs=sorted(eng._programs["swap_in"].inputs)
+        if "swap_in" in eng._programs else None,
+        restore_stage_ms=sum(s["tier_stage_ms"] for s in stats) / restores
+        if restores else None,
+        swap_replay=swap, swap_ms=sum(s["swap_ms"] for s in stats),
+        executables={k: st[k] for k in st if k.endswith("_executables")},
+        launches=launches, launches_int8=launches_int8)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev) - held
+    if left > RELEASE_SLACK:
+        raise AssertionError(f"engine_tier: the dropped engines left "
+                             f"{left / 2**20:.1f} MiB allocated")
+    return outs, rec
+
+
+def npz_page_ms(cfg, page=16, n=8):
+    """ms a page of the store level: `LocalDirStore.put` and `get` of n
+    bf16 page slabs [L, page, KVH, hd] of k and v (as the tier writes
+    them, raw 2-byte lanes), in a temporary directory."""
+    import shutil
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.inference.cache import (LocalDirStore,
+                                                  lane_to_numpy)
+    shape = (cfg.num_layers, page, cfg.kv_heads, cfg.head_dim)
+    slab = {k: lane_to_numpy(torch.randn(shape, dtype=torch.bfloat16))
+            for k in ("k", "v")}
+    root = tempfile.mkdtemp()
+    try:
+        store = LocalDirStore(root)
+        t0 = time.perf_counter()
+        for i in range(n):
+            store.put(f"kvnode_x_{i}", slab)
+        put = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(n):
+            store.get(f"kvnode_x_{i}")
+        get = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root)
+    return {"write_ms_per_page": 1e3 * put / n,
+            "read_ms_per_page": 1e3 * get / n,
+            "page_bytes": sum(a.nbytes for a in slab.values())}
+
+
+def engine_tier(params, cfg, dev, prompts, smi):
+    """Phase 6f (see the module docstring): {mode: record}."""
+    import os
+    import shutil
+    import tempfile
+    few = prompts[:TIER_INT8_REQUESTS]
+    rec = {}
+
+    def held_to(mode, outs, base, what):
+        # wave 3 restored: the same bytes into the same programs at the
+        # same matched tokens as the baseline's device hits
+        for w in (1, 3):
+            if outs.get(w) is None:
+                continue
+            got = [o.token_ids for o in outs[w]]
+            want = [o.token_ids for o in base[w]]
+            cached = [o.cached_tokens for o in outs[w]]
+            bcached = [o.cached_tokens for o in base[w]]
+            if got != want or cached != bcached:
+                raise AssertionError(
+                    f"engine_tier {mode} wave {w}: streams or cached tokens "
+                    f"differ from {what} ({cached} against {bcached})")
+
+    # (a) fused chunked, host tier; a never-evicting baseline; re-prefill
+    outs, r = tier_run(params, cfg, dev, prompts, 16, num_pages=TIER_PAGES,
+                       swap_pool_pages=TIER_BASE_PAGES - 1)
+    base, rb = tier_run(params, cfg, dev, prompts, 16, waves=(1, 3),
+                        num_pages=TIER_BASE_PAGES)
+    held_to("a", outs, base, "the never-evicting pool")
+    re_outs, rr = tier_run(params, cfg, dev, prompts, 16, kv_tier=False,
+                           num_pages=TIER_PAGES,
+                           swap_pool_pages=TIER_BASE_PAGES - 1)
+    t = r["kv_tier"]
+    if not (t["spills"] > 0 and t["restores"] > 0) or \
+            rb["kv_tier"]["spills"] or rr["kv_tier"]["restores"]:
+        raise AssertionError(f"engine_tier a: tier {t}, baseline "
+                             f"{rb['kv_tier']}, re-prefill {rr['kv_tier']}")
+    r["wave3_agreement_reprefill"] = agreement(
+        dict(enumerate(outs[3])), dict(enumerate(re_outs[3])))
+    rec["a_chunked_host"] = {"tier": r, "baseline": rb, "reprefill": rr}
+
+    # (b) fused bucketed: a prefill-role engine exports wave 1 to a store
+    # directory, a decode-role engine on it serves wave 3 from the disk
+    root = tempfile.mkdtemp()
+    try:
+        outs, r = tier_run(params, cfg, dev, prompts, None, waves=(1, 3),
+                           role_dirs=root, num_pages=TIER_PAGES)
+        r["store_files"] = len(os.listdir(root))
+    finally:
+        shutil.rmtree(root)
+    # the baseline alone serves both waves: wave 1's misses in buckets 512
+    # and 1024 and wave 3's hit tails through the chunk program, 3 prefill
+    # programs against the budget's 2 (the prefill and decode engines of
+    # the tier run take 2 and 1); its programs are reported
+    base, rb = tier_run(params, cfg, dev, prompts, None, waves=(1, 3),
+                        num_pages=TIER_BASE_PAGES, budget=False)
+    held_to("b", outs, base, "the never-evicting bucketed pool")
+    t = r["kv_tier"]
+    if t["handoff_exports"] != len(prompts) or t["disk_restores"] == 0 or \
+            r["decode_store_nodes_restored_at_init"] == 0:
+        raise AssertionError(f"engine_tier b: {t}")
+    rec["b_bucketed_roles_disk"] = {"tier": r, "baseline": rb}
+
+    # (c) int8 weights and KV at page 32, fused chunked, host tier
+    outs, r = tier_run(params, cfg, dev, few, 16, int8=True,
+                       num_pages=TIER_INT8_PAGES,
+                       swap_pool_pages=TIER_INT8_BASE_PAGES - 1)
+    base, rb = tier_run(params, cfg, dev, few, 16, int8=True, waves=(1, 3),
+                        num_pages=TIER_INT8_BASE_PAGES)
+    held_to("c", outs, base, "the never-evicting int8 pool")
+    t = r["kv_tier"]
+    if not (t["spills"] > 0 and t["restores"] > 0) or \
+            r["swap_in_inputs"] != ["ids", "k", "k_scale", "v", "v_scale"]:
+        raise AssertionError(f"engine_tier c: {t}, swap_in inputs "
+                             f"{r['swap_in_inputs']}")
+    rec["c_int8_chunked_host"] = {"tier": r, "baseline": rb}
+    rec["npz"] = npz_page_ms(cfg)
+    rec["nvidia_smi"] = smi
     return rec
 
 
@@ -2146,6 +2509,12 @@ def main():
           OVERLOAD_REQUESTS, **rec_o})
 
     t = time.perf_counter()
+    rec_t = engine_tier(params, cfg, dev, prompts, smi)
+    emit({"phase": "engine_tier", "seconds": time.perf_counter() - t,
+          "max_new": MAX_NEW, "fresh": TIER_FRESH,
+          "int8_requests": TIER_INT8_REQUESTS, **rec_t})
+
+    t = time.perf_counter()
     modes = (("bucketed", bucketed), ("chunked", chunked),
              ("unfused_bucketed", unfused["bucketed"]),
              ("unfused_chunked", unfused["chunked"]))
@@ -2281,8 +2650,9 @@ def main():
          "paddle_tpu/incubate/kernels/paged_attention.py:247"),
     )
     runs = (rec3, rec4, rec5["bucketed"], rec5["chunked"], *rec_q.values(),
-            *rec_p.values(), *rec_s.values(), *rec_o.values(), rec9, rec7,
-            rec8)
+            *rec_p.values(), *rec_s.values(), *rec_o.values(),
+            *(m["tier"] for m in rec_t.values() if isinstance(m, dict)
+              and "tier" in m), rec9, rec7, rec8)
     kernels = [{
         "name": r["kernel"] + ("_int8" if key == "launches_int8" else ""),
         "route": route, "source": source, "replaces": replaces,

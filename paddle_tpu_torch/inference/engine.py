@@ -98,10 +98,28 @@ is, on the injectable `clock`; `fault_plan` (`inference.faults.FaultPlan`)
 forces pool pressure, failing swap copies (degraded to recompute, the one
 fallback) and clock skew.
 
-Knobs of later slices (KV tiering, roles, tensor parallelism, request
-tracing) are accepted only at the reference's defaults or off values and
-raise `NotImplementedError` otherwise.  `kv_tier` and `request_tracing`
-default to False here (True in the reference).
+KV tier, as the reference's (`kv_tier=True`, the default; it needs the
+prefix cache and `swap_pool_pages > 0`): prefix pages the LRU evicts spill
+device -> host instead of being dropped.  `_evict` hands them to
+`_spill_prefix_nodes`, which gathers them with the "swap_out" program (one
+replay per `max_pages_per_slot` pages, each copied into a pinned buffer of
+its own, fetched after the step's dispatch), so spills add no program.  A
+prompt whose match reaches into the tier gets fresh pages and its parked KV
+staged into the "swap_in" program: one replay restores the whole match, no
+prefill.  The host level shares `swap_pool_pages` with preemption parking;
+over it the oldest entries move to a store level (`spill_dir=`, or any
+`page_store=`: one npz a page, in the reference's format) or drop,
+`spill_disk_pages` capping the store.  `export_prefix` publishes a
+conversation's pages and a `kvindex_*` blob to the store, and an engine on
+the same store (a restarted one, a `role="decode"` peer, or the JAX
+package's) merges it at init or with `refresh_store_index` and restores
+from it.  A failed spill copy drops the pages; a failed restore copy, or a
+store object that is gone or does not fit the pool, re-prefills.
+
+Knobs of later slices (tensor parallelism, request tracing) are accepted
+only at the reference's defaults or off values and raise
+`NotImplementedError` otherwise.  `request_tracing` defaults to False here
+(True in the reference).
 """
 from __future__ import annotations
 
@@ -109,6 +127,7 @@ import dataclasses
 import functools
 import itertools
 import time
+import weakref
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -118,7 +137,7 @@ import torch
 from ..models import gpt as gpt_mod
 from ..quantization.serving import (kv_page_bytes, normalize_quant_dtype,
                                     quantize_serving_params)
-from .cache import PagedKVCache
+from .cache import HostKVTier, PagedKVCache, lane_to_tensor
 from .faults import FaultInjected, FaultPlan
 from .graphs import StepProgram
 from .spec import NgramProposer
@@ -232,7 +251,7 @@ class LLMEngine:
                  admission: str = "reservation",
                  preempt: str = "recompute",
                  swap_pool_pages: Optional[int] = None,
-                 kv_tier: bool = False,
+                 kv_tier: bool = True,
                  spill_dir: Optional[str] = None,
                  spill_disk_pages: Optional[int] = None,
                  page_store=None,
@@ -252,10 +271,6 @@ class LLMEngine:
         self.kv_dtype = normalize_quant_dtype(kv_dtype, "kv_dtype")
         if mesh is not None or (mp is not None and mp > 1):
             raise _later("mesh/mp>1", "tensor-parallel serving")
-        if kv_tier or spill_dir is not None or page_store is not None or \
-                role is not None or spill_disk_pages is not None:
-            raise _later("kv_tier, spill_dir, spill_disk_pages, page_store "
-                         "and role", "KV tiering, durable store and roles")
         if request_tracing or trace_ring != 512 or trace_retention != 4096:
             raise _later("request_tracing, trace_ring and trace_retention",
                          "metrics, tracing and health")
@@ -265,6 +280,9 @@ class LLMEngine:
         if preempt not in ("recompute", "swap"):
             raise ValueError(f"preempt must be 'recompute' or 'swap', "
                              f"got {preempt!r}")
+        if role not in (None, "prefill", "decode"):
+            raise ValueError(f"role must be 'prefill', 'decode' or None, "
+                             f"got {role!r}")
 
         self.device = gpt_mod.resolve_device(device)
         table = params["wte_q" if "wte_q" in params else "wte"]
@@ -345,6 +363,25 @@ class LLMEngine:
         if self.swap_pool_pages < 0:
             raise ValueError(
                 f"swap_pool_pages must be >= 0, got {swap_pool_pages}")
+        # the KV tier needs the prefix index (its keys) and host-pool room.
+        # A role changes nothing here: every engine keeps every program, so
+        # a handoff that fails can re-prefill locally
+        self.kv_tier = bool(kv_tier) and self.prefix_cache and \
+            self.swap_pool_pages > 0
+        self.spill_dir = spill_dir if self.kv_tier else None
+        self.role = role
+        self._store_restored_nodes = 0
+        if self.kv_tier:
+            # the cache calls back through a weak reference: a cycle would
+            # keep a dropped engine, its pool and its graphs, alive until
+            # the cycle collector runs, maybe in another engine's capture
+            spill = weakref.WeakMethod(self._spill_prefix_nodes)
+            self.cache.attach_tier(
+                HostKVTier(spill_dir=self.spill_dir,
+                           disk_pages=spill_disk_pages, store=page_store),
+                lambda nodes: spill()(nodes))
+            # what an earlier process or a prefill peer published
+            self._store_restored_nodes = self.cache.load_tier_index()
         # optimistic admission's global free-page headroom (~1% of the pool)
         self._watermark = max(1, (num_pages - 1) // 100)
         self._pool = gpt_mod.init_paged_cache(config, num_pages, page_size,
@@ -389,9 +426,12 @@ class LLMEngine:
              "aborted_requests", "rejected_requests", "intake_swap_rejects",
              "preemptions", "preempt_swaps", "preempt_recomputes",
              "swapped_pages", "recomputed_tokens", "timeouts",
-             "swap_out_dispatches", "swap_in_dispatches"),
+             "swap_out_dispatches", "swap_in_dispatches",
+             "tier_spills", "tier_restores", "tier_restored_tokens",
+             "handoff_exports", "handoff_pages", "handoff_tokens"),
             0)
         self._c["swap_ms"] = 0.0
+        self._c["tier_stage_ms"] = 0.0
 
     # ---- request intake ---------------------------------------------------
     def add_request(self, prompt, max_new_tokens: int = 16,
@@ -576,9 +616,10 @@ class LLMEngine:
     def warm_swap(self) -> None:
         """Build the swap gather and scatter programs on inert inputs (every
         page id the null page), as the reference's `warm_swap` compiles
-        them, so a first preemption does not pay the build.  A no-op unless
-        the engine can swap (optimistic admission, preempt="swap")."""
-        if self.optimistic and self.preempt == "swap":
+        them, so a first preemption or spill does not pay the build.  A
+        no-op unless the engine can reach them (optimistic admission with
+        preempt="swap", or the KV tier)."""
+        if (self.optimistic and self.preempt == "swap") or self.kv_tier:
             self._program("swap_out").build()
             self._program("swap_in").build()
 
@@ -635,10 +676,13 @@ class LLMEngine:
         against the prefix cache in the call that reserves its pages:
         reservation admission reserves prompt + max_new_tokens, optimistic
         the prompt alone, and holds a fresh request back while anything is
-        active and the free pages would fall below the watermark.  A hit
-        copies its matched partial page (COW) and goes to the prefill queue
-        with its matched tokens filled; a miss in bucketed mode is
-        prefilled at once by its bucket's program."""
+        active and the free pages would fall below the watermark.  A match
+        that reaches into the KV tier is restored by one scatter
+        (`_tier_restore`); a restore that fails drops the nodes it needed,
+        and the prompt is matched again without them.  A hit copies its
+        matched partial page (COW) and goes to the prefill queue with its
+        matched tokens filled; a miss in bucketed mode is prefilled at once
+        by its bucket's program."""
         mgr = self.cache
         while self._queue and self._free_slots:
             req = self._queue[0]
@@ -665,18 +709,31 @@ class LLMEngine:
                     mgr.pages_needed(lp) + self._watermark > \
                     mgr.num_free_pages + mgr.num_evictable_pages:
                 break       # keep headroom for the running slots' growth
-            try:
-                # the prefix match and the reservation in one call (a failed
-                # attempt rolls its sharing back)
-                row, matched, cow = mgr.allocate_prefixed(
-                    slot, total, prompt if self.prefix_cache else None)
-            except RuntimeError:        # out of KV pages
+            tokens = prompt if self.prefix_cache else None
+            alloc, restored = None, ()
+            while True:
+                try:
+                    # the prefix match and the reservation in one call (a
+                    # failed attempt rolls its sharing back)
+                    alloc = mgr.allocate_prefixed(slot, total, tokens)
+                except RuntimeError:    # out of KV pages
+                    alloc = None
+                    break
+                plan = mgr.take_restore(slot)
+                if not plan:
+                    break
+                if self._tier_restore(slot, plan):
+                    restored = plan
+                    break
+                mgr.release(slot)       # degraded: match again without it
+            if alloc is None:
                 if not self._running and not self._prefilling and \
                         mgr.pages_in_use() == 0:
                     raise ValueError(
                         f"request {rid} needs {mgr.pages_needed(total)} "
                         f"pages but the pool only has {mgr.num_pages - 1}")
                 break                   # wait for pages to free up
+            row, matched, cow = alloc
             self._queue.popleft()
             self._free_slots.pop()
             self._c["admitted_requests"] += 1
@@ -694,6 +751,10 @@ class LLMEngine:
                 src, dst = cow
                 self._dispatch("copy", src=src, dst=dst)
                 self._c["cow_page_copies"] += 1
+            if cow is not None or any(ntok < mgr.page_size
+                                      for _, _, ntok in restored):
+                # the match ended inside a cached page (a COW copy, or the
+                # tier scatter of the matched part)
                 self._c["partial_page_hits"] += 1
             if matched:
                 self._c["prefix_cached_tokens"] += matched
@@ -1121,8 +1182,14 @@ class LLMEngine:
         }
         L = int(mgr.lengths[slot])
         n = mgr.pages_needed(L)
-        if self.preempt == "swap" and \
-                n <= mgr.host_pool_room(self.swap_pool_pages):
+        room = -1
+        if self.preempt == "swap":
+            # live victims outrank cached prefixes in the host pool: move
+            # tier pages down (or drop them) before giving up
+            room = mgr.host_pool_room(self.swap_pool_pages)
+            if n > room:
+                room += mgr.tier_make_room(n - room)
+        if self.preempt == "swap" and n <= room:
             # gather the pages now, before they go to a new owner; the wait
             # for their host copy comes after the step's dispatch.  The swap
             # counters move only once the copy has landed
@@ -1187,16 +1254,190 @@ class LLMEngine:
         self._c["preempt_recomputes"] += 1
 
     def _drain_swap_d2h(self) -> None:
-        """Wait for the host copies of the step's swap-outs, after its
-        dispatch, so they overlap the device's work."""
+        """Wait for the host copies of the step's swap-outs and spills,
+        after its dispatch, so they overlap the device's work."""
         while self._pending_d2h:
             rec = self._pending_d2h.pop()
+            if rec["kind"] == "spill":
+                if not rec["fetched"]:
+                    try:
+                        self._materialize_spill(rec)
+                    except FaultInjected:
+                        self._degrade_spill_to_drop(rec)
+                continue
             if rec["kind"] != "swap" or rec["fetched"]:
                 continue            # consumed, degraded or dropped already
             try:
                 self._materialize_swap(rec)
             except FaultInjected:
                 self._degrade_to_recompute(rec)
+
+    # ---- KV tier: prefix spill, restore, export ----------------------------
+    def _spill_prefix_nodes(self, nodes) -> set:
+        """`PagedKVCache._evict`'s spill callback: gather the evicted pages
+        with "swap_out" replays of `max_pages_per_slot` pages each, each
+        copied into a pinned buffer of its own whose wait comes after the
+        step's dispatch.  Room comes from the host pool, made by moving tier
+        pages down first; the newest nodes go first.  Returns the ids
+        taken (the cache drops the rest)."""
+        mgr = self.cache
+        room = mgr.host_pool_room(self.swap_pool_pages)
+        if room < len(nodes):
+            room += mgr.tier_make_room(len(nodes) - room)
+        if room <= 0:
+            return set()
+        accept = nodes[-room:] if room < len(nodes) else nodes
+        P = mgr.max_pages_per_slot
+        for i in range(0, len(accept), P):
+            chunk = accept[i:i + P]
+            rec = self._swap_out([nd.page for nd in chunk])
+            rec.update(kind="spill", nodes=list(chunk))
+            self._pending_d2h.append(rec)
+        return {nd.node_id for nd in accept}
+
+    def _materialize_spill(self, rec: Dict[str, object]) -> None:
+        """Wait for a spill record's host copy and land each still-pending
+        node as its own contiguous [L, page, ...] slab a leaf.  Raises
+        FaultInjected under an injected d2h failure: the caller drops the
+        nodes."""
+        if rec["fetched"]:
+            return
+        self._faults.d2h()
+        t0 = self._now()
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        self._c["swap_ms"] += (self._now() - t0) * 1e3
+        rec["fetched"] = True
+        tier = self.cache._tier
+        for i, node in enumerate(rec["nodes"]):
+            if tier.is_pending(node.node_id):
+                tier.fill(node.node_id, {name: a[:, i].contiguous()
+                                         for name, a in rec["data"].items()})
+                self._c["tier_spills"] += 1
+        rec.pop("data")
+
+    def _degrade_spill_to_drop(self, rec: Dict[str, object]) -> None:
+        """A spill whose copy failed drops its still-pending nodes: their
+        pages are free already, so a later match re-prefills."""
+        rec["fetched"] = True
+        rec.pop("data", None)
+        tier = self.cache._tier
+        self.cache.drop_tier_nodes([nd for nd in rec["nodes"]
+                                    if tier.is_pending(nd.node_id)])
+
+    def _flush_pending_spills(self) -> None:
+        """Land every spill fetch now (a restore or an export needs the
+        bytes); swap records keep their wait after the dispatch."""
+        rest: List[Dict[str, object]] = []
+        for rec in self._pending_d2h:
+            if rec["kind"] == "spill":
+                if not rec["fetched"]:
+                    try:
+                        self._materialize_spill(rec)
+                    except FaultInjected:
+                        self._degrade_spill_to_drop(rec)
+            else:
+                rest.append(rec)
+        self._pending_d2h = rest
+
+    def _tier_restore(self, slot: int, plan) -> bool:
+        """Scatter a match's parked KV into `slot`'s fresh pages: only the
+        plan's slabs are staged into the "swap_in" program, and one replay
+        writes every leaf; then the restored full pages are device prefix
+        pages again (`commit_restore`).  False when it degraded (a failed
+        copy, a store object gone or of another type or shape than the
+        pool's): the plan's nodes are dropped, and the caller matches the
+        prompt again."""
+        mgr = self.cache
+        tier = mgr._tier
+        if any(tier.is_pending(node.node_id) for _, node, _ in plan):
+            self._flush_pending_spills()
+        nodes = [node for _, node, _ in plan]
+        try:
+            datas = [mgr.tier_data(node) for node in nodes]
+            self._faults.h2d()
+            t0 = self._now()
+            staged = self._stack_slabs(datas)
+        except (KeyError, RuntimeError):
+            # FaultInjected is a RuntimeError; data that vanished or does
+            # not fit degrades the same way
+            mgr.drop_tier_nodes(nodes)
+            return False
+        ids = np.zeros((mgr.max_pages_per_slot,), np.int32)
+        ids[:len(plan)] = [dst for dst, _, _ in plan]
+        self._dispatch("swap_in", ids=ids, **staged)
+        ms = (self._now() - t0) * 1e3
+        self._c["swap_in_dispatches"] += 1
+        self._c["swap_ms"] += ms
+        self._c["tier_stage_ms"] += ms
+        mgr.commit_restore(slot, plan)
+        self._c["tier_restores"] += 1
+        self._c["tier_restored_tokens"] += sum(n for _, _, n in plan)
+        return True
+
+    def _stack_slabs(self, datas) -> Dict[str, torch.Tensor]:
+        """The plan's slabs as the "swap_in" program's leading corner:
+        {leaf: [L, k, page, ...]} on the host.  KeyError when a slab's
+        leaves, types or shapes are not the pool's."""
+        staged = {}
+        for d in datas:
+            if set(d) != set(self._pool):
+                raise KeyError(f"slab leaves {sorted(d)}, the pool's "
+                               f"{sorted(self._pool)}")
+        for name, leaf in self._pool.items():
+            want = (leaf.shape[0],) + tuple(leaf.shape[2:])
+            lanes = [lane_to_tensor(d[name], leaf.dtype) for d in datas]
+            for t in lanes:
+                if tuple(t.shape) != want:
+                    raise KeyError(f"slab {name} of shape {tuple(t.shape)}, "
+                                   f"the pool's {want}")
+            staged[name] = torch.stack(lanes, dim=1)
+        return staged
+
+    def export_prefix(self, tokens) -> Dict[str, int]:
+        """The prefill side of a handoff: publish the cached KV chain of
+        `tokens` to the store, so an engine on it (a decode-role peer, a
+        restarted engine) restores it with one scatter.  The chain's
+        LRU-parked device pages spill through the usual gather, the copies
+        land, host entries move to the store, and this engine's index blob
+        is written again.  Returns {"pages", "tokens", "index_nodes"}, all
+        0 with no store or nothing to export (the peer then re-prefills)."""
+        out = {"pages": 0, "tokens": 0, "index_nodes": 0}
+        mgr = self.cache
+        tier = mgr._tier
+        if not self.kv_tier or tier.store is None:
+            return out
+        full, partial = mgr._match(np.asarray(tokens, np.int32).reshape(-1))
+        chain = list(full) + ([partial[0]] if partial else [])
+        if not chain:
+            return out
+        mgr.spill_lru([nd for nd in chain
+                       if nd.page >= 0 and nd.node_id in mgr._lru])
+        self._flush_pending_spills()
+        for nd in chain:
+            if nd.page >= 0 or tier.is_pending(nd.node_id):
+                continue                # on the device / the spill failed
+            if nd.node_id in tier._host:
+                tier.to_disk(nd.node_id)
+            if nd.node_id in tier._disk:
+                out["pages"] += 1
+                out["tokens"] += nd.n_tokens
+        out["index_nodes"] = mgr.save_tier_index(tag=tier.tag)
+        if out["pages"]:
+            self._c["handoff_exports"] += 1
+            self._c["handoff_pages"] += out["pages"]
+            self._c["handoff_tokens"] += out["tokens"]
+        return out
+
+    def refresh_store_index(self) -> int:
+        """The decode side of a handoff: merge the store's index blobs
+        again, so the next admission can restore what a prefill peer just
+        exported.  Idempotent.  Returns the nodes newly imported."""
+        if not self.kv_tier:
+            return 0
+        n = self.cache.load_tier_index()
+        self._store_restored_nodes += n
+        return n
 
     def _drop_preempted(self, rid: int) -> Optional[Dict[str, object]]:
         """Remove a resume record on abort or timeout, clearing its host
@@ -1337,16 +1578,22 @@ class LLMEngine:
 
     def probe_affinity(self, tokens) -> Dict[str, int]:
         """Router probe: the longest cached prefix of `tokens` this engine
-        holds, in tokens.  A pure read: no LRU touch, no COW, no
+        holds, in tokens, and the part of it in the KV tier (a hit there is
+        restored by one scatter).  A pure read: no LRU touch, no COW, no
         refcount."""
         if not self.prefix_cache:
-            return {"cached_tokens": 0}
+            return {"cached_tokens": 0, "tier_tokens": 0}
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         full, partial = self.cache._match(tokens)
-        matched = len(full) * self.cache.page_size
+        page = self.cache.page_size
+        matched = len(full) * page
+        tier = sum(page for n in full if n.page < 0)
         if partial is not None:
-            matched += partial[1]
-        return {"cached_tokens": int(matched)}
+            node, j = partial
+            matched += j
+            if node.page < 0:
+                tier += j
+        return {"cached_tokens": int(matched), "tier_tokens": int(tier)}
 
     def run(self) -> Dict[int, RequestOutput]:
         """Step until every request completes; {request_id: output}."""
@@ -1372,10 +1619,14 @@ class LLMEngine:
         standalone (unfused, or the prefix-hit tails of fused bucketed
         mode); copy counts the COW copy; verify the unfused verify program
         (fused, drafts ride the one fused program); swap the gather and the
-        scatter of preemption swaps.  `accepted_per_step` is the
-        reference's: tokens emitted per verify event that carried a draft.
-        The overload keys are the reference's (`swap_ms`: host ms waiting
-        for swap-out copies and staging swap-ins)."""
+        scatter (preemption swaps and KV-tier spills and restores share
+        them, and `swap_out_dispatches`/`swap_in_dispatches` count every
+        replay).  `accepted_per_step` is the reference's: tokens emitted
+        per verify event that carried a draft.  The overload keys are the
+        reference's (`swap_ms`: host ms waiting for swap-out and spill
+        copies and staging swap-ins and restores); so are "role" and the
+        "kv_tier" dict.  `tier_stage_ms` is the restores' share of
+        `swap_ms`."""
         built = {r for r, p in self._programs.items() if p.built}
         cached, computed = self._c["prefix_cached_tokens"], \
             self._c["prefilled_tokens"]
@@ -1414,11 +1665,33 @@ class LLMEngine:
             "swapped": self.cache.swapped_requests,
             "kv_pages_swapped": self.cache.swapped_page_count,
             "kv_pool_pressure": round(self.cache.pool_pressure(), 4),
+            "role": self.role,
+            "kv_tier": self._tier_stats(),
             # the quantization knobs (None: full precision) and the pool's
             # at-rest bytes the capacity math is about
             "weight_dtype": self.weight_dtype,
             "kv_dtype": self.kv_dtype,
             "kv_pool_bytes": self.kv_pool_bytes(),
+        }
+
+    def _tier_stats(self) -> Dict[str, object]:
+        """stats()' "kv_tier" dict, the reference's keys."""
+        tier, c = self.cache._tier, self._c
+        return {
+            "enabled": self.kv_tier, "spill_dir": self.spill_dir,
+            "pages_host": self.cache.tier_pages_host,
+            "pages_disk": self.cache.tier_pages_disk,
+            "spills": c["tier_spills"], "restores": c["tier_restores"],
+            "restored_tokens": c["tier_restored_tokens"],
+            "partial_page_hits": c["partial_page_hits"],
+            "disk_spills": 0 if tier is None else tier.disk_spills,
+            "disk_restores": 0 if tier is None else tier.disk_restores,
+            "tier_drops": 0 if tier is None else tier.tier_drops,
+            "store": tier is not None and tier.store is not None,
+            "handoff_exports": c["handoff_exports"],
+            "handoff_pages": c["handoff_pages"],
+            "handoff_tokens": c["handoff_tokens"],
+            "store_nodes_restored": self._store_restored_nodes,
         }
 
     def host_pool_bytes(self) -> int:

@@ -20,17 +20,19 @@ wrappers cache (RMSNorm's shared-memory attribute and occupancy, the paged
 kernels' split counters, cuBLAS's handle and workspace); then the body is
 captured on the same stream into a `torch.cuda.CUDAGraph`, and every `run`
 is one `replay()`.  A failed capture or replay raises: nothing falls back to
-the eager step.  With `capture=False`, and always on the CPU, `run` calls
-the body eagerly over the same static buffers.  A program built in the
-middle of serving (the COW copy, a new prefill bucket) warms up and
-captures behind everything queued on the current stream, and the current
-stream waits for it before the program's first run.  `mempool` (a
-`torch.cuda.graph_pool_handle()`) lets programs that never run at once
-share one graph memory pool; a program's output is copied to the host
-right after its replay, before another program of the pool runs.  A body
-that returns None (the COW copy) has no output to fetch, nor does one
-built with `fetch=False` (the swap gather, whose output is a dict of pool
-leaves the engine copies to the host itself, one pinned buffer a victim).
+the eager step.  The cycle collector is off during a capture: freeing
+another graph there would invalidate it.  With `capture=False`, and always
+on the CPU, `run` calls the body eagerly over the same static buffers.  A
+program built in the middle of serving (the COW copy, a new prefill
+bucket) warms up and captures behind everything queued on the current
+stream, and the current stream waits for it before the program's first
+run.  `mempool` (a `torch.cuda.graph_pool_handle()`) lets programs that
+never run at once share one graph memory pool; a program's output is
+copied to the host right after its replay, before another program of the
+pool runs.  A body that returns None (the COW copy) has no output to
+fetch, nor does one built with `fetch=False` (the swap gather, whose
+output is a dict of pool leaves the engine copies to the host itself,
+one pinned buffer a victim or a spill).
 A `device_fed` input may be staged from a smaller tensor, which fills its
 leading corner (the swap scatter's pages, from a victim's pinned host
 buffer of its real pages).
@@ -44,6 +46,7 @@ stream replace them.  Dropping the program releases the graph and its pool.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -116,8 +119,17 @@ class StepProgram:
                 self._body(**self.inputs)
                 mid = K.counts()
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=self.mempool, stream=side):
-                    out = self._body(**self.inputs)
+                # no cycle collection in the capture: freeing another
+                # graph there invalidates it
+                collecting = gc.isenabled()
+                gc.disable()
+                try:
+                    with torch.cuda.graph(graph, pool=self.mempool,
+                                          stream=side):
+                        out = self._body(**self.inputs)
+                finally:
+                    if collecting:
+                        gc.enable()
             cur.wait_stream(side)
             after = K.counts()
             self._delta = {k: after[k] - mid[k] for k in after

@@ -1156,14 +1156,17 @@ def test_step_replay_is_bitwise_the_eager_step(dev, dtype, role):
     with drafts, unfused decode, chunk and verify, the one-shot prefill of
     bucket 64) against the eager step on identical staged inputs and an
     identical pool: output tokens (and the fused step's accept column) and
-    the pool after the step bitwise equal, and the same kernel launch
-    counts."""
+    every real page of the pool after the step bitwise equal, and the same
+    kernel launch counts.  Page 0 is left out, as in the int8 twin below:
+    inactive and padded rows write there at colliding positions, whose
+    winner the scatter does not fix (the null page is read only for
+    outputs the scheduler drops)."""
     cfg, name, runs = _replay_and_eager(dev, dtype, role)
     (g_out, g_pool, g_n, _, g_rep), (e_out, e_pool, e_n, _, e_rep) = \
         runs[False], runs[True]
     assert np.array_equal(g_out, e_out)
     for n in ("k", "v"):
-        assert torch.equal(g_pool[n], e_pool[n])
+        assert torch.equal(g_pool[n][:, 1:], e_pool[n][:, 1:]), n
     assert g_n == e_n and (g_rep, e_rep) == (1, 0)
     kern = ATTENTION_OF.get(name, "paged_prefill_attention_kernel")
     assert g_n[kern] == cfg.num_layers and g_n["rms_norm_fused"] > 0
@@ -1198,8 +1201,9 @@ def test_sampled_streams_equal_with_and_without_graphs(dev, mode):
     """A sampling engine (temperature 0.8, top-k 20, one seed) gives the
     same streams with graphs and eagerly: the noise is drawn from the
     generator outside the graph, the same draws either way.  On graphs,
-    every program dispatch is one replay, and the program counts stay
-    within the budget."""
+    every program dispatch is one replay (the KV tier's spill gathers and
+    restore scatters among them), and the program counts stay within the
+    budget."""
     from paddle_tpu_torch.analysis.registry import over_budget
     from paddle_tpu_torch.inference.engine import LLMEngine
     cfg = _small_llama(torch.bfloat16)
@@ -1224,7 +1228,8 @@ def test_sampled_streams_equal_with_and_without_graphs(dev, mode):
     st = stats[False]
     assert st["graph_replays"] == st["fused_dispatches"] + \
         st["decode_dispatches"] + st["chunk_dispatches"] + \
-        st["prefill_dispatches"] + st["cow_page_copies"] > 0
+        st["prefill_dispatches"] + st["cow_page_copies"] + \
+        st["swap_out_dispatches"] + st["swap_in_dispatches"] > 0
     assert stats[True]["graph_replays"] == 0
     assert st["decode_executables"] == 1 and not over_budget(st)
 
@@ -1459,7 +1464,7 @@ def test_double_swap_preemption_on_card_keeps_the_stream(dev, kv, fuse):
     prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
                for n in (8, 8, 16, 16)]
     geo = dict(num_slots=4, page_size=8, max_model_len=64, fuse=fuse,
-               kv_dtype=kv, device=dev)
+               kv_dtype=kv, kv_tier=False, device=dev)   # as the CPU twin
     base = LLMEngine(params, cfg, **geo)
     for p in prompts:
         base.add_request(p, max_new_tokens=12)
@@ -1484,3 +1489,59 @@ def test_double_swap_preemption_on_card_keeps_the_stream(dev, kv, fuse):
                         "chunk_dispatches", "prefill_dispatches",
                         "swap_out_dispatches", "swap_in_dispatches"))
     assert {r: o.token_ids for r, o in eng.outputs.items()} == want
+
+
+@pytest.mark.parametrize("store", [False, True], ids=["host", "store"])
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["bf16", "int8"])
+def test_tier_restore_on_card_keeps_the_stream(dev, kv, store, tmp_path):
+    """The KV tier on the card (the session of `test_torch_kv_tier.py` on
+    the small llama, page 8, nine pages): evicted prefix pages are
+    gathered by the "swap_out" graph into pinned buffers and landed as
+    slabs (with `store`, a host budget of 6 pages moves them on to npz
+    files, bf16 as raw 2-byte lanes), and the returning turn is restored
+    by one "swap_in" replay a restore.  The streams equal a never-evicting
+    pool's bitwise (its returning turn hits the device), and the replays
+    equal the dispatches."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    cfg = _small_llama(torch.bfloat16)
+    params = _card_params(cfg, dev)
+    geo = dict(num_slots=2, page_size=8, max_model_len=64, prefill_chunk=16,
+               kv_dtype=kv, device=dev)
+
+    def session(eng):
+        rng = np.random.RandomState(7)
+        shared = rng.randint(0, cfg.vocab_size, (20,)).astype(np.int32)
+        r1 = eng.add_request(shared, max_new_tokens=5)
+        first = eng.run()[r1].token_ids
+        for _ in range(6):
+            eng.add_request(rng.randint(0, cfg.vocab_size, (30,))
+                            .astype(np.int32), max_new_tokens=4)
+        while eng.has_work:
+            eng.step()
+            eng.cache.check_invariants()
+        eng.add_request(np.concatenate([
+            shared, np.asarray(first, np.int32),
+            rng.randint(0, cfg.vocab_size, (4,)).astype(np.int32)]),
+            max_new_tokens=5)
+        return {r: o.token_ids for r, o in eng.run().items()}
+
+    want = session(LLMEngine(params, cfg, num_pages=64, **geo))
+    more = dict(swap_pool_pages=6, spill_dir=str(tmp_path)) if store else \
+        dict(swap_pool_pages=64)
+    eng = LLMEngine(params, cfg, num_pages=9, **geo, **more)
+    eng.warm_swap()
+    assert session(eng) == want
+    st = eng.stats()
+    tier = st["kv_tier"]
+    assert tier["spills"] > 0 and tier["restores"] > 0
+    assert st["swap_in_dispatches"] == tier["restores"]
+    if store:
+        assert tier["disk_spills"] > 0 and tier["disk_restores"] > 0
+    assert all(eng._programs[r].graph is not None
+               for r in ("swap_out", "swap_in"))
+    assert st["graph_replays"] == sum(
+        st[k] for k in ("fused_dispatches", "decode_dispatches",
+                        "chunk_dispatches", "prefill_dispatches",
+                        "cow_page_copies", "swap_out_dispatches",
+                        "swap_in_dispatches"))
+    eng.cache.check_invariants()

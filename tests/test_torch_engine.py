@@ -19,7 +19,8 @@ import torch
 
 from paddle_tpu.inference.engine import LLMEngine as JaxEngine
 from paddle_tpu.models import gpt as G
-from paddle_tpu_torch.inference.cache import PagedKVCache
+from paddle_tpu_torch.inference.cache import (LocalDirStore, PageStore,
+                                              PagedKVCache)
 from paddle_tpu_torch.inference.engine import LLMEngine
 from paddle_tpu_torch.inference.faults import FaultPlan
 from paddle_tpu_torch.models import gpt as TG
@@ -180,15 +181,41 @@ def test_add_request_validation(reference):
     assert eng.stats()["rejected_requests"] == 1 and not eng.has_work
 
 
+class _MemStore(PageStore):
+    """A `PageStore` in a dict (any backend with the six methods will do)."""
+
+    def __init__(self):
+        self.objects, self.blob_map = {}, {}
+
+    def put(self, name, data):
+        self.objects[name] = dict(data)
+
+    def get(self, name):
+        return self.objects[name]
+
+    def delete(self, name):
+        self.objects.pop(name, None)
+
+    def exists(self, name):
+        return name in self.objects
+
+    def put_blob(self, name, payload):
+        self.blob_map[name] = payload
+
+    def blobs(self, prefix):
+        return sorted((n, b) for n, b in self.blob_map.items()
+                      if n.startswith(prefix))
+
+
 @pytest.mark.parametrize("knob", [
     dict(spec_len=2), dict(fuse=False, spec_len=2),
     dict(admission="optimistic"), dict(preempt="swap"),
     dict(fault_plan=FaultPlan(pressure_steps=(1,))), dict(kv_tier=True),
-    dict(spill_dir="x"), dict(page_store=object()), dict(role="prefill"),
+    dict(spill_dir="x"), dict(page_store=_MemStore()), dict(role="prefill"),
     dict(mesh=object()),
     dict(mp=2), dict(request_tracing=True), dict(clock=lambda: 0.0),
 ], ids=lambda d: next(iter(d)))
-def test_later_slice_knobs_raise(reference, knob):
+def test_later_slice_knobs_raise(reference, knob, tmp_path):
     _, _, tcfg, tparams, _, _ = reference["gpt_tiny"]
     if "spec_len" in knob:
         # speculative decoding has landed (test_torch_spec_decode.py): the
@@ -208,6 +235,23 @@ def test_later_slice_knobs_raise(reference, knob):
             assert eng._faults is knob["fault_plan"]
         if "clock" in knob:
             assert eng._now is knob["clock"]
+        return
+    if set(knob) & {"kv_tier", "spill_dir", "page_store", "role"}:
+        # the KV tier, its store and the roles have landed
+        # (test_torch_kv_tier.py, test_torch_disagg.py): the knob is taken
+        if "spill_dir" in knob:
+            knob = {"spill_dir": str(tmp_path / knob["spill_dir"])}
+        eng = LLMEngine(tparams, tcfg, device="cpu", **GEOMETRY, **knob)
+        st = eng.stats()
+        assert eng.kv_tier and st["kv_tier"]["enabled"]
+        assert st["role"] == knob.get("role")
+        store = eng.cache._tier.store
+        if "spill_dir" in knob:
+            assert isinstance(store, LocalDirStore)
+            assert store.root == knob["spill_dir"] == st["kv_tier"][
+                "spill_dir"]
+        else:
+            assert store is knob.get("page_store")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         LLMEngine(tparams, tcfg, device="cpu", **GEOMETRY, **knob)

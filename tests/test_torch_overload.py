@@ -3,7 +3,8 @@
 Case by case the twin of `tests/test_overload.py`, at its sizes
 (`gpt_tiny(64)`, page 8, fp32, its prompts, pools and `FaultPlan`s): each
 scenario runs on the reference engine (built with `kv_tier=False`, as the
-port has no KV tier yet, and never warmed) and on the port's, on the same
+reference's test builds it, and never warmed) and on the port's, also
+built with `kv_tier=False`, on the same
 `init_params` weights bridged through numpy.  Both must give the same
 streams and finish reasons, and the same overload counters
 (`OVERLOAD_STATS`); the streams must also equal the undisturbed run's where
@@ -89,7 +90,7 @@ def _makers(tiny):
     def port(fault=None, **kw):
         if fault is not None:
             kw["fault_plan"] = FaultPlan(**fault)
-        return LLMEngine(tparams, tcfg, device="cpu", **kw)
+        return LLMEngine(tparams, tcfg, device="cpu", kv_tier=False, **kw)
 
     return {"reference": ref, "port": port}
 

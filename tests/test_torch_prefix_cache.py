@@ -9,9 +9,10 @@ on the CPU.
   reference's cache and the port's.  After every operation both give the
   same (row, matched, cow), free list, LRU order and `prefix_stats()`, and
   both pass `check_invariants()`.
-- `LLMEngine` with its default `prefix_cache=True` against the reference
-  `LLMEngine(spec_len=0, kv_tier=False)` (prefix cache on, its default;
-  evicted prefixes dropped, as the port has no KV tier; never warmed) at
+- `LLMEngine(kv_tier=False)` with its default `prefix_cache=True` against
+  the reference `LLMEngine(spec_len=0, kv_tier=False)` (prefix cache on,
+  its default; evicted prefixes dropped; never warmed; the tier-on pairs
+  are in `test_torch_kv_tier.py`) at
   `gpt_tiny` and `llama_tiny`, fp32, in all four modes (fused and unfused,
   bucketed and chunked), on traffic that admits a prompt, its extension
   and its copy together, serves a donor to completion and then its
@@ -341,7 +342,7 @@ def test_prefix_engine_matches_reference(prefix_reference, name, mode):
     ref_outs, ref_rid, ref_st = runs[mode]
     fuse, chunk = MODES[mode]
     eng = LLMEngine(tparams, tcfg, prefill_chunk=chunk, fuse=fuse,
-                    device="cpu", **GEOMETRY)
+                    kv_tier=False, device="cpu", **GEOMETRY)
     assert eng.prefix_cache
     outs, rid = _traffic(eng, cfg.vocab_size)
     assert rid == ref_rid
@@ -387,7 +388,7 @@ def test_int8_prefix_engine_matches_reference(int8_prefix_reference):
     cfg, qparams, tcfg, tparams, ref_outs, ref_rid, ref_st = \
         int8_prefix_reference
     eng = LLMEngine(tparams, tcfg, weight_dtype="int8", kv_dtype="int8",
-                    device="cpu", **GEOMETRY)
+                    kv_tier=False, device="cpu", **GEOMETRY)
     outs, rid = _traffic(eng, cfg.vocab_size)
     assert rid == ref_rid
     _assert_int8_parity(ref_outs, outs, qparams, cfg)
@@ -444,7 +445,8 @@ def test_abort_frees_pages_like_reference(prefix_reference, prefix_cache):
               prefill_chunk=8, prefix_cache=prefix_cache)
     ref = _abort_run(JaxEngine(params, cfg, spec_len=0, kv_tier=False, **kw),
                      prompts)
-    got = _abort_run(LLMEngine(tparams, tcfg, device="cpu", **kw), prompts)
+    got = _abort_run(LLMEngine(tparams, tcfg, device="cpu", kv_tier=False,
+                               **kw), prompts)
     assert got == ref
     seen, outs = got
     assert seen == [True, True, True, False, 0, False, True, 0, False]
@@ -459,7 +461,7 @@ def test_probe_affinity_sees_finish_time_registration(prefix_reference):
     kw = dict(num_slots=2, page_size=8, max_model_len=64, prefill_chunk=16,
               seed=0)
     engines = (JaxEngine(params, cfg, spec_len=0, kv_tier=False, **kw),
-               LLMEngine(tparams, tcfg, device="cpu", **kw))
+               LLMEngine(tparams, tcfg, device="cpu", kv_tier=False, **kw))
     rng = np.random.RandomState(3)
     prompt = rng.randint(0, cfg.vocab_size, (10,)).astype(np.int32)
     more = rng.randint(0, cfg.vocab_size, (4,)).astype(np.int32)

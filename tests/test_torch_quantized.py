@@ -34,10 +34,15 @@ reference, on the CPU.
   four leaves, the scale lanes too) give the undisturbed int8 stream
   exactly, the reference int8 engine's counters, and its streams under the
   near-tie rule.
+- The KV tier over int8 pools: spilled pages restored with their scale
+  lanes in one scatter, the never-evicting pool's stream exactly, the
+  reference int8 engine's tier counters, and its streams under the
+  near-tie rule.
 - The reference's six engine keywords the port had lacked: each at its
-  default builds; `draft_proposer`, `spec_backoff_window` and
-  `swap_pool_pages` take another value (the proposer is called, the window
-  honoured, the host pool bounded), any other keyword's other value raises
+  default builds; `draft_proposer`, `spec_backoff_window`,
+  `swap_pool_pages` and `spill_disk_pages` take another value (the
+  proposer is called, the window honoured, the host pool bounded, the
+  store level capped), any other keyword's other value raises
   `NotImplementedError` naming its ROADMAP item.
 """
 import warnings
@@ -64,6 +69,7 @@ from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
 from paddle_tpu_torch.quantization import serving as TQ
 from test_torch_engine import PRESETS, _serve
+from test_torch_kv_tier import _node_kv
 
 LANE_TOL = dict(rtol=1e-5, atol=1e-5)
 FP_TOL = 1e-4           # the fp programs' logits tolerance (test_torch_model)
@@ -552,7 +558,8 @@ def test_int8_engine_top1_agreement_with_fp(quant_models, mode):
     reqs = [(p, 12) for p in _preempt_prompts(cfg.vocab_size)] \
         if mode == "preempt" else _requests(cfg.vocab_size)
     geo = {**GEOMETRY, **TOP1_MODES[mode]}
-    engines = [LLMEngine(tparams, tcfg, device="cpu", **geo, **kw)
+    engines = [LLMEngine(tparams, tcfg, device="cpu", kv_tier=False, **geo,
+                         **kw)
                for kw in ({}, dict(weight_dtype="int8", kv_dtype="int8"))]
     fp, q = ({r: o.token_ids for r, o in _serve(eng, reqs).items()}
              for eng in engines)
@@ -619,8 +626,8 @@ def test_quantized_preempt_parity_and_no_leaks(quant_models, preempt):
         assert eng.cache.swapped_page_count == 0
         return {r: eng._outputs[r] for r in rids}
 
-    base = serve(LLMEngine(tparams, tcfg, device="cpu", **geo))
-    eng = LLMEngine(tparams, tcfg, device="cpu", **geo, **over)
+    base = serve(LLMEngine(tparams, tcfg, device="cpu", kv_tier=False, **geo))
+    eng = LLMEngine(tparams, tcfg, device="cpu", kv_tier=False, **geo, **over)
     if preempt == "swap":
         eng.warm_swap()
         assert set(eng._programs["swap_in"].inputs) == {
@@ -639,6 +646,76 @@ def test_quantized_preempt_parity_and_no_leaks(quant_models, preempt):
             (eng.cache.num_pages - 1) * TQ.kv_page_bytes(tcfg, 8)
     assert [o.token_ids for o in got.values()] == \
         [o.token_ids for o in base.values()]
+    _assert_int8_parity(ref_outs, got, qparams, cfg)
+
+
+def _int8_session(eng):
+    """`test_torch_kv_tier.py`'s session on an int8 engine: turn 1, churn
+    that evicts its pages, the returning turn.  The cache's invariants
+    after every step of the port.  Returns {rid: output}."""
+    def drain():
+        if isinstance(eng, JaxEngine):
+            return eng.run()
+        while eng.has_work:
+            eng.step()
+            eng.cache.check_invariants()
+        return eng.outputs
+
+    rng = np.random.RandomState(7)
+    vocab = eng.config.vocab_size
+    shared = rng.randint(0, vocab, (20,)).astype(np.int32)
+    r1 = eng.add_request(shared, max_new_tokens=5)
+    outs = dict(drain())
+    for _ in range(6):
+        eng.add_request(rng.randint(0, vocab, (30,)).astype(np.int32),
+                        max_new_tokens=4)
+    outs.update(drain())
+    eng.add_request(np.concatenate([
+        shared, np.asarray(outs[r1].token_ids, np.int32),
+        rng.randint(0, vocab, (4,)).astype(np.int32)]), max_new_tokens=5)
+    outs.update(drain())
+    return outs
+
+
+def test_quantized_tier_restores_all_four_leaves(quant_models):
+    """The KV tier over an int8 pool: the returning session's spilled
+    pages come back in one scatter of all four leaves (int8 k and v and
+    their scale lanes), so its stream is bitwise the never-evicting
+    pool's, whose returning turn hits the device; the tier counters equal
+    the reference int8 engine's, and its streams under the near-tie
+    rule."""
+    _, cfg, params, qparams, tcfg, _ = quant_models
+    tparams = params_from_numpy(_np(params), tcfg, "cpu")
+    geo = dict(num_slots=2, page_size=8, max_model_len=64, prefill_chunk=16,
+               seed=3, swap_pool_pages=64, weight_dtype="int8",
+               kv_dtype="int8")
+    eng = LLMEngine(tparams, tcfg, device="cpu", num_pages=9, **geo)
+    got = _int8_session(eng)
+    assert set(eng._programs["swap_in"].inputs) == {
+        "ids", "k", "v", "k_scale", "v_scale"}
+    wide_eng = LLMEngine(tparams, tcfg, device="cpu", num_pages=64, **geo)
+    wide = _int8_session(wide_eng)
+    assert [o.token_ids for o in got.values()] == \
+        [o.token_ids for o in wide.values()]
+    # the restored pages, k, v and their scales, are the computed bytes
+    shared = [k for k, nd in eng.cache._index.items()
+              if nd.page >= 0 and k in wide_eng.cache._index]
+    assert len(shared) >= 2
+    for k in shared:
+        a = _node_kv(eng, eng.cache._index[k])
+        b = _node_kv(wide_eng, wide_eng.cache._index[k])
+        assert set(a) == {"k", "v", "k_scale", "v_scale"}
+        for n in a:
+            np.testing.assert_array_equal(a[n], b[n])
+    ref = JaxEngine(params, cfg, num_pages=9, **geo)
+    ref_outs = _int8_session(ref)
+    st, rst = eng.stats()["kv_tier"], ref.stats()["kv_tier"]
+    assert st["spills"] > 0 and st["restores"] > 0
+    assert st["restored_tokens"] >= 16
+    for k in ("spills", "restores", "restored_tokens", "pages_host",
+              "tier_drops"):
+        assert st[k] == rst[k], (k, st[k], rst[k])
+    assert eng.stats()["swap_in_dispatches"] == st["restores"]
     _assert_int8_parity(ref_outs, got, qparams, cfg)
 
 
@@ -720,7 +797,8 @@ KEYWORDS = {    # keyword: (the reference's default, another value, item)
     "spec_backoff_window": (8, 4, None),
     # optimistic admission and preemption have landed: taken
     "swap_pool_pages": (None, 2, None),
-    "spill_disk_pages": (None, 8, "KV tiering, durable store and roles"),
+    # the KV tier has landed: taken
+    "spill_disk_pages": (None, 8, None),
     "trace_ring": (512, 64, "metrics, tracing and health"),
     "trace_retention": (4096, None, "metrics, tracing and health"),
 }
@@ -737,6 +815,11 @@ def test_reference_keywords_take_their_defaults(name):
     assert len(eng.run()) == 1
     if name == "swap_pool_pages":
         _swap_pool_pages_taken(params, cfg, other)
+        return
+    if name == "spill_disk_pages":
+        eng = LLMEngine(params, cfg, device="cpu", **GEOMETRY,
+                        **{name: other})
+        assert eng.cache._tier.disk_pages == other
         return
     if item is None:
         _spec_keyword_taken(params, cfg, name, other)

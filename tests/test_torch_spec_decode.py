@@ -14,8 +14,8 @@ the port on the same `init_params` weights bridged through numpy:
   atol/rtol 2e-4), the valid-masked call and the re-verify over the
   rolled-back region included;
 - `LLMEngine(spec_len=K)` streams and spec counters exactly equal to the
-  reference engine's (built with `kv_tier=False`, the port having no KV
-  tier, and never warmed), fused and unfused, bucketed and chunked, prefix
+  reference engine's (both built with `kv_tier=False`, the reference
+  never warmed), fused and unfused, bucketed and chunked, prefix
   cache on and off, and spec-on streams equal to spec-off streams; EOS
   inside an accepted run, a repetitive stream (`accepted_per_step` > 1),
   the refcount invariants after every step, abort mid-verify and
@@ -73,11 +73,12 @@ def tiny():
 
 def _engines(tiny, **kw):
     """A reference engine and the port's on the same weights and knobs
-    (the reference without its KV tier when the prefix cache is on)."""
+    (both without the KV tier when the prefix cache is on, as the
+    reference's tests build theirs)."""
     cfg, params, tcfg, tparams = tiny
     tier = {"kv_tier": False} if kw.get("prefix_cache", True) else {}
     return (JaxEngine(params, cfg, **tier, **kw),
-            LLMEngine(tparams, tcfg, device="cpu", **kw))
+            LLMEngine(tparams, tcfg, device="cpu", **tier, **kw))
 
 
 def _port(tiny, **kw):
@@ -404,7 +405,7 @@ def test_spec_rollback_keeps_refcount_invariants(tiny):
     assert st["pages_in_use"] == 0 and st["verify_steps"] > 0
     assert st["spec_drafted_tokens"] >= st["spec_accepted_tokens"] > 0
     got, want = eng.cache.prefix_stats(), ref.cache.prefix_stats()
-    assert got == {k: want[k] for k in got}     # the port has no KV tier
+    assert got == want              # both built without the KV tier
 
 
 def _abort_mid_verify(eng, rng, vocab):
@@ -545,7 +546,7 @@ def test_adaptive_spec_backoff_stops_dead_drafting(tiny, mode):
     for window in (W, 0):
         props = [_AlwaysWrongProposer(bad) for _ in range(2)]
         kw = dict(spec_len=3, spec_backoff_window=window, **geo)
-        eng = _port(tiny, draft_proposer=props[1], **kw)
+        eng = _port(tiny, draft_proposer=props[1], kv_tier=False, **kw)
         assert eng.proposer is props[1]
         got = _serve(eng, [prompt], NEW)
         assert got[0].token_ids == ref_stream
