@@ -204,6 +204,36 @@ Phases, one JSON line each (with its seconds):
                and handoff counters, a restore's staging ms and the
                "swap_in" replay's device ms, the npz write and read ms a
                page, the card's name and power limit.
+6g. engine_obs — metrics, tracing and health: phase 3's engine (fused
+               bucketed, `request_tracing=True`, the default) warmed on a
+               first pass of fresh prompts of the PROMPT_LENS lengths and
+               reset (`reset_counters`), then the phase-3 prompts inside
+               `engine.trace(dir, device=True)`: `host_trace.json` holds
+               the engine.step, admit, prefill.dispatch, fused.dispatch and
+               sample.sync spans, `step_timeline.json` one v2 record a
+               step (at most one dispatch each), `metrics.json` and the
+               Prometheus text parse line by line, the `torch.profiler`
+               trace in `device/` holds CUDA kernel events and names the
+               paged prefill kernel (on an `_eager=True` engine if the
+               graph replays' kernels go unnamed), `stats()["latency"]`
+               counts 8 TTFTs and e2e times, each request has queue <=
+               TTFT <= e2e and 32 tokens and a timeline enqueue ...
+               first_token ... finish, no steady-state recompile, the
+               programs within the budget, a health state neither
+               "error" nor "overloaded"; then the same prompts on an
+               engine with `request_tracing=False`, no window: bitwise the
+               same tokens and program counts.  The step's wall and its
+               host share (the step less its wait in engine.sample.sync),
+               median and mean over the steady fused steps, tracing off /
+               on / on / off on fresh prompts, and the on/off ratio
+               (reported, not a gate).  A dropped engine is freed at `del`
+               without the collector, and the phase's engines leave at
+               most RELEASE_SLACK.  Then a 2-layer engine of the same width
+               under a `FaultPlan` of forced pool pressure (optimistic
+               admission, recompute): health leaves "ok" on the preemption
+               signal and the `engine_health` gauge reads its code.  The
+               traced pass's launches join the kernels line; the card's
+               name and power limit are printed.
 7. first_token — the first tokens of phases 3, 4 and both modes of 5 for
                two prompts against the argmax of the dense `forward` at the
                last prompt position, held equal where the top-2 margin
@@ -243,9 +273,10 @@ Phases, one JSON line each (with its seconds):
 
 Then one line `{"kernels": [...]}` for all nine kernels and the int8 lanes of
 the two paged ones (launches summed over the main-path runs of phases 3, 4,
-5, 6b, 6c, 6d, 6e, 6f (its tier runs), 10, 11 and 12, each with the counts
-zeroed just before it and read just after; none of them may take an
-entry's composed route for shapes the kernels do not take) and, last,
+5, 6b, 6c, 6d, 6e, 6f (its tier runs), 6g (its traced pass), 10, 11 and
+12, each with the counts zeroed just before it and read just after; none
+of them may take an entry's composed route for shapes the kernels do not
+take) and, last,
 `{"ok": true, "device": ...}`.
 Exits non-zero, with no result line, without CUDA, outside the repository,
 or when any phase fails.
@@ -1901,6 +1932,320 @@ def engine_tier(params, cfg, dev, prompts, smi):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 6g: metrics, tracing and health at Llama-3-8B width
+# ---------------------------------------------------------------------------
+
+OBS_SPANS = ("engine.step", "engine.admit", "engine.prefill.dispatch",
+             "engine.fused.dispatch", "engine.sample.sync")
+# the kernels a traced bucketed pass must name (rows 1, 2 and 3)
+OBS_KERNELS = ("paged_prefill_kernel", "flash_fwd_wgmma", "rms_")
+# the 2-layer engine's forced pool pressure: engine steps after its reset
+OBS_PRESSURE = (3, 4, 5, 6, 7, 8)
+PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})? '
+                         r'(\S+)( # \{.*\} \S+)?$')
+
+
+def prometheus_samples(text):
+    """The samples of a Prometheus text exposition, each line parsed (HELP
+    and TYPE comments, `name{labels} value`, an OpenMetrics exemplar);
+    raises on a line that is neither."""
+    n = 0
+    for line in text.splitlines():
+        if not line or line.startswith(("# HELP ", "# TYPE ")) or \
+                line == "# EOF":
+            continue
+        m = PROM_SAMPLE.match(line)
+        if m is None:
+            raise AssertionError(f"engine_obs: bad exposition line {line!r}")
+        float(m.group(2))
+        n += 1
+    return n
+
+
+def obs_engine(params, cfg, dev, **kw):
+    """Phase 3's engine (fused bucketed, `request_tracing` at its default
+    unless given)."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    return LLMEngine(params, cfg, num_slots=8, page_size=16,
+                     max_model_len=2048, prefill_buckets=SERVE_BUCKETS,
+                     device=dev, **kw)
+
+
+def obs_pass(eng, prompts):
+    """Zero the engine's counters, serve `prompts` x MAX_NEW to the end.
+    Returns (outputs in request order, each step's wall seconds, the
+    steady steps' host seconds: the step less its wait for the device
+    result, from the step ring; the steady steps are those after the
+    admitting one that dispatched the full decode batch)."""
+    import torch
+    eng.reset_counters()
+    rids = [eng.add_request(p, max_new_tokens=MAX_NEW) for p in prompts]
+    walls = []
+    while eng.has_work:
+        s = time.perf_counter()
+        eng.step()
+        walls.append(time.perf_counter() - s)
+    torch.cuda.synchronize()
+    ring = eng.step_trace()
+    if len(ring) != len(walls):
+        raise AssertionError(f"engine_obs: {len(ring)} step records for "
+                             f"{len(walls)} steps")
+    steady = [i for i, r in enumerate(ring) if i > 0 and
+              r["dispatches"] == 1 and r["decode_batch"] == len(prompts)]
+    host = [ring[i]["dur_s"] - ring[i]["sync_ms"] / 1e3 for i in steady]
+    return [eng._outputs[r] for r in rids], [walls[i] for i in steady], host
+
+
+def obs_times(walls, host):
+    return {"steps": len(walls),
+            "median_ms": 1e3 * float(np.median(walls)),
+            "mean_ms": 1e3 * float(np.mean(walls)),
+            "host_median_ms": 1e3 * float(np.median(host)),
+            "host_mean_ms": 1e3 * float(np.mean(host))}
+
+
+def device_kernels(path):
+    """(kernel event count, their names) of a torch.profiler chrome
+    trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return len(names), names
+
+
+def engine_obs(params, cfg, prompts, dev, smi):
+    """Phase 6g (see the module docstring): (the traced pass's outputs,
+    {prompt index: output}; the phase's record, with the traced pass's
+    launch counts)."""
+    import dataclasses
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import weakref
+
+    import torch
+    from paddle_tpu_torch.analysis.registry import over_budget
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.inference.faults import FaultPlan
+    from paddle_tpu_torch.inference.health import HEALTH_CODES
+    rng = np.random.RandomState(16)
+
+    def fresh():
+        return [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+                for n in PROMPT_LENS]
+
+    def released(what):
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated(dev) - held
+        if left > RELEASE_SLACK:
+            raise AssertionError(f"engine_obs: {what} left "
+                                 f"{left / 2**20:.1f} MiB allocated")
+        return left / 2 ** 20
+
+    warm_prompts, over1, over2 = fresh(), fresh(), fresh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    rec = {"nvidia_smi": smi}
+    root = tempfile.mkdtemp()
+    try:
+        # (1) warm every program on a first pass, off the window
+        traced = obs_engine(params, cfg, dev)
+        if not traced._req_tracing:
+            raise AssertionError("engine_obs: request tracing is off by "
+                                 "default")
+        traced.warm_decode()
+        traced.warm_swap()              # the KV tier's spills and restores
+        obs_pass(traced, warm_prompts)
+        built = sorted(r for r, p in traced._programs.items() if p.built)
+        # (2) the traced pass
+        tdir = os.path.join(root, "trace")
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with traced.trace(tdir, device=True) as prof:
+            outs, walls, host = obs_pass(traced, prompts)
+        window_s = time.perf_counter() - t0
+        launches, launches_int8 = K.launches(), K.launches_int8()
+        no_composed("engine_obs")
+        st = traced.stats()
+        now_built = sorted(r for r, p in traced._programs.items()
+                           if p.built)
+        if now_built != built:
+            raise AssertionError(f"engine_obs: programs {now_built} built, "
+                                 f"{built} before the window")
+        with open(os.path.join(tdir, "host_trace.json")) as f:
+            spans = {e["name"] for e in json.load(f)["traceEvents"]}
+        if not set(OBS_SPANS) <= spans:
+            raise AssertionError(f"engine_obs: host spans {sorted(spans)}")
+        with open(os.path.join(tdir, "step_timeline.json")) as f:
+            timeline = json.load(f)
+        if len(timeline) != st["engine_steps"] or \
+                any(r["v"] != 2 or r["dispatches"] > 1 for r in timeline):
+            raise AssertionError(f"engine_obs: step timeline of "
+                                 f"{len(timeline)} records for "
+                                 f"{st['engine_steps']} steps")
+        with open(os.path.join(tdir, "metrics.json")) as f:
+            snap = json.load(f)
+        if snap["counters"]["decode_tokens"] != st["decode_tokens"]:
+            raise AssertionError("engine_obs: metrics.json disagrees with "
+                                 "stats()")
+        samples = prometheus_samples(traced.metrics.to_prometheus())
+        prometheus_samples(traced.metrics.to_prometheus(openmetrics=True))
+        n_kernels, names = device_kernels(prof.device_trace_path)
+        named = {k: sum(k in n for n in names) for k in OBS_KERNELS}
+        rec["device_trace"] = {"kernel_events": n_kernels,
+                               "named_on_graphs": named,
+                               "distinct_kernels": len(set(names))}
+        if n_kernels == 0:
+            raise AssertionError("engine_obs: no CUDA kernel in the device "
+                                 "trace")
+        lat = st["latency"]
+        if lat["ttft_s"]["count"] != len(prompts) or \
+                lat["e2e_s"]["count"] != len(prompts):
+            raise AssertionError(f"engine_obs: latency {lat}")
+        for o in outs:
+            m = o.metrics
+            ev = [e["name"] for e in o.trace.events]
+            if not (m.queue_s <= m.ttft_s <= m.e2e_s) or \
+                    m.n_generated != MAX_NEW or ev[0] != "enqueue" or \
+                    "first_token" not in ev or ev[-1] != "finish":
+                raise AssertionError(f"engine_obs: request "
+                                     f"{o.request_id}: {m}, {ev}")
+        over = over_budget(st)
+        if st["roofline"]["steady_state_recompiles"] or over or \
+                st["health"]["state"] in ("error", "overloaded"):
+            raise AssertionError(f"engine_obs: recompiles "
+                                 f"{st['roofline']}, over budget {over}, "
+                                 f"health {st['health']}")
+        L = cfg.num_layers
+        if launches["paged_prefill_attention_kernel"] != \
+                L * st["fused_dispatches"] or \
+                launches["flash_attention_fwd"] != \
+                L * st["prefill_dispatches"] or \
+                launches["rms_norm_fused"] == 0 or any(launches_int8.values()):
+            raise AssertionError(f"engine_obs: launches {launches}, int8 "
+                                 f"{launches_int8} ({st})")
+        execs = {k: st[k] for k in st if k.endswith("_executables")}
+        rec["traced"] = {
+            "window_s": window_s, **obs_times(walls, host),
+            "engine_steps": st["engine_steps"],
+            "fused_dispatches": st["fused_dispatches"],
+            "prefill_dispatches": st["prefill_dispatches"],
+            "graph_replays": st["graph_replays"], "executables": execs,
+            "latency": lat, "health": st["health"],
+            "roofline": st["roofline"], "slo": st["slo"],
+            "rates": st["rates"], "prometheus_samples": samples,
+            "request_metrics": [dataclasses.asdict(o.metrics)
+                                for o in outs],
+            "timeline_events": sum(len(o.trace.events) for o in outs)}
+        rec["launches"] = launches
+        rec["launches_int8"] = launches_int8
+        if not all(named.values()):
+            # the graph replays' kernels went unnamed: hold the names on an
+            # eager engine's traced pass
+            eager = obs_engine(params, cfg, dev, _eager=True)
+            eager.warm_decode()
+            eager.warm_swap()
+            obs_pass(eager, warm_prompts)
+            with eager.trace(os.path.join(root, "eager"), device=True) as ep:
+                obs_pass(eager, prompts[:2])
+            n_e, names_e = device_kernels(ep.device_trace_path)
+            named_e = {k: sum(k in n for n in names_e) for k in OBS_KERNELS}
+            rec["device_trace"]["named_eager"] = named_e
+            rec["device_trace"]["kernel_events_eager"] = n_e
+            if not all(named_e.values()):
+                raise AssertionError(f"engine_obs: eager device trace names "
+                                     f"{named_e}")
+            del eager
+            rec["left_after_eager_mib"] = released("the eager engine")
+        # (3) the same prompts untraced: bitwise the same tokens, programs
+        bare = obs_engine(params, cfg, dev, request_tracing=False)
+        bare.warm_decode()
+        bare.warm_swap()
+        obs_pass(bare, warm_prompts)
+        bouts, bwalls, bhost = obs_pass(bare, prompts)
+        bst = bare.stats()
+        if [o.token_ids for o in bouts] != [o.token_ids for o in outs] or \
+                {k: bst[k] for k in execs} != execs or \
+                bst["graph_replays"] != st["graph_replays"] or \
+                any(o.trace is not None for o in bouts):
+            raise AssertionError(f"engine_obs: the untraced pass differs "
+                                 f"({bst})")
+        rec["untraced"] = {**obs_times(bwalls, bhost), "executables": execs,
+                           "graph_replays": bst["graph_replays"],
+                           "identical_streams": len(bouts)}
+        # (4) the tracing account: off / on / on / off on fresh prompts
+        runs = [obs_pass(e, ps)[1:] for e, ps in
+                ((bare, over1), (traced, over1), (traced, over2),
+                 (bare, over2))]
+        off_w = [x for i in (0, 3) for x in runs[i][0]]
+        on_w = [x for i in (1, 2) for x in runs[i][0]]
+        off_h = [x for i in (0, 3) for x in runs[i][1]]
+        on_h = [x for i in (1, 2) for x in runs[i][1]]
+        rec["overhead"] = {
+            "order": "off/on/on/off", "passes": [obs_times(w, h)
+                                                 for w, h in runs],
+            "off_median_ms": 1e3 * float(np.median(off_w)),
+            "on_median_ms": 1e3 * float(np.median(on_w)),
+            "ratio": float(np.median(on_w) / np.median(off_w)),
+            "off_host_median_ms": 1e3 * float(np.median(off_h)),
+            "on_host_median_ms": 1e3 * float(np.median(on_h)),
+            "host_ratio": float(np.median(on_h) / np.median(off_h)),
+            "off_mean_ms": 1e3 * float(np.mean(off_w)),
+            "on_mean_ms": 1e3 * float(np.mean(on_w))}
+        # a dropped engine goes at `del`, without the cycle collector
+        gone = weakref.ref(traced)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            del traced, prof
+            freed = gone() is None
+        finally:
+            if collecting:
+                gc.enable()
+        if not freed:
+            raise AssertionError("engine_obs: the dropped engine outlived "
+                                 "`del` with the collector off")
+        del bare
+        rec["left_after_release_mib"] = released("the traced and untraced "
+                                                 "engines")
+        # (5) health under forced pool pressure, 2 layers of the same width
+        cfg2 = dataclasses.replace(cfg, num_layers=2)
+        params2 = {**params, "blocks": {k: v[:2] for k, v in
+                                        params["blocks"].items()}}
+        eng = obs_engine(params2, cfg2, dev, admission="optimistic",
+                         preempt="recompute",
+                         fault_plan=FaultPlan(pressure_steps=OBS_PRESSURE))
+        eng.warm_decode()
+        eng.warm_swap()
+        pouts, _, _ = obs_pass(eng, prompts)
+        h = eng.health()
+        pst = eng.stats()
+        gauge = eng.metrics.snapshot()["gauges"]["engine_health"]
+        if pst["preemptions"] == 0 or h["state"] == "ok" or \
+                h["signals"]["preemption"]["state"] == "ok" or \
+                not any(r.startswith("preemption") for r in h["reasons"]) \
+                or gauge != HEALTH_CODES[h["state"]] or \
+                any(len(o.token_ids) != MAX_NEW for o in pouts):
+            raise AssertionError(f"engine_obs: pressure {pst['preemptions']} "
+                                 f"preemptions, health {h}, gauge {gauge}")
+        rec["pressure"] = {"layers": 2, "pressure_steps": OBS_PRESSURE,
+                           "preemptions": pst["preemptions"],
+                           "rates": pst["rates"]["preemptions_per_sec"],
+                           "health": {k: h[k] for k in ("state", "code",
+                                                        "reasons")},
+                           "engine_health_gauge": gauge}
+        del eng, params2
+        rec["left_after_pressure_mib"] = released("the pressure engine")
+    finally:
+        shutil.rmtree(root)
+    return dict(enumerate(outs)), rec
+
+
 def decode_logits(params, cfg, prompt, dev):
     """`prefill_paged` of one prompt into a fresh pool, then one
     `decode_step_paged` on its greedy next token, against the dense
@@ -2515,6 +2860,12 @@ def main():
           "int8_requests": TIER_INT8_REQUESTS, **rec_t})
 
     t = time.perf_counter()
+    obs_outs, rec_obs = engine_obs(params, cfg, prompts, dev, smi)
+    emit({"phase": "engine_obs", "seconds": time.perf_counter() - t,
+          "greedy_agreement_with_bucketed": agreement(bucketed, obs_outs),
+          **rec_obs})
+
+    t = time.perf_counter()
     modes = (("bucketed", bucketed), ("chunked", chunked),
              ("unfused_bucketed", unfused["bucketed"]),
              ("unfused_chunked", unfused["chunked"]))
@@ -2652,7 +3003,7 @@ def main():
     runs = (rec3, rec4, rec5["bucketed"], rec5["chunked"], *rec_q.values(),
             *rec_p.values(), *rec_s.values(), *rec_o.values(),
             *(m["tier"] for m in rec_t.values() if isinstance(m, dict)
-              and "tier" in m), rec9, rec7, rec8)
+              and "tier" in m), rec_obs, rec9, rec7, rec8)
     kernels = [{
         "name": r["kernel"] + ("_int8" if key == "launches_int8" else ""),
         "route": route, "source": source, "replaces": replaces,

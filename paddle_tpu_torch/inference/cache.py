@@ -379,6 +379,7 @@ class PagedKVCache:
         self._partial: Dict[Tuple[int, int, int], _PrefixNode] = {}
         self._node_ids = itertools.count(1)
         self.prefix_evictions = 0
+        self._evictions_counter = None      # metrics mirror, attach_metrics
         # the KV tier (attach_tier): storage of spilled prefixes, the
         # engine's spill callback, the off-device nodes by id, and the
         # off-device part of each slot's latest match (take_restore)
@@ -630,6 +631,32 @@ class PagedKVCache:
         """Fraction of the real pool in live use (0.0 idle .. 1.0 full)."""
         return self.pages_in_use() / max(1, self.num_pages - 1)
 
+    def attach_metrics(self, registry) -> None:
+        """Register page accounting on an `inference.metrics.MetricsRegistry`
+        (the reference's names): pull gauges over the page partition, read
+        only when the registry is scraped, and a counter mirroring
+        `prefix_evictions` (the int stays authoritative for `stats()`).
+        The callbacks hold the cache, never the engine."""
+        self._evictions_counter = registry.counter(
+            "prefix_evictions", "cached prefix pages reclaimed under pressure")
+        registry.gauge("kv_pages_in_use", self.pages_in_use,
+                       "pages with refcount > 0")
+        registry.gauge("kv_pages_free", lambda: self.num_free_pages,
+                       "pages immediately allocatable")
+        registry.gauge("kv_pages_evictable", lambda: self.num_evictable_pages,
+                       "refcount-0 cached prefix pages, reclaimable on demand")
+        registry.gauge("prefix_cached_pages", lambda: len(self._index),
+                       "pages registered in the prefix index")
+        registry.gauge("kv_pages_swapped", lambda: self.swapped_page_count,
+                       "pages whose KV lives in the host swap pool")
+        registry.gauge("kv_tier_pages_host", lambda: self.tier_pages_host,
+                       "spilled prefix pages resident in the host KV tier")
+        registry.gauge("kv_tier_pages_disk", lambda: self.tier_pages_disk,
+                       "spilled prefix pages serialized to the disk tier")
+        # a ratio: a fleet merge folds it by max, not by sum
+        registry.gauge("kv_pool_pressure", self.pool_pressure,
+                       "fraction of the page pool in live use", agg="max")
+
     # ---- prefix index -----------------------------------------------------
     def _match(self, tokens: np.ndarray
                ) -> Tuple[List[_PrefixNode],
@@ -780,6 +807,8 @@ class PagedKVCache:
             evicted.append(node)
             self._free.append(node.page)
             self.prefix_evictions += 1
+            if self._evictions_counter is not None:
+                self._evictions_counter.inc()
         if not evicted:
             return
         accepted = self._spill_cb(evicted) \

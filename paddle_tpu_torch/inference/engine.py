@@ -116,31 +116,62 @@ package's) merges it at init or with `refresh_store_index` and restores
 from it.  A failed spill copy drops the pages; a failed restore copy, or a
 store object that is gone or does not fit the pool, re-prefills.
 
-Knobs of later slices (tensor parallelism, request tracing) are accepted
-only at the reference's defaults or off values and raise
-`NotImplementedError` otherwise.  `request_tracing` defaults to False here
-(True in the reference).
+Observability, as the reference's, all host state (no program sees it, and
+a stream with tracing on is the stream with tracing off): every counter
+lives in `engine.metrics`, an `inference.metrics.MetricsRegistry`
+(namespace "llm_engine", the reference's metric names; `to_prometheus()`,
+`snapshot()`), whose clock (`clock=`, default `time.perf_counter`) stamps
+everything.  Each request's lifecycle (`RequestOutput.metrics`: queue time,
+TTFT, TPOT, e2e) feeds latency histograms with exemplars and the SLO
+account; with `request_tracing=True` (the default) each request also keeps
+an event timeline (`RequestOutput.trace`, `export_request_trace`), the
+last `trace_retention` of them after retirement.  `step()` appends one v2
+record to a ring of `trace_ring` (`step_trace()`) and samples the windowed
+rates; `health()` folds rates, SLO burn, pool pressure and steady-state
+recompiles (a decode-side program built after the first busy step) against
+`analysis.registry.SERVE_SLO`.  `trace(dir)` writes the host-phase spans
+(`ENGINE_SPANS`), the step timeline, a metrics snapshot and, with
+`device=True`, a `torch.profiler` device trace; `debug_bundle()` is the
+postmortem snapshot.  Every registry callback that reads the engine holds
+it through a weak reference, so a dropped engine (its pool, its graphs)
+is freed without the cycle collector.  `predicted_step_ms` is None: the
+static roofline model is not ported.
+
+Tensor parallelism (`mesh`, `mp > 1`) arrives with a later slice of the
+port and raises `NotImplementedError`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
+import json
+import os
 import time
 import weakref
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..analysis.registry import SERVE_SLO
 from ..models import gpt as gpt_mod
+from ..profiler import profiler as _prof
 from ..quantization.serving import (kv_page_bytes, normalize_quant_dtype,
                                     quantize_serving_params)
 from .cache import HostKVTier, PagedKVCache, lane_to_tensor
 from .faults import FaultInjected, FaultPlan
 from .graphs import StepProgram
+from .health import HEALTH_CODES, burn_rate, evaluate_engine_health
+from .metrics import MetricsRegistry
 from .spec import NgramProposer
+from .tracing import RequestTrace
+
+# measured-step EWMA smoothing (the reference's): about the last 10 busy
+# steps dominate
+_EWMA_ALPHA = 0.2
 
 
 @dataclasses.dataclass(eq=False)
@@ -158,6 +189,25 @@ class Request:
 
 
 @dataclasses.dataclass
+class RequestMetrics:
+    """The lifecycle of one request on the engine clock (the reference's
+    record): a large `queue_s` is admission pressure, a large `ttft_s`
+    with a small `queue_s` prefill cost, a large `tpot_s` decode
+    contention.  Stages a request never reached stay None."""
+    t_enqueue: float
+    t_admit: Optional[float] = None         # popped from the queue into a slot
+    t_first_token: Optional[float] = None   # joined the decode set
+    t_finish: Optional[float] = None        # retired
+    queue_s: Optional[float] = None         # t_admit - t_enqueue
+    ttft_s: Optional[float] = None          # t_first_token - t_enqueue
+    tpot_s: Optional[float] = None          # decode time per token after first
+    e2e_s: Optional[float] = None           # t_finish - t_enqueue
+    cached_tokens: int = 0                  # prompt tokens from prefix cache
+    n_generated: int = 0
+    preemptions: int = 0                    # times this request was preempted
+
+
+@dataclasses.dataclass
 class RequestOutput:
     request_id: int
     prompt: np.ndarray
@@ -166,6 +216,9 @@ class RequestOutput:
                                     # "timeout" | "rejected"
     cached_tokens: int = 0          # prompt tokens from the prefix cache
     ttft_s: Optional[float] = None
+    metrics: Optional[RequestMetrics] = None    # the lifecycle record
+    trace: Optional[RequestTrace] = None        # the event timeline (None
+                                                # with tracing off)
 
     @property
     def tokens(self) -> np.ndarray:
@@ -226,6 +279,66 @@ def _later(what: str, item: str):
         f"{item})")
 
 
+class _NullSpan:
+    """Stands in for `profiler.RecordEvent` when nothing records: a span
+    off costs one flag read and an empty context manager."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+# The host-phase spans `trace()` records (the reference's names): admit
+# covers prefix matching, reservation and the synchronous bucketed prefill;
+# a dispatch span ends when the program is queued, the sync and accept spans
+# hold the wait for the device result.  engine.fused.dispatch is the fused
+# step; decode, verify and prefill dispatch are the unfused programs
+# (prefill.dispatch also the bucketed one-shot prefill and prefix-hit tails).
+ENGINE_SPANS = (
+    "engine.step",
+    "engine.admit",
+    "engine.prefill.dispatch",
+    "engine.spec.propose",
+    "engine.fused.dispatch",
+    "engine.verify.dispatch",
+    "engine.spec.accept",
+    "engine.decode.dispatch",
+    "engine.sample.sync",
+    "engine.swap.d2h",
+    "engine.swap.h2d",
+)
+
+
+# the port's counters beside the reference's (each program's dispatches):
+# plain, reset with the registry, beside "tier_stage_ms"
+_PORT_COUNTERS = ("fused_dispatches", "decode_dispatches", "chunk_dispatches",
+                  "verify_dispatches", "prefill_dispatches",
+                  "swap_out_dispatches", "swap_in_dispatches")
+
+
+def _reading(counter) -> Callable[[], float]:
+    """A rate window's reading: the counter's value (it holds the counter,
+    not the engine)."""
+    return lambda: counter.value
+
+
+def _weak_call(obj, fn: Callable):
+    """A zero-argument callback `fn(obj)` that holds `obj` through a weak
+    reference (0.0 once it is gone): the registry's gauges must not keep
+    their engine alive."""
+    ref = weakref.ref(obj)
+
+    def call():
+        o = ref()
+        return 0.0 if o is None else fn(o)
+    return call
+
+
 class LLMEngine:
     """Continuous-batching engine over the functional GPT core, on
     `device` (None: the CUDA card, raising without one).  `params` must
@@ -263,7 +376,7 @@ class LLMEngine:
                  seed: int = 0,
                  clock=None,
                  trace_ring: int = 512,
-                 request_tracing: bool = False,
+                 request_tracing: bool = True,
                  trace_retention: Optional[int] = 4096,
                  device=None, _eager: bool = False):
         self.weight_dtype = normalize_quant_dtype(weight_dtype,
@@ -271,9 +384,11 @@ class LLMEngine:
         self.kv_dtype = normalize_quant_dtype(kv_dtype, "kv_dtype")
         if mesh is not None or (mp is not None and mp > 1):
             raise _later("mesh/mp>1", "tensor-parallel serving")
-        if request_tracing or trace_ring != 512 or trace_retention != 4096:
-            raise _later("request_tracing, trace_ring and trace_retention",
-                         "metrics, tracing and health")
+        if trace_ring < 1:
+            raise ValueError(f"trace_ring must be >= 1, got {trace_ring}")
+        if trace_retention is not None and trace_retention < 0:
+            raise ValueError(f"trace_retention must be >= 0 or None "
+                             f"(unbounded), got {trace_retention}")
         if admission not in ("reservation", "optimistic"):
             raise ValueError(f"admission must be 'reservation' or "
                              f"'optimistic', got {admission!r}")
@@ -406,7 +521,6 @@ class LLMEngine:
         # next step())
         self._inflight: Optional[Dict[str, object]] = None
         self._orphan_finished: List[RequestOutput] = []
-        self._now = clock or time.perf_counter
         # overload state: rid -> resume record ("recompute": the banked
         # generation; "swap": also the parked KV, in pinned host buffers
         # behind an event until fetched); the swap records whose fetch waits
@@ -414,24 +528,229 @@ class LLMEngine:
         self._preempted: Dict[int, Dict[str, object]] = {}
         self._pending_d2h: List[Dict[str, object]] = []
         self._has_deadlines = False
-        self._c = dict.fromkeys(
-            ("engine_steps", "decode_iterations", "decode_tokens",
-             "fused_dispatches", "decode_dispatches", "chunk_dispatches",
-             "verify_dispatches", "prefill_dispatches", "prefill_chunks",
-             "prefilled_tokens", "verify_steps", "spec_events",
-             "spec_drafted_tokens", "spec_accepted_tokens",
-             "spec_emitted_tokens", "spec_backoffs",
-             "prefix_cached_tokens", "prefix_hit_requests", "cow_page_copies",
-             "partial_page_hits", "admitted_requests", "finished_requests",
-             "aborted_requests", "rejected_requests", "intake_swap_rejects",
-             "preemptions", "preempt_swaps", "preempt_recomputes",
-             "swapped_pages", "recomputed_tokens", "timeouts",
-             "swap_out_dispatches", "swap_in_dispatches",
-             "tier_spills", "tier_restores", "tier_restored_tokens",
-             "handoff_exports", "handoff_pages", "handoff_tokens"),
-            0)
-        self._c["swap_ms"] = 0.0
-        self._c["tier_stage_ms"] = 0.0
+        self._init_observability(clock, trace_ring, request_tracing,
+                                 trace_retention)
+
+    def _init_observability(self, clock, trace_ring: int,
+                            request_tracing: bool,
+                            trace_retention: Optional[int]) -> None:
+        """The reference's observability state (`LLMEngine.__init__`): the
+        metrics registry and its counters, gauges, histograms and rate
+        windows under the reference's names, the request lifecycles and
+        timelines, the step-trace ring.  Host state only.  Gauges that read
+        the engine hold it weakly; rate windows read their counters."""
+        m = MetricsRegistry(namespace="llm_engine",
+                            clock=clock or time.perf_counter)
+        self.metrics = m
+        self._now = m.now
+        c = m.counter
+        self._decode_iters = c("decode_iterations",
+                               "decode-side engine iterations")
+        self._decode_tokens = c("decode_tokens",
+                                "tokens emitted by decode/verify")
+        self._prefill_chunks = c("prefill_chunks", "chunk-prefill dispatches")
+        self._prefilled_tokens = c("prefilled_tokens",
+                                   "prompt tokens actually computed")
+        self._prefix_cached_tokens = c(
+            "prefix_cached_tokens", "prompt tokens served from the cache")
+        self._prefix_hit_requests = c(
+            "prefix_hit_requests", "requests admitted with a prefix hit")
+        self._cow_copies = c("cow_page_copies", "copy-on-write page copies")
+        self._verify_steps = c("verify_steps", "verify-program dispatches")
+        self._spec_events = c("spec_events",
+                              "per-slot verify events carrying a draft")
+        self._spec_drafted = c("spec_drafted_tokens",
+                               "drafted tokens offered to verify")
+        self._spec_accepted = c("spec_accepted_tokens",
+                                "drafted tokens accepted")
+        self._spec_emitted = c("spec_emitted_tokens",
+                               "accepted + bonus tokens emitted")
+        self._spec_backoffs = c(
+            "spec_backoffs", "slots that stopped drafting (adaptive back-off)")
+        self._finished_requests = c("finished_requests",
+                                    "requests retired by stop/length")
+        self._aborted_requests = c("aborted_requests",
+                                   "requests retired by abort()")
+        self._preemptions = c(
+            "preemptions", "running requests evicted under pool pressure")
+        self._preempt_swaps = c(
+            "preempt_swaps", "preemptions whose KV swap-out d2h completed")
+        self._preempt_recomputes = c(
+            "preempt_recomputes",
+            "preemptions resolved by recompute (incl. degraded swaps)")
+        self._swapped_pages_c = c("swapped_pages",
+                                  "KV pages delivered to the host swap pool")
+        self._swap_ms_c = c("swap_ms",
+                            "milliseconds spent in swap d2h/h2d copies")
+        self._recomputed_tokens = c(
+            "recomputed_tokens",
+            "prompt tokens re-prefilled because of preemption")
+        self._timeouts = c("timeouts", "requests retired by deadline expiry")
+        self._rejected_requests = c(
+            "rejected_requests",
+            "requests rejected at intake (footprint can never fit)")
+        self._intake_swap_rejects = c(
+            "intake_swap_rejects",
+            "intake rejections because the worst-case footprint exceeds the "
+            "host swap pool (the request could never be parked)")
+        self._tier_spills = c(
+            "kv_tier_spills",
+            "evicted prefix pages delivered to the host KV tier (counted "
+            "at d2h success, like swapped_pages)")
+        self._tier_restores = c(
+            "kv_tier_restores",
+            "tier restore scatters (one per admission resuming >= 1 page "
+            "from the host/disk tier)")
+        self._tier_restored_tokens = c(
+            "kv_tier_restored_tokens",
+            "prompt tokens restored from the KV tier instead of re-prefilled")
+        self._partial_hits = c(
+            "partial_page_hits",
+            "admissions whose prefix match ended inside a cached page "
+            "(rolling-hash partial index: COW copy or tier scatter of the "
+            "matched fraction)")
+        self._handoff_exports = c(
+            "kv_handoff_exports",
+            "finished prompts exported to the shared tier store for a "
+            "decode-role peer")
+        self._handoff_pages = c("kv_handoff_pages",
+                                "KV pages published to the store by exports")
+        self._handoff_tokens = c(
+            "kv_handoff_tokens",
+            "prompt tokens whose KV a decode peer can restore instead of "
+            "re-prefilling")
+        # the SLO account: every retired deadline-bearing request is in the
+        # attainment denominator (timeouts and aborts are misses there),
+        # while the latency histograms see stop/length retirements only
+        self._deadline_requests = c(
+            "deadline_requests",
+            "retired requests that carried a deadline (attainment "
+            "denominator — timeouts/aborts/rejects included)")
+        self._deadline_met = c(
+            "deadline_met",
+            "deadline-bearing requests that finished (stop/length) on time")
+        self._goodput_prio: Dict[int, object] = {}
+        self._h_queue = m.histogram("queue_time_seconds",
+                                    help="enqueue -> admission into a slot")
+        self._h_ttft = m.histogram("ttft_seconds",
+                                   help="enqueue -> first generated token")
+        self._h_tpot = m.histogram(
+            "tpot_seconds", help="decode seconds per token after the first")
+        self._h_e2e = m.histogram("e2e_latency_seconds",
+                                  help="enqueue -> finish (stop/length only)")
+        self._h_step = m.histogram("step_seconds",
+                                   help="wall time of one engine step()")
+        m.gauge("queued", _weak_call(self, lambda e: len(e._queue)),
+                "requests waiting")
+        m.gauge("prefilling", _weak_call(self, lambda e: len(e._prefilling)),
+                "slots mid-prefill")
+        m.gauge("running", _weak_call(self, lambda e: len(e._running)),
+                "slots decoding")
+        m.gauge("kv_pool_bytes", _weak_call(self, LLMEngine.kv_pool_bytes),
+                "at-rest bytes of the device KV page pool (all lanes)")
+        self.cache.attach_metrics(m)
+        self._admitted_requests = c(
+            "admitted_requests",
+            "requests popped into a slot (recompute resumes included)")
+        # windowed rates over the counters, sampled once a step
+        self._rw_tokens = m.rate_window(
+            "tokens_per_sec", _reading(self._decode_tokens),
+            help="decode tokens emitted per second")
+        self._rw_admits = m.rate_window(
+            "admits_per_sec", _reading(self._admitted_requests),
+            help="requests admitted per second")
+        self._rw_preemptions = m.rate_window(
+            "preemptions_per_sec", _reading(self._preemptions),
+            help="running requests preempted per second")
+        self._rw_timeouts = m.rate_window(
+            "timeouts_per_sec", _reading(self._timeouts),
+            help="requests retired by deadline expiry per second")
+        self._rw_rejects = m.rate_window(
+            "rejects_per_sec", _reading(self._rejected_requests),
+            help="requests rejected at intake per second")
+        self._rate_surface = (self._rw_tokens, self._rw_admits,
+                              self._rw_preemptions, self._rw_timeouts,
+                              self._rw_rejects)
+        # burn-rate inputs: windowed deltas of the SLO account
+        self._rw_deadline_req = m.rate_window(
+            "deadline_requests_window",
+            _reading(self._deadline_requests), expose=False)
+        self._rw_deadline_met = m.rate_window(
+            "deadline_met_window",
+            _reading(self._deadline_met), expose=False)
+        for lbl, w in self._rw_deadline_req.windows:
+            if lbl in (SERVE_SLO["burn_window_fast"],
+                       SERVE_SLO["burn_window_slow"]):
+                m.gauge(f"slo_burn_rate_{lbl}",
+                        _weak_call(self, lambda e, w=w: e._burn_rate(w)),
+                        f"deadline-attainment burn over the trailing {lbl} "
+                        f"(1.0 = consuming the error budget exactly as fast "
+                        f"as the SLO allows)", agg="max")
+        # the live roofline: no static prediction here (None), the measured
+        # EWMA fed by busy steps
+        self._predicted_ms: Optional[float] = None
+        self._measured_ewma_ms: Optional[float] = None
+        self._drift_violation = False
+        self._exec_baseline: Optional[int] = None
+        self._roofline_alerts = c(
+            "roofline_drift_alerts",
+            "transitions of roofline_drift out of the declared band")
+        self._ss_recompiles = c(
+            "steady_state_recompiles",
+            "decode-side executable-count growth observed after warm")
+        m.gauge("measured_step_ms",
+                _weak_call(self, lambda e: e._measured_ewma_ms or 0.0),
+                "EWMA wall time of busy engine steps (harvest to harvest)",
+                agg="max")
+        m.gauge("roofline_drift",
+                _weak_call(self, LLMEngine._roofline_drift),
+                "measured_step_ms / predicted_step_ms (0 until both exist)",
+                agg="max")
+        m.gauge("engine_health", _weak_call(self, LLMEngine._health_code),
+                "health state code: 0 ok, 1 degraded, 2 overloaded "
+                "(fleet merge folds worst-of, not sum)", agg="max")
+        self._lifecycles: Dict[int, RequestMetrics] = {}
+        # per-request timelines: live ones move to RequestOutput.trace at
+        # retirement, where the last `trace_retention` of them stay
+        self._req_tracing = bool(request_tracing)
+        self._traces: Dict[int, RequestTrace] = {}
+        self._trace_retention = trace_retention
+        self._retired_traced: deque = deque()
+        self._step_idx = 0
+        self._step_trace: deque = deque(maxlen=trace_ring)
+        self._tracing = False
+        self._step_dispatches = 0
+        self._step_sync_s = 0.0
+        self._step_preempted = 0
+        self._step_slots = {"decode": 0, "verify": 0, "chunk": 0}
+        self.reset_counters()
+
+    def reset_counters(self) -> None:
+        """Zero the counters, histograms and rate windows (not the programs
+        or the cache's content), as the reference's: benches call it after
+        warm-up.  The step-trace ring and `engine_steps` restart at zero,
+        the proposer's telemetry, the measured-step EWMA and the recompile
+        baseline re-seed; request timelines (live and retired) are request
+        state and survive, and a `trace()` window's host spans live in the
+        profiler's buffer, which this never touches.  Every rate ring is
+        seeded with (now, 0), so a young window reads events since the
+        reset over the time since it."""
+        self.metrics.reset()
+        self.cache.prefix_evictions = 0
+        tier = self.cache._tier
+        if tier is not None:
+            tier.disk_spills = 0
+            tier.disk_restores = 0
+            tier.tier_drops = 0
+        getattr(self.proposer, "reset_stats", lambda: None)()
+        self._step_idx = 0
+        self._step_trace.clear()
+        self._measured_ewma_ms = None
+        self._drift_violation = False
+        self._exec_baseline = None
+        self._port_c = {**dict.fromkeys(_PORT_COUNTERS, 0),
+                        "tier_stage_ms": 0.0}
+        self.metrics.sample_rates()
 
     # ---- request intake ---------------------------------------------------
     def add_request(self, prompt, max_new_tokens: int = 16,
@@ -477,19 +796,30 @@ class LLMEngine:
         deadline = None if deadline_s is None else t + deadline_s
         req = Request(prompt, max_new_tokens, rid, t, temperature, priority,
                       deadline)
+        self._lifecycles[rid] = RequestMetrics(t_enqueue=t)
+        if self._req_tracing:
+            tr = RequestTrace(rid)
+            tr.event(t, "enqueue", prompt_len=int(prompt.size),
+                     max_new_tokens=int(max_new_tokens),
+                     priority=int(priority), deadline_s=deadline_s)
+            self._traces[rid] = tr
         need = self.cache.pages_needed(total)
         if need > self.cache.num_pages - 1:
-            self._c["rejected_requests"] += 1
+            self._rejected_requests.inc()
             self._finish_output(req, [], "rejected", 0, None)
+            # anchor the reject in the rate rings at its time (intake runs
+            # outside step(), whose sampling would miss it)
+            self.metrics.sample_rates(force=True)
             return rid
         if self.optimistic and self.preempt == "swap" and \
                 self.swap_pool_pages > 0 and need > self.swap_pool_pages:
             # every admitted request may be preempted: one that could never
             # park, even in an empty host pool, would degrade every swap of
             # it to recompute
-            self._c["intake_swap_rejects"] += 1
-            self._c["rejected_requests"] += 1
+            self._intake_swap_rejects.inc()
+            self._rejected_requests.inc()
             self._finish_output(req, [], "rejected", 0, None)
+            self.metrics.sample_rates(force=True)
             return rid
         if deadline is not None:
             self._has_deadlines = True
@@ -502,16 +832,99 @@ class LLMEngine:
 
     def _finish_output(self, req: Request, token_ids: List[int], reason: str,
                        cached: int, ttft: Optional[float]) -> RequestOutput:
-        if reason == "abort":
-            self._c["aborted_requests"] += 1
-        elif reason == "timeout":
-            self._c["timeouts"] += 1
-        elif reason != "rejected":      # counted at intake
-            self._c["finished_requests"] += 1
-        out = RequestOutput(req.request_id, req.prompt, token_ids, reason,
-                            cached, ttft)
-        self._outputs[out.request_id] = out
+        """Close the request's lifecycle record and publish its output.  The
+        latency histograms see stop/length retirements only (an abort's or a
+        timeout's wall time measures the client or the deadline); every
+        retirement gets its record, its counter ("rejected" is counted at
+        intake), its place in the SLO account and, traced, its finish
+        event."""
+        rid = req.request_id
+        lc = self._lifecycles.pop(rid, None)
+        if lc is not None:
+            lc.t_finish = self._now()
+            lc.e2e_s = lc.t_finish - lc.t_enqueue
+            lc.cached_tokens = cached
+            lc.n_generated = len(token_ids)
+            if lc.t_first_token is not None and len(token_ids) > 1:
+                lc.tpot_s = (lc.t_finish - lc.t_first_token) / \
+                    (len(token_ids) - 1)
+            if reason == "abort":
+                self._aborted_requests.inc()
+            elif reason == "timeout":
+                self._timeouts.inc()
+            elif reason != "rejected":
+                self._finished_requests.inc()
+                ex = self._exemplar(rid)
+                self._h_e2e.observe(lc.e2e_s, exemplar=ex)
+                if lc.tpot_s is not None:
+                    self._h_tpot.observe(lc.tpot_s, exemplar=ex)
+            # attainment: every retired deadline-bearing request counts, an
+            # on-time stop/length finish is met; goodput credits the final
+            # output's tokens to the request's priority class
+            if req.deadline is not None:
+                self._deadline_requests.inc()
+                if reason in ("stop", "length") and \
+                        lc.t_finish <= req.deadline:
+                    self._deadline_met.inc()
+            if reason in ("stop", "length") and token_ids:
+                prio = int(req.priority)
+                c = self._goodput_prio.get(prio)
+                if c is None:
+                    c = self.metrics.counter(
+                        f"goodput_tokens_priority_{prio}",
+                        f"final-output tokens from priority-{prio} requests")
+                    self._goodput_prio[prio] = c
+                c.inc(len(token_ids))
+        self._tev(rid, "finish", reason=reason, n_generated=len(token_ids))
+        out = RequestOutput(rid, req.prompt, token_ids, reason, cached, ttft,
+                            lc, self._traces.pop(rid, None))
+        self._outputs[rid] = out
+        if out.trace is not None and self._trace_retention is not None:
+            # past the cap the oldest retired timeline goes (its output
+            # keeps its tokens and metrics)
+            self._retired_traced.append(rid)
+            while len(self._retired_traced) > self._trace_retention:
+                old = self._outputs.get(self._retired_traced.popleft())
+                if old is not None:
+                    old.trace = None
         return out
+
+    def _span(self, name: str):
+        """A profiler span for one host phase, real only while a trace
+        records (`trace()` or a user `Profiler`)."""
+        if self._tracing or _prof.is_recording():
+            return _prof.RecordEvent(name)
+        return _NULL_SPAN
+
+    # ---- per-request tracing ----------------------------------------------
+    def _tev(self, rid: int, name: str, **attrs) -> None:
+        """Stamp one event on a live request's timeline (a no-op with
+        tracing off or for a finished id)."""
+        tr = self._traces.get(rid)
+        if tr is not None:
+            tr.event(self._now(), name, **attrs)
+
+    def _exemplar(self, rid: int) -> Optional[Dict[str, str]]:
+        """The exemplar labels binding a histogram observation to its
+        request (None with tracing off)."""
+        if not self._req_tracing:
+            return None
+        return {"request_id": str(rid), "trace": f"/requests/{rid}"}
+
+    def _trace_for(self, rid: int) -> Optional[RequestTrace]:
+        """A request's timeline, live or riding its RequestOutput."""
+        tr = self._traces.get(rid)
+        if tr is None:
+            out = self._outputs.get(rid)
+            tr = out.trace if out is not None else None
+        return tr
+
+    def export_request_trace(self, rid: int) -> Optional[Dict[str, object]]:
+        """The chrome-trace span tree of one request's timeline (live, or
+        retired within the last `trace_retention`), or None when the id is
+        unknown, tracing is off, or the timeline aged out."""
+        tr = self._trace_for(rid)
+        return None if tr is None else tr.to_chrome()
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -643,31 +1056,100 @@ class LLMEngine:
         victims where the pool runs short; swapped victims' host copies are
         waited for after it.  Deadlines expire right after the harvest.
         Returns the requests that finished this iteration (and those an
-        `abort` harvest finished)."""
+        `abort` harvest finished).
+
+        Each iteration appends one v2 record to the step-trace ring
+        (`step_trace()`, the reference's keys): what the step dispatched
+        (decode-batch occupancy, per-lane slot counts, dispatches, the wait
+        for the harvest, the chunk, verify dispatches, tokens emitted,
+        victims) and the page pool it left; and samples the rate windows
+        (forced on a step that retired or preempted a request)."""
         finished: List[RequestOutput] = self._orphan_finished
         self._orphan_finished = []
-        self._harvest(finished)         # step n-1's tokens land first
-        if self._has_deadlines:
-            # bookkeeping is exact here: nothing is in flight
-            self._expire_deadlines(finished)
-        self._admit(finished)
-        if self.fused:
-            if self.chunked:
-                chunk_job = self._stage_chunk()
+        t0 = self._now()
+        tok0 = self._decode_tokens.value
+        ver0 = self._verify_steps.value
+        chunk0 = self._prefill_chunks.value
+        self._step_dispatches = 0
+        self._step_sync_s = 0.0
+        self._step_preempted = 0
+        self._step_slots = {"decode": 0, "verify": 0, "chunk": 0}
+        with self._span("engine.step"):
+            self._harvest(finished)     # step n-1's tokens land first
+            if self._has_deadlines:
+                # bookkeeping is exact here: nothing is in flight
+                self._expire_deadlines(finished)
+            with self._span("engine.admit"):
+                self._admit(finished)
+            if self.fused:
+                if self.chunked:
+                    chunk_job = self._stage_chunk()
+                else:
+                    self._prefill_tick(finished)    # prefix-hit tails
+                    chunk_job = None
+                if self._running or chunk_job is not None:
+                    self._fused_iter(chunk_job, finished)
             else:
-                self._prefill_tick(finished)    # prefix-hit tails
-                chunk_job = None
-            if self._running or chunk_job is not None:
-                self._fused_iter(chunk_job, finished)
-        else:
-            self._prefill_tick(finished)
-            if self._running:
-                self._decode_iter(finished)
-        if self._pending_d2h:
-            # the swapped victims' host copies, behind the step's dispatch
-            self._drain_swap_d2h()
-        self._c["engine_steps"] += 1
+                self._prefill_tick(finished)
+                if self._running:
+                    self._decode_iter(finished)
+            # the batch that dispatched (a preemption's victims left first)
+            decode_batch = self._step_slots["decode"] + \
+                self._step_slots["verify"]
+            if self._pending_d2h:
+                # the swapped victims' host copies, behind the dispatch
+                self._drain_swap_d2h()
+        dur = self._now() - t0
+        self._h_step.observe(dur)
+        if self._step_dispatches:
+            # busy steps only: an idle or admission-only step measures the
+            # scheduler, not the serving step
+            self._note_steady_state(dur)
+        self.metrics.sample_rates(
+            force=bool(finished) or self._step_preempted > 0)
+        self._step_idx += 1
+        mgr = self.cache
+        self._step_trace.append({
+            "v": 2,
+            "step": self._step_idx,
+            "t": t0,
+            "dur_s": dur,
+            "queued": len(self._queue),
+            "prefilling": len(self._prefilling),
+            "running": len(self._running),
+            "decode_batch": decode_batch,
+            "chunk": self._prefill_chunks.value > chunk0,
+            "verify_dispatches": self._verify_steps.value - ver0,
+            "tokens_emitted": self._decode_tokens.value - tok0,
+            "finished": len(finished),
+            "pages_in_use": mgr.pages_in_use(),
+            "pages_free": mgr.num_free_pages,
+            "pages_evictable": mgr.num_evictable_pages,
+            "fused": self.fused,
+            # decode-path dispatches (fused, decode, verify, chunk; not the
+            # one-shot bucketed prefill)
+            "dispatches": self._step_dispatches,
+            # the wait for device results inside engine.sample.sync
+            "sync_ms": self._step_sync_s * 1e3,
+            "slots": dict(self._step_slots),
+            "preempted": self._step_preempted,
+            "pool_pressure": round(mgr.pool_pressure(), 4),
+        })
         return finished
+
+    def step_trace(self) -> List[Dict[str, object]]:
+        """The per-step timeline ring, oldest first (at most `trace_ring`
+        records; cleared by `reset_counters()`)."""
+        return list(self._step_trace)
+
+    def _sync(self, prog: StepProgram) -> np.ndarray:
+        """A program's result on the host, waited for inside the
+        engine.sample.sync span and counted in the step's `sync_ms`."""
+        t_sync = self._now()
+        with self._span("engine.sample.sync"):
+            out = prog.result()
+        self._step_sync_s += self._now() - t_sync
+        return out
 
     def _admit(self, finished: List[RequestOutput]) -> None:
         """Admit queued requests into free slots, head first.  A swapped
@@ -722,7 +1204,7 @@ class LLMEngine:
                 plan = mgr.take_restore(slot)
                 if not plan:
                     break
-                if self._tier_restore(slot, plan):
+                if self._tier_restore(slot, plan, rid):
                     restored = plan
                     break
                 mgr.release(slot)       # degraded: match again without it
@@ -736,12 +1218,21 @@ class LLMEngine:
             row, matched, cow = alloc
             self._queue.popleft()
             self._free_slots.pop()
-            self._c["admitted_requests"] += 1
+            lc = self._lifecycles.get(rid)
+            if lc is not None and lc.t_admit is None:
+                lc.t_admit = self._now()
+                lc.queue_s = lc.t_admit - lc.t_enqueue
+                self._h_queue.observe(lc.queue_s,
+                                      exemplar=self._exemplar(rid))
+                lc.cached_tokens = matched
+            self._admitted_requests.inc()
+            self._tev(rid, "admit", slot=slot, prefix_hit_tokens=int(matched),
+                      cow=cow is not None, resume=rec is not None)
             resume = {}
             cached = matched
             if rec is not None:
                 del self._preempted[rid]
-                self._c["recomputed_tokens"] += lp - matched
+                self._recomputed_tokens.inc(lp - matched)
                 cached = rec["cached_tokens"]
                 resume = dict(prior=prior, ttft=rec["ttft"],
                               spec_off=rec["spec_off"], streak=rec["streak"])
@@ -750,32 +1241,34 @@ class LLMEngine:
                 # slot's own page before anything is appended to it
                 src, dst = cow
                 self._dispatch("copy", src=src, dst=dst)
-                self._c["cow_page_copies"] += 1
+                self._cow_copies.inc()
             if cow is not None or any(ntok < mgr.page_size
                                       for _, _, ntok in restored):
                 # the match ended inside a cached page (a COW copy, or the
                 # tier scatter of the matched part)
-                self._c["partial_page_hits"] += 1
+                self._partial_hits.inc()
             if matched:
-                self._c["prefix_cached_tokens"] += matched
-                self._c["prefix_hit_requests"] += 1
+                self._prefix_cached_tokens.inc(matched)
+                self._prefix_hit_requests.inc()
             if self.chunked or matched:
                 self._prefilling[slot] = _Prefilling(req, slot, matched,
                                                      cached, prompt, **resume)
                 continue
             # one-shot bucketed prefill, synchronous at admission
             bucket = self._bucket_for(lp)
+            self._tev(rid, "prefill", n=int(lp), bucket=int(bucket))
             ids = np.zeros((1, bucket), np.int32)
             ids[0, :lp] = prompt
-            prog = self._dispatch(
-                f"prefill:{bucket}", ids=ids,
-                pages=row[:bucket // mgr.page_size][None, :], length=lp,
-                greedy=self._req_greedy(req))
-            self._c["prefill_dispatches"] += 1
-            self._c["prefilled_tokens"] += lp
+            with self._span("engine.prefill.dispatch"):
+                prog = self._dispatch(
+                    f"prefill:{bucket}", ids=ids,
+                    pages=row[:bucket // mgr.page_size][None, :], length=lp,
+                    greedy=self._req_greedy(req))
+            self._port_c["prefill_dispatches"] += 1
+            self._prefilled_tokens.inc(lp)
             if self.prefix_cache:
                 mgr.register_prefix(slot, prompt, lp)
-            first = int(prog.result()[0])       # waits for the result
+            first = int(self._sync(prog)[0])
             self._start_decoding(req, slot, first, cached, finished,
                                  prompt_len=lp, **resume)
 
@@ -791,22 +1284,28 @@ class LLMEngine:
         req = st.request
         lp, C = st.prompt.size, self._chunk
         n = min(C, lp - st.filled)
+        self._tev(req.request_id, "prefill_chunk", q_offset=int(st.filled),
+                  n=int(n))
         ids = np.zeros((1, C), np.int32)
         ids[0, :n] = st.prompt[st.filled:st.filled + n]
         # every chunk picks (and draws noise), as the reference's chunk
         # program does; only the last chunk's token is used
-        prog = self._dispatch(
-            "chunk", tokens=ids, table=self.cache.page_table[slot][None, :],
-            q_offset=st.filled, valid=n, greedy=self._req_greedy(req))
-        self._c["chunk_dispatches"] += 1
-        self._c["prefill_chunks"] += 1
-        self._c["prefilled_tokens"] += n
+        with self._span("engine.prefill.dispatch"):
+            prog = self._dispatch(
+                "chunk", tokens=ids,
+                table=self.cache.page_table[slot][None, :],
+                q_offset=st.filled, valid=n, greedy=self._req_greedy(req))
+        self._step_dispatches += 1
+        self._step_slots["chunk"] += 1
+        self._port_c["chunk_dispatches"] += 1
+        self._prefill_chunks.inc()
+        self._prefilled_tokens.inc(n)
         st.filled += n
         if self.prefix_cache:
             self.cache.register_prefix(slot, st.prompt, st.filled)
         if st.filled == lp:
             del self._prefilling[slot]
-            self._start_decoding(req, slot, int(prog.result()[0]),
+            self._start_decoding(req, slot, int(self._sync(prog)[0]),
                                  st.cached_tokens, finished,
                                  **st.resume_state())
 
@@ -817,11 +1316,15 @@ class LLMEngine:
         otherwise every running slot rides one `decode_step_paged`
         dispatch.  Growth (optimistic admission) runs first and may preempt
         slots, whose drafts go with them."""
-        drafts = self._propose_drafts() if self.spec_len else {}
+        if self.spec_len:
+            with self._span("engine.spec.propose"):
+                drafts = self._propose_drafts()
+        else:
+            drafts = {}
         self._grow_running(drafts)
         if not self._running:
             return                      # every slot was preempted
-        self._c["decode_iterations"] += 1
+        self._decode_iters.inc()
         if drafts:
             self._verify_iter(drafts, finished)
             rest = [s for s, seq in self._running.items() if not seq.greedy]
@@ -884,21 +1387,26 @@ class LLMEngine:
                 tokens[slot, 1:1 + d.size] = d
                 valid[slot] = 1 + d.size
             qoff[slot] = mgr.lengths[slot]
-        preds = self._dispatch("verify", tokens=tokens, table=table,
-                               q_offset=qoff, valid=valid).result()
-        self._c["verify_dispatches"] += 1
-        self._c["verify_steps"] += 1
-        for slot in active:
-            seq = self._running[slot]
-            d = drafts.get(slot)
-            nd = 0 if d is None else d.size
-            a = 0
-            while a < nd and int(d[a]) == int(preds[slot, a]):
-                a += 1              # greedy longest-prefix acceptance
-            emitted = [int(x) for x in d[:a]] if nd else []
-            emitted.append(int(preds[slot, a]))            # bonus token
-            if self._emit_slot(seq, slot, emitted, finished, nd, a):
-                del self._running[slot]
+        with self._span("engine.verify.dispatch"):
+            prog = self._dispatch("verify", tokens=tokens, table=table,
+                                  q_offset=qoff, valid=valid)
+        self._step_dispatches += 1
+        self._step_slots["verify"] += len(active)
+        self._port_c["verify_dispatches"] += 1
+        preds = self._sync(prog)
+        self._verify_steps.inc()
+        with self._span("engine.spec.accept"):
+            for slot in active:
+                seq = self._running[slot]
+                d = drafts.get(slot)
+                nd = 0 if d is None else d.size
+                a = 0
+                while a < nd and int(d[a]) == int(preds[slot, a]):
+                    a += 1          # greedy longest-prefix acceptance
+                emitted = [int(x) for x in d[:a]] if nd else []
+                emitted.append(int(preds[slot, a]))        # bonus token
+                if self._emit_slot(seq, slot, emitted, finished, nd, a):
+                    del self._running[slot]
 
     def _vanilla_decode_iter(self, slots: List[int],
                              finished: List[RequestOutput]) -> None:
@@ -917,10 +1425,14 @@ class LLMEngine:
             if slot in self._prefilling or \
                     (slot in self._running and slot not in slots):
                 table[slot, :] = 0
-        nxt = self._dispatch("decode", tokens=tokens, table=table,
-                             lengths=mgr.lengths, greedy=greedy).result()
-        self._c["decode_dispatches"] += 1
-        self._c["decode_tokens"] += len(slots)
+        with self._span("engine.decode.dispatch"):
+            prog = self._dispatch("decode", tokens=tokens, table=table,
+                                  lengths=mgr.lengths, greedy=greedy)
+        self._step_dispatches += 1
+        self._step_slots["decode"] += len(slots)
+        self._port_c["decode_dispatches"] += 1
+        self._decode_tokens.inc(len(slots))
+        nxt = self._sync(prog)
         for slot in slots:
             seq = self._running[slot]
             mgr.lengths[slot] += 1          # the token just fed is cached
@@ -942,9 +1454,11 @@ class LLMEngine:
         n = min(self.prefill_chunk, lp - st.filled)
         job = {"slot": slot, "n": n, "q_offset": st.filled, "st": st,
                "done": st.filled + n == lp}
+        self._tev(st.request.request_id, "prefill_chunk",
+                  q_offset=int(st.filled), n=int(n))
         st.filled += n
-        self._c["prefill_chunks"] += 1
-        self._c["prefilled_tokens"] += n
+        self._prefill_chunks.inc()
+        self._prefilled_tokens.inc(n)
         if self.prefix_cache:
             self.cache.register_prefix(slot, st.prompt, st.filled)
         if job["done"]:
@@ -961,13 +1475,16 @@ class LLMEngine:
         preempt slots, whose drafts go with them."""
         mgr = self.cache
         B, T = mgr.num_slots, self._fused_T
-        drafts = self._propose_drafts() \
-            if self.spec_len and self._running else {}
+        if self.spec_len and self._running:
+            with self._span("engine.spec.propose"):
+                drafts = self._propose_drafts()
+        else:
+            drafts = {}
         self._grow_running(drafts)
         if not self._running and chunk_job is None:
             return                      # every slot was preempted
         if self._running:
-            self._c["decode_iterations"] += 1
+            self._decode_iters.inc()
         tokens = np.zeros((B, T), np.int32)
         valid = np.ones((B,), np.int32)
         qoff = np.zeros((B,), np.int32)
@@ -995,12 +1512,17 @@ class LLMEngine:
                 greedy[slot] = self._req_greedy(st.request)
             else:
                 table[slot, :] = 0          # inactive: KV to the null page
-        prog = self._dispatch("fused", tokens=tokens, table=table,
-                              q_offset=qoff, valid=valid, greedy=greedy)
-        self._c["fused_dispatches"] += 1
+        with self._span("engine.fused.dispatch"):
+            prog = self._dispatch("fused", tokens=tokens, table=table,
+                                  q_offset=qoff, valid=valid, greedy=greedy)
+        self._step_dispatches += 1
+        self._step_slots["verify"] += len(drafts)
+        self._step_slots["decode"] += len(slots) - len(drafts)
+        self._step_slots["chunk"] += int(chunk_job is not None)
+        self._port_c["fused_dispatches"] += 1
         if drafts:
             # the dispatch carried a draft: it is this step's verify
-            self._c["verify_steps"] += 1
+            self._verify_steps.inc()
         inflight = {"prog": prog, "slots": slots, "drafts": drafts,
                     "chunk": chunk_job}
         if self.double_buffer:
@@ -1020,25 +1542,26 @@ class LLMEngine:
             self._inflight = None
         if inf is None:
             return
-        out = inf["prog"].result()              # waits for the device result
+        out = self._sync(inf["prog"])           # waits for the device result
         accept = out[:, -1]
-        for slot in inf["slots"]:
-            seq = self._running[slot]
-            d = inf["drafts"].get(slot)
-            # accepted drafts equal the predictions they matched: the run
-            # is out[:a] and the bonus out[a]
-            a = int(accept[slot])
-            emitted = [int(x) for x in out[slot, :a + 1]]
-            if self._emit_slot(seq, slot, emitted, finished,
-                               0 if d is None else d.size, a):
-                del self._running[slot]
-        cj = inf["chunk"]
-        if cj is not None and cj["done"]:
-            st = cj["st"]
-            self._start_decoding(st.request, cj["slot"],
-                                 int(out[cj["slot"], cj["n"] - 1]),
-                                 st.cached_tokens, finished,
-                                 **st.resume_state())
+        with self._span("engine.spec.accept"):
+            for slot in inf["slots"]:
+                seq = self._running[slot]
+                d = inf["drafts"].get(slot)
+                # accepted drafts equal the predictions they matched: the
+                # run is out[:a] and the bonus out[a]
+                a = int(accept[slot])
+                emitted = [int(x) for x in out[slot, :a + 1]]
+                if self._emit_slot(seq, slot, emitted, finished,
+                                   0 if d is None else d.size, a):
+                    del self._running[slot]
+            cj = inf["chunk"]
+            if cj is not None and cj["done"]:
+                st = cj["st"]
+                self._start_decoding(st.request, cj["slot"],
+                                     int(out[cj["slot"], cj["n"] - 1]),
+                                     st.cached_tokens, finished,
+                                     **st.resume_state())
 
     def _emit_slot(self, seq: _Running, slot: int, emitted: List[int],
                    finished: List[RequestOutput], nd: int = 0,
@@ -1056,13 +1579,14 @@ class LLMEngine:
             emitted = emitted[:emitted.index(self.eos_token_id) + 1]
         self.cache.lengths[slot] += len(emitted)
         seq.generated.extend(emitted)
-        c = self._c
-        c["decode_tokens"] += len(emitted)
+        self._decode_tokens.inc(len(emitted))
         if nd:
-            c["spec_events"] += 1
-            c["spec_drafted_tokens"] += nd
-            c["spec_accepted_tokens"] += a
-            c["spec_emitted_tokens"] += len(emitted)
+            self._spec_events.inc()
+            self._spec_drafted.inc(nd)
+            self._spec_accepted.inc(a)
+            self._spec_emitted.inc(len(emitted))
+            self._tev(seq.request.request_id, "spec_verify", drafted=int(nd),
+                      accepted=int(a), emitted=len(emitted))
             if a:
                 seq.spec_zero_streak = 0
             else:
@@ -1070,7 +1594,7 @@ class LLMEngine:
                 if self.spec_backoff_window and not seq.spec_off and \
                         seq.spec_zero_streak >= self.spec_backoff_window:
                     seq.spec_off = True
-                    c["spec_backoffs"] += 1
+                    self._spec_backoffs.inc()
         return self._maybe_finish(seq, finished)
 
     def _start_decoding(self, req: Request, slot: int, first: int,
@@ -1085,11 +1609,19 @@ class LLMEngine:
         over from before the preemption."""
         self.cache.lengths[slot] = \
             req.prompt.size if prompt_len is None else prompt_len
+        now = self._now()
         if prior:
             generated = list(prior) + [first]
         else:
             generated = [first]
-            ttft = self._now() - req.t_enqueue
+            ttft = now - req.t_enqueue
+            lc = self._lifecycles.get(req.request_id)
+            if lc is not None:
+                lc.t_first_token = now
+                lc.ttft_s = ttft
+            self._h_ttft.observe(ttft,
+                                 exemplar=self._exemplar(req.request_id))
+            self._tev(req.request_id, "first_token")
         seq = _Running(req, slot, generated, cached, ttft,
                        self._req_greedy(req), streak, spec_off)
         if not self._maybe_finish(seq, finished):
@@ -1134,7 +1666,7 @@ class LLMEngine:
         has every footprint reserved already."""
         if not self.optimistic or not self._running:
             return
-        forced = self._faults.pool_pressure(self._c["engine_steps"])
+        forced = self._faults.pool_pressure(self._step_idx)
         for slot in list(self._running):
             while slot in self._running:
                 d = drafts.get(slot)
@@ -1149,6 +1681,8 @@ class LLMEngine:
                 except RuntimeError:
                     # the growing slot is a candidate too; alone it always
                     # fits (intake rejects a footprint past the pool)
+                    self._tev(self._running[slot].request.request_id,
+                              "grow_fail", need_tokens=int(need))
                     self._preempt_slot(self._pick_victim())
         for slot in list(drafts):
             if slot not in self._running:
@@ -1173,7 +1707,8 @@ class LLMEngine:
         req = seq.request
         rid = req.request_id
         mgr = self.cache
-        self._c["preemptions"] += 1
+        self._preemptions.inc()
+        self._step_preempted += 1
         rec: Dict[str, object] = {
             "rid": rid, "kind": "recompute",
             "generated": list(seq.generated),
@@ -1198,8 +1733,13 @@ class LLMEngine:
             mgr.note_swap_out(rid, n)
             self._pending_d2h.append(rec)
         else:
-            self._c["preempt_recomputes"] += 1
+            self._preempt_recomputes.inc()
+        self._tev(rid, "preempt", kind=rec["kind"], pages=int(n),
+                  progress=len(seq.generated))
         self._preempted[rid] = rec
+        lc = self._lifecycles.get(rid)
+        if lc is not None:
+            lc.preemptions += 1
         mgr.release(slot)
         self._free_slots.append(slot)
         self._queue.appendleft(req)
@@ -1215,7 +1755,7 @@ class LLMEngine:
         ids = np.zeros((mgr.max_pages_per_slot,), np.int32)
         ids[:n] = pages
         out = self._dispatch("swap_out", ids=ids).out
-        self._c["swap_out_dispatches"] += 1
+        self._port_c["swap_out_dispatches"] += 1
         pin = self.device.type == "cuda"
         data = {}
         for name, a in out.items():
@@ -1237,12 +1777,14 @@ class LLMEngine:
             return
         self._faults.d2h()
         t0 = self._now()
-        if rec["event"] is not None:
-            rec["event"].synchronize()
-        self._c["swap_ms"] += (self._now() - t0) * 1e3
+        with self._span("engine.swap.d2h"):
+            if rec["event"] is not None:
+                rec["event"].synchronize()
+        self._swap_ms_c.inc((self._now() - t0) * 1e3)
         rec["fetched"] = True
-        self._c["swapped_pages"] += rec["n"]
-        self._c["preempt_swaps"] += 1
+        self._swapped_pages_c.inc(rec["n"])
+        self._preempt_swaps.inc()
+        self._tev(rec["rid"], "swap_out", pages=int(rec["n"]))
 
     def _degrade_to_recompute(self, rec: Dict[str, object]) -> None:
         """A swap whose copy failed becomes a recompute: the parked KV and
@@ -1251,7 +1793,8 @@ class LLMEngine:
         rec.pop("data", None)
         rec.pop("event", None)
         self.cache.note_swap_in(rec["rid"])
-        self._c["preempt_recomputes"] += 1
+        self._preempt_recomputes.inc()
+        self._tev(rec["rid"], "swap_degrade")
 
     def _drain_swap_d2h(self) -> None:
         """Wait for the host copies of the step's swap-outs and spills,
@@ -1304,16 +1847,19 @@ class LLMEngine:
             return
         self._faults.d2h()
         t0 = self._now()
-        if rec["event"] is not None:
-            rec["event"].synchronize()
-        self._c["swap_ms"] += (self._now() - t0) * 1e3
+        with self._span("engine.swap.d2h"):
+            if rec["event"] is not None:
+                rec["event"].synchronize()
+        self._swap_ms_c.inc((self._now() - t0) * 1e3)
         rec["fetched"] = True
         tier = self.cache._tier
+        landed = 0
         for i, node in enumerate(rec["nodes"]):
             if tier.is_pending(node.node_id):
                 tier.fill(node.node_id, {name: a[:, i].contiguous()
                                          for name, a in rec["data"].items()})
-                self._c["tier_spills"] += 1
+                landed += 1
+        self._tier_spills.inc(landed)
         rec.pop("data")
 
     def _degrade_spill_to_drop(self, rec: Dict[str, object]) -> None:
@@ -1340,7 +1886,7 @@ class LLMEngine:
                 rest.append(rec)
         self._pending_d2h = rest
 
-    def _tier_restore(self, slot: int, plan) -> bool:
+    def _tier_restore(self, slot: int, plan, rid: int) -> bool:
         """Scatter a match's parked KV into `slot`'s fresh pages: only the
         plan's slabs are staged into the "swap_in" program, and one replay
         writes every leaf; then the restored full pages are device prefix
@@ -1365,14 +1911,18 @@ class LLMEngine:
             return False
         ids = np.zeros((mgr.max_pages_per_slot,), np.int32)
         ids[:len(plan)] = [dst for dst, _, _ in plan]
-        self._dispatch("swap_in", ids=ids, **staged)
+        with self._span("engine.swap.h2d"):
+            self._dispatch("swap_in", ids=ids, **staged)
         ms = (self._now() - t0) * 1e3
-        self._c["swap_in_dispatches"] += 1
-        self._c["swap_ms"] += ms
-        self._c["tier_stage_ms"] += ms
+        self._port_c["swap_in_dispatches"] += 1
+        self._swap_ms_c.inc(ms)
+        self._port_c["tier_stage_ms"] += ms
         mgr.commit_restore(slot, plan)
-        self._c["tier_restores"] += 1
-        self._c["tier_restored_tokens"] += sum(n for _, _, n in plan)
+        tokens = sum(n for _, _, n in plan)
+        self._tier_restores.inc()
+        self._tier_restored_tokens.inc(tokens)
+        self._tev(rid, "tier_restore", slot=slot, pages=len(plan),
+                  tokens=int(tokens))
         return True
 
     def _stack_slabs(self, datas) -> Dict[str, torch.Tensor]:
@@ -1394,14 +1944,17 @@ class LLMEngine:
             staged[name] = torch.stack(lanes, dim=1)
         return staged
 
-    def export_prefix(self, tokens) -> Dict[str, int]:
+    def export_prefix(self, tokens, rid: Optional[int] = None
+                      ) -> Dict[str, int]:
         """The prefill side of a handoff: publish the cached KV chain of
         `tokens` to the store, so an engine on it (a decode-role peer, a
         restarted engine) restores it with one scatter.  The chain's
         LRU-parked device pages spill through the usual gather, the copies
         land, host entries move to the store, and this engine's index blob
         is written again.  Returns {"pages", "tokens", "index_nodes"}, all
-        0 with no store or nothing to export (the peer then re-prefills)."""
+        0 with no store or nothing to export (the peer then re-prefills).
+        With `rid`, an export that published pages stamps "handoff" on that
+        request's timeline (retired by now: it rides its output)."""
         out = {"pages": 0, "tokens": 0, "index_nodes": 0}
         mgr = self.cache
         tier = mgr._tier
@@ -1424,9 +1977,13 @@ class LLMEngine:
                 out["tokens"] += nd.n_tokens
         out["index_nodes"] = mgr.save_tier_index(tag=tier.tag)
         if out["pages"]:
-            self._c["handoff_exports"] += 1
-            self._c["handoff_pages"] += out["pages"]
-            self._c["handoff_tokens"] += out["tokens"]
+            self._handoff_exports.inc()
+            self._handoff_pages.inc(out["pages"])
+            self._handoff_tokens.inc(out["tokens"])
+            tr = self._trace_for(rid) if rid is not None else None
+            if tr is not None:
+                tr.event(self._now(), "handoff", pages=int(out["pages"]),
+                         tokens=int(out["tokens"]))
         return out
 
     def refresh_store_index(self) -> int:
@@ -1480,11 +2037,13 @@ class LLMEngine:
         ids = np.zeros((mgr.max_pages_per_slot,), np.int32)
         ids[:n] = mgr.slot_pages(slot)[:n]
         t0 = self._now()
-        self._dispatch("swap_in", ids=ids, **rec["data"])
-        self._c["swap_in_dispatches"] += 1
-        self._c["swap_ms"] += (self._now() - t0) * 1e3
+        with self._span("engine.swap.h2d"):
+            self._dispatch("swap_in", ids=ids, **rec["data"])
+        self._port_c["swap_in_dispatches"] += 1
+        self._swap_ms_c.inc((self._now() - t0) * 1e3)
         mgr.note_swap_in(rid)
         del self._preempted[rid]
+        self._tev(rid, "swap_in", slot=slot, pages=int(n))
         mgr.lengths[slot] = rec["L"]
         self._running[slot] = _Running(
             req, slot, list(rec["generated"]), rec["cached_tokens"],
@@ -1611,28 +2170,37 @@ class LLMEngine:
         return dict(self._outputs)
 
     def stats(self) -> Dict[str, object]:
-        """Plain counters (the reference's key names where the meaning is
-        the same), the program counts, plus the pool and queue levels.
-        Programs count as the reference's executables do: each built
-        program 1 (on the card, its captured graph).  Prefill counts each
-        bucket's one-shot program and the chunk program where it is
+        """The reference's flat dict (every key of its `stats()`, the same
+        meaning), plus the port's: `fused_dispatches`, `decode_dispatches`,
+        `chunk_dispatches`, `verify_dispatches`, `prefill_dispatches`,
+        `swap_out_dispatches`, `swap_in_dispatches` (each program's
+        dispatches), `graph_replays`, `tier_stage_ms` (the restores' share
+        of `swap_ms`), `admitted_requests`, the tier and handoff counters
+        at the top level (`tier_spills`, `tier_restores`,
+        `tier_restored_tokens`, `partial_page_hits`, `handoff_exports`,
+        `handoff_pages`, `handoff_tokens`), `fuse`, `prefix_cache` and
+        `device`.  Programs count as the reference's executables do: each
+        built program 1 (on the card, its captured graph).  Prefill counts
+        each bucket's one-shot program and the chunk program where it is
         standalone (unfused, or the prefix-hit tails of fused bucketed
-        mode); copy counts the COW copy; verify the unfused verify program
-        (fused, drafts ride the one fused program); swap the gather and the
-        scatter (preemption swaps and KV-tier spills and restores share
-        them, and `swap_out_dispatches`/`swap_in_dispatches` count every
-        replay).  `accepted_per_step` is the reference's: tokens emitted
-        per verify event that carried a draft.  The overload keys are the
-        reference's (`swap_ms`: host ms waiting for swap-out and spill
-        copies and staging swap-ins and restores); so are "role" and the
-        "kv_tier" dict.  `tier_stage_ms` is the restores' share of
-        `swap_ms`."""
+        mode); copy counts the COW copy; verify the unfused verify program;
+        swap the gather and the scatter (preemption swaps and KV-tier
+        spills and restores share them).  A health evaluation that raises
+        gives an "error" health entry instead of failing the whole dict.
+        Host reads only: no device tensor is read."""
         built = {r for r, p in self._programs.items() if p.built}
-        cached, computed = self._c["prefix_cached_tokens"], \
-            self._c["prefilled_tokens"]
-        events = self._c["spec_events"]
+        cached = self._prefix_cached_tokens.value
+        computed = self._prefilled_tokens.value
+        events = self._spec_events.value
+        try:
+            health = self.health()
+        except Exception as e:
+            health = {"state": "error", "code": max(HEALTH_CODES.values()),
+                      "reasons": [f"health evaluation failed: "
+                                  f"{type(e).__name__}: {e}"],
+                      "burn_rates": {}}
+        tier = self._tier_stats()
         return {
-            **self._c,
             "decode_executables": int(("fused" if self.fused else "decode")
                                       in built),
             "verify_executables": int("verify" in built),
@@ -1642,57 +2210,324 @@ class LLMEngine:
             "swap_executables": int("swap_out" in built) +
                                 int("swap_in" in built),
             "graph_replays": sum(p.replays for p in self._programs.values()),
+            **self._port_c,
             "buckets": list(self.buckets),
             "prefill_chunk": self.prefill_chunk,
             "spec_len": self.spec_len,
-            "accepted_per_step": self._c["spec_emitted_tokens"] / events
+            "mp": 1,
+            "role": self.role,
+            "engine_steps": self._step_idx,
+            "decode_iterations": self._decode_iters.value,
+            "decode_tokens": self._decode_tokens.value,
+            "verify_steps": self._verify_steps.value,
+            "spec_events": events,
+            "spec_drafted_tokens": self._spec_drafted.value,
+            "spec_accepted_tokens": self._spec_accepted.value,
+            "spec_emitted_tokens": self._spec_emitted.value,
+            "spec_backoffs": self._spec_backoffs.value,
+            # tokens emitted per verify event that carried a draft
+            "accepted_per_step": self._spec_emitted.value / events
                                  if events else 0.0,
+            "prefill_chunks": self._prefill_chunks.value,
+            "prefilled_tokens": computed,
+            "prefix_cached_tokens": cached,
+            "prefix_hit_requests": self._prefix_hit_requests.value,
+            "prefix_hit_rate": cached / (cached + computed)
+                               if cached + computed else 0.0,
+            "cow_page_copies": self._cow_copies.value,
             "fuse": self.fused,
             "prefix_cache": self.prefix_cache,
             "device": str(self.device),
-            "prefix_hit_rate": cached / (cached + computed)
-                               if cached + computed else 0.0,
             "pages_in_use": self.cache.pages_in_use(),
             "pages_free": self.cache.num_free_pages,
             "pages_evictable": self.cache.num_evictable_pages,
             "prefix_evictions": self.cache.prefix_evictions,
             "kv_token_capacity": self.cache.token_capacity(),
+            "dense_token_footprint": self.cache.num_slots * self.max_model_len,
             "queued": len(self._queue),
             "prefilling": len(self._prefilling),
             "running": len(self._running),
+            "admitted_requests": self._admitted_requests.value,
+            "finished_requests": self._finished_requests.value,
+            "aborted_requests": self._aborted_requests.value,
             "admission": self.admission,
             "preempt": self.preempt,
+            "preemptions": self._preemptions.value,
+            "preempt_swaps": self._preempt_swaps.value,
+            "preempt_recomputes": self._preempt_recomputes.value,
+            "swapped_pages": self._swapped_pages_c.value,
+            "swap_ms": self._swap_ms_c.value,
+            "recomputed_tokens": self._recomputed_tokens.value,
+            "timeouts": self._timeouts.value,
+            "rejected_requests": self._rejected_requests.value,
+            "intake_swap_rejects": self._intake_swap_rejects.value,
             "swapped": self.cache.swapped_requests,
             "kv_pages_swapped": self.cache.swapped_page_count,
             "kv_pool_pressure": round(self.cache.pool_pressure(), 4),
-            "role": self.role,
-            "kv_tier": self._tier_stats(),
+            "kv_tier": tier,
+            "tier_spills": tier["spills"],
+            "tier_restores": tier["restores"],
+            "tier_restored_tokens": tier["restored_tokens"],
+            "partial_page_hits": tier["partial_page_hits"],
+            "handoff_exports": tier["handoff_exports"],
+            "handoff_pages": tier["handoff_pages"],
+            "handoff_tokens": tier["handoff_tokens"],
             # the quantization knobs (None: full precision) and the pool's
             # at-rest bytes the capacity math is about
             "weight_dtype": self.weight_dtype,
             "kv_dtype": self.kv_dtype,
             "kv_pool_bytes": self.kv_pool_bytes(),
+            # deadline attainment over every retired deadline-bearing
+            # request, and final-output tokens by priority class
+            "slo": {
+                "deadline_requests": self._deadline_requests.value,
+                "deadline_met": self._deadline_met.value,
+                "deadline_attainment":
+                    self._deadline_met.value / self._deadline_requests.value
+                    if self._deadline_requests.value else None,
+                "goodput_tokens_by_priority":
+                    {p: c.value
+                     for p, c in sorted(self._goodput_prio.items())},
+            },
+            "rates": {rw.name: rw.rates() for rw in self._rate_surface},
+            "health": {
+                "state": health["state"],
+                "code": health["code"],
+                "reasons": health["reasons"],
+                "burn_rates": health["burn_rates"],
+            },
+            "roofline": {
+                "predicted_step_ms": self._predicted_ms,
+                "measured_step_ms": self._measured_ewma_ms,
+                "drift": self._roofline_drift() or None,
+                "drift_alerts": self._roofline_alerts.value,
+                "steady_state_recompiles": self._ss_recompiles.value,
+            },
+            # the lifecycle histograms, seconds
+            "latency": {
+                "queue_s": self._h_queue.summary(),
+                "ttft_s": self._h_ttft.summary(),
+                "tpot_s": self._h_tpot.summary(),
+                "e2e_s": self._h_e2e.summary(),
+                "step_s": self._h_step.summary(),
+            },
         }
 
     def _tier_stats(self) -> Dict[str, object]:
         """stats()' "kv_tier" dict, the reference's keys."""
-        tier, c = self.cache._tier, self._c
+        tier = self.cache._tier
         return {
             "enabled": self.kv_tier, "spill_dir": self.spill_dir,
             "pages_host": self.cache.tier_pages_host,
             "pages_disk": self.cache.tier_pages_disk,
-            "spills": c["tier_spills"], "restores": c["tier_restores"],
-            "restored_tokens": c["tier_restored_tokens"],
-            "partial_page_hits": c["partial_page_hits"],
+            "spills": self._tier_spills.value,
+            "restores": self._tier_restores.value,
+            "restored_tokens": self._tier_restored_tokens.value,
+            "partial_page_hits": self._partial_hits.value,
             "disk_spills": 0 if tier is None else tier.disk_spills,
             "disk_restores": 0 if tier is None else tier.disk_restores,
             "tier_drops": 0 if tier is None else tier.tier_drops,
             "store": tier is not None and tier.store is not None,
-            "handoff_exports": c["handoff_exports"],
-            "handoff_pages": c["handoff_pages"],
-            "handoff_tokens": c["handoff_tokens"],
+            "handoff_exports": self._handoff_exports.value,
+            "handoff_pages": self._handoff_pages.value,
+            "handoff_tokens": self._handoff_tokens.value,
             "store_nodes_restored": self._store_restored_nodes,
         }
+
+    # ---- health and the perf signals ---------------------------------------
+    @property
+    def predicted_step_ms(self) -> Optional[float]:
+        """The reference's static roofline prediction of the decode-side
+        step.  None: its cost model is not ported, so the drift gauge reads
+        0 and no drift alert fires, as on an unwarmed reference engine."""
+        return self._predicted_ms
+
+    def _roofline_drift(self) -> float:
+        """measured_step_ms EWMA / predicted ms; 0.0 until both exist."""
+        if not self._predicted_ms or not self._measured_ewma_ms:
+            return 0.0
+        return self._measured_ewma_ms / self._predicted_ms
+
+    def _decode_side_programs(self) -> int:
+        """The decode-side programs built (the fused step, or the unfused
+        decode program): the counterpart of the reference's executable
+        cache size of its decode function."""
+        prog = self._programs.get("fused" if self.fused else "decode")
+        return int(prog is not None and prog.built)
+
+    def _note_steady_state(self, dur_s: float) -> None:
+        """A busy step's perf signals: the measured-step EWMA, the
+        drift-band alert (transitions into violation), and the steady-state
+        recompile anomaly: decode-side programs built after the first busy
+        step since the last reset fixed the baseline (on the card, a graph
+        captured after warm-up)."""
+        ms = dur_s * 1e3
+        self._measured_ewma_ms = ms if self._measured_ewma_ms is None else \
+            _EWMA_ALPHA * ms + (1.0 - _EWMA_ALPHA) * self._measured_ewma_ms
+        n = self._decode_side_programs()
+        if self._exec_baseline is None:
+            self._exec_baseline = n
+        elif n > self._exec_baseline:
+            self._ss_recompiles.inc(n - self._exec_baseline)
+            self._exec_baseline = n
+        drift = self._roofline_drift()
+        lo, hi = SERVE_SLO["roofline_drift_band"]
+        bad = bool(drift) and not (lo <= drift <= hi)
+        if bad and not self._drift_violation:
+            self._roofline_alerts.inc()
+        self._drift_violation = bad
+
+    def _burn_rate(self, window_s: float) -> float:
+        """Deadline-attainment burn over one window (`health.burn_rate`)."""
+        return burn_rate(self._rw_deadline_req, self._rw_deadline_met,
+                         window_s, SERVE_SLO["deadline_attainment_target"])
+
+    def health(self) -> Dict[str, object]:
+        """The health report (state, code, per-signal detail, reasons)
+        against `analysis.registry.SERVE_SLO`, from host state only (see
+        `inference.health`); `stats()["health"]` carries the compact
+        part."""
+        return evaluate_engine_health(self)
+
+    def _health_code(self) -> float:
+        """The `engine_health` gauge: 0 ok, 1 degraded, 2 overloaded; an
+        evaluation that raises reads as the worst state."""
+        try:
+            return float(self.health()["code"])
+        except Exception:
+            return float(max(HEALTH_CODES.values()))
+
+    # ---- trace windows and the postmortem bundle ---------------------------
+    @contextlib.contextmanager
+    def trace(self, dir_name: str, device: bool = True):
+        """A serving trace window into `dir_name`: ``host_trace.json`` (the
+        engine's host-phase spans, `ENGINE_SPANS`, as chrome tracing),
+        ``step_timeline.json`` (the step ring at exit), ``metrics.json``
+        (`metrics.snapshot()` and the proposer's telemetry) and, with
+        `device=True`, ``device/`` (a `torch.profiler` chrome trace of the
+        window: the CUDA kernels on the card, the spans beside them).
+        Inside a user `Profiler` that is already recording, the window
+        rides it (the outer buffer and recording go on) and
+        ``host_trace.json`` holds everything recorded so far.  No program
+        changes: the spans wrap host code."""
+        os.makedirs(dir_name, exist_ok=True)
+        prof = None
+        if not _prof.is_recording():
+            prof = _prof.Profiler(timer_only=not device,
+                                  log_dir=os.path.join(dir_name, "device"))
+            prof.start()
+        self._tracing = True
+        try:
+            yield prof
+        finally:
+            self._tracing = False
+            if prof is not None:
+                prof.stop()     # the event buffer survives stop()
+            _prof.dump_chrome_trace(os.path.join(dir_name,
+                                                 "host_trace.json"))
+            with open(os.path.join(dir_name, "step_timeline.json"), "w") as f:
+                json.dump(self.step_trace(), f)
+            snap = self.metrics.snapshot()
+            snap["proposer"] = getattr(self.proposer, "stats", dict)()
+            with open(os.path.join(dir_name, "metrics.json"), "w") as f:
+                json.dump(snap, f)
+
+    def _request_states(self, finished_limit: int = 64
+                        ) -> Dict[str, Dict[str, object]]:
+        """Every live request (queued, preempted ones too; prefilling;
+        running) and the last `finished_limit` retired ones, with their
+        scheduler coordinates and timelines, keyed by request id string."""
+        def base(req, state, **extra):
+            tr = self._trace_for(req.request_id)
+            d = {"state": state, "prompt_len": int(req.prompt.size),
+                 "max_new_tokens": int(req.max_new_tokens),
+                 "priority": int(req.priority),
+                 "deadline": req.deadline,
+                 "events": list(tr.events) if tr is not None else []}
+            d.update(extra)
+            return d
+
+        out: Dict[str, Dict[str, object]] = {}
+        for req in list(self._queue):
+            rec = self._preempted.get(req.request_id)
+            out[str(req.request_id)] = base(
+                req, "queued",
+                preempted_kind=None if rec is None else rec["kind"],
+                banked_tokens=0 if rec is None else len(rec["generated"]))
+        for slot, st in list(self._prefilling.items()):
+            out[str(st.request.request_id)] = base(
+                st.request, "prefilling", slot=slot, filled=int(st.filled),
+                effective_prompt_len=int(st.prompt.size))
+        for slot, seq in list(self._running.items()):
+            out[str(seq.request.request_id)] = base(
+                seq.request, "running", slot=slot,
+                n_generated=len(seq.generated),
+                kv_len=int(self.cache.lengths[slot]),
+                spec_off=seq.spec_off)
+        recent = list(itertools.islice(reversed(self._outputs),
+                                       finished_limit))
+        for rid in reversed(recent):
+            o = self._outputs[rid]
+            out[str(rid)] = {
+                "state": "finished", "finish_reason": o.finish_reason,
+                "prompt_len": int(np.asarray(o.prompt).size),
+                "n_generated": len(o.token_ids),
+                "cached_tokens": int(o.cached_tokens),
+                "events": list(o.trace.events) if o.trace is not None else [],
+            }
+        return out
+
+    def debug_bundle(self, finished_limit: int = 64) -> Dict[str, object]:
+        """The postmortem snapshot (the reference's keys): configuration,
+        page levels, request states with their timelines, the step ring,
+        `stats()` and a metrics snapshot, all plain JSON.  Host state only:
+        safe to call mid-flight or after a step raised."""
+        mgr = self.cache
+        return {
+            "version": 1,
+            "t": self._now(),
+            "engine": {
+                "num_slots": mgr.num_slots, "page_size": mgr.page_size,
+                "num_pages": mgr.num_pages,
+                "max_model_len": self.max_model_len,
+                "prefill_chunk": self.prefill_chunk,
+                "spec_len": self.spec_len, "fused": self.fused,
+                "double_buffer": self.double_buffer,
+                "admission": self.admission, "preempt": self.preempt,
+                "kv_tier": self.kv_tier, "spill_dir": self.spill_dir,
+                "mp": 1, "weight_dtype": self.weight_dtype,
+                "kv_dtype": self.kv_dtype,
+                "request_tracing": self._req_tracing,
+                "inflight": self._inflight is not None,
+                "device": str(self.device),
+            },
+            "pool": {
+                "pages_in_use": mgr.pages_in_use(),
+                "pages_free": mgr.num_free_pages,
+                "pages_evictable": mgr.num_evictable_pages,
+                "kv_pages_swapped": mgr.swapped_page_count,
+                "swapped_requests": mgr.swapped_requests,
+                "pool_pressure": round(mgr.pool_pressure(), 4),
+                "kv_pool_bytes": self.kv_pool_bytes(),
+                "swap_pool_pages": self.swap_pool_pages,
+                "kv_tier_pages_host": mgr.tier_pages_host,
+                "kv_tier_pages_disk": mgr.tier_pages_disk,
+            },
+            "requests": self._request_states(finished_limit),
+            "step_trace": self.step_trace(),
+            "stats": self.stats(),
+            "metrics": self.metrics.snapshot(),
+        }
+
+    def dump_debug_bundle(self, dir_name: str,
+                          finished_limit: int = 64) -> str:
+        """Write `debug_bundle()` to ``<dir_name>/debug_bundle.json``;
+        returns the path."""
+        os.makedirs(dir_name, exist_ok=True)
+        path = os.path.join(dir_name, "debug_bundle.json")
+        with open(path, "w") as f:
+            json.dump(self.debug_bundle(finished_limit), f)
+        return path
 
     def host_pool_bytes(self) -> int:
         """Worst-case host memory of the swap pool: `swap_pool_pages` times

@@ -25,9 +25,9 @@ The plan is mutable state (consumed injections are spent); build a fresh one
 per engine.  Production engines run with the inert default plan — every hook
 is a cheap attribute read returning falsy.
 
-The reference's health plane rides the same hooks (forced pressure drives
-its preemption rate, skew its deadline timeouts); the port's health plane
-is a later slice (ROADMAP Queue 1: metrics, tracing and health).
+The health plane rides the same hooks (forced pressure drives its
+preemption rate, skew its deadline timeouts), in the port as in the
+reference (`inference.health`).
 """
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ differ by the output's one bf16 rounding, and sums in another order); an
 int8 serving step replayed from its graph equals the eager step bitwise on
 tokens and all four pool leaves.
 """
+import contextlib
 import math
 
 import numpy as np
@@ -1256,6 +1257,57 @@ def test_warmed_chunked_fused_loop_never_syncs(dev):
     assert all(len(o.token_ids) == 9 for o in eng.outputs.values())
     st = eng.stats()
     assert st["graph_replays"] == st["fused_dispatches"] > 0
+
+
+@pytest.mark.parametrize("chunk", [None, 16], ids=["bucketed", "chunked"])
+def test_tracing_leaves_the_graph_replays_stream(dev, chunk, tmp_path):
+    """Request tracing, the metrics registry and a `trace()` window are
+    host state: a warmed engine with tracing on, its loop inside a window
+    (host spans recorded) and under `set_sync_debug_mode("error")` with
+    `stats()` and `health()` read every step, replays the same graphs and
+    gives bitwise the tokens and program counts of the engine with tracing
+    off."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    cfg = _small_llama(torch.bfloat16)
+    params = _card_params(cfg, dev)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, 512, n) for n in (5, 40, 70, 17)]
+    runs = {}
+    for tracing in (True, False):
+        eng = LLMEngine(params, cfg, num_slots=3, page_size=16,
+                        max_model_len=128, prefill_buckets=[32, 64, 128],
+                        prefill_chunk=chunk, request_tracing=tracing,
+                        device=dev)
+        eng.warm_decode()
+        # every bucket's program built before the guarded loop
+        for n in (5, 40, 70):
+            eng.add_request(np.random.RandomState(n).randint(0, 512, n),
+                            max_new_tokens=2)
+        eng.run()
+        rids = [eng.add_request(p, max_new_tokens=9) for p in prompts]
+        torch.cuda.synchronize()
+        window = eng.trace(str(tmp_path / str(tracing)), device=False) \
+            if tracing else contextlib.nullcontext()
+        with window:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                while eng.has_work:
+                    eng.step()
+                    eng.stats()
+                    eng.health()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        st = eng.stats()
+        runs[tracing] = ([eng._outputs[r].token_ids for r in rids],
+                         {k: st[k] for k in st
+                          if k.endswith("_executables")},
+                         st["graph_replays"], eng)
+    (on, on_execs, on_replays, eng), (off, off_execs, off_replays, _) = \
+        runs[True], runs[False]
+    assert on == off and on_execs == off_execs and on_replays == off_replays
+    assert eng.stats()["roofline"]["steady_state_recompiles"] == 0
+    assert all(eng._outputs[r].trace is not None for r in eng._outputs)
+    assert not any(o.trace for o in runs[False][3]._outputs.values())
 
 
 def test_warmed_spec_chunked_fused_loop_never_syncs(dev):

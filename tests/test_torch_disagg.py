@@ -41,7 +41,7 @@ from paddle_tpu_torch.inference.cache import (TIER_INDEX_VERSION, HostKVTier,
 from paddle_tpu_torch.inference.engine import LLMEngine
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
-from test_torch_kv_tier import assert_same_kv
+from torch_kv_parity import assert_same_kv
 
 TIER_STATS = ("spills", "restores", "restored_tokens", "partial_page_hits",
               "disk_spills", "disk_restores", "tier_drops", "pages_host",

@@ -234,7 +234,19 @@ def test_later_slice_knobs_raise(reference, knob, tmp_path):
         if "fault_plan" in knob:
             assert eng._faults is knob["fault_plan"]
         if "clock" in knob:
-            assert eng._now is knob["clock"]
+            # the clock stamps through the metrics registry, as in the
+            # reference (metrics, tracing and health have landed)
+            assert eng.metrics._clock is knob["clock"]
+            assert eng._now() == 0.0
+        return
+    if "request_tracing" in knob:
+        # metrics, tracing and health have landed
+        # (test_torch_observability.py): the knob is taken
+        eng = LLMEngine(tparams, tcfg, device="cpu", **GEOMETRY, **knob)
+        rid = eng.add_request(np.arange(5, dtype=np.int32), max_new_tokens=2)
+        out = eng.run()[rid]
+        assert eng._req_tracing is knob["request_tracing"]
+        assert [e["name"] for e in out.trace.events][0] == "enqueue"
         return
     if set(knob) & {"kv_tier", "spill_dir", "page_store", "role"}:
         # the KV tier, its store and the roles have landed

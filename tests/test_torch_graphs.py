@@ -127,7 +127,7 @@ def test_warm_decode_leaves_pages_and_streams(reference, mode):
     assert st["decode_executables"] == 1 and st["prefill_executables"] == 0
     for n, t in warm._pool.items():     # [L, P, page, KVH, hd]: page 0 null
         assert torch.equal(t[:, 1:], pool0[n][:, 1:])
-    assert warm._c["fused_dispatches"] == warm._c["decode_dispatches"] == 0
+    assert st["fused_dispatches"] == st["decode_dispatches"] == 0
     a, b = _serve(cold, reqs), _serve(warm, reqs)
     assert {r: o.token_ids for r, o in a.items()} == \
         {r: o.token_ids for r, o in b.items()}

@@ -57,6 +57,30 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+# the observability plane: plain Python and torch.profiler, no jax
+OBSERVABILITY_MODULES = ("paddle_tpu_torch.inference.metrics",
+                         "paddle_tpu_torch.inference.tracing",
+                         "paddle_tpu_torch.inference.health",
+                         "paddle_tpu_torch.profiler")
+
+
+@pytest.mark.parametrize("module", OBSERVABILITY_MODULES)
+def test_observability_modules_import_alone(module):
+    """Each module of the observability plane imports on its own and
+    leaves jax and the JAX package out of sys.modules (the AST scan above
+    covers their source)."""
+    code = (f"import sys, {module};"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu'));"
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert (ROOT / (module.replace(".", "/") + ".py")).exists() or \
+        (ROOT / module.replace(".", "/") / "__init__.py").exists()
+
+
 def test_entry_points_refuse_to_run_without_a_card():
     """The builders default to the card; the tensor-taking entries run the
     plain versions only for CPU tensors and never for others."""

@@ -37,6 +37,7 @@ from paddle_tpu_torch.inference.engine import LLMEngine
 from paddle_tpu_torch.inference.faults import FaultPlan
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
+from torch_kv_parity import assert_same_kv
 
 # the tier counters the port must report as the reference does
 TIER_STATS = ("spills", "restores", "restored_tokens", "partial_page_hits",
@@ -109,38 +110,6 @@ def _session_stream(eng, rng_seed=7, churn=6):
 
 def _streams(outs):
     return [list(outs[r].token_ids) for r in sorted(outs)]
-
-
-def _node_kv(eng, node):
-    """{leaf: [L, n_tokens, ...] numpy} of a cached prefix node, wherever
-    it lives: the device pool, a host slab, or the store (read without
-    touching the tier's counters)."""
-    tier = eng.cache._tier
-    if node.page >= 0:
-        data = {n: np.asarray(a)[:, node.page] for n, a in eng._pool.items()}
-    elif node.node_id in tier._disk:
-        data = tier.store.get(tier._disk[node.node_id])
-    else:
-        data = tier._host[node.node_id]
-        if data is tier._PENDING:
-            return None
-    return {n: np.asarray(a)[:, :node.n_tokens] for n, a in data.items()}
-
-
-def assert_same_kv(ref, eng, tol=1e-4):
-    """The two caches index the same prefixes (the same keys, each on the
-    device or off it alike), and each holds the reference's KV for its
-    tokens, within float32 rounding (the two frameworks compute the same
-    KV in other orders)."""
-    rindex, index = ref.cache._index, eng.cache._index
-    assert set(index) == set(rindex)
-    for key, node in index.items():
-        rnode = rindex[key]
-        assert (node.page >= 0) == (rnode.page >= 0), key
-        got, want = _node_kv(eng, node), _node_kv(ref, rnode)
-        assert (got is None) == (want is None)
-        for n in want or ():
-            np.testing.assert_allclose(got[n], want[n], rtol=tol, atol=tol)
 
 
 def _assert_tier_parity(ref, eng):

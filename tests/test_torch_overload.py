@@ -16,11 +16,11 @@ Beside the reference's cases: a forced double preemption in one step
 and preemption in the middle of verify with `spec_len=2`, fused and
 unfused, where the preempted slots' drafts are pruned.
 
-Left for later slices: the reference's `RequestOutput.metrics` (its
-per-request preemption count) and the `stats()["latency"]` assertion of
-`test_deadline_timeout_queued_and_running` wait for ROADMAP Queue 1 item 8
-(metrics, tracing and health); `test_bench_oversubscribe_completes_with_
-parity` waits for item 10 (the serving bench).
+Each output's `RequestOutput.metrics` (its preemption count, tokens and
+cached tokens) equals the reference's; a swapped slot's KV right after its
+swap-in, and every cached page at the end, equal the reference's
+(`torch_kv_parity`).  `test_bench_oversubscribe_completes_with_parity`
+waits for ROADMAP Queue 1 item 10 (the serving bench).
 """
 import jax
 import numpy as np
@@ -34,6 +34,8 @@ from paddle_tpu_torch.inference.engine import LLMEngine
 from paddle_tpu_torch.inference.faults import FaultInjected, FaultPlan
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
+from torch_kv_parity import (assert_same_kv, assert_same_swap_ins,
+                             capture_swap_ins)
 
 # the counters the port must report as the reference does
 OVERLOAD_STATS = ("preemptions", "preempt_swaps", "preempt_recomputes",
@@ -82,24 +84,33 @@ def _makers(tiny):
     each engine gets its own (a plan is spent as it fires)."""
     cfg, params, tcfg, tparams = tiny
 
+    swap_ins = {"reference": [], "port": []}
+
     def ref(fault=None, **kw):
         if fault is not None:
             kw["fault_plan"] = RefFaultPlan(**fault)
-        return JaxEngine(params, cfg, kv_tier=False, **kw)
+        eng = JaxEngine(params, cfg, kv_tier=False, **kw)
+        swap_ins["reference"].append(capture_swap_ins(eng))
+        return eng
 
     def port(fault=None, **kw):
         if fault is not None:
             kw["fault_plan"] = FaultPlan(**fault)
-        return LLMEngine(tparams, tcfg, device="cpu", kv_tier=False, **kw)
+        eng = LLMEngine(tparams, tcfg, device="cpu", kv_tier=False, **kw)
+        swap_ins["port"].append(capture_swap_ins(eng))
+        return eng
 
-    return {"reference": ref, "port": port}
+    return {"reference": ref, "port": port}, swap_ins
 
 
 def _both(tiny, scenario):
     """Run `scenario(make) -> (engine, rids)` on the reference and on the
-    port; hold streams, finish reasons and the overload counters equal.
-    Returns the port's (engine, rids)."""
-    runs = {name: scenario(make) for name, make in _makers(tiny).items()}
+    port; hold streams, finish reasons and the overload counters equal,
+    each swapped slot's KV right after its swap-in equal to the
+    reference's, and every cached page at the end (recompute resumes'
+    re-prefilled pages among them).  Returns the port's (engine, rids)."""
+    makers, swap_ins = _makers(tiny)
+    runs = {name: scenario(make) for name, make in makers.items()}
     (ref, rrids), (eng, rids) = runs["reference"], runs["port"]
     assert len(rrids) == len(rids)
     for a, b in zip(rrids, rids):
@@ -107,11 +118,19 @@ def _both(tiny, scenario):
         assert list(got.token_ids) == list(want.token_ids), \
             f"request {b}: port {got.token_ids}, reference {want.token_ids}"
         assert got.finish_reason == want.finish_reason
+        for k in ("preemptions", "n_generated", "cached_tokens"):
+            assert getattr(got.metrics, k) == getattr(want.metrics, k), \
+                (b, k)
     rs, ps = ref.stats(), eng.stats()
     for k in OVERLOAD_STATS:
         assert ps[k] == rs[k], (k, ps[k], rs[k])
     assert ps["admission"] == rs["admission"]
     assert ps["preempt"] == rs["preempt"]
+    # the engines each scenario built, in order: their swap-ins
+    assert len(swap_ins["port"]) == len(swap_ins["reference"])
+    for got, want in zip(swap_ins["port"], swap_ins["reference"]):
+        assert_same_swap_ins(want, got)
+    assert_same_kv(ref, eng)
     return eng, rids
 
 
@@ -245,6 +264,8 @@ def test_preemption_parity_and_no_leaks(tiny, reference, preempt):
         assert st["recomputed_tokens"] > 0
         assert st["swap_executables"] == 0
     _assert_parity(eng, rids, ref_tokens)
+    assert sum(eng._outputs[r].metrics.preemptions for r in rids) == \
+        st["preemptions"]
 
 
 def test_swap_pool_exhaustion_degrades_to_recompute(tiny, reference):
@@ -486,9 +507,9 @@ def test_abort_during_recompute_replay_keeps_banked_tokens(tiny):
 # ---------------------------------------------------------------------------
 
 def test_deadline_timeout_queued_and_running(tiny):
-    """The reference's test also holds timeouts out of its e2e latency
-    histogram (`stats()["latency"]`), which waits for ROADMAP Queue 1 item
-    8 in the port."""
+    """Both requests time out, the queued one before its first token; the
+    timeouts stay out of the e2e latency histogram, as the reference's
+    test holds."""
     def scenario(make):
         t = [0.0]
         eng = make(num_slots=1, page_size=8, num_pages=9, max_model_len=64,
@@ -508,11 +529,13 @@ def test_deadline_timeout_queued_and_running(tiny):
     assert outs[slow].finish_reason == "timeout"
     assert outs[queued].finish_reason == "timeout"
     assert outs[queued].ttft_s is None      # never reached a first token
+    assert outs[queued].metrics.t_first_token is None
     assert len(outs[slow].token_ids) > 0    # partial generation published
     st = eng.stats()
     assert st["timeouts"] == 2
     assert st["finished_requests"] == 0
     assert st["pages_in_use"] == 0
+    assert st["latency"]["e2e_s"]["count"] == 0
 
 
 def test_deadline_during_swap(tiny):

@@ -41,6 +41,7 @@ from paddle_tpu_torch.inference.engine import LLMEngine
 from paddle_tpu_torch.models.convert import params_from_numpy
 from test_torch_engine import PRESETS, _assert_greedy_parity
 from test_torch_quantized import _assert_int8_parity
+from torch_kv_parity import assert_same_kv
 
 GEOMETRY = dict(num_slots=3, page_size=8, max_model_len=64, num_pages=14)
 MODES = {"fused_bucketed": (True, None), "fused_chunked": (True, 8),
@@ -330,7 +331,7 @@ def prefix_reference():
                             spec_len=0, kv_tier=False, **GEOMETRY)
             assert eng.prefix_cache            # the reference's default
             outs, rid = _traffic(eng, cfg.vocab_size)
-            runs[mode] = (outs, rid, eng.stats())
+            runs[mode] = (outs, rid, eng.stats(), eng)
         out[name] = (cfg, params, tcfg, tparams, runs)
     return out
 
@@ -339,7 +340,7 @@ def prefix_reference():
 @pytest.mark.parametrize("name", list(PRESETS))
 def test_prefix_engine_matches_reference(prefix_reference, name, mode):
     cfg, params, tcfg, tparams, runs = prefix_reference[name]
-    ref_outs, ref_rid, ref_st = runs[mode]
+    ref_outs, ref_rid, ref_st, ref_eng = runs[mode]
     fuse, chunk = MODES[mode]
     eng = LLMEngine(tparams, tcfg, prefill_chunk=chunk, fuse=fuse,
                     kv_tier=False, device="cpu", **GEOMETRY)
@@ -364,6 +365,9 @@ def test_prefix_engine_matches_reference(prefix_reference, name, mode):
     assert not over_budget(st)
     assert st["pages_in_use"] == 0 and not eng.has_work
     eng.cache.check_invariants()
+    # every cached page, the COW copies and partial hits' among them,
+    # holds the reference's KV
+    assert_same_kv(ref_eng, eng)
 
 
 @pytest.fixture(scope="module")

@@ -19,20 +19,16 @@ reference, on the CPU.
   FP_TOL where no value flipped and within LOGIT_TOL where one did (a
   flipped step moves a dequantized value by one scale, ~1/127 of its row's
   absmax, far above f32 rounding).
-- `LLMEngine(weight_dtype="int8", kv_dtype="int8")` greedy streams, fused
-  and unfused, bucketed and chunked, against the reference int8 engine
-  (`prefix_cache=False, spec_len=0`, never warmed); a divergence passes
-  only as a near-tie, reported: the top-2 margin of the dense forward over
-  the dequantized weights at that position below LOGIT_TOL.  `stats()`'s
-  quantization keys equal the reference's, program counts the fp
-  engine's; the fp default is byte-identical to the explicit fp knobs;
-  int8 and fp engines agree on at least AGREEMENT_BAR of greedy tokens,
-  the reference's bar (in its "preempt" mode too: optimistic admission
-  over a short pool).
+- The int8 engine's streams against the reference int8 engine's, the fp
+  default against the explicit fp knobs, and int8-vs-fp top-1 agreement
+  are in `tests/test_torch_quantized_engine.py`, which uses this file's
+  helpers.  A divergence from the reference int8 engine passes only as a
+  near-tie, reported: the top-2 margin of the dense forward over the
+  dequantized weights at that position below LOGIT_TOL.
 - Preemption over int8 pools (the reference's
   `test_quantized_preempt_parity_and_no_leaks`): recompute and swap (all
   four leaves, the scale lanes too) give the undisturbed int8 stream
-  exactly, the reference int8 engine's counters, and its streams under the
+  (served once a preset) exactly, the reference int8 engine's counters, and its streams under the
   near-tie rule.
 - The KV tier over int8 pools: spilled pages restored with their scale
   lanes in one scatter, the never-evicting pool's stream exactly, the
@@ -40,10 +36,10 @@ reference, on the CPU.
   near-tie rule.
 - The reference's six engine keywords the port had lacked: each at its
   default builds; `draft_proposer`, `spec_backoff_window`,
-  `swap_pool_pages` and `spill_disk_pages` take another value (the
-  proposer is called, the window honoured, the host pool bounded, the
-  store level capped), any other keyword's other value raises
-  `NotImplementedError` naming its ROADMAP item.
+  `swap_pool_pages`, `spill_disk_pages`, `trace_ring` and
+  `trace_retention` take another value (the proposer is called, the
+  window honoured, the host pool bounded, the store level capped, the
+  step ring and the retired timelines bounded).
 """
 import warnings
 
@@ -68,8 +64,8 @@ from paddle_tpu_torch.inference.spec import DraftProposer, NgramProposer
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
 from paddle_tpu_torch.quantization import serving as TQ
-from test_torch_engine import PRESETS, _serve
-from test_torch_kv_tier import _node_kv
+from test_torch_engine import PRESETS
+from torch_kv_parity import node_kv
 
 LANE_TOL = dict(rtol=1e-5, atol=1e-5)
 FP_TOL = 1e-4           # the fp programs' logits tolerance (test_torch_model)
@@ -440,19 +436,6 @@ def _dequantized(qparams, cfg):
     return out
 
 
-@pytest.fixture(scope="module")
-def int8_reference(quant_models):
-    """{chunk: reference int8 engine outputs, stats} on `_requests`."""
-    _, cfg, params, _, _, _ = quant_models
-    runs = {}
-    for chunk in (None, 8):
-        eng = JaxEngine(params, cfg, prefill_chunk=chunk, prefix_cache=False,
-                        spec_len=0, weight_dtype="int8", kv_dtype="int8",
-                        **GEOMETRY)
-        runs[chunk] = (_serve(eng, _requests(cfg.vocab_size)), eng.stats())
-    return runs
-
-
 def _assert_int8_parity(ref_outs, got_outs, qparams, cfg):
     assert sorted(ref_outs) == sorted(got_outs)
     dense = _dequantized(qparams, cfg)
@@ -478,112 +461,6 @@ def _assert_int8_parity(ref_outs, got_outs, qparams, cfg):
                       f"{ties}")
 
 
-@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
-@pytest.mark.parametrize("chunk", [None, 8], ids=["bucketed", "chunked"])
-def test_int8_engine_streams_match_reference(quant_models, int8_reference,
-                                             chunk, fuse):
-    """The reference holds its fused and unfused steps byte-equal, so its
-    fused engine's streams stand for both."""
-    _, cfg, _, qparams, tcfg, tq = quant_models
-    ref_outs, ref_stats = int8_reference[chunk]
-    # the port quantizes fp params itself, as the reference engine does
-    tparams = params_from_numpy(_np(quant_models[2]), tcfg, "cpu")
-    eng = LLMEngine(tparams, tcfg, prefill_chunk=chunk, fuse=fuse,
-                    prefix_cache=False, weight_dtype="int8", kv_dtype="int8",
-                    device="cpu", **GEOMETRY)
-    assert all(torch.equal(a, b) for a, b in zip(
-        jax.tree_util.tree_leaves(eng.params), jax.tree_util.tree_leaves(tq)))
-    outs = _serve(eng, _requests(cfg.vocab_size))
-    _assert_int8_parity(ref_outs, outs, qparams, cfg)
-    eng.cache.check_invariants()
-    assert eng.cache.pages_in_use() == 0 and not eng.has_work
-    st = eng.stats()
-    for k in ("weight_dtype", "kv_dtype", "kv_pool_bytes"):
-        assert st[k] == ref_stats[k], k
-    assert eng._pool["k"].dtype == torch.int8 and set(eng._pool) == {
-        "k", "v", "k_scale", "v_scale"}
-    fp = LLMEngine(tparams, tcfg, prefill_chunk=chunk, fuse=fuse,
-                   prefix_cache=False, device="cpu", **GEOMETRY)
-    _serve(fp, _requests(cfg.vocab_size))
-    for k in st:
-        if k.endswith("_executables"):
-            assert st[k] == fp.stats()[k], k
-
-
-def test_fp_default_is_byte_identical_to_explicit_fp_knobs(quant_models):
-    _, cfg, params, _, tcfg, _ = quant_models
-    tparams = params_from_numpy(_np(params), tcfg, "cpu")
-    outs, engines = [], []
-    for kw in ({}, dict(weight_dtype="bf16", kv_dtype=None)):
-        eng = LLMEngine(tparams, tcfg, prefill_chunk=8, device="cpu",
-                        **GEOMETRY, **kw)
-        outs.append({r: o.token_ids for r, o in
-                     _serve(eng, _requests(cfg.vocab_size)).items()})
-        engines.append(eng)
-    assert outs[0] == outs[1]
-    assert engines[0].params is tparams and engines[1].params is tparams
-    for eng in engines:
-        st = eng.stats()
-        assert st["weight_dtype"] is None and st["kv_dtype"] is None
-        assert set(eng._pool) == {"k", "v"}
-        assert eng._pool["k"].dtype == tcfg.dtype
-    assert engines[0].kv_pool_bytes() == engines[1].kv_pool_bytes()
-    q = LLMEngine(tparams, tcfg, kv_dtype="int8", device="cpu", **GEOMETRY)
-    ratio = engines[0].kv_pool_bytes() / q.kv_pool_bytes()
-    assert ratio == pytest.approx(TQ.kv_page_bytes(tcfg, 8) /
-                                  TQ.kv_page_bytes(tcfg, 8, "int8"))
-    assert TQ.kv_page_bytes(tcfg, 8) == RQ.kv_page_bytes(cfg, 8)
-    assert TQ.kv_page_bytes(tcfg, 8, "int8") == \
-        RQ.kv_page_bytes(cfg, 8, "int8")
-
-
-TOP1_MODES = {   # the reference's MODES that the port serves
-    "bucketed": dict(prefill_chunk=None, prefix_cache=False),
-    "chunked": dict(prefill_chunk=8, prefix_cache=False),
-    "chunked_spec_prefix": dict(num_slots=4, prefill_chunk=8, spec_len=2),
-    "preempt": dict(num_slots=6, num_pages=9, prefill_chunk=8,
-                    admission="optimistic", preempt="recompute")}
-
-
-@pytest.mark.parametrize("mode", list(TOP1_MODES))
-def test_int8_engine_top1_agreement_with_fp(quant_models, mode):
-    """The reference's bar (`test_quantized_serving.py`): greedy top-1
-    agreement of the int8 engine with the fp engine, and every request
-    decodes its whole budget; `chunked_spec_prefix` drafts (spec_len 2)
-    with the prefix cache on, `preempt` preempts (optimistic admission,
-    8 real pages), as the reference's modes of those names."""
-    name, cfg, params, _, tcfg, _ = quant_models
-    tparams = params_from_numpy(_np(params), tcfg, "cpu")
-    # the preempt mode on the reference's traffic for it, which preempts
-    reqs = [(p, 12) for p in _preempt_prompts(cfg.vocab_size)] \
-        if mode == "preempt" else _requests(cfg.vocab_size)
-    geo = {**GEOMETRY, **TOP1_MODES[mode]}
-    engines = [LLMEngine(tparams, tcfg, device="cpu", kv_tier=False, **geo,
-                         **kw)
-               for kw in ({}, dict(weight_dtype="int8", kv_dtype="int8"))]
-    fp, q = ({r: o.token_ids for r, o in _serve(eng, reqs).items()}
-             for eng in engines)
-    if geo.get("spec_len"):
-        assert engines[1].stats()["spec_events"] > 0
-    total = sum(max(len(fp[r]), len(q[r])) for r in fp)
-    agree = sum(int(a == b) for r in fp for a, b in zip(fp[r], q[r]))
-    if mode == "preempt":
-        assert engines[1].stats()["preemptions"] > 0
-    if mode == "preempt" and name != "gpt_tiny":
-        # the reference holds this mode on gpt_tiny; on llama_tiny's
-        # weights its own int8 engine agrees 59 of 72 on this traffic, so
-        # there the port must agree at least as often as the reference's
-        ref = [JaxEngine(params, cfg, kv_tier=False, **geo, **kw)
-               for kw in ({}, dict(weight_dtype="int8", kv_dtype="int8"))]
-        rfp, rq = ({r: o.token_ids for r, o in _serve(eng, reqs).items()}
-                   for eng in ref)
-        assert agree >= sum(int(a == b) for r in rfp
-                            for a, b in zip(rfp[r], rq[r]))
-    else:
-        assert agree / total >= AGREEMENT_BAR
-    assert [len(q[r]) for r in sorted(q)] == [n for _, n in reqs]
-
-
 def _preempt_prompts(vocab):
     """The reference's `prompts` fixture: four prompts, then a shared
     13-token prefix alone and with a 4-token tail (sharing and COW)."""
@@ -601,8 +478,40 @@ PREEMPT_STATS = ("preemptions", "preempt_swaps", "preempt_recomputes",
                  "recomputed_tokens", "swapped_pages", "swap_executables")
 
 
+PREEMPT_GEO = dict(page_size=8, max_model_len=64, num_slots=6,
+                   prefill_chunk=8, weight_dtype="int8", kv_dtype="int8")
+
+
+def _serve_checked(eng, prompts):
+    """Serve the preemption traffic to completion, the cache's invariants
+    after every step.  Returns {rid: output}."""
+    rids = [eng.add_request(p, max_new_tokens=12) for p in prompts]
+    for _ in range(2000):
+        if not eng.has_work:
+            break
+        eng.step()
+        eng.cache.check_invariants()
+    assert not eng.has_work
+    assert eng.cache.swapped_page_count == 0
+    return {r: eng._outputs[r] for r in rids}
+
+
+@pytest.fixture(scope="module")
+def int8_undisturbed(quant_models):
+    """The undisturbed int8 port run of the preemption traffic (reservation
+    admission, the default pool), once per preset: the stream both
+    preempted variants must give."""
+    _, cfg, params, _, tcfg, _ = quant_models
+    tparams = params_from_numpy(_np(params), tcfg, "cpu")
+    eng = LLMEngine(tparams, tcfg, device="cpu", kv_tier=False,
+                    **PREEMPT_GEO)
+    outs = _serve_checked(eng, _preempt_prompts(cfg.vocab_size))
+    return [o.token_ids for o in outs.values()]
+
+
 @pytest.mark.parametrize("preempt", ["recompute", "swap"])
-def test_quantized_preempt_parity_and_no_leaks(quant_models, preempt):
+def test_quantized_preempt_parity_and_no_leaks(quant_models, preempt,
+                                               int8_undisturbed):
     """Preempted int8 serving gives the undisturbed int8 stream exactly
     (a swap restores the int8 pages and their scale lanes bit for bit in
     one scatter; a recompute quantizes the same values again), holds the
@@ -611,30 +520,16 @@ def test_quantized_preempt_parity_and_no_leaks(quant_models, preempt):
     _, cfg, params, qparams, tcfg, _ = quant_models
     tparams = params_from_numpy(_np(params), tcfg, "cpu")
     prompts = _preempt_prompts(cfg.vocab_size)
-    geo = dict(page_size=8, max_model_len=64, num_slots=6, prefill_chunk=8,
-               weight_dtype="int8", kv_dtype="int8")
     over = dict(num_pages=9, admission="optimistic", preempt=preempt)
-
-    def serve(eng):
-        rids = [eng.add_request(p, max_new_tokens=12) for p in prompts]
-        for _ in range(2000):
-            if not eng.has_work:
-                break
-            eng.step()
-            eng.cache.check_invariants()
-        assert not eng.has_work
-        assert eng.cache.swapped_page_count == 0
-        return {r: eng._outputs[r] for r in rids}
-
-    base = serve(LLMEngine(tparams, tcfg, device="cpu", kv_tier=False, **geo))
-    eng = LLMEngine(tparams, tcfg, device="cpu", kv_tier=False, **geo, **over)
+    eng = LLMEngine(tparams, tcfg, device="cpu", kv_tier=False,
+                    **PREEMPT_GEO, **over)
     if preempt == "swap":
         eng.warm_swap()
         assert set(eng._programs["swap_in"].inputs) == {
             "ids", "k", "v", "k_scale", "v_scale"}
-    got = serve(eng)
-    ref = JaxEngine(params, cfg, kv_tier=False, **geo, **over)
-    ref_outs = serve(ref)
+    got = _serve_checked(eng, prompts)
+    ref = JaxEngine(params, cfg, kv_tier=False, **PREEMPT_GEO, **over)
+    ref_outs = _serve_checked(ref, prompts)
     st, rst = eng.stats(), ref.stats()
     assert st["preemptions"] > 0 and st["pages_in_use"] == 0
     for k in PREEMPT_STATS:
@@ -644,8 +539,7 @@ def test_quantized_preempt_parity_and_no_leaks(quant_models, preempt):
         assert st["preempt_swaps"] > 0
         assert eng.swap_pool_bytes() == ref.swap_pool_bytes() < \
             (eng.cache.num_pages - 1) * TQ.kv_page_bytes(tcfg, 8)
-    assert [o.token_ids for o in got.values()] == \
-        [o.token_ids for o in base.values()]
+    assert [o.token_ids for o in got.values()] == int8_undisturbed
     _assert_int8_parity(ref_outs, got, qparams, cfg)
 
 
@@ -702,8 +596,8 @@ def test_quantized_tier_restores_all_four_leaves(quant_models):
               if nd.page >= 0 and k in wide_eng.cache._index]
     assert len(shared) >= 2
     for k in shared:
-        a = _node_kv(eng, eng.cache._index[k])
-        b = _node_kv(wide_eng, wide_eng.cache._index[k])
+        a = node_kv(eng, eng.cache._index[k])
+        b = node_kv(wide_eng, wide_eng.cache._index[k])
         assert set(a) == {"k", "v", "k_scale", "v_scale"}
         for n in a:
             np.testing.assert_array_equal(a[n], b[n])
@@ -799,9 +693,26 @@ KEYWORDS = {    # keyword: (the reference's default, another value, item)
     "swap_pool_pages": (None, 2, None),
     # the KV tier has landed: taken
     "spill_disk_pages": (None, 8, None),
-    "trace_ring": (512, 64, "metrics, tracing and health"),
-    "trace_retention": (4096, None, "metrics, tracing and health"),
+    # metrics, tracing and health have landed: taken
+    "trace_ring": (512, 64, None),
+    "trace_retention": (4096, None, None),
 }
+
+
+def _trace_keyword_taken(params, cfg, name, other):
+    """Metrics, tracing and health have landed: `trace_ring` bounds the
+    step-trace ring, `trace_retention` the retired timelines kept (None:
+    all of them)."""
+    eng = LLMEngine(params, cfg, device="cpu", **GEOMETRY, **{name: other})
+    rids = [eng.add_request(np.arange(3 + i, dtype=np.int32),
+                            max_new_tokens=2) for i in range(3)]
+    eng.run()
+    if name == "trace_ring":
+        assert eng._step_trace.maxlen == other
+        assert eng.step_trace()[-1]["step"] == len(eng.step_trace())
+    else:
+        assert eng._trace_retention is other
+        assert all(eng.export_request_trace(r) is not None for r in rids)
 
 
 @pytest.mark.parametrize("name", list(KEYWORDS))
@@ -820,6 +731,9 @@ def test_reference_keywords_take_their_defaults(name):
         eng = LLMEngine(params, cfg, device="cpu", **GEOMETRY,
                         **{name: other})
         assert eng.cache._tier.disk_pages == other
+        return
+    if name in ("trace_ring", "trace_retention"):
+        _trace_keyword_taken(params, cfg, name, other)
         return
     if item is None:
         _spec_keyword_taken(params, cfg, name, other)
