@@ -234,6 +234,47 @@ Phases, one JSON line each (with its seconds):
                signal and the `engine_health` gauge reads its code.  The
                traced pass's launches join the kernels line; the card's
                name and power limit are printed.
+6h. engine_fleet — the engine fleet and the front door: Llama-3-8B at full
+               width, bf16, phase 3's bucketed knobs for every replica, one
+               set of weights.  (a) seven sessions (the first seven phase-3
+               prompts x 32, then each prompt + reply + 64 seeded tokens x
+               32) through `start`, `submit`, `result`, `drain` of three
+               fleets: one replica (affinity), two (affinity), two (round
+               robin).  Turn 1 bitwise equal in the three, turn 2 bitwise
+               equal in the two affinity fleets, whose turn-2 cached tokens
+               are each session's turn-1 KV (prompt + reply - 1); round
+               robin's are 0, its turn 2 and affinity's held against the
+               dense forward's first token where the top-2 margin exceeds
+               0.05 (ties printed).  The replicas run on the leader's
+               parameter tensors (`shared_executables()`), two replicas
+               grow `memory_allocated` by less than half a copy of the
+               weights, each replica's programs within the budget but for
+               the prefill key (reported: two buckets and the hit-tail
+               program, as one engine builds on the same traffic) and none
+               above the one-replica fleet's.  Printed: each fleet's
+               tokens/s, turn-2 TTFT median and max, the median wall of
+               `EngineFleet.select` while the loops run.  (b) replica 0
+               decodes 512 tokens in its loop while replica 1 prefills a
+               1500-token prompt, capturing bucket 2048 in its loop; then
+               a fleet whose replica 0 serves four requests under
+               optimistic admission with swap preemption and forced
+               pressure while replica 1 captures the same bucket: every
+               stream equal to the same requests run alone on the
+               one-replica fleet, no capture or step raising.  (c)
+               `roles="P:D"` over one store directory, the turn-1
+               sessions: 7 handoffs (p50/p99 ms printed), the decode
+               replica's cached tokens covering each prompt's full pages,
+               first tokens held by the margin rule.  (d) `ServingFrontend`
+               over (a)'s two-replica affinity fleet on loopback: a
+               completion and an SSE chat (its client-side time to the
+               first frame printed) whose tokens equal `fleet.result` of
+               the same prompt from the same cached prefix, a client
+               dropped mid-stream (aborted, pages back to the count
+               before it), OpenMetrics `/metrics` with `llm_fleet_*` and
+               `/healthz` through the same port.  No composed route; rows
+               1, 2 and 3 launch, none of the paged decode kernel; the
+               phase's engines leave at most RELEASE_SLACK.  The card's
+               name and power limit are printed.
 7. first_token — the first tokens of phases 3, 4 and both modes of 5 for
                two prompts against the argmax of the dense `forward` at the
                last prompt position, held equal where the top-2 margin
@@ -273,8 +314,9 @@ Phases, one JSON line each (with its seconds):
 
 Then one line `{"kernels": [...]}` for all nine kernels and the int8 lanes of
 the two paged ones (launches summed over the main-path runs of phases 3, 4,
-5, 6b, 6c, 6d, 6e, 6f (its tier runs), 6g (its traced pass), 10, 11 and
-12, each with the counts zeroed just before it and read just after; none
+5, 6b, 6c, 6d, 6e, 6f (its tier runs), 6g (its traced pass), 6h (its
+fleets), 10, 11 and 12, each with the counts zeroed just before it and read
+just after; none
 of them may take an entry's composed route for shapes the kernels do not
 take) and, last,
 `{"ok": true, "device": ...}`.
@@ -2246,6 +2288,458 @@ def engine_obs(params, cfg, prompts, dev, smi):
     return dict(enumerate(outs)), rec
 
 
+# ---------------------------------------------------------------------------
+# phase 6h: the engine fleet and the front door at Llama-3-8B width
+# ---------------------------------------------------------------------------
+
+# (a) the first FLEET_SESSIONS phase-3 prompts x MAX_NEW, then each prompt +
+# its reply + FLEET_EXTRA seeded tokens x MAX_NEW: an odd count of
+# sessions, so round robin's turn 2 lands every session on the other replica
+FLEET_SESSIONS, FLEET_EXTRA = 7, 64
+# (b) replica 0 decodes FLEET_LONG_NEW tokens while replica 1 prefills a
+# prompt in the bucket neither replica built (2048); in the second pass
+# replica 0 serves FLEET_SWAP_REQUESTS requests x FLEET_SWAP_NEW under
+# optimistic admission with swap preemption, its pool forced short at
+# FLEET_SWAP_PRESSURE of its steps
+FLEET_LONG_NEW, FLEET_NEW_LEN = 512, 1500
+FLEET_SWAP_REQUESTS, FLEET_SWAP_NEW = 4, 128
+FLEET_SWAP_PRESSURE = tuple(range(8, 128, 4))
+FLEET_WAIT_S = 600.0    # a wedged loop fails the phase, it does not hang it
+
+
+def fleet_knobs(dev):
+    """Phase 3's bucketed knobs (each replica)."""
+    return dict(num_slots=8, page_size=16, max_model_len=2048,
+                prefill_buckets=SERVE_BUCKETS, device=dev)
+
+
+def fleet_sessions(fleet, first, extra, vocab):
+    """Turn 1, then turn 2, of every session through the fleet's loops
+    (submit, result, drain), the median wall of `select` timed while turn
+    2 runs.  Returns (turn-1 outputs, turn-2 outputs, turn-2 prompts, a
+    record)."""
+    t0 = time.perf_counter()
+    h1 = [fleet.submit(p, session=f"s{i}", max_new_tokens=MAX_NEW)
+          for i, p in enumerate(first)]
+    o1 = [fleet.result(h, timeout=FLEET_WAIT_S) for h in h1]
+    conv = [np.concatenate([p, np.asarray(o.token_ids, np.int32), x])
+            for p, o, x in zip(first, o1, extra)]
+    h2 = [fleet.submit(c, session=f"s{i}", max_new_tokens=MAX_NEW)
+          for i, c in enumerate(conv)]
+    sel = []
+    while len(sel) < 32 and not all(fleet.progress(h)["finished"]
+                                    for h in h2):
+        s = time.perf_counter()
+        fleet.select(conv[0], session="s0", policy="affinity")
+        sel.append(time.perf_counter() - s)
+    o2 = [fleet.result(h, timeout=FLEET_WAIT_S) for h in h2]
+    if not fleet.drain(FLEET_WAIT_S):
+        raise AssertionError("engine_fleet: the fleet did not drain")
+    wall = time.perf_counter() - t0
+    fleet.check_invariants()
+    for o in o1 + o2:
+        if o is None or o.finish_reason != "length" or \
+                len(o.token_ids) != MAX_NEW or \
+                not all(0 <= t < vocab for t in o.token_ids):
+            raise AssertionError(f"engine_fleet: {o}")
+    ttft = [o.metrics.ttft_s for o in o2]
+    rec = {"replicas": [h.label for h in h1], "turn2_replicas":
+           [h.label for h in h2], "generated_tokens": 2 * len(first) *
+           MAX_NEW, "wall_s": wall,
+           "tokens_per_s": 2 * len(first) * MAX_NEW / wall,
+           "turn2_ttft_median_s": float(np.median(ttft)),
+           "turn2_ttft_max_s": float(np.max(ttft)), "turn2_ttft_s": ttft,
+           "turn2_cached_tokens": [o.cached_tokens for o in o2],
+           "select_samples": len(sel),
+           "select_median_ms": 1e3 * float(np.median(sel)) if sel else None}
+    return o1, o2, conv, rec
+
+
+def fleet_programs(fleet, single=None):
+    """Each replica's program counts: its decode-side, copy and swap
+    programs within SERVE_PROGRAM_BUDGET, one prefill program per bucket
+    it prefilled and the chunk program where it ran prefix-hit tails; with
+    `single` (the one-replica fleet's counts after the same traffic), no
+    count above it: replication adds no program.  The prefill key is
+    reported beside the budget, not held to it: bucketed traffic over two
+    buckets with hit tails builds three prefill programs, on one engine as
+    on a replica (ROADMAP Queue 2 item 10; 6f's baseline reports the
+    same)."""
+    from paddle_tpu_torch.analysis.registry import over_budget
+    out = {}
+    for label, eng in fleet.engines.items():
+        st = locked_stats(eng)
+        counts = {k: st[k] for k in st if k.endswith("_executables")}
+        over = over_budget(st)
+        built = sum(r.startswith("prefill:") or r == "chunk"
+                    for r in eng._programs)
+        if set(over) - {"prefill_executables", "total_executables"} or \
+                counts["prefill_executables"] != built or \
+                counts["prefill_executables"] > len(SERVE_BUCKETS) + 1 or \
+                (single is not None and any(counts[k] > n
+                                            for k, n in single.items())):
+            raise AssertionError(f"engine_fleet {label}: programs {counts}, "
+                                 f"over the budget {over}, one engine's "
+                                 f"{single}")
+        # the programs built in the loop, and their warm-up and capture
+        out[label] = {**counts, "over_budget": over, "build_s": {
+            r: prog.build_s for r, prog in eng._programs.items()
+            if prog.built}}
+    return out
+
+
+def locked_stats(eng):
+    """`stats()` between two steps of the engine's loop."""
+    with eng._serve_lock:
+        return eng.stats()
+
+
+def engine_fleet(params, cfg, prompts, dev, smi):
+    """Phase 6h (see the module docstring): the phase's record, with its
+    launch counts."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.inference.faults import FaultPlan
+    from paddle_tpu_torch.inference.router import (EngineFleet,
+                                                   _adopt_executables)
+    V = cfg.vocab_size
+    knobs = fleet_knobs(dev)
+    rng = np.random.RandomState(18)
+    first = prompts[:FLEET_SESSIONS]
+    extra = [rng.randint(0, V, FLEET_EXTRA).astype(np.int32) for _ in first]
+    long_p = rng.randint(0, V, PROMPT_LENS[0]).astype(np.int32)
+    new_p = rng.randint(0, V, FLEET_NEW_LEN).astype(np.int32)
+    swap_ps = [rng.randint(0, V, n).astype(np.int32)
+               for n in PROMPT_LENS[:FLEET_SWAP_REQUESTS]]
+    door_p = rng.randint(0, V, 200).astype(np.int32)
+    drop_p = rng.randint(0, V, 100).astype(np.int32)
+    weight_bytes = sum(t.nbytes for t in params["blocks"].values()) + \
+        sum(t.nbytes for k, t in params.items() if k != "blocks")
+
+    def result(eng, rid):
+        out = eng.result(rid, timeout=FLEET_WAIT_S)
+        if out is None:
+            raise AssertionError(f"engine_fleet: request {rid} unfinished")
+        return out
+
+    def built_fleet(engine_kwargs=knobs, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        fleet = EngineFleet(params, cfg, engine_kwargs=engine_kwargs, **kw)
+        grew = torch.cuda.memory_allocated(dev) - before
+        if not fleet.shared_executables():
+            raise AssertionError("engine_fleet: replicas on another copy "
+                                 "of the weights")
+        fleet.warm()
+        return fleet, grew
+
+    def release():
+        # the loop threads' cuBLAS handles keep a workspace on each stream
+        # they ran on (the engine's and the capture stream) until cleared
+        gc.collect()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(dev)
+
+    held = release()
+    rec = {"nvidia_smi": smi, "weight_bytes": weight_bytes}
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t_run = time.perf_counter()
+
+    # (a) one replica, affinity; then its solo runs of (b)'s requests
+    fleet, grew1 = built_fleet(replicas=1)
+    with fleet:
+        a1_1, a1_2, conv, r = fleet_sessions(fleet, first, extra, V)
+        r["programs"] = fleet_programs(fleet)
+        single = {k: v for k, v in r["programs"]["engine0"].items()
+                  if k.endswith("_executables")}
+        eng = fleet.engines["engine0"]
+        solo_long = result(eng, eng.submit(long_p,
+                                           max_new_tokens=FLEET_LONG_NEW))
+        solo_new = result(eng, eng.submit(new_p, max_new_tokens=MAX_NEW))
+        rids = [eng.submit(p, max_new_tokens=FLEET_SWAP_NEW)
+                for p in swap_ps]
+        solo_swap = [result(eng, i) for i in rids]
+    r["memory_grew_gib"] = grew1 / 2 ** 30
+    rec["a_affinity_1"] = r
+    del fleet, eng
+
+    # (a) two replicas, affinity: one copy of the weights; then (b), (d)
+    fleet, grew2 = built_fleet(replicas=2)
+    if grew2 > weight_bytes / 2:
+        raise AssertionError(f"engine_fleet: two replicas took "
+                             f"{grew2 / 2**30:.2f} GiB, a copy of the "
+                             f"weights is {weight_bytes / 2**30:.2f}")
+    e0, e1 = fleet.engines.values()
+    with fleet:
+        a2_1, a2_2, _, r = fleet_sessions(fleet, first, extra, V)
+        r["programs"] = fleet_programs(fleet, single)
+        r["memory_grew_gib"] = grew2 / 2 ** 30
+        rec["a_affinity_2"] = r
+        # (b) replica 1 captures bucket 2048 in its loop while replica 0
+        # decodes
+        if any(f"prefill:{SERVE_BUCKETS[-1]}" in e._programs
+               for e in (e0, e1)):
+            raise AssertionError("engine_fleet: bucket 2048 already built")
+        h0 = e0.submit(long_p, max_new_tokens=FLEET_LONG_NEW)
+        while len(e0.progress(h0)["token_ids"]) < 8:
+            time.sleep(0.001)
+        at = len(e0.progress(h0)["token_ids"])
+        t0 = time.perf_counter()
+        o_new = result(e1, e1.submit(new_p, max_new_tokens=MAX_NEW))
+        new_s = time.perf_counter() - t0
+        during = len(e0.progress(h0)["token_ids"]) - at
+        o_long = result(e0, h0)
+        if o_long.token_ids != solo_long.token_ids or \
+                o_new.token_ids != solo_new.token_ids or \
+                not e1._programs[f"prefill:{SERVE_BUCKETS[-1]}"].built:
+            raise AssertionError("engine_fleet b: streams differ from the "
+                                 "solo runs")
+        rec["b_lazy_capture"] = {"decode_tokens_during_capture": during,
+                                 "capture_request_s": new_s,
+                                 "streams_equal_solo": True}
+        # (d) the front door over this fleet, on loopback
+        rec["d_front_door"] = front_door(fleet, door_p, drop_p)
+    rec["b_lazy_capture"]["programs"] = fleet_programs(fleet)
+    del fleet, e0, e1
+
+    # (a) two replicas, round robin
+    fleet, _ = built_fleet(replicas=2, router="round_robin")
+    with fleet:
+        rr_1, rr_2, _, r = fleet_sessions(fleet, first, extra, V)
+        r["programs"] = fleet_programs(fleet, single)
+    rec["a_round_robin_2"] = r
+    del fleet
+
+    # (b) second pass: replica 0 swaps under forced pressure meanwhile
+    e0 = LLMEngine(params, cfg, admission="optimistic", preempt="swap",
+                   fault_plan=FaultPlan(pressure_steps=FLEET_SWAP_PRESSURE),
+                   **knobs)
+    e1 = LLMEngine(params, cfg, **knobs)
+    _adopt_executables(e1, e0)
+    fleet = EngineFleet(engines=[e0, e1])
+    fleet.warm()
+    with fleet:
+        rids = [e0.submit(p, max_new_tokens=FLEET_SWAP_NEW) for p in swap_ps]
+        deadline = time.monotonic() + FLEET_WAIT_S
+        while locked_stats(e0)["preemptions"] < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError("engine_fleet b: no preemption")
+            time.sleep(0.001)
+        swaps = locked_stats(e0)["swap_out_dispatches"]
+        o_new = result(e1, e1.submit(new_p, max_new_tokens=MAX_NEW))
+        swaps = locked_stats(e0)["swap_out_dispatches"] - swaps
+        o_swap = [result(e0, i) for i in rids]
+        fleet.check_invariants()
+    st = e0.stats()
+    if [o.token_ids for o in o_swap] != [o.token_ids for o in solo_swap] \
+            or o_new.token_ids != solo_new.token_ids or \
+            st["preempt_swaps"] == 0 or st["pages_in_use"] or st["swapped"]:
+        raise AssertionError(f"engine_fleet b (swap): streams differ from "
+                             f"the solo runs or no swap ({st})")
+    rec["b_lazy_capture"]["swap_pass"] = {
+        "swap_outs_during_capture": swaps, "streams_equal_solo": True,
+        **{k: st[k] for k in ("preemptions", "preempt_swaps",
+                              "swapped_pages", "swap_out_dispatches",
+                              "swap_in_dispatches")}}
+    del fleet, e0, e1
+
+    # (c) disaggregated prefill/decode over one store directory
+    root = tempfile.mkdtemp()
+    try:
+        fleet, _ = built_fleet(roles="P:D",
+                               engine_kwargs=dict(knobs, spill_dir=root))
+        with fleet:
+            hs = [fleet.submit(p, session=f"s{i}", max_new_tokens=MAX_NEW)
+                  for i, p in enumerate(first)]
+            dis = [fleet.result(h, timeout=FLEET_WAIT_S) for h in hs]
+            if not fleet.drain(FLEET_WAIT_S) or None in dis:
+                raise AssertionError("engine_fleet c: unfinished requests")
+            fleet.check_invariants()
+        fst = fleet.stats()["disagg"]
+        de = fleet.engines[fleet.decode_pool[0]]
+        full = [((p.size - 1) // 16) * 16 for p in first]
+        cached = [o.cached_tokens for o in dis]
+        if fst["handoffs"] != len(first) or \
+                any(c < f for c, f in zip(cached, full)) or \
+                de.stats()["kv_tier"]["restores"] == 0:
+            raise AssertionError(f"engine_fleet c: {fst}, cached {cached} "
+                                 f"of {full}")
+        rec["c_disagg"] = {**fst, "cached_tokens": cached,
+                           "decode_kv_tier": de.stats()["kv_tier"],
+                           "programs": fleet_programs(fleet)}
+        del fleet, de
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    rec["run_s"] = time.perf_counter() - t_run
+    rec["launches"], rec["launches_int8"] = K.launches(), K.launches_int8()
+    no_composed("engine_fleet")
+    la = rec["launches"]
+    if not (la["paged_prefill_attention_kernel"] and
+            la["flash_attention_fwd"] and la["rms_norm_fused"]) or \
+            la["paged_attention_kernel"] or any(rec["launches_int8"].values()):
+        raise AssertionError(f"engine_fleet: launches {la}")
+
+    # the streams: turn 1 bitwise in the three fleets, turn 2 bitwise in
+    # the two affinity fleets, which reuse each session's whole turn-1 KV;
+    # round robin re-prefills (no cached token), held with affinity against
+    # the dense forward's first token where its margin exceeds 0.05
+    t1 = [[o.token_ids for o in run] for run in (a1_1, a2_1, rr_1)]
+    if not t1[0] == t1[1] == t1[2] or \
+            [o.token_ids for o in a1_2] != [o.token_ids for o in a2_2]:
+        raise AssertionError("engine_fleet a: streams differ between fleets")
+    kv = [p.size + MAX_NEW - 1 for p in first]
+    for name in ("a_affinity_1", "a_affinity_2"):
+        if rec[name]["turn2_cached_tokens"] != kv:
+            raise AssertionError(f"engine_fleet {name}: turn-2 cached "
+                                 f"{rec[name]['turn2_cached_tokens']}, the "
+                                 f"turn-1 KV {kv}")
+    if any(rec["a_round_robin_2"]["turn2_cached_tokens"]):
+        raise AssertionError("engine_fleet: round robin hit the cache")
+    picks = forward_picks(params, cfg, dict(enumerate(conv)))
+    rec["a_round_robin_2"]["first_token"] = check_first_tokens(
+        picks, dict(enumerate(rr_2)), "round robin turn 2")
+    rec["a_affinity_2"]["first_token"] = check_first_tokens(
+        picks, dict(enumerate(a2_2)), "affinity turn 2")
+    rec["a_round_robin_2"]["turn2_agreement_with_affinity"] = agreement(
+        dict(enumerate(a2_2)), dict(enumerate(rr_2)))
+    picks = forward_picks(params, cfg, dict(enumerate(first)))
+    rec["c_disagg"]["first_token"] = check_first_tokens(
+        picks, dict(enumerate(dis)), "disaggregated")
+    rec["c_disagg"]["agreement_with_a"] = agreement(
+        dict(enumerate(a2_1)), dict(enumerate(dis)))
+    left = release() - held
+    if left > RELEASE_SLACK:
+        raise AssertionError(f"engine_fleet: the phase's engines left "
+                             f"{left / 2**20:.1f} MiB allocated")
+    rec["left_after_release_mib"] = left / 2 ** 20
+    return rec
+
+
+def front_door(fleet, prompt, drop_prompt):
+    """Phase 6h (d): `ServingFrontend` over `fleet` on loopback.  The
+    fleet serves `prompt` once (its pages then cached on one replica); the
+    door's completion and its SSE chat of the same prompt, which the same
+    replica serves from the same cached prefix, must equal a second
+    `fleet.result` of it; a client that drops mid-stream frees its pages;
+    /metrics and /healthz answer through the same port."""
+    import http.client
+    import socket
+
+    from paddle_tpu_torch.inference.frontend import ServingFrontend
+
+    def post(door, path, payload):
+        conn = http.client.HTTPConnection("127.0.0.1", door.port,
+                                          timeout=FLEET_WAIT_S)
+        conn.request("POST", path, json.dumps(payload),
+                     {"Content-Type": "application/json"})
+        return conn, conn.getresponse()
+
+    def fleet_run():
+        return fleet.result(fleet.submit(prompt, max_new_tokens=16),
+                            timeout=FLEET_WAIT_S)
+
+    rec = {}
+    first = fleet_run()
+    with ServingFrontend(fleet) as door:
+        conn, resp = post(door, "/v1/completions",
+                          {"prompt": prompt.tolist(), "max_tokens": 16})
+        body = json.loads(resp.read())
+        conn.close()
+        again = fleet_run()
+        toks = body["choices"][0]["token_ids"]
+        t0 = time.perf_counter()
+        conn, resp = post(door, "/v1/chat/completions",
+                          {"messages": [{"role": "user",
+                                         "content": prompt.tolist()}],
+                           "max_tokens": 16, "stream": True})
+        streamed, first_frame_s, final = [], None, None
+        for line in resp:
+            line = line.strip()
+            if not line.startswith(b"data: ") or line == b"data: [DONE]":
+                continue
+            frame = json.loads(line[len(b"data: "):])
+            delta = frame["choices"][0].get("delta")
+            if delta is None:
+                final = frame
+                continue
+            if first_frame_s is None:
+                first_frame_s = time.perf_counter() - t0
+            streamed += delta["token_ids"]
+        conn.close()
+        if resp.status != 200 or toks != again.token_ids or \
+                streamed != again.token_ids or final is None or \
+                final["choices"][0]["message"]["token_ids"] != streamed:
+            raise AssertionError(f"engine_fleet d: door {toks}, stream "
+                                 f"{streamed}, fleet {again.token_ids}")
+        rec.update(completion_replica=body["engine"],
+                   cached_tokens=body["usage"]["cached_tokens"],
+                   first_run_equal=first.token_ids == toks,
+                   sse_first_frame_s=first_frame_s, tokens_equal=True)
+        # a client that hangs up mid-stream
+        fleet.drain(FLEET_WAIT_S)
+        before = {l: (locked_stats(e)["aborted_requests"],
+                      e.cache.pages_in_use())
+                  for l, e in fleet.engines.items()}
+        payload = json.dumps({"prompt": drop_prompt.tolist(),
+                              "max_tokens": 512, "stream": True}).encode()
+        sock = socket.create_connection(("127.0.0.1", door.port),
+                                        timeout=FLEET_WAIT_S)
+        sock.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: door\r\n"
+                     b"Content-Type: application/json\r\nContent-Length: " +
+                     str(len(payload)).encode() + b"\r\n\r\n" + payload)
+        got = b""
+        while b"data: " not in got:
+            got += sock.recv(4096)
+        sock.shutdown(socket.SHUT_RDWR)
+        sock.close()
+        deadline = time.monotonic() + FLEET_WAIT_S
+        while not any(locked_stats(e)["aborted_requests"] > before[l][0]
+                      for l, e in fleet.engines.items()):
+            if time.monotonic() > deadline:
+                raise AssertionError("engine_fleet d: the dropped client's "
+                                     "request was never aborted")
+            time.sleep(0.01)
+        if not fleet.drain(FLEET_WAIT_S):
+            raise AssertionError("engine_fleet d: the fleet did not drain")
+        after = {l: e.cache.pages_in_use() for l, e in fleet.engines.items()}
+        if after != {l: b[1] for l, b in before.items()}:
+            raise AssertionError(f"engine_fleet d: pages in use {after}, "
+                                 f"before the request {before}")
+        rec["pages_in_use_after_drop"] = after
+        # the observability routes through the same port
+        conn = http.client.HTTPConnection("127.0.0.1", door.port, timeout=60)
+        conn.request("GET", "/metrics",
+                     headers={"Accept": "application/openmetrics-text"})
+        resp = conn.getresponse()
+        text = resp.read().decode()
+        conn.close()
+        conn = http.client.HTTPConnection("127.0.0.1", door.port, timeout=60)
+        conn.request("GET", "/healthz")
+        hresp = conn.getresponse()
+        health = json.loads(hresp.read())
+        conn.close()
+        if resp.status != 200 or not text.endswith("# EOF\n") or \
+                "llm_fleet_" not in text or 'engine="engine1"' not in text \
+                or hresp.status != 200 or health["state"] not in ("ok",
+                                                                  "degraded"):
+            raise AssertionError(f"engine_fleet d: /metrics {resp.status}, "
+                                 f"/healthz {hresp.status} {health}")
+        rec.update(metrics_lines=len(text.splitlines()),
+                   fleet_series=sum(ln.startswith("llm_fleet_")
+                                    for ln in text.splitlines()),
+                   health=health["state"])
+    return rec
+
+
 def decode_logits(params, cfg, prompt, dev):
     """`prefill_paged` of one prompt into a fresh pool, then one
     `decode_step_paged` on its greedy next token, against the dense
@@ -2866,6 +3360,12 @@ def main():
           **rec_obs})
 
     t = time.perf_counter()
+    rec_fleet = engine_fleet(params, cfg, prompts, dev, smi)
+    emit({"phase": "engine_fleet", "seconds": time.perf_counter() - t,
+          "sessions": FLEET_SESSIONS, "max_new": MAX_NEW,
+          "turn2_extra": FLEET_EXTRA, **rec_fleet})
+
+    t = time.perf_counter()
     modes = (("bucketed", bucketed), ("chunked", chunked),
              ("unfused_bucketed", unfused["bucketed"]),
              ("unfused_chunked", unfused["chunked"]))
@@ -3003,7 +3503,7 @@ def main():
     runs = (rec3, rec4, rec5["bucketed"], rec5["chunked"], *rec_q.values(),
             *rec_p.values(), *rec_s.values(), *rec_o.values(),
             *(m["tier"] for m in rec_t.values() if isinstance(m, dict)
-              and "tier" in m), rec_obs, rec9, rec7, rec8)
+              and "tier" in m), rec_obs, rec_fleet, rec9, rec7, rec8)
     kernels = [{
         "name": r["kernel"] + ("_int8" if key == "launches_int8" else ""),
         "route": route, "source": source, "replaces": replaces,

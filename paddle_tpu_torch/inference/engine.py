@@ -137,6 +137,18 @@ it through a weak reference, so a dropped engine (its pool, its graphs)
 is freed without the cycle collector.  `predicted_step_ms` is None: the
 static roofline model is not ported.
 
+Serving loop, as the reference's (`start_loop`, `submit`, `cancel`,
+`progress`, `result`, `drain`, `queue_depth`, `stop_loop`): one background
+thread steps the engine while other threads (a fleet's router, the HTTP
+door) submit, stream and abort; every entry takes `_serve_lock` (an
+`RLock`, so single-threaded callers keep driving `step()` directly).  The
+engine is pinned to the CUDA stream current on its device when it was
+built: every stage, replay and host copy it makes runs there, whichever
+thread dispatches it, so a dispatch from another thread (`export_prefix`
+from a fleet's router) stays in order with the loop's steps.  Each step
+and each dispatch outside a step holds `graphs.GATE` shared, so a program
+that another engine captures meanwhile sees no CUDA work of this one.
+
 Tensor parallelism (`mesh`, `mp > 1`) arrives with a later slice of the
 port and raises `NotImplementedError`.
 """
@@ -148,6 +160,7 @@ import functools
 import itertools
 import json
 import os
+import threading
 import time
 import weakref
 from collections import deque
@@ -163,7 +176,7 @@ from ..quantization.serving import (kv_page_bytes, normalize_quant_dtype,
                                     quantize_serving_params)
 from .cache import HostKVTier, PagedKVCache, lane_to_tensor
 from .faults import FaultInjected, FaultPlan
-from .graphs import StepProgram
+from .graphs import GATE, StepProgram
 from .health import HEALTH_CODES, burn_rate, evaluate_engine_health
 from .metrics import MetricsRegistry
 from .spec import NgramProposer
@@ -404,9 +417,12 @@ class LLMEngine:
         if table.device != self.device:
             raise ValueError(f"params live on {table.device}, the engine on "
                              f"{self.device}")
-        if self.weight_dtype == "int8":
-            # once, on the device (dequant rides inside the step programs)
-            params = quantize_serving_params(params, config)
+        if self.weight_dtype == "int8" and "wte_q" not in params:
+            # once, on the device (dequant rides inside the step programs);
+            # params already quantized (a fleet's leader's) are taken as
+            # they are, so replicas share one copy
+            with GATE.shared():
+                params = quantize_serving_params(params, config)
         self.params = params
         self.config = config
         self.eos_token_id = eos_token_id
@@ -499,9 +515,14 @@ class LLMEngine:
             self._store_restored_nodes = self.cache.load_tier_index()
         # optimistic admission's global free-page headroom (~1% of the pool)
         self._watermark = max(1, (num_pages - 1) // 100)
-        self._pool = gpt_mod.init_paged_cache(config, num_pages, page_size,
-                                              device=self.device,
-                                              kv_dtype=self.kv_dtype)
+        # the stream every dispatch of this engine runs on (the one current
+        # on the device now: the default stream, unless the caller set one)
+        self._stream = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
+        with self._on_device():
+            self._pool = gpt_mod.init_paged_cache(
+                config, num_pages, page_size, device=self.device,
+                kv_dtype=self.kv_dtype)
         self._queue: deque = deque()
         self._running: Dict[int, _Running] = {}
         self._prefilling: Dict[int, _Prefilling] = {}   # slot -> state, FIFO
@@ -530,6 +551,15 @@ class LLMEngine:
         self._has_deadlines = False
         self._init_observability(clock, trace_ring, request_tracing,
                                  trace_retention)
+        # the serving loop's lock (the engine is single-threaded: the loop's
+        # step() and other threads' submit/cancel/probe/result take it), its
+        # condition (intake wakes the loop, each step wakes waiters), thread
+        # and stop flag, and the error that ended the loop
+        self._serve_lock = threading.RLock()
+        self._serve_cond = threading.Condition(self._serve_lock)
+        self._serve_thread: Optional[threading.Thread] = None
+        self._serve_stop = False
+        self._serve_error: Optional[BaseException] = None
 
     def _init_observability(self, clock, trace_ring: int,
                             request_tracing: bool,
@@ -940,6 +970,17 @@ class LLMEngine:
                                     self.device)
 
     # ---- step programs ----------------------------------------------------
+    @contextlib.contextmanager
+    def _on_device(self):
+        """Device work of this engine from any thread: `GATE` held shared
+        and the engine's stream current."""
+        with GATE.shared():
+            if self._stream is None:
+                yield
+            else:
+                with torch.cuda.stream(self._stream):
+                    yield
+
     def _program(self, role: str) -> StepProgram:
         """The program of `role`, made at first use (built at its first
         staging): "fused", the unfused "decode" and "verify", the "chunk"
@@ -1024,7 +1065,8 @@ class LLMEngine:
         on the card its warm-up run and its graph capture.  Reference name
         and contract; here the generator is not drawn from, so sampled
         streams do not change."""
-        self._program("fused" if self.fused else "decode").build()
+        with self._on_device():
+            self._program("fused" if self.fused else "decode").build()
 
     def warm_swap(self) -> None:
         """Build the swap gather and scatter programs on inert inputs (every
@@ -1033,15 +1075,17 @@ class LLMEngine:
         no-op unless the engine can reach them (optimistic admission with
         preempt="swap", or the KV tier)."""
         if (self.optimistic and self.preempt == "swap") or self.kv_tier:
-            self._program("swap_out").build()
-            self._program("swap_in").build()
+            with self._on_device():
+                self._program("swap_out").build()
+                self._program("swap_in").build()
 
     def warm_spec(self) -> None:
         """Build the unfused verify program on inert inputs (reference name
         and contract).  A no-op when fused, where drafts ride the one fused
         program, and with spec off."""
         if self.spec_len and not self.fused:
-            self._program("verify").build()
+            with self._on_device():
+                self._program("verify").build()
 
     # ---- scheduler --------------------------------------------------------
     def step(self) -> List[RequestOutput]:
@@ -1063,7 +1107,13 @@ class LLMEngine:
         (decode-batch occupancy, per-lane slot counts, dispatches, the wait
         for the harvest, the chunk, verify dispatches, tokens emitted,
         victims) and the page pool it left; and samples the rate windows
-        (forced on a step that retired or preempted a request)."""
+        (forced on a step that retired or preempted a request).
+
+        Holds the serve lock, and `GATE` shared on the engine's stream."""
+        with self._serve_lock, self._on_device():
+            return self._step()
+
+    def _step(self) -> List[RequestOutput]:
         finished: List[RequestOutput] = self._orphan_finished
         self._orphan_finished = []
         t0 = self._now()
@@ -1954,7 +2004,13 @@ class LLMEngine:
         is written again.  Returns {"pages", "tokens", "index_nodes"}, all
         0 with no store or nothing to export (the peer then re-prefills).
         With `rid`, an export that published pages stamps "handoff" on that
-        request's timeline (retired by now: it rides its output)."""
+        request's timeline (retired by now: it rides its output).  Takes the
+        serve lock; its gathers run on the engine's stream, in order with
+        the loop's steps, from whatever thread calls it."""
+        with self._serve_lock, self._on_device():
+            return self._export_prefix(tokens, rid)
+
+    def _export_prefix(self, tokens, rid: Optional[int]) -> Dict[str, int]:
         out = {"pages": 0, "tokens": 0, "index_nodes": 0}
         mgr = self.cache
         tier = mgr._tier
@@ -1992,7 +2048,8 @@ class LLMEngine:
         exported.  Idempotent.  Returns the nodes newly imported."""
         if not self.kv_tier:
             return 0
-        n = self.cache.load_tier_index()
+        with self._serve_lock:
+            n = self.cache.load_tier_index()
         self._store_restored_nodes += n
         return n
 
@@ -2104,6 +2161,10 @@ class LLMEngine:
         buffering the in-flight fused step is harvested first, so the abort
         sees exact bookkeeping; requests that harvest finishes are returned
         by the next step()."""
+        with self._on_device():
+            return self._abort(request_id)
+
+    def _abort(self, request_id: int) -> bool:
         if self._inflight is not None:
             self._harvest(self._orphan_finished)
         for i, req in enumerate(self._queue):
@@ -2139,11 +2200,12 @@ class LLMEngine:
         """Router probe: the longest cached prefix of `tokens` this engine
         holds, in tokens, and the part of it in the KV tier (a hit there is
         restored by one scatter).  A pure read: no LRU touch, no COW, no
-        refcount."""
+        refcount.  Takes the serve lock."""
         if not self.prefix_cache:
             return {"cached_tokens": 0, "tier_tokens": 0}
         tokens = np.asarray(tokens, np.int32).reshape(-1)
-        full, partial = self.cache._match(tokens)
+        with self._serve_lock:
+            full, partial = self.cache._match(tokens)
         page = self.cache.page_size
         matched = len(full) * page
         tier = sum(page for n in full if n.page < 0)
@@ -2168,6 +2230,158 @@ class LLMEngine:
     @property
     def outputs(self) -> Dict[int, RequestOutput]:
         return dict(self._outputs)
+
+    # ---- serving loop (a fleet's replica, the HTTP door) -------------------
+    def start_loop(self, idle_wait_s: float = 0.002) -> None:
+        """Start the background step() loop (idempotent).  Idle, it waits on
+        the serve condition, which submit() and cancel() notify, and looks
+        at `has_work` again every `idle_wait_s`."""
+        with self._serve_lock:
+            if self._serve_thread is not None and \
+                    self._serve_thread.is_alive():
+                return
+            self._serve_stop = False
+            self._serve_error = None
+            self._serve_thread = threading.Thread(
+                target=self._serve_loop, args=(float(idle_wait_s),),
+                name="llm-serve-loop", daemon=True)
+            self._serve_thread.start()
+
+    def stop_loop(self, timeout: float = 30.0) -> None:
+        """Stop the loop thread (idempotent).  Queued work stays queued:
+        drain() first to finish it."""
+        with self._serve_cond:
+            self._serve_stop = True
+            self._serve_cond.notify_all()
+        t = self._serve_thread
+        if t is not None and t.is_alive():
+            t.join(timeout)
+        self._serve_thread = None
+
+    @property
+    def loop_running(self) -> bool:
+        t = self._serve_thread
+        return t is not None and t.is_alive()
+
+    def _serve_loop(self, idle_wait_s: float) -> None:
+        while True:
+            with self._serve_cond:
+                if self._serve_stop:
+                    return
+                if not self.has_work:
+                    self._serve_cond.wait(idle_wait_s)
+                    continue
+                try:
+                    self.step()
+                except BaseException as exc:    # noqa: BLE001 -- raised
+                    self._serve_error = exc     # to result()/drain()
+                    self._serve_cond.notify_all()
+                    return
+                self._serve_cond.notify_all()
+            # between two steps, let a thread waiting for the lock (a
+            # stream's progress, a router's probe) take it: a lock released
+            # and taken back at once would starve it until the engine idles
+            time.sleep(0)
+
+    def _check_loop(self) -> None:
+        if self._serve_error is not None:
+            raise RuntimeError("serve loop died") from self._serve_error
+
+    def submit(self, prompt, **kwargs) -> int:
+        """add_request() from any thread: enqueue under the serve lock and
+        wake the loop.  add_request's signature, validation and
+        rejections."""
+        with self._serve_cond:
+            self._check_loop()
+            rid = self.add_request(prompt, **kwargs)
+            self._serve_cond.notify_all()
+            return rid
+
+    def cancel(self, request_id: int) -> bool:
+        """abort() from any thread (a client that hung up): its pages are
+        freed at once."""
+        with self._serve_cond:
+            ok = self.abort(request_id)
+            if ok:
+                self._serve_cond.notify_all()
+            return ok
+
+    def progress(self, request_id: int) -> Dict[str, object]:
+        """A streaming snapshot: the tokens a request has produced so far,
+        whether it finished (then `output` is its RequestOutput).  Under
+        double buffering it may lag the device by the step in flight; it
+        is exact at the finish."""
+        with self._serve_lock:
+            out = self._outputs.get(request_id)
+            if out is not None:
+                return {"known": True, "finished": True,
+                        "token_ids": list(out.token_ids), "output": out}
+            for seq in self._running.values():
+                if seq.request.request_id == request_id:
+                    return {"known": True, "finished": False,
+                            "token_ids": list(seq.generated), "output": None}
+            for st in self._prefilling.values():
+                if st.request.request_id == request_id:
+                    return {"known": True, "finished": False,
+                            "token_ids": list(st.prior or []),
+                            "output": None}
+            rec = self._preempted.get(request_id)
+            if rec is not None:
+                return {"known": True, "finished": False,
+                        "token_ids": list(rec.get("generated") or []),
+                        "output": None}
+            for req in self._queue:
+                if req.request_id == request_id:
+                    return {"known": True, "finished": False,
+                            "token_ids": [], "output": None}
+            return {"known": False, "finished": False,
+                    "token_ids": [], "output": None}
+
+    def result(self, request_id: int,
+               timeout: Optional[float] = None) -> Optional[RequestOutput]:
+        """Wait until `request_id` finishes (None after `timeout`).  With the
+        loop running this waits on its steps; without it, the caller's
+        thread drives step() itself."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._serve_cond:
+            while True:
+                out = self._outputs.get(request_id)
+                if out is not None:
+                    return out
+                self._check_loop()
+                if not self.loop_running:
+                    if not self.has_work:
+                        return None
+                    self.step()
+                    continue
+                rem = 0.5 if deadline is None \
+                    else deadline - time.monotonic()
+                if rem <= 0.0:
+                    return None
+                self._serve_cond.wait(rem)
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Wait until the engine is idle (False after `timeout`)."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._serve_cond:
+            while self.has_work:
+                self._check_loop()
+                if not self.loop_running:
+                    self.step()
+                    continue
+                rem = 0.5 if deadline is None \
+                    else deadline - time.monotonic()
+                if rem <= 0.0:
+                    return False
+                self._serve_cond.wait(rem)
+            return True
+
+    def queue_depth(self) -> int:
+        """Live requests (queued, prefilling, decoding): the router's load
+        signal."""
+        with self._serve_lock:
+            return (len(self._queue) + len(self._prefilling) +
+                    len(self._running))
 
     def stats(self) -> Dict[str, object]:
         """The reference's flat dict (every key of its `stats()`, the same

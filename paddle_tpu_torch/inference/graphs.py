@@ -43,11 +43,30 @@ its own: counts after a graph run equal the eager run's on the same
 traffic.  The graph keeps alive the split counters it baked in
 (`paged_attention.split_counters`), should a later eager call on the side
 stream replace them.  Dropping the program releases the graph and its pool.
+
+Several engines in one process (a fleet's replicas, each stepped by a loop
+thread of its own) share the device, and a capture must see no other CUDA
+work: `torch.cuda.graph` captures in the global mode, where another
+thread's allocation or synchronising call fails that call or the capture,
+and two captures on one side stream would interleave.  So `GATE`, a
+process-wide reader-writer gate, orders them: `build` holds it exclusively
+(warm-up, capture and the collector switch), while every engine step and
+every dispatch an engine makes outside a step holds it shared
+(`CaptureGate.shared`).  A build reached inside a step (a lazy capture: a
+new bucket, the COW copy, the swap pair at a first spill) gives up its own
+thread's shared hold for the exclusive one and takes it back after.
+Captures are rare (one per program per engine), so in steady state only
+shared holds are taken, and those never wait on each other.  Each engine
+stream gets a side stream of its own, so graphs replayed on different
+streams never share the split counters they baked in.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
-from typing import Callable, Dict, Tuple
+import threading
+import time
+from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -55,15 +74,91 @@ import torch
 from ..incubate import kernels as K
 from ..incubate.kernels.paged_attention import split_counters
 
-_side_streams: Dict[int, "torch.cuda.Stream"] = {}
+class CaptureGate:
+    """A reader-writer gate between graph captures (exclusive) and the
+    engines' device work (shared).  Both holds are reentrant in a thread.
+    A thread that asks for the exclusive hold while it holds shared ones
+    gives them up while it waits and takes them back when it leaves (a
+    capture inside a step).  A waiting capture goes before new shared
+    holders, so busy loops cannot starve it; a thread that already holds
+    the gate shared never waits for a nested shared hold."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._readers: Dict[int, int] = {}  # thread -> shared holds
+        self._writer = None                 # the thread holding it exclusively
+        self._depth = 0                     # its nested exclusive holds
+        self._waiting = 0                   # threads waiting to take it so
+
+    @contextlib.contextmanager
+    def shared(self) -> Iterator[None]:
+        me = threading.get_ident()
+        with self._cond:
+            n = self._readers.get(me, 0)
+            if not n and self._writer != me:
+                while self._writer is not None or self._waiting:
+                    self._cond.wait()
+            self._readers[me] = n + 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                n = self._readers.pop(me) - 1
+                if n:
+                    self._readers[me] = n
+                else:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self) -> Iterator[None]:
+        me = threading.get_ident()
+        with self._cond:
+            if self._writer == me:
+                held = None
+                self._depth += 1
+            else:
+                held = self._readers.pop(me, 0)
+                if held:
+                    self._cond.notify_all()
+                self._waiting += 1
+                while self._writer is not None or self._readers:
+                    self._cond.wait()
+                self._waiting -= 1
+                self._writer, self._depth = me, 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._depth -= 1
+                if not self._depth:
+                    self._writer = None
+                    if held:
+                        self._readers[me] = held
+                    self._cond.notify_all()
+
+    def holds(self) -> Tuple[int, bool]:
+        """This thread's (shared holds, whether it holds it exclusively)."""
+        me = threading.get_ident()
+        with self._cond:
+            return self._readers.get(me, 0), self._writer == me
 
 
-def side_stream(device) -> "torch.cuda.Stream":
-    """The stream every program on `device` warms up and captures on."""
+# one gate a process: a capture excludes CUDA work on every device
+GATE = CaptureGate()
+
+_side_streams: Dict[Tuple[int, int], "torch.cuda.Stream"] = {}
+
+
+def side_stream(device, stream=None) -> "torch.cuda.Stream":
+    """The stream every program dispatched on `stream` (default: the
+    current stream of `device`) warms up and captures on."""
     index = torch.cuda._get_device_index(device, optional=True)
-    s = _side_streams.get(index)
+    if stream is None:
+        stream = torch.cuda.current_stream(index)
+    key = (index, stream.cuda_stream)
+    s = _side_streams.get(key)
     if s is None:
-        s = _side_streams[index] = torch.cuda.Stream(index)
+        s = _side_streams[key] = torch.cuda.Stream(index)
     return s
 
 
@@ -96,6 +191,7 @@ class StepProgram:
         self._host_out = None
         self.built = False
         self.replays = 0
+        self.build_s = None         # the warm-up and capture's wall seconds
         self._delta: Dict = {}
         self._keep = None           # split counters the graph baked in
         # events (card only): the last staging copies ran; the last output
@@ -105,15 +201,22 @@ class StepProgram:
         self._fresh = False         # staged since the last run
 
     def build(self) -> None:
-        """Warm up on inert inputs, then capture (on the card).  Idempotent."""
+        """Warm up on inert inputs, then capture (on the card), holding
+        `GATE` exclusively.  Idempotent."""
         if self.built:
             return
+        with GATE.exclusive():
+            if not self.built:
+                self._build()
+
+    def _build(self) -> None:
+        t0 = time.perf_counter()
         before = K.counts()
         for n, t in self.inputs.items():
             t.fill_(self._inert[n])
         if self.capture:
             cur = torch.cuda.current_stream(self.device)
-            side = side_stream(self.device)
+            side = side_stream(self.device, cur)
             side.wait_stream(cur)
             with torch.cuda.stream(side):
                 self._body(**self.inputs)
@@ -144,6 +247,7 @@ class StepProgram:
                 self.out.shape, dtype=self.out.dtype,
                 pin_memory=self.device.type == "cuda")
         self.built = True
+        self.build_s = time.perf_counter() - t0
 
     def stage(self, **values) -> None:
         """Write every input for the next `run`: numpy-like values through

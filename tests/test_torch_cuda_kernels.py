@@ -29,6 +29,7 @@ tokens and all four pool leaves.
 """
 import contextlib
 import math
+import time
 
 import numpy as np
 import pytest
@@ -1383,7 +1384,9 @@ def test_eager_call_after_capture_leaves_the_replay_unchanged(dev):
     _close(big, paged_prefill_attention_ref(*args), torch.bfloat16)
     prog.stage(**feed)
     prog.run()
-    assert np.array_equal(prog.result(), first)
+    # the two active slots: the inactive one reads the null page, which
+    # padding rows write at colliding positions (its output is dropped)
+    assert np.array_equal(prog.result()[:2], first[:2])
     del junk
 
 
@@ -1597,3 +1600,84 @@ def test_tier_restore_on_card_keeps_the_stream(dev, kv, store, tmp_path):
                         "cow_page_copies", "swap_out_dispatches",
                         "swap_in_dispatches"))
     eng.cache.check_invariants()
+
+
+def _fused_replay_and_eager(eng):
+    """One replay of `eng`'s fused program and one eager call of its body,
+    on identical staged inputs and the same pool: (tokens, pool after) of
+    each.  The pool is put back as it was."""
+    prog = eng._programs["fused"]
+    pool = {n: t.clone() for n, t in eng._pool.items()}
+    feed = _step_inputs("fused", np.random.RandomState(3), eng)
+    runs = []
+    for eager in (False, True):
+        for n in pool:
+            eng._pool[n].copy_(pool[n])
+        prog.stage(**feed)
+        if eager:
+            out = prog._body(**prog.inputs).cpu().numpy()
+        else:
+            prog.run()
+            out = prog.result()
+        torch.cuda.synchronize()
+        runs.append((out, {n: t[:, 1:].clone() for n, t in eng._pool.items()}))
+    for n in pool:
+        eng._pool[n].copy_(pool[n])
+    return runs
+
+
+def test_fleet_loops_capture_while_the_other_replica_swaps(dev):
+    """Two replicas of the small llama (bf16, bucketed, page 8) on one copy
+    of the weights, their loops running: replica 1 captures a prefill
+    bucket it never built inside its loop while replica 0 replays its fused
+    step and swaps victims (optimistic admission, forced pressure).  Both
+    streams equal the same requests run alone, and on each replica a
+    replay of the fused program is bitwise the eager step."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.inference.faults import FaultPlan
+    from paddle_tpu_torch.inference.router import (EngineFleet,
+                                                   _adopt_executables)
+    cfg = _small_llama(torch.bfloat16)
+    params = _card_params(cfg, dev)
+    geo = dict(num_slots=3, page_size=8, max_model_len=128, device=dev)
+    rng = np.random.RandomState(9)
+    swap_ps = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (8, 12, 16)]
+    new_p = rng.randint(0, cfg.vocab_size, (100,)).astype(np.int32)
+    solo = LLMEngine(params, cfg, **geo)
+    rids = [solo.add_request(p, max_new_tokens=40) for p in swap_ps]
+    want = [solo.run()[r].token_ids for r in rids]
+    want_new = solo.result(solo.add_request(new_p,
+                                            max_new_tokens=16)).token_ids
+    e0 = LLMEngine(params, cfg, admission="optimistic", preempt="swap",
+                   fault_plan=FaultPlan(pressure_steps=range(4, 60, 3)),
+                   **geo)
+    e1 = LLMEngine(params, cfg, **geo)
+    _adopt_executables(e1, e0)
+    fleet = EngineFleet(engines=[e0, e1])
+    assert fleet.shared_executables()
+    fleet.warm()
+    e1.result(e1.submit(np.arange(5, dtype=np.int32), max_new_tokens=2))
+    assert "prefill:128" not in e1._programs
+    with fleet:
+        rids = [e0.submit(p, max_new_tokens=40) for p in swap_ps]
+        deadline = time.monotonic() + 300
+        while True:             # replica 0 has swapped once: capture now
+            with e0._serve_lock:
+                if e0.stats()["preemptions"]:
+                    break
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+        got_new = e1.result(e1.submit(new_p, max_new_tokens=16),
+                            timeout=300).token_ids
+        got = [e0.result(r, timeout=300).token_ids for r in rids]
+        fleet.check_invariants()
+    assert got == want and got_new == want_new
+    st = e0.stats()
+    assert st["preempt_swaps"] > 0 and st["pages_in_use"] == 0
+    assert e1._programs["prefill:128"].graph is not None
+    for eng in (e0, e1):
+        (g_out, g_pool), (e_out, e_pool) = _fused_replay_and_eager(eng)
+        assert np.array_equal(g_out, e_out)
+        for n in g_pool:
+            assert torch.equal(g_pool[n], e_pool[n]), n

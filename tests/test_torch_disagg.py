@@ -20,10 +20,12 @@ of another type than the pool's degrades to a re-prefill, the restore-plan
 partition of the port's `check_invariants` catches a stranded plan, and a
 bfloat16 lane keeps its bits through the store from either writer.
 
-Left for later slices: the two `EngineFleet` cases
-(`test_disagg_fleet_parity_and_handoff_counters`,
-`test_disagg_fail_h2d_degrades_to_local_reprefill`) wait for ROADMAP
-Queue 1 item 9 (fleet and front door).
+The reference's two `EngineFleet` cases run on both packages' fleets: a
+1P:1D fleet serves two sessions of two turns as one colocated engine does,
+with the handoff counters, restores and role-labelled health equal to the
+reference fleet's (never warmed: its warm-up reaches the cost model), and
+pre-built pools whose decode side fails every restore copy degrade to a
+local re-prefill with the oracle's stream.
 """
 import json
 import os
@@ -42,6 +44,7 @@ from paddle_tpu_torch.inference.engine import LLMEngine
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
 from torch_kv_parity import assert_same_kv
+from torch_threads import one_torch_thread  # noqa: F401
 
 TIER_STATS = ("spills", "restores", "restored_tokens", "partial_page_hits",
               "disk_spills", "disk_restores", "tier_drops", "pages_host",
@@ -441,3 +444,119 @@ def test_bfloat16_lanes_keep_their_bits_through_the_store(tmp_path):
                        t.view(torch.int16))
     with pytest.raises(KeyError):
         lane_to_tensor(store.get("port")["k"], torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the 1P:1D fleet: handoff parity, counters, role-labelled health
+# ---------------------------------------------------------------------------
+
+FLEET_EKW = dict(num_slots=2, page_size=8, max_model_len=64,
+                 prefill_chunk=16, seed=3)
+
+
+def _fleet_engine(tiny, port, **kw):
+    """An engine of the reference's fleet cases (its default pool)."""
+    cfg, params, tcfg, tparams = tiny
+    kw = dict(FLEET_EKW, **kw)
+    if port:
+        return LLMEngine(tparams, tcfg, device="cpu", **kw)
+    return JaxEngine(params, cfg, **kw)
+
+
+def test_disagg_fleet_parity_and_handoff_counters(tiny, tmp_path):
+    """Two sessions x two turns through a 1P:1D fleet of each package equal
+    one colocated reference engine's streams; the prefill replica's exports,
+    the decode replica's restores, the handoff and skip counts and the
+    role-labelled health equal the reference fleet's."""
+    from paddle_tpu.inference.router import EngineFleet as RefFleet
+    from paddle_tpu_torch.inference.router import EngineFleet
+    cfg, params, tcfg, tparams = tiny
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(0, cfg.vocab_size, (18,)).astype(np.int32)
+               for _ in range(2)]
+    oracle = JaxEngine(params, cfg, **FLEET_EKW)
+    ref, convs = {}, [list(p) for p in prompts]
+    for s in range(2):
+        for t in range(2):
+            rid = oracle.add_request(np.asarray(convs[s], np.int32),
+                                     max_new_tokens=5)
+            o = oracle.run()[rid]
+            ref[(s, t)] = list(o.token_ids)
+            convs[s] = convs[s] + ref[(s, t)]
+    got = {}
+    for name, port in (("reference", False), ("port", True)):
+        ekw = dict(FLEET_EKW, spill_dir=str(tmp_path / name))
+        if port:
+            fleet = EngineFleet(tparams, tcfg, roles="P:D",
+                                engine_kwargs=dict(ekw, device="cpu"))
+            fleet.warm()
+        else:
+            fleet = RefFleet(params, cfg, roles="P:D", engine_kwargs=ekw)
+        assert fleet.prefill_pool == ["engine0"]
+        assert fleet.decode_pool == ["engine1"]
+        convs = [list(p) for p in prompts]
+        with fleet:
+            for s in range(2):
+                for t in range(2):
+                    h = fleet.submit(np.asarray(convs[s], np.int32),
+                                     session=f"s{s}", max_new_tokens=5)
+                    out = fleet.result(h, timeout=120.0)
+                    assert out is not None
+                    assert list(out.token_ids) == ref[(s, t)], (name, s, t)
+                    convs[s] = convs[s] + list(out.token_ids)
+            fleet.check_invariants()
+        pe, de = fleet.engines["engine0"], fleet.engines["engine1"]
+        ps, ds = pe.stats()["kv_tier"], de.stats()["kv_tier"]
+        assert ps["handoff_exports"] >= 1 and ps["handoff_pages"] >= 1
+        assert ds["restores"] >= 1
+        fst = fleet.stats()["disagg"]
+        assert fst["handoffs"] >= 1 and fst["handoff_p99_ms"] > 0
+        h = fleet.health()
+        got[name] = (
+            {k: ps[k] for k in ("handoff_exports", "handoff_pages",
+                                "handoff_tokens")},
+            {k: ds[k] for k in ("restores", "restored_tokens",
+                                "store_nodes_restored")},
+            {k: fst[k] for k in ("roles", "prefill_pool", "decode_pool",
+                                 "handoffs", "handoff_skips",
+                                 "handoff_degrades")},
+            {l: v["role"] for l, v in h["per_engine"].items()})
+    assert got["port"] == got["reference"]
+    assert got["port"][3] == {"engine0": "prefill", "engine1": "decode"}
+
+
+def test_disagg_fail_h2d_degrades_to_local_reprefill(tiny, tmp_path):
+    """Pre-built 1P:1D pools of each package whose decode side fails every
+    restore copy: the handoff exports, every planned restore is dropped and
+    re-prefilled, and the stream is the colocated oracle's."""
+    from paddle_tpu.inference.faults import FaultPlan as RefFaultPlan
+    from paddle_tpu.inference.router import EngineFleet as RefFleet
+    from paddle_tpu_torch.inference.faults import FaultPlan
+    from paddle_tpu_torch.inference.router import EngineFleet
+    cfg = tiny[0]
+    rng = np.random.RandomState(13)
+    prompt = rng.randint(0, cfg.vocab_size, (20,)).astype(np.int32)
+    oracle = _fleet_engine(tiny, False)
+    want = list(_result(oracle, oracle.add_request(
+        prompt, max_new_tokens=5)).token_ids)
+    got = {}
+    for name, port in (("reference", False), ("port", True)):
+        root = str(tmp_path / name)
+        pe = _fleet_engine(tiny, port, role="prefill", spill_dir=root)
+        plan = (FaultPlan if port else RefFaultPlan)(fail_h2d=1000)
+        de = _fleet_engine(tiny, port, role="decode", spill_dir=root,
+                           fault_plan=plan)
+        fleet = (EngineFleet if port else RefFleet)(engines=[pe, de],
+                                                   roles="P:D")
+        with fleet:
+            h = fleet.submit(prompt, session="s0", max_new_tokens=5)
+            out = fleet.result(h, timeout=120.0)
+            assert out is not None
+            assert list(out.token_ids) == want, name
+            fleet.check_invariants()
+        got[name] = (pe.stats()["kv_tier"]["handoff_exports"],
+                     de.stats()["kv_tier"]["restores"],
+                     fleet.stats()["disagg"]["handoffs"],
+                     out.cached_tokens)
+    assert got["port"] == got["reference"]
+    assert got["port"][0] >= 1 and got["port"][1] == 0

@@ -32,6 +32,7 @@ from paddle_tpu_torch.inference.graphs import StepProgram
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
 from test_torch_engine import PRESETS, _assert_greedy_parity, _serve
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the reference's program-count traffic: 2 slots, page 8, prompts of 5 and
 # 20 tokens

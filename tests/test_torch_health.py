@@ -41,6 +41,7 @@ from test_torch_observability import (FakeClock,
                                       drain, lockstep, make_engine, streams,
                                       tiny)  # noqa: F401  (fixture)
 from tools import check_metrics as cm
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

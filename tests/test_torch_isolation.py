@@ -13,6 +13,7 @@ import torch
 from paddle_tpu_torch.inference.engine import LLMEngine
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
@@ -57,18 +58,23 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-# the observability plane: plain Python and torch.profiler, no jax
+# the observability plane: plain Python and torch.profiler, no jax; the
+# fleet and the front door: plain Python (threading, asyncio, http.server)
 OBSERVABILITY_MODULES = ("paddle_tpu_torch.inference.metrics",
                          "paddle_tpu_torch.inference.tracing",
                          "paddle_tpu_torch.inference.health",
                          "paddle_tpu_torch.profiler")
+FLEET_MODULES = ("paddle_tpu_torch.inference",
+                 "paddle_tpu_torch.inference.router",
+                 "paddle_tpu_torch.inference.frontend",
+                 "paddle_tpu_torch.inference.obs_server")
 
 
-@pytest.mark.parametrize("module", OBSERVABILITY_MODULES)
+@pytest.mark.parametrize("module", OBSERVABILITY_MODULES + FLEET_MODULES)
 def test_observability_modules_import_alone(module):
-    """Each module of the observability plane imports on its own and
-    leaves jax and the JAX package out of sys.modules (the AST scan above
-    covers their source)."""
+    """Each module of the observability plane, the fleet and the front door
+    imports on its own and leaves jax and the JAX package out of
+    sys.modules (the AST scan above covers their source)."""
     code = (f"import sys, {module};"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"

@@ -28,6 +28,7 @@ from paddle_tpu_torch.incubate.kernels.rms_norm import (
     MAX_PIECES, MAX_STAGES, RING_BYTES, RmsLaunch, _max_threads, _padded,
     _rms_launch, _rms_ref, rms_norm_fused)
 from paddle_tpu_torch.incubate.kernels.rope import apply_rope
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

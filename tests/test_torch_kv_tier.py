@@ -38,6 +38,7 @@ from paddle_tpu_torch.inference.faults import FaultPlan
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
 from torch_kv_parity import assert_same_kv
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the tier counters the port must report as the reference does
 TIER_STATS = ("spills", "restores", "restored_tokens", "partial_page_hits",

@@ -15,6 +15,7 @@ import torch
 from paddle_tpu.models import gpt as G
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 PRESETS = [(G.gpt_tiny, TG.gpt_tiny), (G.llama_tiny, TG.llama_tiny)]

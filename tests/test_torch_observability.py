@@ -21,8 +21,11 @@ traffic, whose streams must be the same.
 The health fold, rates, trace windows and the debug bundle are in
 `tests/test_torch_health.py`.  The reference's
 `test_stats_execs_fallback_attribute_error_only` tests jit cache
-attributes the port has no counterpart of; the obs-server, fleet-server and
-bench/tool cases wait for the fleet and the serving bench.
+attributes the port has no counterpart of; the bench and tool cases wait
+for the serving bench.  The reference's two obs-server cases run on both
+packages' `ObservabilityServer` over loopback sockets, each over engines on
+one `FakeClock` schedule: every route answers the same status, and the
+exposition, health and request-trace bodies are equal.
 """
 import dataclasses
 import json
@@ -46,6 +49,7 @@ from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
 from tools.check_metrics import (check_exposition, parse_prometheus,
                                  parse_prometheus_full)
+from torch_threads import one_torch_thread  # noqa: F401
 
 MODULES = {"reference": ref_metrics, "port": port_metrics}
 MAX_STEPS = 500         # a scheduler fault must fail a test, not hang it
@@ -881,3 +885,149 @@ def test_request_tracing_off_strips_surface(tiny):
         eng.metrics.to_prometheus(exemplars=True))
     assert not exemplars
     assert samples["llm_engine_ttft_seconds_count"][0][1] == 1
+
+
+# ---------------------------------------------------------------------------
+# the HTTP observability server, both packages over loopback
+# ---------------------------------------------------------------------------
+
+def _http_get(url, accept=None):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, headers={"Accept": accept} if accept else {})
+    try:
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return r.status, r.read().decode("utf-8")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode("utf-8")
+
+
+def _servers():
+    from paddle_tpu.inference.obs_server import ObservabilityServer as Ref
+    from paddle_tpu_torch.inference.obs_server import ObservabilityServer
+    return {"reference": Ref, "port": ObservabilityServer}
+
+
+def test_obs_server_endpoint_smoke(tiny):
+    """All five routes of each package's server over its engine: the
+    OpenMetrics and plain expositions, `/stats` (the reference's keys and
+    SLO block), `/requests/<rid>` (404 unknown, 400 malformed), `/debug`,
+    `/healthz` and the 404 route list; the port's bodies equal the
+    reference's where the clock decides them, and `close()` takes the
+    listener down."""
+    import urllib.error
+
+    from tools.check_metrics import REQUIRED_DEBUG_BUNDLE_KEYS
+    got = {}
+    for which, cls in _servers().items():
+        clk = FakeClock(100.0)
+        eng = make_engine(tiny, which, clk, num_slots=2, page_size=8,
+                          max_model_len=64)
+        rid = eng.add_request(np.arange(6, dtype=np.int32), max_new_tokens=3)
+        drain(eng, clk, 0.5)
+        with cls(eng) as srv:
+            assert srv.port > 0 and srv.url.startswith("http://127.0.0.1:")
+            code, om = _http_get(srv.url + "/metrics",
+                                 accept="application/openmetrics-text")
+            assert code == 200 and om.endswith("# EOF\n")
+            errs = []
+            check_exposition(om, errs)
+            assert not errs, errs
+            assert parse_prometheus_full(om)[1]     # exemplars on the wire
+            code, plain = _http_get(srv.url + "/metrics")
+            assert code == 200 and " # {" not in plain
+            assert "# EOF" not in plain
+            check_exposition(plain, errs)
+            assert not errs, errs
+            code, st = _http_get(srv.url + "/stats")
+            st = json.loads(st)
+            assert code == 200 and "slo" in st
+            code, tree = _http_get(srv.url + f"/requests/{rid}")
+            assert code == 200 and json.loads(tree)["traceEvents"]
+            codes = [_http_get(srv.url + path)[0] for path in
+                     ("/requests/424242", "/requests/nope", "/nosuch")]
+            code, health = _http_get(srv.url + "/healthz")
+            health = json.loads(health)
+            assert code == 200 and health["state"] in ("ok", "degraded")
+            _, routes = _http_get(srv.url + "/nosuch")
+            code, bundle = _http_get(srv.url + "/debug")
+            assert code == 200
+            assert REQUIRED_DEBUG_BUNDLE_KEYS <= set(json.loads(bundle))
+            url = srv.url
+        with pytest.raises((ConnectionError, urllib.error.URLError)):
+            _http_get(url + "/healthz")
+        got[which] = dict(om=om, plain=plain, tree=json.loads(tree),
+                          codes=codes, health=health,
+                          routes=json.loads(routes)["routes"],
+                          slo=st["slo"], stat_keys=set(st))
+    ref, port = got["reference"], got["port"]
+    assert port["codes"] == ref["codes"] == [404, 400, 404]
+    assert set(port["routes"]) == set(ref["routes"]) == {
+        "/metrics", "/stats", "/requests/<rid>", "/debug", "/healthz"}
+    assert ref["stat_keys"] <= port["stat_keys"]
+    for key in ("om", "plain", "tree", "health", "slo"):
+        assert port[key] == ref[key], key
+
+
+def test_obs_server_fleet_mode(tiny):
+    """Fleet mode on both packages: members under engine labels beside
+    `llm_fleet_*` totals (the same text), `/stats` and `/debug` keyed by
+    member, `?engine=` scoping of a request id both members know, 300
+    with the candidate handles for the bare id; a server over an engine
+    and a fleet at once, or over neither, is refused."""
+    got = {}
+    for which, cls in _servers().items():
+        M = MODULES[which]
+        engines = []
+        for n in (7, 5):
+            clk = FakeClock(100.0)
+            e = make_engine(tiny, which, clk, num_slots=1, page_size=8,
+                            max_model_len=64)
+            rid = e.add_request(np.arange(n, dtype=np.int32),
+                                max_new_tokens=2)
+            drain(e, clk, 0.5)
+            engines.append(e)
+        assert rid == 0
+        fleet = M.FleetMetrics().add("e0", engines[0]).add("e1", engines[1])
+        r = {}
+        with cls(fleet=fleet) as srv:
+            code, text = _http_get(srv.url + "/metrics",
+                                   accept="application/openmetrics-text")
+            assert code == 200
+            assert 'engine="e0"' in text and 'engine="e1"' in text
+            assert "llm_fleet_" in text
+            assert f'trace="/requests/{rid}?engine=e1"' in text
+            r["text"] = text
+
+            def prompt_len(path):
+                code, tree = _http_get(srv.url + path)
+                assert code == 200
+                enq = [e for e in json.loads(tree)["traceEvents"]
+                       if e["name"] == "enqueue"]
+                return enq[0]["args"]["prompt_len"]
+            r["scoped"] = [prompt_len(f"/requests/{rid}?engine={lb}")
+                           for lb in ("e1", "e0")]
+            code, body = _http_get(srv.url + f"/requests/{rid}")
+            r["bare"] = (code, json.loads(body))
+            r["nosuch"] = _http_get(srv.url +
+                                    f"/requests/{rid}?engine=nosuch")[0]
+            code, st = _http_get(srv.url + "/stats")
+            st = json.loads(st)
+            r["stats"] = (code, sorted(st), st["e1"]["finished_requests"])
+            code, dbg = _http_get(srv.url + "/debug")
+            r["debug"] = (code, sorted(json.loads(dbg)))
+        with pytest.raises(ValueError):
+            cls(engines[0], fleet=fleet)
+        with pytest.raises(ValueError):
+            cls()
+        got[which] = r
+    ref, port = got["reference"], got["port"]
+    assert port == ref
+    assert port["scoped"] == [5, 7]
+    assert port["bare"][0] == 300 and port["bare"][1]["engines"] == ["e0",
+                                                                     "e1"]
+    assert "/requests/0?engine=e1" in port["bare"][1]["handles"]
+    assert port["nosuch"] == 404
+    assert port["stats"] == (200, ["e0", "e1"], 1)
+    assert port["debug"] == (200, ["e0", "e1"])

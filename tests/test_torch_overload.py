@@ -36,6 +36,7 @@ from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
 from torch_kv_parity import (assert_same_kv, assert_same_swap_ins,
                              capture_swap_ins)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the counters the port must report as the reference does
 OVERLOAD_STATS = ("preemptions", "preempt_swaps", "preempt_recomputes",
@@ -369,10 +370,10 @@ def test_forced_pressure_mid_verify_keeps_spec_parity(tiny, spec_reference,
     _assert_parity(eng, rids, spec_reference)
 
 
-def test_forced_pressure_mid_chunk_prefill(tiny):
-    """Preemption while another slot is mid-chunk-prefill: the prefilling
-    slot keeps its prompt pages, victims come from the decode set, and
-    everyone finishes with exact tokens."""
+@pytest.fixture(scope="module")
+def chunk_reference(tiny):
+    """The prompts of the mid-chunk case and their undisturbed streams on
+    the reference engine."""
     cfg, params, _, _ = tiny
     rng = np.random.RandomState(4)
     prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
@@ -381,7 +382,14 @@ def test_forced_pressure_mid_chunk_prefill(tiny):
                      prefill_chunk=8, kv_tier=False)
     rr = [base.add_request(p, max_new_tokens=16) for p in prompts]
     base_outs = base.run()
-    ref_tokens = [list(base_outs[r].token_ids) for r in rr]
+    return prompts, [list(base_outs[r].token_ids) for r in rr]
+
+
+def test_forced_pressure_mid_chunk_prefill(tiny, chunk_reference):
+    """Preemption while another slot is mid-chunk-prefill: the prefilling
+    slot keeps its prompt pages, victims come from the decode set, and
+    everyone finishes with exact tokens."""
+    prompts, ref_tokens = chunk_reference
     saw = {}
 
     def scenario(make):
@@ -659,14 +667,10 @@ def test_intake_swap_reject_and_host_pool_bytes(tiny):
 # a forced double preemption: two swap victims in one growth pass
 # ---------------------------------------------------------------------------
 
-def test_double_swap_preemption_in_one_step(tiny):
-    """Four 8- and 16-token prompts fill all but one page of a 7-page pool;
-    at their first decode step every slot crosses a page boundary.  The
-    first growth takes the last free page, the second fails and preempts
-    the first low-priority victim (the most pages), whose 2 pages cover
-    two growths; the fourth fails again and preempts the second victim.
-    Each victim's KV lands in a host buffer of its own, and both resume by
-    swap-in with the undisturbed streams."""
+@pytest.fixture(scope="module")
+def double_swap_reference(tiny):
+    """The prompts of the double-swap case and their undisturbed streams on
+    the reference engine."""
     cfg, params, _, _ = tiny
     rng = np.random.RandomState(5)
     prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
@@ -675,7 +679,18 @@ def test_double_swap_preemption_in_one_step(tiny):
                      kv_tier=False)
     rr = [base.add_request(p, max_new_tokens=12) for p in prompts]
     base_outs = base.run()
-    ref_tokens = [list(base_outs[r].token_ids) for r in rr]
+    return prompts, [list(base_outs[r].token_ids) for r in rr]
+
+
+def test_double_swap_preemption_in_one_step(tiny, double_swap_reference):
+    """Four 8- and 16-token prompts fill all but one page of a 7-page pool;
+    at their first decode step every slot crosses a page boundary.  The
+    first growth takes the last free page, the second fails and preempts
+    the first low-priority victim (the most pages), whose 2 pages cover
+    two growths; the fourth fails again and preempts the second victim.
+    Each victim's KV lands in a host buffer of its own, and both resume by
+    swap-in with the undisturbed streams."""
+    prompts, ref_tokens = double_swap_reference
     doubles = {}
 
     def scenario(make):

@@ -20,6 +20,7 @@ from paddle_tpu.incubate.kernels.paged_attention import \
 from paddle_tpu_torch.incubate.kernels.paged_attention import (
     PARTIAL_BYTES, PREFILL_CK, ROW_TILE, _prefill_split_plan,
     paged_prefill_attention_ref)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 NEG_INF = -1e30

@@ -42,6 +42,7 @@ from paddle_tpu_torch.models.convert import params_from_numpy
 from test_torch_engine import PRESETS, _assert_greedy_parity
 from test_torch_quantized import _assert_int8_parity
 from torch_kv_parity import assert_same_kv
+from torch_threads import one_torch_thread  # noqa: F401
 
 GEOMETRY = dict(num_slots=3, page_size=8, max_model_len=64, num_pages=14)
 MODES = {"fused_bucketed": (True, None), "fused_chunked": (True, 8),

@@ -66,6 +66,7 @@ from paddle_tpu_torch.models.convert import params_from_numpy
 from paddle_tpu_torch.quantization import serving as TQ
 from test_torch_engine import PRESETS
 from torch_kv_parity import node_kv
+from torch_threads import one_torch_thread  # noqa: F401
 
 LANE_TOL = dict(rtol=1e-5, atol=1e-5)
 FP_TOL = 1e-4           # the fp programs' logits tolerance (test_torch_model)

@@ -31,6 +31,7 @@ from test_torch_engine import _serve
 from test_torch_quantized import (AGREEMENT_BAR, GEOMETRY,  # noqa: F401
                                   _assert_int8_parity, _np, _preempt_prompts,
                                   _requests, quant_models)
+from torch_threads import one_torch_thread  # noqa: F401
 
 INT8 = dict(weight_dtype="int8", kv_dtype="int8")
 

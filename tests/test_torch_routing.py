@@ -22,6 +22,7 @@ from paddle_tpu_torch.incubate.kernels.flash_attention import (
     flash_attention_varlen, kernel_takes)
 from paddle_tpu_torch.incubate.kernels.paged_attention import (
     _kernel_takes as paged_kernel_takes)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -46,6 +46,7 @@ from paddle_tpu_torch.inference.engine import LLMEngine
 from paddle_tpu_torch.inference.spec import DraftProposer, NgramProposer
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 GEOMETRY = dict(num_slots=3, page_size=8, max_model_len=64)
 FUSE = {"fused": True, "unfused": False}

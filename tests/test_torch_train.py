@@ -31,6 +31,7 @@ from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.models.convert import params_from_numpy
 from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
 from paddle_tpu_torch.parallel.hybrid import _leaves
+from torch_threads import one_torch_thread  # noqa: F401
 
 PRESETS = {"gpt_tiny": (G.gpt_tiny, TG.gpt_tiny),
            "llama_tiny": (G.llama_tiny, TG.llama_tiny)}

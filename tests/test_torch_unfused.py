@@ -28,6 +28,7 @@ from paddle_tpu_torch.models.convert import params_from_numpy
 from test_torch_engine import GEOMETRY, PRESETS, _assert_greedy_parity, \
     _requests, _serve
 from test_torch_model import TOL, _pools, models  # noqa: F401 (fixture)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

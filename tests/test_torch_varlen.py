@@ -27,6 +27,7 @@ from paddle_tpu_torch.incubate.kernels.flash_attention import (
     NEG_INF, _flash_bwd_ref, _flash_fwd_seg_ref, attention_ref_segmented,
     flash_attention_seg_bwd, flash_attention_seg_fwd, flash_attention_varlen)
 from paddle_tpu_torch.nn import functional as PF
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
