@@ -282,6 +282,17 @@ Phases, one JSON line each (with its seconds):
 8. decode_logits — one `prefill_paged` of prompt 0, then `decode_step_paged`
                on its greedy next token: argmax equal to the dense
                `forward`'s over prompt + token where the margin exceeds 0.05.
+8b. generate — dense KV-cache `generate` at Llama-3-8B width on phase 3's
+               bf16 weights: 8 seeded prompts of 512 tokens x 32 new; the
+               first call captures the prefill and the decode step as CUDA
+               graphs, the second (counted) replays them (`compiles` kept,
+               32 replays) and equals the first; first tokens against the
+               dense forward's argmax where the top-2 margin exceeds 0.05
+               (ties printed); an EOS case stays frozen; tokens/s, the
+               decode step's ms, rows 2 and 3's launches.  Then float32
+               (TF32 off) at Llama-3-8B width with 2 layers: `generate`'s
+               tokens against the fused bucketed engine's streams for the
+               same prompts, equal but for ties (F32_TIE).
 9. kernels_bwd — the flash backward pair (dkv and dq kernels) against
                `_flash_bwd_ref` at [1,1024,32,128] causal, the training
                shape [4,2048,16,128] causal and [2,333,8,64] full, in bf16
@@ -311,11 +322,31 @@ Phases, one JSON line each (with its seconds):
                moments, remat, B=4, S=2048, through `HybridParallelTrainer`:
                1 warm-up and 4 timed steps on one repeated batch; tokens/s,
                step ms, peak memory, losses, launches per step.
+13. engine_moe — the MoE family at the GPT-3 1.3B trunk (`gpt3_1p3b` with 4
+               experts, top-2, capacity factor 2 in every block; ~3.7 B
+               parameters), bf16, seeded random weights: phase 3's bucketed
+               engine on the 8 prompts (`serve`), first tokens against the
+               dense forward, one fused-step replay bitwise its eager body
+               (tokens and pool pages 1 and up), the int8-weight engine
+               (experts and gate unquantized) against the forward over its
+               dequantized weights, and the dropped assignments of a decode
+               step's 8 rows and a 512-token prefill.
+14. train_moe  — the same config through `HybridParallelTrainer` as phase
+               12 (bf16 params and moments, remat, B=4, S=2048, 1 warm-up
+               and 4 timed steps): finite, falling losses, the aux, peak
+               memory, tokens/s.
+15. bert       — `bert_base` (post-LN, non-causal, hd 64, MLM head), bf16,
+               B=16, S=512, 4 trainer steps: finite, falling losses, rows 2,
+               5 and 6 on the kernel route; float32 (TF32 off) `loss_fn`
+               and its grads through the kernels against plain attention;
+               rows 2, 5 and 6 at the encoder shape [16,512,12,64]
+               non-causal against their plain versions, with times.
 
 Then one line `{"kernels": [...]}` for all nine kernels and the int8 lanes of
 the two paged ones (launches summed over the main-path runs of phases 3, 4,
 5, 6b, 6c, 6d, 6e, 6f (its tier runs), 6g (its traced pass), 6h (its
-fleets), 10, 11 and 12, each with the counts zeroed just before it and read
+fleets), 8b (its counted bf16 call), 10, 11, 12, 13 (bf16 and int8), 14
+and 15, each with the counts zeroed just before it and read
 just after; none
 of them may take an entry's composed route for shapes the kernels do not
 take) and, last,
@@ -519,7 +550,7 @@ def rms_launch_sweep(dtype, dev, N, D=4096):
     return {"launch": dict(plan._asdict()), "launch_sweep_device_ms": sweep}
 
 
-def flash_case(dtype, dev, shape):
+def flash_case(dtype, dev, shape, causal=True):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.incubate.kernels.flash_attention import (
@@ -529,26 +560,27 @@ def flash_case(dtype, dev, shape):
     q, k, v = (torch.from_numpy(rng.randn(B, S, H, D).astype(np.float32))
                .to(dev, dtype) for _ in range(3))
     scale = 1.0 / math.sqrt(D)
-    out, lse = flash_attention_fwd(q, k, v, True, scale)
-    ref, ref_lse = _flash_fwd_ref(q, k, v, True, scale)
+    out, lse = flash_attention_fwd(q, k, v, causal, scale)
+    ref, ref_lse = _flash_fwd_ref(q, k, v, causal, scale)
     err = check_close("flash_attention", out, ref, dtype)
     lse_err = float((lse - ref_lse).abs().max())
     if lse_err > 1e-3:
         raise AssertionError(f"flash lse disagrees: {lse_err:.3g}")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     isz = q.element_size()
-    flops = 4 * B * H * D * S * (S + 1) // 2        # causal: keys <= row
+    # causal: keys <= row
+    flops = 4 * B * H * D * (S * (S + 1) // 2 if causal else S * S)
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
     b, by = bound(4 * B * S * H * D * isz + B * H * S * 4, flops, peak)
     return {
         "kernel": "flash_attention_fwd", "S": S, "shape": [B, S, H, D],
-        "body": FWD_BODY[dtype], "max_abs_err": err,
+        "causal": causal, "body": FWD_BODY[dtype], "max_abs_err": err,
         "lse_max_abs_err": lse_err,
-        "kernel_ms": time_ms(lambda: flash_attention_fwd(q, k, v, True,
+        "kernel_ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal,
                                                          scale)),
-        "plain_ms": time_ms(lambda: _flash_fwd_ref(q, k, v, True, scale)),
+        "plain_ms": time_ms(lambda: _flash_fwd_ref(q, k, v, causal, scale)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
+            qt, kt, vt, is_causal=causal)),
         "bound_ms": b, "bound_by": by}
 
 
@@ -1015,7 +1047,7 @@ def serve(params, cfg, prompts, chunk, dev, fuse=True, eager=False,
                 st["decode_iterations"] or st["decode_iterations"] == 0)):
         raise AssertionError(f"launches {launches}, int8 {launches_int8}, "
                              f"want {want} on the pool's lane ({st})")
-    if launches["rms_norm_fused"] == 0:
+    if cfg.use_rms_norm and launches["rms_norm_fused"] == 0:
         raise AssertionError("RMSNorm kernel never launched")
     if chunk is None and launches["flash_attention_fwd"] == 0:
         raise AssertionError("flash kernel never launched in bucketed mode")
@@ -1171,8 +1203,9 @@ def dequantized_params(params, cfg):
     dense = {k: v for k, v in qp.items()
              if not k.startswith(("wte_", "lm_head_"))}
     dense["wte"] = gpt._deq(qp["wte_q"], qp["wte_scale"], cfg.dtype)
-    dense["lm_head"] = gpt._deq(qp["lm_head_q"], qp["lm_head_scale"],
-                                cfg.dtype)
+    if "lm_head_q" in qp:
+        dense["lm_head"] = gpt._deq(qp["lm_head_q"], qp["lm_head_scale"],
+                                    cfg.dtype)
     return dense
 
 
@@ -1438,7 +1471,7 @@ def lossless(params, cfg, prompts, outs, what, rids=(0, 1), required=True):
         prompt, gen = prompts[rid], outs[rid].token_ids
         seq = np.concatenate([prompt, np.asarray(gen[:-1], np.int32)])
         with torch.no_grad():
-            x, head = gpt.backbone(params, seq[None], cfg)
+            x, head, _ = gpt.backbone(params, seq[None], cfg)
             logits = x[0, prompt.size - 1:].float() @ head.float()
         top2 = torch.topk(logits, 2)
         picks = top2.indices[:, 0].tolist()
@@ -1569,7 +1602,7 @@ def first_divergences(params, cfg, prompts, base, outs):
         i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
         seq = np.concatenate([prompts[rid], np.asarray(a[:i], np.int32)])
         with torch.no_grad():
-            x, head = gpt.backbone(params, seq[None], cfg)
+            x, head, _ = gpt.backbone(params, seq[None], cfg)
             top2 = torch.topk(x[0, -1].float() @ head.float(), 2)
         found.append({"request": rid, "position": i, "undisturbed": a[i],
                       "engine": b[i], "forward": int(top2.indices[0]),
@@ -2786,6 +2819,438 @@ def decode_logits(params, cfg, prompt, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8b: dense KV-cache generation at Llama-3-8B width
+# ---------------------------------------------------------------------------
+
+GEN_BATCH, GEN_PROMPT = 8, 512
+F32_TIE = 1e-3          # float32, TF32 off: two paths differ by ~1e-5
+
+
+def last_logits(params, cfg, ids):
+    """The dense forward's logits [B, V] (float32) at each row's last
+    position."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    with torch.no_grad():
+        x, head, _ = gpt.backbone(params, ids, cfg)
+        return gpt.head_logits(x[:, -1], params, cfg).float()
+
+
+def picks_and_margins(logits):
+    import torch
+    top2 = torch.topk(logits, 2)
+    return (top2.indices[:, 0].tolist(),
+            (top2.values[:, 0] - top2.values[:, 1]).tolist())
+
+
+def first_tie(params, cfg, prompt, want, got, tie):
+    """Where two greedy streams of one prompt first differ: (position, the
+    top-2 margin of the dense forward over the prompt and `want`'s tokens
+    before it); raises unless that margin is below `tie`.  None when equal."""
+    import torch
+    want, got = list(want), list(got)
+    if want == got:
+        return None
+    i = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b),
+             min(len(want), len(got)))
+    seq = torch.as_tensor(np.concatenate([np.asarray(prompt),
+                                          np.asarray(want[:i])]))[None]
+    _, margins = picks_and_margins(last_logits(params, cfg,
+                                               seq.to(params["wte"].device)))
+    if margins[0] >= tie:
+        raise AssertionError(f"streams differ at token {i} where the "
+                             f"forward's top-2 margin {margins[0]:.3g} is "
+                             f"no tie: {want} against {got}")
+    return {"position": i, "margin": margins[0]}
+
+
+def generate_phase(params, cfg, dev):
+    """Phase 8b (see the module docstring): `generate` at Llama-3-8B width
+    in bf16, then float32 at 2 layers against the fused bucketed engine."""
+    import torch
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.models import gpt
+    rng = np.random.RandomState(8)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (
+        GEN_BATCH, GEN_PROMPT))).to(dev)
+    t0 = time.perf_counter()
+    first = gpt.generate(params, ids, cfg, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    before = gpt.generate_cache_stats()
+    K.reset_launches()
+    out = gpt.generate(params, ids, cfg, max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    launches = K.launches()
+    no_composed("generate")
+    after = gpt.generate_cache_stats()
+    L = cfg.num_layers
+    if after["compiles"] != before["compiles"] or \
+            after["replays"] != before["replays"] + MAX_NEW:
+        raise AssertionError(f"generate: a second call compiled or did not "
+                             f"replay ({before} -> {after})")
+    if not torch.equal(out, first):
+        raise AssertionError("generate: two calls differ")
+    if launches["flash_attention_fwd"] != L or \
+            launches["rms_norm_fused"] != (2 * L + 1) * MAX_NEW:
+        raise AssertionError(f"generate launches {launches}")
+    picks, margins = picks_and_margins(last_logits(params, cfg, ids))
+    checks = []
+    for b, (pick, margin) in enumerate(zip(picks, margins)):
+        tok = int(out[b, GEN_PROMPT])
+        if margin > 0.05 and tok != pick:
+            raise AssertionError(f"generate row {b}: first token {tok} != "
+                                 f"the forward's {pick} (margin {margin})")
+        checks.append({"row": b, "generate": tok, "forward": pick,
+                       "margin": margin,
+                       "result": "match" if tok == pick else "tie"})
+    gen_ms = time_ms(lambda: gpt.generate(params, ids, cfg,
+                                          max_new_tokens=MAX_NEW),
+                     iters=5, warmup=1)
+    prefill_ms = time_ms(lambda: gpt.generate(params, ids, cfg,
+                                              max_new_tokens=1),
+                         iters=5, warmup=1)
+    # EOS: row 0's fourth new token; every row freezes after its first one
+    eos = int(out[0, GEN_PROMPT + 3])
+    frozen = gpt.generate(params, ids, cfg, max_new_tokens=MAX_NEW,
+                          eos_token_id=eos).cpu()
+    new, plain = frozen[:, GEN_PROMPT:], out[:, GEN_PROMPT:].cpu()
+    for b in range(GEN_BATCH):
+        hit = (new[b] == eos).nonzero()
+        if b == 0 and (not len(hit) or int(hit[0]) > 3):
+            raise AssertionError("generate: row 0 did not stop at its EOS")
+        if len(hit):
+            i = int(hit[0])
+            if not (bool((new[b, i:] == eos).all()) and
+                    torch.equal(new[b, :i], plain[b, :i])):
+                raise AssertionError(f"generate row {b}: not frozen at EOS")
+    rec = {"model": "llama3_8b", "layers": L, "dtype": "bf16",
+           "batch": [GEN_BATCH, GEN_PROMPT], "max_new": MAX_NEW,
+           "first_call_s": build_s, "cache": after,
+           "generate_ms": gen_ms, "prefill_ms": prefill_ms,
+           "decode_step_ms": (gen_ms - prefill_ms) / (MAX_NEW - 1),
+           "tokens_per_s": GEN_BATCH * MAX_NEW / (gen_ms / 1e3),
+           "launches": launches, "first_token": checks,
+           "eos": {"token": eos, "rows_stopped": int(
+               (new == eos).any(dim=1).sum())}}
+    gpt._generate_cache.clear()
+    return rec
+
+
+def generate_f32_vs_engine(dev):
+    """float32 (TF32 off), Llama-3-8B width with 2 layers: `generate`'s
+    tokens against the fused bucketed engine's streams for the same 8
+    prompts, equal but for ties of the dense forward (F32_TIE)."""
+    import gc
+
+    import torch
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.llama3_8b()
+    cfg.num_layers = 2
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                             dev)
+    rng = np.random.RandomState(9)
+    ids = rng.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT))
+    toks = gpt.generate(params, torch.from_numpy(ids).to(dev), cfg,
+                        max_new_tokens=MAX_NEW)[:, GEN_PROMPT:].cpu()
+    eng = LLMEngine(params, cfg, num_slots=8, page_size=16,
+                    max_model_len=2048, prefill_buckets=SERVE_BUCKETS,
+                    device=dev)
+    rids = [eng.add_request(p, max_new_tokens=MAX_NEW) for p in ids]
+    outs = eng.run()
+    ties = {}
+    for b, rid in enumerate(rids):
+        tie = first_tie(params, cfg, ids[b], toks[b].tolist(),
+                        outs[rid].token_ids, F32_TIE)
+        if tie:
+            ties[b] = tie
+    rec = {"model": "llama3_8b", "layers": 2, "dtype": "float32",
+           "identical_streams": GEN_BATCH - len(ties), "of": GEN_BATCH,
+           "ties": ties, "engine_fused_dispatches":
+               eng.stats()["fused_dispatches"]}
+    del eng, params
+    gpt._generate_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: the MoE family at GPT-3 1.3B width
+# ---------------------------------------------------------------------------
+
+def moe_config():
+    """`gpt3_1p3b` with `gpt_moe_tiny`'s expert knobs: an expert layer of 4
+    experts (top-2, capacity factor 2) in every block, bf16."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.gpt3_1p3b()
+    cfg.moe_num_experts, cfg.moe_topk, cfg.moe_capacity_factor = 4, 2, 2.0
+    cfg.dtype = torch.bfloat16
+    return cfg
+
+
+def moe_drops(params, cfg, rows):
+    """Dropped assignments (`keep` false) of every MoE layer in one eager
+    forward over `rows` [B, S]: (dropped, assignments)."""
+    import torch
+    from paddle_tpu_torch.incubate.distributed.models.moe import dispatch
+    from paddle_tpu_torch.models import gpt
+    seen, slots = [], dispatch.capacity_slots
+
+    def spy(*args):
+        slot, keep = slots(*args)
+        seen.append(keep)
+        return slot, keep
+
+    dispatch.capacity_slots = spy
+    try:
+        with torch.no_grad():
+            gpt.forward(params, rows, cfg)
+    finally:
+        dispatch.capacity_slots = slots
+    return (int(sum(int((~k).sum()) for k in seen)),
+            int(sum(k.numel() for k in seen)))
+
+
+def fused_replay_vs_eager(params, cfg, dev):
+    """One replay of a warmed MoE engine's fused step against its eager
+    body on identical staged inputs and an identical random pool: tokens
+    and pool pages 1 and up bitwise equal.  Slots decode at the smoke
+    prompts' lengths over random pages."""
+    import torch
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    eng = LLMEngine(params, cfg, num_slots=8, page_size=16,
+                    max_model_len=2048, prefill_buckets=SERVE_BUCKETS,
+                    device=dev)
+    eng.warm_decode()
+    prog = eng._programs["fused"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for t in eng._pool.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 0.5)
+    pool = {n: t.clone() for n, t in eng._pool.items()}
+    rng = np.random.RandomState(5)
+    P, page = eng.cache.max_pages_per_slot, eng.cache.page_size
+    pages = list(rng.permutation(np.arange(1, eng.cache.num_pages)))
+    table = np.zeros((8, P), np.int32)
+    for b, n in enumerate(PROMPT_LENS):
+        k = n // page + 1
+        table[b, :k] = [pages.pop() for _ in range(k)]
+    feed = dict(tokens=rng.randint(0, cfg.vocab_size, (8, 1)), table=table,
+                q_offset=np.array(PROMPT_LENS), valid=np.ones(8, np.int32),
+                greedy=np.ones(8, bool))
+    runs = []
+    for eager in (False, True):
+        for n in pool:
+            eng._pool[n].copy_(pool[n])
+        prog.stage(**feed)
+        if eager:
+            out = prog._body(**prog.inputs).cpu().numpy()
+        else:
+            prog.run()
+            out = prog.result()
+        torch.cuda.synchronize()
+        runs.append((out, {n: t[:, 1:].clone() for n, t in
+                           eng._pool.items()}))
+    (g_out, g_pool), (e_out, e_pool) = runs
+    same = bool(np.array_equal(g_out, e_out)) and all(
+        torch.equal(g_pool[n], e_pool[n]) for n in g_pool)
+    if not same:
+        raise AssertionError("engine_moe: the fused step's replay differs "
+                             "from its eager body")
+    del eng, runs, pool
+    return {"slots": 8, "q_offset": list(PROMPT_LENS), "bitwise": same}
+
+
+def engine_moe(dev):
+    """Phase 13 (see the module docstring)."""
+    import gc
+
+    import torch
+    from paddle_tpu_torch.models import gpt
+    cfg = moe_config()
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    outs, rec = serve(params, cfg, prompts, None, dev)
+    picks = forward_picks(params, cfg, dict(enumerate(prompts)))
+    rec["first_token"] = check_first_tokens(picks, outs, "engine_moe")
+    rec["replay_vs_eager"] = fused_replay_vs_eager(params, cfg, dev)
+    outs8, rec8 = serve(params, cfg, prompts, None, dev, int8=True)
+    dense = dequantized_params(params, cfg)
+    rec8["first_token"] = check_first_tokens(
+        forward_picks(dense, cfg, dict(enumerate(prompts))), outs8,
+        "engine_moe int8")
+    del dense
+    rec8["greedy_agreement_with_bf16"] = agreement(outs, outs8)
+    step = torch.from_numpy(np.stack([p[-1:] for p in prompts])).to(dev)
+    dropped, assigned = moe_drops(params, cfg, step)
+    pre_dropped, pre_assigned = moe_drops(
+        params, cfg, torch.from_numpy(prompts[5][None]).to(dev))
+    out = {"model": "gpt3_1p3b_moe", "layers": cfg.num_layers,
+           "experts": cfg.moe_num_experts, "topk": cfg.moe_topk,
+           "capacity_factor": cfg.moe_capacity_factor, "dtype": "bf16",
+           "params": gpt.count_params(params), **rec, "int8": rec8,
+           "dropped_one_decode_step": [dropped, assigned],
+           "dropped_one_prefill_512": [pre_dropped, pre_assigned]}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_moe(dev):
+    """Phase 14: the MoE config through the trainer, bf16 params and
+    moments, remat, B=4, S=2048: 1 warm-up + 4 timed steps."""
+    import gc
+
+    import torch
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
+    cfg = moe_config()
+    B, S, steps = 4, 2048, 4
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = HybridParallelTrainer(cfg, MeshConfig(remat=True),
+                                    moment_dtype=torch.bfloat16, device=dev)
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    lab = np.roll(tok, -1, axis=1).astype(np.int32)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    losses = [float(trainer.train_step(tok, lab))]          # warm-up
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(tok, lab)))  # syncs
+        times.append(time.perf_counter() - t0)
+    launches = K.launches()
+    no_composed("train_moe")
+    with torch.no_grad():
+        _, _, aux = gpt.backbone(trainer.params, tok, cfg)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train_moe: losses {losses}")
+    want = cfg.num_layers * (steps + 1)
+    for name in ("flash_attention_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        if launches[name] != want:
+            raise AssertionError(f"train_moe: {name} launched "
+                                 f"{launches[name]} times, want {want}")
+    rec = {"model": "gpt3_1p3b_moe", "layers": cfg.num_layers,
+           "dtype": "bf16", "moments": "bf16", "remat": True,
+           "batch": [B, S], "params": gpt.count_params(trainer.params),
+           "aux": float(aux), "tokens_per_s": B * S * steps / sum(times),
+           "mean_step_ms": 1e3 * sum(times) / steps,
+           "median_step_ms": 1e3 * float(np.median(times)),
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "losses": losses, "launches": launches}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 15: BERT-base through the non-causal kernel lanes
+# ---------------------------------------------------------------------------
+
+BERT_SHAPE = (16, 512, 12, 64)
+
+
+def mlm_batch(cfg, B, S, seed=0):
+    """Tokens, two segments a row and MLM labels on 15% of the positions
+    (-100 elsewhere)."""
+    rng = np.random.RandomState(seed)
+    tok = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    lab = np.where(rng.rand(B, S) < 0.15, tok, -100).astype(np.int32)
+    return tok, lab
+
+
+def bert(dev):
+    """Phase 15 (see the module docstring)."""
+    import gc
+
+    import torch
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.incubate.kernels.flash_attention import \
+        attention_ref
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
+    from paddle_tpu_torch.parallel.hybrid import _leaves
+    cfg = gpt.bert_base()
+    cfg.dtype = torch.bfloat16
+    B, S, steps = 16, 512, 4
+    trainer = HybridParallelTrainer(cfg, MeshConfig(), learning_rate=1e-3,
+                                    moment_dtype=torch.bfloat16, device=dev)
+    tok, lab = mlm_batch(cfg, B, S)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(tok, lab)))
+        times.append(time.perf_counter() - t0)
+    launches = K.launches()
+    no_composed("bert")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"bert: losses {losses}")
+    want = cfg.num_layers * steps
+    for name in ("flash_attention_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        if launches[name] != want:
+            raise AssertionError(f"bert: {name} launched {launches[name]} "
+                                 f"times, want {want}")
+    rec = {"model": "bert_base", "layers": cfg.num_layers, "dtype": "bf16",
+           "batch": [B, S], "params": gpt.count_params(trainer.params),
+           "losses": losses, "tokens_per_s": B * S * (steps - 1) /
+           sum(times[1:]), "median_step_ms": 1e3 * float(np.median(
+               times[1:])), "launches": launches}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    # float32, TF32 off: loss_fn and its grads through the kernels against
+    # the same with plain attention
+    cfg = gpt.bert_base()
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                             dev)
+    leaves = _leaves(params)
+    for p in leaves:
+        p.requires_grad_()
+    tok, lab = mlm_batch(cfg, 4, S, seed=1)
+    runs = []
+    for impl in (None, lambda q, k, v: attention_ref(q, k, v, causal=False)):
+        loss = gpt.loss_fn(params, tok, lab, cfg, attn_impl=impl)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        runs.append((loss.item(), grads))
+        del loss
+    no_composed("bert f32")
+    (lk, gk), (lr, gr) = runs
+    rel = abs(lk - lr) / abs(lr)
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(gk, gr) if float(b.abs().max()) > 0)
+    if not (math.isfinite(lk) and rel <= 1e-4 and worst <= 1e-3):
+        raise AssertionError(f"bert parity: loss {lk} vs {lr} (rel "
+                             f"{rel:.3g}), worst grad leaf {worst:.3g}")
+    rec["parity_f32"] = {"batch": [4, S], "loss_kernels": lk,
+                         "loss_plain": lr, "loss_rel_diff": rel,
+                         "worst_grad_leaf_rel_err": worst}
+    del params, leaves, runs, gk, gr
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kernels at the encoder shape (rows 2, 5 and 6, non-causal D 64)
+    rec["fwd"] = flash_case(torch.bfloat16, dev, BERT_SHAPE, causal=False)
+    rec["bwd"] = bwd_case(torch.bfloat16, dev, BERT_SHAPE, False)
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 9: varlen attention
 # ---------------------------------------------------------------------------
 
@@ -3379,8 +3844,14 @@ def main():
     rec = decode_logits(params, cfg, prompts[0], dev)
     emit({"phase": "decode_logits", "seconds": time.perf_counter() - t,
           **rec})
+
+    t = time.perf_counter()
+    rec_gen = generate_phase(params, cfg, dev)
     del params
     torch.cuda.empty_cache()
+    rec_gen["f32_vs_engine"] = generate_f32_vs_engine(dev)
+    emit({"phase": "generate", "seconds": time.perf_counter() - t,
+          **rec_gen})
 
     t = time.perf_counter()
     bwd = []
@@ -3417,6 +3888,21 @@ def main():
     t = time.perf_counter()
     rec8 = train(dev)
     emit({"phase": "train", "seconds": time.perf_counter() - t, **rec8})
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    rec_moe = engine_moe(dev)
+    emit({"phase": "engine_moe", "seconds": time.perf_counter() - t,
+          **rec_moe})
+
+    t = time.perf_counter()
+    rec_tm = train_moe(dev)
+    emit({"phase": "train_moe", "seconds": time.perf_counter() - t,
+          **rec_tm})
+
+    t = time.perf_counter()
+    rec_bert = bert(dev)
+    emit({"phase": "bert", "seconds": time.perf_counter() - t, **rec_bert})
 
     def main_shape(kernel, **match):
         return next(r for r in results
@@ -3503,7 +3989,8 @@ def main():
     runs = (rec3, rec4, rec5["bucketed"], rec5["chunked"], *rec_q.values(),
             *rec_p.values(), *rec_s.values(), *rec_o.values(),
             *(m["tier"] for m in rec_t.values() if isinstance(m, dict)
-              and "tier" in m), rec_obs, rec_fleet, rec9, rec7, rec8)
+              and "tier" in m), rec_obs, rec_fleet, rec9, rec7, rec8,
+            rec_gen, rec_moe, rec_moe["int8"], rec_tm, rec_bert)
     kernels = [{
         "name": r["kernel"] + ("_int8" if key == "launches_int8" else ""),
         "route": route, "source": source, "replaces": replaces,

@@ -303,8 +303,11 @@ flash_attention_seg_fwd.launches = 0
 
 
 def _bwd_launch_args(name, q, k, v, g, lse, delta, causal, scale):
-    """Checked, contiguous inputs of a backward kernel as (pointers,
-    sizes and flags)."""
+    """Checked, contiguous inputs of a backward kernel as (the tensors q,
+    k, v, g, lse, delta, sizes and flags).  The caller holds the tensors
+    until its launch is queued: a contiguous copy made here that only its
+    pointer outlived would go back to the allocator, and the kernel's own
+    outputs could be given its memory."""
     q, k, v, g = _check_card(name, q, k, v, causal, g)
     B, S, H, D = q.shape
     for t, want in ((lse, (B * H, S, 1)), (delta, (B * H, S))):
@@ -312,11 +315,13 @@ def _bwd_launch_args(name, q, k, v, g, lse, delta, causal, scale):
                 t.device != q.device:
             raise ValueError(f"{name}: lse/delta {tuple(t.shape)} {t.dtype} "
                              f"is not {want} float32 on {q.device}")
-    lse, delta = lse.contiguous(), delta.contiguous()
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr()), \
+    return (q, k, v, g, lse.contiguous(), delta.contiguous()), \
         (B, S, k.shape[1], H, D, int(bool(causal)), float(scale),
          _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _ptrs(ts):
+    return tuple(t.data_ptr() for t in ts)
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale):
@@ -326,11 +331,11 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale):
     CPU.  `.launches` counts kernel launches."""
     if q.device.type == "cpu":
         return _flash_bwd_dkv_ref(q, k, v, g, lse, delta, causal, scale)
-    ptrs, dims = _bwd_launch_args("flash_bwd_dkv", q, k, v, g, lse, delta,
-                                  causal, scale)
+    ts, dims = _bwd_launch_args("flash_bwd_dkv", q, k, v, g, lse, delta,
+                                causal, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = _cuda.entry("flash_attention_bwd", "flash_attention_bwd_dkv")
-    _cuda.check(fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims),
+    _cuda.check(fn(*_ptrs(ts), dk.data_ptr(), dv.data_ptr(), *dims),
                 "flash_attention_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv
@@ -340,11 +345,12 @@ def flash_bwd_dq(q, k, v, g, lse, delta, causal, scale):
     """dq, as `flash_bwd_dkv` (the port of `_flash_bwd_dq_kernel`)."""
     if q.device.type == "cpu":
         return _flash_bwd_dq_ref(q, k, v, g, lse, delta, causal, scale)
-    ptrs, dims = _bwd_launch_args("flash_bwd_dq", q, k, v, g, lse, delta,
-                                  causal, scale)
+    ts, dims = _bwd_launch_args("flash_bwd_dq", q, k, v, g, lse, delta,
+                                causal, scale)
     dq = torch.empty_like(q)
     fn = _cuda.entry("flash_attention_bwd", "flash_attention_bwd_dq")
-    _cuda.check(fn(*ptrs, dq.data_ptr(), *dims), "flash_attention_bwd_dq")
+    _cuda.check(fn(*_ptrs(ts), dq.data_ptr(), *dims),
+                "flash_attention_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq
 
@@ -360,12 +366,13 @@ def flash_bwd_seg_dkv(q, k, v, g, lse, delta, seg_q, seg_k, causal, scale):
     if q.device.type == "cpu":
         return _flash_bwd_seg_dkv_ref(q, k, v, g, lse, delta, seg_q, seg_k,
                                       causal, scale)
-    ptrs, dims = _bwd_launch_args("flash_bwd_seg_dkv", q, k, v, g, lse,
-                                  delta, causal, scale)
+    ts, dims = _bwd_launch_args("flash_bwd_seg_dkv", q, k, v, g, lse,
+                                delta, causal, scale)
     seg_q, seg_k = _check_seg("flash_bwd_seg_dkv", q, k, seg_q, seg_k)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = _cuda.entry("flash_attention_seg_bwd", "flash_attention_seg_bwd_dkv")
-    _cuda.check(fn(*ptrs, seg_q.data_ptr(), seg_k.data_ptr(), dk.data_ptr(),
+    _cuda.check(fn(*_ptrs(ts), seg_q.data_ptr(), seg_k.data_ptr(),
+                   dk.data_ptr(),
                    dv.data_ptr(), *dims), "flash_attention_seg_bwd_dkv")
     flash_bwd_seg_dkv.launches += 1
     return dk, dv
@@ -376,12 +383,13 @@ def flash_bwd_seg_dq(q, k, v, g, lse, delta, seg_q, seg_k, causal, scale):
     if q.device.type == "cpu":
         return _flash_bwd_seg_dq_ref(q, k, v, g, lse, delta, seg_q, seg_k,
                                      causal, scale)
-    ptrs, dims = _bwd_launch_args("flash_bwd_seg_dq", q, k, v, g, lse, delta,
-                                  causal, scale)
+    ts, dims = _bwd_launch_args("flash_bwd_seg_dq", q, k, v, g, lse, delta,
+                                causal, scale)
     seg_q, seg_k = _check_seg("flash_bwd_seg_dq", q, k, seg_q, seg_k)
     dq = torch.empty_like(q)
     fn = _cuda.entry("flash_attention_seg_bwd", "flash_attention_seg_bwd_dq")
-    _cuda.check(fn(*ptrs, seg_q.data_ptr(), seg_k.data_ptr(), dq.data_ptr(),
+    _cuda.check(fn(*_ptrs(ts), seg_q.data_ptr(), seg_k.data_ptr(),
+                   dq.data_ptr(),
                    *dims), "flash_attention_seg_bwd_dq")
     flash_bwd_seg_dq.launches += 1
     return dq

@@ -162,6 +162,36 @@ def side_stream(device, stream=None) -> "torch.cuda.Stream":
     return s
 
 
+def capture(fn: Callable[[], object], device, mempool=None):
+    """Run `fn()` once eagerly on the side stream of the current stream
+    (it builds the kernels and whatever their wrappers cache), then capture
+    it on that stream into a `torch.cuda.CUDAGraph`.  The caller holds
+    `GATE` exclusively and takes back the launch counts the two runs made.
+    Returns (graph, the captured call's output, the launch counts one
+    replay adds, the split counters the graph baked in)."""
+    cur = torch.cuda.current_stream(device)
+    side = side_stream(device, cur)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        fn()
+        mid = K.counts()
+        graph = torch.cuda.CUDAGraph()
+        # no cycle collection in the capture: freeing another graph there
+        # invalidates it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=mempool, stream=side):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
+    cur.wait_stream(side)
+    after = K.counts()
+    delta = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
+    return graph, out, delta, split_counters(device, side)
+
+
 class StepProgram:
     """One step body `body(**inputs) -> out` over static input buffers.
     `inputs`: {name: (shape, dtype, inert value)}; those named in
@@ -215,30 +245,8 @@ class StepProgram:
         for n, t in self.inputs.items():
             t.fill_(self._inert[n])
         if self.capture:
-            cur = torch.cuda.current_stream(self.device)
-            side = side_stream(self.device, cur)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                self._body(**self.inputs)
-                mid = K.counts()
-                graph = torch.cuda.CUDAGraph()
-                # no cycle collection in the capture: freeing another
-                # graph there invalidates it
-                collecting = gc.isenabled()
-                gc.disable()
-                try:
-                    with torch.cuda.graph(graph, pool=self.mempool,
-                                          stream=side):
-                        out = self._body(**self.inputs)
-                finally:
-                    if collecting:
-                        gc.enable()
-            cur.wait_stream(side)
-            after = K.counts()
-            self._delta = {k: after[k] - mid[k] for k in after
-                           if after[k] != mid[k]}
-            self._keep = split_counters(self.device, side)
-            self.graph, self.out = graph, out
+            self.graph, self.out, self._delta, self._keep = capture(
+                lambda: self._body(**self.inputs), self.device, self.mempool)
         else:
             self.out = self._body(**self.inputs)
         K.add_counts({k: before[k] - n for k, n in K.counts().items()})

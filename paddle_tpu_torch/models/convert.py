@@ -5,8 +5,9 @@ as nested dicts of numpy arrays (the caller does the `np.asarray`), onto the
 port's parameter dictionary.  The layouts match, so it is a copy: no
 transposes, only a check of keys and shapes against `gpt.param_spec`.  A
 tree the reference's `quantize_serving_params` has quantized (it holds
-`wte_q`) keeps its `*_q` leaves int8 and its `*_scale` leaves float32; every
-other leaf takes the model dtype.
+`wte_q`) keeps its `*_q` leaves int8 and its `*_scale` leaves float32; an
+MoE gate `gate_w` stays float32, as the reference keeps it; every other leaf
+takes the model dtype.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .gpt import GPTConfig, param_spec, resolve_device
+from .gpt import GPTConfig, leaf_dtype, param_spec, resolve_device
 
 
 def _to_tensor(a: np.ndarray, dtype: torch.dtype,
@@ -45,9 +46,7 @@ def params_from_numpy(tree: Dict[str, Any], config: GPTConfig,
             a = np.asarray(sub[k])
             if tuple(a.shape) != tuple(s[0]):
                 raise ValueError(f"{path}{k}: shape {a.shape} != {s[0]}")
-            # a quantized leaf's init is the dtype it is stored in
-            dtype = s[1] if isinstance(s[1], torch.dtype) else config.dtype
-            out[k] = _to_tensor(a, dtype, device)
+            out[k] = _to_tensor(a, leaf_dtype(s, config), device)
         return out
 
     return walk(param_spec(config, "int8" if quantized else None), tree, "")

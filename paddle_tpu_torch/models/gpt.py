@@ -1,5 +1,6 @@
-"""GPT family on PyTorch — port of the dense inference and paged serving
-parts of `paddle_tpu/models/gpt.py`.
+"""GPT family on PyTorch — port of the functional core of
+`paddle_tpu/models/gpt.py`: the GPT, Llama, MoE and BERT presets, the
+trunk and loss, dense KV-cache generation and the paged serving programs.
 
 Plain functions over a parameter dictionary with the reference's keys and
 layouts: weights `[in, out]` stacked on a leading L axis (`wte`,
@@ -11,6 +12,15 @@ update the pool in place where the reference donates and rebinds it.
 Attention goes through the flash and paged kernels, norms of the Llama
 presets through the RMSNorm kernel; the large projections are plain
 `torch.matmul`, as the reference leaves them to XLA.
+
+An MoE config (`moe_num_experts > 0`) replaces every block's dense FFN by
+capacity-routed experts (`gate_w` float32 `[L, D, E]`, `exp_fc{1,2}_{w,b}`
+`[L, E, ...]`; `incubate.distributed.models.moe.dispatch`, plain torch as
+the reference is plain jnp); the trunk returns the blocks' load-balance
+loss beside its output, and `loss_fn` adds `moe_aux_weight` times it.
+`generate` runs the reference's dense-cache decoding (`init_cache`,
+`prefill`, `decode_step`) as one program a shape key, its prefill and
+decode step each a CUDA graph on the card.
 
 Quantized serving, as the reference's: a params tree from
 `quantization.quantize_serving_params` holds `name_q` (int8) +
@@ -28,12 +38,14 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from collections import OrderedDict
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..incubate.distributed.models.moe.dispatch import moe_ffn_dense
 from ..incubate.kernels.flash_attention import (flash_attention_fused,
                                                 remat_policy_save_attention)
 from ..incubate.kernels.paged_attention import (paged_attention_decode,
@@ -84,7 +96,12 @@ class GPTConfig:
     final_norm: bool = True
     type_vocab_size: int = 0
     mlm_head: bool = False
-    moe_num_experts: int = 0    # MoE blocks: a later slice (raises)
+    # MoE: >0 replaces the dense FFN of every block with moe_num_experts
+    # capacity-routed experts (expert-parallel degree 1)
+    moe_num_experts: int = 0
+    moe_topk: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     @property
     def ffn_size(self):
@@ -114,6 +131,12 @@ def gpt_tiny(seq_len=128):
                      max_seq_len=seq_len)
 
 
+def gpt_moe_tiny(seq_len=128, num_experts=4, capacity_factor=2.0):
+    return GPTConfig(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+                     max_seq_len=seq_len, moe_num_experts=num_experts,
+                     moe_capacity_factor=capacity_factor)
+
+
 def llama_tiny(seq_len=128):
     """RMSNorm + SwiGLU + GQA + no biases + untied head, scaled tiny."""
     return GPTConfig(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
@@ -138,22 +161,43 @@ def llama3_8b():
                      intermediate_size=14336)
 
 
+def bert_config(vocab_size=30522, hidden_size=768, num_layers=12, num_heads=12,
+                max_seq_len=512, type_vocab_size=2, intermediate_size=None):
+    """BERT: a bidirectional post-LN encoder with learned positions, segment
+    embeddings, an embedding LayerNorm and the MLM transform before a head
+    tied to the embeddings (no NSP head, as the reference)."""
+    return GPTConfig(vocab_size=vocab_size, hidden_size=hidden_size,
+                     num_layers=num_layers, num_heads=num_heads,
+                     max_seq_len=max_seq_len, use_rope=False, causal=False,
+                     norm_position="post", embed_norm=True, final_norm=False,
+                     type_vocab_size=type_vocab_size, mlm_head=True,
+                     intermediate_size=intermediate_size)
+
+
+def bert_base():
+    return bert_config()
+
+
+def bert_tiny(seq_len=128):
+    return bert_config(vocab_size=256, hidden_size=64, num_layers=2,
+                       num_heads=4, max_seq_len=seq_len)
+
+
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
 
 def param_spec(config: GPTConfig, weight_dtype=None) -> Dict[str, Any]:
-    """The reference `init_params` tree as {key: (shape, init)}: init is a
-    normal std (float), "ones" or "zeros".  One source for `init_params`
-    and the shape check of `convert.params_from_numpy`.
+    """The reference `init_params` tree as {key: (shape, init[, dtype])}:
+    init is a normal std (float), "ones" or "zeros"; the leaf takes the
+    model dtype unless a third entry names its own (the MoE gate, float32
+    as in the reference).  One source for `init_params` and the shape check
+    of `convert.params_from_numpy`.
     weight_dtype="int8" describes the tree `quantize_serving_params` makes
     of it: each quantized weight `name` becomes `name_q` and `name_scale`,
-    whose init is the dtype they are stored in (int8, float32)."""
+    whose init is the dtype they are stored in (int8, float32); the MoE
+    gate and expert banks pass through."""
     c = config
-    if c.moe_num_experts > 0:
-        raise NotImplementedError("MoE blocks arrive with a later slice "
-                                  "(ROADMAP Queue 1: the rest of training, "
-                                  "MoE and ep)")
     D, L, F_, V, Q = (c.hidden_size, c.num_layers, c.ffn_size, c.vocab_size,
                       c.qkv_dim)
     std = c.initializer_range
@@ -162,16 +206,26 @@ def param_spec(config: GPTConfig, weight_dtype=None) -> Dict[str, Any]:
         "ln1_w": ((L, D), "ones"), "ln1_b": ((L, D), "zeros"),
         "qkv_w": ((L, D, Q), std), "proj_w": ((L, D, D), proj_std),
         "ln2_w": ((L, D), "ones"), "ln2_b": ((L, D), "zeros"),
-        "fc1_w": ((L, D, F_), std), "fc2_w": ((L, F_, D), proj_std),
     }
-    if c.gated_ffn:
-        blocks["fcg_w"] = ((L, D, F_), std)
     if c.use_bias:
-        blocks.update({"qkv_b": ((L, Q), "zeros"), "proj_b": ((L, D), "zeros"),
-                       "fc1_b": ((L, F_), "zeros"),
-                       "fc2_b": ((L, D), "zeros")})
+        blocks.update({"qkv_b": ((L, Q), "zeros"), "proj_b": ((L, D), "zeros")})
+    if c.moe_num_experts > 0:
+        E = c.moe_num_experts
+        blocks.update({"gate_w": ((L, D, E), std, torch.float32),
+                       "exp_fc1_w": ((L, E, D, F_), std),
+                       "exp_fc1_b": ((L, E, F_), "zeros"),
+                       "exp_fc2_w": ((L, E, F_, D), proj_std),
+                       "exp_fc2_b": ((L, E, D), "zeros")})
+    else:
+        blocks.update({"fc1_w": ((L, D, F_), std),
+                       "fc2_w": ((L, F_, D), proj_std)})
         if c.gated_ffn:
-            blocks["fcg_b"] = ((L, F_), "zeros")
+            blocks["fcg_w"] = ((L, D, F_), std)
+        if c.use_bias:
+            blocks.update({"fc1_b": ((L, F_), "zeros"),
+                           "fc2_b": ((L, D), "zeros")})
+            if c.gated_ffn:
+                blocks["fcg_b"] = ((L, F_), "zeros")
     spec: Dict[str, Any] = {"wte": ((V, D), std), "blocks": blocks}
     if c.final_norm or c.embed_norm:
         spec["lnf_w"], spec["lnf_b"] = ((D,), "ones"), ((D,), "zeros")
@@ -189,6 +243,13 @@ def param_spec(config: GPTConfig, weight_dtype=None) -> Dict[str, Any]:
     return spec
 
 
+def leaf_dtype(leaf, config: GPTConfig):
+    """The dtype a `param_spec` leaf is stored in."""
+    if len(leaf) > 2:
+        return leaf[2]
+    return leaf[1] if isinstance(leaf[1], torch.dtype) else config.dtype
+
+
 def _quantized_spec(spec):
     """`param_spec` after weight-only int8 PTQ: scales [L, 1, out] for the
     block weights, [V, 1] for `wte` (per vocab row), [1, V] for `lm_head`
@@ -201,12 +262,12 @@ def _quantized_spec(spec):
     for name, leaf in spec.items():
         if name == "blocks":
             blocks: Dict[str, Any] = {}
-            for k, (shape, init) in leaf.items():
+            for k, sub in leaf.items():
                 if k in BLOCK_WEIGHT_KEYS:
-                    L, _, n = shape
-                    blocks.update(pair(k, shape, (L, 1, n)))
+                    L, _, n = sub[0]
+                    blocks.update(pair(k, sub[0], (L, 1, n)))
                 else:
-                    blocks[k] = (shape, init)
+                    blocks[k] = sub
             out["blocks"] = blocks
         elif name == "wte":
             out.update(pair(name, leaf[0], (leaf[0][0], 1)))
@@ -223,16 +284,18 @@ def init_params(config: GPTConfig, generator: torch.Generator,
     differ: the draws come from `generator`, which must live on `device`)."""
     device = resolve_device(device)
 
-    def make(shape, init):
+    def make(leaf):
+        shape, init = leaf[:2]
+        dtype = leaf_dtype(leaf, config)
         if init == "ones":
-            return torch.ones(shape, dtype=config.dtype, device=device)
+            return torch.ones(shape, dtype=dtype, device=device)
         if init == "zeros":
-            return torch.zeros(shape, dtype=config.dtype, device=device)
-        return torch.randn(shape, generator=generator, dtype=config.dtype,
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.randn(shape, generator=generator, dtype=dtype,
                            device=device).mul_(init)
 
     def build(tree):
-        return {k: build(v) if isinstance(v, dict) else make(*v)
+        return {k: build(v) if isinstance(v, dict) else make(v)
                 for k, v in tree.items()}
 
     return build(param_spec(config))
@@ -304,11 +367,17 @@ def _attend(q, k, v, c: GPTConfig, attn_impl=None):
 
 
 def block_forward(bp, x, config: GPTConfig, pos_offset=None, attn_impl=None):
-    """One dense transformer block (no MoE); bp holds this block's unstacked
-    weights.  attn_impl: optional callable (q, k, v) -> out overriding flash
-    attention.  Returns the block output."""
+    """One transformer block; bp holds this block's unstacked weights.
+    attn_impl: optional callable (q, k, v) -> out overriding flash
+    attention.  Returns (out, aux): aux is the block's MoE load-balance
+    loss, a float32 0 when the block is dense."""
     q, k, v = _block_qkv(bp, x, config, pos_offset)
-    return _layer_tail(bp, x, _attend(q, k, v, config, attn_impl), config)
+    x, aux = _block_tail(bp, x, _attend(q, k, v, config, attn_impl), config)
+    return x, _zero_aux(x) if aux is None else aux
+
+
+def _zero_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def run_blocks(blocks, x, config, pos_offset=None, remat=False,
@@ -316,18 +385,25 @@ def run_blocks(blocks, x, config, pos_offset=None, remat=False,
     """The reference's `lax.scan` over stacked blocks, as a loop.  The
     stacked leaves are unbound once, so their gradients are stacked once.
     remat=True keeps, per block, what `remat_policy_save_attention` keeps:
-    the block input, the post-rope q, k, v and attention's out and lse."""
+    the block input, the post-rope q, k, v and attention's out and lse; the
+    tail's checkpoint carries the MoE aux out.  Returns (out, aux), aux the
+    MoE load-balance losses summed over the blocks (0 when dense)."""
+    aux = _zero_aux(x)
     for ws in zip(*(w.unbind(0) for w in blocks.values())):
         bp = dict(zip(blocks, ws))
         if not remat:
-            x = block_forward(bp, x, config, pos_offset, attn_impl)
-            continue
-        x = remat_policy_save_attention(
-            functools.partial(_block_qkv, bp, c=config,
-                              pos_offset=pos_offset),
-            functools.partial(_attend, c=config, attn_impl=attn_impl),
-            functools.partial(_layer_tail, bp, c=config), x)
-    return x
+            q, k, v = _block_qkv(bp, x, config, pos_offset)
+            x, a = _block_tail(bp, x, _attend(q, k, v, config, attn_impl),
+                               config)
+        else:
+            x, a = remat_policy_save_attention(
+                functools.partial(_block_qkv, bp, c=config,
+                                  pos_offset=pos_offset),
+                functools.partial(_attend, c=config, attn_impl=attn_impl),
+                functools.partial(_block_tail, bp, c=config), x)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def embed_prologue(params, x, config: GPTConfig, type_ids=None):
@@ -370,18 +446,20 @@ def head_matrix(params, config: GPTConfig):
 
 def backbone(params, tokens, config: GPTConfig, type_ids=None, remat=False,
              attn_impl=None):
-    """tokens [B, S] -> (activations [B, S, D], head matrix)."""
+    """tokens [B, S] -> (activations [B, S, D], head matrix, MoE aux)."""
     wte = params["wte"]
     x = wte[torch.as_tensor(tokens, device=wte.device).long()]
+    if type_ids is not None:
+        type_ids = torch.as_tensor(type_ids, device=wte.device)
     x = embed_prologue(params, x, config, type_ids)
-    x = run_blocks(params["blocks"], x, config, remat=remat,
-                   attn_impl=attn_impl)
-    return epilogue(params, x, config), head_matrix(params, config)
+    x, aux = run_blocks(params["blocks"], x, config, remat=remat,
+                        attn_impl=attn_impl)
+    return epilogue(params, x, config), head_matrix(params, config), aux
 
 
 def forward(params, tokens, config: GPTConfig):
     """tokens [B, S] int -> logits [B, S, V], on the params' device."""
-    x, head = backbone(params, tokens, config)
+    x, head, _ = backbone(params, tokens, config)
     return torch.matmul(x, head)
 
 
@@ -400,27 +478,30 @@ def _chunk_ce(x, head, labels):
 
 def loss_fn(params, tokens, labels, config: GPTConfig, remat=False,
             loss_chunk: Optional[int] = 512, attn_impl=None):
-    """Causal LM loss (dense blocks); labels [B, S] with -100 = ignore.
+    """LM loss; labels [B, S] with -100 = ignore.  An MoE config adds
+    `moe_aux_weight` times the blocks' load-balance loss.
 
     loss_chunk: when it divides S and is smaller, the LM head and
     log-softmax run per sequence chunk, each under a non-reentrant
     checkpoint, so the backward replays the chunk's head matmul and no
     [B, S, V] f32 log-probs are kept.  attn_impl overrides flash attention
     (e.g. a plain reference)."""
-    x, head = backbone(params, tokens, config, remat=remat,
-                       attn_impl=attn_impl)
+    x, head, aux = backbone(params, tokens, config, remat=remat,
+                            attn_impl=attn_impl)
+    moe_pen = config.moe_aux_weight * aux if config.moe_num_experts > 0 \
+        else 0.0
     labels = torch.as_tensor(labels, device=x.device).long()
     S = x.shape[1]
     if not loss_chunk or S % loss_chunk != 0 or S <= loss_chunk:
         loss_sum, n = _ce_sums(torch.matmul(x, head), labels)
-        return loss_sum / torch.clamp(n, min=1.0)
+        return loss_sum / torch.clamp(n, min=1.0) + moe_pen
     loss_sum = n = 0.0
     for i in range(0, S, loss_chunk):
         part = slice(i, i + loss_chunk)
         ls, c = checkpoint(_chunk_ce, x[:, part], head, labels[:, part],
                            use_reentrant=False)
         loss_sum, n = loss_sum + ls, n + c
-    return loss_sum / torch.clamp(n, min=1.0)
+    return loss_sum / torch.clamp(n, min=1.0) + moe_pen
 
 
 def count_params(params):
@@ -508,9 +589,10 @@ def _decode_qkv(bp, x, c: GPTConfig, pos):
     return q[:, 0], k[:, 0], v[:, 0]
 
 
-def _layer_tail(bp, x, attn, c: GPTConfig):
-    """Out-proj + residual (+ post-LN) + FFN + residual (+ post-LN); attn
-    is [B, T, D] or per head [B, T, H, hd]."""
+def _block_tail(bp, x, attn, c: GPTConfig):
+    """Out-proj + residual (+ post-LN) + FFN or MoE + residual (+ post-LN);
+    attn is [..., D] or per head [..., H, hd], x the block input.  Returns
+    (x, aux): the MoE load-balance loss, None when dense."""
     attn = torch.matmul(attn.reshape(x.shape), _w(bp, "proj_w", c.dtype))
     if "proj_b" in bp:
         attn = attn + bp["proj_b"]
@@ -519,10 +601,22 @@ def _layer_tail(bp, x, attn, c: GPTConfig):
         x = _norm(x, bp["ln1_w"], bp["ln1_b"], c)
     h = _norm(x, bp["ln2_w"], bp["ln2_b"], c) if c.norm_position == "pre" \
         else x
-    x = x + _ffn_dense(bp, h, c)
+    aux = None
+    if c.moe_num_experts > 0:
+        y, aux = moe_ffn_dense(bp, h.reshape(-1, c.hidden_size), c)
+        y = y.reshape(h.shape)
+    else:
+        y = _ffn_dense(bp, h, c)
+    x = x + y
     if c.norm_position != "pre":
         x = _norm(x, bp["ln2_w"], bp["ln2_b"], c)
-    return x
+    return x, aux
+
+
+def _layer_tail(bp, x, attn, c: GPTConfig):
+    """`_block_tail` for the serving programs, which drop the aux (the
+    reference's `_layer_tail`)."""
+    return _block_tail(bp, x, attn, c)[0]
 
 
 def _embed(params, tokens, config: GPTConfig, mesh=None):
@@ -598,6 +692,248 @@ def sample_token(logits, generator, *, sample, temperature, top_k, mesh=None,
         noise = gumbel_noise(logits.shape, logits.dtype, generator,
                              logits.device)
     return _gumbel_pick(logits, noise, temperature, top_k)
+
+
+# ---------------------------------------------------------------------------
+# dense KV-cache generation
+# ---------------------------------------------------------------------------
+
+def init_cache(config: GPTConfig, batch: int, max_len: int, device=None):
+    """Dense per-layer KV cache {"k", "v"}: [L, batch, max_len, KVH, hd] in
+    the model dtype (GQA caches the kv heads only)."""
+    c = config
+    shape = (c.num_layers, batch, max_len, c.kv_heads, c.head_dim)
+    device = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
+            "v": torch.zeros(shape, dtype=c.dtype, device=device)}
+
+
+def decode_step(params, token, cache, pos, config: GPTConfig):
+    """One autoregressive step: token [B] at position `pos` (an int or a
+    0-d integer tensor on the cache's device, the same for every row).
+    Each layer writes the token's k/v into the cache in place, then attends
+    to positions 0..pos through dense products in float32 with a position
+    mask (the reference uses no kernel here: at one query row the GEMM is
+    the fused path).  Returns (logits [B, V], cache)."""
+    c = config
+    assert c.causal, "KV-cache decoding requires a causal model"
+    B = token.shape[0]
+    D, H, KVH, hd = c.hidden_size, c.num_heads, c.kv_heads, c.head_dim
+    G = H // KVH
+    dev = cache["k"].device
+    pos = torch.as_tensor(pos, device=dev).long().reshape(1)
+    x = params["wte"][token.long()]                            # [B, D]
+    if not c.use_rope:
+        x = x + params["wpe"].index_select(0, pos)
+    seen = torch.arange(cache["k"].shape[2], device=dev) <= pos
+    rows = pos.expand(B)
+    for l in range(c.num_layers):
+        bp = _layer(params["blocks"], l)
+        q, k, v = _decode_qkv(bp, x, c, rows)
+        kc, vc = cache["k"][l], cache["v"][l]              # [B, S, KVH, hd]
+        kc.index_copy_(1, pos, k[:, None])
+        vc.index_copy_(1, pos, v[:, None])
+        qg = q.reshape(B, KVH, G, hd)
+        s = torch.einsum("bkgd,bskd->bkgs", qg.float(), kc.float()) \
+            / math.sqrt(hd)
+        p = torch.softmax(torch.where(seen, s, -1e30), dim=-1)
+        attn = torch.einsum("bkgs,bskd->bkgd", p.to(vc.dtype), vc)
+        x = _layer_tail(bp, x, attn.reshape(B, D), c)
+    x = epilogue(params, x, c)
+    return head_logits(x, params, c), cache
+
+
+def prefill(params, input_ids, config: GPTConfig, cache):
+    """One dense causal pass over the prompt [B, Tp] that fills cache
+    positions [0, Tp) in place; attention is the flash kernel.  Returns
+    (logits [B, V] at the last position, cache)."""
+    c = config
+    assert c.causal, "KV-cache decoding requires a causal model"
+    ids = torch.as_tensor(input_ids, device=params["wte"].device).long()
+    B, Tp = ids.shape
+    H, KVH = c.num_heads, c.kv_heads
+    x = params["wte"][ids]
+    if not c.use_rope:
+        x = x + params["wpe"][:Tp]
+    for l in range(c.num_layers):
+        bp = _layer(params["blocks"], l)
+        q, k, v = _prefill_qkv(bp, x, c)
+        cache["k"][l][:, :Tp] = k
+        cache["v"][l][:, :Tp] = v
+        if KVH != H:
+            k = torch.repeat_interleave(k, H // KVH, dim=2)
+            v = torch.repeat_interleave(v, H // KVH, dim=2)
+        x = _layer_tail(bp, x, flash_attention_fused(q, k, v, causal=True), c)
+    x = epilogue(params, x[:, -1], c)
+    return head_logits(x, params, c), cache
+
+
+def _leaf_tensors(tree):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaf_tensors(tree[k])
+        else:
+            yield tree[k]
+
+
+class _Generation:
+    """`generate`'s program for one cache key: static buffers (prompt,
+    token buffer, dense cache, position, EOS mask, temperature, the noise
+    of every pick) and two bodies over them, the prefill (which also makes
+    the first pick and resets the position) and one decode step (which
+    advances it).  On the card each body is captured once as a CUDA graph
+    and every call replays the prefill's, then the step's max_new - 1
+    times; nothing reads a device value on the host.  A graph bakes in the
+    parameters' addresses, which the cache key holds.  Eagerly (on the CPU,
+    or with `capture=False`) the same bodies run over the same buffers."""
+
+    def __init__(self, config, B, Tp, max_new, sample, top_k, eos, device,
+                 capture):
+        c = config
+        self.config, self.Tp, self.max_new = c, Tp, max_new
+        self.sample, self.top_k, self.eos = sample, top_k, eos
+        self.device = device
+        self.capture = capture and device.type == "cuda"
+        self.ids = torch.zeros((B, Tp), dtype=torch.long, device=device)
+        self.tokens = torch.zeros((B, Tp + max_new), dtype=torch.int32,
+                                  device=device)
+        self.cache = init_cache(c, B, Tp + max_new, device)
+        self.pos = torch.zeros((1,), dtype=torch.long, device=device)
+        self.finished = torch.zeros((B,), dtype=torch.bool, device=device)
+        self.temp = torch.ones((), dtype=torch.float32, device=device)
+        self.noise = torch.zeros((max_new, B, c.vocab_size), dtype=c.dtype,
+                                 device=device) if sample else None
+        self.graphs = None          # (prefill, step) and their launch deltas
+        self.replays = 0
+
+    def _pick(self, logits, i):
+        if not self.sample:
+            return sharded_argmax(logits)
+        return _gumbel_pick(logits, self.noise.index_select(0, i)[0],
+                            self.temp, self.top_k)
+
+    def _after(self, nxt):
+        if self.eos is not None:
+            nxt = torch.where(self.finished, self.eos, nxt)
+            self.finished |= nxt == self.eos
+        return nxt
+
+    def _prefill(self, params):
+        Tp = self.Tp
+        logits, _ = prefill(params, self.ids, self.config, self.cache)
+        first = self._pick(logits, torch.zeros_like(self.pos))
+        self.finished.zero_()
+        self.tokens.zero_()
+        self.tokens[:, :Tp] = self.ids
+        self.tokens[:, Tp] = self._after(first)
+        self.pos.fill_(Tp)
+
+    def _step(self, params):
+        tok = self.tokens.index_select(1, self.pos)[:, 0]
+        logits, _ = decode_step(params, tok, self.cache, self.pos,
+                                self.config)
+        nxt = self._after(self._pick(logits, self.pos - (self.Tp - 1)))
+        self.tokens.index_copy_(1, self.pos + 1, nxt[:, None])
+        self.pos += 1
+
+    def _build(self, params):
+        from ..incubate import kernels as K
+        from ..inference.graphs import GATE, capture
+        with GATE.exclusive():
+            before = K.counts()
+            pool = torch.cuda.graph_pool_handle()
+            graphs = [capture(lambda: self._prefill(params), self.device,
+                              pool)]
+            if self.max_new > 1:
+                graphs.append(capture(lambda: self._step(params),
+                                      self.device, pool))
+            K.add_counts({k: before[k] - n for k, n in K.counts().items()})
+        self.graphs = [(g, delta) for g, _, delta, _ in graphs]
+
+    def __call__(self, params, input_ids, temperature, generator, noise):
+        from ..incubate import kernels as K
+        from ..inference.graphs import GATE
+        self.ids.copy_(torch.as_tensor(input_ids))
+        if self.sample:
+            self.temp.fill_(temperature)
+            if noise is None:
+                noise = gumbel_noise(self.noise.shape, self.noise.dtype,
+                                     generator, self.device)
+            self.noise.copy_(torch.as_tensor(noise))
+        if not self.capture:
+            self._prefill(params)
+            for _ in range(self.max_new - 1):
+                self._step(params)
+            return self.tokens.clone()
+        if self.graphs is None:
+            self._build(params)
+        (prefill_graph, first), *rest = self.graphs
+        with GATE.shared():
+            prefill_graph.replay()
+            K.add_counts(first)
+            for graph, delta in rest * (self.max_new - 1):
+                graph.replay()
+                K.add_counts(delta)
+            self.replays += 1 + len(rest) * (self.max_new - 1)
+            return self.tokens.clone()
+
+
+# LRU of `generate`'s programs, one a (config, B, Tp, max_new, sampling,
+# top_k, eos, parameters, device) key; `compiles` counts the programs made,
+# each captured on the card at its first call
+GENERATE_CACHE_MAX = 16
+_generate_cache: "OrderedDict[Any, _Generation]" = OrderedDict()
+_generate_compiles = 0
+
+
+def generate_cache_stats():
+    """{'size', 'compiles', 'max_size', 'replays'}: programs held, made, the
+    bound, and graph replays over the held programs."""
+    return {"size": len(_generate_cache), "compiles": _generate_compiles,
+            "max_size": GENERATE_CACHE_MAX,
+            "replays": sum(p.replays for p in _generate_cache.values())}
+
+
+def generate(params, input_ids, config: GPTConfig, max_new_tokens: int = 32,
+             temperature: float = 0.0, top_k: Optional[int] = None,
+             eos_token_id: Optional[int] = None,
+             generator: Optional[torch.Generator] = None, noise=None,
+             _eager: bool = False):
+    """Greedy or temperature/top-k sampling with a dense KV cache: one
+    prefill pass, then max_new_tokens - 1 decode steps, each a graph replay
+    on the card.  A sequence that emits eos_token_id stays at EOS.  Sampled
+    picks draw their Gumbel noise from `generator` (default: seeded 0 on
+    the params' device) unless `noise` [max_new_tokens, B, V] gives it.
+    `_eager` runs the bodies without graphs (a comparison switch).
+
+    input_ids [B, Tp] -> int32 [B, Tp + max_new_tokens] on the params'
+    device."""
+    global _generate_compiles
+    B, Tp = input_ids.shape
+    total = Tp + max_new_tokens
+    if not config.use_rope and total > config.max_seq_len:
+        raise ValueError(
+            f"prompt {Tp} + max_new_tokens {max_new_tokens} exceeds "
+            f"max_seq_len {config.max_seq_len} (learned positions)")
+    sample = bool(temperature and temperature > 0.0)
+    device = params["wte"].device
+    key = (dataclasses.astuple(config), B, Tp, max_new_tokens, sample, top_k,
+           eos_token_id, tuple(t.data_ptr() for t in _leaf_tensors(params)),
+           device, _eager)
+    prog = _generate_cache.get(key)
+    if prog is not None:
+        _generate_cache.move_to_end(key)            # LRU touch
+    else:
+        prog = _Generation(config, B, Tp, max_new_tokens, sample, top_k,
+                           eos_token_id, device, capture=not _eager)
+        _generate_compiles += 1
+        _generate_cache[key] = prog
+        while len(_generate_cache) > GENERATE_CACHE_MAX:
+            _generate_cache.popitem(last=False)     # least recently used
+    if sample and generator is None and noise is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return prog(params, input_ids, temperature if sample else 1.0,
+                generator, noise)
 
 
 # ---------------------------------------------------------------------------

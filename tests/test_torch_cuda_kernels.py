@@ -270,6 +270,32 @@ def test_flash_bwd_kernels_match_plain(dev, dtype, D, S, Sk, causal):
         _grad_close(name, a, b, dtype)
 
 
+@pytest.mark.parametrize("seg", [False, True], ids=["dense", "seg"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_bwd_takes_strided_views(dev, dtype, seg):
+    """q, k, v as the strided views a packed qkv projection gives (every
+    BERT layer, GPT's v): the backward pair equals its call on contiguous
+    copies bitwise.  The wrappers copy such views and must hold the copies
+    until the launch is queued, or the outputs they allocate next can be
+    given the copies' memory while the kernels read it."""
+    rng = np.random.RandomState(5)
+    B, S, H, D = 4, 512, 12, 64
+    qkv = _randn(rng, (B, S, 3 * H * D), dtype, dev)
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
+    g = _randn(rng, (B, S, H, D), dtype, dev)
+    ids = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    ids[:, S // 3:] = 1
+    out, lse = _flash_fwd_ref(q, k, v, False, 0.125)
+    bwd = (lambda *a: flash_attention_seg_bwd(*a[:3], ids, ids, *a[3:],
+                                              False, 0.125)) if seg else \
+        (lambda *a: flash_attention_bwd(*a, False, 0.125))
+    want = bwd(*(t.contiguous() for t in (q, k, v)), out, lse, g)
+    for _ in range(3):
+        got = bwd(q, k, v, out, lse, g)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            assert torch.equal(a, b), name
+
+
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("S,Sk,causal", [(1000, 1000, True),
                                          (100, 333, False)])
@@ -1106,15 +1132,28 @@ def _step_inputs(role, rng, eng, offsets=(37, 16)):
     return dict(inputs, greedy=np.ones(3, bool))
 
 
-def _replay_and_eager(dev, dtype, role, int8=False):
+def _small_moe(dtype):
+    """The MoE family (LayerNorm, GELU, biases, tied head) at the small
+    llama's attention widths: 4 experts, top-2, capacity factor 2."""
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=4, num_kv_heads=2, max_seq_len=128,
+                        intermediate_size=512, moe_num_experts=4,
+                        moe_capacity_factor=2.0)
+    cfg.dtype = dtype
+    return cfg
+
+
+def _replay_and_eager(dev, dtype, role, int8=False, small=_small_llama):
     """One replay of the step program `role` and one eager step on
     identical staged inputs and an identical random pool (int8 weights and
-    pool with `int8`): {eager: (tokens, pool after, launches, int8
-    launches, replays)}.  The warm-up may write page 0 only."""
+    pool with `int8`) of the `small` model: {eager: (tokens, pool after,
+    launches, int8 launches, replays)}.  The warm-up may write page 0
+    only."""
     from paddle_tpu_torch.incubate import kernels as K
     from paddle_tpu_torch.inference.engine import LLMEngine
     name, fuse, chunk, spec_len = STEP_ROLES[role]
-    cfg = _small_llama(dtype)
+    cfg = small(dtype)
     params = _card_params(cfg, dev)
     rng = np.random.RandomState(7)
     shape = (cfg.num_layers, 13, 16, 2, 64)
@@ -1234,6 +1273,86 @@ def test_sampled_streams_equal_with_and_without_graphs(dev, mode):
         st["swap_out_dispatches"] + st["swap_in_dispatches"] > 0
     assert stats[True]["graph_replays"] == 0
     assert st["decode_executables"] == 1 and not over_budget(st)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("role", ["fused_t1", "fused_t16", "decode", "chunk",
+                                  "prefill_b64"])
+def test_moe_step_replay_is_bitwise_the_eager_step(dev, dtype, role):
+    """The MoE engine's programs (the gate, capacity slots, dispatch, the
+    batched expert GEMMs and the combine inside each layer): one replay
+    bitwise the eager step on tokens and real pages, the same launches."""
+    cfg, name, runs = _replay_and_eager(dev, dtype, role, small=_small_moe)
+    (g_out, g_pool, g_n, _, g_rep), (e_out, e_pool, e_n, _, e_rep) = \
+        runs[False], runs[True]
+    assert np.array_equal(g_out, e_out)
+    for n in ("k", "v"):
+        assert torch.equal(g_pool[n][:, 1:], e_pool[n][:, 1:]), n
+    assert g_n == e_n and (g_rep, e_rep) == (1, 0)
+    kern = ATTENTION_OF.get(name, "paged_prefill_attention_kernel")
+    assert g_n[kern] == cfg.num_layers and g_n["rms_norm_fused"] == 0
+
+
+@pytest.mark.parametrize("small", [_small_llama, _small_moe],
+                         ids=["llama", "moe"])
+def test_generate_graph_loop_is_bitwise_the_eager_loop(dev, small):
+    """`generate` replays its prefill graph and its decode-step graph; the
+    tokens equal the eager loop's bitwise, greedy and sampled on the same
+    generator, with the EOS freeze; a second call with the same key
+    compiles nothing, replays, and never syncs (a device prompt)."""
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.models import gpt
+    cfg = small(torch.bfloat16)
+    params = _card_params(cfg, dev)
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 512, (3, 37))).to(dev)
+    greedy = None
+    for kw in (dict(), dict(temperature=0.8, top_k=20),
+               dict(eos_token_id=7)):
+        outs, counts = [], []
+        for eager in (False, True):
+            if "temperature" in kw:
+                kw["generator"] = torch.Generator(dev).manual_seed(3)
+            K.reset_launches()
+            outs.append(gpt.generate(params, ids, cfg, max_new_tokens=9,
+                                     _eager=eager, **kw))
+            torch.cuda.synchronize()
+            counts.append(K.launches())
+        assert torch.equal(outs[0], outs[1]), kw
+        assert counts[0] == counts[1] and \
+            counts[0]["flash_attention_fwd"] == cfg.num_layers
+        greedy = outs[0] if greedy is None else greedy
+    before = gpt.generate_cache_stats()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = gpt.generate(params, ids, cfg, max_new_tokens=9)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = gpt.generate_cache_stats()
+    assert after["compiles"] == before["compiles"]
+    assert after["replays"] == before["replays"] + 9
+    assert torch.equal(again, greedy)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_kernels_at_the_encoder_shape(dev, dtype):
+    """BERT-base's attention, [16, 512, 12, 64] non-causal: the forward and
+    the backward pair against their plain versions."""
+    rng = np.random.RandomState(64)
+    q, k, v, g = (_randn(rng, (16, 512, 12, 64), dtype, dev)
+                  for _ in range(4))
+    scale = 1.0 / 8.0
+    out, lse = flash_attention_fwd(q, k, v, False, scale)
+    ref_out, ref_lse = _flash_fwd_ref(q, k, v, False, scale)
+    _close(out, ref_out, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    got = flash_attention_bwd(q, k, v, ref_out, ref_lse, g, False, scale)
+    ref = _flash_bwd_ref(q, k, v, ref_out, ref_lse, g, False, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        _grad_close(name, a, b, dtype)
+    if dtype == torch.bfloat16:
+        assert BWD_BODY[(dtype, 64, False)] == "wgmma"
 
 
 def test_warmed_chunked_fused_loop_never_syncs(dev):

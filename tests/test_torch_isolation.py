@@ -68,13 +68,16 @@ FLEET_MODULES = ("paddle_tpu_torch.inference",
                  "paddle_tpu_torch.inference.router",
                  "paddle_tpu_torch.inference.frontend",
                  "paddle_tpu_torch.inference.obs_server")
+# the MoE dispatch (its own copy of the reference's plain-jnp module)
+MOE_MODULES = ("paddle_tpu_torch.incubate.distributed.models.moe.dispatch",)
 
 
-@pytest.mark.parametrize("module", OBSERVABILITY_MODULES + FLEET_MODULES)
+@pytest.mark.parametrize("module", OBSERVABILITY_MODULES + FLEET_MODULES +
+                         MOE_MODULES)
 def test_observability_modules_import_alone(module):
-    """Each module of the observability plane, the fleet and the front door
-    imports on its own and leaves jax and the JAX package out of
-    sys.modules (the AST scan above covers their source)."""
+    """Each module of the observability plane, the fleet, the front door
+    and the MoE dispatch imports on its own and leaves jax and the JAX
+    package out of sys.modules (the AST scan above covers their source)."""
     code = (f"import sys, {module};"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"
