@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`paddle_tpu_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # one card, every phase
+    python3 chip_smoke.py --tp     # four cards: the NCCL tensor-parallel phase
 
 Phases, one JSON line each (with its seconds):
 1. device   — requires CUDA, prints the card's name and power limit,
@@ -275,6 +276,35 @@ Phases, one JSON line each (with its seconds):
                1, 2 and 3 launch, none of the paged decode kernel; the
                phase's engines leave at most RELEASE_SLACK.  The card's
                name and power limit are printed.
+6i. engine_tp — tensor-parallel serving (`LLMEngine(mesh=)` over
+               `parallel.tp.serving_mesh`): two ranks on this one card
+               (gloo, so eager; the workers and a 4-rank mesh started
+               together), Llama-3-8B at full width, bf16, the phase-3
+               prompts x 32 at mp 2, fused bucketed, fused chunked
+               (`prefill_chunk=16`) and `fuse=False`.  Every rank's counts
+               are zeroed just before and read just after: each rank
+               launches row 1 exactly 32 x (fused + chunk + verify
+               dispatches), row 4 32 x decode dispatches, row 2 32 x
+               bucketed prefills, nothing composed; each rank's pool is
+               half of mp=1's (`rank_pool_bytes`); the programs within the
+               budget; every first token the dense forward's where the
+               top-2 margin exceeds 0.05 (ties printed).  Then float32 at
+               TP_F32_LAYERS layers, spec decoding (SPEC_LEN) and the prefix
+               cache on, chunked, repeating prompts and two that share 512
+               tokens: greedy streams byte-equal at mp 1, 2 and 4.  Rows 1
+               (T 1 and 16), 2 ([1,1024,H,128]) and 4 at a rank's heads
+               (H16 KVH4 at mp 2, H8 KVH2 at mp 4; bf16, and f32 at mp 2)
+               against their plain versions, with times and bounds.  Times
+               here are two ranks time-slicing one card with their
+               all-reduces through host memory: not a tensor-parallel time.
+               `python3 chip_smoke.py --tp`, on four cards: the device
+               phase, then only `engine_tp_nccl`: NCCL meshes of 2 and 4
+               ranks, fused bucketed and chunked at mp 1, 2 and 4 on CUDA
+               graphs (NCCL collectives captured) and eagerly on the same
+               mesh: streams and every rank's pool bitwise equal, one
+               replay a dispatch on every rank, the launch counts as
+               above, step ms and tokens/s; f32 streams equal at mp 1, 2
+               and 4.
 7. first_token — the first tokens of phases 3, 4 and both modes of 5 for
                two prompts against the argmax of the dense `forward` at the
                last prompt position, held equal where the top-2 margin
@@ -345,7 +375,8 @@ Phases, one JSON line each (with its seconds):
 Then one line `{"kernels": [...]}` for all nine kernels and the int8 lanes of
 the two paged ones (launches summed over the main-path runs of phases 3, 4,
 5, 6b, 6c, 6d, 6e, 6f (its tier runs), 6g (its traced pass), 6h (its
-fleets), 8b (its counted bf16 call), 10, 11, 12, 13 (bf16 and int8), 14
+fleets), 6i (its bf16 runs, every rank's launches), 8b (its counted bf16
+call), 10, 11, 12, 13 (bf16 and int8), 14
 and 15, each with the counts zeroed just before it and read
 just after; none
 of them may take an entry's composed route for shapes the kernels do not
@@ -584,9 +615,10 @@ def flash_case(dtype, dev, shape, causal=True):
         "bound_ms": b, "bound_by": by}
 
 
-def paged_inputs(dtype, dev, T, page=16):
-    """H=32, KVH=8, hd=128, 2048 tokens a table row.  T 1 and 16: B=8, mixed
-    q_offset/valid, slots 6 and 7 null-table slots (valid 1, offset 0);
+def paged_inputs(dtype, dev, T, page=16, heads=(32, 8)):
+    """H=32, KVH=8 (or `heads`), hd=128, 2048 tokens a table row.  T 1
+    and 16: B=8, mixed q_offset/valid, slots 6 and 7 null-table slots
+    (valid 1, offset 0);
     T = SPEC_LEN + 1: the fused spec step, the smoke's prompt lengths as
     q_offset of slots 0-5 and SPEC_VALID (drafted and undrafted slots),
     slots 6 and 7 null-table slots; T = TAIL_T: the bucketed prefix-hit
@@ -594,7 +626,7 @@ def paged_inputs(dtype, dev, T, page=16):
     rows."""
     import torch
     rng = np.random.RandomState(T)
-    H, KVH, hd, max_pages = 32, 8, 128, 2048 // page
+    (H, KVH), hd, max_pages = heads, 128, 2048 // page
     if T == 1:
         q_offset = np.array([0, 37, 300, 1000, 1500, 2040, 0, 0])
         valid = np.ones(8, np.int64)
@@ -640,16 +672,17 @@ def dequantized(pages, scales, dtype):
     return (pages.float() * scales[..., None]).to(dtype)
 
 
-def paged_case(dtype, dev, T, page=16, int8=False):
+def paged_case(dtype, dev, T, page=16, int8=False, heads=(32, 8)):
     """The paged prefill kernel against its plain version; `int8`: its int8
-    lane over the int8 pool `_quantize_kv` makes of the same inputs."""
+    lane over the int8 pool `_quantize_kv` makes of the same inputs;
+    `heads`: (H, KVH), a tensor-parallel rank's (engine_tp)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.incubate.kernels import paged_attention as PA
     from paddle_tpu_torch.incubate.kernels.paged_attention import (
         _prefill_split_plan, paged_prefill_attention_kernel,
         paged_prefill_attention_ref)
-    args, q_offset, valid = paged_inputs(dtype, dev, T, page)
+    args, q_offset, valid = paged_inputs(dtype, dev, T, page, heads)
     kw, kd, vd = {}, args[1], args[2]
     if int8:
         kq, vq, scales = int8_pool(args[1], args[2])
@@ -3601,10 +3634,266 @@ def train(dev):
             "launches_per_step": per_step}
 
 
+# ---------------------------------------------------------------------------
+# engine_tp: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+TP_MODES = (("bucketed", None, True), ("chunked", 16, True),
+            ("unfused", None, False))
+TP_F32_LAYERS = 2       # the f32 streams' depth (mp 1, 2 and 4, one card)
+
+
+def tp_serve(params, cfg, prompts, chunk, fuse, dev, mesh, eager,
+             spec_len=0, max_new=MAX_NEW, later=()):
+    """Serve `prompts` x `max_new` on an `LLMEngine` over `mesh` (None: one
+    device), then `later` (added once the engine has drained), every
+    kernel count zeroed on every rank just before the prompts and read
+    just after; each rank's launches must be L x the
+    dispatches that reach each kernel (row 1: fused, chunk and verify
+    programs; row 4: unfused decode; row 2: bucketed prefills), its graph
+    replays the dispatches (0 eager).  Returns (outputs, record, the
+    engine's pool digests by rank)."""
+    import torch
+    from paddle_tpu_torch.analysis.registry import over_budget
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.parallel.tp import pool_digest
+    eng = LLMEngine(params, cfg, num_slots=8, page_size=16,
+                    max_model_len=2048, prefill_buckets=SERVE_BUCKETS,
+                    prefill_chunk=chunk, fuse=fuse, spec_len=spec_len,
+                    device=dev, _eager=eager, mesh=mesh)
+    eng.warm_decode()
+    torch.cuda.synchronize()
+    if mesh is not None:
+        mesh.reset_counts()
+    else:
+        K.reset_launches()
+    steps, rids = [], []
+    t0 = time.perf_counter()
+    for wave in (prompts, later):
+        rids += [eng.add_request(p, max_new_tokens=max_new) for p in wave]
+        while eng.has_work:
+            s = time.perf_counter()
+            eng.step()
+            steps.append(time.perf_counter() - s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = mesh.rank_counts() if mesh is not None else [
+        {"launches": K.launches(), "launches_int8": K.launches_int8(),
+         "composed_calls": K.composed_calls()}]
+    st = eng.stats()
+    L = cfg.num_layers
+    want = {"paged_attention_kernel": L * st["decode_dispatches"],
+            "paged_prefill_attention_kernel":
+                L * (st["fused_dispatches"] + st["chunk_dispatches"] +
+                     st["verify_dispatches"]),
+            "flash_attention_fwd": L * st["prefill_dispatches"]}
+    for r, c in enumerate(counts):
+        got = {n: c["launches"][n] for n in want}
+        if got != want or any(c["composed_calls"].values()) or \
+                any(c["launches_int8"].values()):
+            raise AssertionError(f"engine_tp rank {r}: launches {c}, want "
+                                 f"{want}")
+    replays = eng.rank_replays()
+    if replays != [0 if eager else dispatches(st)] * len(replays) or \
+            over_budget(st):
+        raise AssertionError(f"engine_tp: replays {replays} ({st}), over "
+                             f"budget {over_budget(st)}")
+    outs = {r: eng.outputs[r] for r in rids}
+    for rid, o in outs.items():
+        if len(o.token_ids) != max_new:
+            raise AssertionError(f"engine_tp request {rid}: "
+                                 f"{len(o.token_ids)} tokens")
+    gen = sum(len(o.token_ids) for o in outs.values())
+    digests = [pool_digest(eng._pool)] + (
+        eng._link.worker_query("pool_digest") if mesh is not None else [])
+    rec = {"mp": st["mp"], "graphs": not eager,
+           "backend": mesh.backend if mesh is not None else None,
+           "tokens_per_s": gen / wall, "wall_s": wall,
+           "engine_steps": len(steps),
+           "median_step_ms": 1e3 * float(np.median(steps)),
+           "mean_step_ms": 1e3 * wall / len(steps),
+           "rank_pool_bytes": eng.rank_pool_bytes(),
+           "rank_replays": replays,
+           "rank_launches": [{n: c["launches"][n] for n in want}
+                             for c in counts],
+           "launches": {n: sum(c["launches"][n] for c in counts)
+                        for n in counts[0]["launches"]},
+           **{k: st[k] for k in ("fused_dispatches", "decode_dispatches",
+                                 "chunk_dispatches", "prefill_dispatches",
+                                 "verify_dispatches", "spec_drafted_tokens",
+                                 "prefix_hit_requests")},
+           "executables": {k: st[k] for k in st
+                           if k.endswith("_executables")}}
+    del eng
+    return [list(outs[r].token_ids) for r in rids], rec, digests
+
+
+def tp_kernel_rows(dev):
+    """Rows 1, 2 and 4 at a tensor-parallel rank's heads (Llama-3-8B at mp
+    2: H16 KVH4; at mp 4: H8 KVH2; hd 128, G 4) against their plain
+    versions: bf16 at both, f32 at mp 2."""
+    import torch
+    rows = []
+    for dtype, mps in ((torch.bfloat16, (2, 4)), (torch.float32, (2,))):
+        for mp in mps:
+            H, KVH = 32 // mp, 8 // mp
+            got = [paged_case(dtype, dev, 1, heads=(H, KVH)),
+                   paged_case(dtype, dev, 16, heads=(H, KVH)),
+                   flash_case(dtype, dev, (1, 1024, H, 128)),
+                   decode_case(dtype, dev, PROMPT_LENS, KVH=KVH)]
+            for r in got:
+                r.update(dtype=str(dtype).replace("torch.", ""), mp=mp)
+            rows += got
+    return rows
+
+
+def tp_f32_params(dev, layers=TP_F32_LAYERS):
+    """Llama-3-8B width, f32, `layers` layers, seeded random weights."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.llama3_8b()
+    cfg.num_layers = layers
+    return gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                           dev), cfg
+
+
+def tp_f32_traffic(vocab):
+    """The repeating spec prompts, and (served after them) two that share
+    the first 512 tokens of the last: prefix hits under the cache."""
+    prompts = spec_traffic(vocab)
+    rng = np.random.RandomState(11)
+    return prompts, [np.concatenate([prompts[-1][:512], rng.randint(
+        0, vocab, n).astype(np.int32)]) for n in (40, 9)]
+
+
+def engine_tp(params, cfg, prompts, dev, picks, smi, meshes, eager,
+              f32_mps):
+    """Tensor-parallel serving at Llama-3-8B width: bf16, the phase-3
+    prompts x 32 at mp 2 over meshes[2], fused bucketed, fused chunked and
+    unfused; first tokens against the dense forward (`picks`, margin >
+    0.05); each rank's pool half mp=1's.  Then f32 at TP_F32_LAYERS layers
+    with spec decoding (SPEC_LEN) and the prefix cache on: greedy streams
+    byte-equal at mp 1 and `f32_mps`.  Returns the phase record."""
+    import torch
+    from paddle_tpu_torch.quantization import kv_page_bytes
+    rec, firsts = {"nvidia_smi": smi}, []
+    mp = 2
+    for mode, chunk, fuse in TP_MODES:
+        outs, r, _ = tp_serve(params, cfg, prompts, chunk, fuse, dev,
+                              meshes[mp], eager)
+        full = 513 * kv_page_bytes(cfg, 16)     # mp=1's default pool
+        if r["rank_pool_bytes"] != [full // mp] * mp:
+            raise AssertionError(f"engine_tp: rank pools "
+                                 f"{r['rank_pool_bytes']}, want {full // mp}"
+                                 f" each")
+        r["kv_pool_bytes_mp1"] = full
+        firsts += [{"mode": mode, **c} for c in check_first_tokens(
+            picks, {i: _Out(o) for i, o in enumerate(outs)}, f"tp {mode}")]
+        rec[mode] = r
+        torch.cuda.empty_cache()
+    rec["first_token"] = firsts
+    p32, c32 = tp_f32_params(dev)
+    first, later = tp_f32_traffic(c32.vocab_size)
+    streams = {}
+    for m in (1, *f32_mps):
+        streams[m], rec[f"f32_mp{m}"], _ = tp_serve(
+            p32, c32, first, 16, True, dev,
+            meshes[m] if m > 1 else None, eager if m > 1 else False,
+            spec_len=SPEC_LEN, later=later)
+    for m in f32_mps:
+        if streams[m] != streams[1]:
+            raise AssertionError(f"engine_tp f32: mp={m} streams differ "
+                                 f"from mp=1")
+    if not rec["f32_mp1"]["prefix_hit_requests"]:
+        raise AssertionError("engine_tp f32: no prefix hit")
+    rec["f32_streams_equal"] = [1, *f32_mps]
+    del p32
+    torch.cuda.empty_cache()
+    return rec
+
+
+class _Out:
+    """A token list as `check_first_tokens` reads an output."""
+
+    def __init__(self, tokens):
+        self.token_ids = tokens
+
+
+def tp_four_cards(smi):
+    """`--tp`: on four cards, NCCL meshes of 2 and 4 ranks, the phase-3
+    prompts x 32 at Llama-3-8B width in bf16, fused bucketed and chunked:
+    each rank's CUDA graphs replay once a dispatch, the streams and every
+    rank's pool bitwise the eager engine's on the same mesh; step ms and
+    tokens/s at mp 1, 2 and 4; f32 streams at 2 layers equal at mp 1, 2
+    and 4.  Returns the phase record."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel.tp import serving_mesh
+    dev = torch.device("cuda", 0)
+    if torch.cuda.device_count() < 4:
+        raise AssertionError("--tp needs four cards")
+    cfg = gpt.llama3_8b()
+    cfg.dtype = torch.bfloat16
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    picks = forward_picks(params, cfg, dict(enumerate(prompts)))
+    meshes = {m: serving_mesh(m, backend="nccl") for m in (2, 4)}
+    rec = {"nvidia_smi": smi, "cards": torch.cuda.device_count()}
+    try:
+        for mode, chunk in (("bucketed", None), ("chunked", 16)):
+            for m in (1, 2, 4):
+                mesh = meshes.get(m)
+                eager, re_, dig_e = tp_serve(params, cfg, prompts, chunk,
+                                             True, dev, mesh, True)
+                emit({"run": f"{mode}_mp{m}", "graphs": False, **re_})
+                graph, r, dig = tp_serve(params, cfg, prompts, chunk, True,
+                                         dev, mesh, False)
+                emit({"run": f"{mode}_mp{m}", "graphs": True, **r})
+                if graph != eager:
+                    raise AssertionError(f"--tp {mode} mp={m}: graph and "
+                                         f"eager streams differ")
+                bad = [i for i, (a, b) in enumerate(zip(dig, dig_e))
+                       if a != b]
+                if bad:
+                    raise AssertionError(f"--tp {mode} mp={m}: graph and "
+                                         f"eager pools differ on ranks {bad}")
+                check_first_tokens(picks, {i: _Out(o) for i, o in
+                                           enumerate(graph)},
+                                   f"--tp {mode} mp={m}")
+                r["eager"] = {k: re_[k] for k in (
+                    "tokens_per_s", "median_step_ms", "mean_step_ms")}
+                r["graph_equals_eager"] = True
+                rec[f"{mode}_mp{m}"] = r
+                torch.cuda.empty_cache()
+        del params
+        torch.cuda.empty_cache()
+        p32, c32 = tp_f32_params(dev)
+        first, later = tp_f32_traffic(c32.vocab_size)
+        streams = {m: tp_serve(p32, c32, first, 16, True, dev,
+                               meshes.get(m), False, spec_len=SPEC_LEN,
+                               later=later)[0]
+                   for m in (1, 2, 4)}
+        if not streams[1] == streams[2] == streams[4]:
+            raise AssertionError("--tp f32: streams differ across mp")
+        rec["f32_streams_equal"] = [1, 2, 4]
+    finally:
+        for m in meshes.values():
+            m.close()
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    tp_only = sys.argv[1:] == ["--tp"]
+    if sys.argv[1:] and not tp_only:
+        print("usage: chip_smoke.py [--tp]", file=sys.stderr)
         return 2
     from paddle_tpu_torch.incubate.kernels import _cuda
     from paddle_tpu_torch.models import gpt
@@ -3654,6 +3943,16 @@ def main():
           "ptxas_paged_prefill": paged,
           "ptxas_paged_decode": more["paged_decode_kernel"],
           "ptxas_rms_norm": more["rms_kernel"] + more["rms_tma_kernel"]})
+    if tp_only:
+        t = time.perf_counter()
+        rec = tp_four_cards(smi)
+        emit({"phase": "engine_tp_nccl", "seconds": time.perf_counter() - t,
+              **rec})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     t = time.perf_counter()
     results = []
@@ -3846,6 +4145,24 @@ def main():
           **rec})
 
     t = time.perf_counter()
+    from paddle_tpu_torch.parallel.tp import serving_mesh
+    tp_picks = forward_picks(params, cfg, dict(enumerate(prompts)))
+    # two ranks share the one card: gloo, eager (a CUDA graph cannot
+    # capture gloo); the meshes' workers start together
+    tp_meshes = {m: serving_mesh(m, [dev] * m, backend="gloo")
+                 for m in (2, 4)}
+    try:
+        rec_tp = engine_tp(params, cfg, prompts, dev, tp_picks, smi,
+                           tp_meshes, eager=True, f32_mps=(2, 4))
+    finally:
+        for m in tp_meshes.values():
+            m.close()
+    rec_tp["kernels"] = tp_kernel_rows(dev)
+    emit({"phase": "engine_tp", "seconds": time.perf_counter() - t,
+          "mp": 2, "backend": "gloo", "timing_note": "two ranks on one "
+          "card, gloo, eager: not a tensor-parallel time", **rec_tp})
+
+    t = time.perf_counter()
     rec_gen = generate_phase(params, cfg, dev)
     del params
     torch.cuda.empty_cache()
@@ -3989,7 +4306,8 @@ def main():
     runs = (rec3, rec4, rec5["bucketed"], rec5["chunked"], *rec_q.values(),
             *rec_p.values(), *rec_s.values(), *rec_o.values(),
             *(m["tier"] for m in rec_t.values() if isinstance(m, dict)
-              and "tier" in m), rec_obs, rec_fleet, rec9, rec7, rec8,
+              and "tier" in m), rec_obs, rec_fleet,
+            *(rec_tp[m] for m, _, _ in TP_MODES), rec9, rec7, rec8,
             rec_gen, rec_moe, rec_moe["int8"], rec_tm, rec_bert)
     kernels = [{
         "name": r["kernel"] + ("_int8" if key == "launches_int8" else ""),

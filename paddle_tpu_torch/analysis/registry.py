@@ -26,6 +26,18 @@ SERVE_PROGRAM_BUDGET: Dict[str, int] = {
     "total_executables": 6,
 }
 
+# The budget of each rank under tensor-parallel serving (the reference's
+# `SERVE_PROGRAM_BUDGET_MP`, its values copied): the step programs are
+# partitioned, not forked, so every rank keeps mp=1's counts (a worker
+# builds exactly the programs rank 0 builds).
+SERVE_PROGRAM_BUDGET_MP: Dict[str, int] = {
+    "decode_side_executables": 1,
+    "prefill_executables": 2,
+    "copy_executables": 1,
+    "swap_executables": 2,
+    "total_executables": 6,
+}
+
 
 def program_counts(stats: Dict[str, object]) -> Dict[str, int]:
     """An engine's `stats()` under the budget's keys (decode side: decode
@@ -41,10 +53,12 @@ def program_counts(stats: Dict[str, object]) -> Dict[str, int]:
 
 
 def over_budget(stats: Dict[str, object]) -> Dict[str, Tuple[int, int]]:
-    """{key: (count, bound)} for each budget key the engine exceeds."""
-    return {k: (n, SERVE_PROGRAM_BUDGET[k])
-            for k, n in program_counts(stats).items()
-            if n > SERVE_PROGRAM_BUDGET[k]}
+    """{key: (count, bound)} for each budget key the engine exceeds (an
+    engine with `stats()["mp"] > 1` against `SERVE_PROGRAM_BUDGET_MP`)."""
+    budget = SERVE_PROGRAM_BUDGET_MP if stats.get("mp", 1) > 1 \
+        else SERVE_PROGRAM_BUDGET
+    return {k: (n, budget[k]) for k, n in program_counts(stats).items()
+            if n > budget[k]}
 
 
 # ---------------------------------------------------------------------------

@@ -457,6 +457,20 @@ def flash_attention_fused(q, k, v, mask=None, causal=False, scale=None,
 flash_attention_fused.composed_calls = 0
 
 
+def flash_attention_mp(q, k, v, mesh, causal=True, scale=None):
+    """The head-sharded dense flash forward of the bucketed prefill under
+    tensor-parallel serving (the reference's `shard_map` of
+    `flash_attention_fused` over the "mp" axis): q, k, v [B, S, H/mp, hd]
+    are one rank's heads, and attention never mixes heads, so the rank runs
+    the unmodified kernel on them (`flash_attention_fused`, its routing
+    included)."""
+    if q.shape[2] != k.shape[2] or k.shape != v.shape:
+        raise ValueError(f"rank {mesh.rank}: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} are not one "
+                         f"rank's heads of one attention")
+    return flash_attention_fused(q, k, v, causal=causal, scale=scale)
+
+
 def flash_attention_seg_bwd(q, k, v, seg_q, seg_k, out, lse, g, causal,
                             scale):
     """`flash_attention_bwd` under the segment mask: delta in plain torch,

@@ -1,5 +1,6 @@
-"""Paged attention for the serving steps — port of the `mp=1` part of
-`paddle_tpu/incubate/kernels/paged_attention.py`, fp and int8 pools.
+"""Paged attention for the serving steps — port of
+`paddle_tpu/incubate/kernels/paged_attention.py`, fp and int8 pools, one
+device or head-sharded over a serving mesh.
 
 The pool layout is the reference's: one layer's pages `[P, page, KVH, hd]`
 with page 0 as the null page, a page table `[B, max_pages]` int32, and per
@@ -37,7 +38,15 @@ dequantizes each key row to float32 as it reads it (the reference's
   decode kernel's do (`.launches`, `.launches_int8`).
 - `paged_prefill_attention` / `paged_verify_attention` /
   `paged_serve_attention`: the reference's entries, same argument order.
-  `mesh` (tensor-parallel) belongs to a later slice and raises.
+- Tensor-parallel (`mesh=`, a rank of `parallel.tp.ServingMesh`):
+  attention never mixes heads, so each rank owns H/mp query heads and
+  KVH/mp kv heads of every page (the pool shards on its KVH axis, the
+  scale lanes with it) while the table, lengths, q_offset and valid are
+  the same on every rank.  `paged_attention_decode_mp` and
+  `paged_prefill_attention_mp` run the unmodified kernel on the rank's q
+  heads and pool shard: the kernels read KVH from the pool's shape
+  (`_decode_split_plan`, `_prefill_split_plan`), so G = H/KVH is what it
+  is at mp=1.  `_check_mp_heads` is the divisibility rule.
 
 On the card the entries send a head dim the kernels do not take (hd not
 in {64, 128, 256}) to the plain versions, as the reference sends it to its
@@ -371,11 +380,46 @@ paged_attention_kernel.launches = 0
 paged_attention_kernel.launches_int8 = 0
 
 
-def _single_chip(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "tensor-parallel paged attention (mesh=) arrives with a later "
-            "slice (ROADMAP Queue 1: tensor-parallel serving)")
+def _mp_degree(mesh) -> int:
+    """The tensor-parallel degree of a serving mesh rank (1 for None)."""
+    return 1 if mesh is None else int(mesh.mp)
+
+
+def _check_mp_heads(q_heads: int, kv_heads: int, mp: int) -> None:
+    """The reference's rule: mp divides the query and the kv heads."""
+    if q_heads % mp or kv_heads % mp:
+        raise ValueError(
+            f"tensor-parallel serving needs num_heads ({q_heads}) and "
+            f"kv_heads ({kv_heads}) divisible by mp={mp}")
+
+
+def _check_rank_shard(q_heads: int, k_pages, mesh) -> None:
+    """A rank's q heads over its pool shard: whole groups of G = H/KVH."""
+    kvh = k_pages.shape[2]
+    if q_heads % kvh:
+        raise ValueError(f"rank {mesh.rank}: {q_heads} q heads over {kvh} "
+                         f"kv heads of its pool shard")
+
+
+def paged_attention_decode_mp(q, k_pages, v_pages, page_table, lengths,
+                              mesh, scale=None, kv_scales=None):
+    """Head-sharded `paged_attention_decode` on one rank of `mesh`: q is the
+    rank's heads [B, H/mp, hd], k/v_pages (and kv_scales) its pool shard
+    [P, page, KVH/mp, hd]; returns the rank's heads of the output.  No
+    collective: the out-projection that follows is row-parallel."""
+    _check_rank_shard(q.shape[1], k_pages, mesh)
+    return _decode_entry(q, k_pages, v_pages, page_table, lengths, scale,
+                         kv_scales)
+
+
+def paged_prefill_attention_mp(q, k_pages, v_pages, page_table, q_offset,
+                               valid, mesh, scale=None, kv_scales=None):
+    """Head-sharded `paged_prefill_attention` (and so the verify and fused
+    serving lanes) on one rank of `mesh`: q [B, T, H/mp, hd] and the
+    rank's pool shard, as `paged_attention_decode_mp`."""
+    _check_rank_shard(q.shape[2], k_pages, mesh)
+    return _prefill_entry(q, k_pages, v_pages, page_table, q_offset, valid,
+                          scale, kv_scales)
 
 
 def _kernel_takes(q):
@@ -386,8 +430,18 @@ def _kernel_takes(q):
 def paged_prefill_attention(q, k_pages, v_pages, page_table, q_offset, valid,
                             scale=None, mesh=None, kv_scales=None):
     """Chunked-prefill entry (reference `paged_prefill_attention`);
-    kv_scales selects the int8 pool's lane."""
-    _single_chip(mesh)
+    kv_scales selects the int8 pool's lane; `mesh` (mp > 1) takes the
+    rank's heads and pool shard (`paged_prefill_attention_mp`)."""
+    if _mp_degree(mesh) > 1:
+        return paged_prefill_attention_mp(q, k_pages, v_pages, page_table,
+                                          q_offset, valid, mesh, scale=scale,
+                                          kv_scales=kv_scales)
+    return _prefill_entry(q, k_pages, v_pages, page_table, q_offset, valid,
+                          scale, kv_scales)
+
+
+def _prefill_entry(q, k_pages, v_pages, page_table, q_offset, valid, scale,
+                   kv_scales):
     if q.device.type != "cpu" and not _kernel_takes(q):
         paged_prefill_attention.composed_calls += 1
         return paged_prefill_attention_ref(q, k_pages, v_pages, page_table,
@@ -423,8 +477,19 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, lengths,
                            scale=None, mesh=None, kv_scales=None):
     """Entry of the unfused decode step (`models.gpt.decode_step_paged`,
     reference `paged_attention_decode`): one query per slot over its
-    lengths[b] cached positions; kv_scales selects the int8 pool's lane."""
-    _single_chip(mesh)
+    lengths[b] cached positions; kv_scales selects the int8 pool's lane;
+    `mesh` (mp > 1) takes the rank's heads and pool shard
+    (`paged_attention_decode_mp`)."""
+    if _mp_degree(mesh) > 1:
+        return paged_attention_decode_mp(q, k_pages, v_pages, page_table,
+                                         lengths, mesh, scale=scale,
+                                         kv_scales=kv_scales)
+    return _decode_entry(q, k_pages, v_pages, page_table, lengths, scale,
+                         kv_scales)
+
+
+def _decode_entry(q, k_pages, v_pages, page_table, lengths, scale,
+                  kv_scales):
     if q.device.type != "cpu" and not _kernel_takes(q):
         paged_attention_decode.composed_calls += 1
         return paged_attention_ref(q, k_pages, v_pages, page_table, lengths,

@@ -149,8 +149,24 @@ from a fleet's router) stays in order with the loop's steps.  Each step
 and each dispatch outside a step holds `graphs.GATE` shared, so a program
 that another engine captures meanwhile sees no CUDA work of this one.
 
-Tensor parallelism (`mesh`, `mp > 1`) arrives with a later slice of the
-port and raises `NotImplementedError`.
+Tensor parallelism, as the reference's (`mp=N`, or `mesh=` a
+`parallel.tp.ServingMesh`; `mp=N` builds `serving_mesh(N)` on the engine's
+device kind, gloo on the CPU, NCCL on N cards): rank 0 is this engine and
+holds all host state (page tables, lengths, refcounts, the prefix trie,
+the tier), unchanged; each worker rank holds its shard of the weights
+(`parallel.hybrid.shard_params`, cut from the tree given, int8-quantized
+first when asked) and of the pool, KVH/mp heads of every page (and of the
+int8 scale lanes).  Every step program is mirrored: each worker builds,
+stages and runs its own copy in the order rank 0 does (`StepProgram`'s
+`mirror`), and draws the sampled lane's noise from a generator seeded like
+rank 0's, keeping its vocab columns.  Host copies of the pool (the swap
+pair, tier spills and restores, `export_prefix`) use one host slab of the
+full `[.., page, KVH, hd]` layout that every rank fills or reads its heads
+of, so the host tier and the store keep the mp=1 format.  On the card a
+gloo mesh runs the programs eagerly (`_eager=True`, asked for: gloo cannot
+be captured); an NCCL mesh captures them, collectives included.
+`kv_pool_bytes()` is rank 0's shard.  Fleets and the front door over mp
+engines raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -171,6 +187,8 @@ import torch
 
 from ..analysis.registry import SERVE_SLO
 from ..models import gpt as gpt_mod
+from ..parallel.hybrid import shard_params
+from ..parallel.tp import EngineLink, ServingMesh, head_slice, serving_mesh
 from ..profiler import profiler as _prof
 from ..quantization.serving import (kv_page_bytes, normalize_quant_dtype,
                                     quantize_serving_params)
@@ -395,8 +413,23 @@ class LLMEngine:
         self.weight_dtype = normalize_quant_dtype(weight_dtype,
                                                   "weight_dtype")
         self.kv_dtype = normalize_quant_dtype(kv_dtype, "kv_dtype")
-        if mesh is not None or (mp is not None and mp > 1):
-            raise _later("mesh/mp>1", "tensor-parallel serving")
+        if mesh is not None and not isinstance(mesh, ServingMesh):
+            raise TypeError(f"mesh must be a parallel.tp.ServingMesh (rank "
+                            f"0 of a serving mesh), got {type(mesh).__name__}")
+        if mesh is not None and mp is not None and mp != mesh.mp:
+            raise ValueError(f"mp={mp} but the mesh has mp={mesh.mp}")
+        self.mp = int(mesh.mp if mesh is not None else (mp or 1))
+        if self.mp > 1:
+            # before any worker starts (reference rules and messages)
+            if config.num_heads % self.mp or config.kv_heads % self.mp:
+                raise ValueError(
+                    f"mp={self.mp} must divide num_heads "
+                    f"({config.num_heads}) and kv_heads ({config.kv_heads})")
+            if config.vocab_size % self.mp:
+                raise ValueError(
+                    f"mp={self.mp} must divide vocab_size "
+                    f"({config.vocab_size}): the embedding and head shard "
+                    f"over the vocab axis")
         if trace_ring < 1:
             raise ValueError(f"trace_ring must be >= 1, got {trace_ring}")
         if trace_retention is not None and trace_retention < 0:
@@ -423,8 +456,27 @@ class LLMEngine:
             # they are, so replicas share one copy
             with GATE.shared():
                 params = quantize_serving_params(params, config)
-        self.params = params
         self.config = config
+        self.mesh = None
+        self._link = None
+        own_mesh = None
+        if self.mp > 1:
+            if mesh is None:
+                mesh = own_mesh = serving_mesh(
+                    self.mp, [self.device] * self.mp
+                    if self.device.type == "cpu" else None)
+            if mesh.devices[0] != self.device:
+                raise ValueError(f"the mesh's rank 0 is on {mesh.devices[0]}, "
+                                 f"the engine on {self.device}")
+            if mesh.backend == "gloo" and self.device.type == "cuda" and \
+                    not _eager:
+                raise ValueError(
+                    "a CUDA graph cannot capture gloo collectives: an mp "
+                    "engine on a gloo mesh runs its programs eagerly; pass "
+                    "_eager=True, or use an NCCL mesh (one card a rank)")
+            self.mesh = mesh
+        self.params = params if self.mesh is None else \
+            shard_params(params, config, self.mp, 0)
         self.eos_token_id = eos_token_id
         max_model_len = max_model_len or config.max_seq_len
         if max_model_len % page_size:
@@ -522,7 +574,7 @@ class LLMEngine:
         with self._on_device():
             self._pool = gpt_mod.init_paged_cache(
                 config, num_pages, page_size, device=self.device,
-                kv_dtype=self.kv_dtype)
+                kv_dtype=self.kv_dtype, mp=self.mp)
         self._queue: deque = deque()
         self._running: Dict[int, _Running] = {}
         self._prefilling: Dict[int, _Prefilling] = {}   # slot -> state, FIFO
@@ -535,6 +587,20 @@ class LLMEngine:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
         self._capture = not _eager
+        if self.mesh is not None:
+            # every worker makes its part of this engine: its weight shard
+            # (sent one rank at a time), pool shard and generator
+            with GATE.shared():
+                eid = self.mesh.attach(
+                    lambda r: shard_params(params, config, self.mp, r),
+                    {"config": config, "sampling": self._sampling,
+                     "capture": self._capture, "num_pages": num_pages,
+                     "page_size": page_size, "kv_dtype": self.kv_dtype,
+                     "seed": seed})
+            self._link = EngineLink(self.mesh, eid)
+            # the workers drop their part with the engine (and a mesh the
+            # engine built closes)
+            weakref.finalize(self, _release_link, self._link, own_mesh)
         self._programs: Dict[str, StepProgram] = {}
         self._bucket_pool = None        # graph memory pool of the buckets
         # the un-synced result of the last fused dispatch (double_buffer),
@@ -963,11 +1029,10 @@ class LLMEngine:
         raise ValueError(f"no bucket for prompt length {n}")
 
     def _noise(self, rows: int) -> torch.Tensor:
-        """Gumbel noise [rows, V] for one pick, from the engine's
-        generator."""
-        return gpt_mod.gumbel_noise((rows, self.config.vocab_size),
-                                    self.config.dtype, self._generator,
-                                    self.device)
+        """Gumbel noise for one pick, from the engine's generator: [rows, V],
+        or rank 0's vocab columns of it under mp."""
+        return draw_noise(self.config, self._generator, self.device, rows,
+                          self.mesh)
 
     # ---- step programs ----------------------------------------------------
     @contextlib.contextmanager
@@ -1039,14 +1104,22 @@ class LLMEngine:
         if rows:
             inputs["greedy"] = ((rows,), torch.bool, False)
             if self._sample:
-                inputs["noise"] = ((rows, c.vocab_size), c.dtype, 0.0)
+                # the rank's vocab columns under mp
+                inputs["noise"] = ((rows, c.vocab_size // self.mp), c.dtype,
+                                   0.0)
         # the body holds params, pool and config, never the engine, so the
         # graphs go with the engine
         body = functools.partial(_BODIES[kind], self.params, c, self._pool,
-                                 self._sampling)
+                                 self._sampling, self.mesh)
+        if self._link is not None:
+            self._link.declare(role, {"kind": kind, "inputs": inputs,
+                                      "fed": fed,
+                                      "bucket_pool": kind == "prefill"})
         prog = StepProgram(role, body, inputs, self.device,
                            capture=self._capture, device_fed=fed,
-                           mempool=mempool, fetch=kind != "swap_out")
+                           mempool=mempool, fetch=kind != "swap_out",
+                           mirror=self._link,
+                           capture_mode=_capture_mode(self.mesh))
         self._programs[role] = prog
         return prog
 
@@ -1055,6 +1128,12 @@ class LLMEngine:
         prog = self._program(role)
         if "noise" in prog.inputs:
             values["noise"] = self._noise(prog.inputs["greedy"].shape[0])
+        if self.mesh is not None and role == "swap_in":
+            # the workers stage their kv heads of the full-layout host slab
+            full = {n: _shared(values[n]) for n in self._pool}
+            self._link.payload = {"feed": full}
+            heads = self._heads
+            values.update({n: t[:, :, :, heads] for n, t in full.items()})
         prog.stage(**values)
         prog.run()
         return prog
@@ -1804,6 +1883,8 @@ class LLMEngine:
         n = len(pages)
         ids = np.zeros((mgr.max_pages_per_slot,), np.int32)
         ids[:n] = pages
+        if self.mesh is not None:
+            return self._swap_out_mp(ids, n)
         out = self._dispatch("swap_out", ids=ids).out
         self._port_c["swap_out_dispatches"] += 1
         pin = self.device.type == "cuda"
@@ -1818,6 +1899,35 @@ class LLMEngine:
             event = torch.cuda.Event()
             event.record()
         return {"data": data, "event": event, "fetched": False}
+
+    @property
+    def _heads(self) -> slice:
+        """Rank 0's kv heads of the full pool layout."""
+        return head_slice(self.mesh, self.config.kv_heads)
+
+    def _full_leaf_shape(self, name: str, pages: int) -> tuple:
+        """A pool leaf's host shape over `pages` pages, every kv head."""
+        a = self._pool[name]
+        shape = [a.shape[0], pages] + list(a.shape[2:])
+        shape[3] *= self.mp
+        return tuple(shape)
+
+    def _swap_out_mp(self, ids, n: int) -> Dict[str, object]:
+        """`_swap_out` under mp: every rank copies its kv heads of the
+        gathered pages into one shared host slab a leaf, of the full
+        layout; the workers answer when their copies are done, so the
+        record is complete on return (no event)."""
+        data = {name: torch.empty(self._full_leaf_shape(name, n),
+                                  dtype=a.dtype).share_memory_()
+                for name, a in self._pool.items()}
+        self._link.payload = {"into": data, "n": n}
+        out = self._dispatch("swap_out", ids=ids).out
+        self._port_c["swap_out_dispatches"] += 1
+        heads = self._heads
+        for name, a in out.items():
+            data[name][:, :, :, heads].copy_(a[:, :n])
+        self._link.collect()
+        return {"data": data, "event": None, "fetched": False}
 
     def _materialize_swap(self, rec: Dict[str, object]) -> None:
         """Wait for a swap record's host copy (idempotent; on its event, not
@@ -1985,7 +2095,8 @@ class LLMEngine:
                 raise KeyError(f"slab leaves {sorted(d)}, the pool's "
                                f"{sorted(self._pool)}")
         for name, leaf in self._pool.items():
-            want = (leaf.shape[0],) + tuple(leaf.shape[2:])
+            full = self._full_leaf_shape(name, 1)
+            want = full[:1] + full[2:]
             lanes = [lane_to_tensor(d[name], leaf.dtype) for d in datas]
             for t in lanes:
                 if tuple(t.shape) != want:
@@ -2428,7 +2539,7 @@ class LLMEngine:
             "buckets": list(self.buckets),
             "prefill_chunk": self.prefill_chunk,
             "spec_len": self.spec_len,
-            "mp": 1,
+            "mp": self.mp,
             "role": self.role,
             "engine_steps": self._step_idx,
             "decode_iterations": self._decode_iters.value,
@@ -2709,7 +2820,7 @@ class LLMEngine:
                 "double_buffer": self.double_buffer,
                 "admission": self.admission, "preempt": self.preempt,
                 "kv_tier": self.kv_tier, "spill_dir": self.spill_dir,
-                "mp": 1, "weight_dtype": self.weight_dtype,
+                "mp": self.mp, "weight_dtype": self.weight_dtype,
                 "kv_dtype": self.kv_dtype,
                 "request_tracing": self._req_tracing,
                 "inflight": self._inflight is not None,
@@ -2756,68 +2867,116 @@ class LLMEngine:
 
     def kv_pool_bytes(self) -> int:
         """At-rest bytes of the device KV pool, every leaf (the scale lanes
-        of an int8 pool too)."""
+        of an int8 pool too); under mp, rank 0's shard (each rank holds
+        as much)."""
         return sum(t.numel() * t.element_size() for t in self._pool.values())
 
+    def rank_pool_bytes(self) -> List[int]:
+        """Every rank's `kv_pool_bytes`, rank 0 first (the workers'
+        asked)."""
+        rest = self._link.worker_query("pool_bytes") if self._link else []
+        return [self.kv_pool_bytes()] + rest
 
-def pick_tokens(logits, greedy, noise, sampling) -> torch.Tensor:
+    def rank_replays(self) -> List[int]:
+        """Every rank's graph replays (`stats()["graph_replays"]` on rank
+        0), rank 0 first."""
+        rest = self._link.worker_query("replays") if self._link else []
+        return [sum(p.replays for p in self._programs.values())] + rest
+
+
+def draw_noise(config, generator, device, rows: int, mesh=None):
+    """One pick's Gumbel noise [rows, V] from `generator`, or a rank's vocab
+    columns of it under `mesh` (every rank draws the full width, so the
+    ranks' generators stay in step and their columns are the mp=1
+    noise)."""
+    noise = gpt_mod.gumbel_noise((rows, config.vocab_size), config.dtype,
+                                 generator, device)
+    if mesh is None:
+        return noise
+    return noise[:, mesh.vocab_slice(config.vocab_size)]
+
+
+def _capture_mode(mesh) -> str:
+    """A program's capture error mode: "thread_local" where it captures
+    NCCL collectives (see `graphs.capture`), else "global"."""
+    return "thread_local" if mesh is not None and mesh.backend == "nccl" \
+        else "global"
+
+
+def _shared(t: torch.Tensor) -> torch.Tensor:
+    """`t` in shared host memory (moved there if it is not)."""
+    return t if t.is_shared() else t.contiguous().share_memory_()
+
+
+def _release_link(link, mesh) -> None:
+    """An mp engine's finalizer: the workers drop its part, and a mesh the
+    engine built closes."""
+    link.drop()
+    if mesh is not None:
+        mesh.close()
+
+
+def pick_tokens(logits, greedy, noise, sampling, mesh=None) -> torch.Tensor:
     """[B, V] logits -> [B] int32 on the device: argmax, or the Gumbel pick
     under `noise` [B, V] with the greedy mask routing temperature=0.0
-    requests to the argmax.  sampling: (sample, temperature, top_k)."""
+    requests to the argmax.  sampling: (sample, temperature, top_k).
+    Under `mesh` the logits and the noise are the rank's vocab columns."""
     sample, temperature, top_k = sampling
     if not sample:
-        return gpt_mod.sharded_argmax(logits)
+        return gpt_mod.sharded_argmax(logits, mesh)
     ids = gpt_mod.sample_token(logits, None, sample=True,
                                temperature=temperature, top_k=top_k,
-                               noise=noise)
-    return torch.where(greedy, gpt_mod.sharded_argmax(logits), ids)
+                               noise=noise, mesh=mesh)
+    return torch.where(greedy, gpt_mod.sharded_argmax(logits, mesh), ids)
 
 
-# the programs' bodies: (params, config, pool, sampling) bound by the engine,
-# the static inputs by name
+# the programs' bodies: (params, config, pool, sampling, mesh) bound by the
+# engine (a worker binds its own), the static inputs by name
 
 
-def _fused_body(params, config, pool, sampling, tokens, table, q_offset,
-                valid, greedy, noise=None):
+def _fused_body(params, config, pool, sampling, mesh, tokens, table,
+                q_offset, valid, greedy, noise=None):
     """[B, T + 1] int32: the step's tokens, then each slot's accept count
     (one output, so one host copy)."""
     sample, temperature, top_k = sampling
     out, accept, _ = gpt_mod.serve_step_paged(
         params, tokens, pool, table, q_offset, valid, config, greedy=greedy,
-        sample=sample, temperature=temperature, top_k=top_k, noise=noise)
+        sample=sample, temperature=temperature, top_k=top_k, mesh=mesh,
+        noise=noise)
     return torch.cat([out, accept[:, None]], dim=1)
 
 
-def _decode_body(params, config, pool, sampling, tokens, table, lengths,
-                 greedy, noise=None):
+def _decode_body(params, config, pool, sampling, mesh, tokens, table,
+                 lengths, greedy, noise=None):
     logits, _ = gpt_mod.decode_step_paged(params, tokens, pool, table,
-                                          lengths, config)
-    return pick_tokens(logits, greedy, noise, sampling)
+                                          lengths, config, mesh=mesh)
+    return pick_tokens(logits, greedy, noise, sampling, mesh)
 
 
-def _verify_body(params, config, pool, sampling, tokens, table, q_offset,
-                 valid):
+def _verify_body(params, config, pool, sampling, mesh, tokens, table,
+                 q_offset, valid):
     """Greedy only: the argmax at every position, [B, T] int32."""
     logits, _ = gpt_mod.verify_step_paged(params, tokens, pool, table,
-                                          q_offset, valid, config)
-    return gpt_mod.sharded_argmax(logits)
+                                          q_offset, valid, config, mesh=mesh)
+    return gpt_mod.sharded_argmax(logits, mesh)
 
 
-def _chunk_body(params, config, pool, sampling, tokens, table, q_offset,
-                valid, greedy, noise=None):
+def _chunk_body(params, config, pool, sampling, mesh, tokens, table,
+                q_offset, valid, greedy, noise=None):
     logits, _ = gpt_mod.prefill_chunk_paged(params, tokens, config, pool,
-                                            table, q_offset, valid)
-    return pick_tokens(logits, greedy, noise, sampling)
+                                            table, q_offset, valid,
+                                            mesh=mesh)
+    return pick_tokens(logits, greedy, noise, sampling, mesh)
 
 
-def _prefill_body(params, config, pool, sampling, ids, pages, length, greedy,
-                  noise=None):
+def _prefill_body(params, config, pool, sampling, mesh, ids, pages, length,
+                  greedy, noise=None):
     logits, _ = gpt_mod.prefill_paged(params, ids, config, pool, pages,
-                                      length)
-    return pick_tokens(logits, greedy, noise, sampling)
+                                      length, mesh=mesh)
+    return pick_tokens(logits, greedy, noise, sampling, mesh)
 
 
-def _copy_body(params, config, pool, sampling, src, dst):
+def _copy_body(params, config, pool, sampling, mesh, src, dst):
     """COW page copy: page `src` into page `dst` in every leaf of the pool
     (k and v, and the scale lanes of an int8 pool), in place."""
     src, dst = src.long(), dst.long()
@@ -2825,12 +2984,12 @@ def _copy_body(params, config, pool, sampling, src, dst):
         leaf.index_copy_(1, dst, leaf.index_select(1, src))
 
 
-def _swap_out_body(params, config, pool, sampling, ids):
+def _swap_out_body(params, config, pool, sampling, mesh, ids):
     """The victim's pages, every leaf, [L, max_pages, ...] each."""
     return gpt_mod.swap_out_pages(pool, ids)
 
 
-def _swap_in_body(params, config, pool, sampling, ids, **data):
+def _swap_in_body(params, config, pool, sampling, mesh, ids, **data):
     """The parked pages back into the pool, every leaf, in place."""
     gpt_mod.swap_in_pages(pool, ids, data)
 

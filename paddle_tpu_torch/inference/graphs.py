@@ -59,6 +59,14 @@ Captures are rare (one per program per engine), so in steady state only
 shared holds are taken, and those never wait on each other.  Each engine
 stream gets a side stream of its own, so graphs replayed on different
 streams never share the split counters they baked in.
+
+Under tensor-parallel serving a program on rank 0 has a `mirror` (the
+engine's link to its `parallel.tp.ServingMesh`): `build` tells every
+worker to build its own copy of the program before rank 0 builds, and
+`run` sends the staged host inputs, before rank 0 runs, to the workers,
+which stage them into their copies and run them.  The bodies' collectives
+then meet in the same order on every rank, the warm-up's and (under NCCL)
+the captured ones; a worker draws the sampled lane's noise itself.
 """
 from __future__ import annotations
 
@@ -162,13 +170,18 @@ def side_stream(device, stream=None) -> "torch.cuda.Stream":
     return s
 
 
-def capture(fn: Callable[[], object], device, mempool=None):
+def capture(fn: Callable[[], object], device, mempool=None,
+            mode: str = "global"):
     """Run `fn()` once eagerly on the side stream of the current stream
     (it builds the kernels and whatever their wrappers cache), then capture
     it on that stream into a `torch.cuda.CUDAGraph`.  The caller holds
     `GATE` exclusively and takes back the launch counts the two runs made.
-    Returns (graph, the captured call's output, the launch counts one
-    replay adds, the split counters the graph baked in)."""
+    `mode` is the capture's error mode: "global" (any thread's unsafe CUDA
+    call fails the capture), or "thread_local" for a program whose NCCL
+    collectives are captured (the process group's watchdog thread polls
+    the events of earlier collectives; `GATE` still keeps other engines
+    out).  Returns (graph, the captured call's output, the launch counts
+    one replay adds, the split counters the graph baked in)."""
     cur = torch.cuda.current_stream(device)
     side = side_stream(device, cur)
     side.wait_stream(cur)
@@ -181,7 +194,8 @@ def capture(fn: Callable[[], object], device, mempool=None):
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=mempool, stream=side):
+            with torch.cuda.graph(graph, pool=mempool, stream=side,
+                                  capture_error_mode=mode):
                 out = fn()
         finally:
             if collecting:
@@ -201,8 +215,12 @@ class StepProgram:
                  inputs: Dict[str, Tuple[tuple, torch.dtype, object]],
                  device: torch.device, capture: bool = True,
                  device_fed: Tuple[str, ...] = (), mempool=None,
-                 fetch: bool = True):
+                 fetch: bool = True, mirror=None,
+                 capture_mode: str = "global"):
         self.name = name
+        self.capture_mode = capture_mode
+        self.mirror = mirror
+        self._mirrored: Dict[str, np.ndarray] = {}
         self.device = device
         self.capture = capture and device.type == "cuda"
         self.mempool = mempool
@@ -237,6 +255,8 @@ class StepProgram:
             return
         with GATE.exclusive():
             if not self.built:
+                if self.mirror is not None:
+                    self.mirror.build(self.name)
                 self._build()
 
     def _build(self) -> None:
@@ -246,7 +266,8 @@ class StepProgram:
             t.fill_(self._inert[n])
         if self.capture:
             self.graph, self.out, self._delta, self._keep = capture(
-                lambda: self._body(**self.inputs), self.device, self.mempool)
+                lambda: self._body(**self.inputs), self.device, self.mempool,
+                self.capture_mode)
         else:
             self.out = self._body(**self.inputs)
         K.add_counts({k: before[k] - n for k, n in K.counts().items()})
@@ -277,6 +298,8 @@ class StepProgram:
                 continue
             self._host_np[n][...] = v
             self.inputs[n].copy_(self._host[n], non_blocking=True)
+            if self.mirror is not None:
+                self._mirrored[n] = self._host_np[n].copy()
         if self._staged is not None:
             self._staged.record()
         self._fresh = True
@@ -290,6 +313,8 @@ class StepProgram:
             raise RuntimeError(f"{self.name}: stage the inputs before each "
                                f"run")
         self._fresh = False
+        if self.mirror is not None:
+            self.mirror.run(self.name, self._mirrored)
         if self.graph is not None:
             self.graph.replay()
             self.replays += 1

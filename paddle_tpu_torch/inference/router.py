@@ -66,7 +66,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from .engine import LLMEngine, RequestOutput
+from .engine import LLMEngine, RequestOutput, _later
 from .metrics import FleetMetrics
 
 ROUTER_POLICIES = ("affinity", "round_robin", "least_loaded")
@@ -229,11 +229,15 @@ class EngineFleet:
         if roles is not None:
             n_p, n_d = _parse_roles(roles)
             role_list = ["prefill"] * n_p + ["decode"] * n_d
+        kw = dict(engine_kwargs or {})
+        if kw.get("mesh") is not None or (kw.get("mp") or 1) > 1 or \
+                any(e.mp > 1 for e in engines or []):
+            raise _later("a fleet (or the front door) over tensor-parallel "
+                         "engines", "tensor-parallel fleet/door/generate")
         if engines is None:
             if params is None or config is None:
                 raise ValueError("EngineFleet needs (params, config) or "
                                  "pre-built engines=[...]")
-            kw = dict(engine_kwargs or {})
             if role_list is not None:
                 replicas = len(role_list)
                 # the KV moves through the durable tier store: the tier on,

@@ -32,6 +32,22 @@ scales the logits' columns.  An int8 pool (`init_paged_cache(...,
 kv_dtype="int8")`) adds `k_scale`/`v_scale` `[L, P, page, KVH]` float32:
 every pool write quantizes per token and kv head (`_quantize_kv`), and the
 paged attention entries dequantize on read (`kv_scales=`).
+
+Tensor-parallel serving (`mesh=`, a rank of `parallel.tp.ServingMesh`
+with mp > 1): every serving function runs rank-locally over the rank's
+shard (`parallel.hybrid.shard_params`): qkv, fc1 and fcg column-split
+(the packed qkv in the per-partition layout `_unpack_qkv` reads), proj and
+fc2 row-split, `wte` split by vocab rows and `lm_head` by vocab columns,
+the pool holding KVH/mp heads of every page.  Head counts come from the
+shard (`_heads`), never from a shrunken config (`head_dim` derives from
+`num_heads`).  The row-parallel outputs are summed over the ranks and
+their replicated biases added once after; the embedding is a masked local
+take summed over the ranks; the logits stay vocab-sharded `[.., V/mp]` and
+the picks merge (value, global index) pairs: MAX of the values, then MIN
+of the index where the value is the max (`sharded_argmax`, `sample_token`).
+The reference pins its activations' layouts for GSPMD with
+`serving_mp_constraint`; an explicit rank-local computation has no layout
+to pin, so that function has no counterpart here.
 """
 from __future__ import annotations
 
@@ -47,8 +63,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..incubate.distributed.models.moe.dispatch import moe_ffn_dense
 from ..incubate.kernels.flash_attention import (flash_attention_fused,
+                                                flash_attention_mp,
                                                 remat_policy_save_attention)
-from ..incubate.kernels.paged_attention import (paged_attention_decode,
+from ..incubate.kernels.paged_attention import (_check_mp_heads,
+                                                _mp_degree,
+                                                paged_attention_decode,
                                                 paged_prefill_attention,
                                                 paged_serve_attention,
                                                 paged_verify_attention)
@@ -510,7 +529,7 @@ def count_params(params):
 
 
 # ---------------------------------------------------------------------------
-# serving trunk (mp=1; fp or weight-only int8)
+# serving trunk (fp or weight-only int8; tensor-parallel under mesh=)
 # ---------------------------------------------------------------------------
 
 def _deq(q, scale, dtype):
@@ -534,7 +553,27 @@ def _w(bp, name, dtype):
     return _deq(q, bp[name + "_scale"], dtype)
 
 
-def _ffn_dense(bp, h, c: GPTConfig):
+def _heads(c: GPTConfig, mesh=None):
+    """This rank's (query heads, kv heads): the config's over mp."""
+    mp = _mp_degree(mesh)
+    if mp > 1:
+        _check_mp_heads(c.num_heads, c.kv_heads, mp)
+    return c.num_heads // mp, c.kv_heads // mp
+
+
+def _row_parallel(y, bp, bias, mesh):
+    """A row-parallel matmul's partial sums reduced over the ranks, then
+    its replicated bias added once."""
+    if _mp_degree(mesh) > 1:
+        y = mesh.all_reduce(y, "sum")
+    if bias in bp:
+        y = y + bp[bias]
+    return y
+
+
+def _ffn_dense(bp, h, c: GPTConfig, mesh=None):
+    """Dense FFN; under `mesh` fc1/fcg are the rank's columns and fc2 its
+    rows, the output summed over the ranks."""
     up = torch.matmul(h, _w(bp, "fc1_w", c.dtype))
     if "fc1_b" in bp:
         up = up + bp["fc1_b"]
@@ -546,31 +585,45 @@ def _ffn_dense(bp, h, c: GPTConfig):
         h = act(gate) * up
     else:
         h = act(up)
-    out = torch.matmul(h, _w(bp, "fc2_w", c.dtype))
-    if "fc2_b" in bp:
-        out = out + bp["fc2_b"]
-    return out
+    return _row_parallel(torch.matmul(h, _w(bp, "fc2_w", c.dtype)), bp,
+                         "fc2_b", mesh)
 
 
-def _unpack_qkv(qkv, c: GPTConfig):
-    """Split the packed `[q | k | v]` columns (the reference's parts=1
-    layout; the per-partition one belongs to tensor-parallel serving)."""
-    H, KVH, hd = c.num_heads, c.kv_heads, c.head_dim
-    return torch.split(qkv, [H * hd, KVH * hd, KVH * hd], dim=-1)
+def _unpack_qkv(qkv, c: GPTConfig, parts: int = 1, heads=None):
+    """Split packed qkv columns into flat q, k, v.  parts=1 reads the
+    global `[q | k | v]` layout; parts=mp the per-partition
+    `[q_0 k_0 v_0 | q_1 k_1 v_1 | ...]` one
+    (`parallel.hybrid.pack_qkv_partitions`), giving q, k, v in global head
+    order (reference `_unpack_qkv`).  `heads` = (H, KVH) of the columns
+    given (default the config's): a rank's shard is one partition of its
+    own heads."""
+    H, KVH = heads or (c.num_heads, c.kv_heads)
+    hd = c.head_dim
+    if parts <= 1:
+        return torch.split(qkv, [H * hd, KVH * hd, KVH * hd], dim=-1)
+    lead = qkv.shape[:-1]
+    Hl, KVHl = H // parts, KVH // parts
+    g = qkv.reshape(*lead, parts, (Hl + 2 * KVHl) * hd)
+    q = g[..., :Hl * hd].reshape(*lead, H * hd)
+    k = g[..., Hl * hd:(Hl + KVHl) * hd].reshape(*lead, KVH * hd)
+    v = g[..., (Hl + KVHl) * hd:].reshape(*lead, KVH * hd)
+    return q, k, v
 
 
-def _prefill_qkv(bp, x, c: GPTConfig, pos=None, pos_offset=None):
+def _prefill_qkv(bp, x, c: GPTConfig, pos=None, pos_offset=None, mesh=None):
     """Pre-norm + packed qkv + rope over [B, T, D] (positions pos_offset +
     0..T-1, or explicit per-slot positions `pos` [B, T]).  Returns post-rope
-    q [B, T, H, hd], k, v [B, T, KVH, hd]."""
+    q [B, T, H, hd], k, v [B, T, KVH, hd], the rank's heads under
+    `mesh`."""
     B, T, _ = x.shape
-    H, KVH, hd = c.num_heads, c.kv_heads, c.head_dim
+    H, KVH = _heads(c, mesh)
+    hd = c.head_dim
     h = _norm(x, bp["ln1_w"], bp["ln1_b"], c) if c.norm_position == "pre" \
         else x
     qkv = torch.matmul(h, _w(bp, "qkv_w", c.dtype))
     if "qkv_b" in bp:
         qkv = qkv + bp["qkv_b"]
-    q, k, v = _unpack_qkv(qkv, c)
+    q, k, v = _unpack_qkv(qkv, c, heads=(H, KVH))
     q = q.reshape(B, T, H, hd)
     k = k.reshape(B, T, KVH, hd)
     v = v.reshape(B, T, KVH, hd)
@@ -582,21 +635,22 @@ def _prefill_qkv(bp, x, c: GPTConfig, pos=None, pos_offset=None):
     return q, k, v
 
 
-def _decode_qkv(bp, x, c: GPTConfig, pos):
+def _decode_qkv(bp, x, c: GPTConfig, pos, mesh=None):
     """`_prefill_qkv` for one token a slot: x [B, D] at per-slot positions
     pos [B].  Returns post-rope q [B, H, hd], k, v [B, KVH, hd]."""
-    q, k, v = _prefill_qkv(bp, x[:, None], c, pos=pos[:, None])
+    q, k, v = _prefill_qkv(bp, x[:, None], c, pos=pos[:, None], mesh=mesh)
     return q[:, 0], k[:, 0], v[:, 0]
 
 
-def _block_tail(bp, x, attn, c: GPTConfig):
+def _block_tail(bp, x, attn, c: GPTConfig, mesh=None):
     """Out-proj + residual (+ post-LN) + FFN or MoE + residual (+ post-LN);
     attn is [..., D] or per head [..., H, hd], x the block input.  Returns
-    (x, aux): the MoE load-balance loss, None when dense."""
-    attn = torch.matmul(attn.reshape(x.shape), _w(bp, "proj_w", c.dtype))
-    if "proj_b" in bp:
-        attn = attn + bp["proj_b"]
-    x = x + attn
+    (x, aux): the MoE load-balance loss, None when dense.  Under `mesh`
+    attn holds the rank's heads, proj and the FFN are row-parallel (summed
+    over the ranks) and an MoE FFN runs replicated."""
+    attn = torch.matmul(attn.reshape(*x.shape[:-1], -1),
+                        _w(bp, "proj_w", c.dtype))
+    x = x + _row_parallel(attn, bp, "proj_b", mesh)
     if c.norm_position != "pre":
         x = _norm(x, bp["ln1_w"], bp["ln1_b"], c)
     h = _norm(x, bp["ln2_w"], bp["ln2_b"], c) if c.norm_position == "pre" \
@@ -606,40 +660,50 @@ def _block_tail(bp, x, attn, c: GPTConfig):
         y, aux = moe_ffn_dense(bp, h.reshape(-1, c.hidden_size), c)
         y = y.reshape(h.shape)
     else:
-        y = _ffn_dense(bp, h, c)
+        y = _ffn_dense(bp, h, c, mesh)
     x = x + y
     if c.norm_position != "pre":
         x = _norm(x, bp["ln2_w"], bp["ln2_b"], c)
     return x, aux
 
 
-def _layer_tail(bp, x, attn, c: GPTConfig):
+def _layer_tail(bp, x, attn, c: GPTConfig, mesh=None):
     """`_block_tail` for the serving programs, which drop the aux (the
     reference's `_layer_tail`)."""
-    return _block_tail(bp, x, attn, c)[0]
+    return _block_tail(bp, x, attn, c, mesh)[0]
 
 
 def _embed(params, tokens, config: GPTConfig, mesh=None):
-    """Token-table lookup (mp=1): an int8 table's rows are gathered with
-    their scales and dequantized, so the fp table never exists."""
-    if mesh is not None:
-        raise NotImplementedError("vocab-sharded embedding arrives with "
-                                  "tensor-parallel serving")
+    """Token-table lookup: an int8 table's rows are gathered with their
+    scales and dequantized, so the fp table never exists.  Under `mesh` the
+    table is the rank's vocab rows: each rank takes the rows it owns, zeros
+    for the others, and the ranks' rows are summed (exactly one rank owns
+    each id, so the sum is the replicated take, bit for bit)."""
+    quant = "wte_q" in params
+    table = params["wte_q" if quant else "wte"]
     t = tokens.long()
-    if "wte_q" in params:
-        return _deq(params["wte_q"][t], params["wte_scale"][t], config.dtype)
-    return params["wte"][t]
+    if _mp_degree(mesh) > 1:
+        Vl = table.shape[0]
+        t = t - mesh.rank * Vl
+        ok = (t >= 0) & (t < Vl)
+        t = t.clamp(0, Vl - 1)
+    rows = _deq(table[t], params["wte_scale"][t], config.dtype) if quant \
+        else table[t]
+    if _mp_degree(mesh) <= 1:
+        return rows
+    rows = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
+    return mesh.all_reduce(rows, "sum")
 
 
 def head_logits(x, params, config: GPTConfig, mesh=None):
-    """Vocab projection `x @ head` (mp=1).  An int8 head enters the matmul
-    upcast to the compute dtype (int8 values are exact there) and its
-    per-vocab scales multiply the logits' columns afterwards, the same math
-    since a scale is constant along the contraction; the transient is
-    logits-shaped, not [V, D] dequantized."""
-    if mesh is not None:
-        raise NotImplementedError("vocab-sharded head arrives with "
-                                  "tensor-parallel serving")
+    """Vocab projection `x @ head`.  An int8 head enters the matmul upcast
+    to the compute dtype (int8 values are exact there) and its per-vocab
+    scales multiply the logits' columns afterwards, the same math since a
+    scale is constant along the contraction; the transient is
+    logits-shaped, not [V, D] dequantized.  Under `mesh` the head is the
+    rank's vocab shard and so are the logits, [.., V/mp]: the replicated
+    [.., V] logits never exist (the picks merge them)."""
     if config.tie_word_embeddings and "wte_q" in params:
         return (torch.matmul(x, params["wte_q"].T.to(config.dtype)) *
                 params["wte_scale"].T).to(config.dtype)
@@ -649,12 +713,28 @@ def head_logits(x, params, config: GPTConfig, mesh=None):
     return torch.matmul(x, head_matrix(params, config))
 
 
+def _merge_pick(values, mesh):
+    """The global first-occurrence argmax of vocab-sharded `values`
+    [.., V/mp]: each rank's (max, global index of its first max), then the
+    MAX of the maxima and the MIN of the indices where a rank holds it, V
+    the sentinel."""
+    Vl = values.shape[-1]
+    li = torch.argmax(values, dim=-1, keepdim=True)
+    lv = torch.gather(values, -1, li)[..., 0].to(torch.float32, copy=True)
+    li = (li[..., 0] + mesh.rank * Vl).to(torch.int32)
+    gm = mesh.all_reduce(lv.clone(), "max")
+    cand = torch.where(lv == gm, li, torch.full_like(li, Vl * mesh.mp))
+    return mesh.all_reduce(cand, "min")
+
+
 def sharded_argmax(logits, mesh=None):
-    """First-occurrence argmax over the last axis (mp=1), as int32."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded argmax merge arrives with "
-                                  "tensor-parallel serving")
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    """First-occurrence argmax over the vocab (last) axis, as int32.  Under
+    `mesh` the logits are the rank's vocab shard and the ranks merge their
+    (value, global index) pairs: the result is `torch.argmax` of the whole
+    row on every rank, ties to the lowest index as there."""
+    if _mp_degree(mesh) <= 1:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return _merge_pick(logits, mesh)
 
 
 def _gumbel_pick(logits, noise, temperature, top_k):
@@ -677,17 +757,46 @@ def gumbel_noise(shape, dtype, generator: torch.Generator, device):
     return (-torch.log(-torch.log(u))).to(dtype)
 
 
+def _sharded_gumbel_pick(logits, noise, temperature, top_k, mesh):
+    """`_gumbel_pick` over vocab-sharded logits [B, V/mp] and the rank's
+    slice of the noise: the top-k threshold from every rank's local top-k
+    (an all-gather written as a SUM over a zero-padded [B, mp * k] buffer),
+    then the (value, global index) merge of `sharded_argmax`.  The same
+    values meet the same comparisons as at mp=1, so the pick is the
+    same."""
+    lg = logits / temperature
+    if top_k:
+        k, Vl, r = int(top_k), lg.shape[-1], mesh.rank
+        kl = min(k, Vl)
+        buf = torch.zeros((*lg.shape[:-1], mesh.mp * k), dtype=torch.float32,
+                          device=lg.device)
+        buf[..., r * k:r * k + kl] = torch.topk(lg, kl, dim=-1).values
+        buf[..., r * k + kl:(r + 1) * k] = -math.inf
+        kth = torch.topk(mesh.all_reduce(buf, "sum"), k, dim=-1) \
+            .values[..., -1:]
+        lg = torch.where(lg < kth, torch.full_like(lg, -1e30), lg)
+    return _merge_pick(lg + noise.to(lg.dtype), mesh)
+
+
 def sample_token(logits, generator, *, sample, temperature, top_k, mesh=None,
                  noise=None):
     """Greedy argmax or temperature/top-k sample over [B, V] logits, the
     categorical draw written as the Gumbel-argmax identity (as the
     reference).  Noise comes from `generator` unless given.  Returns ids [B]
-    int32."""
+    int32.  Under `mesh` the logits are the rank's vocab shard [B, V/mp];
+    the noise is drawn (or given) full-width [B, V] on every rank, the same
+    on each, and each keeps its own columns (a given [B, V/mp] is taken as
+    the rank's slice already), so the pick is the mp=1 pick."""
     if not sample:
         return sharded_argmax(logits, mesh)
-    if mesh is not None:
-        raise NotImplementedError("sharded sampling arrives with "
-                                  "tensor-parallel serving")
+    if _mp_degree(mesh) > 1:
+        Vl = logits.shape[-1]
+        if noise is None:
+            noise = gumbel_noise((logits.shape[0], Vl * mesh.mp),
+                                 logits.dtype, generator, logits.device)
+        if noise.shape[-1] != Vl:
+            noise = noise[..., mesh.vocab_slice(noise.shape[-1])]
+        return _sharded_gumbel_pick(logits, noise, temperature, top_k, mesh)
     if noise is None:
         noise = gumbel_noise(logits.shape, logits.dtype, generator,
                              logits.device)
@@ -941,14 +1050,18 @@ def generate(params, input_ids, config: GPTConfig, max_new_tokens: int = 32,
 # ---------------------------------------------------------------------------
 
 def init_paged_cache(config: GPTConfig, num_pages: int, page_size: int,
-                     device=None, kv_dtype=None):
+                     device=None, kv_dtype=None, mp: int = 1):
     """Per-layer paged KV pool {"k","v"} [L, num_pages, page_size, KVH, hd]
     in the model dtype; page 0 is the null page (inactive slots and padded
     rows write there).  kv_dtype="int8": int8 k/v plus float32 scale lanes
     `k_scale`/`v_scale` [L, num_pages, page_size, KVH], one a token and kv
-    head (the reference's layout)."""
+    head (the reference's layout).  mp > 1: one rank's shard, KVH/mp heads
+    of every page (and of every scale lane)."""
     c = config
-    shape = (c.num_layers, num_pages, page_size, c.kv_heads, c.head_dim)
+    if mp > 1:
+        _check_mp_heads(c.num_heads, c.kv_heads, mp)
+    shape = (c.num_layers, num_pages, page_size, c.kv_heads // mp,
+             c.head_dim)
     device = resolve_device(device)
     if normalize_quant_dtype(kv_dtype, "kv_dtype") == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -1002,12 +1115,14 @@ def prefill_paged(params, input_ids, config: GPTConfig, cache, pages, length,
     (entries past the reserved pages are the null page); length [B].
     Attention reads the full-precision k/v, GQA-repeated, not the pool: an
     int8 pool quantizes only the write, so the prompt's own logits see no
-    KV quantization.  Returns (logits [B, V], cache) — the pool is written
-    in place."""
+    KV quantization.  Under `mesh` each rank attends over its own heads
+    (`flash_attention_mp`).  Returns (logits [B, V], cache) — the pool is
+    written in place."""
     c = config
     assert c.causal, "KV-cache decoding requires a causal model"
     B, Sb = input_ids.shape
-    H, KVH, hd = c.num_heads, c.kv_heads, c.head_dim
+    H, KVH = _heads(c, mesh)
+    hd = c.head_dim
     page = cache["k"].shape[2]
     n_chunks = Sb // page
     pages = pages.long()
@@ -1016,7 +1131,7 @@ def prefill_paged(params, input_ids, config: GPTConfig, cache, pages, length,
         x = x + params["wpe"][:Sb]
     for l in range(c.num_layers):
         bp = _layer(params["blocks"], l)
-        q, k, v = _prefill_qkv(bp, x, c)
+        q, k, v = _prefill_qkv(bp, x, c, mesh=mesh)
         # in-place page writes (the reference donates the pool and rebinds
         # the `.at[pages].set` result)
         _write_kv(cache, l, (pages,), k.reshape(B, n_chunks, page, KVH, hd),
@@ -1024,7 +1139,9 @@ def prefill_paged(params, input_ids, config: GPTConfig, cache, pages, length,
         if KVH != H:
             k = torch.repeat_interleave(k, H // KVH, dim=2)
             v = torch.repeat_interleave(v, H // KVH, dim=2)
-        x = _layer_tail(bp, x, flash_attention_fused(q, k, v, causal=True), c)
+        attn = flash_attention_fused(q, k, v, causal=True) if mesh is None \
+            else flash_attention_mp(q, k, v, mesh, causal=True)
+        x = _layer_tail(bp, x, attn, c, mesh)
     x = x[torch.arange(B, device=x.device), length.long() - 1]
     x = epilogue(params, x, c)
     return head_logits(x, params, c, mesh=mesh), cache
@@ -1054,12 +1171,12 @@ def decode_step_paged(params, tokens, cache, page_table, lengths,
     seen = (lengths + 1).to(torch.int32)
     for l in range(c.num_layers):
         bp = _layer(params["blocks"], l)
-        q, k, v = _decode_qkv(bp, x, c, pos)
+        q, k, v = _decode_qkv(bp, x, c, pos, mesh)
         _write_kv(cache, l, (pidx, off), k, v)  # in place (reference donates)
         attn = paged_attention_decode(q, cache["k"][l], cache["v"][l],
                                       page_table, seen, mesh=mesh,
                                       kv_scales=_kv_scales(cache, l))
-        x = _layer_tail(bp, x, attn, c)
+        x = _layer_tail(bp, x, attn, c, mesh)
     x = epilogue(params, x, c)
     return head_logits(x, params, c, mesh=mesh), cache
 
@@ -1091,12 +1208,12 @@ def _paged_chunk_hidden(params, input_ids, config: GPTConfig, cache,
     off = pos % page
     for l in range(c.num_layers):
         bp = _layer(params["blocks"], l)
-        q, k, v = _prefill_qkv(bp, x, c, pos=pos)
+        q, k, v = _prefill_qkv(bp, x, c, pos=pos, mesh=mesh)
         # token-granular in-place writes (the reference donates the pool)
         _write_kv(cache, l, (pidx, off), k, v)
         attn = attn_fn(q, cache["k"][l], cache["v"][l], page_table, q_offset,
                        valid, mesh=mesh, kv_scales=_kv_scales(cache, l))
-        x = _layer_tail(bp, x, attn, c)
+        x = _layer_tail(bp, x, attn, c, mesh)
     return x, cache
 
 
@@ -1146,7 +1263,8 @@ def serve_step_paged(params, tokens, cache, page_table, q_offset, valid,
     a sampled slot (greedy[b] False), which carries the temperature/top-k
     pick; accept[b] is the greedy longest-prefix match over drafted tokens.
     The sampled lane's Gumbel noise [B, V] comes from `generator` unless
-    `noise` is given."""
+    `noise` is given (under `mesh`: see `sample_token`).  Under `mesh` every
+    rank returns the same tokens."""
     x, cache = _paged_chunk_hidden(params, tokens, config, cache, page_table,
                                    q_offset, valid,
                                    attn_entry=paged_serve_attention, mesh=mesh)

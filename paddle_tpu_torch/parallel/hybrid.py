@@ -1,4 +1,12 @@
-"""Single-device trainer — port of `paddle_tpu/parallel/hybrid.py`.
+"""Single-device trainer and the tensor-parallel serving layout — port of
+`paddle_tpu/parallel/hybrid.py`.
+
+Serving: `serving_mesh` (defined in `parallel/tp.py`, re-exported here
+where the reference keeps it), `serving_param_specs` (which axis of each
+leaf splits over "mp"), `qkv_partition_perm` / `pack_qkv_partitions` (the
+per-partition packed-qkv column layout) and `shard_params`, which cuts one
+rank's shard out of the port's full tree (`models.convert`'s, or
+`quantize_serving_params`' int8 one).
 
 `MeshConfig` keeps the reference's fields and defaults; the port takes the
 degree-1 mesh only and raises `NotImplementedError` naming the ROADMAP
@@ -12,12 +20,13 @@ slice's f32 temporaries are the largest transient.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..models import gpt as gpt_mod
+from .tp import ServingMesh, serving_mesh  # noqa: F401
 
 _SLICE = 1 << 24
 
@@ -160,3 +169,113 @@ class HybridParallelTrainer:
         with torch.no_grad():
             return gpt_mod.loss_fn(self.params, self._batch(tokens),
                                    self._batch(labels), self.config)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving layout
+# ---------------------------------------------------------------------------
+
+# the Megatron block layout (reference `gpt_param_specs` with mp on, pp and
+# ep off): the axis of each [L, ...] block leaf that splits over "mp"
+_COLUMN = ("qkv_w", "fc1_w", "fcg_w")          # [L, D, out]: split out
+_ROW = ("proj_w", "fc2_w")                      # [L, in, D]: split in
+_COLUMN_BIAS = ("qkv_b", "fc1_b", "fcg_b")      # [L, out]
+_VOCAB = {"wte": 0, "wte_q": 0, "wte_scale": 0,            # [V, D], [V, 1]
+          "lm_head": 1, "lm_head_q": 1, "lm_head_scale": 1}  # [D, V], [1, V]
+
+
+def _block_axis(k: str) -> Optional[int]:
+    if k.endswith("_q"):
+        k = k[:-2]
+    elif k.endswith("_scale"):
+        # [L, 1, out]: splits with a column-parallel weight's outputs, stays
+        # whole for a row-parallel one
+        return 2 if k[:-len("_scale")] in _COLUMN else None
+    if k in _COLUMN:
+        return 2
+    if k in _ROW:
+        return 1
+    if k in _COLUMN_BIAS:
+        return 1
+    return None     # norms, row-parallel biases, the MoE gate and experts
+
+
+def serving_param_specs(model_config, params) -> Dict[str, object]:
+    """The tree of `params` with, for each leaf, the axis that splits over
+    "mp" under tensor-parallel serving, or None where the leaf is
+    replicated (reference `serving_param_specs`, its PartitionSpecs read as
+    the one "mp" axis each names).  qkv, fc1 and fcg are column-split and
+    proj and fc2 row-split; `wte` splits by rows and `lm_head` by columns;
+    an int8 leaf keeps its weight's split and its scale splits with its
+    channel; norms, `wpe`, the row-parallel biases and the MoE gate and
+    experts are replicated."""
+    blocks = {k: _block_axis(k) for k in params["blocks"]}
+    specs = {k: _VOCAB.get(k) for k in params if k != "blocks"}
+    specs["blocks"] = blocks
+    return specs
+
+
+def qkv_partition_perm(model_config, parts: int) -> np.ndarray:
+    """The column permutation from the packed `[q | k | v]` qkv layout to
+    the per-partition `[q_0 k_0 v_0 | q_1 k_1 v_1 | ...]` one, whose `parts`
+    contiguous column groups are each rank's head slices (reference
+    `qkv_partition_perm`)."""
+    H, KVH, hd = (model_config.num_heads, model_config.kv_heads,
+                  model_config.head_dim)
+    assert H % parts == 0 and KVH % parts == 0, (H, KVH, parts)
+    q = np.arange(H * hd).reshape(parts, -1)
+    k = H * hd + np.arange(KVH * hd).reshape(parts, -1)
+    v = (H + KVH) * hd + np.arange(KVH * hd).reshape(parts, -1)
+    return np.concatenate([q, k, v], axis=1).reshape(-1)
+
+
+_QKV_LEAVES = ("qkv_w", "qkv_b", "qkv_w_q", "qkv_w_scale")
+
+
+def pack_qkv_partitions(params, model_config, parts: int):
+    """Every packed-qkv leaf (weight, bias, int8 twin and its scale) with
+    its columns in the per-partition layout (`qkv_partition_perm`);
+    `parts <= 1` is the identity (reference `pack_qkv_partitions`)."""
+    if parts <= 1:
+        return params
+    blocks = dict(params["blocks"])
+    for k in _QKV_LEAVES:
+        if k in blocks:
+            perm = torch.as_tensor(qkv_partition_perm(model_config, parts),
+                                   device=blocks[k].device)
+            blocks[k] = blocks[k].index_select(-1, perm)
+    return dict(params, blocks=blocks)
+
+
+def shard_params(params, config, mp: int, rank: int):
+    """Rank `rank`'s shard of the full serving tree `params` under
+    `serving_param_specs`, the packed qkv in the per-partition layout
+    (`pack_qkv_partitions`, then a contiguous split), every leaf a
+    contiguous tensor of its own on the leaf's device: a split leaf is a
+    copy, a replicated one the same tensor."""
+    if mp <= 1:
+        return params
+    specs = serving_param_specs(config, params)
+
+    def cut(name, t, axis, perm=None):
+        if axis is None:
+            return t
+        n = t.shape[axis]
+        if n % mp:
+            raise ValueError(f"{name}: axis {axis} of {tuple(t.shape)} does "
+                             f"not split over mp={mp}")
+        part = n // mp
+        if perm is not None:
+            idx = torch.as_tensor(perm.reshape(mp, part)[rank],
+                                  device=t.device)
+            return t.index_select(axis, idx)
+        return t.narrow(axis, rank * part, part).contiguous()
+
+    perm = qkv_partition_perm(config, mp)
+    blocks = {k: cut(k, v, specs["blocks"][k],
+                     perm if k in _QKV_LEAVES and specs["blocks"][k] is not
+                     None else None)
+              for k, v in params["blocks"].items()}
+    out = {k: cut(k, v, specs[k]) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = blocks
+    return out

@@ -1800,3 +1800,89 @@ def test_fleet_loops_capture_while_the_other_replica_swaps(dev):
         assert np.array_equal(g_out, e_out)
         for n in g_pool:
             assert torch.equal(g_pool[n], e_pool[n]), n
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("heads", [(16, 4), (8, 2)], ids=["mp2", "mp4"])
+def test_kernels_at_a_tensor_parallel_rank_shape(dev, dtype, heads):
+    """Rows 1, 4 and 2 at one rank's heads of Llama-3-8B under mp 2 and 4
+    (H16 KVH4, H8 KVH2; hd 128, G 4): each launches once and agrees with
+    its plain version (paged prefill: valid rows, padding rows 0)."""
+    H, KVH = heads
+    rng = np.random.RandomState(H)
+    for T in (1, 16):
+        args, valid = _paged_inputs(rng, dtype, dev, T, 128, 16, G=H // KVH,
+                                    KVH=KVH)
+        before = paged_prefill_attention_kernel.launches
+        got = paged_prefill_attention_kernel(*args)
+        torch.cuda.synchronize()
+        assert paged_prefill_attention_kernel.launches == before + 1
+        ref = paged_prefill_attention_ref(*args)
+        for b, n in enumerate(valid):
+            _close(got[b, :n], ref[b, :n], dtype)
+            assert not got[b, n:].any()
+    args, lengths = _decode_inputs(rng, dtype, dev, 128, H // KVH, 16,
+                                   KVH=KVH)
+    before = paged_attention_kernel.launches
+    got = paged_attention_kernel(*args)
+    torch.cuda.synchronize()
+    assert paged_attention_kernel.launches == before + 1
+    live = lengths > 0
+    _close(got[live], paged_attention_ref(*args)[live], dtype)
+    q, k, v = (_randn(rng, (1, 512, H, 128), dtype, dev) for _ in range(3))
+    before = flash_attention_fwd.launches
+    out, _ = flash_attention_fwd(q, k, v, True, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    _close(out, _flash_fwd_ref(q, k, v, True, 128 ** -0.5)[0], dtype)
+
+
+def test_mp2_gloo_engine_on_card_matches_mp1(dev):
+    """Two ranks on one card (gloo, eager): the small llama in f32, fused
+    chunked with spec on and the prefix cache, and unfused bucketed, emits
+    the mp=1 engine's greedy streams; each rank holds half the pool and
+    launches the paged kernels once a layer a dispatch; a gloo engine asked
+    to capture raises."""
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.parallel.tp import serving_mesh
+    cfg = _small_llama(torch.float32)
+    params = _card_params(cfg, dev)
+    rng = np.random.RandomState(2)
+    shared = rng.randint(0, cfg.vocab_size, (40,)).astype(np.int32)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 33, 70)]
+    prompts += [np.concatenate([shared, rng.randint(0, cfg.vocab_size,
+                                                    (n,)).astype(np.int32)])
+                for n in (3, 20)]
+    mesh = serving_mesh(2, [dev, dev], backend="gloo", timeout_s=120)
+    try:
+        with pytest.raises(ValueError, match="capture gloo"):
+            LLMEngine(params, cfg, num_slots=3, page_size=16,
+                      max_model_len=128, device=dev, mesh=mesh)
+        for kw in (dict(prefill_chunk=16, spec_len=3), dict(fuse=False)):
+            streams, pools = [], []
+            for m in (None, mesh):
+                eng = LLMEngine(params, cfg, num_slots=3, page_size=16,
+                                max_model_len=128, device=dev, mesh=m,
+                                _eager=m is not None, **kw)
+                rids = [eng.add_request(p, max_new_tokens=12)
+                        for p in prompts]
+                if m is not None:
+                    m.reset_counts()
+                eng.run()
+                streams.append([eng.outputs[r].token_ids for r in rids])
+                pools.append(eng.rank_pool_bytes())
+                if m is not None:
+                    st = eng.stats()
+                    want = cfg.num_layers * (
+                        st["decode_dispatches"] if not eng.fused else
+                        st["fused_dispatches"] + st["chunk_dispatches"] +
+                        st["verify_dispatches"])
+                    name = "paged_prefill_attention_kernel" if eng.fused \
+                        else "paged_attention_kernel"
+                    assert [c["launches"][name] for c in m.rank_counts()] \
+                        == [want, want]
+            assert streams[0] == streams[1], kw
+            assert pools[1] == [pools[0][0] // 2] * 2
+    finally:
+        mesh.close()

@@ -266,6 +266,20 @@ def test_later_slice_knobs_raise(reference, knob, tmp_path):
         else:
             assert store is knob.get("page_store")
         return
+    if set(knob) & {"mesh", "mp"}:
+        # tensor-parallel serving has landed (test_torch_serving_mp.py):
+        # mp=2 builds a CPU mesh of its own, closed with the engine; a mesh
+        # must be a ServingMesh
+        if "mesh" in knob:
+            with pytest.raises(TypeError, match="ServingMesh"):
+                LLMEngine(tparams, tcfg, device="cpu", **GEOMETRY, **knob)
+            return
+        eng = LLMEngine(tparams, tcfg, device="cpu", **GEOMETRY, **knob)
+        rid = eng.add_request(np.arange(5, dtype=np.int32), max_new_tokens=2)
+        assert len(eng.run()[rid].token_ids) == 2
+        assert eng.stats()["mp"] == 2 and eng.mesh.mp == 2
+        assert eng._pool["k"].shape[3] == tcfg.kv_heads // 2
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         LLMEngine(tparams, tcfg, device="cpu", **GEOMETRY, **knob)
 

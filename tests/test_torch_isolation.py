@@ -70,13 +70,16 @@ FLEET_MODULES = ("paddle_tpu_torch.inference",
                  "paddle_tpu_torch.inference.obs_server")
 # the MoE dispatch (its own copy of the reference's plain-jnp module)
 MOE_MODULES = ("paddle_tpu_torch.incubate.distributed.models.moe.dispatch",)
+# tensor-parallel serving: the mesh and its workers, the serving layout
+TP_MODULES = ("paddle_tpu_torch.parallel.tp",
+              "paddle_tpu_torch.parallel.hybrid")
 
 
 @pytest.mark.parametrize("module", OBSERVABILITY_MODULES + FLEET_MODULES +
-                         MOE_MODULES)
+                         MOE_MODULES + TP_MODULES)
 def test_observability_modules_import_alone(module):
-    """Each module of the observability plane, the fleet, the front door
-    and the MoE dispatch imports on its own and leaves jax and the JAX
+    """Each module of the observability plane, the fleet, the front door,
+    the MoE dispatch and tensor-parallel serving imports on its own and leaves jax and the JAX
     package out of sys.modules (the AST scan above covers their source)."""
     code = (f"import sys, {module};"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -287,11 +287,24 @@ def test_paged_plain_matches_pallas_kernel_on_valid_rows(kvh):
 
 
 def test_paged_entries_refuse_later_slices():
-    """Tensor-parallel attention raises; int8 pools (`kv_scales=`) are this
-    slice's (tests/test_torch_quantized.py)."""
-    args = tuple(map(_t, _paged_case(2, 1)))
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        paged_serve_attention(*args, mesh=object())
+    """Tensor-parallel attention has landed (tests/test_torch_serving_mp.py
+    runs it on a real mesh): under `mesh=` each rank's heads and pool shard
+    give that rank's heads of the one-device output, and a shard whose
+    heads do not make whole groups raises."""
+    from types import SimpleNamespace
+    q, k, v, tbl, qoff, valid = map(_t, _paged_case(2, 3))
+    full = paged_serve_attention(q, k, v, tbl, qoff, valid).numpy()
+    for r in range(2):
+        rank = SimpleNamespace(mp=2, rank=r)
+        got = paged_serve_attention(q[:, :, 2 * r:2 * r + 2], k[:, :, r:r + 1],
+                                    v[:, :, r:r + 1], tbl, qoff, valid,
+                                    mesh=rank).numpy()
+        for b, n in enumerate(valid.tolist()):
+            np.testing.assert_allclose(got[b, :n], full[b, :n, 2 * r:2 * r + 2],
+                                       atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="kv heads"):
+        paged_serve_attention(q[:, :, :1], k, v, tbl, qoff, valid,
+                              mesh=SimpleNamespace(mp=2, rank=0))
 
 
 def test_launch_counters_cover_the_three_kernels():

@@ -11,8 +11,8 @@ test workers.
   engine's.
 - The fp default is byte-identical to the explicit fp knobs.
 - int8 and fp engines agree on at least AGREEMENT_BAR of greedy tokens,
-  the reference's bar, in its bucketed, chunked, `chunked_spec_prefix` and
-  "preempt" modes.
+  the reference's bar, in its bucketed, chunked, `chunked_spec_prefix`,
+  `mp2` and "preempt" modes.
 
 Each port engine configuration is served once a preset (`port_runs`): the
 bucketed and chunked runs that the stream test holds against the
@@ -133,6 +133,7 @@ TOP1_MODES = {   # the reference's MODES that the port serves
     "bucketed": dict(prefill_chunk=None, prefix_cache=False),
     "chunked": dict(prefill_chunk=8, prefix_cache=False),
     "chunked_spec_prefix": dict(num_slots=4, prefill_chunk=8, spec_len=2),
+    "mp2": dict(num_slots=4, prefill_chunk=8, spec_len=2, mp=2),
     "preempt": dict(num_slots=6, num_pages=9, prefill_chunk=8,
                     admission="optimistic", preempt="recompute")}
 
@@ -144,7 +145,9 @@ def test_int8_engine_top1_agreement_with_fp(quant_models, port_runs, mode):
     decodes its whole budget; `chunked_spec_prefix` drafts (spec_len 2)
     with the prefix cache on, `preempt` preempts (optimistic admission,
     8 real pages), as the reference's modes of those names.  The bucketed
-    and chunked modes are the stream test's fused runs."""
+    and chunked modes are the stream test's fused runs; `mp2` serves
+    `chunked_spec_prefix` tensor-parallel (each engine on a CPU mesh of
+    its own, int8 weights quantized before sharding)."""
     name, cfg, params, _, tcfg, _ = quant_models
     tparams = params_from_numpy(_np(params), tcfg, "cpu")
     # the preempt mode on the reference's traffic for it, which preempts

@@ -69,11 +69,22 @@ def test_paged_decode_plain_matches_reference(kvh):
 
 
 def test_paged_decode_entry_refuses_later_slices():
-    """Tensor-parallel attention raises; int8 pools (`kv_scales=`) are this
-    slice's (tests/test_torch_quantized.py)."""
-    args = tuple(map(_t, _decode_case(2)))
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        paged_attention_decode(*args, mesh=object())
+    """Tensor-parallel attention has landed (tests/test_torch_serving_mp.py
+    runs it on a real mesh): under `mesh=` each rank's heads and pool shard
+    give that rank's heads of the one-device output, and a shard whose
+    heads do not make whole groups raises."""
+    from types import SimpleNamespace
+    q, k, v, tbl, lengths = map(_t, _decode_case(2))
+    full = paged_attention_decode(q, k, v, tbl, lengths).numpy()
+    for r in range(2):
+        got = paged_attention_decode(q[:, 2 * r:2 * r + 2], k[:, :, r:r + 1],
+                                     v[:, :, r:r + 1], tbl, lengths,
+                                     mesh=SimpleNamespace(mp=2, rank=r))
+        np.testing.assert_allclose(got.numpy(), full[:, 2 * r:2 * r + 2],
+                                   atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="kv heads"):
+        paged_attention_decode(q[:, :1], k, v, tbl, lengths,
+                               mesh=SimpleNamespace(mp=2, rank=0))
 
 
 def _check_pools(tpool, jpool, skip_null=False):
