@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`paddle_tpu_torch`) on one NVIDIA card.
 
     python3 chip_smoke.py          # one card, every phase
-    python3 chip_smoke.py --tp     # four cards: the NCCL tensor-parallel phase
+    python3 chip_smoke.py --tp     # four cards: the NCCL phases
 
 Phases, one JSON line each (with its seconds):
 1. device   — requires CUDA, prints the card's name and power limit,
@@ -298,7 +298,8 @@ Phases, one JSON line each (with its seconds):
                here are two ranks time-slicing one card with their
                all-reduces through host memory: not a tensor-parallel time.
                `python3 chip_smoke.py --tp`, on four cards: the device
-               phase, then only `engine_tp_nccl`: NCCL meshes of 2 and 4
+               phase, then only `engine_tp_nccl` and `train_nccl`
+               (12b): NCCL meshes of 2 and 4
                ranks, fused bucketed and chunked at mp 1, 2 and 4 on CUDA
                graphs (NCCL collectives captured) and eagerly on the same
                mesh: streams and every rank's pool bitwise equal, one
@@ -352,6 +353,31 @@ Phases, one JSON line each (with its seconds):
                moments, remat, B=4, S=2048, through `HybridParallelTrainer`:
                1 warm-up and 4 timed steps on one repeated batch; tokens/s,
                step ms, peak memory, losses, launches per step.
+12b. train_mesh — data, ZeRO and tensor-parallel training on this one card:
+               four ranks of a `parallel.tp` mesh (gloo, which stages its
+               collectives of CUDA tensors through host memory).  (a) GPT-3 1.3B
+               (TRAIN_MESH_LAYERS layers) in bf16 with bf16 moments and
+               remat, B=4, S=2048, `MeshConfig(dp=2, mp=2, sharding_stage=1,
+               sequence_parallel=True)`, 1 warm-up and 2 timed steps:
+               finite, falling losses, step 0 near ln V, each rank's
+               kernel counts zeroed just before and read just after (rows
+               2, 5 and 6 exactly layers x steps on every rank at the rank's
+               [2,2048,8,128], nothing composed), each rank's peak memory,
+               tokens/s and the collectives a rank makes a step with their
+               bytes.  (b) float32 (TF32 off) at GPT-3 1.3B width with 2
+               layers, B=4, S=1024, 3 steps from the same weights at mp 1
+               (one device), `(dp 2, mp 2, ZeRO-1)` and `(sharding 2, mp 2,
+               ZeRO-3, sequence_parallel)`: losses and the gathered
+               parameters within 1e-4 (relative for the losses, rtol and
+               atol for the parameters).  (c) rows 2, 5 and 6 at the rank's
+               shape [2,2048,8,128] causal bf16 against their plain
+               versions, with kernel, plain, SDPA and bound times.  Times
+               here are four ranks time-slicing one card: not a parallel
+               training time.  `python3 chip_smoke.py --tp` adds
+               `train_nccl` on four cards: the same GPT-3 1.3B training at
+               dp 4 (ZeRO-1), mp 4 and dp 2 x mp 2 with sequence
+               parallelism under NCCL, beside mp 1 on one card: losses,
+               tokens/s, step ms, each rank's peak memory and collectives.
 13. engine_moe — the MoE family at the GPT-3 1.3B trunk (`gpt3_1p3b` with 4
                experts, top-2, capacity factor 2 in every block; ~3.7 B
                parameters), bf16, seeded random weights: phase 3's bucketed
@@ -376,7 +402,7 @@ Then one line `{"kernels": [...]}` for all nine kernels and the int8 lanes of
 the two paged ones (launches summed over the main-path runs of phases 3, 4,
 5, 6b, 6c, 6d, 6e, 6f (its tier runs), 6g (its traced pass), 6h (its
 fleets), 6i (its bf16 runs, every rank's launches), 8b (its counted bf16
-call), 10, 11, 12, 13 (bf16 and int8), 14
+call), 10, 11, 12, 12b ((a), every rank's launches), 13 (bf16 and int8), 14
 and 15, each with the counts zeroed just before it and read
 just after; none
 of them may take an entry's composed route for shapes the kernels do not
@@ -3635,6 +3661,236 @@ def train(dev):
 
 
 # ---------------------------------------------------------------------------
+# train_mesh: data, ZeRO and tensor-parallel training
+# ---------------------------------------------------------------------------
+
+# (a): GPT-3 1.3B over dp 2 x mp 2 with sequence parallelism, ZeRO-1, on
+# four gloo ranks of the one card; the depth is cut to 8 if the phase
+# passes 180 s (PERF.md section 4)
+TRAIN_MESH = dict(dp=2, mp=2, sharding_stage=1, sequence_parallel=True)
+TRAIN_MESH_LAYERS = 24
+TRAIN_MESH_BATCH = (4, 2048)
+TRAIN_MESH_STEPS = 2            # timed, after one warm-up
+# (b): float32 parity at GPT-3 1.3B width, 2 layers
+PARITY_LAYOUTS = (
+    ("mp1", {}),
+    ("dp2_mp2_z1", dict(dp=2, mp=2, sharding_stage=1)),
+    ("sh2_mp2_z3_sp", dict(sharding=2, mp=2, sharding_stage=3,
+                           sequence_parallel=True)))
+PARITY_BATCH, PARITY_STEPS, PARITY_TOL = (4, 1024), 3, 1e-4
+# --tp: the same training on four cards under NCCL, against mp 1 on one
+TRAIN_NCCL_LAYOUTS = (("dp4_z1", dict(dp=4, sharding_stage=1)),
+                      ("mp4", dict(mp=4)),
+                      ("dp2_mp2_sp", dict(dp=2, mp=2,
+                                          sequence_parallel=True)))
+FLASH_KERNELS = ("flash_attention_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def train_batch(cfg, B, S, seed=0):
+    rng = np.random.RandomState(seed)
+    tok = rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return tok, np.roll(tok, -1, axis=1).astype(np.int32)
+
+
+def mesh_train_run(trainer, tok, lab, steps, what):
+    """One warm-up and `steps` timed steps, every rank's kernel counts and
+    collective stats zeroed just before the warm-up and read just after
+    the last step: the losses, step times, and per rank the launches
+    (rows 2, 5 and 6 exactly layers x steps, nothing composed), the peak
+    device bytes and the collectives a step (calls and bytes)."""
+    import torch
+    from paddle_tpu_torch.incubate import kernels as K
+    mesh = trainer.mesh
+    torch.cuda.synchronize()
+    if mesh is None:
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats(trainer.device)
+    else:
+        mesh.reset_counts()
+        trainer.reset_rank_stats()
+    losses = [float(trainer.train_step(tok, lab))]      # warm-up
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(tok, lab)))  # waits all ranks
+        times.append(time.perf_counter() - t0)
+    n = steps + 1
+    if mesh is None:
+        counts = [{"launches": K.launches(),
+                   "composed_calls": K.composed_calls()}]
+        stats = [{"comm": {}, "peak_mem": torch.cuda.max_memory_allocated(
+                      trainer.device)}]
+    else:
+        counts, stats = mesh.rank_counts(), trainer.rank_stats()
+    want = trainer.config.num_layers * n
+    for r, c in enumerate(counts):
+        if any(c["composed_calls"].values()):
+            raise AssertionError(f"{what} rank {r}: composed routes "
+                                 f"{c['composed_calls']}")
+        got = [c["launches"][k] for k in FLASH_KERNELS]
+        if got != [want] * len(FLASH_KERNELS):
+            raise AssertionError(f"{what} rank {r}: rows 2, 5, 6 launched "
+                                 f"{got}, want {want} each")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: non-finite loss {losses}")
+    B, S = tok.shape
+    return {
+        "losses": losses, "tokens_per_s": B * S * steps / sum(times),
+        "mean_step_ms": 1e3 * sum(times) / steps,
+        "step_ms": [1e3 * t for t in times],
+        "launches": [{k: c["launches"][k] for k in FLASH_KERNELS}
+                     for c in counts],
+        "launches_all": [c["launches"] for c in counts],
+        "rank_peak_mem_gib": [s["peak_mem"] / 2 ** 30 for s in stats],
+        "collectives_per_step": [
+            {k: {"calls": v[0] / n, "bytes": v[1] / n}
+             for k, v in sorted(s["comm"].items())} for s in stats]}
+
+
+def train_parity_mesh(dev, mesh):
+    """(b): float32 (TF32 off), GPT-3 1.3B width at 2 layers, B 4, S 1024,
+    3 steps under each of PARITY_LAYOUTS from the same weights: losses and
+    the gathered parameters after the steps within PARITY_TOL."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
+    from paddle_tpu_torch.parallel.hybrid import _leaves, _map, _names
+    cfg = gpt.gpt3_1p3b()
+    cfg.num_layers = 2
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                             dev)
+    tok, lab = train_batch(cfg, *PARITY_BATCH, seed=1)
+    runs = {}
+    for name, kw in PARITY_LAYOUTS:
+        # one device updates the tree it is given in place: a copy
+        tr = HybridParallelTrainer(cfg, MeshConfig(**kw), **(
+            {"mesh": mesh, "params": params} if kw else
+            {"device": dev, "params": _map(torch.clone, params)}))
+        losses = [float(tr.train_step(tok, lab))
+                  for _ in range(PARITY_STEPS)]
+        runs[name] = (losses, _leaves(tr.gathered_state()["params"]))
+        tr.close()
+        del tr
+        torch.cuda.empty_cache()
+    base_l, base_p = runs["mp1"]
+    rec = {"model": "gpt3_1p3b", "layers": 2, "dtype": "float32",
+           "batch": list(PARITY_BATCH), "steps": PARITY_STEPS}
+    names = _names(params)
+    for name, (losses, leaves) in runs.items():
+        if name == "mp1":
+            rec["losses_mp1"] = losses
+            continue
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base_l))
+        diffs = [float((a - b).abs().max()) for a, b in zip(leaves, base_p)]
+        worst = max(range(len(diffs)), key=diffs.__getitem__)
+        bad = [n for n, a, b in zip(names, leaves, base_p)
+               if not torch.allclose(a, b, rtol=PARITY_TOL, atol=PARITY_TOL)]
+        rec[name] = {"losses": losses, "loss_max_rel_diff": rel,
+                     "param_max_abs_diff": diffs[worst],
+                     "worst_leaf": names[worst],
+                     "elements_over_1e-6": int(sum(
+                         int(((a - b).abs() > 1e-6).sum())
+                         for a, b in zip(leaves, base_p)))}
+        if not rel <= PARITY_TOL or bad:
+            raise AssertionError(f"train_mesh parity {name}: loss rel "
+                                 f"{rel:.3g}, leaves off {bad}")
+    return rec
+
+
+def train_mesh(dev, smi):
+    """Phase 12b (see the module docstring).  Returns (record, the summed
+    launches of (a)'s ranks)."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
+    from paddle_tpu_torch.parallel.tp import serving_mesh
+    t = time.perf_counter()
+    cfg = gpt.gpt3_1p3b()
+    cfg.dtype = torch.bfloat16
+    cfg.num_layers = TRAIN_MESH_LAYERS
+    tok, lab = train_batch(cfg, *TRAIN_MESH_BATCH)
+    mesh = serving_mesh(4, [dev] * 4, backend="gloo")
+    rec = {"nvidia_smi": smi, "ranks": 4, "backend": "gloo",
+           "timing_note": "four ranks time-slicing one card, gloo "
+           "collectives through host memory: not a data- or "
+           "tensor-parallel time"}
+    try:
+        tr = HybridParallelTrainer(cfg, MeshConfig(**TRAIN_MESH, remat=True),
+                                   moment_dtype=torch.bfloat16, mesh=mesh)
+        run = mesh_train_run(tr, tok, lab, TRAIN_MESH_STEPS, "train_mesh")
+        tr.close()
+        del tr
+        losses = run["losses"]
+        if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+            raise AssertionError(f"train_mesh: step-0 loss {losses[0]} is "
+                                 f"not near ln(V)")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train_mesh: loss did not fall {losses}")
+        rec["gpt3_1p3b"] = {"layers": cfg.num_layers, "dtype": "bf16",
+                            "moments": "bf16", "remat": True,
+                            "mesh": TRAIN_MESH, "batch":
+                            list(TRAIN_MESH_BATCH), **run}
+        rec["gpt3_1p3b_seconds"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        rec["parity_f32"] = train_parity_mesh(dev, mesh)
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    # (c): rows 2, 5 and 6 at a rank's shape
+    B, S = TRAIN_MESH_BATCH
+    shape = (B // TRAIN_MESH["dp"], S, cfg.num_heads // TRAIN_MESH["mp"],
+             cfg.head_dim)
+    rec["kernels"] = [flash_case(torch.bfloat16, dev, shape),
+                      bwd_case(torch.bfloat16, dev, shape, True)]
+    summed = {k: sum(c[k] for c in run["launches_all"])
+              for k in run["launches_all"][0]}
+    return rec, summed
+
+
+def train_nccl(smi):
+    """`--tp`: GPT-3 1.3B (bf16, remat, B 4, S 2048) under
+    TRAIN_NCCL_LAYOUTS on a four-card NCCL mesh, against mp 1 on one card:
+    losses, tokens/s, step ms, each rank's peak memory and collectives."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
+    from paddle_tpu_torch.parallel.tp import serving_mesh
+    dev = torch.device("cuda", 0)
+    cfg = gpt.gpt3_1p3b()
+    cfg.dtype = torch.bfloat16
+    tok, lab = train_batch(cfg, *TRAIN_MESH_BATCH)
+    rec = {"nvidia_smi": smi, "cards": torch.cuda.device_count(),
+           "model": "gpt3_1p3b", "layers": cfg.num_layers,
+           "batch": list(TRAIN_MESH_BATCH), "backend": "nccl"}
+    one = HybridParallelTrainer(cfg, MeshConfig(remat=True),
+                                moment_dtype=torch.bfloat16, device=dev)
+    rec["mp1"] = mesh_train_run(one, tok, lab, TRAIN_MESH_STEPS,
+                                "train_nccl mp1")
+    del one
+    torch.cuda.empty_cache()
+    mesh = serving_mesh(4, backend="nccl")
+    try:
+        for name, kw in TRAIN_NCCL_LAYOUTS:
+            tr = HybridParallelTrainer(cfg, MeshConfig(**kw, remat=True),
+                                       moment_dtype=torch.bfloat16,
+                                       mesh=mesh)
+            r = mesh_train_run(tr, tok, lab, TRAIN_MESH_STEPS,
+                               f"train_nccl {name}")
+            tr.close()
+            del tr
+            if not r["losses"][-1] < r["losses"][0]:
+                raise AssertionError(f"train_nccl {name}: loss did not "
+                                     f"fall {r['losses']}")
+            r["step0_loss_diff_vs_mp1"] = r["losses"][0] - \
+                rec["mp1"]["losses"][0]
+            rec[name] = r
+            emit({"run": name, **r})
+    finally:
+        mesh.close()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # engine_tp: tensor-parallel serving
 # ---------------------------------------------------------------------------
 
@@ -3948,6 +4204,10 @@ def main():
         rec = tp_four_cards(smi)
         emit({"phase": "engine_tp_nccl", "seconds": time.perf_counter() - t,
               **rec})
+        t = time.perf_counter()
+        rec = train_nccl(smi)
+        emit({"phase": "train_nccl", "seconds": time.perf_counter() - t,
+              **rec})
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -4208,6 +4468,11 @@ def main():
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
+    rec_mesh, mesh_launches = train_mesh(dev, smi)
+    emit({"phase": "train_mesh", "seconds": time.perf_counter() - t,
+          **rec_mesh})
+
+    t = time.perf_counter()
     rec_moe = engine_moe(dev)
     emit({"phase": "engine_moe", "seconds": time.perf_counter() - t,
           **rec_moe})
@@ -4308,7 +4573,8 @@ def main():
             *(m["tier"] for m in rec_t.values() if isinstance(m, dict)
               and "tier" in m), rec_obs, rec_fleet,
             *(rec_tp[m] for m, _, _ in TP_MODES), rec9, rec7, rec8,
-            rec_gen, rec_moe, rec_moe["int8"], rec_tm, rec_bert)
+            rec_gen, rec_moe, rec_moe["int8"], rec_tm, rec_bert,
+            {"launches": mesh_launches})
     kernels = [{
         "name": r["kernel"] + ("_int8" if key == "launches_int8" else ""),
         "route": route, "source": source, "replaces": replaces,

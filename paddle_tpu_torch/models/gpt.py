@@ -365,12 +365,12 @@ def _layer(blocks, l):
     return {k: v[l] for k, v in blocks.items()}
 
 
-def _block_qkv(bp, x, c: GPTConfig, pos_offset=None):
+def _block_qkv(bp, x, c: GPTConfig, pos_offset=None, mesh=None):
     """Pre-norm + packed qkv + rope, k/v repeated to H heads: the post-rope
     q, k, v [B, S, H, hd] that attention reads (the reference's
-    `flash_qkv`)."""
-    q, k, v = _prefill_qkv(bp, x, c, pos_offset=pos_offset)
-    H, KVH = c.num_heads, c.kv_heads
+    `flash_qkv`); the rank's heads under a training `mesh`."""
+    q, k, v = _prefill_qkv(bp, x, c, pos_offset=pos_offset, mesh=mesh)
+    H, KVH = _heads(c, mesh)
     if KVH != H:
         k = torch.repeat_interleave(k, H // KVH, dim=2)
         v = torch.repeat_interleave(v, H // KVH, dim=2)
@@ -399,37 +399,48 @@ def _zero_aux(x):
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _layers(blocks, mesh=None):
+    """Each block's leaves: the stacked leaves unbound once, so their
+    gradients are stacked once; a training `mesh` may hand out layers
+    whose leaves it gathers at each use (ZeRO-3, `mesh.layers`)."""
+    if mesh is not None and hasattr(mesh, "layers"):
+        return mesh.layers(blocks)
+    return (dict(zip(blocks, ws))
+            for ws in zip(*(w.unbind(0) for w in blocks.values())))
+
+
 def run_blocks(blocks, x, config, pos_offset=None, remat=False,
-               attn_impl=None):
-    """The reference's `lax.scan` over stacked blocks, as a loop.  The
-    stacked leaves are unbound once, so their gradients are stacked once.
+               attn_impl=None, mesh=None):
+    """The reference's `lax.scan` over stacked blocks, as a loop.
     remat=True keeps, per block, what `remat_policy_save_attention` keeps:
     the block input, the post-rope q, k, v and attention's out and lse; the
     tail's checkpoint carries the MoE aux out.  Returns (out, aux), aux the
-    MoE load-balance losses summed over the blocks (0 when dense)."""
+    MoE load-balance losses summed over the blocks (0 when dense).  Under
+    a training `mesh` each block is the Megatron one over the rank's
+    shard, on S/mp rows outside attention and the FFN body under sequence
+    parallelism."""
     aux = _zero_aux(x)
-    for ws in zip(*(w.unbind(0) for w in blocks.values())):
-        bp = dict(zip(blocks, ws))
+    for bp in _layers(blocks, mesh):
         if not remat:
-            q, k, v = _block_qkv(bp, x, config, pos_offset)
+            q, k, v = _block_qkv(bp, x, config, pos_offset, mesh)
             x, a = _block_tail(bp, x, _attend(q, k, v, config, attn_impl),
-                               config)
+                               config, mesh)
         else:
             x, a = remat_policy_save_attention(
                 functools.partial(_block_qkv, bp, c=config,
-                                  pos_offset=pos_offset),
+                                  pos_offset=pos_offset, mesh=mesh),
                 functools.partial(_attend, c=config, attn_impl=attn_impl),
-                functools.partial(_block_tail, bp, c=config), x)
+                functools.partial(_block_tail, bp, c=config, mesh=mesh), x)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
-def embed_prologue(params, x, config: GPTConfig, type_ids=None):
-    """Learned positions, segment embeddings and embedding norm."""
-    S = x.shape[1]
+def embed_prologue(params, x, config: GPTConfig, type_ids=None, rows=None):
+    """Learned positions, segment embeddings and embedding norm; `rows`:
+    the positions x holds (default 0..S-1)."""
     if not config.use_rope:
-        x = x + params["wpe"][:S]
+        x = x + params["wpe"][slice(0, x.shape[1]) if rows is None else rows]
     if config.type_vocab_size > 0:
         if type_ids is None:
             x = x + params["tte"][0]
@@ -464,15 +475,24 @@ def head_matrix(params, config: GPTConfig):
 
 
 def backbone(params, tokens, config: GPTConfig, type_ids=None, remat=False,
-             attn_impl=None):
-    """tokens [B, S] -> (activations [B, S, D], head matrix, MoE aux)."""
+             attn_impl=None, mesh=None):
+    """tokens [B, S] -> (activations [B, S, D], head matrix, MoE aux).
+    Under a training `mesh` (a rank of `parallel.hybrid`'s trainer) the
+    embedding is vocab-parallel, the activations are [B, S/mp, D] under
+    sequence parallelism, and the head is the rank's vocab columns."""
     wte = params["wte"]
-    x = wte[torch.as_tensor(tokens, device=wte.device).long()]
+    tokens = torch.as_tensor(tokens, device=wte.device)
+    rows = None
+    if mesh is None:
+        x = wte[tokens.long()]
+    else:
+        x = _embed(params, tokens, config, mesh)
+        rows = mesh.seq_rows(tokens.shape[1])
     if type_ids is not None:
         type_ids = torch.as_tensor(type_ids, device=wte.device)
-    x = embed_prologue(params, x, config, type_ids)
+    x = embed_prologue(params, x, config, type_ids, rows)
     x, aux = run_blocks(params["blocks"], x, config, remat=remat,
-                        attn_impl=attn_impl)
+                        attn_impl=attn_impl, mesh=mesh)
     return epilogue(params, x, config), head_matrix(params, config), aux
 
 
@@ -491,12 +511,14 @@ def _ce_sums(logits, labels):
     return -(picked * mask).sum(), mask.sum()
 
 
-def _chunk_ce(x, head, labels):
+def _chunk_ce(x, head, labels, mesh=None):
+    if _mp_degree(mesh) > 1:
+        return mesh.vocab_ce(torch.matmul(x, head), labels)
     return _ce_sums(torch.matmul(x, head), labels)
 
 
 def loss_fn(params, tokens, labels, config: GPTConfig, remat=False,
-            loss_chunk: Optional[int] = 512, attn_impl=None):
+            loss_chunk: Optional[int] = 512, attn_impl=None, mesh=None):
     """LM loss; labels [B, S] with -100 = ignore.  An MoE config adds
     `moe_aux_weight` times the blocks' load-balance loss.
 
@@ -504,22 +526,34 @@ def loss_fn(params, tokens, labels, config: GPTConfig, remat=False,
     log-softmax run per sequence chunk, each under a non-reentrant
     checkpoint, so the backward replays the chunk's head matmul and no
     [B, S, V] f32 log-probs are kept.  attn_impl overrides flash attention
-    (e.g. a plain reference)."""
+    (e.g. a plain reference).
+
+    Under a training `mesh` tokens and labels are the rank's batch rows,
+    the cross entropy is vocab-parallel (`mesh.vocab_ce`) over the full
+    sequence, and the result is this rank's term of the one global mean:
+    its loss sum over the valid labels of all the data-parallel ranks
+    (`mesh.global_mean`), so that the ranks' gradients sum to the
+    global loss's."""
     x, head, aux = backbone(params, tokens, config, remat=remat,
-                            attn_impl=attn_impl)
+                            attn_impl=attn_impl, mesh=mesh)
     moe_pen = config.moe_aux_weight * aux if config.moe_num_experts > 0 \
         else 0.0
     labels = torch.as_tensor(labels, device=x.device).long()
+    if _mp_degree(mesh) > 1:
+        x = mesh.column_in(x)
+    ce = functools.partial(_chunk_ce, mesh=mesh)
     S = x.shape[1]
     if not loss_chunk or S % loss_chunk != 0 or S <= loss_chunk:
-        loss_sum, n = _ce_sums(torch.matmul(x, head), labels)
-        return loss_sum / torch.clamp(n, min=1.0) + moe_pen
-    loss_sum = n = 0.0
-    for i in range(0, S, loss_chunk):
-        part = slice(i, i + loss_chunk)
-        ls, c = checkpoint(_chunk_ce, x[:, part], head, labels[:, part],
-                           use_reentrant=False)
-        loss_sum, n = loss_sum + ls, n + c
+        loss_sum, n = ce(x, head, labels)
+    else:
+        loss_sum = n = 0.0
+        for i in range(0, S, loss_chunk):
+            part = slice(i, i + loss_chunk)
+            ls, c = checkpoint(ce, x[:, part], head, labels[:, part],
+                               use_reentrant=False)
+            loss_sum, n = loss_sum + ls, n + c
+    if mesh is not None:
+        return mesh.global_mean(loss_sum, n) + moe_pen
     return loss_sum / torch.clamp(n, min=1.0) + moe_pen
 
 
@@ -562,10 +596,11 @@ def _heads(c: GPTConfig, mesh=None):
 
 
 def _row_parallel(y, bp, bias, mesh):
-    """A row-parallel matmul's partial sums reduced over the ranks, then
-    its replicated bias added once."""
+    """A row-parallel matmul's partial sums reduced over the ranks (summed;
+    reduce-scattered onto S/mp rows under sequence parallelism), then its
+    replicated bias added once."""
     if _mp_degree(mesh) > 1:
-        y = mesh.all_reduce(y, "sum")
+        y = mesh.row_out(y)
     if bias in bp:
         y = y + bp[bias]
     return y
@@ -574,6 +609,8 @@ def _row_parallel(y, bp, bias, mesh):
 def _ffn_dense(bp, h, c: GPTConfig, mesh=None):
     """Dense FFN; under `mesh` fc1/fcg are the rank's columns and fc2 its
     rows, the output summed over the ranks."""
+    if _mp_degree(mesh) > 1:
+        h = mesh.column_in(h)
     up = torch.matmul(h, _w(bp, "fc1_w", c.dtype))
     if "fc1_b" in bp:
         up = up + bp["fc1_b"]
@@ -614,12 +651,15 @@ def _prefill_qkv(bp, x, c: GPTConfig, pos=None, pos_offset=None, mesh=None):
     """Pre-norm + packed qkv + rope over [B, T, D] (positions pos_offset +
     0..T-1, or explicit per-slot positions `pos` [B, T]).  Returns post-rope
     q [B, T, H, hd], k, v [B, T, KVH, hd], the rank's heads under
-    `mesh`."""
-    B, T, _ = x.shape
+    `mesh` (whose `column_in` gathers a training rank's S/mp rows under
+    sequence parallelism)."""
     H, KVH = _heads(c, mesh)
     hd = c.head_dim
     h = _norm(x, bp["ln1_w"], bp["ln1_b"], c) if c.norm_position == "pre" \
         else x
+    if _mp_degree(mesh) > 1:
+        h = mesh.column_in(h)
+    B, T, _ = h.shape
     qkv = torch.matmul(h, _w(bp, "qkv_w", c.dtype))
     if "qkv_b" in bp:
         qkv = qkv + bp["qkv_b"]
@@ -648,7 +688,9 @@ def _block_tail(bp, x, attn, c: GPTConfig, mesh=None):
     (x, aux): the MoE load-balance loss, None when dense.  Under `mesh`
     attn holds the rank's heads, proj and the FFN are row-parallel (summed
     over the ranks) and an MoE FFN runs replicated."""
-    attn = torch.matmul(attn.reshape(*x.shape[:-1], -1),
+    # per head [.., H, hd] flattened; a training rank's attention holds S
+    # rows where its x holds S/mp (sequence parallelism)
+    attn = torch.matmul(attn.flatten(x.dim() - 1),
                         _w(bp, "proj_w", c.dtype))
     x = x + _row_parallel(attn, bp, "proj_b", mesh)
     if c.norm_position != "pre":
@@ -678,7 +720,9 @@ def _embed(params, tokens, config: GPTConfig, mesh=None):
     scales and dequantized, so the fp table never exists.  Under `mesh` the
     table is the rank's vocab rows: each rank takes the rows it owns, zeros
     for the others, and the ranks' rows are summed (exactly one rank owns
-    each id, so the sum is the replicated take, bit for bit)."""
+    each id, so the sum is the replicated take, bit for bit): `mesh.row_out`,
+    which a training rank reduce-scatters onto its S/mp rows under
+    sequence parallelism."""
     quant = "wte_q" in params
     table = params["wte_q" if quant else "wte"]
     t = tokens.long()
@@ -693,7 +737,7 @@ def _embed(params, tokens, config: GPTConfig, mesh=None):
         return rows
     rows = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                         device=rows.device))
-    return mesh.all_reduce(rows, "sum")
+    return mesh.row_out(rows)
 
 
 def head_logits(x, params, config: GPTConfig, mesh=None):

@@ -1,2 +1,3 @@
-"""Training — port of `paddle_tpu/parallel` (single device so far)."""
-from .hybrid import HybridParallelTrainer, MeshConfig  # noqa: F401
+"""Training and tensor-parallel serving — port of `paddle_tpu/parallel`."""
+from .hybrid import (HybridParallelTrainer, MeshConfig,  # noqa: F401
+                     serving_mesh, serving_param_specs)

@@ -23,8 +23,16 @@ noise itself, from a generator seeded like rank 0's.
 
 The model functions see a rank through `mesh=`: `mp`, `rank`, `device`
 and `all_reduce(t, op)` (SUM, MAX or MIN, in place).  All-reduce is the
-only collective the model uses, so one path works under NCCL and under
-gloo with CUDA tensors.
+only collective the serving model uses, so one path works under NCCL and
+under gloo with CUDA tensors.
+
+The same mesh carries training (`parallel.hybrid.HybridParallelTrainer`):
+`group(name, ranks)` gives a `Group` over some of the ranks, its process
+group built once per rank set on a `PrefixStore` of the mesh's store, and
+the rank handle runs `all_reduce`, `broadcast`, `all_gather` and
+`reduce_scatter` on it (gloo takes all four on CUDA tensors too, staging
+them through host memory itself).  Every collective is counted with its
+bytes (`comm`).
 
 A worker dies with its parent: it polls the parent's pid, its pipe ends
 when the parent's does, and it is a daemon process.  A failing worker
@@ -61,9 +69,8 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
 
 
-def _process_group(backend: str, store_path: str, rank: int, size: int,
+def _process_group(backend: str, store, rank: int, size: int,
                    timeout_s: float):
-    store = dist.FileStore(store_path, size)
     timeout = datetime.timedelta(seconds=timeout_s)
     if backend == "gloo":
         opts = dist.ProcessGroupGloo._Options()
@@ -89,20 +96,110 @@ class MeshRank:
         self.mp, self.rank = mp, rank
         self.device, self.backend = device, backend
         self.timeout_s = timeout_s
-        self._pg = _process_group(backend, store_path, rank, mp, timeout_s)
+        self._store = dist.FileStore(store_path, mp)
+        self._pg = _process_group(backend, self._store, rank, mp, timeout_s)
+        self._pgs: Dict[tuple, Any] = {tuple(range(mp)): self._pg}
+        self.comm: Dict[str, List[int]] = {}    # "group.op" -> [calls, bytes]
+        # what functions run on this rank (`ServingMesh.run`) keep between
+        # calls, such as a trainer's rank state
+        self.state: Dict[str, Any] = {}
 
-    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """Reduce `t` over the ranks in place (a contiguous copy if it is
-        not contiguous) and return it."""
-        if not t.is_contiguous():
-            t = t.contiguous()
-        opts = dist.AllreduceOptions()
-        opts.reduceOp = _OPS[op]
+    def group(self, name: str, ranks: Sequence[int]) -> "Group":
+        """The group `name` over `ranks` (this rank among them).  Its
+        process group is built at the first request for that rank set, on
+        a prefix of the mesh's store; every member must ask for it in the
+        same order.  A group of one rank runs no collective."""
+        ranks = tuple(ranks)
+        if self.rank not in ranks:
+            raise ValueError(f"rank {self.rank} is not in group {name} "
+                             f"{ranks}")
+        pg = self._pgs.get(ranks)
+        if pg is None and len(ranks) > 1:
+            store = dist.PrefixStore("g" + "-".join(map(str, ranks)),
+                                     self._store)
+            pg = _process_group(self.backend, store, ranks.index(self.rank),
+                                len(ranks), self.timeout_s)
+            self._pgs[ranks] = pg
+            self._new_pg(pg)
+        return Group(self, name, ranks, pg)
+
+    def _new_pg(self, pg) -> None:
+        """A process group this rank built for a `Group`."""
+
+    def _count(self, group: Optional["Group"], op: str, t: torch.Tensor):
+        key = f"{'world' if group is None else group.name}.{op}"
+        c = self.comm.setdefault(key, [0, 0])
+        c[0] += 1
+        c[1] += t.numel() * t.element_size()
+
+    def _wait(self, work) -> None:
         try:
-            self._pg.allreduce([t], opts).wait()
+            work.wait()
         except RuntimeError as e:
             self._collective_failed(e)
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum",
+                   group: Optional["Group"] = None) -> torch.Tensor:
+        """Reduce `t` over the ranks (of `group`, default all) in place (a
+        contiguous copy if it is not contiguous) and return it."""
+        if group is not None and group.size == 1:
+            return t
+        if not t.is_contiguous():
+            t = t.contiguous()
+        self._count(group, "all_reduce", t)
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = _OPS[op]
+        pg = self._pg if group is None else group.pg
+        self._wait(pg.allreduce([t], opts))
         return t
+
+    def broadcast(self, t: torch.Tensor, src: int,
+                  group: "Group") -> torch.Tensor:
+        """`t` of the group's rank `src` (an index into `group.ranks`)
+        into `t` on every member, in place; `t` must be contiguous."""
+        if group.size == 1:
+            return t
+        self._count(group, "broadcast", t)
+        opts = dist.BroadcastOptions()
+        opts.rootRank, opts.rootTensor = src, 0
+        self._wait(group.pg.broadcast([t], opts))
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int,
+                   group: "Group") -> torch.Tensor:
+        """The members' `t` concatenated along `dim`, in member order."""
+        if group.size == 1:
+            return t
+        x = t.movedim(dim, 0).contiguous()
+        self._count(group, "all_gather", x)
+        out = x.new_empty((group.size * x.shape[0],) + x.shape[1:])
+        self._wait(group.pg._allgather_base(out, x))
+        return out.movedim(0, dim)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int,
+                       group: "Group") -> torch.Tensor:
+        """The sum of the members' `t`, cut in `group.size` equal parts
+        along `dim`: this member's part."""
+        if group.size == 1:
+            return t
+        x = t.movedim(dim, 0).contiguous()
+        if x.shape[0] % group.size:
+            raise ValueError(f"reduce_scatter: {x.shape[0]} rows over "
+                             f"{group.size} ranks")
+        self._count(group, "reduce_scatter", x)
+        out = x.new_empty((x.shape[0] // group.size,) + x.shape[1:])
+        opts = dist.ReduceScatterOptions()
+        opts.reduceOp = dist.ReduceOp.SUM
+        self._wait(group.pg._reduce_scatter_base(out, x, opts))
+        return out.movedim(0, dim)
+
+    # the serving trunk's two tensor-parallel seams (`models.gpt`): a
+    # column-parallel matmul's input as it is, a row-parallel output summed
+    def column_in(self, h: torch.Tensor) -> torch.Tensor:
+        return h
+
+    def row_out(self, y: torch.Tensor) -> torch.Tensor:
+        return self.all_reduce(y, "sum")
 
     def _collective_failed(self, e: BaseException):
         raise e
@@ -155,6 +252,29 @@ def _check_devices(mp: int, devices, backend: Optional[str]):
     return devices, backend
 
 
+class Group:
+    """Some of a mesh's ranks (`MeshRank.group`): `name`, `ranks` (mesh
+    ranks, in member order), `size`, this rank's index `rank`, and the
+    collectives, which run through the owning rank handle."""
+
+    def __init__(self, owner: MeshRank, name: str, ranks: tuple, pg):
+        self.owner, self.name, self.ranks, self.pg = owner, name, ranks, pg
+        self.size = len(ranks)
+        self.rank = ranks.index(owner.rank)
+
+    def all_reduce(self, t, op="sum"):
+        return self.owner.all_reduce(t, op, self)
+
+    def broadcast(self, t, src):
+        return self.owner.broadcast(t, src, self)
+
+    def all_gather(self, t, dim=0):
+        return self.owner.all_gather(t, dim, self)
+
+    def reduce_scatter(self, t, dim=0):
+        return self.owner.reduce_scatter(t, dim, self)
+
+
 class ServingMesh(MeshRank):
     """Rank 0 of a serving mesh, and the owner of its workers.  Build it
     with `serving_mesh`; `close()` (or dropping it, or the end of the
@@ -199,6 +319,9 @@ class ServingMesh(MeshRank):
         self._finalizer = weakref.finalize(
             self, _stop_workers, self._procs, self._conns, self._dir,
             self._groups)
+
+    def _new_pg(self, pg) -> None:
+        self._groups.append(pg)         # shut down with the mesh
 
     # ---- messages ---------------------------------------------------------
     def _send(self, rank: int, msg) -> None:

@@ -1886,3 +1886,111 @@ def test_mp2_gloo_engine_on_card_matches_mp1(dev):
             assert pools[1] == [pools[0][0] // 2] * 2
     finally:
         mesh.close()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 2048, 8, 128), (1, 2048, 4, 128)],
+                         ids=["dp2_mp2", "dp4_mp4"])
+def test_flash_kernels_at_a_training_rank_shape(dev, dtype, shape):
+    """Rows 2, 5 and 6 at the shapes a GPT-3 1.3B training rank gives them
+    (B 4, S 2048, 16 heads of 128: dp 2 x mp 2, and dp 4 x mp 4), causal:
+    each launches once and agrees with its plain version."""
+    rng = np.random.RandomState(shape[2])
+    q, k, v, g = (_randn(rng, shape, dtype, dev) for _ in range(4))
+    scale = 128 ** -0.5
+    before = flash_attention_fwd.launches
+    out, lse = flash_attention_fwd(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    ref_out, ref_lse = _flash_fwd_ref(q, k, v, True, scale)
+    _close(out, ref_out, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    before = (flash_bwd_dkv.launches, flash_bwd_dq.launches)
+    got = flash_attention_bwd(q, k, v, ref_out, ref_lse, g, True, scale)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dkv.launches, flash_bwd_dq.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = _flash_bwd_ref(q, k, v, ref_out, ref_lse, g, True, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        _grad_close(name, a, b, dtype)
+
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    """Four ranks of a training mesh on the one card (gloo)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from paddle_tpu_torch.parallel.tp import serving_mesh
+    mesh = serving_mesh(4, ["cuda:0"] * 4, backend="gloo", timeout_s=120)
+    yield mesh
+    mesh.close()
+
+
+def _card_collectives(*, mesh):
+    """The rank handle's collectives on CUDA tensors (`ServingMesh.run`
+    calls it by name on every rank)."""
+    r, dev = mesh.rank, mesh.device
+    pair = mesh.group("card_pair", [r - r % 2, r - r % 2 + 1])
+    every = mesh.group("card_every", range(mesh.mp))
+    x = torch.arange(6.0, device=dev).reshape(2, 3) + 10 * r
+    out = {"all_reduce": pair.all_reduce(x.clone()),
+           "broadcast": pair.broadcast(x.clone(), 1),
+           "all_gather": every.all_gather(x, 1),
+           "reduce_scatter": every.reduce_scatter(
+               torch.arange(16.0, device=dev).reshape(2, 8) * (r + 1), 1)}
+    assert all(t.is_cuda for t in out.values())
+    return {k: t.cpu() for k, t in out.items()}
+
+
+def test_mesh_collectives_on_cuda_tensors(card_mesh):
+    """Gloo takes the four collectives of a training mesh on CUDA tensors
+    (it stages them through host memory itself), with the right values."""
+    n = card_mesh.mp
+    outs = card_mesh.run(_card_collectives, [((), {})] * n)
+    xs = [torch.arange(6.0).reshape(2, 3) + 10 * r for r in range(n)]
+    for r, o in enumerate(outs):
+        p = r - r % 2
+        torch.testing.assert_close(o["all_reduce"], xs[p] + xs[p + 1])
+        torch.testing.assert_close(o["broadcast"], xs[p + 1])
+        torch.testing.assert_close(o["all_gather"], torch.cat(xs, 1))
+        want = torch.arange(16.0).reshape(2, 8) * sum(range(1, n + 1))
+        torch.testing.assert_close(o["reduce_scatter"],
+                                   want[:, 2 * r:2 * r + 2])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(dp=2, mp=2, sequence_parallel=True, remat=True),
+    dict(sharding=2, mp=2, sharding_stage=3),
+    dict(dp=4, sharding_stage=2)], ids=["dp2mp2_sp", "sh2mp2_z3", "dp4_z2"])
+def test_mesh_trainer_on_card_matches_one_device(dev, card_mesh, kw):
+    """Four gloo ranks on the card, float32 (hd 64, the kernels' route):
+    3 steps give the one-device trainer's losses and, gathered, its
+    parameters; every rank launches rows 2, 5 and 6 once a layer a step
+    and takes no composed route."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
+    from paddle_tpu_torch.parallel.hybrid import _leaves
+    cfg = gpt.GPTConfig(vocab_size=256, hidden_size=256, num_layers=2,
+                        num_heads=4, max_seq_len=128)
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    tok = np.random.RandomState(0).randint(0, 256, (4, 128))
+    lab = np.roll(tok, -1, axis=1)
+    one = HybridParallelTrainer(cfg, MeshConfig(remat=kw.get("remat", False)),
+                                device=dev, params=params)
+    tr = HybridParallelTrainer(cfg, MeshConfig(**kw), params=params,
+                               mesh=card_mesh)
+    card_mesh.reset_counts()
+    got = [float(tr.train_step(tok, lab)) for _ in range(3)]
+    counts = card_mesh.rank_counts()
+    want = [float(one.train_step(tok, lab)) for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    for c in counts:
+        assert [c["launches"][k] for k in ("flash_attention_fwd",
+                                           "flash_bwd_dkv", "flash_bwd_dq")] \
+            == [cfg.num_layers * 3] * 3
+        assert not any(c["composed_calls"].values())
+    a, b = tr.gathered_state()["params"], one.gathered_state()["params"]
+    for x, y in zip(_leaves(a), _leaves(b)):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
+    tr.close()

@@ -13,6 +13,7 @@ import torch
 from paddle_tpu_torch.inference.engine import LLMEngine
 from paddle_tpu_torch.models import gpt as TG
 from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
 from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -72,7 +73,8 @@ FLEET_MODULES = ("paddle_tpu_torch.inference",
 MOE_MODULES = ("paddle_tpu_torch.incubate.distributed.models.moe.dispatch",)
 # tensor-parallel serving: the mesh and its workers, the serving layout
 TP_MODULES = ("paddle_tpu_torch.parallel.tp",
-              "paddle_tpu_torch.parallel.hybrid")
+              "paddle_tpu_torch.parallel.hybrid",
+              "paddle_tpu_torch.parallel.mp_ops")
 
 
 @pytest.mark.parametrize("module", OBSERVABILITY_MODULES + FLEET_MODULES +
@@ -111,6 +113,9 @@ def test_entry_points_refuse_to_run_without_a_card():
     with pytest.raises(ValueError, match="CUDA device"):
         flash_attn_unpadded(q, q, q, [0, 2, 6], [0, 2, 6], 4, 4, 0.125,
                             causal=True)
+    # a training mesh starts on the cards unless given devices=
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HybridParallelTrainer(cfg, MeshConfig(dp=2), params=params)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
