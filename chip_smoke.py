@@ -376,8 +376,46 @@ Phases, one JSON line each (with its seconds):
                training time.  `python3 chip_smoke.py --tp` adds
                `train_nccl` on four cards: the same GPT-3 1.3B training at
                dp 4 (ZeRO-1), mp 4 and dp 2 x mp 2 with sequence
-               parallelism under NCCL, beside mp 1 on one card: losses,
+               parallelism under NCCL, beside mp 1 on one card, then
+               phase 12c's pp 4 (B 8, M 8) and MoE pp 2 x ep 2: losses,
                tokens/s, step ms, each rank's peak memory and collectives.
+12c. train_pp — pipeline and expert-parallel training on this one card:
+               four gloo ranks (gloo stages the collectives of CUDA
+               tensors through host memory itself, the port its send/recv,
+               counted as "<group>.send_host"/"recv_host").  (a) GPT-3 1.3B
+               (TRAIN_PP_LAYERS = 8 layers: the phase passed 180 s at all
+               24), bf16 with bf16 moments, remat,
+               B=8, S=2048, at `MeshConfig(pp=4, micro_batches=8)` and
+               `(pp=2, vpp=2, mp=2, micro_batches=4)`, 1 warm-up and 2
+               timed steps each: finite, falling losses, step 0 within
+               0.01 of one device's loss on the same weights and batch
+               (phase 12's weights at this depth; phase 12's own step 0,
+               at 24 layers and B 4, is reported beside it), rows
+               2, 5 and 6 exactly (layers a stage) x M x steps
+               on every rank, nothing composed, each rank's peak memory,
+               tokens/s, the point-to-point calls and bytes a rank makes a
+               step (`p2p_per_step`) and the schedule's bubble share
+               (pp - 1) / (vpp * M + pp - 1).  (b) `moe_config()` at
+               `(pp=2, ep=2, micro_batches=2)`, B=4, S=2048, 1 warm-up and
+               3 timed steps (its loss rises at step 1, as phase 14's
+               does): the same checks and the all-to-all calls and bytes a
+               rank makes.
+               (c) float32 (TF32 off), 3 steps from the same weights, B=8,
+               S=1024: GPT-3 1.3B width at 4 layers on one device against
+               pp 4 (M 4) and pp 2 x vpp 2 x mp 2 (M 4); the MoE width at 4
+               layers with capacity factor 8 and aux weight 0 (no drops;
+               the reference's setting for ep against one device), remat,
+               against pp 2 x ep 2 (M 2): losses within 1e-4 relative,
+               gathered parameters within 1e-4 (dense: element by element;
+               MoE: each leaf in relative norm, since a top-2 near-tie
+               that rounding flips moves the elements its token reaches;
+               those past 1e-4 are reported, and so is every token whose
+               top-2 experts differ from one device's, with its margin,
+               from the router's logged choices).  (d) rows 2, 5 and 6 at
+               a stage's [1,2048,16,128] causal bf16 against their plain
+               versions,
+               with kernel, plain, SDPA and bound times.  `--tp` adds (a)'s
+               pp 4 and (b) to `train_nccl`.
 13. engine_moe — the MoE family at the GPT-3 1.3B trunk (`gpt3_1p3b` with 4
                experts, top-2, capacity factor 2 in every block; ~3.7 B
                parameters), bf16, seeded random weights: phase 3's bucketed
@@ -402,7 +440,8 @@ Then one line `{"kernels": [...]}` for all nine kernels and the int8 lanes of
 the two paged ones (launches summed over the main-path runs of phases 3, 4,
 5, 6b, 6c, 6d, 6e, 6f (its tier runs), 6g (its traced pass), 6h (its
 fleets), 6i (its bf16 runs, every rank's launches), 8b (its counted bf16
-call), 10, 11, 12, 12b ((a), every rank's launches), 13 (bf16 and int8), 14
+call), 10, 11, 12, 12b ((a), every rank's launches), 12c ((a) and (b),
+every rank's launches), 13 (bf16 and int8), 14
 and 15, each with the counts zeroed just before it and read
 just after; none
 of them may take an entry's composed route for shapes the kernels do not
@@ -3692,12 +3731,13 @@ def train_batch(cfg, B, S, seed=0):
     return tok, np.roll(tok, -1, axis=1).astype(np.int32)
 
 
-def mesh_train_run(trainer, tok, lab, steps, what):
+def mesh_train_run(trainer, tok, lab, steps, what, per_step=None):
     """One warm-up and `steps` timed steps, every rank's kernel counts and
     collective stats zeroed just before the warm-up and read just after
     the last step: the losses, step times, and per rank the launches
-    (rows 2, 5 and 6 exactly layers x steps, nothing composed), the peak
-    device bytes and the collectives a step (calls and bytes)."""
+    (rows 2, 5 and 6 exactly `per_step` (default: layers) x steps, nothing
+    composed), the peak device bytes and the collectives a step (calls
+    and bytes)."""
     import torch
     from paddle_tpu_torch.incubate import kernels as K
     mesh = trainer.mesh
@@ -3722,7 +3762,7 @@ def mesh_train_run(trainer, tok, lab, steps, what):
                       trainer.device)}]
     else:
         counts, stats = mesh.rank_counts(), trainer.rank_stats()
-    want = trainer.config.num_layers * n
+    want = (per_step or trainer.config.num_layers) * n
     for r, c in enumerate(counts):
         if any(c["composed_calls"].values()):
             raise AssertionError(f"{what} rank {r}: composed routes "
@@ -3751,50 +3791,175 @@ def train_parity_mesh(dev, mesh):
     """(b): float32 (TF32 off), GPT-3 1.3B width at 2 layers, B 4, S 1024,
     3 steps under each of PARITY_LAYOUTS from the same weights: losses and
     the gathered parameters after the steps within PARITY_TOL."""
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.gpt3_1p3b()
+    cfg.num_layers = 2
+    return mesh_parity(cfg, PARITY_LAYOUTS, PARITY_BATCH, dev, mesh,
+                       "train_mesh parity")
+
+
+def mesh_parity(cfg, layouts, batch, dev, mesh, what):
+    """PARITY_STEPS steps of `cfg` (float32) on one device ("mp1", first in
+    `layouts`, a degree-1 MeshConfig) and under each mesh layout of
+    `layouts` from the same weights (seed 1).  The losses: every step
+    within PARITY_TOL relative of mp 1's.  The gathered parameters: every
+    element within PARITY_TOL (rtol and atol), and for MoE every leaf too
+    within PARITY_TOL in relative norm |a - b| / |b|; dense after the last
+    step, MoE after each step while the router has chosen every token's
+    experts as on one device (`train_step_routes` logs its choices).  Top-k
+    routing is discontinuous: a near-tie that float rounding flips moves
+    the elements the token's gradient reaches.  So from the first step
+    whose choices differ (`route_flips`) the parameters are reported, not
+    held, and that step must be a later one than the first, with every
+    differing choice of its lowest such layer a near-tie (the chosen and
+    the passed-over expert's probabilities within PARITY_TOL on one
+    device).  Each run's seconds are kept."""
     import torch
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
     from paddle_tpu_torch.parallel.hybrid import _leaves, _map, _names
-    cfg = gpt.gpt3_1p3b()
-    cfg.num_layers = 2
     params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
                              dev)
-    tok, lab = train_batch(cfg, *PARITY_BATCH, seed=1)
-    runs = {}
-    for name, kw in PARITY_LAYOUTS:
+    tok, lab = train_batch(cfg, *batch, seed=1)
+    moe = cfg.moe_num_experts > 0
+    names = _names(params)
+    rec = {"model": "gpt3_1p3b", "layers": cfg.num_layers, "dtype": "float32",
+           "experts": cfg.moe_num_experts, "batch": list(batch),
+           "steps": PARITY_STEPS, "seconds": {}}
+    base = None             # mp 1's losses, routes and parameters a step
+    for name, kw in layouts:
+        t = time.perf_counter()
         # one device updates the tree it is given in place: a copy
-        tr = HybridParallelTrainer(cfg, MeshConfig(**kw), **(
-            {"mesh": mesh, "params": params} if kw else
+        mc = MeshConfig(**kw)
+        tr = HybridParallelTrainer(cfg, mc, **(
+            {"mesh": mesh, "params": params} if mc.size > 1 else
             {"device": dev, "params": _map(torch.clone, params)}))
-        losses = [float(tr.train_step(tok, lab))
-                  for _ in range(PARITY_STEPS)]
-        runs[name] = (losses, _leaves(tr.gathered_state()["params"]))
+        run = {"losses": [], "routes": [], "params": []}
+        for s in range(PARITY_STEPS):
+            if moe:
+                loss, idx, probs = tr.train_step_routes(tok, lab)
+                run["routes"].append((idx, probs))
+            else:
+                loss = tr.train_step(tok, lab)
+            run["losses"].append(float(loss))
+            if not (moe or s == PARITY_STEPS - 1):
+                continue
+            got = _leaves(tr.gathered_state(("params",))["params"])
+            if base is None:
+                run["params"].append(got)
+            else:
+                run["params"].append(leaf_diffs(got, base["params"][
+                    len(run["params"])], names, dev))
+            del got
         tr.close()
         del tr
         torch.cuda.empty_cache()
-    base_l, base_p = runs["mp1"]
-    rec = {"model": "gpt3_1p3b", "layers": 2, "dtype": "float32",
-           "batch": list(PARITY_BATCH), "steps": PARITY_STEPS}
-    names = _names(params)
-    for name, (losses, leaves) in runs.items():
-        if name == "mp1":
-            rec["losses_mp1"] = losses
+        rec["seconds"][name] = time.perf_counter() - t
+        if base is None:
+            base = run
+            rec["losses_" + name] = run["losses"]
             continue
-        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base_l))
-        diffs = [float((a - b).abs().max()) for a, b in zip(leaves, base_p)]
-        worst = max(range(len(diffs)), key=diffs.__getitem__)
-        bad = [n for n, a, b in zip(names, leaves, base_p)
-               if not torch.allclose(a, b, rtol=PARITY_TOL, atol=PARITY_TOL)]
-        rec[name] = {"losses": losses, "loss_max_rel_diff": rel,
-                     "param_max_abs_diff": diffs[worst],
-                     "worst_leaf": names[worst],
-                     "elements_over_1e-6": int(sum(
-                         int(((a - b).abs() > 1e-6).sum())
-                         for a, b in zip(leaves, base_p)))}
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(run["losses"], base["losses"]))
+        out = {"losses": run["losses"], "loss_max_rel_diff": rel}
+        held = run["params"]
+        bad = []
+        if moe:
+            flips = route_flips(base["routes"], run["routes"])
+            out["route_flips"] = flips
+            first = next((f for f in flips["per_step"]
+                          if f["set_differs"]), None)
+            if first is not None:
+                held = held[:first["step"]]
+                out["params_reported_after_step"] = first["step"]
+                if not held:
+                    bad.append("routes differ at step 0")
+                if not max(first["first_layer_margins"]) < PARITY_TOL:
+                    bad.append(f"a flip at step {first['step']} is no "
+                               f"near-tie: {first['first_layer_margins']}")
+            out["params_by_step"] = run["params"]
+        else:
+            out.update(run["params"][-1])
+        for s, d in enumerate(held):
+            bad += [f"step {s if moe else PARITY_STEPS - 1} {n}: "
+                    f"{d['elements_past_tol'].get(n, 0)} elements, norm "
+                    f"{v:.3g}" for n, v in d["leaf_norm_rel_diff"].items()
+                    if d["elements_past_tol"].get(n) or
+                    (moe and not v <= PARITY_TOL)]
+        rec[name] = out
         if not rel <= PARITY_TOL or bad:
-            raise AssertionError(f"train_mesh parity {name}: loss rel "
-                                 f"{rel:.3g}, leaves off {bad}")
+            raise AssertionError(f"{what} {name}: loss rel {rel:.3g}; "
+                                 f"{bad}")
     return rec
+
+
+def leaf_diffs(got, want, names, dev):
+    """Leaf by leaf (on `dev`): each leaf's relative norm |a - b| / |b|,
+    the elements past PARITY_TOL (rtol and atol) and over 1e-6, the
+    largest difference and the whole tree's relative norm."""
+    import torch
+    out = {"leaf_norm_rel_diff": {}, "elements_past_tol": {},
+           "elements_over_1e-6": 0, "param_max_abs_diff": 0.0}
+    dd = ww = 0.0
+    for n, a, b in zip(names, got, want):
+        a, b = a.to(dev), b.to(dev)
+        d = (a - b).double()
+        d2, w2 = float(d.square().sum()), float(b.double().square().sum())
+        dd, ww = dd + d2, ww + w2
+        out["leaf_norm_rel_diff"][n] = math.sqrt(d2 / max(w2, 1e-300))
+        past = int((~torch.isclose(a, b, rtol=PARITY_TOL,
+                                   atol=PARITY_TOL)).sum())
+        if past:
+            out["elements_past_tol"][n] = past
+        out["elements_over_1e-6"] += int((d.abs() > 1e-6).sum())
+        m = float(d.abs().max())
+        if m >= out["param_max_abs_diff"]:
+            out["param_max_abs_diff"], out["worst_leaf"] = m, n
+        del a, b, d
+    out["param_norm_rel_diff"] = math.sqrt(dd / ww)
+    out["worst_leaf_norm_rel_diff"] = max(
+        out["leaf_norm_rel_diff"].values())
+    return out
+
+
+def route_flips(base, other):
+    """Where two runs' logged routes (per step: gate_idx [L, T, k], probs
+    [L, T, E]) part.  Per step: the (layer, token) count whose top-k set
+    differs and whose order alone differs, the largest probability gap,
+    and at the lowest layer whose sets differ the margins of `base` there
+    (the gap between the probabilities of the expert it chose and the one
+    `other` chose instead).  And the first 8 differences, with both runs'
+    experts and probabilities."""
+    import torch
+    out = {"per_step": [], "first": []}
+    for s, ((ia, pa), (ib, pb)) in enumerate(zip(base, other)):
+        order = (ia != ib).any(-1)
+        ia_s, ib_s = ia.sort(-1).values, ib.sort(-1).values
+        set_diff = (ia_s != ib_s).any(-1)
+        step = {"step": s, "set_differs": int(set_diff.sum()),
+                "order_differs": int((order & ~set_diff).sum()),
+                "probs_max_abs_diff": float((pa - pb).abs().max())}
+        if step["set_differs"]:
+            layer = int(torch.nonzero(set_diff.any(-1))[0])
+            step["first_set_layer"] = layer
+            margins = []
+            for tok in torch.nonzero(set_diff[layer]).flatten().tolist():
+                a, b = set(ia[layer, tok].tolist()), set(ib[layer, tok].tolist())
+                p = pa[layer, tok]
+                margins += [float(p[e] - p[f]) for e in a - b for f in b - a]
+            step["first_layer_margins"] = margins
+        out["per_step"].append(step)
+        for layer, tok in torch.nonzero(order).tolist():
+            if len(out["first"]) >= 8:
+                break
+            out["first"].append({
+                "step": s, "layer": layer, "token": tok,
+                "kind": "set" if set_diff[layer, tok] else "order",
+                "experts_base": ia[layer, tok].tolist(),
+                "experts_other": ib[layer, tok].tolist(),
+                "probs_base": pa[layer, tok].tolist(),
+                "probs_other": pb[layer, tok].tolist()})
+    return out
 
 
 def train_mesh(dev, smi):
@@ -3847,6 +4012,156 @@ def train_mesh(dev, smi):
     return rec, summed
 
 
+# ---------------------------------------------------------------------------
+# train_pp: pipeline and expert-parallel training
+# ---------------------------------------------------------------------------
+
+# (a): GPT-3 1.3B under two pipeline layouts of four gloo ranks on the one
+# card; the depth is cut to 8, since the phase passed 180 s at 24 (PERF.md
+# section 4)
+TRAIN_PP_LAYERS = 8
+TRAIN_PP_BATCH = (8, 2048)
+TRAIN_PP_LAYOUTS = (("pp4", dict(pp=4, micro_batches=8)),
+                    ("pp2_vpp2_mp2", dict(pp=2, vpp=2, mp=2,
+                                          micro_batches=4)))
+TRAIN_PP_STEPS = 2              # timed, after one warm-up
+# (b): the MoE config (`moe_config`) at pp 2 x ep 2; 3 timed steps: its
+# loss rises at step 1 and falls below step 0's at step 3, as phase 14's
+TRAIN_PP_MOE = dict(pp=2, ep=2, micro_batches=2)
+TRAIN_PP_MOE_BATCH = (4, 2048)
+TRAIN_PP_MOE_STEPS = 3
+# (c): float32 parity at GPT-3 1.3B width, 4 layers; the MoE width with
+# capacity factor 8 (no token drops) against pp 2 x ep 2
+PP_PARITY_LAYERS, PP_PARITY_BATCH = 4, (8, 1024)
+PP_PARITY_LAYOUTS = (("mp1", {}),
+                     ("pp4", dict(pp=4, micro_batches=4)),
+                     ("pp2_vpp2_mp2", dict(pp=2, vpp=2, mp=2,
+                                           micro_batches=4)))
+# remat: one device's f32 expert buffers at capacity 8 are 4 GiB a layer
+PP_PARITY_MOE = (("mp1", dict(remat=True)),
+                 ("pp2_ep2", dict(pp=2, ep=2, micro_batches=2, remat=True)))
+# (d): rows 2, 5 and 6 at a stage's microbatch of (a)'s pp 4 (B 8 over 8
+# microbatches)
+PP_STAGE_SHAPE = (1, 2048, 16, 128)
+
+
+def comm_subset(run, prefixes):
+    """Per rank, the collectives a step whose group starts with one of
+    `prefixes` (the pipeline's links, the ep all-to-all)."""
+    return [{k: v for k, v in rank.items() if k.split(".")[0].startswith(
+        prefixes)} for rank in run["collectives_per_step"]]
+
+
+def pp_run(cfg, kw, batch, mesh, what, steps=TRAIN_PP_STEPS):
+    """`mesh_train_run` of `cfg` (bf16, bf16 moments, remat) at
+    MeshConfig(**kw), one warm-up and `steps` timed steps: rows 2, 5 and 6
+    (layers a stage) x microbatches launches a step on every rank; the
+    bubble share of the schedule."""
+    import torch
+    from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
+    from paddle_tpu_torch.parallel.pipeline import bubble_share
+    mc = MeshConfig(**kw, remat=True)
+    tok, lab = train_batch(cfg, *batch)
+    tr = HybridParallelTrainer(cfg, mc, moment_dtype=torch.bfloat16,
+                               mesh=mesh)
+    run = mesh_train_run(tr, tok, lab, steps, what,
+                         per_step=cfg.num_layers // mc.pp * mc.micro_batches)
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+    if not run["losses"][-1] < run["losses"][0]:
+        raise AssertionError(f"{what}: loss did not fall {run['losses']}")
+    return {"mesh": kw, "batch": list(batch),
+            "bubble_share": bubble_share(mc.pp, mc.vpp, mc.micro_batches),
+            "p2p_per_step": comm_subset(run, ("pp_",)), **run}
+
+
+def train_pp(dev, smi, step0):
+    """Phase 12c (see the module docstring); `step0`: the `train` phase's
+    step-0 loss.  Returns (record, the summed launches of (a) and (b)'s
+    ranks)."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel.tp import serving_mesh
+    t = time.perf_counter()
+    cfg = gpt.gpt3_1p3b()
+    cfg.dtype = torch.bfloat16
+    cfg.num_layers = TRAIN_PP_LAYERS
+    mesh = serving_mesh(4, [dev] * 4, backend="gloo")
+    rec = {"nvidia_smi": smi, "ranks": 4, "backend": "gloo",
+           "timing_note": "four ranks time-slicing one card, gloo "
+           "collectives and host-staged send/recv: not a pipeline-parallel "
+           "time"}
+    runs = []
+    # the step-0 loss one device gives the trainers' weights (seed 0, drawn
+    # on this card as phase 12's) at this depth, on the same batch
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    with torch.no_grad():
+        one0 = float(gpt.loss_fn(params, *train_batch(cfg, *TRAIN_PP_BATCH),
+                                 cfg))
+    del params
+    torch.cuda.empty_cache()
+    rec["step0_loss_one_device"] = one0
+    try:
+        for name, kw in TRAIN_PP_LAYOUTS:
+            run = pp_run(cfg, kw, TRAIN_PP_BATCH, mesh, f"train_pp {name}")
+            run["step0_loss_diff_vs_one_device"] = run["losses"][0] - one0
+            run["step0_loss_diff_vs_train"] = run["losses"][0] - step0
+            if abs(run["step0_loss_diff_vs_one_device"]) > 0.01:
+                raise AssertionError(f"train_pp {name}: step-0 loss "
+                                     f"{run['losses'][0]}, one device's "
+                                     f"{one0}")
+            rec[name] = {"model": "gpt3_1p3b", "layers": cfg.num_layers,
+                         "dtype": "bf16", "moments": "bf16", "remat": True,
+                         **run}
+            runs.append(run)
+            emit({"run": f"train_pp {name}", **run})
+        rec["a_seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        mcfg = moe_config()
+        run = pp_run(mcfg, TRAIN_PP_MOE, TRAIN_PP_MOE_BATCH, mesh,
+                     "train_pp moe", TRAIN_PP_MOE_STEPS)
+        run["all_to_all_per_step"] = comm_subset(run, ("ep",))
+        rec["moe"] = {"model": "gpt3_1p3b_moe", "layers": mcfg.num_layers,
+                      "experts": mcfg.moe_num_experts, "dtype": "bf16",
+                      "moments": "bf16", "remat": True, **run}
+        runs.append(run)
+        emit({"run": "train_pp moe", **run})
+        rec["b_seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        f32 = gpt.gpt3_1p3b()
+        f32.num_layers = PP_PARITY_LAYERS
+        rec["parity_f32"] = mesh_parity(f32, PP_PARITY_LAYOUTS,
+                                        PP_PARITY_BATCH, dev, mesh,
+                                        "train_pp parity")
+        emit({"run": "train_pp parity_f32", **rec["parity_f32"]})
+        rec["parity_f32_moe"] = moe_parity(dev, mesh)
+        rec["c_seconds"] = time.perf_counter() - t
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    rec["kernels"] = [flash_case(torch.bfloat16, dev, PP_STAGE_SHAPE),
+                      bwd_case(torch.bfloat16, dev, PP_STAGE_SHAPE, True)]
+    summed = {k: sum(c[k] for run in runs for c in run["launches_all"])
+              for k in runs[0]["launches_all"][0]}
+    return rec, summed
+
+
+def moe_parity(dev, mesh):
+    """Phase 12c (c)'s MoE half: the MoE width at PP_PARITY_LAYERS, float32,
+    one device against PP_PARITY_MOE's pp 2 x ep 2 on `mesh` (four
+    ranks)."""
+    import torch
+    cfg = moe_config()
+    cfg.dtype, cfg.num_layers = torch.float32, PP_PARITY_LAYERS
+    # no drops and no aux (whose groups differ with the layout): the
+    # reference's own setting for ep against one device
+    cfg.moe_capacity_factor, cfg.moe_aux_weight = 8.0, 0.0
+    return mesh_parity(cfg, PP_PARITY_MOE, PP_PARITY_BATCH, dev, mesh,
+                       "train_pp moe parity")
+
+
 def train_nccl(smi):
     """`--tp`: GPT-3 1.3B (bf16, remat, B 4, S 2048) under
     TRAIN_NCCL_LAYOUTS on a four-card NCCL mesh, against mp 1 on one card:
@@ -3885,6 +4200,18 @@ def train_nccl(smi):
                 rec["mp1"]["losses"][0]
             rec[name] = r
             emit({"run": name, **r})
+        # pipeline and expert parallelism (train_pp's (a) and (b) layouts)
+        pp_name, pp_kw = TRAIN_PP_LAYOUTS[0]
+        r = pp_run(cfg, pp_kw, TRAIN_PP_BATCH, mesh, f"train_nccl {pp_name}")
+        r["step0_loss_diff_vs_mp1"] = r["losses"][0] - \
+            rec["mp1"]["losses"][0]
+        rec[pp_name] = r
+        emit({"run": pp_name, **r})
+        r = pp_run(moe_config(), TRAIN_PP_MOE, TRAIN_PP_MOE_BATCH, mesh,
+                   "train_nccl moe pp2_ep2", TRAIN_PP_MOE_STEPS)
+        r["all_to_all_per_step"] = comm_subset(r, ("ep",))
+        rec["moe_pp2_ep2"] = r
+        emit({"run": "moe_pp2_ep2", **r})
     finally:
         mesh.close()
     return rec
@@ -4473,6 +4800,11 @@ def main():
           **rec_mesh})
 
     t = time.perf_counter()
+    rec_pp, pp_launches = train_pp(dev, smi, rec8["losses"][0])
+    emit({"phase": "train_pp", "seconds": time.perf_counter() - t,
+          **rec_pp})
+
+    t = time.perf_counter()
     rec_moe = engine_moe(dev)
     emit({"phase": "engine_moe", "seconds": time.perf_counter() - t,
           **rec_moe})
@@ -4574,7 +4906,7 @@ def main():
               and "tier" in m), rec_obs, rec_fleet,
             *(rec_tp[m] for m, _, _ in TP_MODES), rec9, rec7, rec8,
             rec_gen, rec_moe, rec_moe["int8"], rec_tm, rec_bert,
-            {"launches": mesh_launches})
+            {"launches": mesh_launches}, {"launches": pp_launches})
     kernels = [{
         "name": r["kernel"] + ("_int8" if key == "launches_int8" else ""),
         "route": route, "source": source, "replaces": replaces,

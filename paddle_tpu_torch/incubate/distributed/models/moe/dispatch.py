@@ -20,6 +20,7 @@ captures as one CUDA graph:
 from __future__ import annotations
 
 import math
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,10 +39,24 @@ def _one_hot(idx, n):
         .to(torch.int32)
 
 
-def topk_gating(logits, topk: int, normalize: bool = True):
-    """Softmax-top-k router.  Returns (gate_idx [T, k] int32, gate_val
-    [T, k] float32, aux): aux is the Switch load-balance loss
-    E * sum_e(fraction of first choices on e * mean probability of e)."""
+# this process's log of `route`'s choices while `log_routes` holds it open
+_ROUTE_LOG: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+
+
+def log_routes(on: bool, mesh=None):
+    """Open (`on`) or close this process's log of the router's choices and
+    return what the log held: one (probs [T, E], gate_idx [T, k]) on the
+    CPU per `route` call, in call order (None if no log was open).  It
+    reads device values, so nothing that a CUDA graph captures runs while
+    it is open.  `mesh=`: a mesh's `run` calls it on every rank."""
+    global _ROUTE_LOG
+    out, _ROUTE_LOG = _ROUTE_LOG, ([] if on else None)
+    return out
+
+
+def route(logits, topk: int, normalize: bool = True):
+    """The softmax-top-k router's choices: (probs [T, E] float32, gate_idx
+    [T, k] int32, gate_val [T, k] float32)."""
     probs = torch.softmax(logits.float(), dim=-1)                 # [T, E]
     order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
     gate_idx = order[:, :topk]
@@ -49,21 +64,42 @@ def topk_gating(logits, topk: int, normalize: bool = True):
     if normalize and topk > 1:
         gate_val = gate_val / torch.clamp(gate_val.sum(-1, keepdim=True),
                                           min=1e-9)
+    gate_idx = gate_idx.to(torch.int32)
+    if _ROUTE_LOG is not None:
+        _ROUTE_LOG.append((probs.detach().cpu(), gate_idx.cpu()))
+    return probs, gate_idx, gate_val
+
+
+def topk_gating(logits, topk: int, normalize: bool = True):
+    """Softmax-top-k router.  Returns (gate_idx [T, k] int32, gate_val
+    [T, k] float32, aux): aux is the Switch load-balance loss
+    E * sum_e(fraction of first choices on e * mean probability of e)."""
+    probs, gate_idx, gate_val = route(logits, topk, normalize)
     E = logits.shape[-1]
     me = probs.mean(0)
     ce = _one_hot(gate_idx[:, 0], E).float().mean(0)
     aux = E * torch.sum(me * ce)
-    return gate_idx.to(torch.int32), gate_val, aux
+    return gate_idx, gate_val, aux
 
 
-def capacity_slots(gate_idx, num_experts: int, capacity: int):
+def expert_counts(gate_idx, num_experts: int):
+    """[E] int32: the (token, k) routings each expert receives."""
+    return _one_hot(gate_idx.reshape(-1), num_experts).sum(0)
+
+
+def capacity_slots(gate_idx, num_experts: int, capacity: int, offset=None):
     """Each (token, k) routing's slot in its expert's queue, in arrival
     order.  Returns (slot [T, k] int64 in [0, E * C]: E * C means dropped,
-    keep [T, k] bool)."""
+    keep [T, k] bool).  `offset` [E]: the routings each queue already
+    holds from tokens ahead of these (another rank's rows of one routing
+    group)."""
     T, k = gate_idx.shape
     E, C = num_experts, capacity
     onehot = _one_hot(gate_idx.reshape(T * k), E)
-    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1).reshape(T, k) - 1
+    pos = torch.cumsum(onehot, dim=0)
+    if offset is not None:
+        pos = pos + offset.to(pos.dtype)
+    pos = (pos * onehot).sum(-1).reshape(T, k) - 1
     keep = pos < C
     slot = torch.where(keep, gate_idx.long() * C + pos, E * C)
     return slot, keep

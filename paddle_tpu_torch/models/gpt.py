@@ -16,8 +16,11 @@ presets through the RMSNorm kernel; the large projections are plain
 An MoE config (`moe_num_experts > 0`) replaces every block's dense FFN by
 capacity-routed experts (`gate_w` float32 `[L, D, E]`, `exp_fc{1,2}_{w,b}`
 `[L, E, ...]`; `incubate.distributed.models.moe.dispatch`, plain torch as
-the reference is plain jnp); the trunk returns the blocks' load-balance
-loss beside its output, and `loss_fn` adds `moe_aux_weight` times it.
+the reference is plain jnp; on a training mesh `mesh.moe_ffn`, the
+expert-parallel `parallel.moe`); the trunk returns the blocks'
+load-balance loss beside its output, and `loss_fn` adds `moe_aux_weight`
+times it.  `embed`, `run_blocks`, `epilogue` and `ce_sums` are the pieces
+a pipeline stage (`parallel.pipeline`) runs of `loss_fn`.
 `generate` runs the reference's dense-cache decoding (`init_cache`,
 `prefill`, `decode_step`) as one program a shape key, its prefill and
 decode step each a CUDA graph on the card.
@@ -480,6 +483,16 @@ def backbone(params, tokens, config: GPTConfig, type_ids=None, remat=False,
     Under a training `mesh` (a rank of `parallel.hybrid`'s trainer) the
     embedding is vocab-parallel, the activations are [B, S/mp, D] under
     sequence parallelism, and the head is the rank's vocab columns."""
+    x = embed(params, tokens, config, type_ids, mesh)
+    x, aux = run_blocks(params["blocks"], x, config, remat=remat,
+                        attn_impl=attn_impl, mesh=mesh)
+    return epilogue(params, x, config), head_matrix(params, config), aux
+
+
+def embed(params, tokens, config: GPTConfig, type_ids=None, mesh=None):
+    """tokens [B, S] -> the first block's input [B, S, D]: the token rows
+    and `embed_prologue`; vocab-parallel, and the rank's S/mp rows under
+    sequence parallelism, on a training `mesh`."""
     wte = params["wte"]
     tokens = torch.as_tensor(tokens, device=wte.device)
     rows = None
@@ -490,10 +503,7 @@ def backbone(params, tokens, config: GPTConfig, type_ids=None, remat=False,
         rows = mesh.seq_rows(tokens.shape[1])
     if type_ids is not None:
         type_ids = torch.as_tensor(type_ids, device=wte.device)
-    x = embed_prologue(params, x, config, type_ids, rows)
-    x, aux = run_blocks(params["blocks"], x, config, remat=remat,
-                        attn_impl=attn_impl, mesh=mesh)
-    return epilogue(params, x, config), head_matrix(params, config), aux
+    return embed_prologue(params, x, config, type_ids, rows)
 
 
 def forward(params, tokens, config: GPTConfig):
@@ -517,44 +527,64 @@ def _chunk_ce(x, head, labels, mesh=None):
     return _ce_sums(torch.matmul(x, head), labels)
 
 
-def loss_fn(params, tokens, labels, config: GPTConfig, remat=False,
-            loss_chunk: Optional[int] = 512, attn_impl=None, mesh=None):
-    """LM loss; labels [B, S] with -100 = ignore.  An MoE config adds
-    `moe_aux_weight` times the blocks' load-balance loss.
-
-    loss_chunk: when it divides S and is smaller, the LM head and
-    log-softmax run per sequence chunk, each under a non-reentrant
-    checkpoint, so the backward replays the chunk's head matmul and no
-    [B, S, V] f32 log-probs are kept.  attn_impl overrides flash attention
-    (e.g. a plain reference).
-
-    Under a training `mesh` tokens and labels are the rank's batch rows,
-    the cross entropy is vocab-parallel (`mesh.vocab_ce`) over the full
-    sequence, and the result is this rank's term of the one global mean:
-    its loss sum over the valid labels of all the data-parallel ranks
-    (`mesh.global_mean`), so that the ranks' gradients sum to the
-    global loss's."""
-    x, head, aux = backbone(params, tokens, config, remat=remat,
-                            attn_impl=attn_impl, mesh=mesh)
-    moe_pen = config.moe_aux_weight * aux if config.moe_num_experts > 0 \
-        else 0.0
+def ce_sums(x, head, labels, loss_chunk: Optional[int] = 512, mesh=None):
+    """(-sum log p[label], count of valid labels) of the activations x
+    [B, S, D] after the epilogue under the head [D, V] (under a training
+    `mesh`: vocab-parallel, x gathered from S/mp rows).  When loss_chunk
+    divides S and is smaller, the head and log-softmax run per sequence
+    chunk under a non-reentrant checkpoint, so the backward replays the
+    chunk's head matmul and no [B, S, V] f32 log-probs are kept."""
     labels = torch.as_tensor(labels, device=x.device).long()
     if _mp_degree(mesh) > 1:
         x = mesh.column_in(x)
     ce = functools.partial(_chunk_ce, mesh=mesh)
     S = x.shape[1]
     if not loss_chunk or S % loss_chunk != 0 or S <= loss_chunk:
-        loss_sum, n = ce(x, head, labels)
-    else:
-        loss_sum = n = 0.0
-        for i in range(0, S, loss_chunk):
-            part = slice(i, i + loss_chunk)
-            ls, c = checkpoint(ce, x[:, part], head, labels[:, part],
-                               use_reentrant=False)
-            loss_sum, n = loss_sum + ls, n + c
+        return ce(x, head, labels)
+    loss_sum = n = 0.0
+    for i in range(0, S, loss_chunk):
+        part = slice(i, i + loss_chunk)
+        ls, c = checkpoint(ce, x[:, part], head, labels[:, part],
+                           use_reentrant=False)
+        loss_sum, n = loss_sum + ls, n + c
+    return loss_sum, n
+
+
+def loss_parts(params, tokens, labels, config: GPTConfig, remat=False,
+               loss_chunk: Optional[int] = 512, attn_impl=None, mesh=None):
+    """`loss_fn`'s two terms: (the mean cross entropy, the MoE penalty
+    `moe_aux_weight` x the blocks' load-balance loss, None when dense).
+    Under a training `mesh` both are the rank's terms (`loss_fn`)."""
+    x, head, aux = backbone(params, tokens, config, remat=remat,
+                            attn_impl=attn_impl, mesh=mesh)
+    loss_sum, n = ce_sums(x, head, labels, loss_chunk, mesh)
     if mesh is not None:
-        return mesh.global_mean(loss_sum, n) + moe_pen
-    return loss_sum / torch.clamp(n, min=1.0) + moe_pen
+        mean = mesh.global_mean(loss_sum, n)
+    else:
+        mean = loss_sum / torch.clamp(n, min=1.0)
+    pen = config.moe_aux_weight * aux if config.moe_num_experts > 0 \
+        else None
+    return mean, pen
+
+
+def loss_fn(params, tokens, labels, config: GPTConfig, remat=False,
+            loss_chunk: Optional[int] = 512, attn_impl=None, mesh=None):
+    """LM loss; labels [B, S] with -100 = ignore.  An MoE config adds
+    `moe_aux_weight` times the blocks' load-balance loss.
+
+    loss_chunk: see `ce_sums`.  attn_impl overrides flash attention (e.g.
+    a plain reference).
+
+    Under a training `mesh` tokens and labels are the rank's batch rows,
+    the cross entropy is vocab-parallel (`mesh.vocab_ce`) over the full
+    sequence, and the result is this rank's term of the one global mean:
+    its loss sum over the valid labels of all the data-parallel ranks
+    (`mesh.global_mean`), so that the ranks' gradients sum to the
+    global loss's; the MoE penalty is the rank's term too
+    (`mesh.moe_ffn`)."""
+    mean, pen = loss_parts(params, tokens, labels, config, remat,
+                           loss_chunk, attn_impl, mesh)
+    return mean if pen is None else mean + pen
 
 
 def count_params(params):
@@ -687,7 +717,8 @@ def _block_tail(bp, x, attn, c: GPTConfig, mesh=None):
     attn is [..., D] or per head [..., H, hd], x the block input.  Returns
     (x, aux): the MoE load-balance loss, None when dense.  Under `mesh`
     attn holds the rank's heads, proj and the FFN are row-parallel (summed
-    over the ranks) and an MoE FFN runs replicated."""
+    over the ranks); an MoE FFN runs replicated, or a training rank's
+    `mesh.moe_ffn` (expert- and data-parallel routing)."""
     # per head [.., H, hd] flattened; a training rank's attention holds S
     # rows where its x holds S/mp (sequence parallelism)
     attn = torch.matmul(attn.flatten(x.dim() - 1),
@@ -698,7 +729,9 @@ def _block_tail(bp, x, attn, c: GPTConfig, mesh=None):
     h = _norm(x, bp["ln2_w"], bp["ln2_b"], c) if c.norm_position == "pre" \
         else x
     aux = None
-    if c.moe_num_experts > 0:
+    if c.moe_num_experts > 0 and hasattr(mesh, "moe_ffn"):
+        y, aux = mesh.moe_ffn(bp, h, c)
+    elif c.moe_num_experts > 0:
         y, aux = moe_ffn_dense(bp, h.reshape(-1, c.hidden_size), c)
         y = y.reshape(h.shape)
     else:

@@ -1,41 +1,53 @@
 """The trainer and the tensor-parallel serving layout — port of
 `paddle_tpu/parallel/hybrid.py`.
 
-Training: `HybridParallelTrainer(config, MeshConfig(dp=, sharding=, mp=,
-sharding_stage=, sequence_parallel=, remat=), ...)`, then `train_step`
-and `eval_loss`, called from one process.  A degree-1 mesh trains on one
-device in that process.  Any other runs on a `parallel.tp` mesh of
-dp x sharding x mp ranks (`mesh=`, or one the trainer starts on `devices=`):
-rank r has the reference's coordinates, r = (d * sharding + s) * mp + m, so
-it is device r of the reference's `build_mesh`.  Each rank keeps its own
-`_RankTrainer` and gets one `ServingMesh.run` call a step; groups over the
-"mp", "sharding", "dp" and data (dp x sharding) axes come from
-`MeshRank.group`.
+Training: `HybridParallelTrainer(config, MeshConfig(dp=, pp=, sharding=,
+mp=, ep=, vpp=, micro_batches=, sharding_stage=, sequence_parallel=,
+remat=), ...)`, then `train_step`, `eval_loss` and `gathered_state()`,
+called from one process.  A degree-1 mesh trains on one device in that
+process.  Any other runs on a `parallel.tp` mesh of dp x pp x sharding x
+mp x ep ranks (`mesh=`, or one the trainer starts on `devices=`): rank r
+has the reference's coordinates (`coords`, `build_mesh`'s order), r =
+((((d * pp + p) * sharding + s) * mp + m) * ep + e) * cp + c, so it is
+device r of the reference's mesh.  Each rank keeps its own `_RankTrainer`
+and gets one `ServingMesh.run` call a step; its groups (`_groups`) come
+from `MeshRank.group`.  `cp` is the one axis still refused.
 
 The layout is the reference's (`gpt_param_specs`, `_add_axis`,
 `_resolve_spec`, `_opt_state_spec`): a spec is a tuple naming, per
-dimension, the mesh axis it splits over, and each rank holds exactly the
-shard that the reference's `NamedSharding` gives device r; the packed qkv
-keeps each rank's heads in the per-partition column layout
-(`qkv_partition_perm`), as serving does.  ZeRO's zero axis goes on the
-first free dimension that divides, which for the stacked block leaves
-`[L, ...]` is L whenever the degree divides it: a ZeRO-3 rank at rest
-holds whole layers, and `_RankView.layers` gathers each layer's leaves
-from their owner before the layer (a broadcast in the sharding group, or
-an all-gather where the split fell on another dimension), drops them
-after it, and gathers them again for the backward (saved-tensor hooks)
-and for remat's replay (inside the checkpointed functions).
+dimension, the mesh axis it splits over, and each rank holds the shard
+that the reference's `NamedSharding` gives device r: block leaves split
+their layers over "pp", the experts over "ep", and the packed qkv keeps
+each rank's heads in the per-partition column layout
+(`qkv_partition_perm`), as serving does.  Under vpp a stage holds its own
+interleaved chunks (`stage_layers`), where the reference holds contiguous
+layers and re-slices them every step: the shard shapes are the
+reference's, rank r's contents are not device r's, and `gathered_state`
+puts each layer back in its place.  ZeRO's zero axis goes on the first
+free dimension that divides: for the stacked block leaves `[L, ...]`
+that is L whenever pp does not take it and the degree divides it, and a
+ZeRO-3 rank at rest then holds whole layers, which `_RankView.layers`
+gathers from their owner before each layer (a broadcast in the sharding
+group; an all-gather where the split fell on another dimension, as under
+pp), drops after it, and gathers again for the backward (saved-tensor
+hooks) and for remat's replay (inside the checkpointed functions).
 
-A step: the rank's batch rows (split over dp x sharding in the
-reference's order) through `models.gpt.loss_fn(mesh=<the rank's view>)`
-(Megatron blocks over `parallel.mp_ops`, vocab-parallel embedding and
-cross entropy, the loss one global mean over the data group); the
-gradients of the leaves that sequence parallelism leaves partial summed
-over mp; stage 0-1 gradients all-reduced over the data group, stage 2-3
-reduce-scattered to the owning shard; the clip's one global norm, each
-element counted once; then the f32 AdamW of the single-device trainer on
-the rank's shard, in slices of at most `_SLICE` elements, and under ZeRO
-1-2 the updated parameter slices all-gathered over the zero group.
+A step: the rank's batch rows (split over dp x sharding x ep in the
+reference's order, `data_index`; under pp each of the `micro_batches`
+contiguous microbatches split so) through `models.gpt.loss_parts(mesh=
+<the rank's view>)` (Megatron blocks over `parallel.mp_ops`,
+vocab-parallel embedding and cross entropy, the loss one global mean over
+the data group; MoE blocks through `parallel.moe` over the rank's routing
+group and its ep peers), or under pp through the stages
+(`parallel.pipeline`); the gradients of the leaves that sequence
+parallelism leaves partial summed over mp; each leaf's gradient summed
+over its group (dense leaves over dp x sharding x ep, expert leaves over
+dp x sharding, and the leaves every stage holds over pp too): stage 0-1
+all-reduced, stage 2-3 reduce-scattered to the owning shard; the clip's
+one global norm, each element counted once; then the f32 AdamW of the
+single-device trainer on the rank's shard, in slices of at most `_SLICE`
+elements, and under ZeRO 1-2 the updated parameter slices all-gathered
+over the zero group.
 
 Serving: `serving_mesh` (defined in `parallel/tp.py`, re-exported here
 where the reference keeps it), `serving_param_specs` (which axis of each
@@ -56,8 +68,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..incubate.distributed.models.moe.dispatch import log_routes
 from ..models import gpt as gpt_mod
-from . import mp_ops
+from . import mp_ops, pipeline
+from .moe import EXPERT_KEYS, moe_local
 from .tp import (DEFAULT_TIMEOUT_S, ServingMesh, _tree_to,  # noqa: F401
                  serving_mesh)
 
@@ -92,8 +106,7 @@ class MeshConfig:
 
 
 # MeshConfig field -> the sub-item of ROADMAP Queue 1 "the rest of training"
-_LATER = {"pp": "pp and vpp", "vpp": "pp and vpp", "ep": "MoE and ep",
-          "cp": "cp"}
+_LATER = {"cp": "cp"}
 
 
 def _later(what, item):
@@ -103,26 +116,33 @@ def _later(what, item):
 
 
 def check_supported(cfg: MeshConfig, config) -> None:
-    """Raise for every setting the port's trainer does not take yet."""
+    """Raise for every setting the port's trainer does not take yet, and
+    for a degree below 1."""
     for field, item in _LATER.items():
         if getattr(cfg, field) != 1:
             raise _later(f"MeshConfig({field}={getattr(cfg, field)})", item)
     if cfg.sharding_stage not in (0, 1, 2, 3):
         raise ValueError(f"sharding_stage must be 0-3, got "
                          f"{cfg.sharding_stage}")
-    for field in ("dp", "sharding", "mp"):
+    for field in ("dp", "pp", "sharding", "mp", "ep", "vpp",
+                  "micro_batches"):
         if getattr(cfg, field) < 1:
             raise ValueError(f"MeshConfig.{field} must be >= 1")
-    if config.moe_num_experts > 0 and (
-            cfg.dp * cfg.sharding > 1 or cfg.sequence_parallel):
-        # the reference sizes capacity and queue positions over the global
-        # token count: a rank routing only its rows would drop others
-        raise _later("MoE under data parallelism or sequence_parallel",
-                     "MoE and ep")
+    # the reference's AssertionErrors, raised whatever python's -O
+    if cfg.vpp > 1 and cfg.pp == 1:
+        raise AssertionError(
+            "vpp (interleaved virtual stages) requires pp > 1 (ref: "
+            "virtual_pp_degree needs pipeline parallelism)")
 
 
 def check_layout(config, cfg: MeshConfig) -> None:
     """ValueError where the model does not split over the mesh."""
+    if config.num_layers % cfg.pp:
+        raise ValueError(f"num_layers ({config.num_layers}) does not divide "
+                         f"over pp={cfg.pp}")
+    if cfg.ep > 1 and config.moe_num_experts % cfg.ep:
+        raise ValueError(f"moe_num_experts ({config.moe_num_experts}) does "
+                         f"not divide over ep={cfg.ep}")
     mp = cfg.mp
     if mp == 1:
         return
@@ -144,33 +164,36 @@ def check_layout(config, cfg: MeshConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def gpt_param_specs(cfg: MeshConfig, model_config=None):
-    """The Megatron layout (reference `gpt_param_specs` without its pp and
-    ep axes): per leaf a tuple of the mesh axis each dimension splits over,
-    None where it is whole.  qkv, fc1 and fcg column-split, proj and fc2
-    row-split, `wte` vocab rows; under ZeRO-3 with sharding > 1 the block
-    leaves are marked for the zero axis (`_add_axis_everywhere`), the
-    embeddings left out."""
+    """The Megatron layout (reference `gpt_param_specs`): per leaf a tuple
+    of the mesh axis each dimension splits over, None where it is whole.
+    Block leaves split their layers over "pp"; qkv, fc1 and fcg
+    column-split, proj and fc2 row-split, `wte` vocab rows; the experts
+    split over "ep" (`gate_w` replicated); under ZeRO-3 with sharding > 1
+    the block leaves are marked for the zero axis
+    (`_add_axis_everywhere`), the embeddings left out."""
+    pp = "pp" if cfg.pp > 1 else None
     mp = "mp" if cfg.mp > 1 else None
+    ep = "ep" if cfg.ep > 1 else None
     use_bias = model_config is None or model_config.use_bias
-    blocks = {"ln1_w": (None, None), "ln1_b": (None, None),
-              "qkv_w": (None, None, mp), "proj_w": (None, mp, None),
-              "ln2_w": (None, None), "ln2_b": (None, None)}
+    blocks = {"ln1_w": (pp, None), "ln1_b": (pp, None),
+              "qkv_w": (pp, None, mp), "proj_w": (pp, mp, None),
+              "ln2_w": (pp, None), "ln2_b": (pp, None)}
     if use_bias:
-        blocks.update({"qkv_b": (None, mp), "proj_b": (None, None)})
+        blocks.update({"qkv_b": (pp, mp), "proj_b": (pp, None)})
     if model_config is not None and model_config.moe_num_experts > 0:
-        blocks.update({"gate_w": (None, None, None),
-                       "exp_fc1_w": (None, None, None, None),
-                       "exp_fc1_b": (None, None, None),
-                       "exp_fc2_w": (None, None, None, None),
-                       "exp_fc2_b": (None, None, None)})
+        blocks.update({"gate_w": (pp, None, None),
+                       "exp_fc1_w": (pp, ep, None, None),
+                       "exp_fc1_b": (pp, ep, None),
+                       "exp_fc2_w": (pp, ep, None, None),
+                       "exp_fc2_b": (pp, ep, None)})
     else:
-        blocks.update({"fc1_w": (None, None, mp), "fc2_w": (None, mp, None)})
+        blocks.update({"fc1_w": (pp, None, mp), "fc2_w": (pp, mp, None)})
         if use_bias:
-            blocks.update({"fc1_b": (None, mp), "fc2_b": (None, None)})
+            blocks.update({"fc1_b": (pp, mp), "fc2_b": (pp, None)})
         if model_config is not None and model_config.gated_ffn:
-            blocks["fcg_w"] = (None, None, mp)
+            blocks["fcg_w"] = (pp, None, mp)
             if use_bias:
-                blocks["fcg_b"] = (None, mp)
+                blocks["fcg_b"] = (pp, mp)
     specs = {"wte": (mp, None), "blocks": blocks, "lnf_w": (None,),
              "lnf_b": (None,)}
     if cfg.sharding_stage >= 3 and cfg.sharding > 1:
@@ -271,10 +294,29 @@ def _map2(fn, a, b):
             for k, v in a.items()}
 
 
+AXES = ("dp", "pp", "sharding", "mp", "ep", "cp")    # `build_mesh`'s order
+
+
 def coords(cfg: MeshConfig, r: int) -> Dict[str, int]:
-    """Rank r's mesh coordinates: r = (dp * sharding + s) * mp + m."""
-    return {"mp": r % cfg.mp, "sharding": (r // cfg.mp) % cfg.sharding,
-            "dp": r // (cfg.mp * cfg.sharding)}
+    """Rank r's mesh coordinates, in the reference's `build_mesh` order:
+    r = ((((dp * pp + p) * sharding + s) * mp + m) * ep + e) * cp + c."""
+    co = {}
+    for a in reversed(AXES):
+        r, co[a] = divmod(r, getattr(cfg, a))
+    return co
+
+
+def data_index(cfg: MeshConfig, co) -> int:
+    """The rank's place in the batch split over ("dp", "sharding", "ep")."""
+    return (co["dp"] * cfg.sharding + co["sharding"]) * cfg.ep + co["ep"]
+
+
+def axis_ranks(cfg: MeshConfig, co, axes) -> List[int]:
+    """The ranks whose coordinates equal `co` on every axis but `axes`, in
+    rank order."""
+    return [r for r in range(cfg.size)
+            if all(c == co[a] for a, c in coords(cfg, r).items()
+                   if a not in axes)]
 
 
 def _degree(cfg: MeshConfig, axis: str) -> int:
@@ -288,27 +330,51 @@ def _qkv_perm(name, spec, config, cfg):
     return None
 
 
+def stage_layers(cfg: MeshConfig, L: int, p: int) -> Optional[List[int]]:
+    """The layers stage p holds under interleaving (vpp > 1, L divisible
+    by pp * vpp), chunk-major: chunk c's are layers (c * pp + p) * Lc ..
+    + Lc.  None: stage p holds the contiguous L / pp."""
+    if cfg.vpp == 1 or L % (cfg.pp * cfg.vpp):
+        return None
+    Lc = L // (cfg.pp * cfg.vpp)
+    return [(c * cfg.pp + p) * Lc + j for c in range(cfg.vpp)
+            for j in range(Lc)]
+
+
+def _part(axis, dim, n, co, cfg: MeshConfig, full: int):
+    """The rank's part of a dimension of size `full` split over `axis`
+    into parts of n: a slice, or under interleaving its layer list."""
+    if axis == "pp" and dim == 0:
+        layers = stage_layers(cfg, full, co["pp"])
+        if layers is not None:
+            return torch.as_tensor(layers)
+    return slice(co[axis] * n, (co[axis] + 1) * n)
+
+
 def cut_shard(t, spec, co, cfg: MeshConfig, perm=None):
     """Rank `co`'s shard of the full leaf `t` under `spec` (the packed
-    qkv's columns first in the per-partition layout `perm`), a contiguous
-    tensor of its own."""
+    qkv's columns first in the per-partition layout `perm`; under vpp the
+    stage's interleaved layers), a contiguous tensor of its own."""
     if perm is not None:
         t = t.index_select(-1, perm.to(t.device))
     for dim, axis in enumerate(spec):
         if axis is not None:
             n = t.shape[dim] // _degree(cfg, axis)
-            t = t.narrow(dim, co[axis] * n, n)
+            part = _part(axis, dim, n, co, cfg, t.shape[dim])
+            t = t.narrow(dim, part.start, n) if isinstance(part, slice) \
+                else t.index_select(dim, part.to(t.device))
     return t.contiguous().clone()
 
 
 def assemble(shards, spec, shape, cfg: MeshConfig, perm=None):
     """The full leaf from every rank's shard (rank order), in the
-    reference layout (the qkv columns un-permuted)."""
+    reference layout (the qkv columns un-permuted, every layer in its
+    place)."""
     full = torch.empty(shape, dtype=shards[0].dtype)
     for r, s in enumerate(shards):
         co = coords(cfg, r)
         idx = tuple(slice(None) if a is None else
-                    slice(co[a] * s.shape[d], (co[a] + 1) * s.shape[d])
+                    _part(a, d, s.shape[d], co, cfg, shape[d])
                     for d, a in enumerate(spec))
         full[idx] = s
     if perm is not None:
@@ -383,14 +449,17 @@ class _RankView:
     mp degree and coordinate, the device, the tensor- and
     sequence-parallel seams (`column_in`, `row_out`), the rank's rows of
     the sequence, the vocab-parallel cross entropy, the global mean over
-    the data group, and under ZeRO-3 the layers gathered at each use."""
+    the data group, the MoE FFN over the rank's routing group and its ep
+    peers (`moe_ffn`), and under ZeRO-3 the layers gathered at each
+    use."""
 
-    def __init__(self, handle, cfg: MeshConfig, groups, co, num_layers):
+    def __init__(self, handle, cfg: MeshConfig, groups, co):
         self.handle, self.groups = handle, groups
-        self.num_layers = num_layers
         self.device = handle.device
         self.mp, self.rank = cfg.mp, co["mp"]
         self.sequence_parallel = cfg.sequence_parallel and cfg.mp > 1
+        self.ep = cfg.ep
+        self.evaluating = False
         self.z3: Dict[str, Any] = {}        # block leaf -> how it gathers
         self.dtypes: Dict[str, torch.dtype] = {}
         self.anchors: Dict[str, torch.Tensor] = {}
@@ -422,13 +491,55 @@ class _RankView:
                             device=self.device).detach().clone())
         return loss_sum / torch.clamp(n, min=1.0)
 
+    # ---- MoE -------------------------------------------------------------
+    @property
+    def route(self):
+        """The ranks of this rank's routing group: the data group's
+        contiguous 1/ep (the reference's ep groups), or the whole data
+        group in `eval_loss` (the reference evaluates with one group)."""
+        return self.groups["data" if self.evaluating else "route"]
+
+    def _sp(self) -> int:
+        return self.mp if self.sequence_parallel else 1
+
+    def moe_ffn(self, bp, h, config):
+        """The MoE FFN of h [B, S(/mp), D] -> (y like h, the rank's aux
+        term).  Under sequence parallelism the rows are gathered over mp
+        first (each mp rank routes the full sequences, as every rank does
+        without it) and the rank's rows taken back after the combine.  The
+        aux term is the group's load-balance loss over ep (the mean over
+        the groups, as `psum(aux) / ep`) and over mp under sequence
+        parallelism, so that the gradients summed over the mesh count it
+        once."""
+        x = mp_ops.gather_from_sp(h, self.groups["mp"]) \
+            if self.sequence_parallel else h
+        y, aux = moe_local(bp, x.reshape(-1, config.hidden_size), config,
+                           self.route, self.groups["ep"])
+        y = y.reshape(x.shape)
+        if self.sequence_parallel:
+            y = y.narrow(1, self.rank * h.shape[1], h.shape[1])
+        ep = 1 if self.evaluating else self.ep
+        return y, aux / (ep * self._sp())
+
+    def penalty_share(self, pen, group):
+        """The MoE penalty in the reported loss: the ranks' terms (`pen`,
+        after `moe_ffn`'s division) summed over `group` (the data group,
+        and pp under a pipeline), each routing group's counted once."""
+        if pen is None:
+            return 0.0
+        share = pen.detach() * (self._sp() / self.route.size)
+        return group.all_reduce(share.float().clone())
+
     # ---- ZeRO-3 ----------------------------------------------------------
     def layers(self, blocks):
         if not self.z3:
             return gpt_mod._layers(blocks)
         unbound = {k: v.unbind(0) for k, v in blocks.items()}
-        return (_Z3Layer(self, l, unbound, self.anchors)
-                for l in range(self.num_layers))
+        # a leaf split over its layers ("bcast") holds its owner's share
+        sh = self.groups["sharding"].size
+        n = max(len(u) * (sh if self.z3.get(k, ("",))[0] == "bcast" else 1)
+                for k, u in unbound.items())
+        return (_Z3Layer(self, l, unbound, self.anchors) for l in range(n))
 
     def remember(self, t, layer, k):
         ptr = t.untyped_storage().data_ptr()
@@ -460,19 +571,55 @@ class _RankView:
                                                         self._unpack)
 
 
+# named groups: the axes each spans; "data" is the batch split of dense
+# leaves, "edata" of expert leaves (owned by their ep rank), "data_pp" of
+# the leaves every pipeline stage holds a copy of
+_AXIS_GROUPS = (("mp", ("mp",)), ("sharding", ("sharding",)),
+                ("dp", ("dp",)), ("ep", ("ep",)), ("pp", ("pp",)),
+                ("data", ("dp", "sharding", "ep")),
+                ("edata", ("dp", "sharding")),
+                ("data_pp", ("dp", "sharding", "ep", "pp")),
+                ("world", AXES))
+
+
 def _groups(handle, cfg: MeshConfig, r: int):
-    """Rank r's groups over the "mp", "sharding", "dp" and data axes, each
-    in coordinate order (every rank asks for them in this order)."""
-    mp, sh = cfg.mp, cfg.sharding
+    """Rank r's groups, each in rank order, asked for in one order on
+    every rank: the axis groups above; each sum group without the zero
+    axis ("<name>_rest", the rest of a ZeRO reduce-scatter); "route", the
+    rank's MoE routing group (its data index's contiguous 1/ep of the data
+    group); and under pp the point-to-point links to the next and the
+    previous stage ("pp_next", "pp_prev": one process group per directed
+    link, apart from every collective group, built in link order, the
+    ring's wrap only under vpp)."""
     co = coords(cfg, r)
-    d, s, m = co["dp"], co["sharding"], co["mp"]
-    rank = lambda d_, s_, m_: (d_ * sh + s_) * mp + m_  # noqa: E731
-    members = {
-        "mp": [rank(d, s, i) for i in range(mp)],
-        "sharding": [rank(d, i, m) for i in range(sh)],
-        "dp": [rank(i, s, m) for i in range(cfg.dp)],
-        "data": [rank(i, j, m) for i in range(cfg.dp) for j in range(sh)]}
-    return {name: handle.group(name, ranks) for name, ranks in members.items()}
+    groups = {name: handle.group(name, axis_ranks(cfg, co, axes))
+              for name, axes in _AXIS_GROUPS}
+    zero = cfg.zero_axis
+    for name in ("data", "edata", "data_pp"):
+        axes = dict(_AXIS_GROUPS)[name]
+        groups[name + "_rest"] = handle.group(
+            name + "_rest", axis_ranks(cfg, co, [a for a in axes
+                                                 if a != zero]))
+    span = cfg.dp * cfg.sharding
+    g = data_index(cfg, co) // span
+    groups["route"] = handle.group("route", [
+        q for q in groups["data"].ranks
+        if data_index(cfg, coords(cfg, q)) // span == g])
+    if cfg.pp > 1:
+        stage = groups["pp"].ranks
+        p, pp = co["pp"], cfg.pp
+        links = [i for i in range(pp if cfg.vpp > 1 else pp - 1)
+                 if p in (i, (i + 1) % pp)]
+        for i in sorted(links):
+            name = "pp_next" if i == p else "pp_prev"
+            groups[name] = handle.group(name, [stage[i],
+                                               stage[(i + 1) % pp]],
+                                        link=True)
+    return groups
+
+
+# the trees of a trainer's state: the parameters and the AdamW moments
+STATE_KEYS = ("params", "m", "v")
 
 
 class _RankTrainer:
@@ -507,14 +654,19 @@ class _RankTrainer:
         co = coords(cfg, r)
         self.coords = co
         self.groups = _groups(handle, cfg, r)
-        self.view = _RankView(handle, cfg, self.groups, co,
-                              self.config.num_layers)
+        self.view = _RankView(handle, cfg, self.groups, co)
         pspecs, mspecs, _ = trainer_specs(self.config, cfg)
         zero = cfg.zero_axis
         for lay, name, p, ps, ms in zip(
                 self.layout, _names(self.params), _leaves(self.params),
                 _leaves(pspecs), _leaves(mspecs)):
             lay["mp_split"] = "mp" in ps
+            lay["pp_split"] = "pp" in ps
+            lay["expert"] = name.split("/")[-1] in EXPERT_KEYS
+            # the group a leaf's gradient sums over: the batch split of its
+            # kind, and every stage's copy of a leaf that pp does not split
+            lay["sum"] = "edata" if lay["expert"] else \
+                "data_pp" if cfg.pp > 1 and not lay["pp_split"] else "data"
             lay["param_zero"] = zero is not None and zero in ps
             lay["zero_dim"] = ms.index(zero) if zero is not None and \
                 zero in ms and not lay["param_zero"] else None
@@ -545,23 +697,34 @@ class _RankTrainer:
     def loss_and_grads(self, tokens, labels):
         """The loss and its gradients, in `_leaves(self.params)` order.  On
         a mesh: the loss's global value, and the rank's gradient shards
-        before any reduction."""
+        before any reduction (under pp, `pipeline.train_grads`)."""
+        if self.cfg.pp > 1:
+            return pipeline.train_grads(self, _leaves(self.params),
+                                        self._batch(tokens),
+                                        self._batch(labels))
         leaves = _leaves(self.params)
         view = self.view
         anchors = list(view.anchors.values()) if view is not None else []
         with (view.saving() if view is not None
               else contextlib.nullcontext()):
-            loss = gpt_mod.loss_fn(self.params, self._batch(tokens),
-                                   self._batch(labels), self.config,
-                                   remat=self.cfg.remat, mesh=view)
+            mean, pen = gpt_mod.loss_parts(
+                self.params, self._batch(tokens), self._batch(labels),
+                self.config, remat=self.cfg.remat, mesh=view)
+        loss = mean if pen is None else mean + pen
         # leaves the config never reads (RMSNorm's ln*_b) get zeros, as
         # under jax.grad, so weight decay still reaches them
         grads = torch.autograd.grad(loss, leaves + anchors, allow_unused=True,
                                     materialize_grads=True)[:len(leaves)]
-        loss = loss.detach()
         if view is not None:
-            loss = self.groups["data"].all_reduce(loss.clone())
-        return loss, grads
+            return self._reported(mean, pen), grads
+        return loss.detach(), grads
+
+    def _reported(self, mean, pen):
+        """The loss on a mesh: the ranks' terms summed over the data
+        group, the MoE penalty counted once."""
+        data = self.groups["data"]
+        return data.all_reduce(mean.detach().clone()) + \
+            self.view.penalty_share(pen, data)
 
     def train_step(self, tokens, labels):
         loss, grads = self.loss_and_grads(tokens, labels)
@@ -569,21 +732,36 @@ class _RankTrainer:
         return loss
 
     def eval_loss(self, tokens, labels):
-        with torch.no_grad():
-            loss = gpt_mod.loss_fn(self.params, self._batch(tokens),
-                                   self._batch(labels), self.config,
-                                   mesh=self.view)
-            if self.view is not None:
-                loss = self.groups["data"].all_reduce(loss.clone())
-        return loss
+        """The loss without a step; on a mesh MoE routes the whole batch as
+        one group, as the reference's `eval_loss` does."""
+        if self.cfg.pp > 1:
+            return pipeline.eval_loss(self, self._batch(tokens),
+                                      self._batch(labels))
+        view = self.view
+        if view is not None:
+            view.evaluating = True
+        try:
+            with torch.no_grad():
+                mean, pen = gpt_mod.loss_parts(
+                    self.params, self._batch(tokens), self._batch(labels),
+                    self.config, mesh=view)
+                if view is not None:
+                    return self._reported(mean, pen)
+            return mean if pen is None else mean + pen
+        finally:
+            if view is not None:
+                view.evaluating = False
 
     # ---- the update --------------------------------------------------------
     def _owned(self, grads):
         """Each leaf's gradient reduced over the mesh, as the slice of it
         this rank updates, and the slice's index (None: the whole shard).
-        Stage 0-1: all-reduce over the data group; stage 2-3: reduce-scatter
-        to the owner over the zero group (ZeRO-3 block leaves: summed over
-        the sharding group by their gather's backward already)."""
+        A leaf sums over its `sum` group (the data group of its kind, and
+        pp for the leaves every stage holds): stage 0-1 all-reduce over
+        it; stage 2-3 all-reduce over it without the zero axis
+        ("<sum>_rest"), then reduce-scatter to the owner over the zero
+        group (ZeRO-3 block leaves: summed over the sharding group by their
+        gather's backward already)."""
         if self.view is None:
             return [(g, None) for g in grads]
         cfg, gr = self.cfg, self.groups
@@ -593,29 +771,36 @@ class _RankTrainer:
             g = g.contiguous()
             if self.view.sequence_parallel and not lay["mp_split"]:
                 g = gr["mp"].all_reduce(g)      # partial over the rows
-            d = lay["zero_dim"]
+            d, group = lay["zero_dim"], lay["sum"]
             if lay["param_zero"]:
-                out.append((gr["dp"].all_reduce(g), None))
+                out.append((gr[group + "_rest"].all_reduce(g), None))
             elif d is None:
-                out.append((gr["data"].all_reduce(g), None))
+                out.append((gr[group].all_reduce(g), None))
             elif cfg.sharding_stage >= 2:
-                if cfg.zero_axis == "sharding":
-                    g = gr["dp"].all_reduce(g)
+                g = gr[group + "_rest"].all_reduce(g)
                 out.append((self.zero_group.reduce_scatter(g, d), d))
             else:
-                g = gr["data"].all_reduce(g)
+                g = gr[group].all_reduce(g)
                 n = g.shape[d] // self.zero_group.size
                 out.append((g.narrow(d, self.zero_group.rank * n, n), d))
         return out
 
     def _counted(self, lay) -> bool:
         """Whether this rank counts its owned slice of a leaf in the global
-        norm, so that every element of the gradient counts once."""
-        if not lay["mp_split"] and self.coords["mp"] != 0:
+        norm, so that every element of the gradient counts once: one rank
+        of each axis that holds copies of it (mp unless it is split there,
+        pp unless its layers are, ep unless it is an expert leaf, and the
+        data axes but the zero axis of the slice)."""
+        co = self.coords
+        if not lay["mp_split"] and co["mp"] != 0:
+            return False
+        if not lay["pp_split"] and co["pp"] != 0:
+            return False
+        if not lay["expert"] and co["ep"] != 0:
             return False
         if lay["param_zero"] or lay["zero_dim"] is not None:
-            return self.cfg.zero_axis == "dp" or self.coords["dp"] == 0
-        return self.coords["dp"] == 0 and self.coords["sharding"] == 0
+            return self.cfg.zero_axis == "dp" or co["dp"] == 0
+        return co["dp"] == 0 and co["sharding"] == 0
 
     @torch.no_grad()
     def apply_gradients(self, grads):
@@ -636,7 +821,7 @@ class _RankTrainer:
                          if self._counted(lay))
                 sq = torch.as_tensor(sq, dtype=torch.float32,
                                      device=self.device).clone()
-                gnorm = torch.sqrt(self.view.handle.all_reduce(sq))
+                gnorm = torch.sqrt(self.groups["world"].all_reduce(sq))
             self.last_gnorm = gnorm
             scale = torch.clamp(
                 self.clip_norm / torch.clamp(gnorm, min=self.clip_norm),
@@ -671,12 +856,11 @@ class _RankTrainer:
         return {"params": _map(lambda t: tuple(t.shape), self.params),
                 "m": _map(lambda t: tuple(t.shape), self.opt_state["m"])}
 
-    def host_state(self):
+    def host_state(self, keys=STATE_KEYS):
         host = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
-        return {"params": _map(host, self.params),
-                "m": _map(host, self.opt_state["m"]),
-                "v": _map(host, self.opt_state["v"]),
-                "step": self.opt_state["step"]}
+        trees = {"params": self.params, **self.opt_state}
+        return {"step": self.opt_state["step"],
+                **{k: _map(host, trees[k]) for k in keys}}
 
 
 _TIDS = itertools.count(1)       # trainer ids, unique in rank 0's process
@@ -705,10 +889,12 @@ def _rank_call(tid, what, args=(), drop=(), *, mesh):
         return rt.train_step(*args)
     if what == "eval":
         return rt.eval_loss(*args)
+    if what == "grads":
+        return [g for g, _ in rt._owned(rt.loss_and_grads(*args)[1])]
     if what == "shapes":
         return rt.shapes()
     if what == "state":
-        return rt.host_state()
+        return rt.host_state(*args)
     if what == "stats":
         mem = torch.cuda.max_memory_allocated(mesh.device) \
             if mesh.device.type == "cuda" else 0
@@ -721,6 +907,8 @@ def _rank_call(tid, what, args=(), drop=(), *, mesh):
         return None
     if what == "close":
         trainers.pop(tid, None)
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()    # the card is shared by the ranks
         return None
     raise ValueError(f"unknown trainer call {what!r}")
 
@@ -776,7 +964,7 @@ class HybridParallelTrainer:
         own = mesh is None
         if own:
             mesh = serving_mesh(size, devices, backend, timeout_s)
-        elif mesh.mp != size:
+        elif mesh.mp != size:   # a larger mesh: `mesh.first(size)`
             raise ValueError(f"MeshConfig needs {size} ranks, the mesh has "
                              f"{mesh.mp}")
         self.mesh = mesh
@@ -803,52 +991,149 @@ class HybridParallelTrainer:
                 mesh.close()
             raise
         self._finalizer = weakref.finalize(
-            self, _close_trainer, weakref.ref(mesh), self._tid,
-            mesh if own else None)
+            self, _close_trainer, weakref.ref(getattr(mesh, "parent", mesh)),
+            self._tid, size, mesh if own else None)
 
     def _draw(self, seed):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return gpt_mod.init_params(self.config, gen, self.device)
 
     def _call(self, what, per_rank_args=None):
-        drops = self.mesh.state.pop("dropped_trainers", [])
-        per = per_rank_args or [()] * self.mesh.mp
+        # the trainers dropped since the last call, sent to the ranks this
+        # call reaches and kept for the ranks beyond them
+        n = self.mesh.mp
+        state = self.mesh.state
+        pending = state.get("dropped_trainers", [])
+        state["dropped_trainers"] = [(t, k) for t, k in pending if k > n]
+        drops = [t for t, _ in pending]
+        per = per_rank_args or [()] * n
         return self.mesh.run(_rank_call, [((self._tid, what, a, drops), {})
                                           for a in per])
 
-    def _batches(self, tokens, labels):
-        """Each rank's batch rows: split over dp x sharding in the
-        reference's order (data index d * sharding + s)."""
+    def _batches(self, tokens, labels, micro: int = 0):
+        """Each rank's batch rows, split over dp x sharding x ep in the
+        reference's order (`data_index`).  micro > 0 (pp): the batch cut
+        first into `micro` contiguous microbatches, each of them split
+        over the data ranks; a rank's rows are then [micro, rows, S]."""
         cfg = self.cfg
         tok, lab = np.asarray(tokens), np.asarray(labels)
-        data = cfg.dp * cfg.sharding
+        data = cfg.dp * cfg.sharding * cfg.ep
         B, S = tok.shape
-        if B % data:
-            raise ValueError(f"batch {B} does not divide over dp x sharding "
-                             f"= {data}")
+        M = max(micro, 1)
+        mb = B // M
+        if mb % data:
+            raise ValueError(
+                f"batch {B} does not divide over dp x sharding x ep = {data}"
+                + (f" in {M} microbatches" if M > 1 else ""))
         if cfg.sequence_parallel and cfg.mp > 1 and S % cfg.mp:
             raise ValueError(f"sequence length {S} does not divide over "
                              f"mp={cfg.mp} under sequence_parallel")
-        b = B // data
+        b = mb // data
         out = []
         for r in range(self.mesh.mp):
-            co = coords(cfg, r)
-            i = co["dp"] * cfg.sharding + co["sharding"]
-            out.append((tok[i * b:(i + 1) * b], lab[i * b:(i + 1) * b]))
+            i = data_index(cfg, coords(cfg, r))
+            rows = np.concatenate([np.arange(m * mb + i * b,
+                                             m * mb + (i + 1) * b)
+                                   for m in range(M)])
+            t, lab_r = tok[rows], lab[rows]
+            if micro:
+                t, lab_r = t.reshape(M, b, S), lab_r.reshape(M, b, S)
+            out.append((t, lab_r))
         return out
+
+    def _check_pipeline(self, B: int) -> None:
+        """The reference's `_pp_loss` AssertionErrors, in its order."""
+        cfg, M, L = self.cfg, self.cfg.micro_batches, self.config.num_layers
+        moe_ep = self.config.moe_num_experts > 0 and cfg.ep > 1
+        for bad, msg in (
+                (B % M, f"batch {B} must divide into micro_batches={M} (pad "
+                 "the batch; uneven microbatches are not supported)"),
+                (moe_ep and (B // M) % cfg.ep,
+                 f"microbatch {B // M} must divide over ep={cfg.ep}"),
+                (cfg.vpp > 1 and M % cfg.pp,
+                 f"interleaved schedule needs micro_batches {M} % pp "
+                 f"{cfg.pp} == 0"),
+                (cfg.vpp > 1 and L % (cfg.pp * cfg.vpp),
+                 f"layers {L} must divide over pp*vpp")):
+            if bad:
+                raise AssertionError(msg)
 
     # ---- the step ----------------------------------------------------------
     def train_step(self, tokens, labels):
         """One step on tokens/labels [B, S]; returns the loss before the
-        update (a 0-d f32 tensor on the first device)."""
+        update (a 0-d f32 tensor on the first device).  Under pp the batch
+        runs as `micro_batches` microbatches through the stages
+        (`parallel.pipeline`)."""
         if self.mesh is None:
             return self._local.train_step(tokens, labels)
-        return self._call("step", self._batches(tokens, labels))[0]
+        micro = 0
+        if self.cfg.pp > 1:
+            self._check_pipeline(np.shape(tokens)[0])
+            micro = self.cfg.micro_batches
+        return self._call("step", self._batches(tokens, labels, micro))[0]
+
+    def train_step_routes(self, tokens, labels):
+        """`train_step` with the MoE router's choices logged, a witness of
+        where two layouts route a token apart: (loss, gate_idx [L, B * S,
+        k] int32, probs [L, B * S, E] float32), each layer's choices in the
+        forward pass, in the batch's row-major token order, on the CPU."""
+        if not self.config.moe_num_experts:
+            raise ValueError("train_step_routes needs an MoE config")
+        def toggle(on):
+            if self.mesh is None:
+                return [log_routes(on)]
+            return self.mesh.run(log_routes, [((on,), {})] * self.mesh.mp)
+
+        toggle(True)
+        try:
+            loss = self.train_step(tokens, labels)
+        finally:
+            logs = toggle(False)
+        return (loss,) + self._place_routes(logs, *np.shape(tokens))
+
+    def _place_routes(self, logs, B: int, S: int):
+        """Each rank's logged forward routes at their layers and tokens.
+        A rank logs its units' chunks in order (`pipeline.units`), every
+        forward before any backward or remat replay; it routes its rows of
+        the microbatch (`_batches`), full sequences under sequence
+        parallelism, which each mp rank routes alike (the first's are
+        taken)."""
+        cfg, c = self.cfg, self.config
+        L, k, E = c.num_layers, c.moe_topk, c.moe_num_experts
+        M = cfg.micro_batches if cfg.pp > 1 else 1
+        b = B // M // (cfg.dp * cfg.sharding * cfg.ep)
+        idx = torch.full((L, B * S, k), -1, dtype=torch.int32)
+        probs = torch.zeros(L, B * S, E)
+        for r, log in enumerate(logs):
+            co = coords(cfg, r)
+            if co["mp"]:
+                continue
+            p, i, Lp = co["pp"], data_index(cfg, co), L // cfg.pp
+            held = stage_layers(cfg, L, p) or list(range(p * Lp,
+                                                         (p + 1) * Lp))
+            Lc = len(held) // cfg.vpp
+            order = [(held[ch * Lc + j], m)
+                     for ch, m in pipeline.units(cfg.pp, cfg.vpp, M)
+                     for j in range(Lc)]
+            if len(log) < len(order):
+                raise RuntimeError(f"rank {r} logged {len(log)} routes, its "
+                                   f"forward runs {len(order)}")
+            for (layer, m), (pr, gi) in zip(order, log):
+                t0 = (m * (B // M) + i * b) * S
+                idx[layer, t0:t0 + b * S] = gi
+                probs[layer, t0:t0 + b * S] = pr
+        return idx, probs
 
     def eval_loss(self, tokens, labels):
+        """The loss of tokens/labels without a step (under pp the batch
+        goes through the stages as one microbatch)."""
         if self.mesh is None:
             return self._local.eval_loss(tokens, labels)
-        return self._call("eval", self._batches(tokens, labels))[0]
+        cfg, L = self.cfg, self.config.num_layers
+        if cfg.vpp > 1 and L % (cfg.pp * cfg.vpp):
+            raise AssertionError(f"layers {L} must divide over pp*vpp")
+        micro = 1 if cfg.pp > 1 else 0
+        return self._call("eval", self._batches(tokens, labels, micro))[0]
 
     def loss_and_grads(self, tokens, labels):
         """One device: the loss and its gradients in `_leaves` order."""
@@ -884,17 +1169,21 @@ class HybridParallelTrainer:
             return [self._local.shapes()]
         return self._call("shapes")
 
-    def gathered_state(self) -> Dict[str, Any]:
-        """{"params", "m", "v", "step"}: the full trees on the CPU in the
-        reference layout (the packed qkv columns un-permuted)."""
+    def gathered_state(self, keys=STATE_KEYS) -> Dict[str, Any]:
+        """{"params", "m", "v", "step"} (of the trees, those in `keys`): the
+        full trees on the CPU in the reference layout (the packed qkv
+        columns un-permuted)."""
+        keys = tuple(keys)
         if self.mesh is None:
-            return self._local.host_state()
-        states = self._call("state")
+            return self._local.host_state(keys)
+        states = self._call("state", [(keys,)] * self.mesh.mp)
         pspecs, mspecs, shapes = trainer_specs(self.config, self.cfg)
         out = {"step": states[0]["step"]}
         names = _names(shapes)
         for key, specs in (("params", pspecs), ("m", mspecs),
                            ("v", mspecs)):
+            if key not in keys:
+                continue
             full = [assemble([_leaves(s[key])[i] for s in states], sp, sh,
                              self.cfg, _qkv_perm(n, sp, self.config,
                                                  self.cfg))
@@ -902,6 +1191,24 @@ class HybridParallelTrainer:
                         names, _leaves(specs), _leaves(shapes)))]
             out[key] = _fill(shapes, full)
         return out
+
+    def gathered_grads(self, tokens, labels) -> Dict[str, Any]:
+        """The gradients of the loss of tokens/labels at the current
+        parameters, reduced over the mesh as a step reduces them (before
+        the clip) and gathered into full trees in the reference layout; no
+        update.  For parity checks."""
+        if self.mesh is None:
+            return _fill(self.params, [g.detach().cpu() for g in
+                                       self._local.loss_and_grads(
+                                           tokens, labels)[1]])
+        micro = self.cfg.micro_batches if self.cfg.pp > 1 else 0
+        per = self._call("grads", self._batches(tokens, labels, micro))
+        _, mspecs, shapes = trainer_specs(self.config, self.cfg)
+        return _fill(shapes, [
+            assemble([g[i] for g in per], sp, sh, self.cfg,
+                     _qkv_perm(n, sp, self.config, self.cfg))
+            for i, (n, sp, sh) in enumerate(zip(
+                _names(shapes), _leaves(mspecs), _leaves(shapes)))])
 
     def rank_stats(self) -> List[Dict[str, Any]]:
         """Every rank's collectives since `reset_rank_stats` ("group.op" ->
@@ -919,16 +1226,17 @@ class HybridParallelTrainer:
             self._finalizer()
 
 
-def _close_trainer(mesh_ref, tid, own_mesh):
+def _close_trainer(mesh_ref, tid, size, own_mesh):
     """A dropped trainer's rank states: gone with its own mesh, or dropped
-    at the next trainer call on a shared one (a finalizer must not talk
-    to the workers: it may run inside another call)."""
+    at the next trainer calls that reach its `size` ranks on a shared one
+    (a finalizer must not talk to the workers: it may run inside another
+    call)."""
     if own_mesh is not None:
         own_mesh.close()
         return
     mesh = mesh_ref()
     if mesh is not None:
-        mesh.state.setdefault("dropped_trainers", []).append(tid)
+        mesh.state.setdefault("dropped_trainers", []).append((tid, size))
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,12 @@ axis of a training mesh):
   a max over mp, a sum of exps over mp, the label's logit from the rank
   that owns it; backward softmax minus one-hot on the local columns.
 
+The expert-parallel exchange over the "ep" axis (`parallel.moe`):
+`all_to_all`, the tiled all-to-all forward and the reverse all-to-all
+backward (the reference's `jax.lax.all_to_all(tiled=True)` in
+`_moe_local`: dispatch `split_axis=0, concat_axis=1`, combine
+`split_axis=1, concat_axis=0`).
+
 And the two per-layer gathers of ZeRO-3 over the "sharding" axis:
 `broadcast_layer` (a whole layer from the rank that owns it; backward the
 gradient summed over the group, kept by the owner) and `gather_dim` (a
@@ -91,6 +97,27 @@ def gather_from_sp(x, group):
 
 def scatter_to_sp(x, group):
     return x if group.size == 1 else _ScatterToSp.apply(x, group)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return group.all_to_all(x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return ctx.group.all_to_all(g, concat_axis, split_axis), None, None, \
+            None
+
+
+def all_to_all(x, group, split_axis: int, concat_axis: int):
+    """The tiled all-to-all of `x` over `group` (`MeshRank.all_to_all`);
+    its gradient goes back by the reverse all-to-all."""
+    if group.size == 1:
+        return x
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
 
 
 class _VocabParallelCE(torch.autograd.Function):

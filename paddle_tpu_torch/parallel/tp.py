@@ -28,11 +28,15 @@ under gloo with CUDA tensors.
 
 The same mesh carries training (`parallel.hybrid.HybridParallelTrainer`):
 `group(name, ranks)` gives a `Group` over some of the ranks, its process
-group built once per rank set on a `PrefixStore` of the mesh's store, and
+group built once per rank list on a `PrefixStore` of the mesh's store, and
 the rank handle runs `all_reduce`, `broadcast`, `all_gather` and
 `reduce_scatter` on it (gloo takes all four on CUDA tensors too, staging
-them through host memory itself).  Every collective is counted with its
-bytes (`comm`).
+them through host memory itself), the pipeline's `isend` and `recv` and
+the ep exchange's tiled `all_to_all`.  Gloo's send and recv do not take
+CUDA tensors (they pass the device pointer to the socket), so those two go
+through host memory in `MeshRank` (counted as "<group>.<op>_host").  Every call is counted with its bytes (`comm`), and
+every wait has the mesh's timeout.  `first(n)` lends a trainer of n ranks
+the first n of a larger mesh.
 
 A worker dies with its parent: it polls the parent's pid, its pipe ends
 when the parent's does, and it is a daemon process.  A failing worker
@@ -104,22 +108,27 @@ class MeshRank:
         # calls, such as a trainer's rank state
         self.state: Dict[str, Any] = {}
 
-    def group(self, name: str, ranks: Sequence[int]) -> "Group":
+    def group(self, name: str, ranks: Sequence[int],
+              link: bool = False) -> "Group":
         """The group `name` over `ranks` (this rank among them).  Its
         process group is built at the first request for that rank set, on
         a prefix of the mesh's store; every member must ask for it in the
-        same order.  A group of one rank runs no collective."""
+        same order.  A `link` (a pipeline's point-to-point link) has a
+        process group of its own, shared with no collective group over the
+        same ranks.  A group of one rank runs no collective."""
         ranks = tuple(ranks)
         if self.rank not in ranks:
             raise ValueError(f"rank {self.rank} is not in group {name} "
                              f"{ranks}")
-        pg = self._pgs.get(ranks)
+        key = ("link",) + ranks if link else ranks
+        pg = self._pgs.get(key)
         if pg is None and len(ranks) > 1:
-            store = dist.PrefixStore("g" + "-".join(map(str, ranks)),
-                                     self._store)
+            store = dist.PrefixStore(
+                ("l" if link else "g") + "-".join(map(str, ranks)),
+                self._store)
             pg = _process_group(self.backend, store, ranks.index(self.rank),
                                 len(ranks), self.timeout_s)
-            self._pgs[ranks] = pg
+            self._pgs[key] = pg
             self._new_pg(pg)
         return Group(self, name, ranks, pg)
 
@@ -134,9 +143,65 @@ class MeshRank:
 
     def _wait(self, work) -> None:
         try:
-            work.wait()
+            if self.backend == "gloo":
+                # a gloo point-to-point wait has no timeout of its own
+                work.wait(datetime.timedelta(seconds=self.timeout_s))
+            else:
+                work.wait()
         except RuntimeError as e:
             self._collective_failed(e)
+
+    def _staged(self, op: str, group: "Group", t: torch.Tensor) -> bool:
+        """Whether the send or recv `op` of `t` goes through host memory: a
+        CUDA tensor under gloo, whose send and recv do not take one.
+        Counted as "<group>.<op>_host"."""
+        if self.backend != "gloo" or t.device.type != "cuda":
+            return False
+        self._count(group, op + "_host", t)
+        return True
+
+    def isend(self, t: torch.Tensor, dst: int, group: "Group") -> "Sent":
+        """Start sending `t` to the group's member `dst` (an index into
+        `group.ranks`); the returned handle's `wait()` ends the send, and it
+        keeps the data alive until then.  Sends and receives between two
+        members are matched in the order they are made."""
+        x = t.detach().contiguous()
+        self._count(group, "send", x)
+        if self._staged("send", group, x):
+            x = x.cpu()
+        return Sent(self, group.pg.send([x], dst, 0), x)
+
+    def recv(self, shape, dtype: torch.dtype, src: int,
+             group: "Group") -> torch.Tensor:
+        """The next tensor member `src` sends this rank in `group`, of the
+        `shape` and `dtype` both sides know, on the rank's device."""
+        buf = torch.empty(shape, dtype=dtype, device=self.device)
+        self._count(group, "recv", buf)
+        if self._staged("recv", group, buf):
+            host = torch.empty(shape, dtype=dtype)
+            self._wait(group.pg.recv([host], src, 0))
+            return buf.copy_(host)
+        self._wait(group.pg.recv([buf], src, 0))
+        return buf
+
+    def all_to_all(self, t: torch.Tensor, split_axis: int, concat_axis: int,
+                   group: "Group") -> torch.Tensor:
+        """The tiled all-to-all (`jax.lax.all_to_all(tiled=True)`): `t` cut
+        in `group.size` equal parts along `split_axis`, part j to member j;
+        the parts received concatenated along `concat_axis` in member
+        order."""
+        n = group.size
+        if n == 1:
+            return t
+        if t.shape[split_axis] % n:
+            raise ValueError(f"all_to_all: {t.shape[split_axis]} over {n} "
+                             f"ranks")
+        x = torch.stack(t.chunk(n, split_axis)).contiguous()
+        self._count(group, "all_to_all", x)
+        out = torch.empty_like(x)
+        self._wait(group.pg.alltoall_base(out, x, [], [],
+                                          dist.AllToAllOptions()))
+        return torch.cat(out.unbind(0), concat_axis)
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum",
                    group: Optional["Group"] = None) -> torch.Tensor:
@@ -215,6 +280,19 @@ class MeshRank:
         self.all_reduce(torch.zeros(1, device=self.device))
 
 
+class Sent:
+    """A send in flight (`MeshRank.isend`): `wait()` ends it, under the
+    mesh's timeout."""
+
+    def __init__(self, owner: MeshRank, work, data: torch.Tensor):
+        self.owner, self.work, self.data = owner, work, data
+
+    def wait(self) -> None:
+        if self.work is not None:
+            self.owner._wait(self.work)
+            self.work = self.data = None
+
+
 def _check_devices(mp: int, devices, backend: Optional[str]):
     if mp < 1:
         raise ValueError(f"mp must be >= 1, got {mp}")
@@ -273,6 +351,15 @@ class Group:
 
     def reduce_scatter(self, t, dim=0):
         return self.owner.reduce_scatter(t, dim, self)
+
+    def isend(self, t, dst):
+        return self.owner.isend(t, dst, self)
+
+    def recv(self, shape, dtype, src):
+        return self.owner.recv(shape, dtype, src, self)
+
+    def all_to_all(self, t, split_axis, concat_axis):
+        return self.owner.all_to_all(t, split_axis, concat_axis, self)
 
 
 class ServingMesh(MeshRank):
@@ -431,15 +518,24 @@ class ServingMesh(MeshRank):
             self.query(r, "reset_counts")
 
     def run(self, fn: Callable, per_rank: Sequence[tuple]) -> List[Any]:
-        """Call `fn(*args, mesh=<rank>, **kwargs)` on every rank at once,
-        `per_rank[r] = (args, kwargs)`; returns the results in rank order
-        (the workers' pickled back).  `fn` must be importable by name."""
-        for r in range(1, self.mp):
+        """Call `fn(*args, mesh=<rank>, **kwargs)` on ranks 0..n-1 at once,
+        `per_rank[r] = (args, kwargs)` for n = len(per_rank) (every rank by
+        default); returns the results in rank order (the workers' pickled
+        back).  `fn` must be importable by name."""
+        n = len(per_rank)
+        for r in range(1, n):
             args, kwargs = per_rank[r]
             self._send(r, ("call", fn, args, kwargs))
         args, kwargs = per_rank[0]
         out = [fn(*args, mesh=self, **kwargs)]
-        return out + [self._reply(r) for r in range(1, self.mp)]
+        return out + [self._reply(r) for r in range(1, n)]
+
+    def first(self, n: int) -> "SubMesh":
+        """Ranks 0..n-1 of this mesh, as a mesh of n ranks for a trainer
+        (which then runs on those ranks only)."""
+        if not 1 <= n <= self.mp:
+            raise ValueError(f"a mesh of {self.mp} ranks has no first {n}")
+        return SubMesh(self, n)
 
     # ---- lifetime ---------------------------------------------------------
     def close(self) -> None:
@@ -464,6 +560,34 @@ class ServingMesh(MeshRank):
     def __repr__(self) -> str:
         return (f"ServingMesh(mp={self.mp}, backend={self.backend!r}, "
                 f"devices={[str(d) for d in self.devices]})")
+
+
+class SubMesh:
+    """The first `mp` ranks of a `ServingMesh` (`ServingMesh.first`): `run`,
+    the counts and the per-rank `state` reach those ranks only; `close()`
+    leaves the mesh open."""
+
+    def __init__(self, mesh: ServingMesh, mp: int):
+        self.parent, self.mp = mesh, mp
+        self.rank, self.device = 0, mesh.device
+        self.state, self.comm = mesh.state, mesh.comm
+
+    def run(self, fn: Callable, per_rank: Sequence[tuple]) -> List[Any]:
+        if len(per_rank) != self.mp:
+            raise ValueError(f"{len(per_rank)} calls for {self.mp} ranks")
+        return self.parent.run(fn, per_rank)
+
+    def rank_counts(self) -> List[Dict[str, Dict[str, int]]]:
+        return self.parent.rank_counts()[:self.mp]
+
+    def reset_counts(self) -> None:
+        self.parent.reset_counts()
+
+    def close(self) -> None:
+        """The parent mesh stays open."""
+
+    def __repr__(self) -> str:
+        return f"SubMesh(first {self.mp} of {self.parent!r})"
 
 
 def _stop_workers(procs, conns, dirname, groups) -> None:

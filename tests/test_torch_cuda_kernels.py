@@ -1889,12 +1889,14 @@ def test_mp2_gloo_engine_on_card_matches_mp1(dev):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 2048, 8, 128), (1, 2048, 4, 128)],
-                         ids=["dp2_mp2", "dp4_mp4"])
+@pytest.mark.parametrize("shape", [(2, 2048, 8, 128), (1, 2048, 4, 128),
+                                   (1, 2048, 16, 128)],
+                         ids=["dp2_mp2", "dp4_mp4", "pp_stage"])
 def test_flash_kernels_at_a_training_rank_shape(dev, dtype, shape):
     """Rows 2, 5 and 6 at the shapes a GPT-3 1.3B training rank gives them
-    (B 4, S 2048, 16 heads of 128: dp 2 x mp 2, and dp 4 x mp 4), causal:
-    each launches once and agrees with its plain version."""
+    (B 4, S 2048, 16 heads of 128: dp 2 x mp 2, and dp 4 x mp 4; a pipeline
+    stage's microbatch of B 8 over 8), causal: each launches once and
+    agrees with its plain version."""
     rng = np.random.RandomState(shape[2])
     q, k, v, g = (_randn(rng, shape, dtype, dev) for _ in range(4))
     scale = 128 ** -0.5
@@ -1989,6 +1991,93 @@ def test_mesh_trainer_on_card_matches_one_device(dev, card_mesh, kw):
         assert [c["launches"][k] for k in ("flash_attention_fwd",
                                            "flash_bwd_dkv", "flash_bwd_dq")] \
             == [cfg.num_layers * 3] * 3
+        assert not any(c["composed_calls"].values())
+    a, b = tr.gathered_state()["params"], one.gathered_state()["params"]
+    for x, y in zip(_leaves(a), _leaves(b)):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
+    tr.close()
+
+
+def _card_p2p(*, mesh):
+    """isend / recv around the ring of the mesh's ranks and an all-to-all
+    over them, on CUDA tensors (`ServingMesh.run` calls it by name)."""
+    r, n, dev = mesh.rank, mesh.mp, mesh.device
+    links = {i: mesh.group("card_next" if i == r else "card_prev",
+                           [i, (i + 1) % n])
+             for i in range(n) if r in (i, (i + 1) % n)}
+    every = mesh.group("card_every", range(n))
+    mesh.comm.clear()
+    x = torch.arange(6.0, device=dev).reshape(2, 3) + 10 * r
+    sent = links[r].isend(x, 1)
+    got = links[(r - 1) % n].recv((2, 3), torch.float32, 0)
+    sent.wait()
+    a2a = every.all_to_all(torch.arange(2.0 * n, device=dev).reshape(n, 2)
+                           + 100 * r, 0, 1)
+    assert got.is_cuda and a2a.is_cuda
+    return {"recv": got.cpu(), "all_to_all": a2a.cpu(),
+            "comm": dict(mesh.comm)}
+
+
+def test_mesh_p2p_and_all_to_all_on_cuda_tensors(card_mesh):
+    """The pipeline's send/recv (through host memory under gloo, counted)
+    and the ep all-to-all on CUDA tensors, against plain copies of what
+    each rank sent."""
+    n = card_mesh.mp
+    outs = card_mesh.run(_card_p2p, [((), {})] * n)
+    for r, o in enumerate(outs):
+        src = (r - 1) % n
+        torch.testing.assert_close(o["recv"],
+                                   torch.arange(6.0).reshape(2, 3) + 10 * src)
+        want = torch.cat([torch.arange(2.0 * n).reshape(n, 2)[r:r + 1]
+                          + 100 * i for i in range(n)], 1)
+        torch.testing.assert_close(o["all_to_all"], want)
+        comm = o["comm"]
+        assert comm["card_next.send"] == [1, 24]
+        assert comm["card_prev.recv"] == [1, 24]
+        assert comm.get("card_next.send_host") == [1, 24]
+        assert comm["card_every.all_to_all"] == [1, 8 * n]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(pp=2, mp=2, micro_batches=2, remat=True),
+    dict(pp=2, vpp=2, mp=2, sequence_parallel=True, micro_batches=2),
+    dict(pp=4, micro_batches=4),
+    dict(pp=2, ep=2, micro_batches=2, moe=True)],
+    ids=["pp2_mp2_remat", "pp2_vpp2_mp2_sp", "pp4", "moe_pp2_ep2"])
+def test_mesh_pipeline_on_card_matches_one_device(dev, card_mesh, kw):
+    """Four gloo ranks on the card, float32 (hd 64, the kernels' route):
+    3 pipeline steps give the one-device trainer's losses and, gathered,
+    its parameters; every rank launches rows 2, 5 and 6 once a layer of
+    its stage a microbatch a step, and takes no composed route.  MoE: 4
+    experts, capacity factor 8 and no aux, as the reference compares ep
+    with one device."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
+    from paddle_tpu_torch.parallel.hybrid import _leaves
+    kw = dict(kw)
+    moe = kw.pop("moe", False)
+    cfg = gpt.GPTConfig(vocab_size=256, hidden_size=256, num_layers=4,
+                        num_heads=4, max_seq_len=128,
+                        moe_num_experts=4 if moe else 0,
+                        moe_capacity_factor=8.0, moe_aux_weight=0.0)
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    tok = np.random.RandomState(0).randint(0, 256, (8, 128))
+    lab = np.roll(tok, -1, axis=1)
+    mc = MeshConfig(**kw)
+    one = HybridParallelTrainer(cfg, MeshConfig(remat=mc.remat), device=dev,
+                                params=params)
+    tr = HybridParallelTrainer(cfg, mc, params=params, mesh=card_mesh)
+    card_mesh.reset_counts()
+    got = [float(tr.train_step(tok, lab)) for _ in range(3)]
+    counts = card_mesh.rank_counts()
+    want = [float(one.train_step(tok, lab)) for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    per = cfg.num_layers // mc.pp * mc.micro_batches * 3
+    for c in counts:
+        assert [c["launches"][k] for k in ("flash_attention_fwd",
+                                           "flash_bwd_dkv", "flash_bwd_dq")] \
+            == [per] * 3
         assert not any(c["composed_calls"].values())
     a, b = tr.gathered_state()["params"], one.gathered_state()["params"]
     for x, y in zip(_leaves(a), _leaves(b)):

@@ -288,17 +288,11 @@ def test_eval_loss_on_a_mesh(mesh):
                                ref["eval"], **TOL)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(pp=2), "pp and vpp"), (dict(vpp=2), "pp and vpp"),
-    (dict(ep=2), "MoE and ep"), (dict(cp=2), "cp"),
-    (dict(dp=2, moe=True), "MoE and ep"),
-    (dict(mp=2, sequence_parallel=True, moe=True), "MoE and ep")],
-    ids=["pp", "vpp", "ep", "cp", "moe_dp", "moe_sp"])
+@pytest.mark.parametrize("kw,item", [(dict(cp=2), "cp")], ids=["cp"])
 def test_later_sub_items_refuse(kw, item):
-    kw = dict(kw)
-    cfg = TG.gpt_moe_tiny(32) if kw.pop("moe", False) else TG.gpt_tiny(32)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1") as e:
-        HybridParallelTrainer(cfg, MeshConfig(**kw), devices=["cpu"] * 4)
+        HybridParallelTrainer(TG.gpt_tiny(32), MeshConfig(**kw),
+                              devices=["cpu"] * 4)
     assert item in str(e.value)
 
 

@@ -71,10 +71,13 @@ FLEET_MODULES = ("paddle_tpu_torch.inference",
                  "paddle_tpu_torch.inference.obs_server")
 # the MoE dispatch (its own copy of the reference's plain-jnp module)
 MOE_MODULES = ("paddle_tpu_torch.incubate.distributed.models.moe.dispatch",)
-# tensor-parallel serving: the mesh and its workers, the serving layout
+# tensor-parallel serving: the mesh and its workers, the serving layout;
+# the trainer's pipeline schedule and expert-parallel MoE
 TP_MODULES = ("paddle_tpu_torch.parallel.tp",
               "paddle_tpu_torch.parallel.hybrid",
-              "paddle_tpu_torch.parallel.mp_ops")
+              "paddle_tpu_torch.parallel.mp_ops",
+              "paddle_tpu_torch.parallel.pipeline",
+              "paddle_tpu_torch.parallel.moe")
 
 
 @pytest.mark.parametrize("module", OBSERVABILITY_MODULES + FLEET_MODULES +
@@ -116,6 +119,8 @@ def test_entry_points_refuse_to_run_without_a_card():
     # a training mesh starts on the cards unless given devices=
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HybridParallelTrainer(cfg, MeshConfig(dp=2), params=params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HybridParallelTrainer(cfg, MeshConfig(pp=2, ep=2), params=params)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])

@@ -19,8 +19,8 @@ Same numpy-seeded inputs through both packages; weights go the reference's
   only as a near-tie (top-2 margin below TIE_MARGIN, INT8_TIE_MARGIN for
   the int8 engine, whose KV rounding can flip a step), reported.
 - `params_from_numpy` keeps the gate float32 in a bf16 model;
-  `quantize_serving_params` passes the gate and the expert banks through;
-  `MeshConfig(ep=2)` still raises.
+  `quantize_serving_params` passes the gate and the expert banks through
+  (expert parallelism: `tests/test_torch_moe_parallel.py`).
 """
 import warnings
 
@@ -264,12 +264,6 @@ def test_convert_keeps_the_gate_float32_and_int8_passes_experts():
                             "cpu")
     for a, b in zip(_leaves(ref), _leaves(q)):
         assert torch.equal(a, b)
-
-
-def test_ep_mesh_still_raises():
-    with pytest.raises(NotImplementedError, match="MoE and ep"):
-        HybridParallelTrainer(TG.gpt_moe_tiny(32), MeshConfig(ep=2),
-                              device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -214,32 +214,36 @@ def test_mesh_config_keeps_reference_fields_and_defaults():
 @pytest.mark.parametrize("kw,item", [
     (dict(dp=2), "not on one device"), (dict(sharding=2), "not on one device"),
     (dict(dp=2, sharding_stage=2), "not on one device"),
-    (dict(pp=2), "pp and vpp"), (dict(vpp=2), "pp and vpp"),
+    (dict(pp=2), "not on one device"), (dict(vpp=2), "requires pp > 1"),
     (dict(mp=2), "not on one device"),
     (dict(mp=2, sequence_parallel=True), "not on one device"),
-    (dict(ep=2), "MoE and ep"), (dict(cp=2), "cp")],
+    (dict(ep=2), "not on one device"), (dict(cp=2), "cp")],
     ids=["dp", "sharding", "zero2", "pp", "vpp", "mp", "sp", "ep", "cp"])
 def test_trainer_refuses_other_meshes(kw, item):
-    """One device takes the degree-1 mesh only: dp, sharding and mp run on
-    a mesh of ranks (`tests/test_torch_hybrid_parallel.py`) and raise
-    ValueError here, never falling back to one device; pp, vpp, ep and cp
-    raise NotImplementedError naming their ROADMAP item."""
-    later = item not in ("not on one device",)
-    exc = NotImplementedError if later else ValueError
-    with pytest.raises(exc, match="ROADMAP Queue 1" if later else item) as e:
+    """One device takes the degree-1 mesh only: dp, pp, sharding, mp and ep
+    run on a mesh of ranks (`tests/test_torch_hybrid_parallel.py`,
+    `test_torch_pipeline.py`, `test_torch_moe_parallel.py`) and raise
+    ValueError here, never falling back to one device; vpp without pp
+    raises the reference's AssertionError, and cp NotImplementedError
+    naming its ROADMAP item."""
+    exc = {"cp": NotImplementedError,
+           "requires pp > 1": AssertionError}.get(item, ValueError)
+    with pytest.raises(exc, match="ROADMAP Queue 1" if item == "cp"
+                       else item) as e:
         HybridParallelTrainer(TG.gpt_tiny(32), MeshConfig(**kw),
                               device="cpu")
     assert item in str(e.value)
 
 
 def test_moe_config_still_refuses():
-    """MoE blocks run at expert-parallel degree 1 (`test_torch_moe.py`
-    holds them against the reference); ep > 1 still raises, naming its
-    ROADMAP item."""
+    """MoE blocks run at expert-parallel degree 1 on one device
+    (`test_torch_moe.py` holds them against the reference); ep > 1 runs on
+    a mesh of ranks (`test_torch_moe_parallel.py`) and refuses one
+    device."""
     cfg = TG.gpt_tiny(32)
     cfg.moe_num_experts = 4
     params = TG.init_params(cfg, torch.Generator(), "cpu")
     assert params["blocks"]["gate_w"].dtype == torch.float32
     assert "fc1_w" not in params["blocks"]
-    with pytest.raises(NotImplementedError, match="MoE and ep"):
+    with pytest.raises(ValueError, match="not on one device"):
         HybridParallelTrainer(cfg, MeshConfig(ep=2), device="cpu")
