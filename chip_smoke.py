@@ -49,7 +49,10 @@ Phases, one JSON line each (with its seconds):
                and at the verify width of the fused spec step (row "1v":
                T = SPEC_LEN + 1, the prompt lengths as q_offset, drafted
                and undrafted slots in one batch, SPEC_VALID, two null-row
-               slots; fp at page 16, int8 at 32).
+               slots; fp at page 16, int8 at 32).  Row "2c": the flash
+               forward at a ring chunk of phase 12d (a), [1,2048,32,128]
+               bf16, causal (the diagonal chunk) and not (an earlier
+               rank's).
 3. engine_bucketed — Llama-3-8B at full width (all 32 layers), bf16, random
                weights from a seeded generator, 8 greedy requests of 64-1024
                prompt tokens x 32 new tokens through `LLMEngine` with
@@ -279,13 +282,16 @@ Phases, one JSON line each (with its seconds):
 6i. engine_tp — tensor-parallel serving (`LLMEngine(mesh=)` over
                `parallel.tp.serving_mesh`): two ranks on this one card
                (gloo, so eager; the workers and a 4-rank mesh started
-               together), Llama-3-8B at full width, bf16, the phase-3
-               prompts x 32 at mp 2, fused bucketed, fused chunked
+               together), Llama-3-8B at full width cut to TP_LAYERS = 8
+               layers (phase 3's first 8; the phase took 228.5 s at 32),
+               bf16, the phase-3 prompts x 32 at mp 2, fused bucketed,
+               fused chunked
                (`prefill_chunk=16`) and `fuse=False`.  Every rank's counts
                are zeroed just before and read just after: each rank
-               launches row 1 exactly 32 x (fused + chunk + verify
-               dispatches), row 4 32 x decode dispatches, row 2 32 x
-               bucketed prefills, nothing composed; each rank's pool is
+               launches row 1 exactly layers x (fused + chunk + verify
+               dispatches), row 4 layers x decode dispatches, row 2
+               layers x bucketed prefills, nothing composed; each rank's
+               pool is
                half of mp=1's (`rank_pool_bytes`); the programs within the
                budget; every first token the dense forward's where the
                top-2 margin exceeds 0.05 (ties printed).  Then float32 at
@@ -331,8 +337,10 @@ Phases, one JSON line each (with its seconds):
                backward alone of SDPA as the library yardstick, bounds, the
                body that ran (`body`: `wgmma` for the dense bf16 pair at D 64
                and 128, `BWD_BODY`), and at the training shape two calls'
-               dq, dk, dv bitwise equal; then RMSNorm's dx, dw through its
-               autograd Function against autograd through `_rms_ref`.
+               dq, dk, dv bitwise equal; rows "5c, 6c": the pair at a ring
+               chunk of phase 12d (a), [1,2048,32,128] bf16, causal and
+               not; then RMSNorm's dx, dw through its autograd Function
+               against autograd through `_rms_ref`.
 10. varlen     — GPT-3 1.3B attention width (H 16, D 128), bf16 and float32:
                8192 packed tokens in segments of 128-2048 through
                `flash_attn_unpadded(causal=True)` forward and backward (the
@@ -356,7 +364,8 @@ Phases, one JSON line each (with its seconds):
 12b. train_mesh — data, ZeRO and tensor-parallel training on this one card:
                four ranks of a `parallel.tp` mesh (gloo, which stages its
                collectives of CUDA tensors through host memory).  (a) GPT-3 1.3B
-               (TRAIN_MESH_LAYERS layers) in bf16 with bf16 moments and
+               (TRAIN_MESH_LAYERS = 8 layers; the run took 68.6 s at all
+               24) in bf16 with bf16 moments and
                remat, B=4, S=2048, `MeshConfig(dp=2, mp=2, sharding_stage=1,
                sequence_parallel=True)`, 1 warm-up and 2 timed steps:
                finite, falling losses, step 0 near ln V, each rank's
@@ -416,6 +425,38 @@ Phases, one JSON line each (with its seconds):
                versions,
                with kernel, plain, SDPA and bound times.  `--tp` adds (a)'s
                pp 4 and (b) to `train_nccl`.
+12d. train_cp — context-parallel training on this one card: four gloo
+               ranks, the ring's send/recv host-staged as pp's.  (a)
+               Llama-3-8B at full width (D 4096, 32 heads, 8 kv heads,
+               FFN 14336, vocab 128256), TRAIN_CP_LAYERS = 2 layers, bf16
+               with bf16 moments and remat, B=1, S=8192 at
+               `MeshConfig(cp=4)`, 1 warm-up and 2 timed steps: step 0
+               within 0.01 of one device's loss on the same weights and
+               batch (reported beside ln V + (0.02^2 D) / 2, random
+               logits' expectation), finite, falling losses, rows 2, 5
+               and 6 exactly layers x (c + 1) a step on cp rank c (the
+               chunks it sees),
+               nothing composed, each rank's peak memory, tokens/s, and the
+               ring's sends and bytes a rank a step held to the formula of
+               `parallel/ring_attention.py` (`ring_traffic`).  (b) float32
+               (TF32 off), GPT-3 1.3B width (learned positions) at 2 layers,
+               B=4, S=2048, 3 steps from the same weights on one device,
+               at cp 4 and at dp 2 x cp 2: losses within 1e-5 relative,
+               gathered parameters within 1e-4 element by element.  (c)
+               `ring_attention` forward and backward at cp 4 on the ranks
+               ([1,8192,32,128] q, 8 kv heads), bf16 and float32, against
+               plain single-device attention.  cp over NCCL is refused
+               (`ring_attention.check_backend`), so `--tp` runs no cp.
+12e. engine_ckpt — `distributed.auto_parallel.Engine` at GPT-3 1.3B width,
+               2 layers, float32, B=4, S=2048, on four gloo ranks:
+               `fit` 3 steps on dp 2 x mp 2, `save` (the reference's
+               layout, under the checkout's git-ignored build/) and 3 more
+               steps (the uninterrupted curve), then resumed from
+               another init on dp 4, on mp 2 and on cp 2, 3 steps each:
+               losses within 2e-4 relative of the curve's last 3; save and
+               load seconds and the checkpoint's bytes; on cp 2 `predict`'s
+               logits (the dense forward) give `evaluate`'s loss (the
+               ring) within 1e-4.
 13. engine_moe — the MoE family at the GPT-3 1.3B trunk (`gpt3_1p3b` with 4
                experts, top-2, capacity factor 2 in every block; ~3.7 B
                parameters), bf16, seeded random weights: phase 3's bucketed
@@ -441,8 +482,9 @@ the two paged ones (launches summed over the main-path runs of phases 3, 4,
 5, 6b, 6c, 6d, 6e, 6f (its tier runs), 6g (its traced pass), 6h (its
 fleets), 6i (its bf16 runs, every rank's launches), 8b (its counted bf16
 call), 10, 11, 12, 12b ((a), every rank's launches), 12c ((a) and (b),
-every rank's launches), 13 (bf16 and int8), 14
-and 15, each with the counts zeroed just before it and read
+every rank's launches), 12d ((a), every rank's launches), 12e (the
+Engine's fit and resumed steps, every rank's launches), 13 (bf16 and
+int8), 14 and 15, each with the counts zeroed just before it and read
 just after; none
 of them may take an entry's composed route for shapes the kernels do not
 take) and, last,
@@ -450,6 +492,7 @@ take) and, last,
 Exits non-zero, with no result line, without CUDA, outside the repository,
 or when any phase fails.
 """
+import copy
 import json
 import math
 import re
@@ -3704,10 +3747,11 @@ def train(dev):
 # ---------------------------------------------------------------------------
 
 # (a): GPT-3 1.3B over dp 2 x mp 2 with sequence parallelism, ZeRO-1, on
-# four gloo ranks of the one card; the depth is cut to 8 if the phase
-# passes 180 s (PERF.md section 4)
+# four gloo ranks of the one card; its depth cut to 8 (68.6 s at all 24:
+# 9.5 s a step of host-staged gloo all-reduces) with phases 12d-12e in the
+# smoke (PERF.md section 4)
 TRAIN_MESH = dict(dp=2, mp=2, sharding_stage=1, sequence_parallel=True)
-TRAIN_MESH_LAYERS = 24
+TRAIN_MESH_LAYERS = 8
 TRAIN_MESH_BATCH = (4, 2048)
 TRAIN_MESH_STEPS = 2            # timed, after one warm-up
 # (b): float32 parity at GPT-3 1.3B width, 2 layers
@@ -3735,9 +3779,9 @@ def mesh_train_run(trainer, tok, lab, steps, what, per_step=None):
     """One warm-up and `steps` timed steps, every rank's kernel counts and
     collective stats zeroed just before the warm-up and read just after
     the last step: the losses, step times, and per rank the launches
-    (rows 2, 5 and 6 exactly `per_step` (default: layers) x steps, nothing
-    composed), the peak device bytes and the collectives a step (calls
-    and bytes)."""
+    (rows 2, 5 and 6 exactly `per_step` (default: layers; a list: rank
+    r's) x steps, nothing composed), the peak device bytes and the
+    collectives a step (calls and bytes)."""
     import torch
     from paddle_tpu_torch.incubate import kernels as K
     mesh = trainer.mesh
@@ -3762,8 +3806,9 @@ def mesh_train_run(trainer, tok, lab, steps, what, per_step=None):
                       trainer.device)}]
     else:
         counts, stats = mesh.rank_counts(), trainer.rank_stats()
-    want = (per_step or trainer.config.num_layers) * n
+    per = per_step or trainer.config.num_layers
     for r, c in enumerate(counts):
+        want = (per[r] if isinstance(per, list) else per) * n
         if any(c["composed_calls"].values()):
             raise AssertionError(f"{what} rank {r}: composed routes "
                                  f"{c['composed_calls']}")
@@ -3798,11 +3843,12 @@ def train_parity_mesh(dev, mesh):
                        "train_mesh parity")
 
 
-def mesh_parity(cfg, layouts, batch, dev, mesh, what):
+def mesh_parity(cfg, layouts, batch, dev, mesh, what,
+                loss_tol=PARITY_TOL):
     """PARITY_STEPS steps of `cfg` (float32) on one device ("mp1", first in
     `layouts`, a degree-1 MeshConfig) and under each mesh layout of
     `layouts` from the same weights (seed 1).  The losses: every step
-    within PARITY_TOL relative of mp 1's.  The gathered parameters: every
+    within `loss_tol` (default PARITY_TOL) relative of mp 1's.  The gathered parameters: every
     element within PARITY_TOL (rtol and atol), and for MoE every leaf too
     within PARITY_TOL in relative norm |a - b| / |b|; dense after the last
     step, MoE after each step while the router has chosen every token's
@@ -3887,7 +3933,7 @@ def mesh_parity(cfg, layouts, batch, dev, mesh, what):
                     if d["elements_past_tol"].get(n) or
                     (moe and not v <= PARITY_TOL)]
         rec[name] = out
-        if not rel <= PARITY_TOL or bad:
+        if not rel <= loss_tol or bad:
             raise AssertionError(f"{what} {name}: loss rel {rel:.3g}; "
                                  f"{bad}")
     return rec
@@ -4162,6 +4208,312 @@ def moe_parity(dev, mesh):
                        "train_pp moe parity")
 
 
+# ---------------------------------------------------------------------------
+# train_cp: context-parallel training (ring attention)
+# ---------------------------------------------------------------------------
+
+# (a): Llama-3-8B at full width, 2 layers, S = max_seq_len 8192 over cp 4
+# (a rank's chunk [1, 2048, 32, 128]), four gloo ranks on the one card
+TRAIN_CP_LAYERS = 2
+TRAIN_CP_BATCH = (1, 8192)
+TRAIN_CP = dict(cp=4)
+TRAIN_CP_STEPS = 2              # timed, after one warm-up
+# (b): float32 parity at GPT-3 1.3B width (learned positions), 2 layers
+CP_PARITY_LAYOUTS = (("mp1", {}), ("cp4", dict(cp=4)),
+                     ("dp2_cp2", dict(dp=2, cp=2)))
+CP_PARITY_BATCH, CP_PARITY_LOSS_TOL = (4, 2048), 1e-5
+# rows 2c, 5c, 6c: a ring chunk of (a), diagonal (causal) and off-diagonal
+CP_CHUNK = (1, 2048, 32, 128)
+# (c): one ring forward and backward at cp 4: q heads, kv heads (Llama-3)
+CP_RING = dict(B=1, S=8192, H=32, KVH=8, D=128)
+
+
+def ring_traffic(cfg, mc, B, S, itemsize):
+    """`parallel/ring_attention.py`'s formula: the ring's sends a rank
+    makes a training step (layers of its stage x microbatches x 2 (cp -
+    1), half on each link) and their bytes (each 2 x B/M x S/cp x KVH/mp x
+    hd x itemsize)."""
+    calls = cfg.num_layers // mc.pp * mc.micro_batches * 2 * (mc.cp - 1)
+    each = 2 * (B // mc.micro_batches // (mc.dp * mc.sharding)) * \
+        (S // mc.cp) * (cfg.kv_heads // mc.mp) * cfg.head_dim * itemsize
+    return calls, calls * each
+
+
+def ring_sends(run):
+    """Per rank, the ring's sends a step: calls and bytes over both links
+    (host-staged under gloo: "<link>.send", one count a send)."""
+    out = []
+    for rank in comm_subset(run, ("cp_",)):
+        sends = [v for k, v in rank.items() if k.endswith(".send")]
+        out.append({"calls": sum(v["calls"] for v in sends),
+                    "bytes": sum(v["bytes"] for v in sends)})
+    return out
+
+
+def cp_launches(cfg, mc):
+    """Rows 2, 5 and 6 a step on each rank: layers of its stage x M x
+    (c + 1), the chunks cp rank c sees under causal masking."""
+    from paddle_tpu_torch.parallel.hybrid import coords
+    return [cfg.num_layers // mc.pp * mc.micro_batches *
+            (coords(mc, r)["cp"] + 1) for r in range(mc.size)]
+
+
+def cp_run(cfg, kw, batch, mesh, what, steps=TRAIN_CP_STEPS):
+    """`mesh_train_run` of `cfg` (bf16, bf16 moments, remat) at
+    MeshConfig(**kw): the ring's sends and bytes a rank a step held to
+    `ring_traffic`, rows 2, 5 and 6 to `cp_launches`."""
+    import torch
+    from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
+    mc = MeshConfig(**kw, remat=True)
+    tok, lab = train_batch(cfg, *batch)
+    tr = HybridParallelTrainer(cfg, mc, moment_dtype=torch.bfloat16,
+                               mesh=mesh)
+    run = mesh_train_run(tr, tok, lab, steps, what,
+                         per_step=cp_launches(cfg, mc))
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+    calls, nbytes = ring_traffic(cfg, mc, *batch, 2)
+    sends = ring_sends(run)
+    bad = [r for r, x in enumerate(sends)
+           if (x["calls"], x["bytes"]) != (calls, nbytes)]
+    if bad:
+        raise AssertionError(f"{what}: ranks {bad} sent {sends}, the "
+                             f"formula {calls} sends of {nbytes} bytes")
+    return {"mesh": kw, "batch": list(batch),
+            "ring_sends_per_step": sends,
+            "ring_formula": {"calls": calls, "bytes": nbytes},
+            "ring_per_step": comm_subset(run, ("cp_",)), **run}
+
+
+def ring_check(dev, mesh):
+    """(c): `ring_attention` at cp 4 on the gloo ranks (the kernel route:
+    rows 2, 5 and 6 on each rank's chunks) forward and backward, against
+    plain single-device attention (`attention_ref` over the full sequence,
+    8 query heads at a time), bf16 and float32: max abs errors, and the
+    seconds of each."""
+    import torch
+    from paddle_tpu_torch.incubate.kernels.flash_attention import \
+        attention_ref
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+    c = CP_RING
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        t = time.perf_counter()
+        rng = np.random.RandomState(7)
+        q, k, v = (torch.from_numpy(rng.randn(c["B"], c["S"], h, c["D"])
+                                    .astype(np.float32)).to(dev, dtype)
+                   for h in (c["H"], c["KVH"], c["KVH"]))
+        g = torch.from_numpy(rng.randn(c["B"], c["S"], c["H"], c["D"])
+                             .astype(np.float32)).to(dev, dtype)
+        args = [x.clone().requires_grad_() for x in (q, k, v)]
+        got = ring_attention(*args, mesh, route="kernels")
+        grads = torch.autograd.grad(got, args, g)
+        got = got.detach().to(dev)
+        grads = [x.to(dev) for x in grads]
+        G = c["H"] // c["KVH"]
+        errs = {"out": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+        tops = dict(errs)
+        for j in range(0, c["KVH"], 2):         # 8 query heads at a time
+            hq = slice(j * G, (j + 2) * G)
+            qa = q[:, :, hq].detach().requires_grad_()
+            ka, va = (x[:, :, j:j + 2].detach().requires_grad_()
+                      for x in (k, v))
+            wide = [torch.repeat_interleave(x, G, dim=2) for x in (ka, va)]
+            ref = attention_ref(qa, *wide, causal=True)
+            rg = torch.autograd.grad(ref, (qa, ka, va), g[:, :, hq])
+            for name, a, b in (("out", got[:, :, hq], ref),
+                               ("dq", grads[0][:, :, hq], rg[0]),
+                               ("dk", grads[1][:, :, j:j + 2], rg[1]),
+                               ("dv", grads[2][:, :, j:j + 2], rg[2])):
+                b = b.detach()
+                errs[name] = max(errs[name],
+                                 float((a.float() - b.float()).abs().max()))
+                tops[name] = max(tops[name], float(b.float().abs().max()))
+            del ref, rg, qa, ka, va, wide
+        f32 = dtype == torch.float32
+        lims = {n: (F32_TOL if n == "out" else BWD_F32_REL) *
+                max(1.0, tops[n]) if f32 else
+                (BF16_TOL["atol"] if n == "out" else BWD_BF16_REL) *
+                max(1.0, tops[n]) for n in errs}
+        bad = [n for n in errs if not errs[n] <= lims[n]]
+        if bad:
+            raise AssertionError(f"ring {dtype}: {bad} past the plain "
+                                 f"attention's {errs} (limits {lims})")
+        out.append({"dtype": str(dtype).replace("torch.", ""),
+                    "shape": [c["B"], c["S"], c["H"], c["D"]],
+                    "kv_heads": c["KVH"], "cp": mesh.mp,
+                    "max_abs_err": errs, "limits": lims,
+                    "seconds": time.perf_counter() - t})
+        del q, k, v, g, args, got, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_cp(dev, smi):
+    """Phase 12d (see the module docstring).  Returns (record, the summed
+    launches of (a)'s ranks)."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel.tp import serving_mesh
+    t = time.perf_counter()
+    cfg = gpt.llama3_8b()
+    cfg.dtype = torch.bfloat16
+    cfg.num_layers = TRAIN_CP_LAYERS
+    # the step-0 loss one device gives the trainer's weights (seed 0, drawn
+    # on this card as the trainer draws them) on the same batch; random
+    # logits of std 0.02 sqrt(D) put it near ln V + (0.02^2 D) / 2
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    with torch.no_grad():
+        one0 = float(gpt.loss_fn(params, *train_batch(cfg, *TRAIN_CP_BATCH),
+                                 cfg))
+    del params
+    torch.cuda.empty_cache()
+    mesh = serving_mesh(4, [dev] * 4, backend="gloo")
+    rec = {"nvidia_smi": smi, "ranks": 4, "backend": "gloo",
+           "timing_note": "four ranks time-slicing one card, gloo "
+           "collectives and host-staged send/recv: not a context-parallel "
+           "time", "step0_loss_one_device": one0,
+           "step0_random_logits": math.log(cfg.vocab_size) +
+           0.02 ** 2 * cfg.hidden_size / 2}
+    try:
+        run = cp_run(cfg, TRAIN_CP, TRAIN_CP_BATCH, mesh, "train_cp")
+        losses = run["losses"]
+        run["step0_loss_diff_vs_one_device"] = losses[0] - one0
+        if abs(losses[0] - one0) > 0.01:
+            raise AssertionError(f"train_cp: step-0 loss {losses[0]}, one "
+                                 f"device's {one0}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train_cp: loss did not fall {losses}")
+        rec["llama3_8b"] = {"layers": cfg.num_layers, "dtype": "bf16",
+                            "moments": "bf16", "remat": True, **run}
+        emit({"run": "train_cp llama3_8b", **run})
+        rec["a_seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        f32 = gpt.gpt3_1p3b()
+        f32.num_layers = 2
+        rec["parity_f32"] = mesh_parity(f32, CP_PARITY_LAYOUTS,
+                                        CP_PARITY_BATCH, dev, mesh,
+                                        "train_cp parity",
+                                        loss_tol=CP_PARITY_LOSS_TOL)
+        emit({"run": "train_cp parity_f32", **rec["parity_f32"]})
+        rec["b_seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec["ring"] = ring_check(dev, mesh)
+        rec["c_seconds"] = time.perf_counter() - t
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    summed = {k: sum(c[k] for c in run["launches_all"])
+              for k in run["launches_all"][0]}
+    return rec, summed
+
+
+# ---------------------------------------------------------------------------
+# engine_ckpt: the auto-parallel Engine's checkpoints across meshes
+# ---------------------------------------------------------------------------
+
+ENGINE_CKPT_LAYERS, ENGINE_CKPT_BATCH = 2, (4, 2048)
+ENGINE_CKPT_SAVE = dict(dp=2, mp=2)
+ENGINE_CKPT_RESUME = (("dp4", dict(dp=4)), ("mp2", dict(mp=2)),
+                      ("cp2", dict(cp=2)))
+ENGINE_CKPT_STEPS, ENGINE_CKPT_TOL = 3, 2e-4
+
+
+def engine_ckpt(dev, smi):
+    """Phase 12e (see the module docstring).  Returns (record, the summed
+    launches of every rank in the Engine's fit and resumed steps)."""
+    import os
+    import shutil
+
+    import torch
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import MeshConfig
+    from paddle_tpu_torch.parallel.tp import serving_mesh
+    cfg = gpt.gpt3_1p3b()
+    cfg.num_layers = ENGINE_CKPT_LAYERS
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(2),
+                             dev)
+    tok, lab = train_batch(cfg, *ENGINE_CKPT_BATCH, seed=2)
+    n = ENGINE_CKPT_STEPS
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "engine_ckpt")
+    mesh = serving_mesh(4, [dev] * 4, backend="gloo")
+    rec = {"nvidia_smi": smi, "model": "gpt3_1p3b", "layers": cfg.num_layers,
+           "dtype": "float32", "batch": list(ENGINE_CKPT_BATCH),
+           "saved_on": ENGINE_CKPT_SAVE, "ranks": 4, "backend": "gloo"}
+    launches = []
+
+    def engine(kw, **more):
+        mc = MeshConfig(**kw)
+        return Engine(config=cfg, mesh_config=mc, mesh=mesh.first(mc.size),
+                      **more)
+
+    def counted(fn):
+        mesh.reset_counts()
+        out = fn()
+        launches.extend(c["launches"] for c in mesh.rank_counts())
+        return out
+
+    try:
+        # fit, save, then on to the uninterrupted curve's last steps
+        a = engine(ENGINE_CKPT_SAVE, params=params)
+        del params
+        hist = counted(lambda: a.fit((tok, lab), epochs=n,
+                                     batch_size=tok.shape[0], verbose=0))
+        t = time.perf_counter()
+        a.save(path)
+        rec["save_seconds"] = time.perf_counter() - t
+        rec["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        curve = hist["loss"] + [float(a.trainer.train_step(tok, lab))
+                                for _ in range(n)]
+        rec["uninterrupted"] = curve
+        a.trainer.close()
+        del a
+        for name, kw in ENGINE_CKPT_RESUME:
+            b = engine(kw, seed=11)             # another init
+            t = time.perf_counter()
+            b.load(path)
+            load_s = time.perf_counter() - t
+            rest = counted(lambda: [float(b.trainer.train_step(tok, lab))
+                                    for _ in range(n)])
+            rel = max(abs(x - y) / abs(y) for x, y in zip(rest, curve[n:]))
+            r = {"mesh": kw, "load_seconds": load_s, "losses": rest,
+                 "loss_max_rel_diff_vs_curve": rel}
+            if name == "cp2":
+                # predict (the dense forward over the gathered parameters)
+                # against evaluate (the loss through the ring) on one row
+                ev = b.evaluate((tok[:2], lab[:2]), verbose=0)
+                logits = b.predict(tok[:2], batch_size=1)
+                ce = float(torch.nn.functional.cross_entropy(
+                    logits.reshape(-1, logits.shape[-1]).float(),
+                    torch.as_tensor(lab[:2]).long().reshape(-1)))
+                r.update(eval_loss=ev, predict_ce=ce,
+                         predict_shape=list(logits.shape))
+                if not (torch.isfinite(logits).all() and
+                        abs(ce - ev) <= 1e-4 * abs(ev)):
+                    raise AssertionError(f"engine_ckpt: predict's loss {ce}"
+                                         f", evaluate's {ev}")
+                del logits
+            b.trainer.close()
+            del b
+            torch.cuda.empty_cache()
+            rec[name] = r
+            if not rel <= ENGINE_CKPT_TOL:
+                raise AssertionError(f"engine_ckpt {name}: {rest} off the "
+                                     f"curve {curve[n:]} (rel {rel:.3g})")
+    finally:
+        mesh.close()
+        shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.empty_cache()
+    summed = {k: sum(c[k] for c in launches) for k in launches[0]}
+    rec["launches"] = summed
+    return rec, summed
+
+
 def train_nccl(smi):
     """`--tp`: GPT-3 1.3B (bf16, remat, B 4, S 2048) under
     TRAIN_NCCL_LAYOUTS on a four-card NCCL mesh, against mp 1 on one card:
@@ -4224,6 +4576,11 @@ def train_nccl(smi):
 TP_MODES = (("bucketed", None, True), ("chunked", 16, True),
             ("unfused", None, False))
 TP_F32_LAYERS = 2       # the f32 streams' depth (mp 1, 2 and 4, one card)
+# the bf16 runs' depth on one card: the phase took 228.5 s at all 32
+# layers (its chunked mode 112.2 s: 236 steps of 64 host-staged gloo
+# all-reduces), cut to 8 with phases 12d-12e in the smoke (PERF.md
+# section 4); `--tp` serves all 32 on four cards
+TP_LAYERS = 8
 
 
 def tp_serve(params, cfg, prompts, chunk, fuse, dev, mesh, eager,
@@ -4529,8 +4886,8 @@ def main():
     if tp_only:
         t = time.perf_counter()
         rec = tp_four_cards(smi)
-        emit({"phase": "engine_tp_nccl", "seconds": time.perf_counter() - t,
-              **rec})
+        emit({"phase": "engine_tp_nccl",
+              "seconds": time.perf_counter() - t, **rec})
         t = time.perf_counter()
         rec = train_nccl(smi)
         emit({"phase": "train_nccl", "seconds": time.perf_counter() - t,
@@ -4571,6 +4928,10 @@ def main():
         for r in rows:
             r["dtype"] = str(dtype).replace("torch.", "")
         results += rows
+    # row 2c: a ring chunk of train_cp (a), diagonal and off-diagonal
+    for causal in (True, False):
+        results.append({**flash_case(torch.bfloat16, dev, CP_CHUNK, causal),
+                        "dtype": "bfloat16", "row": "2c"})
     emit({"phase": "kernels", "seconds": time.perf_counter() - t,
           "results": results})
 
@@ -4733,20 +5094,27 @@ def main():
 
     t = time.perf_counter()
     from paddle_tpu_torch.parallel.tp import serving_mesh
-    tp_picks = forward_picks(params, cfg, dict(enumerate(prompts)))
+    # the first TP_LAYERS layers of phase 3's weights (views, no copy)
+    tp_cfg = copy.copy(cfg)
+    tp_cfg.num_layers = TP_LAYERS
+    tp_params = dict(params, blocks={k: v[:TP_LAYERS]
+                                     for k, v in params["blocks"].items()})
+    tp_picks = forward_picks(tp_params, tp_cfg, dict(enumerate(prompts)))
     # two ranks share the one card: gloo, eager (a CUDA graph cannot
     # capture gloo); the meshes' workers start together
     tp_meshes = {m: serving_mesh(m, [dev] * m, backend="gloo")
                  for m in (2, 4)}
     try:
-        rec_tp = engine_tp(params, cfg, prompts, dev, tp_picks, smi,
+        rec_tp = engine_tp(tp_params, tp_cfg, prompts, dev, tp_picks, smi,
                            tp_meshes, eager=True, f32_mps=(2, 4))
+        del tp_params
     finally:
         for m in tp_meshes.values():
             m.close()
     rec_tp["kernels"] = tp_kernel_rows(dev)
     emit({"phase": "engine_tp", "seconds": time.perf_counter() - t,
-          "mp": 2, "backend": "gloo", "timing_note": "two ranks on one "
+          "mp": 2, "layers": TP_LAYERS, "backend": "gloo",
+          "timing_note": "two ranks on one "
           "card, gloo, eager: not a tensor-parallel time", **rec_tp})
 
     t = time.perf_counter()
@@ -4767,6 +5135,11 @@ def main():
             r["dtype"] = str(dtype).replace("torch.", "")
             bwd.append(r)
             torch.cuda.empty_cache()
+    # rows 5c, 6c: a ring chunk of train_cp (a), diagonal and off-diagonal
+    for causal in (True, False):
+        bwd.append({**bwd_case(torch.bfloat16, dev, CP_CHUNK, causal),
+                    "dtype": "bfloat16", "row": "5c, 6c"})
+        torch.cuda.empty_cache()
     rms_grads = [rms_grad_case(d, dev) for d in (torch.bfloat16,
                                                  torch.float32)]
     emit({"phase": "kernels_bwd", "seconds": time.perf_counter() - t,
@@ -4803,6 +5176,16 @@ def main():
     rec_pp, pp_launches = train_pp(dev, smi, rec8["losses"][0])
     emit({"phase": "train_pp", "seconds": time.perf_counter() - t,
           **rec_pp})
+
+    t = time.perf_counter()
+    rec_cp, cp_launches_sum = train_cp(dev, smi)
+    emit({"phase": "train_cp", "seconds": time.perf_counter() - t,
+          **rec_cp})
+
+    t = time.perf_counter()
+    rec_ck, ck_launches = engine_ckpt(dev, smi)
+    emit({"phase": "engine_ckpt", "seconds": time.perf_counter() - t,
+          **rec_ck})
 
     t = time.perf_counter()
     rec_moe = engine_moe(dev)
@@ -4906,7 +5289,8 @@ def main():
               and "tier" in m), rec_obs, rec_fleet,
             *(rec_tp[m] for m, _, _ in TP_MODES), rec9, rec7, rec8,
             rec_gen, rec_moe, rec_moe["int8"], rec_tm, rec_bert,
-            {"launches": mesh_launches}, {"launches": pp_launches})
+            {"launches": mesh_launches}, {"launches": pp_launches},
+            {"launches": cp_launches_sum}, {"launches": ck_launches})
     kernels = [{
         "name": r["kernel"] + ("_int8" if key == "launches_int8" else ""),
         "route": route, "source": source, "replaces": replaces,

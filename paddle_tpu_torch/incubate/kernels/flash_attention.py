@@ -13,9 +13,9 @@ dense and segment-masked (varlen), forward and backward.
 - `flash_attention_fused`: the entry the model calls; differentiable
   through `FlashAttention`, the counterpart of `_flash_attention_core`'s
   `custom_vjp`, which saves `q, k, v, out, lse` for the backward.  On the
-  card, shapes the kernels do not take (`kernel_takes`) go to
-  `attention_ref`, as the reference sends them to `attention_xla`, counted
-  in `flash_attention_fused.composed_calls`.
+  card, shapes the kernels do not take (`kernel_takes`) and calls with a
+  mask or dropout go to `attention_ref`, as the reference sends them to
+  `attention_xla`, counted in `flash_attention_fused.composed_calls`.
 - `remat_policy_save_attention`: block remat that keeps those tensors and
   replays the rest of the block.
 - Varlen: row i sees key j only where `seg_q[b, i] == seg_k[b, j]` (and
@@ -435,21 +435,17 @@ def flash_attention_fused(q, k, v, mask=None, causal=False, scale=None,
                           dropout_p=0.0, generator=None):
     """Entry used by the model.  q,k,v: [B, S, H, D].  Differentiable.  On
     the card, shapes the kernels do not take go to `attention_ref` (causal
-    keeps row + (Sk - Sq) >= col), counted in `.composed_calls`; a mask or
-    dropout raises (their lanes are not ported yet).  The CPU keeps the
-    plain versions for all of them."""
+    keeps row + (Sk - Sq) >= col), counted in `.composed_calls`, and so do
+    calls with a mask or dropout (dropout drawn from `generator`): the
+    reference's kernel has no such lane and sends them to `attention_xla`.
+    The CPU keeps the plain versions for all of them."""
     D = q.shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(D)
-    if mask is None and dropout_p == 0.0:
-        if q.device.type != "cpu" and not kernel_takes(q, k, causal):
-            flash_attention_fused.composed_calls += 1
-            return attention_ref(q, k, v, causal=causal, scale=s)
+    plain = mask is not None or dropout_p != 0.0
+    if q.device.type != "cpu" and (plain or not kernel_takes(q, k, causal)):
+        flash_attention_fused.composed_calls += 1
+    elif not plain:
         return FlashAttention.apply(q, k, v, causal, s)
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "flash_attention_fused with mask/dropout on the card arrives "
-            "with a later slice (ROADMAP Queue 1: the rest of training, "
-            "mask and dropout lanes)")
     return attention_ref(q, k, v, mask=mask, causal=causal, scale=s,
                          dropout_p=dropout_p, generator=generator)
 

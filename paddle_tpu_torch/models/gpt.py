@@ -371,10 +371,12 @@ def _layer(blocks, l):
 def _block_qkv(bp, x, c: GPTConfig, pos_offset=None, mesh=None):
     """Pre-norm + packed qkv + rope, k/v repeated to H heads: the post-rope
     q, k, v [B, S, H, hd] that attention reads (the reference's
-    `flash_qkv`); the rank's heads under a training `mesh`."""
+    `flash_qkv`); the rank's heads under a training `mesh`, whose ring
+    (context parallelism) takes k and v at their KVH heads and widens them
+    itself."""
     q, k, v = _prefill_qkv(bp, x, c, pos_offset=pos_offset, mesh=mesh)
     H, KVH = _heads(c, mesh)
-    if KVH != H:
+    if KVH != H and getattr(mesh, "ring", None) is None:
         k = torch.repeat_interleave(k, H // KVH, dim=2)
         v = torch.repeat_interleave(v, H // KVH, dim=2)
     return q, k, v
@@ -421,7 +423,14 @@ def run_blocks(blocks, x, config, pos_offset=None, remat=False,
     MoE load-balance losses summed over the blocks (0 when dense).  Under
     a training `mesh` each block is the Megatron one over the rank's
     shard, on S/mp rows outside attention and the FFN body under sequence
-    parallelism."""
+    parallelism; under context parallelism (`mesh.ring`) x holds the
+    rank's sequence shard, attention is the ring's
+    (`parallel.ring_attention`) and rope takes the shard's global
+    positions (`mesh.seq_offset`)."""
+    ring = getattr(mesh, "ring", None)
+    if ring is not None and attn_impl is None:
+        attn_impl = functools.partial(ring.attend, causal=config.causal)
+        pos_offset = mesh.seq_offset(x.shape[1])
     aux = _zero_aux(x)
     for bp in _layers(blocks, mesh):
         if not remat:

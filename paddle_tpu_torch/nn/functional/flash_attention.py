@@ -8,9 +8,10 @@ return `(out, None)`.
 
 - `flash_attention`: with `segment_ids` and no dropout, the segment-masked
   kernels (`flash_attention_varlen`); with `segment_ids` and dropout, the
-  masked-dropout lane, plain attention under the segment mask, which
-  raises on the card as `flash_attention_fused`'s mask and dropout lanes
-  do; otherwise the dense flash kernels through `flash_attention_fused`.
+  masked-dropout lane, plain attention under the segment mask, which on
+  the card is `flash_attention_fused`'s counted plain route, as its mask
+  and dropout lanes are; otherwise the dense flash kernels through
+  `flash_attention_fused` (with dropout, its plain route).
 - `flash_attn_unpadded`: packed `[total, H, D]` sequences given by
   cumulative offsets.  Routed as the reference routes it: the segment
   kernels over `[1, total, H, D]` (no padding: the CUDA kernels mask ragged
@@ -32,9 +33,13 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None, rng_name="",
                     training=True, segment_ids=None, name=None):
     """segment_ids [B, S]: when given, tokens attend only within their own
-    segment.  Dropout draws from torch's default generator (on the CPU; the
-    card raises on it)."""
+    segment.  Dropout draws from torch's default generator of the query's
+    device."""
     p = dropout if training else 0.0
+    gen = torch.default_generator if query.device.type == "cpu" else \
+        torch.cuda.default_generators[query.device.index
+                                      if query.device.index is not None
+                                      else torch.cuda.current_device()]
     if segment_ids is not None:
         if dropout == 0.0:
             return flash_attention_varlen(query, key, value, segment_ids,
@@ -43,10 +48,9 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
         mask = seg[:, None, :, None] == seg[:, None, None, :]
         return flash_attention_fused(query, key, value, mask=mask,
                                      causal=causal, dropout_p=p,
-                                     generator=torch.default_generator), None
+                                     generator=gen), None
     return flash_attention_fused(query, key, value, causal=causal,
-                                 dropout_p=p,
-                                 generator=torch.default_generator), None
+                                 dropout_p=p, generator=gen), None
 
 
 def _segment_ids(cu, total):

@@ -2,16 +2,17 @@
 `paddle_tpu/parallel/hybrid.py`.
 
 Training: `HybridParallelTrainer(config, MeshConfig(dp=, pp=, sharding=,
-mp=, ep=, vpp=, micro_batches=, sharding_stage=, sequence_parallel=,
-remat=), ...)`, then `train_step`, `eval_loss` and `gathered_state()`,
-called from one process.  A degree-1 mesh trains on one device in that
-process.  Any other runs on a `parallel.tp` mesh of dp x pp x sharding x
-mp x ep ranks (`mesh=`, or one the trainer starts on `devices=`): rank r
-has the reference's coordinates (`coords`, `build_mesh`'s order), r =
-((((d * pp + p) * sharding + s) * mp + m) * ep + e) * cp + c, so it is
-device r of the reference's mesh.  Each rank keeps its own `_RankTrainer`
-and gets one `ServingMesh.run` call a step; its groups (`_groups`) come
-from `MeshRank.group`.  `cp` is the one axis still refused.
+mp=, ep=, cp=, vpp=, micro_batches=, sharding_stage=, sequence_parallel=,
+remat=), ...)`, then `train_step`, `eval_loss`, `gathered_state()` and
+`load_state(...)`, called from one process.  A degree-1 mesh trains on
+one device in that process.  Any other runs on a `parallel.tp` mesh of dp
+x pp x sharding x mp x ep x cp ranks (`mesh=`, or one the trainer starts
+on `devices=`): rank r has the reference's coordinates (`coords`,
+`build_mesh`'s order), r = ((((d * pp + p) * sharding + s) * mp + m) * ep
++ e) * cp + c, so it is device r of the reference's mesh.  Each rank
+keeps its own `_RankTrainer` and gets one `ServingMesh.run` call a step;
+its groups (`_groups`) come from `MeshRank.group`.  cp together with ep
+raises the reference's AssertionError.
 
 The layout is the reference's (`gpt_param_specs`, `_add_axis`,
 `_resolve_spec`, `_opt_state_spec`): a spec is a tuple naming, per
@@ -34,15 +35,21 @@ hooks) and for remat's replay (inside the checkpointed functions).
 
 A step: the rank's batch rows (split over dp x sharding x ep in the
 reference's order, `data_index`; under pp each of the `micro_batches`
-contiguous microbatches split so) through `models.gpt.loss_parts(mesh=
+contiguous microbatches split so; under cp every cp rank of a data index
+takes the same rows and its own sequence shard [c S / cp, (c + 1) S /
+cp), the labels as given, already shifted by the caller) through
+`models.gpt.loss_parts(mesh=
 <the rank's view>)` (Megatron blocks over `parallel.mp_ops`,
 vocab-parallel embedding and cross entropy, the loss one global mean over
 the data group; MoE blocks through `parallel.moe` over the rank's routing
-group and its ep peers), or under pp through the stages
-(`parallel.pipeline`); the gradients of the leaves that sequence
-parallelism leaves partial summed over mp; each leaf's gradient summed
-over its group (dense leaves over dp x sharding x ep, expert leaves over
-dp x sharding, and the leaves every stage holds over pp too): stage 0-1
+group and its ep peers; under cp every block's attention the ring of
+`parallel.ring_attention` over the rank's cp links, rope and `wpe` at the
+shard's global positions), or under pp through the stages
+(`parallel.pipeline`, whose stages run the ring among the ranks of their
+cp coordinate); the gradients of the leaves that sequence parallelism
+leaves partial summed over mp; each leaf's gradient summed over its
+group (dense leaves over dp x sharding x ep x cp, expert leaves over dp x
+sharding x cp, and the leaves every stage holds over pp too): stage 0-1
 all-reduced, stage 2-3 reduce-scattered to the owning shard; the clip's
 one global norm, each element counted once; then the f32 AdamW of the
 single-device trainer on the rank's shard, in slices of at most `_SLICE`
@@ -72,6 +79,7 @@ from ..incubate.distributed.models.moe.dispatch import log_routes
 from ..models import gpt as gpt_mod
 from . import mp_ops, pipeline
 from .moe import EXPERT_KEYS, moe_local
+from .ring_attention import RingLink, check_backend, ring_links
 from .tp import (DEFAULT_TIMEOUT_S, ServingMesh, _tree_to,  # noqa: F401
                  serving_mesh)
 
@@ -105,30 +113,19 @@ class MeshConfig:
         return "dp" if self.dp > 1 else None
 
 
-# MeshConfig field -> the sub-item of ROADMAP Queue 1 "the rest of training"
-_LATER = {"cp": "cp"}
-
-
-def _later(what, item):
-    return NotImplementedError(
-        f"{what} arrives with a later slice of the port (ROADMAP Queue 1: "
-        f"the rest of training, {item})")
-
-
 def check_supported(cfg: MeshConfig, config) -> None:
-    """Raise for every setting the port's trainer does not take yet, and
-    for a degree below 1."""
-    for field, item in _LATER.items():
-        if getattr(cfg, field) != 1:
-            raise _later(f"MeshConfig({field}={getattr(cfg, field)})", item)
+    """Raise for a setting the trainer does not take: a degree below 1, and
+    the reference's refusals."""
     if cfg.sharding_stage not in (0, 1, 2, 3):
         raise ValueError(f"sharding_stage must be 0-3, got "
                          f"{cfg.sharding_stage}")
-    for field in ("dp", "pp", "sharding", "mp", "ep", "vpp",
+    for field in ("dp", "pp", "sharding", "mp", "ep", "cp", "vpp",
                   "micro_batches"):
         if getattr(cfg, field) < 1:
             raise ValueError(f"MeshConfig.{field} must be >= 1")
     # the reference's AssertionErrors, raised whatever python's -O
+    if cfg.cp > 1 and cfg.ep > 1:
+        raise AssertionError("cp x ep is not supported yet")
     if cfg.vpp > 1 and cfg.pp == 1:
         raise AssertionError(
             "vpp (interleaved virtual stages) requires pp > 1 (ref: "
@@ -307,7 +304,8 @@ def coords(cfg: MeshConfig, r: int) -> Dict[str, int]:
 
 
 def data_index(cfg: MeshConfig, co) -> int:
-    """The rank's place in the batch split over ("dp", "sharding", "ep")."""
+    """The rank's place in the batch split over ("dp", "sharding", "ep");
+    the cp ranks of a data index share its rows."""
     return (co["dp"] * cfg.sharding + co["sharding"]) * cfg.ep + co["ep"]
 
 
@@ -448,17 +446,19 @@ class _RankView:
     """What the model functions see as `mesh=` on one training rank: the
     mp degree and coordinate, the device, the tensor- and
     sequence-parallel seams (`column_in`, `row_out`), the rank's rows of
-    the sequence, the vocab-parallel cross entropy, the global mean over
-    the data group, the MoE FFN over the rank's routing group and its ep
-    peers (`moe_ffn`), and under ZeRO-3 the layers gathered at each
-    use."""
+    the sequence and their global positions, the ring of context
+    parallelism (`ring`, None at cp 1), the vocab-parallel cross entropy,
+    the global mean over the data group, the MoE FFN over the rank's
+    routing group and its ep peers (`moe_ffn`), and under ZeRO-3 the
+    layers gathered at each use."""
 
     def __init__(self, handle, cfg: MeshConfig, groups, co):
         self.handle, self.groups = handle, groups
         self.device = handle.device
         self.mp, self.rank = cfg.mp, co["mp"]
         self.sequence_parallel = cfg.sequence_parallel and cfg.mp > 1
-        self.ep = cfg.ep
+        self.ep, self.cp = cfg.ep, cfg.cp
+        self.ring = RingLink.of(groups, co["cp"], cfg.cp)
         self.evaluating = False
         self.z3: Dict[str, Any] = {}        # block leaf -> how it gathers
         self.dtypes: Dict[str, torch.dtype] = {}
@@ -475,11 +475,20 @@ class _RankView:
         return mp_ops.scatter_to_sp(y, g) if self.sequence_parallel \
             else mp_ops.reduce_from_mp(y, g)
 
+    def seq_offset(self, rows: int) -> int:
+        """The global position of the rank's first sequence row, given the
+        rows a block input holds (the shard's S / mp under sequence
+        parallelism): c * S / cp."""
+        return 0 if self.ring is None else self.ring.rank * rows * self._sp()
+
     def seq_rows(self, S: int):
+        """The global positions of the rows the rank's embedding holds of
+        its S-row shard (None: 0..S-1)."""
+        off = self.seq_offset(S // self._sp())
         if not self.sequence_parallel:
-            return None
+            return slice(off, off + S) if off else None
         n = S // self.mp
-        return slice(self.rank * n, (self.rank + 1) * n)
+        return slice(off + self.rank * n, off + (self.rank + 1) * n)
 
     def vocab_ce(self, logits, labels):
         return mp_ops.vocab_parallel_ce(logits, labels, self.groups["mp"],
@@ -495,8 +504,10 @@ class _RankView:
     @property
     def route(self):
         """The ranks of this rank's routing group: the data group's
-        contiguous 1/ep (the reference's ep groups), or the whole data
-        group in `eval_loss` (the reference evaluates with one group)."""
+        contiguous 1/ep at the rank's cp coordinate (the reference's ep
+        groups; under cp the tokens of one sequence shard), or the whole
+        data group in `eval_loss` (the reference evaluates with one
+        group)."""
         return self.groups["data" if self.evaluating else "route"]
 
     def _sp(self) -> int:
@@ -510,7 +521,8 @@ class _RankView:
         aux term is the group's load-balance loss over ep (the mean over
         the groups, as `psum(aux) / ep`) and over mp under sequence
         parallelism, so that the gradients summed over the mesh count it
-        once."""
+        once.  Under cp a routing group holds one sequence shard, and its
+        aux is divided by cp too (the reference's `aux / cp`)."""
         x = mp_ops.gather_from_sp(h, self.groups["mp"]) \
             if self.sequence_parallel else h
         y, aux = moe_local(bp, x.reshape(-1, config.hidden_size), config,
@@ -518,8 +530,8 @@ class _RankView:
         y = y.reshape(x.shape)
         if self.sequence_parallel:
             y = y.narrow(1, self.rank * h.shape[1], h.shape[1])
-        ep = 1 if self.evaluating else self.ep
-        return y, aux / (ep * self._sp())
+        split = 1 if self.evaluating else self.ep * self.cp
+        return y, aux / (split * self._sp())
 
     def penalty_share(self, pen, group):
         """The MoE penalty in the reported loss: the ranks' terms (`pen`,
@@ -573,12 +585,14 @@ class _RankView:
 
 # named groups: the axes each spans; "data" is the batch split of dense
 # leaves, "edata" of expert leaves (owned by their ep rank), "data_pp" of
-# the leaves every pipeline stage holds a copy of
+# the leaves every pipeline stage holds a copy of; each holds cp, whose
+# ranks hold copies of every leaf and partial gradients of them
 _AXIS_GROUPS = (("mp", ("mp",)), ("sharding", ("sharding",)),
                 ("dp", ("dp",)), ("ep", ("ep",)), ("pp", ("pp",)),
-                ("data", ("dp", "sharding", "ep")),
-                ("edata", ("dp", "sharding")),
-                ("data_pp", ("dp", "sharding", "ep", "pp")),
+                ("cp", ("cp",)),
+                ("data", ("dp", "sharding", "ep", "cp")),
+                ("edata", ("dp", "sharding", "cp")),
+                ("data_pp", ("dp", "sharding", "ep", "pp", "cp")),
                 ("world", AXES))
 
 
@@ -587,10 +601,12 @@ def _groups(handle, cfg: MeshConfig, r: int):
     every rank: the axis groups above; each sum group without the zero
     axis ("<name>_rest", the rest of a ZeRO reduce-scatter); "route", the
     rank's MoE routing group (its data index's contiguous 1/ep of the data
-    group); and under pp the point-to-point links to the next and the
-    previous stage ("pp_next", "pp_prev": one process group per directed
-    link, apart from every collective group, built in link order, the
-    ring's wrap only under vpp)."""
+    group, at its cp coordinate); under pp the point-to-point links to the
+    next and the previous stage ("pp_next", "pp_prev": one process group
+    per directed link, apart from every collective group, built in link
+    order, the ring's wrap only under vpp); and under cp the ring's links
+    among the cp ranks ("cp_next", "cp_prev", `ring_links`, the wrap
+    included)."""
     co = coords(cfg, r)
     groups = {name: handle.group(name, axis_ranks(cfg, co, axes))
               for name, axes in _AXIS_GROUPS}
@@ -604,7 +620,8 @@ def _groups(handle, cfg: MeshConfig, r: int):
     g = data_index(cfg, co) // span
     groups["route"] = handle.group("route", [
         q for q in groups["data"].ranks
-        if data_index(cfg, coords(cfg, q)) // span == g])
+        if data_index(cfg, coords(cfg, q)) // span == g
+        and coords(cfg, q)["cp"] == co["cp"]])
     if cfg.pp > 1:
         stage = groups["pp"].ranks
         p, pp = co["pp"], cfg.pp
@@ -615,6 +632,8 @@ def _groups(handle, cfg: MeshConfig, r: int):
             groups[name] = handle.group(name, [stage[i],
                                                stage[(i + 1) % pp]],
                                         link=True)
+    if cfg.cp > 1:
+        groups.update(ring_links(handle, groups["cp"].ranks))
     return groups
 
 
@@ -789,9 +808,11 @@ class _RankTrainer:
         """Whether this rank counts its owned slice of a leaf in the global
         norm, so that every element of the gradient counts once: one rank
         of each axis that holds copies of it (mp unless it is split there,
-        pp unless its layers are, ep unless it is an expert leaf, and the
-        data axes but the zero axis of the slice)."""
+        pp unless its layers are, ep unless it is an expert leaf, cp, and
+        the data axes but the zero axis of the slice)."""
         co = self.coords
+        if co["cp"] != 0:
+            return False
         if not lay["mp_split"] and co["mp"] != 0:
             return False
         if not lay["pp_split"] and co["pp"] != 0:
@@ -856,6 +877,19 @@ class _RankTrainer:
         return {"params": _map(lambda t: tuple(t.shape), self.params),
                 "m": _map(lambda t: tuple(t.shape), self.opt_state["m"])}
 
+    @torch.no_grad()
+    def load_state(self, params, m=None, v=None, step=None):
+        """Copy shards (trees of this rank's shapes) into the rank's own
+        tensors, each cast to its dtype; m, v and step where given."""
+        trees = {"params": (params, self.params), "m": (m, self.opt_state[
+            "m"]), "v": (v, self.opt_state["v"])}
+        for src, dst in trees.values():
+            if src is not None:
+                for d, t in zip(_leaves(dst), _leaves(src)):
+                    d.copy_(t)
+        if step is not None:
+            self.opt_state["step"] = int(step)
+
     def host_state(self, keys=STATE_KEYS):
         host = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
         trees = {"params": self.params, **self.opt_state}
@@ -895,6 +929,8 @@ def _rank_call(tid, what, args=(), drop=(), *, mesh):
         return rt.shapes()
     if what == "state":
         return rt.host_state(*args)
+    if what == "load":
+        return rt.load_state(*args)
     if what == "stats":
         mem = torch.cuda.max_memory_allocated(mesh.device) \
             if mesh.device.type == "cuda" else 0
@@ -971,6 +1007,8 @@ class HybridParallelTrainer:
         self.device = mesh.device
         self._tid = next(_TIDS)
         try:
+            if mesh_cfg.cp > 1:
+                check_backend(mesh)
             if params is None:
                 params = self._draw(seed)
             pspecs, _, _ = trainer_specs(config, mesh_cfg)
@@ -1012,9 +1050,11 @@ class HybridParallelTrainer:
 
     def _batches(self, tokens, labels, micro: int = 0):
         """Each rank's batch rows, split over dp x sharding x ep in the
-        reference's order (`data_index`).  micro > 0 (pp): the batch cut
-        first into `micro` contiguous microbatches, each of them split
-        over the data ranks; a rank's rows are then [micro, rows, S]."""
+        reference's order (`data_index`), and under cp its sequence shard
+        (cp rank c: columns [c S / cp, (c + 1) S / cp)).  micro > 0 (pp):
+        the batch cut first into `micro` contiguous microbatches, each of
+        them split over the data ranks; a rank's rows are then [micro,
+        rows, S / cp]."""
         cfg = self.cfg
         tok, lab = np.asarray(tokens), np.asarray(labels)
         data = cfg.dp * cfg.sharding * cfg.ep
@@ -1025,19 +1065,24 @@ class HybridParallelTrainer:
             raise ValueError(
                 f"batch {B} does not divide over dp x sharding x ep = {data}"
                 + (f" in {M} microbatches" if M > 1 else ""))
-        if cfg.sequence_parallel and cfg.mp > 1 and S % cfg.mp:
-            raise ValueError(f"sequence length {S} does not divide over "
+        if S % cfg.cp:
+            raise AssertionError(f"seq len {S} must divide over cp={cfg.cp}")
+        Sl = S // cfg.cp
+        if cfg.sequence_parallel and cfg.mp > 1 and Sl % cfg.mp:
+            raise ValueError(f"sequence length {Sl} does not divide over "
                              f"mp={cfg.mp} under sequence_parallel")
         b = mb // data
         out = []
         for r in range(self.mesh.mp):
-            i = data_index(cfg, coords(cfg, r))
+            co = coords(cfg, r)
+            i = data_index(cfg, co)
             rows = np.concatenate([np.arange(m * mb + i * b,
                                              m * mb + (i + 1) * b)
                                    for m in range(M)])
-            t, lab_r = tok[rows], lab[rows]
+            cols = slice(co["cp"] * Sl, (co["cp"] + 1) * Sl)
+            t, lab_r = tok[rows, cols], lab[rows, cols]
             if micro:
-                t, lab_r = t.reshape(M, b, S), lab_r.reshape(M, b, S)
+                t, lab_r = t.reshape(M, b, Sl), lab_r.reshape(M, b, Sl)
             out.append((t, lab_r))
         return out
 
@@ -1095,15 +1140,16 @@ class HybridParallelTrainer:
         """Each rank's logged forward routes at their layers and tokens.
         A rank logs its units' chunks in order (`pipeline.units`), every
         forward before any backward or remat replay; it routes its rows of
-        the microbatch (`_batches`), full sequences under sequence
-        parallelism, which each mp rank routes alike (the first's are
-        taken)."""
+        the microbatch (`_batches`) at its sequence shard, the shard's full
+        rows under sequence parallelism, which each mp rank routes alike
+        (the first's are taken)."""
         cfg, c = self.cfg, self.config
         L, k, E = c.num_layers, c.moe_topk, c.moe_num_experts
         M = cfg.micro_batches if cfg.pp > 1 else 1
         b = B // M // (cfg.dp * cfg.sharding * cfg.ep)
-        idx = torch.full((L, B * S, k), -1, dtype=torch.int32)
-        probs = torch.zeros(L, B * S, E)
+        Sl = S // cfg.cp
+        idx = torch.full((L, B, S, k), -1, dtype=torch.int32)
+        probs = torch.zeros(L, B, S, E)
         for r, log in enumerate(logs):
             co = coords(cfg, r)
             if co["mp"]:
@@ -1118,11 +1164,12 @@ class HybridParallelTrainer:
             if len(log) < len(order):
                 raise RuntimeError(f"rank {r} logged {len(log)} routes, its "
                                    f"forward runs {len(order)}")
+            cols = slice(co["cp"] * Sl, (co["cp"] + 1) * Sl)
             for (layer, m), (pr, gi) in zip(order, log):
-                t0 = (m * (B // M) + i * b) * S
-                idx[layer, t0:t0 + b * S] = gi
-                probs[layer, t0:t0 + b * S] = pr
-        return idx, probs
+                r0 = m * (B // M) + i * b
+                idx[layer, r0:r0 + b, cols] = gi.reshape(b, Sl, k)
+                probs[layer, r0:r0 + b, cols] = pr.reshape(b, Sl, E)
+        return idx.reshape(L, B * S, k), probs.reshape(L, B * S, E)
 
     def eval_loss(self, tokens, labels):
         """The loss of tokens/labels without a step (under pp the batch
@@ -1191,6 +1238,53 @@ class HybridParallelTrainer:
                         names, _leaves(specs), _leaves(shapes)))]
             out[key] = _fill(shapes, full)
         return out
+
+    def load_state(self, params, m=None, v=None, step=None) -> None:
+        """Take full trees in the reference layout (`gathered_state`'s):
+        the parameters and, where given, the AdamW moments and the step.
+        Every rank gets its shards, cut as the `params=` init cuts them
+        (the zero axis of ZeRO, pp's stage layers and vpp's interleaved
+        chunks, mp's packed-qkv partitions, ep's experts, a copy on every
+        cp rank), copied into its tensors in their dtypes.  A tree whose
+        leaves or shapes are not the model's raises."""
+        pspecs, mspecs, shapes = trainer_specs(self.config, self.cfg)
+        names = _names(shapes)
+        trees = {"params": params, "m": m, "v": v}
+        for key, tree in trees.items():
+            if tree is None:
+                continue
+            got = _names(tree)
+            if got != names:
+                raise KeyError(f"{key}: leaves {sorted(set(got) ^ set(names))}"
+                               f" are not the model's")
+            for n, t, sh in zip(names, _leaves(tree), _leaves(shapes)):
+                if tuple(t.shape) != tuple(sh):
+                    raise ValueError(f"{key}/{n}: shape {tuple(t.shape)} != "
+                                     f"{tuple(sh)}")
+        if self.mesh is None:
+            self._local.load_state(params, m, v, step)
+            return
+        perms = [_qkv_perm(n, sp, self.config, self.cfg)
+                 for n, sp in zip(names, _leaves(pspecs))]
+        # cut on rank 0's device, as the init cuts: a CUDA shard reaches its
+        # worker through CUDA IPC, not through host memory
+        params, m, v = (None if t is None else
+                        _map(lambda x: x.to(self.device), t)
+                        for t in (params, m, v))
+
+        def cut(tree, specs, co):
+            if tree is None:
+                return None
+            return _fill(tree, [cut_shard(t, sp, co, self.cfg, pm)
+                                for t, sp, pm in zip(_leaves(tree),
+                                                     _leaves(specs), perms)])
+
+        per = []
+        for r in range(self.mesh.mp):
+            co = coords(self.cfg, r)
+            per.append((cut(params, pspecs, co), cut(m, mspecs, co),
+                        cut(v, mspecs, co), step))
+        self._call("load", per)
 
     def gathered_grads(self, tokens, labels) -> Dict[str, Any]:
         """The gradients of the loss of tokens/labels at the current

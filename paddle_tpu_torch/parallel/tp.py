@@ -113,9 +113,10 @@ class MeshRank:
         """The group `name` over `ranks` (this rank among them).  Its
         process group is built at the first request for that rank set, on
         a prefix of the mesh's store; every member must ask for it in the
-        same order.  A `link` (a pipeline's point-to-point link) has a
-        process group of its own, shared with no collective group over the
-        same ranks.  A group of one rank runs no collective."""
+        same order.  A `link` (a pipeline's or a ring's point-to-point
+        link) has a process group of its own, shared with no collective
+        group over the same ranks.  A group of one rank runs no
+        collective."""
         ranks = tuple(ranks)
         if self.rank not in ranks:
             raise ValueError(f"rank {self.rank} is not in group {name} "
@@ -569,7 +570,7 @@ class SubMesh:
 
     def __init__(self, mesh: ServingMesh, mp: int):
         self.parent, self.mp = mesh, mp
-        self.rank, self.device = 0, mesh.device
+        self.rank, self.device, self.backend = 0, mesh.device, mesh.backend
         self.state, self.comm = mesh.state, mesh.comm
 
     def run(self, fn: Callable, per_rank: Sequence[tuple]) -> List[Any]:

@@ -1008,8 +1008,12 @@ def test_new_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="S == Sk"):
         flash_attention_seg_fwd(q, q[:, :4], q[:, :4], seg, seg[:, :4],
                                 True, 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention(q, q, q, dropout=0.1, segment_ids=seg)
+    # the masked-dropout lane: the counted plain route, as the reference's
+    # kernel sends it to attention_xla
+    flash_attention_fused.composed_calls = 0
+    out, _ = flash_attention(q, q, q, dropout=0.1, segment_ids=seg)
+    assert out.is_cuda and bool(torch.isfinite(out).all())
+    assert flash_attention_fused.composed_calls == 1
 
 
 @pytest.mark.parametrize("chunk", [None, 8], ids=["bucketed", "chunked"])
@@ -2079,6 +2083,143 @@ def test_mesh_pipeline_on_card_matches_one_device(dev, card_mesh, kw):
                                            "flash_bwd_dkv", "flash_bwd_dq")] \
             == [per] * 3
         assert not any(c["composed_calls"].values())
+    a, b = tr.gathered_state()["params"], one.gathered_state()["params"]
+    for x, y in zip(_leaves(a), _leaves(b)):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
+    tr.close()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_attention_fused_mask_and_dropout_take_the_counted_plain_route(
+        dev, dtype):
+    """A mask or dropout on CUDA tensors runs `attention_ref` (dropout from
+    the caller's generator), counted in `composed_calls`, launches no
+    kernel and gives the plain version's values and gradients."""
+    rng = np.random.RandomState(3)
+    q, k, v = (_randn(rng, (2, 64, 4, 64), dtype, dev).requires_grad_()
+               for _ in range(3))
+    mask = torch.from_numpy(rng.rand(2, 1, 64, 64) > 0.3).to(dev)
+    flash_attention_fused.composed_calls = 0
+    flash_attention_fwd.launches = 0
+    out = flash_attention_fused(q, k, v, mask=mask, causal=True)
+    want = attention_ref(q, k, v, mask=mask, causal=True)
+    _close(out, want, dtype)
+    for a, b in zip(torch.autograd.grad(out.float().sum(), (q, k, v)),
+                    torch.autograd.grad(want.float().sum(), (q, k, v))):
+        _close(a, b, dtype)
+    gen = torch.Generator(device=dev)
+    drop = flash_attention_fused(q, k, v, causal=True, dropout_p=0.5,
+                                 generator=gen.manual_seed(7))
+    ref = attention_ref(q, k, v, causal=True, dropout_p=0.5,
+                        generator=gen.manual_seed(7))
+    assert torch.equal(drop, ref)
+    assert flash_attention_fused.composed_calls == 2
+    assert flash_attention_fwd.launches == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_ring_kernel_route_matches_plain_on_one_rank(dev, dtype):
+    """A one-rank ring: the kernel route (the diagonal chunk alone: one
+    forward, dkv and dq launch) against the plain version, values and
+    gradients, with 2 query heads a kv head."""
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.parallel.ring_attention import ring_attend
+    rng = np.random.RandomState(4)
+    q = _randn(rng, (1, 512, 8, 128), dtype, dev).requires_grad_()
+    k, v = (_randn(rng, (1, 512, 4, 128), dtype, dev).requires_grad_()
+            for _ in range(2))
+    g = _randn(rng, (1, 512, 8, 128), dtype, dev)
+    K.reset_launches()
+    out = ring_attend(q, k, v, None, True, None, "kernels")
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert [K.launches()[n] for n in ("flash_attention_fwd", "flash_bwd_dkv",
+                                      "flash_bwd_dq")] == [1, 1, 1]
+    want_out = ring_attend(q, k, v, None, True, None, "plain")
+    want = torch.autograd.grad(want_out, (q, k, v), g)
+    _close(out, want_out, dtype)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _grad_close(name, a, b, dtype)
+    assert not any(K.composed_calls().values())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_ring_chunk_merge_on_card_matches_one_device(dev, card_mesh, dtype):
+    """`ring_attention` at cp 4 over the four gloo ranks of the card, the
+    kernel route: the chunks' partial outputs merged by their lse and the
+    dK/dV accumulators sent back around the ring give the plain ring's and
+    single-device attention's values and gradients (f32 within 1e-5 of
+    the plain ring); rank c launches each kernel c + 1 times (its visible
+    chunks)."""
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+    rng = np.random.RandomState(5)
+    q = _randn(rng, (1, 1024, 8, 128), dtype, dev)
+    k, v = (_randn(rng, (1, 1024, 2, 128), dtype, dev) for _ in range(2))
+    g = _randn(rng, (1, 1024, 8, 128), dtype, dev)
+
+    def ring(route):
+        args = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ring_attention(*args, card_mesh, route=route)
+        return [out.detach()] + list(torch.autograd.grad(out, args, g))
+
+    card_mesh.reset_counts()
+    got = ring("kernels")
+    for c, counts in enumerate(card_mesh.rank_counts()):
+        assert [counts["launches"][n] for n in (
+            "flash_attention_fwd", "flash_bwd_dkv", "flash_bwd_dq")] == \
+            [c + 1] * 3
+    plain = ring("plain")
+    _close(got[0], plain[0], dtype)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[0], plain[0], atol=1e-5, rtol=1e-5)
+    for name, a, b in zip(("dq", "dk", "dv"), got[1:], plain[1:]):
+        _grad_close(name, a, b, dtype)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    wide = [torch.repeat_interleave(t, 4, dim=2) for t in (ka, va)]
+    ref = attention_ref(qa, *wide, causal=True)
+    _close(got[0], ref, dtype)
+    for name, a, b in zip(("dq", "dk", "dv"), got[1:],
+                          torch.autograd.grad(ref, (qa, ka, va), g)):
+        _grad_close(name, a, b, dtype)
+
+
+@pytest.mark.parametrize("kw", [dict(cp=4), dict(dp=2, cp=2, remat=True),
+                                dict(pp=2, cp=2, micro_batches=2)],
+                         ids=["cp4", "dp2_cp2_remat", "pp2_cp2"])
+def test_mesh_cp_trainer_on_card_matches_one_device(dev, card_mesh, kw):
+    """Four gloo ranks on the card, float32 (hd 64, the kernels' route),
+    context parallel: 3 steps give the one-device trainer's losses and,
+    gathered, its parameters; cp rank c launches rows 2, 5 and 6 (c + 1)
+    times a layer of its stage a microbatch a step (its visible chunks) and
+    takes no composed route; the ring's hops go through host memory."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
+    from paddle_tpu_torch.parallel.hybrid import _leaves, coords
+    cfg = gpt.GPTConfig(vocab_size=256, hidden_size=256, num_layers=4,
+                        num_heads=4, max_seq_len=256)
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    tok = np.random.RandomState(0).randint(0, 256, (4, 256))
+    lab = np.roll(tok, -1, axis=1)
+    mc = MeshConfig(**kw)
+    one = HybridParallelTrainer(cfg, MeshConfig(remat=mc.remat), device=dev,
+                                params=params)
+    tr = HybridParallelTrainer(cfg, mc, params=params, mesh=card_mesh)
+    card_mesh.reset_counts()
+    tr.reset_rank_stats()
+    got = [float(tr.train_step(tok, lab)) for _ in range(3)]
+    counts, stats = card_mesh.rank_counts(), tr.rank_stats()
+    want = [float(one.train_step(tok, lab)) for _ in range(3)]
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    for r, (c, st) in enumerate(zip(counts, stats)):
+        per = cfg.num_layers // mc.pp * mc.micro_batches * 3 * \
+            (coords(mc, r)["cp"] + 1)
+        assert [c["launches"][k] for k in ("flash_attention_fwd",
+                                           "flash_bwd_dkv", "flash_bwd_dq")] \
+            == [per] * 3
+        assert not any(c["composed_calls"].values())
+        hops = cfg.num_layers // mc.pp * mc.micro_batches * 3 * (mc.cp - 1)
+        assert st["comm"]["cp_next.send_host"][0] == hops
+        assert st["comm"]["cp_prev.send_host"][0] == hops
     a, b = tr.gathered_state()["params"], one.gathered_state()["params"]
     for x, y in zip(_leaves(a), _leaves(b)):
         torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)

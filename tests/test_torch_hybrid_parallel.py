@@ -288,9 +288,12 @@ def test_eval_loss_on_a_mesh(mesh):
                                ref["eval"], **TOL)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(cp=2), "cp")], ids=["cp"])
+@pytest.mark.parametrize("kw,item", [(dict(cp=2, ep=2), "cp x ep")],
+                         ids=["cp"])
 def test_later_sub_items_refuse(kw, item):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1") as e:
+    """cp trains (`tests/test_torch_ring_attention.py`); together with ep
+    it raises the reference's AssertionError, before any rank starts."""
+    with pytest.raises(AssertionError, match="not supported yet") as e:
         HybridParallelTrainer(TG.gpt_tiny(32), MeshConfig(**kw),
                               devices=["cpu"] * 4)
     assert item in str(e.value)

@@ -72,20 +72,28 @@ FLEET_MODULES = ("paddle_tpu_torch.inference",
 # the MoE dispatch (its own copy of the reference's plain-jnp module)
 MOE_MODULES = ("paddle_tpu_torch.incubate.distributed.models.moe.dispatch",)
 # tensor-parallel serving: the mesh and its workers, the serving layout;
-# the trainer's pipeline schedule and expert-parallel MoE
+# the trainer's pipeline schedule, expert-parallel MoE and ring attention
 TP_MODULES = ("paddle_tpu_torch.parallel.tp",
               "paddle_tpu_torch.parallel.hybrid",
               "paddle_tpu_torch.parallel.mp_ops",
               "paddle_tpu_torch.parallel.pipeline",
-              "paddle_tpu_torch.parallel.moe")
+              "paddle_tpu_torch.parallel.moe",
+              "paddle_tpu_torch.parallel.ring_attention")
+# the auto-parallel Engine and its checkpoints
+DISTRIBUTED_MODULES = ("paddle_tpu_torch.distributed",
+                       "paddle_tpu_torch.distributed.checkpoint",
+                       "paddle_tpu_torch.distributed.auto_parallel",
+                       "paddle_tpu_torch.distributed.auto_parallel.engine")
 
 
 @pytest.mark.parametrize("module", OBSERVABILITY_MODULES + FLEET_MODULES +
-                         MOE_MODULES + TP_MODULES)
+                         MOE_MODULES + TP_MODULES + DISTRIBUTED_MODULES)
 def test_observability_modules_import_alone(module):
     """Each module of the observability plane, the fleet, the front door,
-    the MoE dispatch and tensor-parallel serving imports on its own and leaves jax and the JAX
-    package out of sys.modules (the AST scan above covers their source)."""
+    the MoE dispatch, tensor-parallel serving and training, ring attention
+    and the Engine with its checkpoints imports on its own and leaves jax
+    and the JAX package out of sys.modules (the AST scan above covers
+    their source)."""
     code = (f"import sys, {module};"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"

@@ -217,19 +217,17 @@ def test_mesh_config_keeps_reference_fields_and_defaults():
     (dict(pp=2), "not on one device"), (dict(vpp=2), "requires pp > 1"),
     (dict(mp=2), "not on one device"),
     (dict(mp=2, sequence_parallel=True), "not on one device"),
-    (dict(ep=2), "not on one device"), (dict(cp=2), "cp")],
+    (dict(ep=2), "not on one device"), (dict(cp=2), "not on one device")],
     ids=["dp", "sharding", "zero2", "pp", "vpp", "mp", "sp", "ep", "cp"])
 def test_trainer_refuses_other_meshes(kw, item):
-    """One device takes the degree-1 mesh only: dp, pp, sharding, mp and ep
-    run on a mesh of ranks (`tests/test_torch_hybrid_parallel.py`,
-    `test_torch_pipeline.py`, `test_torch_moe_parallel.py`) and raise
-    ValueError here, never falling back to one device; vpp without pp
-    raises the reference's AssertionError, and cp NotImplementedError
-    naming its ROADMAP item."""
-    exc = {"cp": NotImplementedError,
-           "requires pp > 1": AssertionError}.get(item, ValueError)
-    with pytest.raises(exc, match="ROADMAP Queue 1" if item == "cp"
-                       else item) as e:
+    """One device takes the degree-1 mesh only: dp, pp, sharding, mp, ep
+    and cp run on a mesh of ranks (`tests/test_torch_hybrid_parallel.py`,
+    `test_torch_pipeline.py`, `test_torch_moe_parallel.py`,
+    `test_torch_ring_attention.py`) and raise ValueError here, never
+    falling back to one device; vpp without pp raises the reference's
+    AssertionError."""
+    exc = {"requires pp > 1": AssertionError}.get(item, ValueError)
+    with pytest.raises(exc, match=item) as e:
         HybridParallelTrainer(TG.gpt_tiny(32), MeshConfig(**kw),
                               device="cpu")
     assert item in str(e.value)
