@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`paddle_tpu_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py          # one card, every phase
-    python3 chip_smoke.py --tp     # four cards: the NCCL phases
+    python3 chip_smoke.py            # one card, every phase
+    python3 chip_smoke.py --tp       # four cards: the NCCL phases
 
 Phases, one JSON line each (with its seconds):
 1. device   — requires CUDA, prints the card's name and power limit,
@@ -304,14 +304,39 @@ Phases, one JSON line each (with its seconds):
                here are two ranks time-slicing one card with their
                all-reduces through host memory: not a tensor-parallel time.
                `python3 chip_smoke.py --tp`, on four cards: the device
-               phase, then only `engine_tp_nccl` and `train_nccl`
-               (12b): NCCL meshes of 2 and 4
+               phase, then only `engine_tp_nccl`, `engine_fleet_tp_nccl`,
+               `host_copy_tp` and `train_nccl` (12b).  `engine_tp_nccl`:
+               NCCL meshes of 2 and 4
                ranks, fused bucketed and chunked at mp 1, 2 and 4 on CUDA
                graphs (NCCL collectives captured) and eagerly on the same
                mesh: streams and every rank's pool bitwise equal, one
                replay a dispatch on every rank, the launch counts as
                above, step ms and tokens/s; f32 streams equal at mp 1, 2
-               and 4.
+               and 4.  `engine_fleet_tp_nccl` ((a), all 32 layers): two
+               pre-built mp 2 engines on cards 0-1 and 2-3 behind one
+               fleet (dp 2 x mp 2), and two replicas on one mp 4 mesh:
+               6j's sessions stepped replica by replica with the loops
+               stopped, on graphs and eagerly, give the same streams and
+               every rank's pool bitwise; then through the loops,
+               tokens/s and turn-2 TTFT beside one mp engine's.
+               `host_copy_tp` ((d)): engine_overload (b)'s
+               swap traffic and engine_tier's spill waves at mp 1, 2 and
+               4, graphs: the steps that queue a gather to the host, that
+               stage from it, both or neither, the host-copy ms a
+               page moved, and under mp the host slabs' bytes.
+6j. engine_fleet_tp — two replicas on phase 6i's mp 2 gloo mesh
+               (eager), the first TP_LAYERS layers of phase 3's weights,
+               built from `engine_kwargs=dict(mesh=)`: the worker holds
+               one weight shard (`weight_bytes`) and a pool shard a
+               replica; (a) phase 6h's seven two-turn sessions, affinity:
+               every request finishes, the returning turns reuse their
+               whole turn-1 KV, each rank launches row 1 layers x both
+               replicas' fused and chunk dispatches and row 2 layers x
+               their bucketed prefills, nothing composed; (b) the front
+               door over that fleet (6h (d)); (c) `roles="P:D"` at mp 2,
+               two handoffs through the store; (d) float32 at
+               FLEET_TP_F32_LAYERS layers: every stream of the two
+               replicas equals the same requests on one mp 1 engine.
 7. first_token — the first tokens of phases 3, 4 and both modes of 5 for
                two prompts against the argmax of the dense `forward` at the
                last prompt position, held equal where the top-2 margin
@@ -387,7 +412,12 @@ Phases, one JSON line each (with its seconds):
                dp 4 (ZeRO-1), mp 4 and dp 2 x mp 2 with sequence
                parallelism under NCCL, beside mp 1 on one card, then
                phase 12c's pp 4 (B 8, M 8) and MoE pp 2 x ep 2: losses,
-               tokens/s, step ms, each rank's peak memory and collectives.
+               tokens/s, step ms, each rank's peak memory and collectives;
+               then (b) cp 4 and dp 2 x cp 2 (the ring over NCCL: its
+               sends, bytes and launches held to the formula as in 12d)
+               with float32 cp 4 parity against one device at 12d (b)'s
+               shape, and (c) 12c's pp 2 x vpp 2 x mp 2, whose links close
+               a cycle.
 12c. train_pp — pipeline and expert-parallel training on this one card:
                four gloo ranks (gloo stages the collectives of CUDA
                tensors through host memory itself, the port its send/recv,
@@ -445,8 +475,8 @@ Phases, one JSON line each (with its seconds):
                gathered parameters within 1e-4 element by element.  (c)
                `ring_attention` forward and backward at cp 4 on the ranks
                ([1,8192,32,128] q, 8 kv heads), bf16 and float32, against
-               plain single-device attention.  cp over NCCL is refused
-               (`ring_attention.check_backend`), so `--tp` runs no cp.
+               plain single-device attention.  `--tp` runs cp over
+               NCCL in `train_nccl` (12b).
 12e. engine_ckpt — `distributed.auto_parallel.Engine` at GPT-3 1.3B width,
                2 layers, float32, B=4, S=2048, on four gloo ranks:
                `fit` 3 steps on dp 2 x mp 2, `save` (the reference's
@@ -3766,6 +3796,8 @@ TRAIN_NCCL_LAYOUTS = (("dp4_z1", dict(dp=4, sharding_stage=1)),
                       ("mp4", dict(mp=4)),
                       ("dp2_mp2_sp", dict(dp=2, mp=2,
                                           sequence_parallel=True)))
+# (b): cp over NCCL, against mp1 (one card)
+TRAIN_NCCL_CP = (("cp4", dict(cp=4)), ("dp2_cp2", dict(dp=2, cp=2)))
 FLASH_KERNELS = ("flash_attention_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 
 
@@ -4517,7 +4549,10 @@ def engine_ckpt(dev, smi):
 def train_nccl(smi):
     """`--tp`: GPT-3 1.3B (bf16, remat, B 4, S 2048) under
     TRAIN_NCCL_LAYOUTS on a four-card NCCL mesh, against mp 1 on one card:
-    losses, tokens/s, step ms, each rank's peak memory and collectives."""
+    losses, tokens/s, step ms, each rank's peak memory and collectives;
+    then pp 4, MoE pp2 x ep2, (b) cp 4 and dp2 x cp2 (the ring's sends,
+    bytes and launches against the formula) with f32 cp 4 parity against
+    one device, and (c) pp2 x vpp2 x mp2."""
     import torch
     from paddle_tpu_torch.models import gpt
     from paddle_tpu_torch.parallel import HybridParallelTrainer, MeshConfig
@@ -4564,6 +4599,32 @@ def train_nccl(smi):
         r["all_to_all_per_step"] = comm_subset(r, ("ep",))
         rec["moe_pp2_ep2"] = r
         emit({"run": "moe_pp2_ep2", **r})
+        # (b) context parallelism over NCCL: the ring's hops on its one
+        # group, against cp 1 (mp1 above); then f32 cp 4 parity
+        for name, kw in TRAIN_NCCL_CP:
+            r = cp_run(cfg, kw, TRAIN_MESH_BATCH, mesh,
+                       f"train_nccl {name}")
+            if not r["losses"][-1] < r["losses"][0]:
+                raise AssertionError(f"train_nccl {name}: loss did not "
+                                     f"fall {r['losses']}")
+            r["step0_loss_diff_vs_mp1"] = r["losses"][0] - \
+                rec["mp1"]["losses"][0]
+            rec[name] = r
+            emit({"run": name, **r})
+        f32 = gpt.gpt3_1p3b()
+        f32.num_layers = 2
+        rec["cp_parity_f32"] = mesh_parity(
+            f32, CP_PARITY_LAYOUTS[:2], CP_PARITY_BATCH, dev, mesh,
+            "train_nccl cp parity", loss_tol=CP_PARITY_LOSS_TOL)
+        emit({"run": "cp_parity_f32", **rec["cp_parity_f32"]})
+        # (c) the interleaved pipeline, whose links close a cycle (the
+        # last stage back to the first for the next chunk)
+        pp_name, pp_kw = TRAIN_PP_LAYOUTS[1]
+        r = pp_run(cfg, pp_kw, TRAIN_PP_BATCH, mesh, f"train_nccl {pp_name}")
+        r["step0_loss_diff_vs_mp1"] = r["losses"][0] - \
+            rec["mp1"]["losses"][0]
+        rec[pp_name] = r
+        emit({"run": pp_name, **r})
     finally:
         mesh.close()
     return rec
@@ -4760,6 +4821,428 @@ class _Out:
         self.token_ids = tokens
 
 
+# ---------------------------------------------------------------------------
+# engine_fleet_tp: tensor-parallel replicas behind the fleet and the door
+# ---------------------------------------------------------------------------
+
+# the f32 streams' depth (two replicas on one mp 2 mesh against one mp 1
+# engine); the bf16 fleet runs at engine_tp's TP_LAYERS on one card, at 32
+# under --tp
+FLEET_TP_F32_LAYERS = 2
+
+
+def fleet_tp_launches(mesh, runs, L, what):
+    """Every rank's kernel counts since the mesh's last reset: row 1 (the
+    paged kernel) L x the fused, chunk and verify dispatches of the
+    replicas `runs` ({label: stats}) on each rank, row 2 L x their bucketed
+    prefills, nothing composed and no int8 lane.  Returns the ranks'
+    launches summed."""
+    want = {"paged_prefill_attention_kernel": L * sum(
+                st["fused_dispatches"] + st["chunk_dispatches"] +
+                st["verify_dispatches"] for st in runs.values()),
+            "flash_attention_fwd": L * sum(st["prefill_dispatches"]
+                                           for st in runs.values())}
+    counts = mesh.rank_counts()
+    for r, c in enumerate(counts):
+        got = {n: c["launches"][n] for n in want}
+        if got != want or not got["paged_prefill_attention_kernel"] or \
+                any(c["composed_calls"].values()) or \
+                any(c["launches_int8"].values()):
+            raise AssertionError(f"{what} rank {r}: launches {c}, want "
+                                 f"{want}")
+    return {n: sum(c["launches"][n] for c in counts)
+            for n in counts[0]["launches"]}
+
+
+def fleet_tp_weights(fleet, what):
+    """One copy of the weights on every rank: the followers on the leader's
+    rank-0 shard and, on each worker, its shard (a worker holds one
+    shard's bytes however many replicas attach); every replica's pool
+    shard mp=1's / mp.  Returns the record."""
+    from paddle_tpu_torch.parallel.hybrid import _leaves
+    leader = next(iter(fleet.engines.values()))
+    mesh = leader.mesh
+    shard = sum(t.numel() * t.element_size() for t in _leaves(leader.params))
+    held = [mesh.query(r, "weight_bytes") for r in range(1, mesh.mp)]
+    pools = {l: e.rank_pool_bytes() for l, e in fleet.engines.items()}
+    if not fleet.shared_executables() or held != [shard] * (mesh.mp - 1) or \
+            any(p != [p[0]] * mesh.mp for p in pools.values()):
+        raise AssertionError(f"{what}: worker weights {held}, a shard "
+                             f"{shard}; pools {pools}")
+    return {"weight_shard_bytes": shard, "worker_weight_bytes": held,
+            "rank_pool_bytes": pools}
+
+
+def fleet_tp_digests(fleet):
+    """{label: every rank's pool digest} of a fleet's replicas."""
+    from paddle_tpu_torch.parallel.tp import pool_digest
+    return {l: [pool_digest(e._pool)] + e._link.worker_query("pool_digest")
+            for l, e in fleet.engines.items()}
+
+
+def fleet_tp_stepped(fleet, first, extra):
+    """The two-turn sessions with the loops stopped: each turn submitted
+    (routed) whole, then every replica stepped in turn until idle, so each
+    replica's steps do not depend on timing (an eager and a graph fleet
+    meet the same steps).  Returns the turns' token lists."""
+    def turn(prompts):
+        hs = [fleet.submit(p, session=f"s{i}", max_new_tokens=MAX_NEW)
+              for i, p in enumerate(prompts)]
+        while any(e.has_work for e in fleet.engines.values()):
+            for e in fleet.engines.values():
+                if e.has_work:
+                    e.step()
+        return [list(fleet.result(h, timeout=FLEET_WAIT_S).token_ids)
+                for h in hs]
+    t1 = turn(first)
+    t2 = turn([np.concatenate([p, np.asarray(o, np.int32), x])
+               for p, o, x in zip(first, t1, extra)])
+    return t1, t2
+
+
+def engine_fleet_tp(params, cfg, prompts, dev, smi, mesh):
+    """Phase 6j (see the module docstring): two replicas on one mp 2 gloo
+    mesh on the card, eager.  Returns (record, the ranks' launches)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.inference.router import EngineFleet
+    V, L = cfg.vocab_size, cfg.num_layers
+    knobs = dict(fleet_knobs(dev), mesh=mesh, _eager=True)
+    rng = np.random.RandomState(18)
+    first = prompts[:FLEET_SESSIONS]
+    extra = [rng.randint(0, V, FLEET_EXTRA).astype(np.int32) for _ in first]
+    door_p = rng.randint(0, V, 200).astype(np.int32)
+    drop_p = rng.randint(0, V, 100).astype(np.int32)
+    rec = {"nvidia_smi": smi, "mp": mesh.mp, "backend": mesh.backend,
+           "layers": L, "timing_note": "two ranks on one card, gloo, "
+           "eager: not a tensor-parallel time"}
+
+    # (a) two replicas, affinity: the sessions through the loops
+    fleet = EngineFleet(params, cfg, engine_kwargs=knobs)
+    rec["weights"] = fleet_tp_weights(fleet, "engine_fleet_tp")
+    fleet.warm()
+    torch.cuda.synchronize()
+    mesh.reset_counts()
+    with fleet:
+        _, o2, _, r = fleet_sessions(fleet, first, extra, V)
+        runs = {l: locked_stats(e) for l, e in fleet.engines.items()}
+    launches = fleet_tp_launches(mesh, runs, L, "engine_fleet_tp a")
+    kv = [p.size + MAX_NEW - 1 for p in first]
+    if r["turn2_cached_tokens"] != kv or \
+            len(set(r["replicas"])) != 2:
+        raise AssertionError(f"engine_fleet_tp a: replicas {r['replicas']},"
+                             f" turn-2 cached {r['turn2_cached_tokens']}, "
+                             f"the turn-1 KV {kv}")
+    r["rank_replays"] = {l: e.rank_replays()
+                         for l, e in fleet.engines.items()}
+    rec["a_affinity_2"] = r
+    # (b) the front door over the same fleet
+    with fleet:
+        rec["b_front_door"] = front_door(fleet, door_p, drop_p)
+    del fleet, o2
+    gc.collect()
+
+    # (c) prefill/decode roles over one store, at mp 2
+    root = tempfile.mkdtemp()
+    try:
+        fleet = EngineFleet(params, cfg, roles="P:D",
+                            engine_kwargs=dict(knobs, spill_dir=root))
+        with fleet:
+            hs = [fleet.submit(p, session=f"s{i}", max_new_tokens=MAX_NEW)
+                  for i, p in enumerate(first[:2])]
+            dis = [fleet.result(h, timeout=FLEET_WAIT_S) for h in hs]
+            fleet.check_invariants()
+        fst = fleet.stats()["disagg"]
+        de = fleet.engines[fleet.decode_pool[0]]
+        if None in dis or fst["handoffs"] != 2 or \
+                de.stats()["kv_tier"]["restores"] == 0:
+            raise AssertionError(f"engine_fleet_tp c: {fst}, {dis}")
+        rec["c_disagg"] = {**fst, "cached_tokens": [o.cached_tokens
+                                                    for o in dis],
+                           "decode_kv_tier": de.stats()["kv_tier"]}
+        del fleet, de
+        gc.collect()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (d) f32 at FLEET_TP_F32_LAYERS: every stream of the two replicas
+    # equals the same requests on one mp 1 engine, each replica's sessions
+    # in its order (so the engine's batches are the replica's)
+    p32, c32 = tp_f32_params(dev, FLEET_TP_F32_LAYERS)
+    fleet = EngineFleet(p32, c32, engine_kwargs=dict(knobs))
+    t1, t2 = fleet_tp_stepped(fleet, first, extra)
+    labels = [fleet._sessions[f"s{i}"] for i in range(len(first))]
+    del fleet
+    gc.collect()
+    for label in sorted(set(labels)):
+        mine = [i for i, l in enumerate(labels) if l == label]
+        one = LLMEngine(p32, c32, **fleet_knobs(dev))
+        for turn, prompts in ((t1, [first[i] for i in mine]),
+                              (t2, [np.concatenate([first[i], np.asarray(
+                                  t1[i], np.int32), extra[i]])
+                                  for i in mine])):
+            rids = [one.add_request(p, max_new_tokens=MAX_NEW)
+                    for p in prompts]
+            one.run()
+            if [turn[i] for i in mine] != \
+                    [list(one.outputs[r].token_ids) for r in rids]:
+                raise AssertionError(f"engine_fleet_tp d: {label}'s f32 "
+                                     f"streams differ from one mp 1 "
+                                     f"engine's")
+        del one
+    rec["d_f32_streams_equal_mp1"] = {"layers": FLEET_TP_F32_LAYERS,
+                                      "requests": 2 * len(first),
+                                      "replicas": labels}
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def fleet_tp_nccl(params, cfg, prompts, meshes, smi):
+    """`--tp` (a): Llama-3-8B at 32 layers, NCCL, graphs.  Two pre-built
+    mp 2 engines on cards 0-1 and 2-3 behind one fleet (dp 2 x mp 2), and
+    `replicas=2` on one mp 4 mesh: the sessions stepped with the loops
+    stopped give every rank's pool and the streams bitwise the eager
+    fleet's on the same meshes; then the sessions through the loops,
+    tokens/s and turn-2 TTFT against one mp engine of the same degree."""
+    import gc
+
+    import torch
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.inference.router import EngineFleet
+    V = cfg.vocab_size
+    rng = np.random.RandomState(18)
+    first = prompts[:FLEET_SESSIONS]
+    extra = [rng.randint(0, V, FLEET_EXTRA).astype(np.int32) for _ in first]
+    d0, d2 = torch.device("cuda", 0), torch.device("cuda", 2)
+    p2 = {k: ({n: t.to(d2) for n, t in v.items()} if isinstance(v, dict)
+              else v.to(d2)) for k, v in params.items()}
+
+    def dp2_mp2(eager):
+        a = LLMEngine(params, cfg, mesh=meshes["a"],
+                      **fleet_knobs(d0), _eager=eager)
+        b = LLMEngine(p2, cfg, mesh=meshes["b"], **fleet_knobs(d2),
+                      _eager=eager)
+        return EngineFleet(engines=[a, b])
+
+    def mp4(eager):
+        return EngineFleet(params, cfg, engine_kwargs=dict(
+            fleet_knobs(d0), mesh=meshes[4], _eager=eager))
+
+    rec = {"nvidia_smi": smi, "layers": cfg.num_layers, "backend": "nccl"}
+    failed = []
+    for name, build, single in (("mp4_replicas2", mp4, meshes[4]),
+                                ("dp2_mp2", dp2_mp2, meshes["a"])):
+        try:
+            rec[name] = fleet_tp_layout(name, build, single, params, cfg,
+                                        first, extra)
+        except Exception:
+            import traceback
+            failed.append(name)
+            rec[name] = {"error": traceback.format_exc()}
+        emit({"run": f"fleet_tp {name}", **rec[name]})
+        gc.collect()
+        torch.cuda.empty_cache()
+    del p2
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"--tp a: {failed} failed: " + " ".join(
+            rec[n]["error"] for n in failed))
+    return rec
+
+
+def fleet_tp_layout(name, build, single, params, cfg, first, extra):
+    """One layout of `fleet_tp_nccl`: `build(eager)` makes its fleet,
+    `single` is the mesh of the one mp engine it is timed against."""
+    import gc
+
+    import torch
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    from paddle_tpu_torch.inference.router import EngineFleet
+    V, d0 = cfg.vocab_size, torch.device("cuda", 0)
+    t = time.perf_counter()
+    runs = {}
+    for eager in (True, False):
+        fleet = build(eager)
+        fleet.warm()
+        toks = fleet_tp_stepped(fleet, first, extra)
+        runs[eager] = (toks, fleet_tp_digests(fleet),
+                       {l: e.rank_replays()
+                        for l, e in fleet.engines.items()})
+        del fleet
+        gc.collect()
+        torch.cuda.empty_cache()
+    (te, de, _), (tg, dg, replays) = runs[True], runs[False]
+    if te != tg or de != dg:
+        bad = {l: [r for r, (a, b) in enumerate(zip(de[l], dg[l]))
+                   if a != b] for l in de}
+        raise AssertionError(f"--tp a {name}: graph streams or pools "
+                             f"differ from eager ({bad})")
+    r = {"graph_equals_eager": True, "rank_replays": replays}
+    fleet = build(False)
+    fleet.warm()
+    with fleet:
+        _, _, _, r["fleet"] = fleet_sessions(fleet, first, extra, V)
+    if single.mp == 4:
+        r["weights"] = fleet_tp_weights(fleet, f"--tp a {name}")
+    del fleet
+    gc.collect()
+    one = EngineFleet(engines=[LLMEngine(
+        params, cfg, mesh=single, **fleet_knobs(d0))])
+    one.warm()
+    with one:
+        _, _, _, r["one_engine"] = fleet_sessions(one, first, extra, V)
+    r["one_engine_mp"] = single.mp
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    r["seconds"] = time.perf_counter() - t
+    return r
+
+
+def fleet_tp_four_cards(smi):
+    """`--tp` (a) on four cards: Llama-3-8B at 32 layers, bf16, seeded
+    random weights; meshes of cards 0-1, 2-3 and 0-3."""
+    import torch
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel.tp import serving_mesh
+    dev = torch.device("cuda", 0)
+    cfg = gpt.llama3_8b()
+    cfg.dtype = torch.bfloat16
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    meshes = {"a": serving_mesh(2, ["cuda:0", "cuda:1"], backend="nccl"),
+              "b": serving_mesh(2, ["cuda:2", "cuda:3"], backend="nccl"),
+              4: serving_mesh(4, backend="nccl")}
+    try:
+        return fleet_tp_nccl(params, cfg, prompts, meshes, smi)
+    finally:
+        for m in meshes.values():
+            m.close()
+
+
+# --tp (d): the host copies of the pool at mp 1, 2 and 4 (NCCL, graphs)
+HOST_COPY_MODES = ("swap", "spill")
+
+
+def host_copy_run(params, cfg, dev, mesh, mode):
+    """One engine over `mesh` (None: one card), graphs, 32 layers: "swap"
+    serves engine_overload (b)'s traffic (phase 3's prompts x MAX_NEW on
+    OVERLOAD_PAGES pages, optimistic admission, swap preemption,
+    OVERLOAD_PRIORITIES); "spill" engine_tier's waves 1-3 on TIER_PAGES
+    pages (wave 2 spills wave 1's prefixes, wave 3 restores them).  Each
+    step's wall, split into the steps that queued a gather to the host
+    (a swap-out or a spill), the steps that staged pages from it (a
+    swap-in or a restore), the steps that did both, and the rest; the
+    engine's host-copy ms (its
+    waits for the gathers' copies and its staging of the scatters) per
+    page moved; under mp the host slabs' bytes after `warm_swap` and at
+    the end."""
+    import torch
+    from paddle_tpu_torch.inference.engine import LLMEngine
+    kw = dict(admission="optimistic", preempt="swap",
+              num_pages=OVERLOAD_PAGES, kv_tier=False) if mode == "swap" \
+        else dict(num_pages=TIER_PAGES)
+    eng = LLMEngine(params, cfg, num_slots=8, page_size=16,
+                    max_model_len=2048, prefill_buckets=SERVE_BUCKETS,
+                    device=dev, mesh=mesh, **kw)
+    eng.warm_decode()
+    eng.warm_swap()
+    slabs = getattr(eng, "_slabs", None)    # mp: the shared host slabs
+    slab_warm = slabs.nbytes if slabs is not None else None
+    pc = eng._port_c
+    steps = {"d2h": [], "h2d": [], "both": [], "other": []}
+
+    def wave(prompts, priorities=None):
+        rids = [eng.add_request(p, max_new_tokens=MAX_NEW,
+                                priority=(priorities or [0] * 8)[i])
+                for i, p in enumerate(prompts)]
+        while eng.has_work:
+            out0, in0 = pc["swap_out_dispatches"], pc["swap_in_dispatches"]
+            t0 = time.perf_counter()
+            eng.step()
+            ms = (time.perf_counter() - t0) * 1e3
+            d2h = pc["swap_out_dispatches"] > out0
+            h2d = pc["swap_in_dispatches"] > in0
+            kind = "both" if d2h and h2d else "d2h" if d2h else \
+                "h2d" if h2d else "other"
+            steps[kind].append(ms)
+        return [eng.outputs[r].token_ids for r in rids]
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rng = np.random.RandomState(0)          # phase 3's prompts
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPT_LENS]
+    if mode == "swap":
+        wave(prompts, list(OVERLOAD_PRIORITIES))
+    else:
+        flush, returning = tier_waves(cfg.vocab_size, prompts)
+        replies = wave(prompts)
+        wave(flush)
+        wave(returning(replies))
+    torch.cuda.synchronize()
+    st = eng.stats()
+    tier = st["kv_tier"]
+    pages = 2 * st["swapped_pages"] + tier["spills"] + \
+        -(-tier["restored_tokens"] // 16)
+    if not (steps["d2h"] or steps["both"]) or \
+            not (steps["h2d"] or steps["both"]):
+        raise AssertionError(f"host_copy {mode} mp={eng.mp}: no host copy "
+                             f"({st})")
+    rec = {"mp": eng.mp, "mode": mode, "wall_s": time.perf_counter() - t,
+           "pages_moved": pages, "swap_ms": st["swap_ms"],
+           "host_copy_ms_per_page": st["swap_ms"] / pages,
+           "preempt_swaps": st["preempt_swaps"], "spills": tier["spills"],
+           "restores": tier["restores"], "slab_bytes_warm": slab_warm,
+           "slab_bytes": slabs.nbytes if slabs is not None else None}
+    for k, v in steps.items():
+        rec[f"{k}_steps"] = len(v)
+        rec[f"{k}_median_ms"] = float(np.median(v)) if v else None
+        rec[f"{k}_mean_ms"] = float(np.mean(v)) if v else None
+    del eng
+    return rec
+
+
+def host_copy_tp(smi):
+    """`--tp` (d): Llama-3-8B at 32 layers, bf16, graphs, the
+    host-copy traffic of `host_copy_run` at mp 1 (card 0), 2 and 4
+    (NCCL)."""
+    import gc
+
+    import torch
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel.tp import serving_mesh
+    dev = torch.device("cuda", 0)
+    cfg = gpt.llama3_8b()
+    cfg.dtype = torch.bfloat16
+    params = gpt.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    rec = {"nvidia_smi": smi}
+    for m in (1, 2, 4):
+        mesh = serving_mesh(m, backend="nccl") if m > 1 else None
+        try:
+            for mode in HOST_COPY_MODES:
+                r = host_copy_run(params, cfg, dev, mesh, mode)
+                rec[f"{mode}_mp{m}"] = r
+                emit({"run": f"host_copy {mode} mp{m}", **r})
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            if mesh is not None:
+                mesh.close()
+    return rec
+
+
 def tp_four_cards(smi):
     """`--tp`: on four cards, NCCL meshes of 2 and 4 ranks, the phase-3
     prompts x 32 at Llama-3-8B width in bf16, fused bucketed and chunked:
@@ -4884,14 +5367,26 @@ def main():
           "ptxas_paged_decode": more["paged_decode_kernel"],
           "ptxas_rms_norm": more["rms_kernel"] + more["rms_tma_kernel"]})
     if tp_only:
-        t = time.perf_counter()
-        rec = tp_four_cards(smi)
-        emit({"phase": "engine_tp_nccl",
-              "seconds": time.perf_counter() - t, **rec})
-        t = time.perf_counter()
-        rec = train_nccl(smi)
-        emit({"phase": "train_nccl", "seconds": time.perf_counter() - t,
-              **rec})
+        phases = (("engine_tp_nccl", tp_four_cards),
+            ("engine_fleet_tp_nccl", fleet_tp_four_cards),
+            ("host_copy_tp", host_copy_tp), ("train_nccl", train_nccl))
+        failed = []
+        for name, fn in phases:
+            # a phase that fails is reported and the next one runs; the
+            # run fails at the end
+            t = time.perf_counter()
+            try:
+                rec = fn(smi)
+            except Exception:
+                import traceback
+                failed.append(name)
+                emit({"phase": name, "seconds": time.perf_counter() - t,
+                      "error": traceback.format_exc()})
+                continue
+            emit({"phase": name, "seconds": time.perf_counter() - t, **rec})
+        if failed:
+            print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
+            return 1
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -5107,15 +5602,20 @@ def main():
     try:
         rec_tp = engine_tp(tp_params, tp_cfg, prompts, dev, tp_picks, smi,
                            tp_meshes, eager=True, f32_mps=(2, 4))
+        rec_tp["kernels"] = tp_kernel_rows(dev)
+        emit({"phase": "engine_tp", "seconds": time.perf_counter() - t,
+              "mp": 2, "layers": TP_LAYERS, "backend": "gloo",
+              "timing_note": "two ranks on one "
+              "card, gloo, eager: not a tensor-parallel time", **rec_tp})
+        t = time.perf_counter()
+        rec_ftp, ftp_launches = engine_fleet_tp(tp_params, tp_cfg, prompts,
+                                                dev, smi, tp_meshes[2])
+        emit({"phase": "engine_fleet_tp", "seconds": time.perf_counter() - t,
+              **rec_ftp})
         del tp_params
     finally:
         for m in tp_meshes.values():
             m.close()
-    rec_tp["kernels"] = tp_kernel_rows(dev)
-    emit({"phase": "engine_tp", "seconds": time.perf_counter() - t,
-          "mp": 2, "layers": TP_LAYERS, "backend": "gloo",
-          "timing_note": "two ranks on one "
-          "card, gloo, eager: not a tensor-parallel time", **rec_tp})
 
     t = time.perf_counter()
     rec_gen = generate_phase(params, cfg, dev)
@@ -5289,6 +5789,7 @@ def main():
               and "tier" in m), rec_obs, rec_fleet,
             *(rec_tp[m] for m, _, _ in TP_MODES), rec9, rec7, rec8,
             rec_gen, rec_moe, rec_moe["int8"], rec_tm, rec_bert,
+            {"launches": ftp_launches},
             {"launches": mesh_launches}, {"launches": pp_launches},
             {"launches": cp_launches_sum}, {"launches": ck_launches})
     kernels = [{

@@ -160,13 +160,22 @@ int8 scale lanes).  Every step program is mirrored: each worker builds,
 stages and runs its own copy in the order rank 0 does (`StepProgram`'s
 `mirror`), and draws the sampled lane's noise from a generator seeded like
 rank 0's, keeping its vocab columns.  Host copies of the pool (the swap
-pair, tier spills and restores, `export_prefix`) use one host slab of the
-full `[.., page, KVH, hd]` layout that every rank fills or reads its heads
-of, so the host tier and the store keep the mp=1 format.  On the card a
+pair, tier spills and restores, `export_prefix`) go through shared host
+slabs allocated once and reused (`parallel.tp.HostSlabs`, page-locked in
+every process on the card): each rank queues the copy of its kv heads
+behind an event, as mp=1 queues its own, and the workers' copies are
+waited for at the step's drain (`_drain_swap_d2h`), not in the step.  A
+swapped victim's pages stay in their span until its swap-in stages them;
+the host tier holds the full `[.., page, KVH, hd]` layout
+(`HostSlabs.full`), so the host tier and the store keep the mp=1
+format.  On the card a
 gloo mesh runs the programs eagerly (`_eager=True`, asked for: gloo cannot
 be captured); an NCCL mesh captures them, collectives included.
-`kv_pool_bytes()` is rank 0's shard.  Fleets and the front door over mp
-engines raise `NotImplementedError`.
+`kv_pool_bytes()` is rank 0's shard.  Several engines may share one mesh
+(a fleet's replicas: `_weights_of` points a follower at the leader's
+weight shards on every rank); each is an engine of its own on the
+workers (its id, pool shard and programs), and `StepProgram` holds the
+mesh's lock across a run's collectives.
 """
 from __future__ import annotations
 
@@ -188,7 +197,7 @@ import torch
 from ..analysis.registry import SERVE_SLO
 from ..models import gpt as gpt_mod
 from ..parallel.hybrid import shard_params
-from ..parallel.tp import EngineLink, ServingMesh, head_slice, serving_mesh
+from ..parallel.tp import EngineLink, HostSlabs, ServingMesh, serving_mesh
 from ..profiler import profiler as _prof
 from ..quantization.serving import (kv_page_bytes, normalize_quant_dtype,
                                     quantize_serving_params)
@@ -376,7 +385,11 @@ class LLMEngine:
     already lie on that device (`models.gpt.init_params` or
     `models.convert.params_from_numpy`).  `_eager=True` runs the step
     programs without CUDA graphs on the card (a comparison switch for the
-    card tests and `chip_smoke.py`; the reference has no such engine)."""
+    card tests and `chip_smoke.py`; the reference has no such engine).
+    `_weights_of`: an mp engine on the same mesh whose weights this one
+    serves (a fleet's follower): `params` is then that engine's rank-0
+    shard (its `params`), and every worker points at its shard instead of
+    taking a second copy."""
 
     def __init__(self, params, config: gpt_mod.GPTConfig, *,
                  num_slots: int = 4, page_size: int = 16,
@@ -409,7 +422,7 @@ class LLMEngine:
                  trace_ring: int = 512,
                  request_tracing: bool = True,
                  trace_retention: Optional[int] = 4096,
-                 device=None, _eager: bool = False):
+                 device=None, _eager: bool = False, _weights_of=None):
         self.weight_dtype = normalize_quant_dtype(weight_dtype,
                                                   "weight_dtype")
         self.kv_dtype = normalize_quant_dtype(kv_dtype, "kv_dtype")
@@ -450,6 +463,11 @@ class LLMEngine:
         if table.device != self.device:
             raise ValueError(f"params live on {table.device}, the engine on "
                              f"{self.device}")
+        if _weights_of is not None and (
+                mesh is None or _weights_of.mesh is not mesh or
+                params is not _weights_of.params):
+            raise ValueError("_weights_of: an engine on this mesh, and its "
+                             "params")
         if self.weight_dtype == "int8" and "wte_q" not in params:
             # once, on the device (dequant rides inside the step programs);
             # params already quantized (a fleet's leader's) are taken as
@@ -475,7 +493,7 @@ class LLMEngine:
                     "engine on a gloo mesh runs its programs eagerly; pass "
                     "_eager=True, or use an NCCL mesh (one card a rank)")
             self.mesh = mesh
-        self.params = params if self.mesh is None else \
+        self.params = params if self.mesh is None or _weights_of else \
             shard_params(params, config, self.mp, 0)
         self.eos_token_id = eos_token_id
         max_model_len = max_model_len or config.max_seq_len
@@ -596,8 +614,14 @@ class LLMEngine:
                     {"config": config, "sampling": self._sampling,
                      "capture": self._capture, "num_pages": num_pages,
                      "page_size": page_size, "kv_dtype": self.kv_dtype,
-                     "seed": seed})
+                     "seed": seed},
+                    weights_of=None if _weights_of is None
+                    else _weights_of._link.eid)
             self._link = EngineLink(self.mesh, eid)
+            self._slabs = HostSlabs(self._link, self._pool, self.mp,
+                                    max_pages_per_slot)
+            # a follower keeps the leader, whose mesh and shards it uses
+            self._weights_of = _weights_of
             # the workers drop their part with the engine (and a mesh the
             # engine built closes)
             weakref.finalize(self, _release_link, self._link, own_mesh)
@@ -609,11 +633,13 @@ class LLMEngine:
         self._inflight: Optional[Dict[str, object]] = None
         self._orphan_finished: List[RequestOutput] = []
         # overload state: rid -> resume record ("recompute": the banked
-        # generation; "swap": also the parked KV, in pinned host buffers
-        # behind an event until fetched); the swap records whose fetch waits
+        # generation; "swap": also the parked KV, in pinned host buffers,
+        # under mp a span of the host slabs, behind an event until
+        # fetched); the swap records whose fetch waits
         # for the step's dispatch; whether any deadline is live
         self._preempted: Dict[int, Dict[str, object]] = {}
         self._pending_d2h: List[Dict[str, object]] = []
+        self._undrained = False     # mp: worker copies queued since a drain
         self._has_deadlines = False
         self._init_observability(clock, trace_ring, request_tracing,
                                  trace_retention)
@@ -1128,12 +1154,6 @@ class LLMEngine:
         prog = self._program(role)
         if "noise" in prog.inputs:
             values["noise"] = self._noise(prog.inputs["greedy"].shape[0])
-        if self.mesh is not None and role == "swap_in":
-            # the workers stage their kv heads of the full-layout host slab
-            full = {n: _shared(values[n]) for n in self._pool}
-            self._link.payload = {"feed": full}
-            heads = self._heads
-            values.update({n: t[:, :, :, heads] for n, t in full.items()})
         prog.stage(**values)
         prog.run()
         return prog
@@ -1150,13 +1170,19 @@ class LLMEngine:
     def warm_swap(self) -> None:
         """Build the swap gather and scatter programs on inert inputs (every
         page id the null page), as the reference's `warm_swap` compiles
-        them, so a first preemption or spill does not pay the build.  A
-        no-op unless the engine can reach them (optimistic admission with
-        preempt="swap", or the KV tier)."""
+        them, so a first preemption or spill does not pay the build (under
+        mp, nor the host slabs' allocation).  A no-op unless the engine
+        can reach them (optimistic admission with preempt="swap", or the
+        KV tier)."""
         if (self.optimistic and self.preempt == "swap") or self.kv_tier:
             with self._on_device():
                 self._program("swap_out").build()
                 self._program("swap_in").build()
+            if self.mesh is not None:
+                # host room for what one step queues before its drain (a
+                # slot's gather and a slot's staging), allocated and
+                # pinned now; parked swaps beyond it grow the slabs
+                self._slabs.reserve(2 * self.cache.max_pages_per_slot)
 
     def warm_spec(self) -> None:
         """Build the unfused verify program on inert inputs (reference name
@@ -1900,11 +1926,6 @@ class LLMEngine:
             event.record()
         return {"data": data, "event": event, "fetched": False}
 
-    @property
-    def _heads(self) -> slice:
-        """Rank 0's kv heads of the full pool layout."""
-        return head_slice(self.mesh, self.config.kv_heads)
-
     def _full_leaf_shape(self, name: str, pages: int) -> tuple:
         """A pool leaf's host shape over `pages` pages, every kv head."""
         a = self._pool[name]
@@ -1913,21 +1934,49 @@ class LLMEngine:
         return tuple(shape)
 
     def _swap_out_mp(self, ids, n: int) -> Dict[str, object]:
-        """`_swap_out` under mp: every rank copies its kv heads of the
-        gathered pages into one shared host slab a leaf, of the full
-        layout; the workers answer when their copies are done, so the
-        record is complete on return (no event)."""
-        data = {name: torch.empty(self._full_leaf_shape(name, n),
-                                  dtype=a.dtype).share_memory_()
-                for name, a in self._pool.items()}
-        self._link.payload = {"into": data, "n": n}
+        """`_swap_out` under mp: a span of the engine's shared host slabs
+        (`parallel.tp.HostSlabs`) takes the gathered pages, every rank
+        queueing the copy of its kv heads into its part of the slab, rank
+        0 behind an event; the workers' copies are waited for at the next
+        drain of the link (`_fetch_wait`), not here."""
+        span = self._slabs.take(n)
+        self._link.payload = {"into": span}
         out = self._dispatch("swap_out", ids=ids).out
         self._port_c["swap_out_dispatches"] += 1
-        heads = self._heads
-        for name, a in out.items():
-            data[name][:, :, :, heads].copy_(a[:, :n])
-        self._link.collect()
-        return {"data": data, "event": None, "fetched": False}
+        for name, t in self._slabs.part(span, 0).items():
+            t.copy_(out[name][:, :n].transpose(0, 1), non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self._undrained = True
+        return {"data": None, "slab": span, "event": event, "fetched": False}
+
+    def _fetch_wait(self, rec: Dict[str, object]) -> None:
+        """Wait for a record's host copy: rank 0's on its event, and under
+        mp the workers' (one drain of the link lands every copy queued so
+        far)."""
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        if rec.get("slab") is not None and self._undrained:
+            self._undrained = False
+            self._slabs.drain()
+
+    def _give_slab(self, rec: Dict[str, object]) -> None:
+        """Hand a record's span of host slab back (mp), for reuse after
+        the next drain."""
+        span = rec.pop("slab", None)
+        if span is not None:
+            self._slabs.give(span, rec.get("event"))
+
+    def _swap_in_mp(self, ids, span: tuple) -> None:
+        """The "swap_in" dispatch under mp: each rank stages its part of
+        the pages in `span` of the engine's host slabs; the span is handed
+        back."""
+        self._link.payload = {"feed": span}
+        self._dispatch("swap_in", ids=ids,
+                       **self._slabs.part(span, 0, copy=True))
+        self._slabs.give(span)
 
     def _materialize_swap(self, rec: Dict[str, object]) -> None:
         """Wait for a swap record's host copy (idempotent; on its event, not
@@ -1938,8 +1987,9 @@ class LLMEngine:
         self._faults.d2h()
         t0 = self._now()
         with self._span("engine.swap.d2h"):
-            if rec["event"] is not None:
-                rec["event"].synchronize()
+            # under mp the pages stay parked in their span of the host
+            # slabs until the swap-in stages them
+            self._fetch_wait(rec)
         self._swap_ms_c.inc((self._now() - t0) * 1e3)
         rec["fetched"] = True
         self._swapped_pages_c.inc(rec["n"])
@@ -1950,6 +2000,7 @@ class LLMEngine:
         """A swap whose copy failed becomes a recompute: the parked KV and
         its host-pool obligation go, the banked generation stays."""
         rec["kind"] = "recompute"
+        self._give_slab(rec)
         rec.pop("data", None)
         rec.pop("event", None)
         self.cache.note_swap_in(rec["rid"])
@@ -2008,24 +2059,28 @@ class LLMEngine:
         self._faults.d2h()
         t0 = self._now()
         with self._span("engine.swap.d2h"):
-            if rec["event"] is not None:
-                rec["event"].synchronize()
+            self._fetch_wait(rec)
         self._swap_ms_c.inc((self._now() - t0) * 1e3)
         rec["fetched"] = True
         tier = self.cache._tier
         landed = 0
+        span = rec.get("slab")
         for i, node in enumerate(rec["nodes"]):
             if tier.is_pending(node.node_id):
-                tier.fill(node.node_id, {name: a[:, i].contiguous()
-                                         for name, a in rec["data"].items()})
+                tier.fill(node.node_id, self._slabs.full(span, i)
+                          if span is not None else
+                          {name: a[:, i].contiguous()
+                           for name, a in rec["data"].items()})
                 landed += 1
         self._tier_spills.inc(landed)
+        self._give_slab(rec)
         rec.pop("data")
 
     def _degrade_spill_to_drop(self, rec: Dict[str, object]) -> None:
         """A spill whose copy failed drops its still-pending nodes: their
         pages are free already, so a later match re-prefills."""
         rec["fetched"] = True
+        self._give_slab(rec)
         rec.pop("data", None)
         tier = self.cache._tier
         self.cache.drop_tier_nodes([nd for nd in rec["nodes"]
@@ -2063,7 +2118,7 @@ class LLMEngine:
             datas = [mgr.tier_data(node) for node in nodes]
             self._faults.h2d()
             t0 = self._now()
-            staged = self._stack_slabs(datas)
+            lanes = self._slab_lanes(datas)
         except (KeyError, RuntimeError):
             # FaultInjected is a RuntimeError; data that vanished or does
             # not fit degrades the same way
@@ -2072,7 +2127,13 @@ class LLMEngine:
         ids = np.zeros((mgr.max_pages_per_slot,), np.int32)
         ids[:len(plan)] = [dst for dst, _, _ in plan]
         with self._span("engine.swap.h2d"):
-            self._dispatch("swap_in", ids=ids, **staged)
+            if self.mesh is None:
+                self._dispatch("swap_in", ids=ids, **{
+                    n: torch.stack(ls, dim=1) for n, ls in lanes.items()})
+            else:
+                span = self._slabs.take(len(plan))
+                self._slabs.fill(span, lanes)
+                self._swap_in_mp(ids, span)
         ms = (self._now() - t0) * 1e3
         self._port_c["swap_in_dispatches"] += 1
         self._swap_ms_c.inc(ms)
@@ -2085,10 +2146,11 @@ class LLMEngine:
                   tokens=int(tokens))
         return True
 
-    def _stack_slabs(self, datas) -> Dict[str, torch.Tensor]:
-        """The plan's slabs as the "swap_in" program's leading corner:
-        {leaf: [L, k, page, ...]} on the host.  KeyError when a slab's
-        leaves, types or shapes are not the pool's."""
+    def _slab_lanes(self, datas) -> Dict[str, List[torch.Tensor]]:
+        """The plan's slabs as host tensors of the pool's types, {leaf:
+        [one [L, page, KVH, ...] a slab]}, in the full kv-head layout.
+        KeyError when a slab's leaves, types or shapes are not the
+        pool's."""
         staged = {}
         for d in datas:
             if set(d) != set(self._pool):
@@ -2102,7 +2164,7 @@ class LLMEngine:
                 if tuple(t.shape) != want:
                     raise KeyError(f"slab {name} of shape {tuple(t.shape)}, "
                                    f"the pool's {want}")
-            staged[name] = torch.stack(lanes, dim=1)
+            staged[name] = lanes
         return staged
 
     def export_prefix(self, tokens, rid: Optional[int] = None
@@ -2173,6 +2235,7 @@ class LLMEngine:
             return None
         if rec["kind"] == "swap":
             self.cache.note_swap_in(rid)
+            self._give_slab(rec)
             rec["kind"] = "dropped"     # _drain_swap_d2h skips it
         return rec
 
@@ -2206,7 +2269,10 @@ class LLMEngine:
         ids[:n] = mgr.slot_pages(slot)[:n]
         t0 = self._now()
         with self._span("engine.swap.h2d"):
-            self._dispatch("swap_in", ids=ids, **rec["data"])
+            if self.mesh is None:
+                self._dispatch("swap_in", ids=ids, **rec["data"])
+            else:
+                self._swap_in_mp(ids, rec.pop("slab"))
         self._port_c["swap_in_dispatches"] += 1
         self._swap_ms_c.inc((self._now() - t0) * 1e3)
         mgr.note_swap_in(rid)
@@ -2901,11 +2967,6 @@ def _capture_mode(mesh) -> str:
     NCCL collectives (see `graphs.capture`), else "global"."""
     return "thread_local" if mesh is not None and mesh.backend == "nccl" \
         else "global"
-
-
-def _shared(t: torch.Tensor) -> torch.Tensor:
-    """`t` in shared host memory (moved there if it is not)."""
-    return t if t.is_shared() else t.contiguous().share_memory_()
 
 
 def _release_link(link, mesh) -> None:

@@ -67,6 +67,12 @@ worker to build its own copy of the program before rank 0 builds, and
 which stage them into their copies and run them.  The bodies' collectives
 then meet in the same order on every rank, the warm-up's and (under NCCL)
 the captured ones; a worker draws the sampled lane's noise itself.
+Several engines may share one mesh (a fleet's replicas), each stepped by
+its own thread, so the span from the workers' message through rank 0's
+own run (its replay enqueues, or its eager body runs, its collectives)
+holds the mesh's lock (`mirror.lock`), and so does a build, inside its
+exclusive hold of `GATE`: two steps that interleaved there would meet
+each other's collectives, a hang or a wrong sum under NCCL.
 """
 from __future__ import annotations
 
@@ -255,9 +261,12 @@ class StepProgram:
             return
         with GATE.exclusive():
             if not self.built:
-                if self.mirror is not None:
+                if self.mirror is None:
+                    self._build()
+                    return
+                with self.mirror.lock:
                     self.mirror.build(self.name)
-                self._build()
+                    self._build()
 
     def _build(self) -> None:
         t0 = time.perf_counter()
@@ -313,20 +322,26 @@ class StepProgram:
             raise RuntimeError(f"{self.name}: stage the inputs before each "
                                f"run")
         self._fresh = False
-        if self.mirror is not None:
-            self.mirror.run(self.name, self._mirrored)
-        if self.graph is not None:
-            self.graph.replay()
-            self.replays += 1
-            K.add_counts(self._delta)
+        if self.mirror is None:
+            self._run()
         else:
-            self.out = self._body(**self.inputs)
+            with self.mirror.lock:
+                self.mirror.run(self.name, self._mirrored)
+                self._run()
         if self._host_out is None:
             return self.out
         self._host_out.copy_(self.out, non_blocking=True)
         if self._fetched is not None:
             self._fetched.record()
         return self.out
+
+    def _run(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+            self.replays += 1
+            K.add_counts(self._delta)
+        else:
+            self.out = self._body(**self.inputs)
 
     def result(self) -> np.ndarray:
         """The last run's output on the host (waits for its copy)."""

@@ -43,6 +43,18 @@ stream.  Every replica dispatches on the stream current when it was built
 and `graphs.GATE` keeps a capture in one loop clear of the others' CUDA
 work.
 
+**Tensor-parallel replicas** (`engine_kwargs=dict(mp=M)`, or `mesh=`):
+as the reference's, the followers share the leader's `ServingMesh`
+(`kw.setdefault("mesh", leader.mesh)`).  Each attaches to the mesh's
+workers as an engine of its own (its id, pool shard and graphs), and its
+rank-0 shard and every worker's shard are the leader's (`_weights_of`):
+the mesh holds one copy of the weights, which `_adopt_executables` checks
+on rank 0 and by a query of each worker.  The replicas' loop threads then
+drive one set of workers and one communicator: a program's message to
+the workers and rank 0's run of it hold the mesh's lock, so collectives
+meet in one order on every rank.  Pre-built mp `engines` may also sit on
+meshes of their own (dp x mp: two mp 2 engines on cards 0-1 and 2-3).
+
 **Disaggregated prefill/decode** (`roles="P:D"`): the replicas split into
 a prefill pool and a decode pool sharing one durable tier store
 (`spill_dir`).  A new prompt goes least-loaded to a prefill replica, which
@@ -66,7 +78,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from .engine import LLMEngine, RequestOutput, _later
+from .engine import LLMEngine, RequestOutput
 from .metrics import FleetMetrics
 
 ROUTER_POLICIES = ("affinity", "round_robin", "least_loaded")
@@ -170,14 +182,20 @@ def _param_leaves(params, prefix: str = "") -> Iterator[Tuple[str, object]]:
 
 
 def _same_weights(replica: LLMEngine, leader: LLMEngine) -> bool:
-    """Whether `replica` runs on `leader`'s device and parameter storage."""
-    if replica.device != leader.device:
+    """Whether `replica` runs on `leader`'s device and parameter storage:
+    under mp on its mesh, and on every worker on its weight shard (a
+    query of each worker)."""
+    if replica.device != leader.device or replica.mesh is not leader.mesh:
         return False
     mine = dict(_param_leaves(replica.params))
     theirs = dict(_param_leaves(leader.params))
-    return mine.keys() == theirs.keys() and all(
-        a.data_ptr() == theirs[k].data_ptr() and a.shape == theirs[k].shape
-        and a.dtype == theirs[k].dtype for k, a in mine.items())
+    if not (mine.keys() == theirs.keys() and all(
+            a.data_ptr() == theirs[k].data_ptr() and
+            a.shape == theirs[k].shape and a.dtype == theirs[k].dtype
+            for k, a in mine.items())):
+        return False
+    return leader.mesh is None or replica._link.worker_query("weights") == \
+        leader._link.worker_query("weights")
 
 
 def _adopt_executables(replica: LLMEngine, leader: LLMEngine) -> None:
@@ -186,12 +204,13 @@ def _adopt_executables(replica: LLMEngine, leader: LLMEngine) -> None:
     replica captures its own graphs (a graph bakes in its pool's
     addresses), so what a replica adopts is the leader's weights.  Raises
     unless `replica` runs on `leader`'s device and parameter tensors (the
-    same storage), which `EngineFleet` arranges by building every follower
-    from the leader's `params`."""
+    same storage), and under mp on its mesh with every worker's shard the
+    leader's, which `EngineFleet` arranges by building every follower from
+    the leader's `params` (and `_weights_of`)."""
     if not _same_weights(replica, leader):
-        raise ValueError("a replica must run on the leader's device and "
-                         "parameter tensors (one copy of the weights); "
-                         "build it from the leader's params")
+        raise ValueError("a replica must run on the leader's device (and "
+                         "mesh) and parameter tensors (one copy of the "
+                         "weights); build it from the leader's params")
 
 
 class EngineFleet:
@@ -230,10 +249,6 @@ class EngineFleet:
             n_p, n_d = _parse_roles(roles)
             role_list = ["prefill"] * n_p + ["decode"] * n_d
         kw = dict(engine_kwargs or {})
-        if kw.get("mesh") is not None or (kw.get("mp") or 1) > 1 or \
-                any(e.mp > 1 for e in engines or []):
-            raise _later("a fleet (or the front door) over tensor-parallel "
-                         "engines", "tensor-parallel fleet/door/generate")
         if engines is None:
             if params is None or config is None:
                 raise ValueError("EngineFleet needs (params, config) or "
@@ -250,10 +265,16 @@ class EngineFleet:
                 raise ValueError(f"replicas must be >= 1, got {replicas}")
             leader = LLMEngine(params, config, **kw)
             engines = [leader]
+            if leader.mesh is not None:
+                # tensor parallel: the followers share the leader's mesh
+                # and, on every rank, its weight shards
+                kw.setdefault("mesh", leader.mesh)
+                kw["_weights_of"] = leader
             for i in range(1, replicas):
                 if role_list is not None:
                     kw["role"] = role_list[i]
-                # the leader's params: with int8 weights, its quantized copy
+                # the leader's params: with int8 weights, its quantized
+                # copy; under mp, its rank-0 shard
                 e = LLMEngine(leader.params, config, **kw)
                 _adopt_executables(e, leader)
                 engines.append(e)

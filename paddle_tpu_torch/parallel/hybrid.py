@@ -43,7 +43,7 @@ cp), the labels as given, already shifted by the caller) through
 vocab-parallel embedding and cross entropy, the loss one global mean over
 the data group; MoE blocks through `parallel.moe` over the rank's routing
 group and its ep peers; under cp every block's attention the ring of
-`parallel.ring_attention` over the rank's cp links, rope and `wpe` at the
+`parallel.ring_attention` over the rank's cp group, rope and `wpe` at the
 shard's global positions), or under pp through the stages
 (`parallel.pipeline`, whose stages run the ring among the ranks of their
 cp coordinate); the gradients of the leaves that sequence parallelism
@@ -79,7 +79,7 @@ from ..incubate.distributed.models.moe.dispatch import log_routes
 from ..models import gpt as gpt_mod
 from . import mp_ops, pipeline
 from .moe import EXPERT_KEYS, moe_local
-from .ring_attention import RingLink, check_backend, ring_links
+from .ring_attention import RingLink, ring_group
 from .tp import (DEFAULT_TIMEOUT_S, ServingMesh, _tree_to,  # noqa: F401
                  serving_mesh)
 
@@ -604,9 +604,9 @@ def _groups(handle, cfg: MeshConfig, r: int):
     group, at its cp coordinate); under pp the point-to-point links to the
     next and the previous stage ("pp_next", "pp_prev": one process group
     per directed link, apart from every collective group, built in link
-    order, the ring's wrap only under vpp); and under cp the ring's links
-    among the cp ranks ("cp_next", "cp_prev", `ring_links`, the wrap
-    included)."""
+    order, the ring's wrap only under vpp); and under cp the ring's one
+    group over the cp ranks ("cp_ring", `ring_group`, connected as it is
+    made)."""
     co = coords(cfg, r)
     groups = {name: handle.group(name, axis_ranks(cfg, co, axes))
               for name, axes in _AXIS_GROUPS}
@@ -633,7 +633,7 @@ def _groups(handle, cfg: MeshConfig, r: int):
                                                stage[(i + 1) % pp]],
                                         link=True)
     if cfg.cp > 1:
-        groups.update(ring_links(handle, groups["cp"].ranks))
+        groups.update(ring_group(handle, groups["cp"].ranks))
     return groups
 
 
@@ -1007,8 +1007,6 @@ class HybridParallelTrainer:
         self.device = mesh.device
         self._tid = next(_TIDS)
         try:
-            if mesh_cfg.cp > 1:
-                check_backend(mesh)
             if params is None:
                 params = self._draw(seed)
             pspecs, _, _ = trainer_specs(config, mesh_cfg)

@@ -41,19 +41,27 @@ the kernels where they take the shapes (`kernel_takes`), else the plain
 version, counted in `flash_attention_fused.composed_calls` as the model's
 other attention routes count theirs.
 
-Point-to-point traffic, per rank and per call (`RingLink`: "cp_next" and
-"cp_prev", one process group per directed link of the ring, wrap
-included, apart from every collective group; host-staged under gloo on
-CUDA, counted as "<link>.send_host"/"recv_host"):
+Point-to-point traffic, per rank and per call (`RingLink`: one process
+group over the ring's cp ranks, "cp_ring", apart from every collective
+group and connected as it is made; each hop one send and one receive
+issued together, one coalesced NCCL call; host-staged under gloo on CUDA,
+counted as "<direction>.send_host"/"recv_host"), counted by direction:
 
-    forward:  cp - 1 sends on "cp_next", each the k/v chunk
-              [2, B, Sl, KVH, hd] in k's dtype (2 * B * Sl * KVH * hd *
-              itemsize bytes), and cp - 1 receives on "cp_prev";
-    backward: cp - 1 sends on "cp_prev" of the dK/dV accumulator of the
-              same shape and dtype, and cp - 1 receives on "cp_next".
+    forward:  cp - 1 sends to rank + 1 ("cp_next.send"), each the k/v
+              chunk [2, B, Sl, KVH, hd] in k's dtype (2 * B * Sl * KVH *
+              hd * itemsize bytes), and cp - 1 receives from rank - 1
+              ("cp_prev.recv");
+    backward: cp - 1 sends to rank - 1 ("cp_prev.send") of the dK/dV
+              accumulator of the same shape and dtype, and cp - 1
+              receives from rank + 1 ("cp_next.recv").
+
+Under NCCL a ring of sends and receives on separate communicators can
+wait on itself (NCCL does not promise to progress two communicators'
+kernels together); paired on one communicator, each hop's send and
+receive start in one group call on every rank.
 
 So a training step of a rank sends layers (of its stage) x microbatches x
-2 (cp - 1) times, half on each link; remat replays a block's qkv and tail
+2 (cp - 1) times, half in each direction; remat replays a block's qkv and tail
 but keeps the ring's output and never runs the ring again; `eval_loss`
 sends layers x (cp - 1).  On the kernel route rank c launches the forward,
 dkv and dq kernels once for each chunk it sees: c + 1 times a call under
@@ -80,51 +88,51 @@ NEG_INF = -1e30
 
 class RingLink:
     """A rank's place on a ring of `size` ranks: its index `rank`, and the
-    two directed links that touch it, groups of two ranks each:
-    `nxt` ("cp_next": this rank to rank + 1) and `prv` ("cp_prev": rank - 1
-    to this one).  At size 2 the two are distinct process groups over the
-    same pair."""
+    ring's one process group over its cp ranks (`group`, "cp_ring", in
+    ring order, its NCCL communicator connected as it is made).  A hop
+    sends to one neighbour and receives from the other as one pair
+    (`MeshRank.exchange`: one coalesced NCCL call), counted by direction:
+    a forward hop as "cp_next.send" and "cp_prev.recv", a backward hop as
+    "cp_prev.send" and "cp_next.recv"."""
 
-    def __init__(self, nxt, prv, rank: int, size: int):
-        self.nxt, self.prv = nxt, prv
-        self.rank, self.size = rank, size
+    def __init__(self, group, rank: int, size: int):
+        self.group, self.rank, self.size = group, rank, size
 
     @classmethod
     def of(cls, groups, rank: int, size: int) -> Optional["RingLink"]:
-        """The ring of `groups["cp_next"]`/`["cp_prev"]` (None at size 1)."""
+        """The ring of `groups["cp_ring"]` (None at size 1)."""
         if size == 1:
             return None
-        return cls(groups["cp_next"], groups["cp_prev"], rank, size)
+        g = groups["cp_ring"]
+        if g.rank != rank:
+            raise ValueError(f"ring rank {rank} is member {g.rank} of "
+                             f"{g.ranks}")
+        return cls(g, rank, size)
 
-    def send_next(self, t):
-        return self.nxt.isend(t, 1 - self.nxt.rank)
+    def forward_hop(self, t):
+        """Start sending `t` to rank + 1 and receiving rank - 1's; the
+        handle's `wait()` gives the received tensor."""
+        n, c = self.size, self.rank
+        return self.group.exchange(t, (c + 1) % n, (c - 1) % n,
+                                   ("cp_next", "cp_prev"))
 
-    def recv_prev(self, shape, dtype):
-        return self.prv.recv(shape, dtype, 1 - self.prv.rank)
-
-    def send_prev(self, t):
-        return self.prv.isend(t, 1 - self.prv.rank)
-
-    def recv_next(self, shape, dtype):
-        return self.nxt.recv(shape, dtype, 1 - self.nxt.rank)
+    def backward_hop(self, t):
+        """The reverse: `t` to rank - 1, rank + 1's received."""
+        n, c = self.size, self.rank
+        return self.group.exchange(t, (c - 1) % n, (c + 1) % n,
+                                   ("cp_prev", "cp_next"))
 
     def attend(self, q, k, v, causal=True, scale=None):
         """This rank's share of ring attention (`ring_attend`)."""
         return ring_attend(q, k, v, self, causal, scale)
 
 
-def ring_links(handle, ranks) -> dict:
-    """The groups "cp_next" and "cp_prev" of `handle`'s rank on the ring of
-    `ranks` (mesh ranks in ring order): link i joins ranks[i] to
-    ranks[(i + 1) % n], built in link order on every rank, so no rank waits
-    on a peer that waits on it."""
-    n, c = len(ranks), ranks.index(handle.rank)
-    out = {}
-    for i in sorted({c, (c - 1) % n}):
-        name = "cp_next" if i == c else "cp_prev"
-        out[name] = handle.group(name, [ranks[i], ranks[(i + 1) % n]],
-                                 link=True)
-    return out
+def ring_group(handle, ranks) -> dict:
+    """{"cp_ring": the group of `handle`'s rank over the ring of `ranks`
+    (mesh ranks in ring order)}: a process group of its own, apart from
+    every collective group, connected as it is made."""
+    return {"cp_ring": handle.group("cp_ring", ranks, link=True,
+                                    connect=True)}
 
 
 def _widen(t, heads: int):
@@ -149,19 +157,11 @@ class _Shift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, link):
         ctx.link = link
-        sent = link.send_next(x)
-        out = link.recv_prev(x.shape, x.dtype)
-        sent.wait()
-        return out
+        return link.forward_hop(x).wait()
 
     @staticmethod
     def backward(ctx, g):
-        link = ctx.link
-        g = g.contiguous()
-        sent = link.send_prev(g)
-        out = link.recv_next(g.shape, g.dtype)
-        sent.wait()
-        return out, None
+        return ctx.link.backward_hop(g).wait(), None
 
 
 def ring_attention_local(q, k, v, link: RingLink, cp: int, causal=True,
@@ -224,7 +224,7 @@ class RingFlashAttention(torch.autograd.Function):
         out = lse = None
         for t in range(cp):
             chunks.append(kv)
-            sent = link.send_next(kv) if t < cp - 1 else None
+            hop = link.forward_hop(kv) if t < cp - 1 else None
             src = (c - t) % cp
             if not causal or src <= c:
                 o_t, lse_t = FA.flash_attention_fwd(
@@ -238,9 +238,8 @@ class RingFlashAttention(torch.autograd.Function):
                         o_t.float() * torch.exp(_lse_rows(lse_t - new, B, S,
                                                           H))
                     lse = new
-            if sent is not None:
-                kv = link.recv_prev(kv.shape, kv.dtype)
-                sent.wait()
+            if hop is not None:
+                kv = hop.wait()
         out = out.to(q.dtype)
         ctx.save_for_backward(q, out, lse, *chunks)
         ctx.link, ctx.causal, ctx.scale, ctx.kv_heads = link, causal, scale, \
@@ -256,9 +255,12 @@ class RingFlashAttention(torch.autograd.Function):
         g = g.contiguous()
         delta = FA._delta(out, g)
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        acc, sends = None, []
+        acc = hop = None
         # step t's chunk is rank (c - t)'s; its accumulator comes from rank
-        # c + 1, which held the chunk at step t + 1, and goes on to c - 1
+        # c + 1, which held the chunk at step t + 1, and goes on to c - 1:
+        # the hop started after step t + 1 sends this rank's accumulator
+        # of that step and brings rank c + 1's, waited for after step t's
+        # kernels are queued
         for t in reversed(range(cp)):
             kv = chunks[t]
             part = None
@@ -272,17 +274,13 @@ class RingFlashAttention(torch.autograd.Function):
                                           scale)
                 part = torch.stack([_narrow(dk.float(), KVH),
                                     _narrow(dv.float(), KVH)])
-            if t < cp - 1:
-                acc = link.recv_next(kv.shape, kv.dtype)
+            acc = hop.wait() if hop is not None else None
             if part is not None:
                 acc = part.to(kv.dtype) if acc is None else \
                     (acc.float() + part).to(kv.dtype)
             elif acc is None:
                 acc = torch.zeros_like(kv)
-            if t > 0:
-                sends.append(link.send_prev(acc))
-        for s in sends:
-            s.wait()
+            hop = link.backward_hop(acc) if t > 0 else None
         return dq.to(q.dtype), acc[0], acc[1], None, None, None
 
 
@@ -306,7 +304,7 @@ def ring_attend(q, k, v, link: Optional[RingLink], causal=True, scale=None,
             FA.flash_attention_fused.composed_calls += 1
             route = "plain"
     if link is None:
-        link = RingLink(None, None, 0, 1)
+        link = RingLink(None, 0, 1)
     if route == "plain":
         return ring_attention_local(q, k, v, link, link.size, causal, s)
     if route != "kernels":
@@ -331,7 +329,7 @@ def _rank_ring(key, what, args, *, mesh):
         q, k, v, n, causal, scale, route, grad = args
         dev = mesh.device
         q, k, v = (t.to(dev).detach().requires_grad_(grad) for t in (q, k, v))
-        link = RingLink.of(ring_links(mesh, list(range(n))), mesh.rank, n) \
+        link = RingLink.of(ring_group(mesh, list(range(n))), mesh.rank, n) \
             if n > 1 else None
         with torch.set_grad_enabled(grad):
             out = ring_attend(q, k, v, link, causal, scale, route)
@@ -370,17 +368,6 @@ class _MeshRing(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
-def check_backend(mesh) -> None:
-    """Refuse a ring over NCCL: on four H100s its sends did not finish
-    (ROADMAP Queue 2 item 17).  Gloo meshes, on the CPU or on one card,
-    run it."""
-    if mesh.backend == "nccl":
-        raise NotImplementedError(
-            "context parallelism over NCCL is not supported yet: the ring's "
-            "sends between the cards did not finish (ROADMAP Queue 2 item "
-            "17); use a gloo mesh")
-
-
 def ring_attention(q, k, v, mesh, causal=True, scale=None,
                    route: Optional[str] = None):
     """q, k, v [B, S, H|KVH, D], the full sequence on the caller's process
@@ -390,7 +377,6 @@ def ring_attention(q, k, v, mesh, causal=True, scale=None,
     the shards concatenated.  Differentiable where grad mode is on and an
     input requires grad: the ranks then keep their graphs until the
     backward."""
-    check_backend(mesh)
     if q.shape[1] % mesh.mp:
         raise AssertionError(f"seq len {q.shape[1]} must divide over "
                              f"cp={mesh.mp}")

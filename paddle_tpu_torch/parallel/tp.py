@@ -18,8 +18,14 @@ build it, stage its inputs and run it (the mirror of
 (`run`, for tests and the smoke's kernel checks).  The staged inputs are
 small int32 arrays and go by pickle on the pipe; weights go once, through
 the pipe's shared-memory tensors (CPU) or CUDA IPC, and each worker copies
-its shard to its own device.  A worker draws the sampled lane's Gumbel
-noise itself, from a generator seeded like rank 0's.
+its shard to its own device.  Engines that share a mesh (a fleet's
+replicas) share those shards: `attach(weights_of=)` points a worker's new
+engine at another engine's.  A worker draws the sampled lane's Gumbel
+noise itself, from a generator seeded like rank 0's.  Host copies of an
+engine's pool go through its `HostSlabs`, shared host memory handed to
+the workers once and reused.  `lock` orders the pipe: a request and its
+reply, or a program's message and rank 0's own run of it, are one span
+that no other thread's traffic enters.
 
 The model functions see a rank through `mesh=`: `mp`, `rank`, `device`
 and `all_reduce(t, op)` (SUM, MAX or MIN, in place).  All-reduce is the
@@ -31,8 +37,10 @@ The same mesh carries training (`parallel.hybrid.HybridParallelTrainer`):
 group built once per rank list on a `PrefixStore` of the mesh's store, and
 the rank handle runs `all_reduce`, `broadcast`, `all_gather` and
 `reduce_scatter` on it (gloo takes all four on CUDA tensors too, staging
-them through host memory itself), the pipeline's `isend` and `recv` and
-the ep exchange's tiled `all_to_all`.  Gloo's send and recv do not take
+them through host memory itself), the pipeline's `isend` and `recv`, the
+ring's `exchange` (a send and a receive as one coalesced NCCL call, on a
+group connected as it is made) and the ep exchange's tiled
+`all_to_all`.  Gloo's send and recv do not take
 CUDA tensors (they pass the device pointer to the socket), so those two go
 through host memory in `MeshRank` (counted as "<group>.<op>_host").  Every call is counted with its bytes (`comm`), and
 every wait has the mesh's timeout.  `first(n)` lends a trainer of n ranks
@@ -108,15 +116,18 @@ class MeshRank:
         # calls, such as a trainer's rank state
         self.state: Dict[str, Any] = {}
 
-    def group(self, name: str, ranks: Sequence[int],
-              link: bool = False) -> "Group":
+    def group(self, name: str, ranks: Sequence[int], link: bool = False,
+              connect: bool = False) -> "Group":
         """The group `name` over `ranks` (this rank among them).  Its
         process group is built at the first request for that rank set, on
         a prefix of the mesh's store; every member must ask for it in the
-        same order.  A `link` (a pipeline's or a ring's point-to-point
-        link) has a process group of its own, shared with no collective
-        group over the same ranks.  A group of one rank runs no
-        collective."""
+        same order.  A `link` (a pipeline's point-to-point link, or a
+        ring's group) has a process group of its own, shared with no
+        collective group over the same ranks.  `connect`: an NCCL
+        communicator is built as the group is made, on every member at
+        once (`eager_connect_single_device`), not at its first call (gloo
+        always connects as it makes a group).  A group of one rank runs
+        no collective."""
         ranks = tuple(ranks)
         if self.rank not in ranks:
             raise ValueError(f"rank {self.rank} is not in group {name} "
@@ -131,14 +142,18 @@ class MeshRank:
                                 len(ranks), self.timeout_s)
             self._pgs[key] = pg
             self._new_pg(pg)
+            if connect and self.backend == "nccl":
+                pg.eager_connect_single_device(self.device)
         return Group(self, name, ranks, pg)
 
     def _new_pg(self, pg) -> None:
         """A process group this rank built for a `Group`."""
 
-    def _count(self, group: Optional["Group"], op: str, t: torch.Tensor):
-        key = f"{'world' if group is None else group.name}.{op}"
-        c = self.comm.setdefault(key, [0, 0])
+    def _count(self, group, op: str, t: torch.Tensor):
+        """Count one call of `op` moving `t` under "<group>.<op>": `group`
+        a Group, None (the world) or a name."""
+        name = "world" if group is None else getattr(group, "name", group)
+        c = self.comm.setdefault(f"{name}.{op}", [0, 0])
         c[0] += 1
         c[1] += t.numel() * t.element_size()
 
@@ -152,14 +167,46 @@ class MeshRank:
         except RuntimeError as e:
             self._collective_failed(e)
 
-    def _staged(self, op: str, group: "Group", t: torch.Tensor) -> bool:
+    def _staged(self, op: str, group, t: torch.Tensor) -> bool:
         """Whether the send or recv `op` of `t` goes through host memory: a
         CUDA tensor under gloo, whose send and recv do not take one.
-        Counted as "<group>.<op>_host"."""
+        Counted as "<group>.<op>_host" (`group` as in `_count`)."""
         if self.backend != "gloo" or t.device.type != "cuda":
             return False
         self._count(group, op + "_host", t)
         return True
+
+    def exchange(self, t: torch.Tensor, dst: int, src: int,
+                 group: "Group", labels=None) -> "Exchange":
+        """Send `t` to the group's member `dst` and receive a tensor of
+        `t`'s shape and dtype from member `src`, as one pair: under NCCL
+        one coalesced call (`_start_coalescing` ... `_end_coalescing`, on
+        the group's own communicator), so that NCCL starts the send and the
+        receive together and a ring of such pairs cannot wait on itself;
+        gloo, which coalesces nothing, posts both at once.  The returned
+        handle's `wait()` gives the received tensor on the rank's device.
+        `labels`: the (send, recv) names the two are counted under
+        (default the group's), so a ring counts each direction apart."""
+        send_as, recv_as = labels or (group, group)
+        x = t.detach().contiguous()
+        buf = torch.empty_like(x, device=self.device)
+        self._count(send_as, "send", x)
+        self._count(recv_as, "recv", buf)
+        host = None
+        if self._staged("send", send_as, x):
+            x = x.cpu()
+        if self._staged("recv", recv_as, buf):
+            host = torch.empty(buf.shape, dtype=buf.dtype)
+        pg = group.pg
+        if pg.supports_coalescing:
+            _coalescing(pg._start_coalescing, self.device)
+            pg.send([x], dst, 0)
+            pg.recv([buf if host is None else host], src, 0)
+            works = [_coalescing(pg._end_coalescing, self.device)]
+        else:
+            works = [pg.recv([buf if host is None else host], src, 0),
+                     pg.send([x], dst, 0)]
+        return Exchange(self, works, x, buf, host)
 
     def isend(self, t: torch.Tensor, dst: int, group: "Group") -> "Sent":
         """Start sending `t` to the group's member `dst` (an index into
@@ -294,6 +341,34 @@ class Sent:
             self.work = self.data = None
 
 
+def _coalescing(fn, device):
+    """A backend's `_start_coalescing` or `_end_coalescing`: without an
+    argument on the builds whose backends take none, else with the
+    device."""
+    try:
+        return fn()
+    except TypeError:
+        return fn(device)
+
+
+class Exchange:
+    """A send and a receive in flight (`MeshRank.exchange`): `wait()` ends
+    both, under the mesh's timeout, and returns the received tensor."""
+
+    def __init__(self, owner: MeshRank, works, data, buf, host):
+        self.owner, self.works, self.data = owner, works, data
+        self.buf, self.host = buf, host
+
+    def wait(self) -> torch.Tensor:
+        for w in self.works:
+            self.owner._wait(w)
+        self.works, self.data = [], None
+        if self.host is not None:
+            self.buf.copy_(self.host)
+            self.host = None
+        return self.buf
+
+
 def _check_devices(mp: int, devices, backend: Optional[str]):
     if mp < 1:
         raise ValueError(f"mp must be >= 1, got {mp}")
@@ -359,6 +434,9 @@ class Group:
     def recv(self, shape, dtype, src):
         return self.owner.recv(shape, dtype, src, self)
 
+    def exchange(self, t, dst, src, labels=None):
+        return self.owner.exchange(t, dst, src, self, labels)
+
     def all_to_all(self, t, split_axis, concat_axis):
         return self.owner.all_to_all(t, split_axis, concat_axis, self)
 
@@ -378,6 +456,11 @@ class ServingMesh(MeshRank):
         self._conns: list = []
         self._eids = itertools.count(1)
         self._closed = False
+        # held from a message to the workers through what rank 0 does
+        # because of it: the collectives of a program run (so that every
+        # rank meets them in one order, whichever engine's thread sends),
+        # or the worker's reply
+        self.lock = threading.RLock()
         self._groups: list = []         # rank 0's process group, to shut
         if devices[0].type == "cuda":
             # every kernel built once, here, before any worker loads them
@@ -441,13 +524,14 @@ class ServingMesh(MeshRank):
 
     def check_workers(self) -> None:
         """Raise a worker's error if one has reported (no wait)."""
-        for r, conn in enumerate(self._conns, start=1):
-            try:
-                pending = conn.poll()
-            except (EOFError, OSError):
-                pending = True
-            if pending or not self._procs[r - 1].is_alive():
-                self._reply(r)
+        with self.lock:
+            for r, conn in enumerate(self._conns, start=1):
+                try:
+                    pending = conn.poll()
+                except (EOFError, OSError):
+                    pending = True
+                if pending or not self._procs[r - 1].is_alive():
+                    self._reply(r)
 
     def _collective_failed(self, e: BaseException):
         # a worker that failed reported before it left the group
@@ -463,47 +547,74 @@ class ServingMesh(MeshRank):
         raise e
 
     # ---- engines ----------------------------------------------------------
-    def attach(self, shard_for: Callable[[int], Dict[str, Any]],
-               state: Dict[str, Any]) -> int:
+    def attach(self, shard_for: Optional[Callable[[int], Dict[str, Any]]],
+               state: Dict[str, Any], weights_of: Optional[int] = None
+               ) -> int:
         """Give each worker its engine state and its weight shard
-        (`shard_for(r)` for rank r, made and sent one rank at a time).
+        (`shard_for(r)` for rank r, made and sent one rank at a time), or,
+        with `weights_of` (an engine id), point it at that engine's shard
+        on the worker: replicas on one mesh hold one copy of the weights.
         Returns the engine id, which the workers key the engine's programs
         by."""
-        eid = next(self._eids)
-        for r in range(1, self.mp):
-            shard = shard_for(r)
-            self._send(r, ("engine", eid, state, shard))
-            # the worker has copied its shard before it answers, so the
-            # shard may go
-            self._reply(r)
-            del shard
+        with self.lock:
+            eid = next(self._eids)
+            for r in range(1, self.mp):
+                shard = shard_for(r) if weights_of is None else None
+                self._send(r, ("engine", eid, state, shard, weights_of))
+                # the worker has copied its shard before it answers, so
+                # the shard may go
+                self._reply(r)
+                del shard
         return eid
 
     def detach(self, eid: int) -> None:
         if not self._closed:
             try:
-                self._broadcast(("drop", eid))
+                with self.lock:
+                    self._broadcast(("drop", eid))
             except (OSError, RuntimeError):
                 pass
 
     def program(self, eid: int, role: str, spec: Dict[str, Any]) -> None:
-        self._broadcast(("program", eid, role, spec))
+        with self.lock:
+            self._broadcast(("program", eid, role, spec))
 
     def build(self, eid: int, role: str) -> None:
-        self.check_workers()
-        self._broadcast(("build", eid, role))
+        with self.lock:
+            self.check_workers()
+            self._broadcast(("build", eid, role))
 
     def dispatch(self, eid: int, role: str, values: Dict[str, Any],
                  payload: Optional[Dict[str, Any]] = None) -> None:
-        self.check_workers()
-        self._broadcast(("run", eid, role, values, payload))
+        with self.lock:
+            self.check_workers()
+            self._broadcast(("run", eid, role, values, payload))
+
+    def slab(self, eid: int, sid: int, tensors: Dict[str, torch.Tensor]
+             ) -> None:
+        """Hand every worker engine `eid`'s shared host slab `sid` once
+        (`HostSlabs`); a worker on the card pins it."""
+        with self.lock:
+            self._broadcast(("slab", eid, sid, tensors))
+
+    def drain(self, eid: int) -> None:
+        """Wait until every worker's queued host copies of engine `eid`
+        (runs with an "into" payload) have landed, and every message sent
+        before has been taken."""
+        with self.lock:
+            self._broadcast(("drain", eid))
+            for r in range(1, self.mp):
+                self._reply(r)
 
     def query(self, rank: int, what: str, *args):
         """A worker's answer to `what`: "counts" (its kernel launch counts),
-        "reset_counts", and of engine `eid`: ("pool_bytes", eid), its
-        graph ("replays", eid), ("pool_digest", eid)."""
-        self._send(rank, ("query", what, args))
-        return self._reply(rank)
+        "reset_counts", "weight_bytes" (the bytes of the distinct weight
+        tensors its engines hold), and of engine `eid`: ("pool_bytes",
+        eid), its graph ("replays", eid), ("pool_digest", eid), its
+        weights' addresses ("weights", eid)."""
+        with self.lock:
+            self._send(rank, ("query", what, args))
+            return self._reply(rank)
 
     def rank_counts(self) -> List[Dict[str, Dict[str, int]]]:
         """Every rank's kernel counts: {"launches", "launches_int8",
@@ -524,12 +635,13 @@ class ServingMesh(MeshRank):
         default); returns the results in rank order (the workers' pickled
         back).  `fn` must be importable by name."""
         n = len(per_rank)
-        for r in range(1, n):
-            args, kwargs = per_rank[r]
-            self._send(r, ("call", fn, args, kwargs))
-        args, kwargs = per_rank[0]
-        out = [fn(*args, mesh=self, **kwargs)]
-        return out + [self._reply(r) for r in range(1, n)]
+        with self.lock:
+            for r in range(1, n):
+                args, kwargs = per_rank[r]
+                self._send(r, ("call", fn, args, kwargs))
+            args, kwargs = per_rank[0]
+            out = [fn(*args, mesh=self, **kwargs)]
+            return out + [self._reply(r) for r in range(1, n)]
 
     def first(self, n: int) -> "SubMesh":
         """Ranks 0..n-1 of this mesh, as a mesh of n ranks for a trainer
@@ -672,7 +784,7 @@ class _WorkerEngine:
         from ..models import gpt as gpt_mod
         self.rank = rank
         self.config = state["config"]
-        self.params = _tree_to(params, rank.device)
+        self.params = params
         self.sampling = state["sampling"]
         self.capture = state["capture"]
         self.pool = gpt_mod.init_paged_cache(
@@ -683,6 +795,10 @@ class _WorkerEngine:
         self.specs: Dict[str, Dict[str, Any]] = {}
         self.programs: Dict[str, Any] = {}
         self.bucket_pool = None
+        # the engine's shared host slabs (`HostSlabs`), and the events of
+        # the host copies queued into them that `drain` waits for
+        self.slabs: Dict[int, Dict[str, torch.Tensor]] = {}
+        self.pending: List[Any] = []
 
     def program(self, role: str):
         from ..inference.engine import _BODIES, _capture_mode
@@ -715,16 +831,42 @@ class _WorkerEngine:
             values["noise"] = draw_noise(
                 self.config, self.generator, self.rank.device,
                 prog.inputs["noise"].shape[0], self.rank)
-        heads = head_slice(self.rank, self.config.kv_heads)
-        for n, t in (payload or {}).get("feed", {}).items():
-            values[n] = t[:, :, :, heads]
+        if payload and "feed" in payload:
+            # a private copy of this rank's part: the span may be reused
+            # once a later message is answered
+            sid, start, k = payload["feed"]
+            values.update(slab_part(self.slabs[sid], self.rank.rank, start,
+                                    k, copy=True))
         prog.stage(**values)
         out = prog.run()
         if payload and "into" in payload:
-            k = payload["n"]
-            for n, t in payload["into"].items():
-                t[:, :, :, heads].copy_(out[n][:, :k])
-            conn.send(("ok", None))
+            sid, start, k = payload["into"]
+            part = slab_part(self.slabs[sid], self.rank.rank, start, k)
+            for n, t in part.items():
+                t.copy_(out[n][:, :k].transpose(0, 1), non_blocking=True)
+            if self.rank.device.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record()
+                self.pending.append(ev)
+
+    def add_slab(self, sid: int, tensors: Dict[str, torch.Tensor]) -> None:
+        if self.rank.device.type == "cuda":
+            for t in tensors.values():
+                _pin(t)
+        self.slabs[sid] = tensors
+
+    def drain(self) -> None:
+        for ev in self.pending:
+            ev.synchronize()
+        self.pending.clear()
+
+    def close(self) -> None:
+        self.drain()
+        if self.rank.device.type == "cuda":
+            for tensors in self.slabs.values():
+                for t in tensors.values():
+                    _unpin(t)
+        self.slabs.clear()
 
     def pool_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.pool.values())
@@ -735,6 +877,45 @@ def _tree_to(tree, device):
     tensors once this returns)."""
     return {k: _tree_to(v, device) if isinstance(v, dict)
             else v.to(device, copy=True) for k, v in tree.items()}
+
+
+def _named_leaves(tree, prefix: str = ""):
+    """(dotted name, tensor) of every leaf of a nested weight dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def _weight_bytes(engines) -> int:
+    """The bytes of the distinct weight storages a worker's engines hold."""
+    seen = {}
+    for e in engines.values():
+        for _, t in _named_leaves(e.params):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _weights(params) -> Dict[str, tuple]:
+    """Every weight leaf's (address, shape, dtype), by dotted name."""
+    return {n: (t.data_ptr(), tuple(t.shape), str(t.dtype))
+            for n, t in _named_leaves(params)}
+
+
+def _pin(t: torch.Tensor) -> None:
+    """Page-lock `t`'s host memory for this process's device copies (a
+    shared slab, which `pin_memory()` would copy instead)."""
+    # cudaHostRegisterPortable: pinned for every device of the process
+    err = torch.cuda.cudart().cudaHostRegister(
+        t.data_ptr(), t.numel() * t.element_size(), 1)
+    if int(err) != 0:
+        raise RuntimeError(f"cudaHostRegister failed ({err})")
+
+
+def _unpin(t: torch.Tensor) -> None:
+    torch.cuda.cudart().cudaHostUnregister(t.data_ptr())
 
 
 def _worker_main(rank: int, mp: int, device: str, backend: str,
@@ -771,7 +952,9 @@ def _worker_main(rank: int, mp: int, device: str, backend: str,
                 _, eid, role, spec = msg
                 engines[eid].specs[role] = spec
             elif op == "engine":
-                _, eid, state, params = msg
+                _, eid, state, params, weights_of = msg
+                params = engines[weights_of].params if params is None \
+                    else _tree_to(params, dev)
                 engines[eid] = _WorkerEngine(me, state, params)
                 del params
                 if stream is not None:
@@ -779,7 +962,15 @@ def _worker_main(rank: int, mp: int, device: str, backend: str,
                     torch.cuda.ipc_collect()
                 conn.send(("ok", eid))
             elif op == "drop":
-                engines.pop(msg[1], None)
+                gone = engines.pop(msg[1], None)
+                if gone is not None:
+                    gone.close()
+            elif op == "slab":
+                _, eid, sid, tensors = msg
+                engines[eid].add_slab(sid, tensors)
+            elif op == "drain":
+                engines[msg[1]].drain()
+                conn.send(("ok", None))
             elif op == "call":
                 _, fn, args, kwargs = msg
                 out = fn(*args, mesh=me, **kwargs)
@@ -799,6 +990,10 @@ def _worker_main(rank: int, mp: int, device: str, backend: str,
                                          engines[args[0]].programs.values())))
                 elif what == "pool_digest":
                     conn.send(("ok", pool_digest(engines[args[0]].pool)))
+                elif what == "weights":
+                    conn.send(("ok", _weights(engines[args[0]].params)))
+                elif what == "weight_bytes":
+                    conn.send(("ok", _weight_bytes(engines)))
                 else:
                     raise ValueError(f"unknown query {what!r}")
             else:
@@ -827,15 +1022,19 @@ def _to_host(out):
 class EngineLink:
     """One engine's handle on its mesh: declares, builds and runs the
     workers' copies of its step programs (the `mirror` of
-    `inference.graphs.StepProgram`).  `payload` rides the next run: {"feed":
-    {leaf: full-layout host tensor}} (each worker stages its kv heads of
-    it) or {"into": {leaf: full-layout shared host tensor}, "n": pages}
-    (each worker copies its kv heads of the program's first n pages into it
-    and answers, which `collect` waits for)."""
+    `inference.graphs.StepProgram`).  `payload` rides the next run, naming
+    a span of the engine's `HostSlabs` ((slab id, first slot, n)):
+    {"feed": span} (each worker stages its part of the span's pages) or
+    {"into": span} (each worker queues the copy of its part of the
+    program's first n pages into the span; `drain` waits for it).
+    `lock` is the mesh's: `StepProgram` holds it from the workers' message
+    through rank 0's own run, so the ranks' collectives meet in one order
+    whichever engine's thread dispatches."""
 
     def __init__(self, mesh: ServingMesh, eid: int):
         self.mesh = mesh
         self.eid = eid
+        self.lock = mesh.lock
         self.payload: Optional[Dict[str, Any]] = None
 
     def declare(self, role: str, spec: Dict[str, Any]) -> None:
@@ -848,13 +1047,12 @@ class EngineLink:
         payload, self.payload = self.payload, None
         self.mesh.dispatch(self.eid, role, values, payload)
 
-    def collect(self) -> None:
-        for r in range(1, self.mesh.mp):
-            self.mesh._reply(r)
+    def drain(self) -> None:
+        self.mesh.drain(self.eid)
 
     def worker_query(self, what: str) -> List[Any]:
         """Every worker's answer to ("pool_bytes" | "replays" |
-        "pool_digest", this engine)."""
+        "pool_digest" | "weights", this engine)."""
         return [self.mesh.query(r, what, self.eid)
                 for r in range(1, self.mesh.mp)]
 
@@ -862,8 +1060,150 @@ class EngineLink:
         self.mesh.detach(self.eid)
 
 
-def head_slice(mesh: MeshRank, kv_heads: int) -> slice:
-    """This rank's kv heads of the full pool layout (axis 3 of every pool
-    leaf, k and v and the scale lanes)."""
-    n = kv_heads // mesh.mp
-    return slice(mesh.rank * n, (mesh.rank + 1) * n)
+def slab_part(slab: Dict[str, torch.Tensor], rank: int, start: int, n: int,
+              copy: bool = False) -> Dict[str, torch.Tensor]:
+    """Rank `rank`'s part of a slab's page slots start..start+n, each leaf
+    [n, L, page, KVH/mp, ...] (contiguous; the slab is rank-major), or
+    with `copy` a private copy in the pool's order [L, n, page, KVH/mp,
+    ...]."""
+    if copy:
+        return {k: t[rank, start:start + n].transpose(0, 1).contiguous()
+                for k, t in slab.items()}
+    return {k: t[rank, start:start + n] for k, t in slab.items()}
+
+
+class HostSlabs:
+    """Shared host memory for one tensor-parallel engine's host copies of
+    its pool (swaps, tier spills and restores), allocated once and
+    reused.  A slab holds page slots of every leaf for every rank,
+    rank-major (leaf [mp, slots, L, page, KVH/mp, ...]); a copy of n pages
+    takes a span of n consecutive slots (`take`: (slab id, first slot,
+    n), first fit), so each rank's part of it is one contiguous range its
+    device copy fills or reads (`slab_part`).  A slab lives in shared
+    memory, is handed to the workers once (`ServingMesh.slab`) and, on the
+    card, is page-locked in every process (`cudaHostRegister`), so the
+    copies are asynchronous and their waits come at the drain.
+    Allocating and pinning takes far longer than a step, so `reserve`
+    makes the first slab ahead, with room for what one step queues
+    before its drain; a spill's span is held from its gather's dispatch
+    to its drain, a restore's for its staging, a swapped victim's until
+    its swap-in; a slab of `pages` slots (or n) is added only when no
+    span fits.  `full` gives the host tier's layout,
+    [L, n, page, KVH, ...] with every head, and `fill` writes that layout
+    in.
+
+    A span given back (`give`) is reused only after the workers answered
+    a later drain, by when every message that named it has been taken and
+    its copies have landed; `take` drains first when nothing else fits."""
+
+    def __init__(self, link: EngineLink, pool: Dict[str, torch.Tensor],
+                 mp: int, pages: int):
+        self.link, self.mp, self.pages = link, mp, pages
+        # one page of one rank: [L, page, KVH/mp, ...]
+        self.leaves = {n: ((a.shape[0],) + tuple(a.shape[2:]), a.dtype)
+                       for n, a in pool.items()}
+        self.pin = next(iter(pool.values())).device.type == "cuda"
+        self.slabs: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._free: Dict[int, List[tuple]] = {}     # sid -> [(start, n)]
+        self._fenced: List[tuple] = []      # (span, rank 0's copy event)
+        self._pinned: List[torch.Tensor] = []
+        self._finalizer = weakref.finalize(self, _unpin_all, self._pinned)
+
+    def reserve(self, slots: int) -> None:
+        """Make the first slab now, of `slots` page slots (pinned, and
+        handed to the workers), so the steps pay no allocation."""
+        if not self.slabs:
+            self._new(slots)
+
+    def take(self, n: int) -> tuple:
+        span = self._fit(n)
+        if span is None and self._fenced:
+            self.drain()
+            span = self._fit(n)
+        if span is None:
+            self._new(max(n, self.pages))
+            span = self._fit(n)
+        return span
+
+    def _fit(self, n: int) -> Optional[tuple]:
+        for sid, free in self._free.items():
+            for i, (start, m) in enumerate(free):
+                if m >= n:
+                    free[i:i + 1] = [(start + n, m - n)] if m > n else []
+                    return sid, start, n
+        return None
+
+    def _new(self, slots: int) -> None:
+        sid = len(self.slabs)
+        tensors = {n: torch.empty((self.mp, slots) + shape,
+                                  dtype=dtype).share_memory_()
+                   for n, (shape, dtype) in self.leaves.items()}
+        if self.pin:
+            for t in tensors.values():
+                _pin(t)
+                self._pinned.append(t)
+        self.slabs[sid] = tensors
+        self._free[sid] = [(0, slots)]
+        self.link.mesh.slab(self.link.eid, sid, tensors)
+
+    @property
+    def nbytes(self) -> int:
+        """The host bytes of every slab (all ranks' parts)."""
+        return sum(t.nbytes for slab in self.slabs.values()
+                   for t in slab.values())
+
+    def give(self, span: tuple, event=None) -> None:
+        self._fenced.append((span, event))
+
+    def drain(self) -> None:
+        """`EngineLink.drain`, then the spans given back are free again."""
+        fenced, self._fenced = self._fenced, []
+        self.link.drain()
+        for (sid, start, n), ev in fenced:
+            if ev is not None:
+                ev.synchronize()
+            merged = []
+            for s, m in sorted(self._free[sid] + [(start, n)]):
+                if merged and sum(merged[-1]) == s:
+                    merged[-1] = (merged[-1][0], merged[-1][1] + m)
+                else:
+                    merged.append((s, m))
+            self._free[sid] = merged
+
+    def part(self, span: tuple, rank: int, copy: bool = False):
+        sid, start, n = span
+        return slab_part(self.slabs[sid], rank, start, n, copy)
+
+    def full(self, span: tuple, i: Optional[int] = None
+             ) -> Dict[str, torch.Tensor]:
+        """The span's pages in the host tier's layout [L, n, page, KVH,
+        ...] (a copy), or with `i` its page i alone, [L, page, KVH, ...]."""
+        sid, start, n = span
+        out = {}
+        for k, t in self.slabs[sid].items():
+            x = t[:, start + i:start + i + 1] if i is not None \
+                else t[:, start:start + n]
+            # [mp, n, L, page, h, ...] -> [L, n, page, mp * h, ...]
+            x = x.movedim(0, 3).movedim(0, 1).flatten(3, 4).contiguous()
+            out[k] = x[:, 0] if i is not None else x
+        return out
+
+    def fill(self, span: tuple, lanes: Dict[str, Sequence[torch.Tensor]]
+             ) -> None:
+        """Write the span's pages from the host tier's layout, {leaf: one
+        [L, page, KVH, ...] tensor a page}."""
+        sid, start, _ = span
+        for k, t in self.slabs[sid].items():
+            for i, lane in enumerate(lanes[k]):
+                # [L, page, KVH, ...] -> [mp, L, page, h, ...]
+                t[:, start + i].copy_(
+                    lane.unflatten(2, (self.mp, -1)).movedim(2, 0))
+
+
+def _unpin_all(tensors) -> None:
+    for t in tensors:
+        try:
+            _unpin(t)
+        except RuntimeError:
+            pass
+    tensors.clear()

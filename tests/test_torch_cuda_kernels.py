@@ -28,6 +28,7 @@ int8 serving step replayed from its graph equals the eager step bitwise on
 tokens and all four pool leaves.
 """
 import contextlib
+import gc
 import math
 import time
 
@@ -2224,3 +2225,104 @@ def test_mesh_cp_trainer_on_card_matches_one_device(dev, card_mesh, kw):
     for x, y in zip(_leaves(a), _leaves(b)):
         torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
     tr.close()
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (an NCCL mesh of two ranks)")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_ring_over_a_two_card_nccl_mesh(dev, dtype):
+    """`ring_attention` at cp 2 over NCCL, one card a rank: the hops on the
+    ring's one group, each send and receive one coalesced call, finish;
+    the kernel route agrees with the plain ring (values and gradients),
+    rank c launches each kernel c + 1 times, and each rank makes one send
+    and one receive each way."""
+    _two_cards()
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+    from paddle_tpu_torch.parallel.tp import serving_mesh
+    rng = np.random.RandomState(6)
+    q = _randn(rng, (1, 1024, 8, 128), dtype, dev)
+    k, v = (_randn(rng, (1, 1024, 2, 128), dtype, dev) for _ in range(2))
+    g = _randn(rng, (1, 1024, 8, 128), dtype, dev)
+    mesh = serving_mesh(2, backend="nccl", timeout_s=120)
+    try:
+        def ring(route):
+            args = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = ring_attention(*args, mesh, route=route)
+            return [out.detach()] + list(torch.autograd.grad(out, args, g))
+
+        mesh.reset_counts()
+        mesh.comm.clear()
+        got = ring("kernels")
+        for c, counts in enumerate(mesh.rank_counts()):
+            assert [counts["launches"][n] for n in (
+                "flash_attention_fwd", "flash_bwd_dkv", "flash_bwd_dq")] \
+                == [c + 1] * 3
+        chunk = 2 * 512 * 2 * 128 * q.element_size()
+        assert {key: mesh.comm[key] for key in mesh.comm
+                if key.startswith("cp_")} == {
+            key: [1, chunk] for key in ("cp_next.send", "cp_prev.recv",
+                                        "cp_prev.send", "cp_next.recv")}
+        plain = ring("plain")
+        _close(got[0], plain[0], dtype)
+        for name, a, b in zip(("dq", "dk", "dv"), got[1:], plain[1:]):
+            _grad_close(name, a, b, dtype)
+    finally:
+        mesh.close()
+
+
+def test_fleet_replicas_on_one_mp2_mesh_replay_bitwise_the_eager_step(dev):
+    """Two replicas of the small llama (f32) on one mp 2 NCCL mesh, their
+    programs captured with the all-reduces, against the same fleet built
+    eager: the same requests routed the same way and every replica stepped
+    in turn give the same streams and, on every rank, the same pool
+    bytes; a worker holds one weight shard for both replicas."""
+    _two_cards()
+    from paddle_tpu_torch.inference.router import EngineFleet
+    from paddle_tpu_torch.parallel.hybrid import _leaves
+    from paddle_tpu_torch.parallel.tp import pool_digest, serving_mesh
+    cfg = _small_llama(torch.float32)
+    params = _card_params(cfg, dev)
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 33, 70, 12)]
+    mesh = serving_mesh(2, backend="nccl", timeout_s=120)
+    got = []
+    try:
+        for eager in (True, False):
+            fleet = EngineFleet(params, cfg, engine_kwargs=dict(
+                num_slots=3, page_size=16, max_model_len=128, device=dev,
+                mesh=mesh, _eager=eager))
+            assert fleet.shared_executables()
+            hs = [fleet.submit(p, max_new_tokens=12, policy="round_robin")
+                  for p in prompts]
+            _step_all(fleet)
+            streams = [list(fleet.result(h, timeout=60).token_ids)
+                       for h in hs]
+            pools = {l: [pool_digest(e._pool)] +
+                     e._link.worker_query("pool_digest")
+                     for l, e in fleet.engines.items()}
+            replays = {l: e.rank_replays() for l, e in fleet.engines.items()}
+            leader = fleet.engines["engine0"]
+            shard = sum(t.numel() * t.element_size() for t in
+                        _leaves(leader.params))
+            assert mesh.query(1, "weight_bytes") == shard
+            got.append((streams, pools))
+            assert all(r == [0, 0] if eager else r[0] == r[1] > 0
+                       for r in replays.values()), replays
+            del fleet, leader
+            gc.collect()        # the eager replicas leave the worker
+    finally:
+        mesh.close()
+    assert got[0] == got[1]
+
+
+def _step_all(fleet):
+    """Step every replica in turn until the fleet is idle (no loops)."""
+    engines = list(fleet.engines.values())
+    while any(e.has_work for e in engines):
+        for e in engines:
+            if e.has_work:
+                e.step()

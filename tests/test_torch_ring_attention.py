@@ -14,8 +14,6 @@ and hold their losses over the steps and their gathered parameters after
 the last to the single-device JAX trainer at rtol 1e-4, atol 1e-4 (the
 reference's cp tests hold the losses at rtol 1e-4).
 """
-import types
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -288,17 +286,51 @@ def test_cp_with_ep_raises_the_reference_assertion():
                                  devices=jax.devices()[:4])
 
 
-def test_cp_over_nccl_is_refused(mesh):
-    """The ring over NCCL is refused before any rank works, at the entry
-    and in the trainer; the gloo mesh, and its first ranks, take it."""
-    nccl = types.SimpleNamespace(mp=2, backend="nccl",
-                                 device=torch.device("cpu"))
-    x = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="over NCCL"):
-        ring_attention(x, x, x, nccl)
-    with pytest.raises(NotImplementedError, match="over NCCL"):
-        HybridParallelTrainer(TG.gpt_tiny(64), MeshConfig(cp=2), mesh=nccl)
-    assert mesh.backend == mesh.first(2).backend == "gloo"
+def _ring_hops(n, *, mesh):
+    """One forward and one backward hop on the ring of the first n ranks
+    (`ServingMesh.run` calls it by name): what each rank received, the
+    ring's group, and whether its process group is the mesh's one
+    "cp_ring" process group over those ranks."""
+    from paddle_tpu_torch.parallel.ring_attention import RingLink, ring_group
+    r = mesh.rank
+    if r >= n:
+        return None
+    link = RingLink.of(ring_group(mesh, list(range(n))), r, n)
+    x = torch.arange(6.0).reshape(2, 3) + 10 * r
+    fwd = link.forward_hop(x).wait()
+    bwd = link.backward_hop(x + 100).wait()
+    return {"fwd": fwd, "bwd": bwd, "name": link.group.name,
+            "ranks": link.group.ranks,
+            "one_pg": link.group.pg is mesh._pgs[("link",) + tuple(range(n))]}
+
+
+@pytest.mark.parametrize("route", ["plain", "kernels"])
+def test_ring_hops_use_one_cp_group(mesh, route):
+    """Each hop sends and receives on the ring's one process group over
+    its cp ranks ("cp_ring"): a forward hop brings rank - 1's tensor, a
+    backward hop rank + 1's.  A ring call on either route keeps the
+    traffic of the docstring, counted by direction: per rank cp - 1 sends
+    of [2, B, S/cp, KVH, D] each way and as many receives, bytes equal."""
+    n = 4
+    outs = mesh.run(_ring_hops, [((n,), {})] * RANKS)[:n]
+    for r, o in enumerate(outs):
+        base = torch.arange(6.0).reshape(2, 3)
+        torch.testing.assert_close(o["fwd"], base + 10 * ((r - 1) % n))
+        torch.testing.assert_close(o["bwd"], base + 10 * ((r + 1) % n) + 100)
+        assert (o["name"], o["ranks"], o["one_pg"]) == \
+            ("cp_ring", tuple(range(n)), True)
+    rng = np.random.RandomState(2)
+    q = rng.randn(2, 64, 4, 16).astype(np.float32)
+    k, v = (rng.randn(2, 64, 2, 16).astype(np.float32) for _ in range(2))
+    sub = mesh.first(n)
+    sub.comm.clear()
+    args = tuple(_t(a, grad=True) for a in (q, k, v))
+    torch.autograd.grad(ring_attention(*args, sub, route=route).sum(), args)
+    chunk = 2 * 2 * 16 * 2 * 16 * 4
+    want = [n - 1, (n - 1) * chunk]
+    assert {key: sub.comm[key] for key in sub.comm if key.startswith("cp_")} \
+        == {"cp_next.send": want, "cp_prev.recv": want,
+            "cp_prev.send": want, "cp_next.recv": want}
 
 
 def test_sequence_must_divide_over_cp(mesh):

@@ -215,21 +215,6 @@ def test_mp2_abort_midrun_keeps_invariants(params, tparams, meshes):
     _assert_greedy_parity(base, outs, params, TINY)
 
 
-def test_fleet_and_door_over_mp_engines_raise(tparams, meshes):
-    """A fleet (and so the front door) over tensor-parallel engines is a
-    later item (ROADMAP Queue 1 item 6b): it raises, before building an
-    engine from `engine_kwargs` and for a pre-built mp engine."""
-    from paddle_tpu_torch.inference import EngineFleet, ServingFrontend
-    with pytest.raises(NotImplementedError, match="tensor-parallel fleet"):
-        EngineFleet(tparams, TTINY, engine_kwargs=dict(mp=2, device="cpu"))
-    eng = LLMEngine(tparams, TTINY, device="cpu", page_size=8,
-                    max_model_len=64, mesh=meshes(2))
-    with pytest.raises(NotImplementedError, match="tensor-parallel fleet"):
-        EngineFleet(engines=[eng])
-    with pytest.raises(NotImplementedError, match="tensor-parallel fleet"):
-        ServingFrontend(eng)
-
-
 def test_mp_rejects_indivisible_heads(tparams):
     """mp=3 on 4 heads raises before any worker starts."""
     with pytest.raises(ValueError, match="divide"):
