@@ -282,8 +282,9 @@ Phases, one JSON line each (with its seconds):
 6i. engine_tp — tensor-parallel serving (`LLMEngine(mesh=)` over
                `parallel.tp.serving_mesh`): two ranks on this one card
                (gloo, so eager; the workers and a 4-rank mesh started
-               together), Llama-3-8B at full width cut to TP_LAYERS = 8
-               layers (phase 3's first 8; the phase took 228.5 s at 32),
+               together), Llama-3-8B at full width cut to TP_LAYERS = 4
+               layers (phase 3's first 4; the phase took 228.5 s at 32,
+               118.7 s at 8 in the first smoke with phase 8c),
                bf16, the phase-3 prompts x 32 at mp 2, fused bucketed,
                fused chunked
                (`prefill_chunk=16`) and `fuse=False`.  Every rank's counts
@@ -355,6 +356,27 @@ Phases, one JSON line each (with its seconds):
                (TF32 off) at Llama-3-8B width with 2 layers: `generate`'s
                tokens against the fused bucketed engine's streams for the
                same prompts, equal but for ties (F32_TIE).
+8c. layer_api — the eager Layer API at Llama-3-8B full width (all 32
+               layers), bf16, on the card: `paddle_tpu_torch.seed(0)`, then
+               `models.GPTForCausalLM(llama3_8b)` (its parameter count and
+               bytes printed); `model(ids)` under `no_grad` on 4 seeded
+               prompts of 512 tokens, `loss = model(ids, labels)`,
+               `loss.backward()`, and `model.generate(ids[:, :64],
+               max_new_tokens=32)`, with the kernel counts zeroed just
+               before and read just after: rows 2 and 3 exactly layers x
+               the forward calls (two, and generate's prefill for row 2 and
+               its 32 picks for row 3, as the functional path launches
+               them), rows 5 and 6 layers once, nothing composed.  Then the
+               functional path on the same tensors (`model.params_pytree()`,
+               not counted): the logits bitwise `forward`'s, the loss
+               bitwise `loss_fn`'s, every `Parameter.grad` bitwise
+               `torch.autograd.grad` of `loss_fn` (a leaf the loss does not
+               read has no grad in either; any that differ are printed in
+               the failure), the tokens bitwise the functional
+               `generate`'s (its program captured anew), and the first new
+               tokens the dense forward's argmax where the top-2 margin
+               exceeds 0.05 (ties printed).  Peak memory, the phase's
+               seconds and the card's name and power limit are printed.
 9. kernels_bwd — the flash backward pair (dkv and dq kernels) against
                `_flash_bwd_ref` at [1,1024,32,128] causal, the training
                shape [4,2048,16,128] causal and [2,333,8,64] full, in bf16
@@ -422,8 +444,9 @@ Phases, one JSON line each (with its seconds):
                four gloo ranks (gloo stages the collectives of CUDA
                tensors through host memory itself, the port its send/recv,
                counted as "<group>.send_host"/"recv_host").  (a) GPT-3 1.3B
-               (TRAIN_PP_LAYERS = 8 layers: the phase passed 180 s at all
-               24), bf16 with bf16 moments, remat,
+               (TRAIN_PP_LAYERS = 4 layers: the phase passed 180 s at all
+               24, and 213.3 s at 8 in the first smoke with phase 8c),
+               bf16 with bf16 moments, remat,
                B=8, S=2048, at `MeshConfig(pp=4, micro_batches=8)` and
                `(pp=2, vpp=2, mp=2, micro_batches=4)`, 1 warm-up and 2
                timed steps each: finite, falling losses, step 0 within
@@ -511,7 +534,7 @@ Then one line `{"kernels": [...]}` for all nine kernels and the int8 lanes of
 the two paged ones (launches summed over the main-path runs of phases 3, 4,
 5, 6b, 6c, 6d, 6e, 6f (its tier runs), 6g (its traced pass), 6h (its
 fleets), 6i (its bf16 runs, every rank's launches), 8b (its counted bf16
-call), 10, 11, 12, 12b ((a), every rank's launches), 12c ((a) and (b),
+call), 8c (the Layer API's calls), 10, 11, 12, 12b ((a), every rank's launches), 12c ((a) and (b),
 every rank's launches), 12d ((a), every rank's launches), 12e (the
 Engine's fit and resumed steps, every rank's launches), 13 (bf16 and
 int8), 14 and 15, each with the counts zeroed just before it and read
@@ -3151,6 +3174,136 @@ def generate_f32_vs_engine(dev):
 # phases 13-14: the MoE family at GPT-3 1.3B width
 # ---------------------------------------------------------------------------
 
+# Phase 8c: 4 prompts of 512 tokens through the Layer API; generate from
+# their first 64 tokens
+LAYER_BATCH, LAYER_PROMPT, LAYER_GEN_PROMPT = 4, 512, 64
+
+
+def grad_mismatches(names, params, ref_grads):
+    """Where the Layer API's `.grad` and `torch.autograd.grad` of the same
+    loss differ: [{name, why, max_abs_diff}]; [] when every one is bitwise
+    equal (or both absent: a leaf the loss does not read)."""
+    import torch
+    out = []
+    for name, p, want in zip(names, params, ref_grads):
+        got = p._t.grad
+        if got is None or want is None:
+            if (got is None) != (want is None):
+                out.append({"name": name, "why": "grad present in one"})
+        elif not torch.equal(got, want):
+            out.append({"name": name, "why": "values",
+                        "max_abs_diff": float((got.float() - want.float())
+                                              .abs().max())})
+    return out
+
+
+def layer_api(dev, smi):
+    """Phase 8c (see the module docstring): `GPTForCausalLM` at Llama-3-8B
+    width through the Layer API, held bitwise to the functional path."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate import kernels as K
+    from paddle_tpu_torch.models import gpt
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    paddle.set_device(f"gpu:{dev.index or 0}")
+    paddle.seed(0)
+    cfg = gpt.llama3_8b()
+    cfg.dtype = torch.bfloat16
+    model = gpt.GPTForCausalLM(cfg)
+    names = ["/".join(p) for p in model._paths]
+    params = model.parameters()
+    rec = {"model": "llama3_8b", "layers": cfg.num_layers, "dtype": "bf16",
+           "parameters": sum(p.size for p in params),
+           "parameter_bytes": sum(p._t.numel() * p._t.element_size()
+                                  for p in params),
+           "batch": [LAYER_BATCH, LAYER_PROMPT],
+           "init_s": time.perf_counter() - t0}
+    rng = np.random.RandomState(9)
+    ids_np = rng.randint(0, cfg.vocab_size, (LAYER_BATCH, LAYER_PROMPT))
+    labels_np = np.roll(ids_np, -1, 1)
+    labels_np[:, -1] = -100
+    ids = paddle.to_tensor(ids_np.astype(np.int32))
+    labels = paddle.to_tensor(labels_np.astype(np.int32))
+    gpt._generate_cache.clear()
+    torch.cuda.synchronize()
+    # the counted run: the Layer API's calls only
+    K.reset_launches()
+    t = time.perf_counter()
+    with paddle.no_grad():
+        logits = model(ids)
+    loss = model(ids, labels)
+    loss.backward()
+    out = model.generate(ids[:, :LAYER_GEN_PROMPT], max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    rec["layer_api_s"] = time.perf_counter() - t
+    launches = K.launches()
+    no_composed("layer_api")
+    L = cfg.num_layers
+    # two forwards (rows 2, 3) and generate's prefill (row 2) and its
+    # MAX_NEW picks (row 3: the prefill and MAX_NEW - 1 decode steps), as
+    # the functional path launches them; one backward (rows 5, 6)
+    want = {"flash_attention_fwd": 3 * L,
+            "rms_norm_fused": (2 * L + 1) * (2 + MAX_NEW),
+            "flash_bwd_dkv": L, "flash_bwd_dq": L}
+    want = {k: want.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"layer_api launches {launches}, want {want}")
+    rec["launches"] = launches
+    # the functional path on the same tensors (not counted)
+    tree = model.params_pytree()
+    t = time.perf_counter()
+    with torch.no_grad():
+        ref_logits = gpt.forward(tree, ids._t, cfg)
+    if not torch.equal(logits._t, ref_logits):
+        diff = (logits._t.float() - ref_logits.float()).abs().max()
+        raise AssertionError(f"layer_api: logits differ from forward's by "
+                             f"{float(diff)}")
+    del ref_logits, logits
+    ref_loss = gpt.loss_fn(tree, ids._t, labels._t, cfg)
+    rec["loss"] = float(loss)
+    if not torch.equal(loss._t, ref_loss):
+        raise AssertionError(f"layer_api: loss {float(loss)} != loss_fn's "
+                             f"{float(ref_loss)}")
+    leaves = [p._t for p in params]
+    ref_grads = torch.autograd.grad(ref_loss, leaves, allow_unused=True)
+    del ref_loss
+    bad = grad_mismatches(names, params, ref_grads)
+    rec["grads_without_use"] = [n for n, g in zip(names, ref_grads)
+                                if g is None]
+    del ref_grads
+    if bad:
+        raise AssertionError(f"layer_api: grads differ from "
+                             f"torch.autograd.grad of loss_fn: {bad}")
+    rec["grads_bitwise"] = len(names) - len(rec["grads_without_use"])
+    gpt._generate_cache.clear()
+    with torch.no_grad():
+        ref_out = gpt.generate(tree, ids._t[:, :LAYER_GEN_PROMPT], cfg,
+                               max_new_tokens=MAX_NEW)
+    if not torch.equal(out._t, ref_out):
+        raise AssertionError("layer_api: generate differs from the "
+                             "functional generate")
+    picks, margins = picks_and_margins(last_logits(
+        tree, cfg, ids._t[:, :LAYER_GEN_PROMPT]))
+    checks = []
+    for b, (pick, margin) in enumerate(zip(picks, margins)):
+        tok = int(out._t[b, LAYER_GEN_PROMPT])
+        if margin > 0.05 and tok != pick:
+            raise AssertionError(f"layer_api row {b}: first token {tok} != "
+                                 f"the forward's {pick} (margin {margin})")
+        checks.append({"row": b, "generate": tok, "forward": pick,
+                       "margin": margin,
+                       "result": "match" if tok == pick else "tie"})
+    rec["reference_s"] = time.perf_counter() - t
+    rec["first_token"] = checks
+    rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["nvidia_smi"] = smi
+    gpt._generate_cache.clear()
+    del model, params, leaves, tree, loss, out, ref_out
+    torch.cuda.empty_cache()
+    return rec
+
+
 def moe_config():
     """`gpt3_1p3b` with `gpt_moe_tiny`'s expert knobs: an expert layer of 4
     experts (top-2, capacity factor 2) in every block, bf16."""
@@ -4095,9 +4248,10 @@ def train_mesh(dev, smi):
 # ---------------------------------------------------------------------------
 
 # (a): GPT-3 1.3B under two pipeline layouts of four gloo ranks on the one
-# card; the depth is cut to 8, since the phase passed 180 s at 24 (PERF.md
-# section 4)
-TRAIN_PP_LAYERS = 8
+# card; the depth is cut to 8, since the phase passed 180 s at 24, then to
+# 4 (one layer a stage at pp 4, one a chunk at pp 2 x vpp 2) when the
+# smoke with phase 8c ran past 1000 s on a slower host (PERF.md section 4)
+TRAIN_PP_LAYERS = 4
 TRAIN_PP_BATCH = (8, 2048)
 TRAIN_PP_LAYOUTS = (("pp4", dict(pp=4, micro_batches=8)),
                     ("pp2_vpp2_mp2", dict(pp=2, vpp=2, mp=2,
@@ -4639,9 +4793,9 @@ TP_MODES = (("bucketed", None, True), ("chunked", 16, True),
 TP_F32_LAYERS = 2       # the f32 streams' depth (mp 1, 2 and 4, one card)
 # the bf16 runs' depth on one card: the phase took 228.5 s at all 32
 # layers (its chunked mode 112.2 s: 236 steps of 64 host-staged gloo
-# all-reduces), cut to 8 with phases 12d-12e in the smoke (PERF.md
-# section 4); `--tp` serves all 32 on four cards
-TP_LAYERS = 8
+# all-reduces), cut to 8 with phases 12d-12e in the smoke, then to 4 with
+# phase 8c (PERF.md section 4); `--tp` serves all 32 on four cards
+TP_LAYERS = 4
 
 
 def tp_serve(params, cfg, prompts, chunk, fuse, dev, mesh, eager,
@@ -5626,6 +5780,11 @@ def main():
           **rec_gen})
 
     t = time.perf_counter()
+    rec_layer = layer_api(dev, smi)
+    emit({"phase": "layer_api", "seconds": time.perf_counter() - t,
+          **rec_layer})
+
+    t = time.perf_counter()
     bwd = []
     for dtype in (torch.bfloat16, torch.float32):
         for shape, causal in (((1, 1024, 32, 128), True),
@@ -5788,7 +5947,7 @@ def main():
             *(m["tier"] for m in rec_t.values() if isinstance(m, dict)
               and "tier" in m), rec_obs, rec_fleet,
             *(rec_tp[m] for m, _, _ in TP_MODES), rec9, rec7, rec8,
-            rec_gen, rec_moe, rec_moe["int8"], rec_tm, rec_bert,
+            rec_gen, rec_layer, rec_moe, rec_moe["int8"], rec_tm, rec_bert,
             {"launches": ftp_launches},
             {"launches": mesh_launches}, {"launches": pp_launches},
             {"launches": cp_launches_sum}, {"launches": ck_launches})

@@ -1393,3 +1393,99 @@ def swap_in_pages(cache, page_ids, data):
     for n, a in cache.items():
         a.index_copy_(1, ids, data[n])
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Layer wrapper (the eager paddle-style API over the same functional core)
+# ---------------------------------------------------------------------------
+
+from ..core import generator as _gen  # noqa: E402
+from ..core.place import expected_device  # noqa: E402
+from ..core.tensor import Parameter, Tensor, apply  # noqa: E402
+from ..nn.layer.layers import Layer  # noqa: E402
+
+
+def _leaf_paths(tree, prefix=()):
+    """The key paths of a params tree in the reference's flatten order
+    (`jax.tree_util.tree_flatten` sorts dict keys at every level)."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaf_paths(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+class GPTForCausalLM(Layer):
+    """The reference's Layer-API model (`paddle_tpu/models/gpt.py:581`):
+    `init_params` drawn from the default generator on the expected place,
+    each leaf a `Parameter` registered as `p0 ... pN` in the reference's
+    flatten order, so a reference `state_dict()` (as numpy arrays) loads
+    through `set_state_dict`.  `forward` runs `forward` or `loss_fn` once
+    through `apply`, so torch autograd reaches every parameter."""
+
+    def __init__(self, config: GPTConfig = None, **kwargs):
+        super().__init__()
+        self.config = config or GPTConfig(**kwargs)
+        device = expected_device()
+        raw = init_params(self.config,
+                          _gen.default_generator().torch_generator(device),
+                          device)
+        self._paths = list(_leaf_paths(raw))
+        self._flat_params = [Parameter(_at(raw, p)) for p in self._paths]
+        for i, p in enumerate(self._flat_params):
+            self.add_parameter(f"p{i}", p)
+
+    def _tree(self, leaves):
+        tree: Dict[str, Any] = {}
+        for path, leaf in zip(self._paths, leaves):
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = leaf
+        return tree
+
+    def forward(self, input_ids, labels=None):
+        tokens = input_ids._t if isinstance(input_ids, Tensor) else input_ids
+        cfg = self.config
+        if labels is not None:
+            lab = labels._t if isinstance(labels, Tensor) else labels
+            return apply("gpt_loss", lambda *leaves: loss_fn(
+                self._tree(leaves), tokens, lab, cfg), *self._flat_params)
+        return apply("gpt_forward", lambda *leaves: forward(
+            self._tree(leaves), tokens, cfg), *self._flat_params)
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
+                 top_k=None, eos_token_id=None):
+        """KV-cache autoregressive decoding (the module-level `generate`)."""
+        ids = input_ids._t if isinstance(input_ids, Tensor) else \
+            torch.as_tensor(input_ids)
+        with torch.no_grad():
+            out = generate(self.params_pytree(), ids, self.config,
+                           max_new_tokens=max_new_tokens,
+                           temperature=temperature, top_k=top_k,
+                           eos_token_id=eos_token_id)
+        return Tensor._wrap(out)
+
+    def params_pytree(self):
+        """The parameters' current torch tensors as the params dict."""
+        return self._tree([p._t for p in self._flat_params])
+
+    def load_pytree(self, tree):
+        """Rebind every parameter to the matching leaf of `tree` (a params
+        dict, e.g. `convert.params_from_numpy` of the reference's tree)."""
+        leaves = [_at(tree, path) for path in self._paths]
+        for path, p, leaf in zip(self._paths, self._flat_params, leaves):
+            if tuple(leaf.shape) != tuple(p._t.shape):
+                raise ValueError(f"{'/'.join(path)}: shape "
+                                 f"{tuple(leaf.shape)} != {p.shape}")
+        for p, leaf in zip(self._flat_params, leaves):
+            t = leaf.detach()
+            if p._t.requires_grad:
+                t.requires_grad_(True)
+            p._rebind(t)

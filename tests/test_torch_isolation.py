@@ -59,6 +59,38 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+CORE_NAMES = ("bool", "bfloat16", "float32", "int64", "set_default_dtype",
+              "get_default_dtype", "CPUPlace", "CUDAPlace", "TPUPlace",
+              "set_device", "get_device", "device_count", "Tensor",
+              "to_tensor", "no_grad", "enable_grad", "set_grad_enabled",
+              "is_grad_enabled", "seed", "get_rng_state_tracker",
+              "get_flags", "set_flags", "grad", "autograd", "ParamAttr")
+
+
+def test_core_names_import_without_jax_and_the_default_place_raises():
+    """`import paddle_tpu_torch` with the eager core's top-level names
+    (and the Layer API under them) pulls in no jax and no JAX package; a
+    Tensor made on the default place without a card raises."""
+    code = "\n".join([
+        "import sys, torch, paddle_tpu_torch as P",
+        f"missing = [n for n in {CORE_NAMES!r} if not hasattr(P, n)]",
+        "P.autograd.PyLayer, P.nn.Layer, P.nn.initializer.Normal",
+        "P.models.GPTForCausalLM, P.utils.unique_name.generate",
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'paddle_tpu'))",
+        "raised = torch.cuda.is_available()",
+        "try:",
+        "    P.to_tensor([1.0])",
+        "except RuntimeError as e:",
+        "    raised = \"set_device('cpu')\" in str(e)",
+        "print(missing, bad, raised)",
+        "sys.exit(1 if missing or bad or not raised else 0)"])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 # the observability plane: plain Python and torch.profiler, no jax; the
 # fleet and the front door: plain Python (threading, asyncio, http.server)
 OBSERVABILITY_MODULES = ("paddle_tpu_torch.inference.metrics",
@@ -86,12 +118,19 @@ DISTRIBUTED_MODULES = ("paddle_tpu_torch.distributed",
                        "paddle_tpu_torch.distributed.auto_parallel.engine")
 
 
+# the eager core and the Layer API
+CORE_MODULES = ("paddle_tpu_torch.core.tensor", "paddle_tpu_torch.autograd",
+                "paddle_tpu_torch.nn.layer.layers",
+                "paddle_tpu_torch.nn.initializer")
+
+
 @pytest.mark.parametrize("module", OBSERVABILITY_MODULES + FLEET_MODULES +
-                         MOE_MODULES + TP_MODULES + DISTRIBUTED_MODULES)
+                         MOE_MODULES + TP_MODULES + DISTRIBUTED_MODULES +
+                         CORE_MODULES)
 def test_observability_modules_import_alone(module):
     """Each module of the observability plane, the fleet, the front door,
-    the MoE dispatch, tensor-parallel serving and training, ring attention
-    and the Engine with its checkpoints imports on its own and leaves jax
+    the MoE dispatch, tensor-parallel serving and training, ring attention,
+    the Engine with its checkpoints and the eager core imports on its own and leaves jax
     and the JAX package out of sys.modules (the AST scan above covers
     their source)."""
     code = (f"import sys, {module};"
