@@ -377,6 +377,29 @@ Phases, one JSON line each (with its seconds):
                tokens the dense forward's argmax where the top-2 margin
                exceeds 0.05 (ties printed).  Peak memory, the phase's
                seconds and the card's name and power limit are printed.
+8d. ops_api — the op namespace (`ops/`, `paddle.*`, `paddle.linalg`) on
+               the card, kernel counts zeroed before.  (a) Every case of
+               the CPU twin tables (`tests/torch_op_cases.py`: the sweep,
+               math, breadth and trouble-spot cases) with
+               `set_device("gpu:0")` against the same port call with
+               `set_device("cpu")`: outputs on the card, float values and
+               gradients within the case's tolerance, integer, bool and
+               index outputs equal; creation and random ops land on the
+               card, `paddle.seed(s)` repeats a draw, another seed changes
+               it, `uniform(seed=k)` stands apart from the global state.
+               (b) 8c's logits [4, 512, 128256] bf16 (all 32 layers of
+               Llama-3-8B, kept from 8c, not recomputed): the shifted-label
+               loss composed from `cast`, `logsumexp`, `take_along_axis`,
+               `where`, `sum` within OPS_LOSS_REL of 8c's `loss_fn` value;
+               `paddle.grad` of it w.r.t. a float32 copy of the logits
+               within OPS_GRAD_TOL of (softmax - one-hot) / count;
+               `argmax(logits[:, -1])` equal to `picks_and_margins`' picks
+               (at a bf16 tie at the top, the first tied index); 32 draws a
+               row by top-k 50 / top-p 0.9 (`topk`, `sort`, `cumsum`,
+               `exp(x - logsumexp)`, `multinomial`), every token inside its
+               row's top-p set (by value, from torch alone) and repeated
+               under one seed.  No kernel launch and no composed route;
+               seconds, peak memory, the card's name and power limit.
 9. kernels_bwd — the flash backward pair (dkv and dq kernels) against
                `_flash_bwd_ref` at [1,1024,32,128] causal, the training
                shape [4,2048,16,128] causal and [2,333,8,64] full, in bf16
@@ -534,7 +557,8 @@ Then one line `{"kernels": [...]}` for all nine kernels and the int8 lanes of
 the two paged ones (launches summed over the main-path runs of phases 3, 4,
 5, 6b, 6c, 6d, 6e, 6f (its tier runs), 6g (its traced pass), 6h (its
 fleets), 6i (its bf16 runs, every rank's launches), 8b (its counted bf16
-call), 8c (the Layer API's calls), 10, 11, 12, 12b ((a), every rank's launches), 12c ((a) and (b),
+call), 8c (the Layer API's calls), 8d (none: the ops launch no
+kernel), 10, 11, 12, 12b ((a), every rank's launches), 12c ((a) and (b),
 every rank's launches), 12d ((a), every rank's launches), 12e (the
 Engine's fit and resumed steps, every rank's launches), 13 (bf16 and
 int8), 14 and 15, each with the counts zeroed just before it and read
@@ -3259,7 +3283,7 @@ def layer_api(dev, smi):
         diff = (logits._t.float() - ref_logits.float()).abs().max()
         raise AssertionError(f"layer_api: logits differ from forward's by "
                              f"{float(diff)}")
-    del ref_logits, logits
+    del ref_logits
     ref_loss = gpt.loss_fn(tree, ids._t, labels._t, cfg)
     rec["loss"] = float(loss)
     if not torch.equal(loss._t, ref_loss):
@@ -3299,7 +3323,184 @@ def layer_api(dev, smi):
     rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     rec["nvidia_smi"] = smi
     gpt._generate_cache.clear()
+    # phase 8d takes the forward's logits, the labels and the loss on
+    kept = {"logits": logits, "labels": labels, "loss": loss._t.detach()}
     del model, params, leaves, tree, loss, out, ref_out
+    torch.cuda.empty_cache()
+    return rec, kept
+
+
+# Phase 8d: the op namespace on the card
+OPS_TOP_K, OPS_TOP_P, OPS_DRAWS, OPS_SEED = 50, 0.9, 32, 1234
+OPS_LOSS_REL = 1e-5     # composed loss vs loss_fn: f32 sums in other orders
+OPS_GRAD_TOL = dict(atol=1e-9, rtol=1e-4)   # vs (softmax - one-hot) / count
+
+
+def op_cases():
+    """`tests/torch_op_cases.py`, the CPU twins' table (numpy only)."""
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_op_cases
+    return torch_op_cases
+
+
+def ops_table_on_card(paddle, place):
+    """Phase 8d (a): every twin case on the card against the port on the
+    CPU, then creation and random ops on the card.  Returns the record."""
+    import torch
+    C = op_cases()
+    worst = {name: 0.0 for name in C.TABLES}
+    for name, table in C.TABLES.items():
+        for case in table:
+            worst[name] = max(worst[name], C.port_on_device(paddle, case, place))
+    made = [paddle.zeros([2]), paddle.arange(5), paddle.full([2], 7),
+            paddle.eye(3), paddle.linspace(0, 1, 4), paddle.tril_indices(4, 4),
+            paddle.rand([3]), paddle.randn([3]), paddle.randint(0, 9, [3]),
+            paddle.randperm(8), paddle.uniform([3], seed=3),
+            paddle.multinomial(paddle.full([9], 1.0), 2)]
+    where = {str(t.place) for t in made}
+    if where != {str(paddle.CUDAPlace(torch.cuda.current_device()))}:
+        raise AssertionError(f"ops_api: creation/random ops landed on {where}")
+
+    def draw():
+        return torch.cat([paddle.rand([256])._t, paddle.randn([256])._t,
+                          paddle.randint(0, 1000, [256])._t.float()])
+    paddle.seed(OPS_SEED)
+    a = draw()
+    paddle.seed(OPS_SEED)
+    b = draw()
+    paddle.seed(OPS_SEED + 1)
+    c = draw()
+    k = paddle.uniform([256], seed=7)._t
+    paddle.rand([4096])
+    k2 = paddle.uniform([256], seed=7)._t
+    if not torch.equal(a, b) or torch.equal(a, c) or not torch.equal(k, k2):
+        raise AssertionError("ops_api: seeded draws do not repeat on the card")
+    return {"cases": {n: len(t) for n, t in C.TABLES.items()},
+            "max_abs_diff_vs_cpu": worst, "outputs_on": sorted(where),
+            "seed_repeats": True}
+
+
+def composed_loss(paddle, logits, labels):
+    """The shifted-label cross entropy from top-level ops over the
+    forward's logits (labels already shifted, -100 ignored): (the mean
+    loss, the float32 logits it differentiates)."""
+    lf = paddle.cast(logits, "float32")
+    lf.stop_gradient = False
+    valid = paddle.not_equal(labels, paddle.full_like(labels, -100))
+    safe = paddle.cast(paddle.where(valid, labels, paddle.zeros_like(labels)),
+                       "int64")
+    lse = paddle.logsumexp(lf, axis=-1)
+    picked = paddle.take_along_axis(lf, paddle.unsqueeze(safe, -1), axis=-1)
+    per = paddle.where(valid, lse - paddle.squeeze(picked, -1),
+                       paddle.zeros_like(lse))
+    count = paddle.sum(paddle.cast(valid, "float32"))
+    return paddle.sum(per) / count, lf
+
+
+def top_p_draws(paddle, last, seed):
+    """OPS_DRAWS tokens a row of `last` [B, V] by top-k (OPS_TOP_K) then
+    top-p (OPS_TOP_P) sampling under `paddle.seed(seed)`: [B, OPS_DRAWS]."""
+    lf = paddle.cast(last, "float32")
+    vals, idx = paddle.topk(lf, OPS_TOP_K, axis=-1)
+    srt = paddle.sort(vals, axis=-1, descending=True)
+    if not paddle.equal_all(srt, vals).item():
+        raise AssertionError("ops_api: topk's values are not sorted")
+    probs = paddle.exp(srt - paddle.logsumexp(srt, axis=-1, keepdim=True))
+    before = paddle.cumsum(probs, axis=-1) - probs
+    kept = paddle.where(before < OPS_TOP_P, probs, paddle.zeros_like(probs))
+    paddle.seed(seed)
+    pos = paddle.multinomial(kept, OPS_DRAWS, replacement=True)
+    return paddle.take_along_axis(idx, pos, axis=-1)
+
+
+def ops_api(dev, smi, kept):
+    """Phase 8d (see the module docstring): the op table on the card, then
+    the ops over 8c's Llama-3-8B logits."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate import kernels as K
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    place = f"gpu:{dev.index or 0}"
+    paddle.set_device(place)
+    K.reset_launches()
+    rec = {"table": ops_table_on_card(paddle, place)}
+    rec["table_s"] = time.perf_counter() - t0
+    paddle.set_device(place)
+    # (b) at Llama-3-8B width: 8c's logits [4, 512, 128256] bf16
+    t = time.perf_counter()
+    logits, labels = kept["logits"], kept["labels"]
+    rec["logits"] = {"shape": logits.shape, "dtype": logits.dtype.name}
+    loss, lf = composed_loss(paddle, logits, labels)
+    want = float(kept["loss"])
+    rel = abs(float(loss) - want) / abs(want)
+    rec["loss"] = {"composed": float(loss), "loss_fn": want, "rel_err": rel,
+                   "tol": OPS_LOSS_REL}
+    if rel > OPS_LOSS_REL:
+        raise AssertionError(f"ops_api: composed loss {float(loss)} vs "
+                             f"loss_fn's {want} (rel {rel:.3g})")
+    (g,) = paddle.grad([loss], [lf])
+    with torch.no_grad():
+        lab = labels._t.long()
+        valid = (lab != -100)
+        ref = torch.softmax(lf._t, -1)
+        ref.scatter_add_(-1, torch.where(valid, lab, 0)[..., None],
+                         -torch.ones_like(ref[..., :1]))
+        ref *= valid[..., None] / valid.sum()
+        err = float((g._t - ref).abs().max())
+        ok = bool(torch.allclose(g._t, ref, **OPS_GRAD_TOL))
+        del ref
+    rec["grad"] = {"max_abs_err": err, "tol": OPS_GRAD_TOL}
+    if not ok:
+        raise AssertionError(f"ops_api: grad of the composed loss vs "
+                             f"(softmax - one-hot)/count: max abs err {err}")
+    del g, lf, loss
+    last = logits[:, -1]
+    picks = paddle.argmax(last, axis=-1).numpy().tolist()
+    want_picks, margins = picks_and_margins(last._t.float())
+    greedy = []
+    for b, (p, w, m) in enumerate(zip(picks, want_picks, margins)):
+        row = last._t[b].float()
+        top = float(row.max())
+        first_max = int(torch.nonzero(row == top)[0])
+        # a bf16 tie at the top: argmax takes the first of the tied
+        if p != (w if m > 0 else first_max):
+            raise AssertionError(f"ops_api row {b}: argmax {p} vs the "
+                                 f"forward's pick {w} (margin {m})")
+        greedy.append({"row": b, "argmax": p, "pick": w, "margin": m,
+                       "result": "match" if p == w else "tie"})
+    rec["greedy"] = greedy
+    tokens = top_p_draws(paddle, last, OPS_SEED)
+    again = top_p_draws(paddle, last, OPS_SEED)
+    if not paddle.equal_all(tokens, again).item():
+        raise AssertionError("ops_api: one seed drew two token streams")
+    # the top-p set by value, from torch alone: a token is in if its logit
+    # reaches the last one that the sorted top-k's mass needs to pass p
+    with torch.no_grad():
+        srt = torch.sort(last._t.float(), -1, descending=True).values
+        p = torch.softmax(srt[:, :OPS_TOP_K], -1)
+        need = ((p.cumsum(-1) - p) < OPS_TOP_P).sum(-1)
+        floor = srt.gather(-1, (need - 1)[:, None])
+        got = last._t.float().gather(-1, tokens._t)
+        inside = bool((got >= floor).all())
+    rec["sampling"] = {"top_k": OPS_TOP_K, "top_p": OPS_TOP_P,
+                       "draws": OPS_DRAWS, "top_p_set_sizes": need.tolist(),
+                       "distinct_tokens": [len(set(r)) for r in
+                                           tokens.numpy().tolist()],
+                       "inside_top_p": inside, "repeat": True}
+    if not inside:
+        raise AssertionError("ops_api: a sampled token lies outside its "
+                             "row's top-p set")
+    torch.cuda.synchronize()
+    rec["llama_s"] = time.perf_counter() - t
+    launches = K.launches()
+    if any(launches.values()):
+        raise AssertionError(f"ops_api: the ops launched kernels {launches}")
+    no_composed("ops_api")
+    rec["launches"] = launches
+    rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["nvidia_smi"] = smi
     torch.cuda.empty_cache()
     return rec
 
@@ -5780,9 +5981,15 @@ def main():
           **rec_gen})
 
     t = time.perf_counter()
-    rec_layer = layer_api(dev, smi)
+    rec_layer, kept = layer_api(dev, smi)
     emit({"phase": "layer_api", "seconds": time.perf_counter() - t,
           **rec_layer})
+
+    t = time.perf_counter()
+    rec_ops = ops_api(dev, smi, kept)
+    del kept
+    torch.cuda.empty_cache()
+    emit({"phase": "ops_api", "seconds": time.perf_counter() - t, **rec_ops})
 
     t = time.perf_counter()
     bwd = []
@@ -5947,7 +6154,8 @@ def main():
             *(m["tier"] for m in rec_t.values() if isinstance(m, dict)
               and "tier" in m), rec_obs, rec_fleet,
             *(rec_tp[m] for m, _, _ in TP_MODES), rec9, rec7, rec8,
-            rec_gen, rec_layer, rec_moe, rec_moe["int8"], rec_tm, rec_bert,
+            rec_gen, rec_layer, rec_ops, rec_moe, rec_moe["int8"], rec_tm,
+            rec_bert,
             {"launches": ftp_launches},
             {"launches": mesh_launches}, {"launches": pp_launches},
             {"launches": cp_launches_sum}, {"launches": ck_launches})

@@ -118,10 +118,11 @@ DISTRIBUTED_MODULES = ("paddle_tpu_torch.distributed",
                        "paddle_tpu_torch.distributed.auto_parallel.engine")
 
 
-# the eager core and the Layer API
+# the eager core, the Layer API, the op namespace and paddle.linalg
 CORE_MODULES = ("paddle_tpu_torch.core.tensor", "paddle_tpu_torch.autograd",
                 "paddle_tpu_torch.nn.layer.layers",
-                "paddle_tpu_torch.nn.initializer")
+                "paddle_tpu_torch.nn.initializer", "paddle_tpu_torch.ops",
+                "paddle_tpu_torch.ops.inplace", "paddle_tpu_torch.linalg")
 
 
 @pytest.mark.parametrize("module", OBSERVABILITY_MODULES + FLEET_MODULES +
@@ -130,9 +131,9 @@ CORE_MODULES = ("paddle_tpu_torch.core.tensor", "paddle_tpu_torch.autograd",
 def test_observability_modules_import_alone(module):
     """Each module of the observability plane, the fleet, the front door,
     the MoE dispatch, tensor-parallel serving and training, ring attention,
-    the Engine with its checkpoints and the eager core imports on its own and leaves jax
-    and the JAX package out of sys.modules (the AST scan above covers
-    their source)."""
+    the Engine with its checkpoints, the eager core and its ops imports on
+    its own and leaves jax and the JAX package out of sys.modules (the AST
+    scan above covers their source)."""
     code = (f"import sys, {module};"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"
