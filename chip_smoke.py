@@ -400,6 +400,34 @@ Phases, one JSON line each (with its seconds):
                row's top-p set (by value, from torch alone) and repeated
                under one seed.  No kernel launch and no composed route;
                seconds, peak memory, the card's name and power limit.
+8e. nn_api — `nn/` on the card, kernel counts zeroed before.  (a) Every
+               case of the nn CPU twin tables (`tests/torch_nn_cases.py`)
+               with `set_device("gpu:0")` against the same port call with
+               `set_device("cpu")` (floats and gradients within the case's
+               tolerance, integer outputs equal), and the drawing
+               functions repeated under one seed on the card.  (b) At
+               BERT-base width (the repo's `bert_base` preset: D 768, 12
+               heads of 64, FFN 3072, 12 layers, vocab 30522), bf16, after
+               `paddle_tpu_torch.seed(0)`: `nn.Embedding`, a post-LN
+               `nn.TransformerEncoder` (gelu, dropout 0) and an `nn.Linear`
+               head on B 16 x S 512 seeded ids, `F.cross_entropy` with
+               `ignore_index=-100` on the 85% of positions left unlabeled,
+               `loss.backward()`: the counts zeroed just before and read
+               just after, rows 2, 5 and 6 exactly 12 each, nothing
+               composed, a finite loss and a grad on every parameter;
+               then, uncounted, the same pass timed three times with the
+               in-place version check and three times with it a no-op,
+               alternating, and the `apply` calls a pass makes.
+               (c) The same stack in float32 (TF32 off), once through the
+               kernels and once with an all-true bool `attn_mask` (the
+               plain route: exactly 12 composed calls): logits, loss and
+               every parameter's grad within BWD_F32_REL * max(1,
+               max|ref|); the largest difference printed.  (d) Over 8c's
+               logits [4, 512, 128256] bf16 (kept from 8c):
+               `F.cross_entropy` of the shifted labels within OPS_LOSS_REL
+               of 8c's `loss_fn` value, and `F.softmax(dtype="float32")`
+               rows summing to 1 within NN_SOFTMAX_TOL.  Seconds, peak
+               memory, the card's name and power limit.
 9. kernels_bwd — the flash backward pair (dkv and dq kernels) against
                `_flash_bwd_ref` at [1,1024,32,128] causal, the training
                shape [4,2048,16,128] causal and [2,333,8,64] full, in bf16
@@ -558,7 +586,7 @@ the two paged ones (launches summed over the main-path runs of phases 3, 4,
 5, 6b, 6c, 6d, 6e, 6f (its tier runs), 6g (its traced pass), 6h (its
 fleets), 6i (its bf16 runs, every rank's launches), 8b (its counted bf16
 call), 8c (the Layer API's calls), 8d (none: the ops launch no
-kernel), 10, 11, 12, 12b ((a), every rank's launches), 12c ((a) and (b),
+kernel), 8e ((b), the BERT-base nn stack), 10, 11, 12, 12b ((a), every rank's launches), 12c ((a) and (b),
 every rank's launches), 12d ((a), every rank's launches), 12e (the
 Engine's fit and resumed steps, every rank's launches), 13 (bf16 and
 int8), 14 and 15, each with the counts zeroed just before it and read
@@ -3505,6 +3533,224 @@ def ops_api(dev, smi, kept):
     return rec
 
 
+# Phase 8e: nn at BERT-base width (the repo's `bert_base` preset)
+NN_VOCAB, NN_D, NN_HEADS, NN_FFN, NN_LAYERS = 30522, 768, 12, 3072, 12
+NN_BATCH, NN_SEQ, NN_LABELED, NN_SEED = 16, 512, 0.15, 4321
+NN_SOFTMAX_TOL = 1e-5   # f32 softmax rows of 128256 terms: sum within 1e-5
+
+
+def nn_cases():
+    """`tests/torch_nn_cases.py`, the nn CPU twins' table (numpy only)."""
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_nn_cases
+    return torch_nn_cases
+
+
+def nn_stack(paddle, dtype):
+    """`paddle.seed(0)`, then `nn.Embedding`, a 12-layer post-LN
+    `nn.TransformerEncoder` (gelu, no dropout) and an `nn.Linear` head at
+    BERT-base width, in `dtype`."""
+    nn = paddle.nn
+    paddle.seed(0)
+    layers = [nn.Embedding(NN_VOCAB, NN_D),
+              nn.TransformerEncoder(nn.TransformerEncoderLayer(
+                  NN_D, NN_HEADS, NN_FFN, dropout=0.0, activation="gelu"),
+                  NN_LAYERS),
+              nn.Linear(NN_D, NN_VOCAB)]
+    for lyr in layers:
+        lyr.astype(dtype)
+    return layers
+
+
+def nn_batch(paddle):
+    """Seeded ids [B, S] and MLM labels: a random id at NN_LABELED of the
+    positions, -100 (ignored) at the rest."""
+    rng = np.random.RandomState(NN_SEED)
+    ids = rng.randint(0, NN_VOCAB, (NN_BATCH, NN_SEQ))
+    labels = np.where(rng.rand(NN_BATCH, NN_SEQ) < NN_LABELED,
+                      rng.randint(0, NN_VOCAB, (NN_BATCH, NN_SEQ)), -100)
+    return paddle.to_tensor(ids), paddle.to_tensor(labels)
+
+
+def nn_pass(paddle, layers, ids, labels, mask=None):
+    """Forward, `F.cross_entropy` (ignore_index -100) and `backward()`:
+    (logits, loss)."""
+    emb, enc, head = layers
+    logits = head(enc(emb(ids), mask))
+    loss = paddle.nn.functional.cross_entropy(logits, labels,
+                                              ignore_index=-100)
+    loss.backward()
+    return logits, loss
+
+
+def version_check_cost(paddle, layers, ids, labels, rounds=3):
+    """The in-place version check's cost on (b)'s pass: the `apply` calls
+    a pass makes (each records its inputs' versions and hangs a prehook on
+    its outputs' grad node), then the pass timed with the check and with
+    it replaced by a no-op, alternating.  These launches are not counted:
+    (b) read its counts before."""
+    import torch
+    from paddle_tpu_torch.core import tensor as core_tensor
+    check, calls = core_tensor._version_check, []
+
+    def counted(*args):
+        calls.append(args[0])
+        check(*args)
+
+    def timed(fn):
+        core_tensor._version_check = fn
+        for lyr in layers:
+            lyr.clear_gradients()
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        nn_pass(paddle, layers, ids, labels)
+        torch.cuda.synchronize()
+        return time.perf_counter() - s
+
+    times = {"checked": [], "unchecked": []}
+    try:
+        timed(counted)
+        for _ in range(rounds):
+            times["checked"].append(timed(check))
+            times["unchecked"].append(timed(lambda *args: None))
+    finally:
+        core_tensor._version_check = check
+    for lyr in layers:
+        lyr.clear_gradients()
+    return {"apply_calls_a_pass": len(calls), "pass_s": times,
+            "median_s": {k: sorted(v)[len(v) // 2] for k, v in times.items()}}
+
+
+def nn_api(dev, smi, kept):
+    """Phase 8e (see the module docstring): the nn twin table on the card,
+    the BERT-base stack through the kernels in bf16, the kernel route
+    against the plain route in f32, and the losses over 8c's logits."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate import kernels as K
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    place = f"gpu:{dev.index or 0}"
+    # (a) every nn twin case on the card against the port on the CPU
+    C = nn_cases()
+    port_on_device = op_cases().port_on_device
+    K.reset_launches()
+    worst = {name: 0.0 for name in C.TABLES}
+    for name, table in C.TABLES.items():
+        for case in table:
+            worst[name] = max(worst[name],
+                              port_on_device(paddle, case, place))
+    paddle.set_device(place)
+    for name, fn in C.RANDOM.items():
+        a, b, c = C.seeded_repeats(paddle, fn)
+        if not np.array_equal(a, b) or np.array_equal(a, c):
+            raise AssertionError(f"nn_api: {name} does not repeat under one "
+                                 f"seed on the card")
+    rec = {"table": {"cases": {n: len(t) for n, t in C.TABLES.items()},
+                     "max_abs_diff_vs_cpu": worst,
+                     "random_repeat": sorted(C.RANDOM)},
+           "table_s": time.perf_counter() - t0}
+    # (b) the stack at BERT-base width, bf16, through the kernels
+    t = time.perf_counter()
+    layers = nn_stack(paddle, "bfloat16")
+    params = [p for lyr in layers for p in lyr.parameters()]
+    ids, labels = nn_batch(paddle)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t1 = time.perf_counter()
+    logits, loss = nn_pass(paddle, layers, ids, labels)
+    torch.cuda.synchronize()
+    rec["bf16_pass_s"] = time.perf_counter() - t1
+    launches = K.launches()
+    no_composed("nn_api")
+    want = {k: NN_LAYERS if k in ("flash_attention_fwd", "flash_bwd_dkv",
+                                  "flash_bwd_dq") else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"nn_api launches {launches}, want {want}")
+    missing = [i for i, p in enumerate(params) if p.grad is None]
+    if not math.isfinite(float(loss)) or missing:
+        raise AssertionError(f"nn_api: loss {float(loss)}, parameters "
+                             f"without grad {missing}")
+    rec.update({"model": "bert_base width: Embedding + TransformerEncoder + "
+                "Linear", "layers": NN_LAYERS, "dtype": "bf16",
+                "batch": [NN_BATCH, NN_SEQ],
+                "labeled": int((labels._t != -100).sum()),
+                "parameters": sum(p.size for p in params),
+                "logits": logits.shape, "loss": float(loss),
+                "launches": launches,
+                "bf16_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "bf16_s": time.perf_counter() - t})
+    del logits, loss
+    rec["version_check"] = version_check_cost(paddle, layers, ids, labels)
+    del layers, params
+    torch.cuda.empty_cache()
+    # (c) f32, TF32 off: the kernels against the plain route (an all-true
+    # bool mask), logits, loss and every grad within BWD_F32_REL
+    t = time.perf_counter()
+    layers = nn_stack(paddle, "float32")
+    params = [(n, p) for lyr in layers for n, p in lyr.named_parameters()]
+    runs = []
+    for mask in (None, paddle.to_tensor(torch.ones(
+            1, 1, NN_SEQ, NN_SEQ, dtype=torch.bool, device=dev))):
+        K.reset_launches()
+        logits, loss = nn_pass(paddle, layers, ids, labels, mask)
+        routed = K.composed_calls()["flash_attention_fused"]
+        runs.append((logits._t.detach(), float(loss),
+                     [p.grad._t.clone() for _, p in params], routed))
+        for lyr in layers:
+            lyr.clear_gradients()
+        del logits, loss
+    (lk, sk, gk, rk), (lp, sp, gp, rp) = runs
+    if rk != 0 or rp != NN_LAYERS:
+        raise AssertionError(f"nn_api f32: composed calls {rk} (kernels) "
+                             f"and {rp} (mask), want 0 and {NN_LAYERS}")
+    worst_f32, bad = {}, []
+    for name, got, ref in [("logits", lk, lp),
+                           ("loss", torch.tensor(sk), torch.tensor(sp))] + \
+            [(n, g, r) for (n, _), g, r in zip(params, gk, gp)]:
+        err = float((got - ref).abs().max())
+        lim = BWD_F32_REL * max(1.0, float(ref.abs().max()))
+        worst_f32[name] = err
+        if err > lim:
+            bad.append((name, err, lim))
+    if bad:
+        raise AssertionError(f"nn_api f32: kernel route vs plain route {bad}")
+    top = max(worst_f32, key=worst_f32.get)
+    rec["f32_vs_plain"] = {"tol": "BWD_F32_REL * max(1, max|ref|)",
+                           "bwd_f32_rel": BWD_F32_REL, "composed_calls": rp,
+                           "loss": [sk, sp], "max_abs_diff": worst_f32[top],
+                           "at": top, "logits_max_abs_diff":
+                           worst_f32["logits"], "tensors": len(worst_f32)}
+    rec["f32_s"] = time.perf_counter() - t
+    del layers, params, runs, lk, lp, gk, gp
+    torch.cuda.empty_cache()
+    # (d) F.cross_entropy and F.softmax over 8c's logits
+    t = time.perf_counter()
+    F = paddle.nn.functional
+    ce = float(F.cross_entropy(kept["logits"], kept["labels"]))
+    want_loss = float(kept["loss"])
+    rel = abs(ce - want_loss) / abs(want_loss)
+    sums = paddle.sum(F.softmax(kept["logits"], dtype="float32"), axis=-1)
+    sum_err = float((sums._t - 1.0).abs().max())
+    del sums
+    rec["llama_logits"] = {"shape": kept["logits"].shape,
+                           "cross_entropy": ce, "loss_fn": want_loss,
+                           "rel_err": rel, "tol": OPS_LOSS_REL,
+                           "softmax_row_sum_max_err": sum_err,
+                           "softmax_tol": NN_SOFTMAX_TOL,
+                           "s": time.perf_counter() - t}
+    if rel > OPS_LOSS_REL or sum_err > NN_SOFTMAX_TOL:
+        raise AssertionError(f"nn_api: cross_entropy {ce} vs loss_fn "
+                             f"{want_loss} (rel {rel:.3g}), softmax rows "
+                             f"off 1 by {sum_err}")
+    torch.cuda.synchronize()
+    rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["nvidia_smi"] = smi
+    torch.cuda.empty_cache()
+    return rec
+
+
 def moe_config():
     """`gpt3_1p3b` with `gpt_moe_tiny`'s expert knobs: an expert layer of 4
     experts (top-2, capacity factor 2) in every block, bf16."""
@@ -5987,9 +6233,14 @@ def main():
 
     t = time.perf_counter()
     rec_ops = ops_api(dev, smi, kept)
-    del kept
     torch.cuda.empty_cache()
     emit({"phase": "ops_api", "seconds": time.perf_counter() - t, **rec_ops})
+
+    t = time.perf_counter()
+    rec_nn = nn_api(dev, smi, kept)
+    del kept
+    torch.cuda.empty_cache()
+    emit({"phase": "nn_api", "seconds": time.perf_counter() - t, **rec_nn})
 
     t = time.perf_counter()
     bwd = []
@@ -6154,7 +6405,8 @@ def main():
             *(m["tier"] for m in rec_t.values() if isinstance(m, dict)
               and "tier" in m), rec_obs, rec_fleet,
             *(rec_tp[m] for m, _, _ in TP_MODES), rec9, rec7, rec8,
-            rec_gen, rec_layer, rec_ops, rec_moe, rec_moe["int8"], rec_tm,
+            rec_gen, rec_layer, rec_ops, rec_nn, rec_moe, rec_moe["int8"],
+            rec_tm,
             rec_bert,
             {"launches": ftp_launches},
             {"launches": mesh_launches}, {"launches": pp_launches},

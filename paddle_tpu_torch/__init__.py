@@ -1,15 +1,15 @@
 """PyTorch/CUDA port of `paddle_tpu`: the eager Tensor, autograd and Layer
 API with the op namespace (`paddle.*`, `paddle.linalg` and the `Tensor`
-methods bound from the ops), the serving path, the trainer (one device or
-a mesh), the auto-parallel Engine and the flash-attention API.
+methods bound from the ops) and `nn` (the functional and Layer modules of
+the transformer path), the serving path, the trainer (one device or a
+mesh), the auto-parallel Engine and the flash-attention API.
 
 The JAX package `paddle_tpu` stays the reference; this package mirrors its
-module paths (`core/*`, `autograd/*`, `ops/*`, `linalg.py`,
-`nn/layer/layers.py`, `nn/initializer`, `models/gpt.py`,
+module paths (`core/*`, `autograd/*`, `ops/*`, `linalg.py`, `nn/*`,
+`incubate/nn/functional`, `models/gpt.py`,
 `incubate/kernels/*`, `inference/*`, `parallel/hybrid.py`,
-`distributed/auto_parallel/engine.py`,
-`nn/functional/flash_attention.py`) and keeps its layouts at every public
-function.  It imports torch and numpy, never jax and nothing of
+`distributed/auto_parallel/engine.py`) and keeps its layouts at every
+public function.  It imports torch and numpy, never jax and nothing of
 `paddle_tpu`.  Entry points run on the CUDA card unless the caller passes
 `device="cpu"` (or, for the eager API, `set_device("cpu")`), which takes
 every kernel's plain PyTorch version.

@@ -14,7 +14,7 @@ from typing import List
 
 import torch
 
-from ..core.tensor import Tensor
+from ..core.tensor import Tensor, _version_check
 
 _saved_hooks: List = []
 
@@ -114,9 +114,13 @@ class PyLayer(metaclass=PyLayerMeta):
         raw = [a._t if isinstance(a, Tensor) else a for a in args]
         outs = _function(cls).apply(PyLayerContext(), kwargs, *raw)
         if isinstance(outs, tuple):
-            return tuple(Tensor._wrap(o) if isinstance(o, torch.Tensor)
-                         else o for o in outs)
-        return Tensor._wrap(outs) if isinstance(outs, torch.Tensor) else outs
+            res = tuple(Tensor._wrap(o) if isinstance(o, torch.Tensor)
+                        else o for o in outs)
+        else:
+            res = Tensor._wrap(outs) if isinstance(outs, torch.Tensor) \
+                else outs
+        _version_check(cls.__name__, args, res)
+        return res
 
 
 LegacyPyLayer = PyLayer

@@ -19,13 +19,22 @@ modules fill: the AMP state and the static-graph recorder.
 
 In-place ops (`add_` ... `set_value`) and `__setitem__` rebind `_t` to a new
 torch tensor out of place, as the reference rebinds `_data`; the wrapper's
-hooks and its `retain_grads` mark move to the new tensor.  A reader recorded
-before the rebind keeps the old value and differentiates through it (the
-reference's engine raises at backward there, on its version check), and a
+hooks and its `retain_grads` mark move to the new tensor.  Each bumps the
+wrapper's `_version`, as the reference does, and `apply` keeps the
+reference's version check (`GradNode.input_versions`): every op records its
+Tensor inputs' versions, and when backward reaches the op's outputs an input
+rebound in place since raises "modified by an inplace operation", whether
+or not the op saved it (`_version_check`).  The in-place op's own nodes do
+not check the wrapper they rebind (the reference's snapshot), so a chain of
+in-place ops differentiates; a view is a wrapper of its own, so an in-place
+op on it leaves its base's readers alone, as in the reference.  A
 leaf that needs grad takes `x[i] = v` without torch's in-place-on-leaf
 error.  Value-replacing ops (`zero_`, `fill_`, `copy_`, `set_value`) keep a
 leaf a leaf, with its `.grad`; on a non-leaf they pass the gradient through
-to the old value's graph, as the reference keeps the tensor's node.
+to the old value's graph, as the reference keeps the tensor's node.  Where
+the reference writes `_data` itself (initializers, `set_state_dict`,
+running statistics, the clip utilities), the port calls `_replace` or
+writes under `no_grad`, and bumps nothing.
 
 Dtypes: the reference runs JAX with 64-bit types off, so its int and float64
 data arrive as 32-bit; the port keeps them as given (Python ints int64, a
@@ -34,6 +43,7 @@ of them takes the default dtype, as in the reference.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable
 
 import numpy as np
@@ -143,7 +153,7 @@ class Tensor:
 
     __slots__ = ("_t", "name", "persistable", "trainable", "is_distributed",
                  "_optimize_attrs", "_hooks", "_retain", "_sg", "_grad_wrap",
-                 "__weakref__", "__dict__")
+                 "_vc", "__weakref__", "__dict__")
 
     _name_counter = 0
 
@@ -159,6 +169,9 @@ class Tensor:
 
     def _init(self, t, name=None):
         self._t = t
+        # in-place version counter (ref inplace_version), in a cell that the
+        # readers' version checks hold: it outlives the wrapper
+        self._vc = [0]
         self._sg = True
         self._hooks = []
         self._retain = False
@@ -171,6 +184,14 @@ class Tensor:
             Tensor._name_counter += 1
             name = f"generated_tensor_{Tensor._name_counter}"
         self.name = name
+
+    @property
+    def _version(self):
+        return self._vc[0]
+
+    @_version.setter
+    def _version(self, v):
+        self._vc[0] = v
 
     @classmethod
     def _wrap(cls, t: torch.Tensor) -> "Tensor":
@@ -450,7 +471,7 @@ class Tensor:
             where[dst] = v
             return out
 
-        self._rebind(apply("set_value", setfn, self, value)._t)
+        self._inplace(lambda: apply("set_value", setfn, self, value))
 
     # ---- arithmetic dunders (full set; implementations are torch ops) ----
     def __add__(self, o):
@@ -539,38 +560,54 @@ class Tensor:
         return apply("bitwise_xor", torch.bitwise_xor, self, o)
 
     # in-place variants (trailing-underscore, paddle style): rebind _t
-    def _inplace_from(self, out: "Tensor"):
+    def _inplace(self, compute) -> "Tensor":
+        """Rebind to `compute()`, an op on the current value, and bump the
+        version (the reference's `_inplace_from`).  The nodes `compute`
+        records do not check this wrapper: they read the value before the
+        bump, as the reference's snapshot does, so a later in-place op on
+        it does not fail them."""
+        stack = _exempt.__dict__.setdefault("stack", [])
+        stack.append(self)
+        try:
+            out = compute()
+        finally:
+            stack.pop()
+        self._version += 1
         return self._rebind(out._t)
 
     def add_(self, o):
-        return self._inplace_from(self.__add__(o))
+        return self._inplace(lambda: self.__add__(o))
 
     def subtract_(self, o):
-        return self._inplace_from(self.__sub__(o))
+        return self._inplace(lambda: self.__sub__(o))
 
     def multiply_(self, o):
-        return self._inplace_from(self.__mul__(o))
+        return self._inplace(lambda: self.__mul__(o))
 
     def divide_(self, o):
-        return self._inplace_from(self.__truediv__(o))
+        return self._inplace(lambda: self.__truediv__(o))
 
     def scale_(self, scale=1.0, bias=0.0):
-        return self._inplace_from(apply("scale", lambda x: x * scale + bias,
-                                        self))
+        return self._inplace(lambda: apply("scale", lambda x: x * scale + bias,
+                                           self))
+
+    def _set(self, value: torch.Tensor) -> "Tensor":
+        self._version += 1
+        return self._replace(value)
 
     def zero_(self):
-        return self._replace(torch.zeros_like(self._t))
+        return self._set(torch.zeros_like(self._t))
 
     def fill_(self, value):
-        return self._replace(torch.full_like(self._t, value))
+        return self._set(torch.full_like(self._t, value))
 
     def copy_(self, other, blocking=True):
-        return self._replace(torch.as_tensor(_raw(other)))
+        return self._set(torch.as_tensor(_raw(other)))
 
     def set_value(self, value):
         v = value if isinstance(value, (Tensor, torch.Tensor)) else \
             from_numpy(np.asarray(value))
-        return self._replace(_raw(v))
+        return self._set(_raw(v))
 
     # value state used by optimizers/Layer
     def _is_initialized(self):
@@ -666,10 +703,12 @@ def apply(name: str, fn: Callable, *inputs) -> Any:
     forward -> optional NaN check.  torch autograd records the graph when
     grad mode is on and an input requires grad.  `fn` consumes and produces
     torch tensors; attrs are closed over by the caller."""
+    given = inputs
     if _amp_state is not None and _amp_state.enabled:
         inputs = _amp_state.cast_inputs(name, inputs)
     datas = _datas(inputs)
     res = _wrap_outputs(name, fn(*datas), datas)
+    _version_check(name, given, res)
     if _static_recorder[0] is not None:
         _static_recorder[0]._record(name, fn, inputs, res)
     return res
@@ -690,6 +729,39 @@ def _wrap_outputs(name, out, datas):
     if isinstance(out, (tuple, list)):
         return tuple(wrap(o) for o in out)
     return wrap(out)
+
+
+# this thread's wrappers whose in-place op is being recorded
+# (`Tensor._inplace`), in `_exempt.stack`
+_exempt = threading.local()
+
+
+def _version_check(name, inputs, outputs):
+    """Record the Tensor inputs' versions and check them when backward
+    reaches the outputs' nodes (the reference's `input_versions`): an input
+    bumped by an in-place op since raises there.  The check holds each
+    input's version cell, not the wrapper, so no value is kept alive and a
+    bump still counts after the wrapper is gone."""
+    outs = outputs if isinstance(outputs, tuple) else (outputs,)
+    nodes = {o._t.grad_fn for o in outs
+             if isinstance(o, Tensor) and o._t.grad_fn is not None}
+    if not nodes:
+        return
+    skip = getattr(_exempt, "stack", ())
+    seen = [(x._vc, x._vc[0]) for x in inputs
+            if isinstance(x, Tensor) and not any(x is e for e in skip)]
+    if not seen:
+        return
+
+    def check(grad_outputs):
+        for cell, version in seen:
+            if cell[0] != version:
+                raise RuntimeError(
+                    "one of the variables needed for gradient computation "
+                    f"has been modified by an inplace operation: input of "
+                    f"'{name}' is at version {cell[0]}, expected {version}")
+    for node in nodes:
+        node.register_prehook(check)
 
 
 def _check_numerics(name, out):

@@ -1,1 +1,2 @@
 from . import kernels  # noqa: F401
+from . import nn  # noqa: F401

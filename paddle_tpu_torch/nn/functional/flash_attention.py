@@ -3,8 +3,9 @@
 `python/paddle/nn/functional/flash_attention.py`).
 
 Layout [batch, seqlen, nheads, headdim] as in the reference.  The functions
-take torch tensors (the Paddle `Tensor` wrapper is a later slice) and
-return `(out, None)`.
+take the port's `Tensor`s (through `apply`, returning a `Tensor`) or torch
+tensors (returning a torch tensor), and return `(out, None)`.  Dropout
+draws from the port's generator for the query's device.
 
 - `flash_attention`: with `segment_ids` and no dropout, the segment-masked
   kernels (`flash_attention_varlen`); with `segment_ids` and dropout, the
@@ -25,21 +26,37 @@ from __future__ import annotations
 
 import torch
 
+from ...core import generator as _gen
+from ...core.tensor import Tensor, _raw, apply
 from ...incubate.kernels.flash_attention import (flash_attention_fused,
                                                  flash_attention_varlen)
+
+
+def _through_apply(name, fn, query, key, value):
+    """`fn(q, k, v) -> (out, None)` over torch tensors; Tensors go through
+    `apply` (so autograd and the NaN check see the call) and come back as a
+    Tensor."""
+    if not any(isinstance(t, Tensor) for t in (query, key, value)):
+        return fn(query, key, value)
+    return apply(name, lambda q, k, v: fn(q, k, v)[0], query, key,
+                 value), None
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, fixed_seed_offset=None, rng_name="",
                     training=True, segment_ids=None, name=None):
     """segment_ids [B, S]: when given, tokens attend only within their own
-    segment.  Dropout draws from torch's default generator of the query's
-    device."""
+    segment."""
+    return _through_apply("flash_attention", lambda q, k, v: _flash_attention(
+        q, k, v, dropout, training, causal, _raw(segment_ids)),
+        query, key, value)
+
+
+def _flash_attention(query, key, value, dropout, training, causal,
+                     segment_ids):
     p = dropout if training else 0.0
-    gen = torch.default_generator if query.device.type == "cpu" else \
-        torch.cuda.default_generators[query.device.index
-                                      if query.device.index is not None
-                                      else torch.cuda.current_device()]
+    gen = _gen.default_generator().torch_generator(query.device) \
+        if p > 0.0 else None
     if segment_ids is not None:
         if dropout == 0.0:
             return flash_attention_varlen(query, key, value, segment_ids,
@@ -83,6 +100,13 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
                         name=None):
     """Varlen attention over packed [total, H, D] tokens with cumulative
     sequence offsets cu_seqlens_q/k [n + 1]."""
+    return _through_apply("flash_attn_unpadded", lambda q, k, v: _unpadded(
+        q, k, v, _raw(cu_seqlens_q), _raw(cu_seqlens_k), scale, dropout,
+        causal), query, key, value)
+
+
+def _unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k, scale, dropout,
+              causal):
     cu_q = torch.as_tensor(cu_seqlens_q).long()
     cu_k = torch.as_tensor(cu_seqlens_k).long()
     # the kernels mask causality in packed-global coordinates, which equals

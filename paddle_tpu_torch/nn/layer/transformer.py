@@ -1,0 +1,306 @@
+"""Transformer layers — port of `paddle_tpu/nn/layer/transformer.py`
+(reference `python/paddle/nn/layer/transformer.py`): `MultiHeadAttention`
+with its `Cache`/`StaticCache`, the encoder and decoder layers and stacks,
+and `Transformer`.
+
+Attention goes through `F.scaled_dot_product_attention` in the [B, L, H, D]
+layout: with no mask and no dropout at head dims 64/128/256 it launches the
+flash kernels on the card (rows 2, 5, 6); a bool or additive mask, or
+dropout, takes the counted plain route, as the reference sends those calls
+to its XLA twin.
+"""
+from __future__ import annotations
+
+import collections
+import copy
+
+import torch
+
+from ...core.place import expected_device
+from ...core.tensor import Tensor
+from .. import functional as F
+from .common import Dropout, Linear
+from .container import LayerList
+from .layers import Layer
+from .norm import LayerNorm
+
+
+class MultiHeadAttention(Layer):
+    Cache = collections.namedtuple("Cache", ["k", "v"])
+    StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
+
+    def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.kdim = kdim or embed_dim
+        self.vdim = vdim or embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        assert self.head_dim * num_heads == embed_dim
+        self.dropout = dropout
+        self.need_weights = need_weights
+        self.q_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
+        self.k_proj = Linear(self.kdim, embed_dim, weight_attr, bias_attr)
+        self.v_proj = Linear(self.vdim, embed_dim, weight_attr, bias_attr)
+        self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr)
+
+    def _heads(self, t):
+        return t.reshape([t.shape[0], -1, self.num_heads, self.head_dim])
+
+    def _prepare_qkv(self, query, key, value, cache=None):
+        q = self._heads(self.q_proj(query))
+        k = self._heads(self.k_proj(key))
+        v = self._heads(self.v_proj(value))
+        if isinstance(cache, self.StaticCache):
+            k, v = cache.k, cache.v
+        elif isinstance(cache, self.Cache):
+            from ...ops.manipulation import concat
+            k = concat([cache.k, k], axis=1)
+            v = concat([cache.v, v], axis=1)
+            cache = self.Cache(k, v)
+        return q, k, v, cache
+
+    def gen_cache(self, key, value=None, type=None):
+        if type == MultiHeadAttention.StaticCache:
+            k = self._heads(self.k_proj(key))
+            v = self._heads(self.v_proj(value if value is not None else key))
+            return self.StaticCache(k, v)
+        from ...ops.creation import zeros
+        B = key.shape[0]
+        return self.Cache(zeros([B, 0, self.num_heads, self.head_dim]),
+                          zeros([B, 0, self.num_heads, self.head_dim]))
+
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None):
+        key = query if key is None else key
+        value = query if value is None else value
+        q, k, v, cache = self._prepare_qkv(query, key, value, cache)
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask,
+            dropout_p=self.dropout if self.training else 0.0,
+            is_causal=False, training=self.training)
+        out = self.out_proj(out.reshape([out.shape[0], out.shape[1],
+                                         self.embed_dim]))
+        outs = [out]
+        if self.need_weights:
+            outs.append(None)
+        if cache is not None:
+            outs.append(cache)
+        return out if len(outs) == 1 else tuple(outs)
+
+
+class TransformerEncoderLayer(Layer):
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 layer_norm_eps=1e-5):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr, bias_attr)
+        self.dropout = Dropout(act_dropout)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr, bias_attr)
+        self.norm1 = LayerNorm(d_model, layer_norm_eps)
+        self.norm2 = LayerNorm(d_model, layer_norm_eps)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.activation = getattr(F, activation)
+
+    def forward(self, src, src_mask=None, cache=None):
+        residual = src
+        if self.normalize_before:
+            src = self.norm1(src)
+        if cache is None:
+            src = self.self_attn(src, src, src, src_mask)
+        else:
+            src, cache = self.self_attn(src, src, src, src_mask, cache)
+        src = residual + self.dropout1(src)
+        if not self.normalize_before:
+            src = self.norm1(src)
+        residual = src
+        if self.normalize_before:
+            src = self.norm2(src)
+        src = self.linear2(self.dropout(self.activation(self.linear1(src))))
+        src = residual + self.dropout2(src)
+        if not self.normalize_before:
+            src = self.norm2(src)
+        return src if cache is None else (src, cache)
+
+    def gen_cache(self, src):
+        return self.self_attn.gen_cache(src, type=MultiHeadAttention.Cache)
+
+
+def _clones(layer, n):
+    """`layer` and n - 1 deep copies of it (the same initial weights)."""
+    return LayerList([layer] + [copy.deepcopy(layer) for _ in range(n - 1)])
+
+
+class TransformerEncoder(Layer):
+    def __init__(self, encoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = _clones(encoder_layer, num_layers)
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, src, src_mask=None, cache=None):
+        output = src
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, src_mask)
+            else:
+                output, c = mod(output, src_mask, cache[i])
+                new_caches.append(c)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, src):
+        return [layer.gen_cache(src) for layer in self.layers]
+
+
+class TransformerDecoderLayer(Layer):
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 layer_norm_eps=1e-5):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                             weight_attr=weight_attr,
+                                             bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr, bias_attr)
+        self.dropout = Dropout(act_dropout)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr, bias_attr)
+        self.norm1 = LayerNorm(d_model, layer_norm_eps)
+        self.norm2 = LayerNorm(d_model, layer_norm_eps)
+        self.norm3 = LayerNorm(d_model, layer_norm_eps)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.activation = getattr(F, activation)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
+            incremental_cache = None
+        else:
+            tgt, incremental_cache = self.self_attn(tgt, tgt, tgt, tgt_mask,
+                                                    cache[0])
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        if cache is None:
+            tgt = self.cross_attn(tgt, memory, memory, memory_mask)
+            static_cache = None
+        else:
+            tgt, static_cache = self.cross_attn(tgt, memory, memory,
+                                                memory_mask, cache[1])
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
+        tgt = residual + self.dropout3(tgt)
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        return tgt if cache is None else (tgt, (incremental_cache,
+                                                static_cache))
+
+    def gen_cache(self, memory):
+        incremental = self.self_attn.gen_cache(memory,
+                                               type=MultiHeadAttention.Cache)
+        static = self.cross_attn.gen_cache(
+            memory, memory, type=MultiHeadAttention.StaticCache)
+        return incremental, static
+
+
+class TransformerDecoder(Layer):
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = _clones(decoder_layer, num_layers)
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        output = tgt
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, memory, tgt_mask, memory_mask)
+            else:
+                output, c = mod(output, memory, tgt_mask, memory_mask,
+                                cache[i])
+                new_caches.append(c)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, memory, do_zip=False):
+        cache = [layer.gen_cache(memory) for layer in self.layers]
+        return list(zip(*cache)) if do_zip else cache
+
+
+class Transformer(Layer):
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None):
+        super().__init__()
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            enc_layer = TransformerEncoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+            norm = LayerNorm(d_model) if normalize_before else None
+            self.encoder = TransformerEncoder(enc_layer, num_encoder_layers,
+                                              norm)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            dec_layer = TransformerDecoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+            norm = LayerNorm(d_model) if normalize_before else None
+            self.decoder = TransformerDecoder(dec_layer, num_decoder_layers,
+                                              norm)
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask)
+        return self.decoder(tgt, memory, tgt_mask, memory_mask)
+
+    @staticmethod
+    def generate_square_subsequent_mask(length):
+        """[length, length] float32: 0 on and below the diagonal, -1e9
+        above."""
+        keep = torch.tril(torch.ones(length, length, dtype=torch.bool,
+                                     device=expected_device()))
+        return Tensor(torch.where(keep, 0.0, -1e9))

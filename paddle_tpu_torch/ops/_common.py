@@ -1,5 +1,4 @@
-"""Helpers shared by the op modules: argument normalisation and the
-in-place rebind with its version bump."""
+"""Helpers shared by the op modules: argument normalisation."""
 from __future__ import annotations
 
 import numpy as np
@@ -60,17 +59,3 @@ def dims(ax, ndim: int) -> tuple:
 def item(v):
     """A one-element Tensor -> its Python number; anything else as it is."""
     return v.item() if isinstance(v, Tensor) else v
-
-
-def inplace(x: Tensor, out_of_place) -> Tensor:
-    """Rebind `x` to `out_of_place()`, an op's result on `x`'s value, as the
-    reference's `_inplace_from` does, and bump the old value's version
-    first: a node recorded earlier that saved that value then raises
-    torch's "modified by an inplace operation" error at backward (the
-    reference's version check), while the op's own node, recorded after
-    the bump, does not.  A view's version counter is its base's, so a view
-    is not bumped (its base's readers must not raise)."""
-    t = x._t
-    if not t._is_view():
-        torch.autograd.graph.increment_version(t)
-    return x._inplace_from(out_of_place())

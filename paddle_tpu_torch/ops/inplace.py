@@ -2,20 +2,19 @@
 
 Reference parity: `python/paddle/tensor/math.py` etc. register `<op>_` dygraph-only
 in-place APIs (inplace_apis_in_dygraph_only).  Each variant computes the op
-out of place and rebinds the tensor to the result (`_common.inplace`), after
-bumping the old value's version: a node recorded before that saved the old
-value raises "modified by an inplace operation" at backward, as the
-reference's inplace version check does; the op's own node does not.
+out of place and rebinds the tensor to the result (`Tensor._inplace`), after
+bumping the tensor's version: a node recorded before that read it raises
+"modified by an inplace operation" at backward, as the reference's inplace
+version check does; the op's own node does not.
 """
 from __future__ import annotations
 
 from . import logic, manipulation, math
-from ._common import inplace as _rebind
 
 
 def _inplace(fn, name):
     def op_(x, *args, **kwargs):
-        return _rebind(x, lambda: fn(x, *args, **kwargs))
+        return x._inplace(lambda: fn(x, *args, **kwargs))
     op_.__name__ = name
     op_.__qualname__ = name
     op_.__doc__ = f"In-place variant of `{fn.__module__.split('.')[-1]}.{fn.__name__}`."
@@ -54,16 +53,16 @@ for _mod, _names in _SPECS.items():
 
 def tril_(x, diagonal=0, name=None):
     from .creation import tril
-    return _rebind(x, lambda: tril(x, diagonal))
+    return x._inplace(lambda: tril(x, diagonal))
 
 
 def triu_(x, diagonal=0, name=None):
     from .creation import triu
-    return _rebind(x, lambda: triu(x, diagonal))
+    return x._inplace(lambda: triu(x, diagonal))
 
 
 def renorm_(x, p, axis, max_norm, name=None):
-    return _rebind(x, lambda: math.renorm(x, p, axis, max_norm))
+    return x._inplace(lambda: math.renorm(x, p, axis, max_norm))
 
 
 __all__ += ["tril_", "triu_", "renorm_"]

@@ -13,7 +13,7 @@ import torch.nn.functional as _F
 
 from ..core import dtype as _dt
 from ..core.tensor import Tensor, apply
-from ._common import data as _to_data, inplace as _inplace, ints as _ints
+from ._common import data as _to_data, ints as _ints
 
 builtins_sum = builtins.sum
 
@@ -24,7 +24,7 @@ def reshape(x, shape, name=None):
 
 
 def reshape_(x, shape, name=None):
-    return _inplace(x, lambda: reshape(x, shape))
+    return x._inplace(lambda: reshape(x, shape))
 
 
 def flatten(x, start_axis=0, stop_axis=-1, name=None):
@@ -48,7 +48,7 @@ def squeeze(x, axis=None, name=None):
 
 
 def squeeze_(x, axis=None, name=None):
-    return _inplace(x, lambda: squeeze(x, axis))
+    return x._inplace(lambda: squeeze(x, axis))
 
 
 def _expand_dims(a, axes):
@@ -65,7 +65,7 @@ def unsqueeze(x, axis, name=None):
 
 
 def unsqueeze_(x, axis, name=None):
-    return _inplace(x, lambda: unsqueeze(x, axis))
+    return x._inplace(lambda: unsqueeze(x, axis))
 
 
 def transpose(x, perm, name=None):
@@ -242,7 +242,7 @@ def scatter(x, index, updates, overwrite=True, name=None):
 
 
 def scatter_(x, index, updates, overwrite=True, name=None):
-    return _inplace(x, lambda: scatter(x, index, updates, overwrite))
+    return x._inplace(lambda: scatter(x, index, updates, overwrite))
 
 
 def scatter_nd_add(x, index, updates, name=None):
@@ -297,7 +297,7 @@ def masked_fill(x, mask, value, name=None):
 
 
 def masked_fill_(x, mask, value, name=None):
-    return _inplace(x, lambda: masked_fill(x, mask, value))
+    return x._inplace(lambda: masked_fill(x, mask, value))
 
 
 def where(condition, x=None, y=None, name=None):
@@ -307,7 +307,7 @@ def where(condition, x=None, y=None, name=None):
 
 
 def where_(condition, x, y, name=None):
-    return _inplace(x, lambda: where(condition, x, y))
+    return x._inplace(lambda: where(condition, x, y))
 
 
 def nonzero(x, as_tuple=False):
@@ -539,7 +539,7 @@ def is_integer(x):
 
 
 def rad2deg_(x):
-    return _inplace(x, lambda: apply("rad2deg", torch.rad2deg, x))
+    return x._inplace(lambda: apply("rad2deg", torch.rad2deg, x))
 
 
 # ---- breadth additions (reference python/paddle/tensor/manipulation.py) ----

@@ -316,21 +316,119 @@ def test_value_ops_keep_a_leaf_and_pass_a_non_leafs_gradient():
 
 
 def test_earlier_reader_keeps_the_old_value():
-    """The port's in-place ops rebind: a reader recorded before keeps the
-    old value and differentiates through it (the reference raises there,
-    on its version check)."""
-    x = t(PORT, [2.0])
-    w = t(PORT, [3.0])
-    y = x * w
-    w.add_(1.0)
-    y.backward()
-    np.testing.assert_allclose(g(x), [3.0])
-    np.testing.assert_allclose(w.numpy(), [4.0])
-    rx, rw = t(REF, [2.0]), t(REF, [3.0])
-    ry = rx * rw
-    rw.add_(1.0)
-    with pytest.raises(RuntimeError, match="inplace"):
-        ry.backward()
+    """An in-place op on an input a recorded reader holds: both packages
+    raise at that reader's backward (the version check), and the value
+    itself is the new one."""
+    for ns in (REF, PORT):
+        x, w = t(ns, [2.0]), t(ns, [3.0])
+        y = x * w
+        w.add_(1.0)
+        np.testing.assert_allclose(w.numpy(), [4.0])
+        with pytest.raises(RuntimeError, match="inplace"):
+            y.backward()
+
+
+# every in-place entry of the Tensor and the top-level namespace, applied
+# to an input `w` that a reader recorded
+INPLACE_ON_SAVED = {
+    "bound_add_": lambda ns, w: w.add_(t(ns, [1.0], sg=True)),
+    "bound_multiply_": lambda ns, w: w.multiply_(t(ns, [2.0], sg=True)),
+    "paddle_add_": lambda ns, w: ns.pkg.add_(w, t(ns, [1.0], sg=True)),
+    "paddle_multiply_": lambda ns, w: ns.pkg.multiply_(w, t(ns, [2.0],
+                                                            sg=True)),
+    "paddle_scale_": lambda ns, w: ns.pkg.scale_(w, 2.0, 1.0),
+    "zero_": lambda ns, w: w.zero_(),
+    "fill_": lambda ns, w: w.fill_(5.0),
+    "set_value": lambda ns, w: w.set_value(np.float32([5.0])),
+    "setitem": lambda ns, w: w.__setitem__(0, 5.0),
+}
+
+
+# readers that save w for their backward (mul) and that do not (add)
+READERS = {"mul": lambda x, w: x * w, "add": lambda x, w: x + w}
+
+
+@pytest.mark.parametrize("reader", sorted(READERS))
+@pytest.mark.parametrize("op", sorted(INPLACE_ON_SAVED))
+def test_inplace_on_a_saved_value_raises_at_backward(op, reader):
+    """Each of these bumps the wrapper's `_version` in both packages, and
+    the version check raises at the backward of a reader recorded before,
+    whether or not it saved w, while a reader recorded after the op
+    differentiates through the new value."""
+    for ns in (REF, PORT):
+        x, w = t(ns, [2.0]), t(ns, [3.0])
+        y = READERS[reader](x, w)
+        INPLACE_ON_SAVED[op](ns, w)
+        with pytest.raises(RuntimeError, match="inplace"):
+            y.backward()
+        x.clear_grad()
+        z = x * w
+        z.backward()
+        np.testing.assert_allclose(g(x), w.numpy(), err_msg=op)
+
+
+# chains of in-place ops on one non-leaf `x`, with `w` a leaf: each op's
+# own node reads the value before its bump, so none fails a later bump
+INPLACE_CHAINS = {
+    "bound_add_add_": lambda ns, x, w: (x.add_(1.0), x.add_(1.0)),
+    "bound_multiply_add_": lambda ns, x, w: (x.multiply_(w), x.add_(w)),
+    "paddle_add_multiply_": lambda ns, x, w: (ns.pkg.add_(x, w),
+                                              ns.pkg.multiply_(x, w)),
+    "paddle_scale_twice": lambda ns, x, w: (ns.pkg.scale_(x, 2.0, 1.0),
+                                            ns.pkg.scale_(x, 0.5)),
+    "relu_then_scale_": lambda ns, x, w: (ns.pkg.nn.functional.relu_(x),
+                                          x.scale_(2.0)),
+    "reshape_then_unsqueeze_": lambda ns, x, w: (ns.pkg.reshape_(x, [3, 2]),
+                                                 ns.pkg.unsqueeze_(x, 0)),
+    "add_self_then_multiply_": lambda ns, x, w: (x.add_(x), x.multiply_(w)),
+    "setitem_twice": lambda ns, x, w: (x.__setitem__(0, 5.0),
+                                       x.__setitem__(1, w[1])),
+    "add_then_zero_": lambda ns, x, w: (x.add_(1.0), x.zero_()),
+}
+
+
+@pytest.mark.parametrize("chain", sorted(INPLACE_CHAINS))
+def test_chained_inplace_ops_differentiate(chain):
+    """Two in-place ops on one tensor before backward: both packages
+    differentiate through the chain (the reference swaps a snapshot into
+    each op's node), with equal gradients."""
+    def case(ns):
+        a = t(ns, np.arange(1.0, 7.0).reshape(2, 3))
+        w = t(ns, np.full((2, 3), 2.0))
+        x = a * w
+        INPLACE_CHAINS[chain](ns, x, w)
+        ns.sum(x * x).backward()
+        return {"a": g(a), "w": g(w), "x": x.numpy()}
+    twin(case)
+
+
+def test_a_bump_still_counts_after_the_bumped_wrapper_is_gone():
+    """A reader recorded before an in-place op raises at backward even
+    when nothing holds the rebound tensor any more, in both packages."""
+    for ns in (REF, PORT):
+        a, w = t(ns, [2.0]), t(ns, [3.0])
+        x = a * w
+        y = x * w
+        x.add_(1.0)
+        del x
+        with pytest.raises(RuntimeError, match="inplace"):
+            y.backward()
+
+
+def test_inplace_on_a_view_raises_for_its_own_readers_only():
+    """A view is a wrapper of its own: an in-place op on it raises at its
+    readers' backward and leaves its base's readers alone, in both
+    packages."""
+    for ns in (REF, PORT):
+        a = t(ns, [[1.0, 2.0], [3.0, 4.0]])
+        base_reader = a * 2.0
+        v = a.reshape([4])
+        view_reader = v * 3.0
+        v.exp_()
+        with pytest.raises(RuntimeError, match="inplace"):
+            ns.sum(view_reader).backward()
+        ns.sum(base_reader).backward()
+        np.testing.assert_allclose(g(a), np.full((2, 2), 2.0))
 
 
 def test_pylayer_with_non_tensor_arguments_and_two_outputs():

@@ -5,6 +5,7 @@ import os
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import pytest
@@ -123,24 +124,53 @@ CORE_MODULES = ("paddle_tpu_torch.core.tensor", "paddle_tpu_torch.autograd",
                 "paddle_tpu_torch.nn.layer.layers",
                 "paddle_tpu_torch.nn.initializer", "paddle_tpu_torch.ops",
                 "paddle_tpu_torch.ops.inplace", "paddle_tpu_torch.linalg")
+# nn: the functional and Layer modules, and the fused attention entry
+NN_MODULES = ("paddle_tpu_torch.nn", "paddle_tpu_torch.nn.functional",
+              "paddle_tpu_torch.incubate.nn.functional")
+ALONE_MODULES = OBSERVABILITY_MODULES + FLEET_MODULES + MOE_MODULES + \
+    TP_MODULES + DISTRIBUTED_MODULES + CORE_MODULES + NN_MODULES
 
 
-@pytest.mark.parametrize("module", OBSERVABILITY_MODULES + FLEET_MODULES +
-                         MOE_MODULES + TP_MODULES + DISTRIBUTED_MODULES +
-                         CORE_MODULES)
-def test_observability_modules_import_alone(module):
-    """Each module of the observability plane, the fleet, the front door,
-    the MoE dispatch, tensor-parallel serving and training, ring attention,
-    the Engine with its checkpoints, the eager core and its ops imports on
-    its own and leaves jax and the JAX package out of sys.modules (the AST
-    scan above covers their source)."""
+def _import_alone(module):
     code = (f"import sys, {module};"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=120)
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+@pytest.fixture(scope="module")
+def imported_alone():
+    """`result(module)`: one fresh interpreter a module, its finished
+    process.  A case starts its own module's interpreter and those of the
+    next few modules in ALONE_MODULES, side by side (a few at a time, so
+    that the torch imports do not crowd the machine): run in order, as on
+    one worker, the interpreters overlap; a worker that runs only some
+    cases starts no more than a window past each of them."""
+    width = min(8, os.cpu_count() or 1)
+    pool = ThreadPoolExecutor(max_workers=width)
+    started = {}
+
+    def result(module):
+        at = ALONE_MODULES.index(module)
+        for m in ALONE_MODULES[at:at + width]:
+            if m not in started:
+                started[m] = pool.submit(_import_alone, m)
+        return started[module].result()
+    yield result
+    pool.shutdown(wait=True, cancel_futures=True)
+
+
+@pytest.mark.parametrize("module", ALONE_MODULES)
+def test_observability_modules_import_alone(module, imported_alone):
+    """Each module of the observability plane, the fleet, the front door,
+    the MoE dispatch, tensor-parallel serving and training, ring attention,
+    the Engine with its checkpoints, the eager core and its ops, and nn
+    imports on its own and leaves jax and the JAX package out of
+    sys.modules (the AST scan above covers their source)."""
+    r = imported_alone(module)
     assert r.returncode == 0, r.stdout + r.stderr
     assert (ROOT / (module.replace(".", "/") + ".py")).exists() or \
         (ROOT / module.replace(".", "/") / "__init__.py").exists()

@@ -79,9 +79,9 @@ def test_inplace_logic_and_clip(ns):
 
 
 def test_inplace_on_a_view_leaves_its_base_readers_alone():
-    """A view shares its base's version counter, so the port bumps no
-    version for it: a reader of the base still differentiates, and so does
-    the op's own node."""
+    """A view is a wrapper of its own, with its own version: an in-place op
+    on it leaves the base's readers alone, and the op's own node
+    differentiates too."""
     a = P.to_tensor(np.array([[1.0, 2.0], [3.0, 4.0]], np.float32),
                     stop_gradient=False)
     r = P.sin(a)

@@ -15,6 +15,7 @@ import pytest
 import paddle_tpu_torch as P
 import test_ops_sweep
 from torch_op_cases import ALL, SWEEP, run
+from torch_nn_cases import ALL as NN_ALL
 from torch_op_test import DTYPE_DIFFERS, on_cpu, twin  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -33,7 +34,7 @@ def test_the_dtype_differences_listed_are_int64_outputs_of_real_cases():
     """DTYPE_DIFFERS lists, with its reasons, every output whose dtype is
     not the reference's (each twin holds its case to its entry exactly):
     each names a twin case and int64 outputs of the port."""
-    by_name = {c.name: c for c in ALL}
+    by_name = {c.name: c for c in ALL + NN_ALL}
     for name, (idx, why) in DTYPE_DIFFERS.items():
         assert why, name
         got = run(P, by_name[name])[0]

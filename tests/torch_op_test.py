@@ -56,6 +56,11 @@ DTYPE_DIFFERS = {
     "predicates": ({12}, "numel is int64, as in Paddle"),
     "histograms": ({0, 1}, "histogram counts are int64 (the reference "
                    "casts to int64, which its JAX makes int32)"),
+    # nn.functional (tests/torch_nn_cases.py)
+    "sequence_mask": ({0}, "the mask's default dtype, int64, is int64"),
+    "class_center_sample": ({0, 1}, "the remapped labels and the sampled "
+                            "class ids are int64"),
+    "gather_tree": ({0}, "int64 ids stay int64"),
 }
 
 
