@@ -427,7 +427,35 @@ Phases, one JSON line each (with its seconds):
                `F.cross_entropy` of the shifted labels within OPS_LOSS_REL
                of 8c's `loss_fn` value, and `F.softmax(dtype="float32")`
                rows summing to 1 within NN_SOFTMAX_TOL.  Seconds, peak
-               memory, the card's name and power limit.
+               memory, the card's name and power limit.  (a) runs the
+               conv, pooling, vision and sparse-op cases too.
+8f. nn_train — `paddle.optimizer` on the card.  (b) 8e's bf16 stack and
+               batch, NN_TRAIN_STEPS steps of the pass, `opt.step()`,
+               `opt.clear_grad()` and `sched.step()` with
+               `optimizer.AdamW(weight_decay=0.01,
+               grad_clip=nn.ClipGradByGlobalNorm(1.0))` over
+               `lr.LinearWarmup(lr.CosineAnnealingDecay(1e-3, T_max=6),
+               2, 0.0, 1e-3)`: the counts zeroed before each step and read
+               after it, rows 2, 5 and 6 exactly 12 each, nothing
+               composed; `opt.step()` under the sync debug mode "error"
+               (no host read) and between CUDA events; the learning rates
+               read each step equal to the scheduler's Python sequence;
+               every parameter's moment1 and moment2 float32 on the card;
+               the mean of the last two losses below the first.  Losses,
+               step ms, the optimizer's device ms, accumulator bytes, peak
+               memory.  (c) A 2-layer stack in float32 (TF32 off), one
+               pass on the card, its parameters and grads copied to the
+               port on the CPU, one AdamW step (the clip, the schedule one
+               step in) on each: every parameter, moment1 and moment2
+               within OPT_F32_REL * max(1, max|cpu|).  (d) In bf16, one
+               forward, backward and `Momentum` step each of ResNet-50's
+               stem and stage 1 (B 32 x 3 x 224 x 224), `nn.LSTM(1024,
+               1024, num_layers=2)` (B 32 x T 64) and a gshard top-2
+               `MoELayer` of 8 `nn.Linear(2048, 2048)` experts on 8192
+               tokens (its dropped assignments by
+               `dispatch.capacity_slots`): a finite loss, a grad on every
+               parameter, no kernel launch and no composed call; seconds
+               and peak memory each.
 9. kernels_bwd — the flash backward pair (dkv and dq kernels) against
                `_flash_bwd_ref` at [1,1024,32,128] causal, the training
                shape [4,2048,16,128] causal and [2,333,8,64] full, in bf16
@@ -586,7 +614,7 @@ the two paged ones (launches summed over the main-path runs of phases 3, 4,
 5, 6b, 6c, 6d, 6e, 6f (its tier runs), 6g (its traced pass), 6h (its
 fleets), 6i (its bf16 runs, every rank's launches), 8b (its counted bf16
 call), 8c (the Layer API's calls), 8d (none: the ops launch no
-kernel), 8e ((b), the BERT-base nn stack), 10, 11, 12, 12b ((a), every rank's launches), 12c ((a) and (b),
+kernel), 8e ((b), the BERT-base nn stack), 8f ((b), its six steps), 10, 11, 12, 12b ((a), every rank's launches), 12c ((a) and (b),
 every rank's launches), 12d ((a), every rank's launches), 12e (the
 Engine's fit and resumed steps, every rank's launches), 13 (bf16 and
 int8), 14 and 15, each with the counts zeroed just before it and read
@@ -3547,8 +3575,8 @@ def nn_cases():
     return torch_nn_cases
 
 
-def nn_stack(paddle, dtype):
-    """`paddle.seed(0)`, then `nn.Embedding`, a 12-layer post-LN
+def nn_stack(paddle, dtype, depth=NN_LAYERS):
+    """`paddle.seed(0)`, then `nn.Embedding`, a `depth`-layer post-LN
     `nn.TransformerEncoder` (gelu, no dropout) and an `nn.Linear` head at
     BERT-base width, in `dtype`."""
     nn = paddle.nn
@@ -3556,7 +3584,7 @@ def nn_stack(paddle, dtype):
     layers = [nn.Embedding(NN_VOCAB, NN_D),
               nn.TransformerEncoder(nn.TransformerEncoderLayer(
                   NN_D, NN_HEADS, NN_FFN, dropout=0.0, activation="gelu"),
-                  NN_LAYERS),
+                  depth),
               nn.Linear(NN_D, NN_VOCAB)]
     for lyr in layers:
         lyr.astype(dtype)
@@ -3748,6 +3776,290 @@ def nn_api(dev, smi, kept):
     rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     rec["nvidia_smi"] = smi
     torch.cuda.empty_cache()
+    return rec
+
+
+# Phase 8f: a BERT-base fine-tune through `paddle.optimizer`, one AdamW step
+# against the CPU, and the conv, RNN and MoE Layers at working widths
+NN_TRAIN_STEPS = 6
+NN_TRAIN_F32_LAYERS = 2
+OPT_F32_REL = 1e-6      # one f32 AdamW step, card vs CPU: <= 1e-6 * max(1, max|ref|)
+RESNET_BATCH, RESNET_SIDE = 32, 224
+LSTM_WIDTH, LSTM_BATCH, LSTM_STEPS = 1024, 32, 64
+MOE_WIDTH, MOE_EXPERTS, MOE_TOKENS = 2048, 8, 8192
+FLASH_ROWS = ("flash_attention_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def nn_schedule(paddle):
+    """Two warmup steps from 0 to 1e-3, then cosine over NN_TRAIN_STEPS."""
+    lr = paddle.optimizer.lr
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(1e-3, T_max=NN_TRAIN_STEPS),
+                           warmup_steps=2, start_lr=0.0, end_lr=1e-3)
+
+
+def nn_adamw(paddle, params, sched):
+    return paddle.optimizer.AdamW(
+        learning_rate=sched, parameters=params, weight_decay=0.01,
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+
+
+def nn_fine_tune(paddle, dev):
+    """8f (b): NN_TRAIN_STEPS AdamW steps of 8e's bf16 stack on 8e's batch,
+    each pass counted alone; `opt.step()` under the sync debug mode
+    "error" (a host read raises) and between CUDA events."""
+    import torch
+    from paddle_tpu_torch.incubate import kernels as K
+    torch.cuda.reset_peak_memory_stats()
+    layers = nn_stack(paddle, "bfloat16")
+    params = [p for lyr in layers for p in lyr.parameters()]
+    ids, labels = nn_batch(paddle)
+    sched = nn_schedule(paddle)
+    opt = nn_adamw(paddle, params, sched)
+    twin = nn_schedule(paddle)
+    want_lrs = []
+    for _ in range(NN_TRAIN_STEPS):
+        want_lrs.append(twin())
+        twin.step()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    losses, lrs, step_ms, opt_ms, total = [], [], [], [], {}
+    for step in range(NN_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t = time.perf_counter()
+        _, loss = nn_pass(paddle, layers, ids, labels)
+        lrs.append(opt.get_lr())
+        ev[0].record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ev[1].record()
+        opt.clear_grad()
+        sched.step()
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        opt_ms.append(ev[0].elapsed_time(ev[1]))
+        no_composed("nn_train")
+        launches = K.launches()
+        want = {k: NN_LAYERS if k in FLASH_ROWS else 0 for k in launches}
+        if launches != want:
+            raise AssertionError(f"nn_train step {step}: launches "
+                                 f"{launches}, want {want}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del loss
+    if lrs != want_lrs:
+        raise AssertionError(f"nn_train: learning rates {lrs}, the "
+                             f"scheduler's {want_lrs}")
+    accs = [opt._accumulators[name][id(p)] for name in ("moment1", "moment2")
+            for p in params]
+    bad = [i for i, a in enumerate(accs) if a.dtype != torch.float32 or
+           a.device.type != dev.type]
+    if bad or not all(math.isfinite(v) for v in losses) or \
+            sum(losses[-2:]) / 2 >= losses[0]:
+        raise AssertionError(f"nn_train: losses {losses}, moments off the "
+                             f"card or not float32 {bad}")
+    acc_bytes = sum(a.numel() * a.element_size()
+                    for store in opt._accumulators.values()
+                    for a in store.values())
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    med_opt = sorted(opt_ms[1:])[len(opt_ms[1:]) // 2]
+    rec = {"optimizer": "AdamW(weight_decay=0.01, ClipGradByGlobalNorm(1.0))",
+           "schedule": "LinearWarmup(CosineAnnealingDecay(1e-3, T_max="
+                       f"{NN_TRAIN_STEPS}), 2, 0.0, 1e-3)",
+           "steps": NN_TRAIN_STEPS, "losses": losses, "lrs": lrs,
+           "step_ms": step_ms, "median_step_ms_2_6": med,
+           "opt_device_ms": opt_ms, "median_opt_device_ms_2_6": med_opt,
+           "opt_share_of_step": med_opt / med,
+           "host_syncs_in_opt_step": 0, "launches": total,
+           "launches_per_step": {k: NN_LAYERS for k in FLASH_ROWS},
+           "parameters": sum(p.size for p in params),
+           "accumulator_bytes": acc_bytes,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del layers, params, opt, accs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def nn_opt_f32(paddle, place):
+    """8f (c): an NN_TRAIN_F32_LAYERS-layer f32 stack (TF32 off), one pass
+    on the card; its parameters and grads copied to the port on the CPU;
+    one AdamW step (the clip, the schedule one step in: lr 5e-4) on each
+    device; every parameter, moment1 and moment2 within OPT_F32_REL."""
+    import torch
+    t = time.perf_counter()
+    runs = []
+    card = nn_stack(paddle, "float32", NN_TRAIN_F32_LAYERS)
+    ids, labels = nn_batch(paddle)
+    _, loss = nn_pass(paddle, card, ids, labels)
+    card_params = [p for lyr in card for p in lyr.parameters()]
+    paddle.set_device("cpu")
+    try:
+        host = nn_stack(paddle, "float32", NN_TRAIN_F32_LAYERS)
+        host_params = [p for lyr in host for p in lyr.parameters()]
+        for hp, cp in zip(host_params, card_params):
+            hp.set_value(cp._t.detach().cpu())
+            hp.grad = paddle.to_tensor(cp.grad._t.cpu())
+        for params in (card_params, host_params):
+            sched = nn_schedule(paddle)
+            sched.step()
+            opt = nn_adamw(paddle, params, sched)
+            opt.step()
+            runs.append([(p.name, p._t.detach(),
+                          opt._accumulators["moment1"][id(p)],
+                          opt._accumulators["moment2"][id(p)])
+                         for p in params])
+    finally:
+        paddle.set_device(place)
+    worst, bad = {"param": 0.0, "moment1": 0.0, "moment2": 0.0}, []
+    for (name, *got), (_, *want) in zip(*runs):
+        for kind, g, w in zip(("param", "moment1", "moment2"), got, want):
+            err = float((g.cpu() - w).abs().max())
+            lim = OPT_F32_REL * max(1.0, float(w.abs().max()))
+            worst[kind] = max(worst[kind], err)
+            if err > lim:
+                bad.append((name, kind, err, lim))
+    if bad:
+        raise AssertionError(f"nn_train f32 AdamW step, card vs CPU: {bad}")
+    rec = {"layers": NN_TRAIN_F32_LAYERS, "loss": float(loss), "lr": 5e-4,
+           "tol": "OPT_F32_REL * max(1, max|cpu|)", "opt_f32_rel": OPT_F32_REL,
+           "tensors": 3 * len(card_params), "max_abs_diff": worst,
+           "s": time.perf_counter() - t}
+    del card, host, runs, card_params, host_params, loss
+    torch.cuda.empty_cache()
+    return rec
+
+
+def resnet_stage1(paddle):
+    """ResNet-50's stem and stage 1: 7x7/2 conv to 64, BN, ReLU, 3x3/2 max
+    pool, three 64-64-256 bottlenecks (the first with a projection), a
+    global average pool."""
+    nn = paddle.nn
+
+    def conv_bn(cin, cout, k, stride=1):
+        return nn.Sequential(nn.Conv2D(cin, cout, k, stride, k // 2,
+                                       bias_attr=False), nn.BatchNorm2D(cout))
+
+    class Bottleneck(nn.Layer):
+        def __init__(self, cin):
+            super().__init__()
+            self.body = nn.Sequential(conv_bn(cin, 64, 1), nn.ReLU(),
+                                      conv_bn(64, 64, 3), nn.ReLU(),
+                                      conv_bn(64, 256, 1))
+            self.short = conv_bn(cin, 256, 1) if cin != 256 else None
+            self.relu = nn.ReLU()
+
+        def forward(self, x):
+            skip = x if self.short is None else self.short(x)
+            return self.relu(self.body(x) + skip)
+
+    return nn.Sequential(nn.Conv2D(3, 64, 7, 2, 3, bias_attr=False),
+                         nn.BatchNorm2D(64), nn.ReLU(), nn.MaxPool2D(3, 2, 1),
+                         Bottleneck(64), Bottleneck(256), Bottleneck(256),
+                         nn.AdaptiveAvgPool2D(1))
+
+
+def working_layer(paddle, name, layer, run):
+    """8f (d): one bf16 forward, backward and `Momentum` step of `layer`:
+    a finite loss, a grad on every parameter, no kernel launch of the
+    port's and no composed call."""
+    import torch
+    from paddle_tpu_torch.incubate import kernels as K
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t = time.perf_counter()
+    layer.astype("bfloat16")
+    params = list(layer.parameters())
+    opt = paddle.optimizer.Momentum(0.01, 0.9, parameters=params)
+    loss, extra = run(layer)
+    loss.backward()
+    missing = [n for n, p in layer.named_parameters() if p.grad is None]
+    opt.step()
+    opt.clear_grad()
+    value = float(loss)
+    torch.cuda.synchronize()
+    no_composed(f"nn_train {name}")
+    launched = {k: v for k, v in K.launches().items() if v}
+    if missing or launched or not math.isfinite(value):
+        raise AssertionError(f"nn_train {name}: loss {value}, no grad on "
+                             f"{missing}, launches {launched}")
+    return {"loss": value, "parameters": sum(p.size for p in params),
+            "s": time.perf_counter() - t,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            **extra}
+
+
+def nn_working_widths(paddle, dev):
+    """8f (d): ResNet-50's stem and stage 1 on B 32 x 3 x 224 x 224, a
+    2-layer LSTM(1024) on B 32 x T 64, and a gshard top-2 MoELayer of 8
+    Linear(2048) experts on 8192 tokens, each in bf16."""
+    import torch
+    from paddle_tpu_torch.incubate.distributed.models import moe
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rand(*shape):
+        return paddle.to_tensor(torch.randn(*shape, generator=g, device=dev,
+                                            dtype=torch.bfloat16))
+
+    def resnet(layer):
+        out = layer(rand(RESNET_BATCH, 3, RESNET_SIDE, RESNET_SIDE))
+        return out.astype("float32").mean(), {"out": out.shape}
+
+    def lstm(layer):
+        zeros = paddle.to_tensor(torch.zeros(
+            2, LSTM_BATCH, LSTM_WIDTH, dtype=torch.bfloat16, device=dev))
+        out, (h, c) = layer(rand(LSTM_BATCH, LSTM_STEPS, LSTM_WIDTH),
+                            (zeros, zeros))
+        return out.astype("float32").mean(), {"out": out.shape,
+                                              "h": h.shape}
+
+    def moe_run(layer):
+        x = rand(MOE_TOKENS, MOE_WIDTH)
+        out = layer(x)
+        aux = layer.gate.get_loss()
+        C = max(int(layer.capacity_factor * MOE_TOKENS * layer.gate.topk /
+                    MOE_EXPERTS), 4)
+        with torch.no_grad():
+            idx, _ = layer.gate(x)
+            layer.gate.get_loss()
+            _, keep = moe.dispatch.capacity_slots(idx._t, MOE_EXPERTS, C)
+        return out.astype("float32").mean() + 0.01 * aux, {
+            "capacity": C, "assignments": int(keep.numel()),
+            "dropped": int((~keep).sum()), "aux": float(aux)}
+
+    nn = paddle.nn
+    paddle.seed(0)
+    builds = (("resnet50_stage1", lambda: resnet_stage1(paddle), resnet),
+              ("lstm", lambda: nn.LSTM(LSTM_WIDTH, LSTM_WIDTH, num_layers=2),
+               lstm),
+              ("moe", lambda: moe.MoELayer(
+                  d_model=MOE_WIDTH,
+                  experts=[nn.Linear(MOE_WIDTH, MOE_WIDTH)
+                           for _ in range(MOE_EXPERTS)],
+                  gate="gshard", topk=2), moe_run))
+    rec = {}
+    for name, build, run in builds:
+        rec[name] = working_layer(paddle, name, build(), run)
+        torch.cuda.empty_cache()
+    return rec
+
+
+def nn_train(dev, smi):
+    """Phase 8f (see the module docstring)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    t0 = time.perf_counter()
+    place = f"gpu:{dev.index or 0}"
+    paddle.set_device(place)
+    rec = nn_fine_tune(paddle, dev)
+    rec["fine_tune_s"] = time.perf_counter() - t0
+    rec["f32_step_vs_cpu"] = nn_opt_f32(paddle, place)
+    rec["working_widths"] = nn_working_widths(paddle, dev)
+    torch.cuda.synchronize()
+    rec["nvidia_smi"] = smi
     return rec
 
 
@@ -6243,6 +6555,12 @@ def main():
     emit({"phase": "nn_api", "seconds": time.perf_counter() - t, **rec_nn})
 
     t = time.perf_counter()
+    rec_nt = nn_train(dev, smi)
+    torch.cuda.empty_cache()
+    emit({"phase": "nn_train", "seconds": time.perf_counter() - t,
+          **rec_nt})
+
+    t = time.perf_counter()
     bwd = []
     for dtype in (torch.bfloat16, torch.float32):
         for shape, causal in (((1, 1024, 32, 128), True),
@@ -6405,7 +6723,8 @@ def main():
             *(m["tier"] for m in rec_t.values() if isinstance(m, dict)
               and "tier" in m), rec_obs, rec_fleet,
             *(rec_tp[m] for m, _, _ in TP_MODES), rec9, rec7, rec8,
-            rec_gen, rec_layer, rec_ops, rec_nn, rec_moe, rec_moe["int8"],
+            rec_gen, rec_layer, rec_ops, rec_nn, rec_nt, rec_moe,
+            rec_moe["int8"],
             rec_tm,
             rec_bert,
             {"launches": ftp_launches},

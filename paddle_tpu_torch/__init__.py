@@ -1,12 +1,12 @@
 """PyTorch/CUDA port of `paddle_tpu`: the eager Tensor, autograd and Layer
 API with the op namespace (`paddle.*`, `paddle.linalg` and the `Tensor`
-methods bound from the ops) and `nn` (the functional and Layer modules of
-the transformer path), the serving path, the trainer (one device or a
+methods bound from the ops), `nn` and `optimizer` (with `optimizer.lr`),
+the serving path, the trainer (one device or a
 mesh), the auto-parallel Engine and the flash-attention API.
 
 The JAX package `paddle_tpu` stays the reference; this package mirrors its
 module paths (`core/*`, `autograd/*`, `ops/*`, `linalg.py`, `nn/*`,
-`incubate/nn/functional`, `models/gpt.py`,
+`optimizer/*`, `incubate/nn/functional`, `models/gpt.py`,
 `incubate/kernels/*`, `inference/*`, `parallel/hybrid.py`,
 `distributed/auto_parallel/engine.py`) and keeps its layouts at every
 public function.  It imports torch and numpy, never jax and nothing of
@@ -100,7 +100,7 @@ from .param_attr import ParamAttr  # noqa
 from .autograd import grad, backward  # noqa
 
 from . import (analysis, autograd, distributed, incubate, inference,  # noqa
-               linalg, models, nn, ops, parallel, utils)
+               linalg, models, nn, ops, optimizer, parallel, utils)
 
 # the port is always eager until `jit/` and `static/` (item 13.8) arrive
 _in_dynamic = True

@@ -1,5 +1,7 @@
-"""MoE token dispatch: `dispatch.py`, the port of
-`paddle_tpu/incubate/distributed/models/moe/dispatch.py`.  The reference's
-Layer API here (`MoELayer`, the gates, `ClipGradForMOEByGlobalNorm`)
-arrives with the Paddle API breadth (ROADMAP Queue 1 item 13)."""
+"""MoE — port of `paddle_tpu/incubate/distributed/models/moe/`: the token
+dispatch (`dispatch.py`), the gates (`NaiveGate`, `GShardGate`,
+`SwitchGate`), `MoELayer` and `ClipGradForMOEByGlobalNorm`."""
 from . import dispatch  # noqa: F401
+from .gate import GShardGate, NaiveGate, SwitchGate  # noqa
+from .moe_layer import MoELayer  # noqa
+from .grad_clip import ClipGradForMOEByGlobalNorm  # noqa

@@ -127,8 +127,13 @@ CORE_MODULES = ("paddle_tpu_torch.core.tensor", "paddle_tpu_torch.autograd",
 # nn: the functional and Layer modules, and the fused attention entry
 NN_MODULES = ("paddle_tpu_torch.nn", "paddle_tpu_torch.nn.functional",
               "paddle_tpu_torch.incubate.nn.functional")
+# the optimizers with their schedulers, and the MoE Layer API
+OPTIMIZER_MODULES = ("paddle_tpu_torch.optimizer",
+                     "paddle_tpu_torch.optimizer.lr",
+                     "paddle_tpu_torch.incubate.distributed.models.moe")
 ALONE_MODULES = OBSERVABILITY_MODULES + FLEET_MODULES + MOE_MODULES + \
-    TP_MODULES + DISTRIBUTED_MODULES + CORE_MODULES + NN_MODULES
+    TP_MODULES + DISTRIBUTED_MODULES + CORE_MODULES + NN_MODULES + \
+    OPTIMIZER_MODULES
 
 
 def _import_alone(module):
@@ -167,9 +172,10 @@ def imported_alone():
 def test_observability_modules_import_alone(module, imported_alone):
     """Each module of the observability plane, the fleet, the front door,
     the MoE dispatch, tensor-parallel serving and training, ring attention,
-    the Engine with its checkpoints, the eager core and its ops, and nn
-    imports on its own and leaves jax and the JAX package out of
-    sys.modules (the AST scan above covers their source)."""
+    the Engine with its checkpoints, the eager core and its ops, nn, the
+    optimizers and the MoE Layer API imports on its own and leaves jax and
+    the JAX package out of sys.modules (the AST scan above covers their
+    source)."""
     r = imported_alone(module)
     assert r.returncode == 0, r.stdout + r.stderr
     assert (ROOT / (module.replace(".", "/") + ".py")).exists() or \

@@ -6,10 +6,8 @@ Layers cross from the reference to the port through the numpy state dict
 (`tests/torch_nn_cases.py::carry`), so outputs and gradients compare at
 float32 2e-5 abs and rel.  `dropout_modes` is statistical (the packages'
 draws differ), and `initializers_seeded` holds each package against
-itself.  Five cases of `tests/test_nn.py` wait for modules not ported yet:
-`save_load_roundtrip` for ROADMAP item 13.7 (`paddle.save`/`load`), and
-`conv2d_matches_naive`, `pooling`, `adaptive_pool` and `lstm` for item
-13.3b (conv, pooling and RNN).
+itself.  One case of `tests/test_nn.py` waits for a module not ported
+yet: `save_load_roundtrip`, for ROADMAP item 13.7 (`paddle.save`/`load`).
 """
 import inspect
 
@@ -106,6 +104,20 @@ def test_softmax_cross_entropy():
     close(got[P], got[R])
 
 
+def test_conv2d_matches_naive():
+    x, w = rnd(1, 2, 5, 5), rnd(3, 2, 3, 3)
+    xp = np.pad(x, ((0, 0), (0, 0), (1, 1), (1, 1)))
+    expect = sum((xp[0, c, 1:4, 1:4] * w[0, c]).sum() for c in range(2))
+    outs = {}
+    for ns in (R, P):
+        out = ns.nn.functional.conv2d(t(ns, x), t(ns, w), padding=1)
+        assert out.shape == [1, 3, 5, 5]
+        np.testing.assert_allclose(out.numpy()[0, 0, 1, 1], expect,
+                                   rtol=1e-4)
+        outs[ns] = out.numpy()
+    close(outs[P], outs[R])
+
+
 def test_batchnorm_train_eval():
     ref, port = both(lambda ns: ns.nn.BatchNorm2D(3))
     x = rnd(4, 3, 2, 2) * 5
@@ -144,6 +156,33 @@ def test_embedding():
     grads_close(ref, port)
 
 
+def test_pooling():
+    x = rnd(1, 1, 4, 4)
+    outs = {}
+    for ns in (R, P):
+        F = ns.nn.functional
+        out = F.max_pool2d(t(ns, x), 2)
+        np.testing.assert_allclose(
+            out.numpy(), x.reshape(1, 1, 2, 2, 2, 2).max((3, 5)))
+        out2 = F.avg_pool2d(t(ns, x), 2)
+        np.testing.assert_allclose(
+            out2.numpy(), x.reshape(1, 1, 2, 2, 2, 2).mean((3, 5)),
+            rtol=1e-6)
+        outs[ns] = (out.numpy(), out2.numpy())
+    for got, want in zip(outs[P], outs[R]):
+        close(got, want)
+
+
+def test_adaptive_pool():
+    x = rnd(1, 2, 6, 6)
+    outs = {}
+    for ns in (R, P):
+        out = ns.nn.functional.adaptive_avg_pool2d(t(ns, x), 2)
+        assert out.shape == [1, 2, 2, 2]
+        outs[ns] = out.numpy()
+    close(outs[P], outs[R])
+
+
 def test_dropout_modes():
     for ns in (R, P):
         x = t(ns, np.ones((100, 100), np.float32))
@@ -178,6 +217,21 @@ def test_transformer_encoder():
     out = port(t(P, x))
     assert out.shape == [2, 5, 16]
     close(out.numpy(), ref(t(R, x)).numpy())
+
+
+def test_lstm():
+    ref, port = both(lambda ns: ns.nn.LSTM(4, 8, num_layers=1))
+    x = rnd(2, 3, 4)
+    outs = {}
+    for net, ns in ((ref, R), (port, P)):
+        out, (h, c) = net(t(ns, x))
+        assert out.shape == [2, 3, 8]
+        assert h.shape == [1, 2, 8]
+        out.sum().backward()
+        outs[ns] = (out.numpy(), h.numpy(), c.numpy())
+    for got, want in zip(outs[P], outs[R]):
+        close(got, want)
+    grads_close(ref, port)
 
 
 def test_sequential_containers():
@@ -219,26 +273,8 @@ def test_clip_grad_by_global_norm():
 # ---- the namespaces ----
 
 # the reference's nn names the port does not have yet, each with the
-# ROADMAP Queue 1 item it waits for (13.3b: conv, pooling, vision, RNN,
-# decoding and the sparse ops)
-LEFT_OUT_NN = {n: "13.3b" for n in (
-    "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
-    "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
-    "AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D", "MaxPool2D",
-    "MaxPool3D", "MaxUnPool1D", "MaxUnPool2D", "MaxUnPool3D",
-    "Conv1D", "Conv1DTranspose", "Conv2D", "Conv2DTranspose", "Conv3D",
-    "Conv3DTranspose", "ChannelShuffle", "PixelShuffle", "PixelUnshuffle",
-    "BiRNN", "GRU", "GRUCell", "LSTM", "LSTMCell", "RNN", "RNNCellBase",
-    "SimpleRNN", "SimpleRNNCell", "BeamSearchDecoder", "Decoder",
-    "dynamic_decode",
-    "adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
-    "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
-    "avg_pool1d", "avg_pool2d", "avg_pool3d", "max_pool1d", "max_pool2d",
-    "max_pool3d", "max_unpool1d", "max_unpool2d", "max_unpool3d",
-    "conv1d", "conv1d_transpose", "conv2d", "conv2d_transpose", "conv3d",
-    "conv3d_transpose", "affine_grid", "grid_sample", "pixel_shuffle",
-    "pixel_unshuffle", "channel_shuffle", "softmax_mask_fuse",
-    "softmax_mask_fuse_upper_triangle", "sparse_attention")}
+# ROADMAP Queue 1 item it waits for: none since item 13.3b
+LEFT_OUT_NN = {}
 
 
 def public_names(mod):

@@ -14,6 +14,11 @@ and dq kernels once each for a forward and backward and composes
 nothing, while an all-true bool mask takes the counted plain route to the
 same values: outputs and gradients within 2e-2 (bf16; the BWD_BF16_REL of
 `chip_smoke.py`) or 1e-4 (f32; BWD_F32_REL) of max(1, max|plain|).
+One AdamW step and one Lamb step (with a global-norm clip and a
+scheduler) give the CPU's parameters and moments within 1e-6 of
+max(1, max|cpu|) (the smoke's OPT_F32_REL); a float32 beam decode over a
+GRUCell gives the CPU's tokens at every step up to the first whose
+candidates lie within 1e-4 of each other.
 """
 import numpy as np
 import pytest
@@ -21,6 +26,7 @@ import torch
 
 import paddle_tpu_torch as P
 from paddle_tpu_torch.incubate import kernels as K
+import torch_nn_cases as C
 from torch_nn_cases import ALL, RANDOM, seeded_repeats
 from torch_op_cases import port_on_device
 from torch_threads import one_torch_thread  # noqa: F401
@@ -29,13 +35,20 @@ pytestmark = pytest.mark.cuda
 
 @pytest.fixture
 def dev():
+    """The card, with TF32 off for matmuls and cuDNN's convolutions (both
+    flags restored after)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     prev = P.get_device()
     P.set_device("gpu:0")
     yield "gpu:0"
     P.set_device(prev)
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = flags
 
 
 @pytest.mark.parametrize("case", ALL, ids=[c.name for c in ALL])
@@ -100,3 +113,112 @@ def test_multihead_attention_at_bert_base_runs_the_kernels(dev, dtype):
         if err > rel * max(1.0, scale):
             bad.append((n, err, scale))
     assert bad == []
+
+
+OPT_F32_REL = 1e-6
+_o = np.random.RandomState(53)
+OPT_SHAPES = [(64, 48), (48,), (300,)]
+OPT_INIT = [_o.randn(*s).astype(np.float32) for s in OPT_SHAPES]
+OPT_GRADS = [_o.randn(*s).astype(np.float32) for s in OPT_SHAPES]
+
+
+def _one_step(name, place):
+    P.set_device(place)
+    ps = [P.to_tensor(a, stop_gradient=False) for a in OPT_INIT]
+    for i, p in enumerate(ps):
+        p.name = f"w{i}"
+    lr = P.optimizer.lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-2, 6), 2, 0.0, 1e-2)
+    sched.step()            # warmup's second value: a step that moves
+    clip = P.nn.ClipGradByGlobalNorm(1.0)
+    if name == "AdamW":
+        opt = P.optimizer.AdamW(sched, parameters=ps, weight_decay=0.01,
+                                grad_clip=clip)
+    else:
+        opt = P.optimizer.Lamb(sched, parameters=ps, grad_clip=clip)
+    for p, g in zip(ps, OPT_GRADS):
+        p.grad = P.to_tensor(g)
+    opt.step()
+    out = {p.name: p._t.detach().cpu() for p in ps}
+    for acc in ("moment1", "moment2"):
+        for p in ps:
+            a = opt._accumulators[acc][id(p)]
+            assert a.dtype == torch.float32 and a.device == p._t.device
+            out[f"{p.name}_{acc}"] = a.cpu()
+    return out
+
+
+@pytest.mark.parametrize("name", ["AdamW", "Lamb"])
+def test_one_optimizer_step_on_the_card_matches_the_cpu(dev, name):
+    got = _one_step(name, dev)
+    want = _one_step(name, "cpu")
+    P.set_device(dev)
+    bad = []
+    for k, w in want.items():
+        err = float((got[k] - w).abs().max())
+        if err > OPT_F32_REL * max(1.0, float(w.abs().max())):
+            bad.append((k, err))
+    assert bad == []
+
+
+class _Watched(P.nn.BeamSearchDecoder):
+    """A BeamSearchDecoder that keeps each step's beam log-probs and
+    finished marks as they enter the step (the last one built in `last`)."""
+
+    last = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.seen = []
+        _Watched.last = self
+
+    def step(self, time, tokens, state):
+        self.seen.append((state[1].cpu(), state[2].cpu()))
+        return super().step(time, tokens, state)
+
+
+def _margins(seen, logits, beam):
+    """Each step's smallest gap among the top beam + 1 candidates."""
+    out = []
+    for (lp, fin), lg in zip(seen, logits):
+        B = lp.shape[0]
+        step_lp = torch.log_softmax(lg.float(), -1).reshape(B, beam, -1)
+        pen = torch.full((step_lp.shape[-1],), -1e9)
+        pen[C.DEC_END] = 0.0
+        step_lp = torch.where(fin[..., None], pen, step_lp)
+        flat = (lp[..., None] + step_lp).reshape(B, -1)
+        top = torch.sort(flat, -1, descending=True).values[:, :beam + 1]
+        out.append(float((top[:, :-1] - top[:, 1:]).min()))
+    return out
+
+
+def _decode(place, weights, beam):
+    P.set_device(place)
+    cell, _ = C.decode_layers(P, *weights[:5])
+    logits = []
+
+    def cell_fn(inp, states):
+        out, new = cell(inp, states)
+        logits.append(out._t.detach().cpu())
+        return out, new
+    ts = [P.to_tensor(w) for w in weights]
+    out = C.beam_decode(P, *ts, cell_fn=cell_fn, decoder=_Watched,
+                        beam=beam, steps=12)
+    return out[0]._t.cpu(), _margins(_Watched.last.seen, logits, beam)
+
+
+def test_beam_decode_on_the_card_matches_the_cpu(dev):
+    beam = 4
+    weights = C.decode_weights(np.random.RandomState(59), B=3, V=32, D=16,
+                               tie=False)
+    got, _ = _decode(dev, weights, beam)
+    want, margins = _decode("cpu", weights, beam)
+    P.set_device(dev)
+    assert got.dtype == torch.int64
+    compared = 0
+    for t, margin in enumerate(margins):
+        if margin <= 1e-4:
+            break
+        assert torch.equal(got[:, t], want[:, t]), t
+        compared += 1
+    assert compared >= 1

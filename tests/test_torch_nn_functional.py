@@ -2,8 +2,9 @@
 `incubate.nn.functional.fused_dot_product_attention` against the JAX
 package's, on the CPU.
 
-Every case of `tests/torch_nn_cases.py` runs through both packages on the
-same numpy inputs (`tests/torch_op_test.py::twin`): values at the case's
+Every case of `tests/torch_nn_cases.py` (the conv, pooling and vision
+tables in `tests/test_torch_nn_functional_conv.py`) runs through both
+packages on the same numpy inputs (`tests/torch_op_test.py::twin`): values at the case's
 tolerance (float32 2e-5 abs and rel), integer outputs equal, and the
 input gradients of the summed float outputs.  The reference's Pallas
 attention has no CPU lane, so on the CPU both packages take their plain
@@ -20,12 +21,20 @@ import pytest
 
 import paddle_tpu as R
 import paddle_tpu_torch as P
-from torch_nn_cases import ALL, RANDOM, dropout_stats, seeded_repeats
+from torch_nn_cases import (ALL, RANDOM, TABLES, dropout_stats,
+                            seeded_repeats)
 from torch_op_test import on_cpu, twin  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
+# tables whose twins run in tests/test_torch_nn_functional_conv.py (a file
+# of their own, so that no one file sets the wall time of a run that
+# hands each worker whole files)
+OWN_FILE = ("conv", "pool", "vision")
 
-@pytest.mark.parametrize("case", ALL, ids=lambda c: c.name)
+
+@pytest.mark.parametrize("case", [c for name, table in TABLES.items()
+                                  if name not in OWN_FILE for c in table],
+                         ids=lambda c: c.name)
 def test_functional_twin(case):
     twin(case)
 

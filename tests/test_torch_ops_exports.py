@@ -7,7 +7,9 @@ the reference's `_patch_tensor_methods` binds (its `hasattr` rule over
 the nine op modules, its four overrides and the sparse conversions) exists
 on the port's `Tensor`; and the reference's public top-level names the
 port lacks are exactly LEFT_OUT, each with the ROADMAP Queue 1 item it
-waits for, so the list cannot grow quietly.
+waits for, so the list cannot grow quietly.  `paddle.optimizer` exports
+the reference's `__all__`, and `optimizer`, `optimizer.lr` and
+`incubate.distributed.models.moe` exactly the reference's public names.
 """
 import ast
 from pathlib import Path
@@ -27,7 +29,7 @@ ROOT = Path(__file__).resolve().parents[1]
 # the reference's public top-level names the port does not have yet, by
 # the ROADMAP Queue 1 item (13.n: item 13, sub-item n) each waits for
 LEFT_OUT = {
-    "optimizer": "13.4", "amp": "13.5", "io": "13.6",
+    "amp": "13.5", "io": "13.6",
     "save": "13.7", "load": "13.7", "framework": "13.7",
     "jit": "13.8", "static": "13.8", "to_static": "13.8",
     "enable_static": "13.8", "disable_static": "13.8",
@@ -158,3 +160,22 @@ def test_paddle_linalg_is_the_references_namespace():
     got = {n for n in dir(P.linalg) if not n.startswith("_") and
            callable(getattr(P.linalg, n))}
     assert want <= got, sorted(want - got)
+
+
+def test_optimizer_all_is_the_references():
+    assert P.optimizer.__all__ == R.optimizer.__all__
+    assert all(hasattr(P.optimizer, n) for n in R.optimizer.__all__)
+
+
+@pytest.mark.parametrize("path", ["optimizer", "optimizer.lr",
+                                  "incubate.distributed.models.moe"])
+def test_namespace_names_are_the_references(path):
+    import inspect
+    ref, port = R, P
+    for part in path.split("."):
+        ref, port = getattr(ref, part), getattr(port, part)
+
+    def names(mod):
+        return {n for n in dir(mod) if not n.startswith("_") and
+                n != "annotations" and not inspect.ismodule(getattr(mod, n))}
+    assert names(port) == names(ref)

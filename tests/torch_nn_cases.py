@@ -11,8 +11,11 @@ port on the CPU (`tests/test_torch_nn_cuda.py`, `chip_smoke.py`'s phase
 8e (a)).
 
 Tables: ACTIVATION, COMMON, INPUT (input, distance, extension), NORM,
-LOSS and ATTENTION hold every public function of the slice's functional
-modules; TROUBLE the spots where torch's defaults and the reference's
+LOSS, ATTENTION, CONV, POOL and VISION (vision and the sparse ops) hold
+every public function of the functional modules (CONV: strides,
+dilations, groups, asymmetric and string paddings, channel-last and the
+transposes; POOL: ceil_mode, wide paddings, the divisors, `return_mask`,
+the adaptive bins and the unpools); TROUBLE the spots where torch's defaults and the reference's
 differ (`interpolate`'s modes, `gelu`'s two forms, `cross_entropy`'s
 lanes, `ctc_loss`'s infeasible row, the DP and tree losses,
 `class_center_sample`, `unfold`/`fold`, `gather_tree`).  RANDOM holds the
@@ -402,9 +405,274 @@ TROUBLE = _INTERP + [
     fcase("gather_tree", [GT_IDS, GT_PARENTS], grad=False),
 ]
 
+
+# ---- conv, pooling, vision and the sparse ops (their own stream, so the
+# tables above keep their data) ----
+
+_q = np.random.RandomState(27)
+
+
+def _g32(*shape, scale=1.0):
+    return (_q.randn(*shape) * scale).astype(np.float32)
+
+
+def _nhwc(a):
+    return np.moveaxis(a, 1, -1).copy()
+
+
+C1, C2, C3 = _g32(2, 4, 9), _g32(2, 4, 7, 8), _g32(1, 2, 5, 6, 4)
+W1, W2, W3 = _g32(6, 4, 3), _g32(6, 4, 3, 3), _g32(3, 2, 2, 3, 2)
+B6, B3 = _g32(6), _g32(3)
+
+CONV = [
+    fcase("conv1d", [C1, W1, B6], stride=2, padding=1),
+    fcase("conv1d", [C1, W1], padding="SAME", dilation=2,
+          label="conv1d_same_dilated"),
+    fcase("conv1d", [C1, _g32(6, 2, 3), B6], padding=[1, 2], groups=2,
+          label="conv1d_groups_asym"),
+    fcase("conv1d", [_nhwc(C1), W1, B6], stride=2, padding="valid",
+          data_format="NLC", label="conv1d_nlc"),
+    fcase("conv2d", [C2, W2, B6], stride=[2, 1], padding=[1, 2, 0, 1],
+          dilation=[1, 2], label="conv2d_asym_dilated"),
+    fcase("conv2d", [C2, _g32(6, 2, 3, 3)], padding=1, groups=2,
+          label="conv2d_groups"),
+    fcase("conv2d", [C2, W2, B6], stride=2, padding="SAME",
+          label="conv2d_same_stride2"),
+    fcase("conv2d", [C2, W2], stride=3, padding="VALID",
+          label="conv2d_valid"),
+    fcase("conv2d", [_nhwc(C2), W2, B6], stride=2, padding=[1, 0],
+          data_format="NHWC", label="conv2d_nhwc"),
+    fcase("conv3d", [C3, W3, B3], stride=2, padding=1),
+    fcase("conv3d", [C3, W3], padding="SAME", dilation=[1, 2, 1],
+          label="conv3d_same"),
+    fcase("conv3d", [np.moveaxis(C3, 1, -1).copy(), W3, B3],
+          padding=[0, 1, 1, 0, 1, 1], data_format="NDHWC",
+          label="conv3d_ndhwc_asym"),
+    # transposes: the reference runs them where in / groups == out / groups
+    fcase("conv1d_transpose", [C1[:, :, :5], _g32(4, 4, 3), _g32(4)],
+          stride=2, padding=1, output_padding=1),
+    fcase("conv1d_transpose", [C1[:, :, :5], _g32(4, 2, 3)], groups=2,
+          stride=3, padding="SAME", label="conv1d_transpose_groups_same"),
+    fcase("conv1d_transpose", [_nhwc(C1[:, :, :5]), _g32(4, 4, 3)],
+          stride=2, padding="VALID", dilation=2, data_format="NLC",
+          label="conv1d_transpose_nlc_valid"),
+    fcase("conv2d_transpose", [C2[:, :, :4, :5], _g32(4, 4, 3, 3),
+                               _g32(4)], stride=2, padding=[1, 0],
+          dilation=2, output_padding=1),
+    fcase("conv2d_transpose", [C2[:, :, :4, :5], _g32(4, 4, 3, 3)],
+          stride=[2, 3], padding=[1, 2, 0, 1], output_size=[99, 99],
+          label="conv2d_transpose_asym_output_size_ignored"),
+    fcase("conv2d_transpose", [C2[:, :, :4, :5], _g32(4, 2, 2, 3),
+                               _g32(4)], stride=2, groups=2,
+          label="conv2d_transpose_groups"),
+    fcase("conv2d_transpose", [C2[:, :, :4, :5], _g32(4, 4, 3, 3)],
+          stride=3, padding="SAME", label="conv2d_transpose_same"),
+    fcase("conv2d_transpose", [C2[:, :, :4, :5], _g32(4, 4, 3, 3)],
+          stride=2, padding="VALID", dilation=2,
+          label="conv2d_transpose_valid_dilated"),
+    fcase("conv2d_transpose", [_nhwc(C2[:, :, :4, :5]), _g32(4, 4, 3, 3),
+                               _g32(4)], stride=2, padding=1,
+          data_format="NHWC", label="conv2d_transpose_nhwc"),
+    fcase("conv3d_transpose", [C3[:, :, :3, :4, :3], _g32(2, 2, 2, 3, 2),
+                               _g32(2)], stride=2, padding=1),
+    fcase("conv3d_transpose", [np.moveaxis(C3[:, :, :3, :4, :3], 1,
+                                           -1).copy(), _g32(2, 2, 2, 2, 2)],
+          stride=2, padding="SAME", data_format="NDHWC",
+          label="conv3d_transpose_ndhwc_same"),
+]
+
+P1, P2, P3 = _g32(2, 3, 9), _g32(2, 3, 7, 8), _g32(1, 2, 5, 6, 4)
+P2_INT = _q.randint(-50, 50, (2, 3, 7, 8)).astype(np.int32)
+# unpool indices: distinct flat positions in each (n, c) plane, one of
+# them negative (from the end) and one past the end (dropped)
+UNPOOL_2D = np.stack([np.stack([_q.permutation(12)[:6] for _ in range(3)])
+                      for _ in range(2)]).reshape(2, 3, 2, 3).astype(np.int32)
+UNPOOL_2D[0, 0, 0, 0], UNPOOL_2D[1, 2, 1, 2] = -1, 40
+UNPOOL_1D = np.stack([np.stack([_q.permutation(10)[:4] for _ in range(3)])
+                      for _ in range(2)]).astype(np.int32)
+UNPOOL_3D = np.stack([_q.permutation(64)[:8] for _ in range(2)]) \
+    .reshape(1, 2, 2, 2, 2).astype(np.int32)
+
+
+def _pool_then_unpool(ns, x):
+    f = ns.nn.functional
+    out, mask = f.max_pool2d(x, 2, return_mask=True)
+    return f.max_unpool2d(out, mask, 2)
+
+
+POOL = [
+    fcase("max_pool1d", [P1], kernel_size=3, stride=2, padding=1),
+    fcase("max_pool1d", [P1], kernel_size=2, ceil_mode=True,
+          return_mask=True, label="max_pool1d_ceil_mask"),
+    fcase("max_pool1d", [_nhwc(P1)], kernel_size=3, padding=2,
+          data_format="NLC", label="max_pool1d_nlc_wide_pad"),
+    fcase("max_pool2d", [P2], kernel_size=3, stride=2, padding=1),
+    fcase("max_pool2d", [P2], kernel_size=2, ceil_mode=True,
+          label="max_pool2d_ceil"),
+    fcase("max_pool2d", [P2], kernel_size=[3, 2], stride=[2, 3],
+          padding=[1, 2, 0, 1], ceil_mode=True, label="max_pool2d_asym_ceil"),
+    fcase("max_pool2d", [P2], kernel_size=3, padding=2,
+          label="max_pool2d_wide_pad"),
+    fcase("max_pool2d", [P2], kernel_size=3, stride=2, padding="SAME",
+          label="max_pool2d_same"),
+    fcase("max_pool2d", [P2], kernel_size=3, stride=2, padding="valid",
+          label="max_pool2d_valid"),
+    fcase("max_pool2d", [_nhwc(P2)], kernel_size=2, stride=1, padding=1,
+          data_format="NHWC", label="max_pool2d_nhwc"),
+    fcase("max_pool2d", [P2_INT], grad=False, kernel_size=3, stride=2,
+          padding=1, label="max_pool2d_int"),
+    fcase("max_pool2d", [P2], kernel_size=3, stride=2, padding=1,
+          return_mask=True, label="max_pool2d_mask_padded"),
+    fcase("max_pool2d", [P2], kernel_size=2, return_mask=True,
+          label="max_pool2d_mask"),
+    fcase("max_pool3d", [P3], kernel_size=2, stride=2, ceil_mode=True),
+    fcase("max_pool3d", [P3], kernel_size=3, stride=2, padding=1,
+          return_mask=True, label="max_pool3d_mask"),
+    fcase("max_pool3d", [np.moveaxis(P3, 1, -1).copy()], kernel_size=2,
+          padding=[0, 1, 1, 0, 0, 1], data_format="NDHWC",
+          label="max_pool3d_ndhwc_asym"),
+    fcase("avg_pool1d", [P1], kernel_size=3, stride=2, padding=1),
+    fcase("avg_pool1d", [P1], kernel_size=2, ceil_mode=True, exclusive=False,
+          label="avg_pool1d_ceil_inclusive"),
+    fcase("avg_pool1d", [_nhwc(P1)], kernel_size=3, padding=1,
+          data_format="NLC", label="avg_pool1d_nlc"),
+    fcase("avg_pool2d", [P2], kernel_size=3, stride=2, padding=1),
+    fcase("avg_pool2d", [P2], kernel_size=3, stride=2, padding=1,
+          exclusive=False, label="avg_pool2d_inclusive"),
+    fcase("avg_pool2d", [P2], kernel_size=2, ceil_mode=True, exclusive=False,
+          label="avg_pool2d_ceil_inclusive"),
+    fcase("avg_pool2d", [P2], kernel_size=2, ceil_mode=True,
+          label="avg_pool2d_ceil_exclusive"),
+    fcase("avg_pool2d", [P2], kernel_size=3, padding=1, divisor_override=5,
+          label="avg_pool2d_divisor"),
+    fcase("avg_pool2d", [P2], kernel_size=3, stride=2, padding="SAME",
+          exclusive=False, label="avg_pool2d_same_counts"),
+    fcase("avg_pool2d", [P2], kernel_size=3, padding=2, exclusive=False,
+          label="avg_pool2d_wide_pad"),
+    fcase("avg_pool2d", [_nhwc(P2)], kernel_size=[2, 3], stride=2,
+          padding=[1, 0, 1, 1], data_format="NHWC",
+          label="avg_pool2d_nhwc_asym"),
+    fcase("avg_pool3d", [P3], kernel_size=2, padding=1),
+    fcase("avg_pool3d", [P3], kernel_size=3, stride=2, ceil_mode=True,
+          exclusive=False, divisor_override=4, label="avg_pool3d_ceil_div"),
+    fcase("adaptive_avg_pool1d", [P1], output_size=3),
+    fcase("adaptive_avg_pool1d", [P1], output_size=4,
+          label="adaptive_avg_pool1d_uneven"),
+    fcase("adaptive_avg_pool2d", [P2], output_size=[7, 4]),
+    fcase("adaptive_avg_pool2d", [P2], output_size=3,
+          label="adaptive_avg_pool2d_uneven"),
+    fcase("adaptive_avg_pool2d", [_nhwc(P2)], output_size=[2, 3],
+          data_format="NHWC", label="adaptive_avg_pool2d_nhwc"),
+    fcase("adaptive_avg_pool3d", [P3], output_size=[2, 3, 3]),
+    fcase("adaptive_max_pool1d", [P1], output_size=4, return_mask=True),
+    fcase("adaptive_max_pool2d", [P2], output_size=[3, 4]),
+    fcase("adaptive_max_pool2d", [P2], output_size=2, return_mask=True,
+          label="adaptive_max_pool2d_mask"),
+    fcase("adaptive_max_pool3d", [P3], output_size=[5, 2, 3]),
+    fcase("max_unpool1d", [_g32(2, 3, 4), UNPOOL_1D], kernel_size=2,
+          stride=2, padding=[0]),
+    fcase("max_unpool2d", [_g32(2, 3, 2, 3), UNPOOL_2D], kernel_size=2),
+    fcase("max_unpool2d", [_g32(2, 3, 2, 3), UNPOOL_2D], kernel_size=3,
+          stride=2, padding=1, output_size=[2, 3, 3, 5],
+          label="max_unpool2d_output_size"),
+    Case("max_unpool2d_of_max_pool2d_mask", _pool_then_unpool, [P2[..., :6]],
+         grad=True),
+    fcase("max_unpool3d", [_g32(1, 2, 2, 2, 2), UNPOOL_3D], kernel_size=2),
+]
+
+GRID = np.clip(_g32(2, 3, 4, 2, scale=0.7), -1.2, 1.2)
+THETA = _g32(2, 2, 3, scale=0.5)
+SM_MASK = np.where(_q.rand(2, 1, 4, 4) > 0.3, 0.0, -1e4).astype(np.float32)
+SA_Q, SA_K, SA_V = _g32(1, 2, 4, 8), _g32(1, 2, 4, 8), _g32(1, 2, 4, 8)
+# head 0: rows of 2, 1, 0 (empty) and 3 columns; head 1: 1 entry a row
+SA_OFF = np.array([[[0, 2, 3, 3, 6], [0, 1, 2, 3, 4]]], np.int32)
+SA_COLS = np.array([[[0, 1, 1, 0, 2, 3], [0, 1, 2, 3, 0, 0]]], np.int32)
+
+VISION = [
+    fcase("pixel_shuffle", [_g32(2, 8, 2, 3)], upscale_factor=2),
+    fcase("pixel_shuffle", [_g32(2, 2, 3, 9)], upscale_factor=3,
+          data_format="NHWC", label="pixel_shuffle_nhwc"),
+    fcase("pixel_unshuffle", [_g32(2, 2, 4, 6)], downscale_factor=2),
+    fcase("pixel_unshuffle", [_g32(2, 4, 6, 3)], downscale_factor=2,
+          data_format="NHWC", label="pixel_unshuffle_nhwc"),
+    fcase("channel_shuffle", [_g32(2, 6, 2, 3)], groups=3),
+    fcase("channel_shuffle", [_g32(2, 2, 3, 6)], groups=2,
+          data_format="NHWC", label="channel_shuffle_nhwc"),
+    fcase("affine_grid", [THETA], out_shape=[2, 3, 4, 5]),
+    fcase("affine_grid", [THETA], out_shape=[2, 3, 3, 4],
+          align_corners=False, label="affine_grid_half_pixel"),
+] + [
+    fcase("grid_sample", [_g32(2, 3, 5, 6), GRID], mode=mode,
+          padding_mode=pm, align_corners=ac,
+          label=f"grid_sample_{mode}_{pm}_ac{int(ac)}")
+    for mode in ("bilinear", "nearest")
+    for pm in ("zeros", "border", "reflection") for ac in (True, False)
+] + [
+    fcase("softmax_mask_fuse", [_g32(2, 2, 4, 4), SM_MASK]),
+    fcase("softmax_mask_fuse_upper_triangle", [_g32(2, 2, 5, 5)]),
+    fcase("sparse_attention", [SA_Q, SA_K, SA_V, SA_OFF, SA_COLS]),
+]
+
+# ---- beam decoding over a GRUCell (not in TABLES: its twin and its card
+# test live in tests/test_torch_nn_rnn.py and tests/test_torch_nn_cuda.py)
+
+DEC_B, DEC_W, DEC_V, DEC_D, DEC_END, DEC_STEPS = 2, 3, 6, 4, 2, 7
+
+
+def decode_weights(rng, B=DEC_B, V=DEC_V, D=DEC_D, tie=True):
+    """Embedding [V, D], GRUCell(D, V) weights and h0 [B, V].  With `tie`,
+    hidden units 2 and 3 are identical (and 2 and 3 of h0), so that tokens
+    2 (the end token) and 3 tie at every step and the lower-index rule
+    decides between them."""
+    emb = rng.randn(V, D).astype(np.float32)
+    wi = rng.randn(3 * V, D).astype(np.float32)
+    wh = rng.randn(3 * V, V).astype(np.float32) * 0.5
+    bi = rng.randn(3 * V).astype(np.float32) * 0.1
+    bh = rng.randn(3 * V).astype(np.float32) * 0.1
+    h0 = rng.randn(B, V).astype(np.float32) * 0.5
+    if tie:
+        for g in range(3):
+            for a in (wi, wh, bi, bh):
+                a[g * V + 3] = a[g * V + 2]
+        bi[2 * V + 2] = bi[2 * V + 3] = 1.5      # keep 2 and 3 likely
+        h0[:, 3] = h0[:, 2]
+    return [emb, wi, wh, bi, bh, h0]
+
+
+def decode_layers(ns, emb_w, wi, wh, bi, bh):
+    V, D = emb_w.shape
+    cell = ns.nn.GRUCell(D, V)
+    emb = ns.nn.Embedding(V, D)
+    for p, v in ((emb.weight, emb_w), (cell.weight_ih, wi),
+                 (cell.weight_hh, wh), (cell.bias_ih, bi),
+                 (cell.bias_hh, bh)):
+        p.set_value(v)
+    return cell, emb
+
+
+def beam_decode(ns, emb_w, wi, wh, bi, bh, h0, cell_fn=None,
+                decoder=None, beam=DEC_W, steps=DEC_STEPS):
+    """`BeamSearchDecoder` (or the `decoder` class given) +
+    `dynamic_decode(return_length=True)`: (tokens [B, T, W], final hidden
+    [B * W, V], beam log-probs [B, W], finished [B, W], lengths [B, W])."""
+    cell, emb = decode_layers(ns, emb_w, wi, wh, bi, bh)
+    nn = ns.nn
+    dec = (decoder or nn.BeamSearchDecoder)(
+        cell_fn or cell, start_token=0, end_token=DEC_END, beam_size=beam,
+        embedding_fn=emb)
+    init = nn.BeamSearchDecoder.tile_beam_merge_with_batch(h0, beam)
+    out, (h, lp, fin), lens = nn.dynamic_decode(
+        dec, init, max_step_num=steps, return_length=True)
+    return out, h, lp, fin, lens
+
+
+DECODE = [Case("dynamic_decode_beam", beam_decode,
+               decode_weights(np.random.RandomState(31)))]
+
 TABLES = {"activation": ACTIVATION, "common": COMMON, "input": INPUT,
           "norm": NORM, "loss": LOSS, "attention": ATTENTION,
-          "trouble": TROUBLE}
+          "trouble": TROUBLE, "conv": CONV, "pool": POOL,
+          "vision": VISION}
 ALL = [c for t in TABLES.values() for c in t]
 
 # ---- the functions that draw: each package against itself ----

@@ -61,6 +61,7 @@ DTYPE_DIFFERS = {
     "class_center_sample": ({0, 1}, "the remapped labels and the sampled "
                             "class ids are int64"),
     "gather_tree": ({0}, "int64 ids stay int64"),
+    "dynamic_decode_beam": ({0, 4}, "token ids and lengths are int64"),
 }
 
 
