@@ -456,6 +456,43 @@ Phases, one JSON line each (with its seconds):
                `dispatch.capacity_slots`): a finite loss, a grad on every
                parameter, no kernel launch and no composed call; seconds
                and peak memory each.
+8g. amp_io — a mixed-precision fine-tune of 8e's BERT-base stack fed by
+               `io.DataLoader` and restored with `paddle.save`/`load`.
+               (a) `MlmSamples` (module level, numpy only: 6 batches of
+               the same 16 seeded MLM samples at 8e's shapes and
+               labelling, the first token the batch's index) through
+               `DataLoader(num_workers=2, use_shared_memory=True)`: the
+               ring must build (`shm_ring.available()`, its error printed
+               otherwise) and be the route taken; its six batches on the
+               card bit for bit those of a `num_workers=0` loader; seconds
+               to the first batch.  (b) A float32 stack, 8f's AdamW,
+               schedule and clip, and `amp.GradScaler()`: six steps on
+               (a)'s batches, the forward and loss under
+               `auto_cast(level="O1", dtype="bfloat16")`, then
+               `scaler.scale(loss).backward()`, `scaler.step(opt)`,
+               `update()`, `clear_grad()`, `sched.step()`; the counts
+               zeroed before each step and read after it, rows 2, 5 and 6
+               exactly 12 each, nothing composed; step 1's dtypes
+               (embedding and encoder out float32, head out bf16, loss
+               float32); exactly one host read in each `scaler.step`
+               (counted as the warnings of the sync debug mode "warn");
+               moments and parameters float32 on the card, the scale
+               65536, finite losses whose last-two mean is below the
+               first.  Losses, step ms, `scaler.step` ms between CUDA
+               events, peak memory.  (c) After a backward, one inf written
+               into one grad: the step is skipped (every parameter and
+               moment bit for bit, `global_step` unchanged) and the scale
+               falls to 32768.  (d) After step 3 the model's, optimizer's
+               (with `LR_Scheduler`) and scaler's state dicts saved; after
+               (c) loaded (every tensor bit for bit the saved one, on the
+               card) and set into the same objects, and steps 4-6 rerun
+               on the same batches: losses, parameters and moments bit
+               for bit the first run's.  Bytes written, save and load
+               seconds.  (e) `amp.decorate(level="O2")` on a fresh float32
+               stack (Embedding and Linear weights bf16, LayerNorm
+               float32), one counted O2 step through a scaler (rows 2, 5,
+               6 exactly 12 each, one host read, parameters moved), and
+               the bf16 state's save and load bit for bit.
 9. kernels_bwd — the flash backward pair (dkv and dq kernels) against
                `_flash_bwd_ref` at [1,1024,32,128] causal, the training
                shape [4,2048,16,128] causal and [2,333,8,64] full, in bf16
@@ -614,7 +651,8 @@ the two paged ones (launches summed over the main-path runs of phases 3, 4,
 5, 6b, 6c, 6d, 6e, 6f (its tier runs), 6g (its traced pass), 6h (its
 fleets), 6i (its bf16 runs, every rank's launches), 8b (its counted bf16
 call), 8c (the Layer API's calls), 8d (none: the ops launch no
-kernel), 8e ((b), the BERT-base nn stack), 8f ((b), its six steps), 10, 11, 12, 12b ((a), every rank's launches), 12c ((a) and (b),
+kernel), 8e ((b), the BERT-base nn stack), 8f ((b), its six steps), 8g ((b)'s six
+steps, (d)'s three resumed steps and (e)'s O2 step), 10, 11, 12, 12b ((a), every rank's launches), 12c ((a) and (b),
 every rank's launches), 12d ((a), every rank's launches), 12e (the
 Engine's fit and resumed steps, every rank's launches), 13 (bf16 and
 int8), 14 and 15, each with the counts zeroed just before it and read
@@ -4063,6 +4101,408 @@ def nn_train(dev, smi):
     return rec
 
 
+# Phase 8g: a mixed-precision BERT-base fine-tune fed by the shared-memory
+# ring DataLoader, checkpointed with paddle.save and restored
+AMP_STEPS, AMP_SAVE_AFTER, AMP_WORKERS, AMP_SEED = 6, 3, 2, 9876
+AMP_INF_AT = (5, 7)     # (parameter index, flat element) of (c)'s inf
+
+
+class MlmSamples:
+    """Phase 8g's dataset: AMP_STEPS batches of NN_BATCH seeded MLM samples
+    at 8e's shapes and labelling (ids [NN_SEQ] and labels [NN_SEQ], int64:
+    a random id at NN_LABELED of the positions, -100 at the rest).  Every
+    batch holds the same NN_BATCH sequences, as 8f steps on one batch, so
+    that the losses fall (labels drawn at random hold nothing else to
+    learn); each sample's first token is its batch's index, unlabelled, so
+    that the ring's order shows.  Numpy only and at module level, so that
+    a spawned DataLoader worker imports it with this script and starts no
+    CUDA."""
+
+    def __len__(self):
+        return AMP_STEPS * NN_BATCH
+
+    def __getitem__(self, i):
+        rng = np.random.RandomState(AMP_SEED + i % NN_BATCH)
+        ids = rng.randint(0, NN_VOCAB, NN_SEQ)
+        labels = np.where(rng.rand(NN_SEQ) < NN_LABELED,
+                          rng.randint(0, NN_VOCAB, NN_SEQ), -100)
+        ids[0], labels[0] = i // NN_BATCH, -100
+        return ids, labels
+
+
+def amp_loader(paddle):
+    """8g (a): the six batches through `io.DataLoader(num_workers=2,
+    use_shared_memory=True)`, which must take the ring route, bit for bit
+    those of a `num_workers=0` loader."""
+    import torch
+    from paddle_tpu_torch.io import shm_ring
+    t = time.perf_counter()
+    if not shm_ring.available():
+        raise AssertionError(f"amp_io: the shared-memory ring did not "
+                             f"build: {shm_ring._LIB_ERR}")
+    built_s = time.perf_counter() - t
+    t = time.perf_counter()
+    it = iter(paddle.io.DataLoader(MlmSamples(), batch_size=NN_BATCH,
+                                   num_workers=AMP_WORKERS,
+                                   use_shared_memory=True))
+    if it.__name__ != "_iter_multiprocess":
+        raise AssertionError(f"amp_io: the loader took {it.__name__}, not "
+                             f"the ring")
+    batches = [next(it)]
+    first_s = time.perf_counter() - t
+    batches += list(it)
+    ring_s = time.perf_counter() - t
+    sync = list(paddle.io.DataLoader(MlmSamples(), batch_size=NN_BATCH))
+    same = len(batches) == len(sync) == AMP_STEPS and all(
+        a._t.device.type == "cuda" and torch.equal(a._t, b._t)
+        for got, want in zip(batches, sync) for a, b in zip(got, want))
+    if not same:
+        raise AssertionError("amp_io: the ring's batches differ from the "
+                             "in-process loader's")
+    return batches, {"workers": AMP_WORKERS, "route": it.__name__,
+                     "ring_build_s": built_s, "first_batch_s": first_s,
+                     "all_batches_s": ring_s, "batches": len(batches),
+                     "batch": batches[0][0].shape,
+                     "equal_to_in_process": True}
+
+
+def amp_step(paddle, layers, opt, scaler, sched, batch, level="O1"):
+    """One counted step: the forward and loss under `auto_cast(level)`,
+    `scaler.scale(loss).backward()`, `scaler.step(opt)` between CUDA events
+    and under the sync debug mode "warn" (its host reads counted from the
+    warnings), `update`, `clear_grad` and `sched.step()`."""
+    import warnings
+    import torch
+    from paddle_tpu_torch.incubate import kernels as K
+    emb, enc, head = layers
+    ids, labels = batch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t = time.perf_counter()
+    with paddle.amp.auto_cast(level=level, dtype="bfloat16"):
+        h = emb(ids)
+        e = enc(h)
+        logits = head(e)
+        loss = paddle.nn.functional.cross_entropy(logits, labels,
+                                                  ignore_index=-100)
+    dtypes = [str(x.dtype.name) for x in (h, e, logits, loss)]
+    del h, e, logits
+    scaler.scale(loss).backward()
+    ev[0].record()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            scaler.step(opt)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    ev[1].record()
+    scaler.update()
+    opt.clear_grad()
+    if sched is not None:
+        sched.step()
+    value = float(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    no_composed(f"amp_io {level}")
+    launches = K.launches()
+    want = {k: NN_LAYERS if k in FLASH_ROWS else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"amp_io {level}: launches {launches}, want "
+                             f"{want}")
+    # the debug mode's own notice on its first use is not a host read
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    return {"loss": value, "dtypes": dtypes, "step_ms": step_ms,
+            "scaler_step_ms": ev[0].elapsed_time(ev[1]),
+            "host_reads": len(syncs), "host_reads_at": sorted(set(syncs)),
+            "launches": launches}
+
+
+def amp_state(layers, opt):
+    """(parameters, accumulators): clones of every tensor, in order."""
+    params = [p._t.detach().clone() for lyr in layers
+              for p in lyr.parameters()]
+    accs = [(n, k, v.clone()) for n, store in sorted(opt._accumulators.items())
+            for k, v in store.items()]
+    return params, accs
+
+
+def bitwise(a, b):
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.view(bits), b.view(bits))
+    return torch.equal(a, b)
+
+
+def amp_max_diff(got, want):
+    return max((float((g.float() - w.float()).abs().max())
+                for g, w in zip(got, want)), default=0.0)
+
+
+def amp_ckpt(paddle, layers, opt, scaler, where):
+    """8g (d): save the model's (one file, a state dict a layer), the
+    optimizer's and the scaler's state dicts: bytes, seconds, and clones of
+    every saved tensor."""
+    import os
+    import torch
+    files = {"model": os.path.join(where, "model.pdparams"),
+             "opt": os.path.join(where, "opt.pdopt"),
+             "scaler": os.path.join(where, "scaler.pdstate")}
+    states = {"model": {n: lyr.state_dict() for n, lyr in
+                        zip(("emb", "enc", "head"), layers)},
+              "opt": opt.state_dict(), "scaler": scaler.state_dict()}
+    kept = {k: {n: v._t.detach().clone() for n, v in flat_tensors(s)}
+            for k, s in states.items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for k, path in files.items():
+        paddle.save(states[k], path)
+    save_s = time.perf_counter() - t
+    return files, kept, {"bytes": {k: os.path.getsize(p)
+                                   for k, p in files.items()},
+                         "save_s": save_s,
+                         "lr_scheduler": states["opt"]["LR_Scheduler"],
+                         "scaler": states["scaler"]}
+
+
+def flat_tensors(tree, prefix=""):
+    """(path, Tensor) for every Tensor of nested dicts."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += flat_tensors(v, f"{prefix}{k}/")
+        elif hasattr(v, "_t"):
+            out.append((f"{prefix}{k}", v))
+    return out
+
+
+def amp_restore(paddle, layers, opt, scaler, files, kept):
+    """8g (d): load the three files, every loaded tensor bit for bit the
+    saved one, and `set_state_dict` them into the same objects."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loaded = {k: paddle.load(p) for k, p in files.items()}
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    bad, n = [], 0
+    for k in ("model", "opt"):
+        got = dict(flat_tensors(loaded[k]))
+        if sorted(got) != sorted(kept[k]):
+            raise AssertionError(f"amp_io: loaded {k} keys differ")
+        for name, v in got.items():
+            n += 1
+            if v._t.device.type != "cuda" or not bitwise(v._t, kept[k][name]):
+                bad.append(f"{k}/{name}")
+    if bad:
+        raise AssertionError(f"amp_io: loaded tensors differ from the "
+                             f"saved ones: {bad[:8]}")
+    for name, lyr in zip(("emb", "enc", "head"), layers):
+        missing, unexpected = lyr.set_state_dict(loaded["model"][name])
+        if missing or unexpected:
+            raise AssertionError(f"amp_io: {name} {missing} {unexpected}")
+    opt.set_state_dict(loaded["opt"])
+    scaler.load_state_dict(loaded["scaler"])
+    return {"load_s": load_s, "tensors_bitwise": n}
+
+
+def amp_o1(paddle, batches, where):
+    """8g (b)-(d): the O1 fine-tune, the inf step, save after step
+    AMP_SAVE_AFTER, restore and rerun the later steps."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    layers = nn_stack(paddle, "float32")
+    params = [p for lyr in layers for p in lyr.parameters()]
+    sched = nn_schedule(paddle)
+    opt = nn_adamw(paddle, params, sched)
+    scaler = paddle.amp.GradScaler()
+    steps, total = [], {}
+    for i, batch in enumerate(batches):
+        steps.append(amp_step(paddle, layers, opt, scaler, sched, batch))
+        if i + 1 == AMP_SAVE_AFTER:
+            files, kept, ck = amp_ckpt(paddle, layers, opt, scaler, where)
+    first = steps[0]["dtypes"]
+    if first != ["float32", "float32", "bfloat16", "float32"]:
+        raise AssertionError(f"amp_io O1 dtypes {first}")
+    losses = [s["loss"] for s in steps]
+    reads = [s["host_reads"] for s in steps]
+    accs = [opt._accumulators[n][id(p)] for n in ("moment1", "moment2")
+            for p in params]
+    if any(a.dtype != torch.float32 or a.device.type != "cuda"
+           for a in accs) or any(p._t.dtype != torch.float32 for p in params):
+        raise AssertionError("amp_io O1: a moment or parameter is off the "
+                             "card or not float32")
+    if reads != [1] * AMP_STEPS or scaler.get_loss_scaling() != 65536.0 or \
+            not all(math.isfinite(v) for v in losses) or \
+            sum(losses[-2:]) / 2 >= losses[0]:
+        raise AssertionError(f"amp_io O1: host reads {reads} at "
+                             f"{[s['host_reads_at'] for s in steps]}, scale "
+                             f"{scaler.get_loss_scaling()}, losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    end_params, end_accs = amp_state(layers, opt)
+    end_step = opt._global_step
+    # (c) one inf in one grad: the step is skipped, the scale halves
+    emb, enc, head = layers
+    ids, labels = batches[0]
+    with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = paddle.nn.functional.cross_entropy(head(enc(emb(ids))), labels,
+                                                  ignore_index=-100)
+    scaler.scale(loss).backward()
+    pi, el = AMP_INF_AT
+    params[pi].grad._t.view(-1)[el] = float("inf")
+    scaler.step(opt)
+    scaler.update()
+    opt.clear_grad()
+    del loss
+    now_params, now_accs = amp_state(layers, opt)
+    skipped = opt._global_step == end_step and \
+        all(bitwise(a, b) for a, b in zip(now_params, end_params)) and \
+        len(now_accs) == len(end_accs) and \
+        all(bitwise(a[2], b[2]) for a, b in zip(now_accs, end_accs))
+    if not skipped or scaler.get_loss_scaling() != 32768.0:
+        raise AssertionError(f"amp_io inf step: skipped {skipped}, scale "
+                             f"{scaler.get_loss_scaling()}")
+    inf = {"at": {"param": params[pi].name, "element": el},
+           "skipped_bitwise": True, "scale_after": scaler.get_loss_scaling(),
+           "tensors": len(now_params) + len(now_accs)}
+    del now_params, now_accs
+    # (d) restore the step-AMP_SAVE_AFTER checkpoint into the same objects
+    # and rerun the later steps on the same batches
+    rec_load = amp_restore(paddle, layers, opt, scaler, files, kept)
+    del kept
+    rerun = [amp_step(paddle, layers, opt, scaler, sched, batch)
+             for batch in batches[AMP_SAVE_AFTER:]]
+    re_params, re_accs = amp_state(layers, opt)
+    re_losses = [s["loss"] for s in rerun]
+    same_params = all(bitwise(a, b) for a, b in zip(re_params, end_params))
+    same_accs = all(bitwise(a[2], b[2]) for a, b in zip(re_accs, end_accs))
+    resumed = {"losses": re_losses, "losses_equal": re_losses ==
+               losses[AMP_SAVE_AFTER:],
+               "params_bitwise": same_params, "moments_bitwise": same_accs,
+               "max_abs_diff_params": amp_max_diff(re_params, end_params),
+               "max_abs_diff_moments": amp_max_diff(
+                   [a[2] for a in re_accs], [b[2] for b in end_accs]),
+               "host_reads": [s["host_reads"] for s in rerun]}
+    if not (resumed["losses_equal"] and same_params and same_accs):
+        raise AssertionError(f"amp_io: the resumed steps differ from the "
+                             f"first run's {resumed}")
+    for s in steps + rerun:
+        for k, v in s["launches"].items():
+            total[k] = total.get(k, 0) + v
+    med = sorted(s["step_ms"] for s in steps[1:])[(AMP_STEPS - 1) // 2]
+    rec = {"level": "O1", "dtype": "bfloat16", "params_dtype": "float32",
+           "steps": AMP_STEPS, "losses": losses,
+           "dtypes_step1": dict(zip(("embedding", "encoder", "head", "loss"),
+                                    first)),
+           "step_ms": [s["step_ms"] for s in steps],
+           "median_step_ms_2_6": med,
+           "scaler_step_ms": [s["scaler_step_ms"] for s in steps],
+           "host_reads_per_scaler_step": reads,
+           "host_reads_counted_by": "torch.cuda.set_sync_debug_mode('warn') "
+                                    "warnings inside scaler.step",
+           "scale": 65536.0, "peak_mem_gib": peak, "inf_step": inf,
+           "checkpoint": {**ck, **rec_load, "after_step": AMP_SAVE_AFTER},
+           "resumed": resumed, "launches_per_step":
+           {k: NN_LAYERS for k in FLASH_ROWS}}
+    del layers, params, opt, accs, end_params, end_accs, re_params, re_accs
+    torch.cuda.empty_cache()
+    return rec, total
+
+
+def amp_o2(paddle, batch, where):
+    """8g (e): `amp.decorate(level="O2")` on a fresh float32 stack, one
+    counted O2 step through the scaler, and the bf16 parameters' save and
+    load bit for bit."""
+    import os
+    import torch
+    layers = nn_stack(paddle, "float32")
+    paddle.amp.decorate(layers, level="O2")
+    kinds = {}
+    for lyr in layers:
+        for sub in lyr.sublayers(include_self=True):
+            for p in sub._parameters.values():
+                if p is not None:
+                    kinds.setdefault(type(sub).__name__, set()).add(
+                        str(p.dtype.name))
+    want = {k: {"float32"} if k == "LayerNorm" else {"bfloat16"}
+            for k in kinds}
+    if kinds != want or not {"Embedding", "Linear", "LayerNorm"} <= \
+            set(kinds):
+        raise AssertionError(f"amp_io O2 parameter dtypes {kinds}")
+    params = [p for lyr in layers for p in lyr.parameters()]
+    sched = nn_schedule(paddle)
+    opt = nn_adamw(paddle, params, sched)
+    scaler = paddle.amp.GradScaler()
+    sched.step()                    # warmup's second value: a step that moves
+    before = [p._t.clone() for p in params]
+    step = amp_step(paddle, layers, opt, scaler, sched, batch, level="O2")
+    moved = sum(not bitwise(a, p._t) for a, p in zip(before, params))
+    if step["host_reads"] != 1 or not math.isfinite(step["loss"]) or \
+            moved == 0:
+        raise AssertionError(f"amp_io O2: {step}, {moved} tensors moved")
+    path = os.path.join(where, "o2.pdparams")
+    state = {n: lyr.state_dict() for n, lyr in zip(("emb", "enc", "head"),
+                                                   layers)}
+    kept = {n: v._t.detach().clone() for n, v in flat_tensors(state)}
+    t = time.perf_counter()
+    paddle.save(state, path)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    loaded = dict(flat_tensors(paddle.load(path)))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    bf16 = [n for n, v in kept.items() if v.dtype == torch.bfloat16]
+    bad = [n for n, v in kept.items() if not bitwise(loaded[n]._t, v)]
+    if bad or sorted(loaded) != sorted(kept) or not bf16:
+        raise AssertionError(f"amp_io O2 round trip: {bad[:8]}")
+    rec = {"level": "O2", "param_dtypes": {k: sorted(v) for k, v in
+                                           kinds.items()},
+           "loss": step["loss"], "dtypes": step["dtypes"],
+           "step_ms": step["step_ms"], "scaler_step_ms":
+           step["scaler_step_ms"], "host_reads": step["host_reads"],
+           "tensors_moved": moved, "launches": step["launches"],
+           "bf16_tensors_bitwise": len(bf16), "tensors": len(kept),
+           "bytes": os.path.getsize(path), "save_s": save_s,
+           "load_s": load_s}
+    del layers, params, opt, before, kept, loaded
+    torch.cuda.empty_cache()
+    return rec
+
+
+def amp_io(dev, smi):
+    """Phase 8g (see the module docstring)."""
+    import shutil
+    import tempfile
+    import torch
+    import paddle_tpu_torch as paddle
+    t0 = time.perf_counter()
+    paddle.set_device(f"gpu:{dev.index or 0}")
+    batches, rec_loader = amp_loader(paddle)
+    rec = {"loader": rec_loader, "loader_s": time.perf_counter() - t0}
+    where = tempfile.mkdtemp(prefix="amp_io_")
+    try:
+        t = time.perf_counter()
+        rec["o1"], total = amp_o1(paddle, batches, where)
+        rec["o1_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec["o2"] = amp_o2(paddle, batches[0], where)
+        rec["o2_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    for k, v in rec["o2"]["launches"].items():
+        total[k] = total.get(k, 0) + v
+    rec["launches"] = total
+    torch.cuda.synchronize()
+    rec["nvidia_smi"] = smi
+    return rec
+
+
 def moe_config():
     """`gpt3_1p3b` with `gpt_moe_tiny`'s expert knobs: an expert layer of 4
     experts (top-2, capacity factor 2) in every block, bf16."""
@@ -6561,6 +7001,11 @@ def main():
           **rec_nt})
 
     t = time.perf_counter()
+    rec_amp = amp_io(dev, smi)
+    torch.cuda.empty_cache()
+    emit({"phase": "amp_io", "seconds": time.perf_counter() - t, **rec_amp})
+
+    t = time.perf_counter()
     bwd = []
     for dtype in (torch.bfloat16, torch.float32):
         for shape, causal in (((1, 1024, 32, 128), True),
@@ -6723,7 +7168,7 @@ def main():
             *(m["tier"] for m in rec_t.values() if isinstance(m, dict)
               and "tier" in m), rec_obs, rec_fleet,
             *(rec_tp[m] for m, _, _ in TP_MODES), rec9, rec7, rec8,
-            rec_gen, rec_layer, rec_ops, rec_nn, rec_nt, rec_moe,
+            rec_gen, rec_layer, rec_ops, rec_nn, rec_nt, rec_amp, rec_moe,
             rec_moe["int8"],
             rec_tm,
             rec_bert,

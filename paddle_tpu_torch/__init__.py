@@ -1,12 +1,14 @@
 """PyTorch/CUDA port of `paddle_tpu`: the eager Tensor, autograd and Layer
 API with the op namespace (`paddle.*`, `paddle.linalg` and the `Tensor`
 methods bound from the ops), `nn` and `optimizer` (with `optimizer.lr`),
-the serving path, the trainer (one device or a
-mesh), the auto-parallel Engine and the flash-attention API.
+`amp`, `io` (the DataLoader with its shared-memory worker ring),
+`paddle.save`/`load` and `framework`, the serving path, the trainer (one
+device or a mesh), the auto-parallel Engine and the flash-attention API.
 
 The JAX package `paddle_tpu` stays the reference; this package mirrors its
 module paths (`core/*`, `autograd/*`, `ops/*`, `linalg.py`, `nn/*`,
-`optimizer/*`, `incubate/nn/functional`, `models/gpt.py`,
+`optimizer/*`, `amp/*`, `io/*`, `framework/*`, `utils/cpp_extension.py`,
+`incubate/nn/functional`, `models/gpt.py`,
 `incubate/kernels/*`, `inference/*`, `parallel/hybrid.py`,
 `distributed/auto_parallel/engine.py`) and keeps its layouts at every
 public function.  It imports torch and numpy, never jax and nothing of
@@ -15,9 +17,9 @@ public function.  It imports torch and numpy, never jax and nothing of
 every kernel's plain PyTorch version.
 
 Top-level names of the reference whose modules are not ported yet are
-absent: `save`/`load`, `to_static`, `enable_static`/`disable_static`,
-`DataParallel`, `Model`, `summary`, `flops`, `to_dlpack`/`from_dlpack` and
-the subpackages `amp`, `audio`, `fft`, ... (ROADMAP Queue 1, item 13).
+absent: `to_static`, `enable_static`/`disable_static`, `DataParallel`,
+`Model`, `summary`, `flops`, `to_dlpack`/`from_dlpack` and the subpackages
+`jit`, `static`, `audio`, `fft`, ... (ROADMAP Queue 1, item 13).
 """
 # ---- core ----
 from .core import dtype as _dtype_mod
@@ -97,10 +99,12 @@ from .ops.creation import create_tensor, vander  # noqa
 from .ops.inplace import *  # noqa  (trailing-underscore in-place variants)
 
 from .param_attr import ParamAttr  # noqa
+from .framework.io import save, load  # noqa
 from .autograd import grad, backward  # noqa
 
-from . import (analysis, autograd, distributed, incubate, inference,  # noqa
-               linalg, models, nn, ops, optimizer, parallel, utils)
+from . import (amp, analysis, autograd, distributed, framework,  # noqa
+               incubate, inference, io, linalg, models, nn, ops, optimizer,
+               parallel, utils)
 
 # the port is always eager until `jit/` and `static/` (item 13.8) arrive
 _in_dynamic = True

@@ -180,10 +180,7 @@ class Tensor:
         self.trainable = True
         self.is_distributed = False
         self._optimize_attrs = {}
-        if name is None:
-            Tensor._name_counter += 1
-            name = f"generated_tensor_{Tensor._name_counter}"
-        self.name = name
+        self.name = _generated_name() if name is None else name
 
     @property
     def _version(self):
@@ -612,6 +609,12 @@ class Tensor:
     # value state used by optimizers/Layer
     def _is_initialized(self):
         return True
+
+
+def _generated_name() -> str:
+    """The next `generated_tensor_N` of the process-wide name counter."""
+    Tensor._name_counter += 1
+    return f"generated_tensor_{Tensor._name_counter}"
 
 
 def _norm_index(idx, x: torch.Tensor):

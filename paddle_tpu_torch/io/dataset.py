@@ -1,0 +1,107 @@
+"""Datasets — port of `paddle_tpu/io/dataset.py` (reference:
+`python/paddle/io/dataloader/dataset.py`).  Plain Python and numpy;
+`random_split` draws from numpy's global RNG, as the reference does, so one
+`np.random.seed` gives both packages the same split."""
+from __future__ import annotations
+
+import bisect
+
+import numpy as np
+
+
+class Dataset:
+    def __getitem__(self, idx):
+        raise NotImplementedError
+
+    def __len__(self):
+        raise NotImplementedError
+
+
+class IterableDataset(Dataset):
+    def __iter__(self):
+        raise NotImplementedError
+
+    def __getitem__(self, idx):
+        raise RuntimeError("IterableDataset does not support indexing")
+
+    def __len__(self):
+        raise RuntimeError("IterableDataset has no len()")
+
+
+class TensorDataset(Dataset):
+    def __init__(self, tensors):
+        self.tensors = tensors
+
+    def __getitem__(self, index):
+        return tuple(t[index] for t in self.tensors)
+
+    def __len__(self):
+        return self.tensors[0].shape[0]
+
+
+class ComposeDataset(Dataset):
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+
+    def __len__(self):
+        return min(len(d) for d in self.datasets)
+
+    def __getitem__(self, idx):
+        sample = []
+        for d in self.datasets:
+            item = d[idx]
+            sample.extend(item if isinstance(item, (list, tuple)) else [item])
+        return tuple(sample)
+
+
+class ChainDataset(IterableDataset):
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+
+    def __iter__(self):
+        for d in self.datasets:
+            yield from d
+
+
+class ConcatDataset(Dataset):
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self.cumulative_sizes = np.cumsum([len(d) for d in self.datasets]).tolist()
+
+    def __len__(self):
+        return self.cumulative_sizes[-1]
+
+    def __getitem__(self, idx):
+        if idx < 0:
+            idx += len(self)
+        ds_idx = bisect.bisect_right(self.cumulative_sizes, idx)
+        prev = 0 if ds_idx == 0 else self.cumulative_sizes[ds_idx - 1]
+        return self.datasets[ds_idx][idx - prev]
+
+
+class Subset(Dataset):
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def __getitem__(self, idx):
+        return self.dataset[self.indices[idx]]
+
+    def __len__(self):
+        return len(self.indices)
+
+
+def random_split(dataset, lengths, generator=None):
+    if all(isinstance(l, float) for l in lengths):
+        total = len(dataset)
+        lengths = [int(total * l) for l in lengths]
+        lengths[-1] = total - sum(lengths[:-1])
+    if sum(lengths) != len(dataset):
+        raise ValueError("sum of lengths != dataset size")
+    perm = np.random.permutation(len(dataset)).tolist()
+    out = []
+    off = 0
+    for l in lengths:
+        out.append(Subset(dataset, perm[off:off + l]))
+        off += l
+    return out

@@ -17,7 +17,7 @@ import copy
 import torch
 
 from ...core.place import expected_device
-from ...core.tensor import Tensor
+from ...core.tensor import Tensor, _generated_name
 from .. import functional as F
 from .common import Dropout, Linear
 from .container import LayerList
@@ -137,8 +137,17 @@ class TransformerEncoderLayer(Layer):
 
 
 def _clones(layer, n):
-    """`layer` and n - 1 deep copies of it (the same initial weights)."""
-    return LayerList([layer] + [copy.deepcopy(layer) for _ in range(n - 1)])
+    """`layer` and n - 1 deep copies of it (the same initial weights), each
+    copy's parameters under fresh names.  The reference's copies keep the
+    first layer's names, so an optimizer's state dict, keyed by name, holds
+    one layer's moments for all of them, and `set_state_dict` gives those
+    to every layer; the port names each copy's parameters anew, as Paddle's
+    stacks, which build each layer afresh, do."""
+    copies = [copy.deepcopy(layer) for _ in range(n - 1)]
+    for c in copies:
+        for p in c.parameters():
+            p.name = _generated_name()
+    return LayerList([layer] + copies)
 
 
 class TransformerEncoder(Layer):

@@ -131,9 +131,16 @@ NN_MODULES = ("paddle_tpu_torch.nn", "paddle_tpu_torch.nn.functional",
 OPTIMIZER_MODULES = ("paddle_tpu_torch.optimizer",
                      "paddle_tpu_torch.optimizer.lr",
                      "paddle_tpu_torch.incubate.distributed.models.moe")
+# amp, io with its shared-memory ring, save/load and the g++ builder
+AMP_IO_MODULES = ("paddle_tpu_torch.amp", "paddle_tpu_torch.amp.grad_scaler",
+                  "paddle_tpu_torch.io", "paddle_tpu_torch.io.shm_ring",
+                  "paddle_tpu_torch.io.dataloader",
+                  "paddle_tpu_torch.framework",
+                  "paddle_tpu_torch.framework.io",
+                  "paddle_tpu_torch.utils.cpp_extension")
 ALONE_MODULES = OBSERVABILITY_MODULES + FLEET_MODULES + MOE_MODULES + \
     TP_MODULES + DISTRIBUTED_MODULES + CORE_MODULES + NN_MODULES + \
-    OPTIMIZER_MODULES
+    OPTIMIZER_MODULES + AMP_IO_MODULES
 
 
 def _import_alone(module):
@@ -173,7 +180,8 @@ def test_observability_modules_import_alone(module, imported_alone):
     """Each module of the observability plane, the fleet, the front door,
     the MoE dispatch, tensor-parallel serving and training, ring attention,
     the Engine with its checkpoints, the eager core and its ops, nn, the
-    optimizers and the MoE Layer API imports on its own and leaves jax and
+    optimizers and the MoE Layer API, amp, io, save/load and the extension
+    builder imports on its own and leaves jax and
     the JAX package out of sys.modules (the AST scan above covers their
     source)."""
     r = imported_alone(module)

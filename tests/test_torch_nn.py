@@ -6,8 +6,8 @@ Layers cross from the reference to the port through the numpy state dict
 (`tests/torch_nn_cases.py::carry`), so outputs and gradients compare at
 float32 2e-5 abs and rel.  `dropout_modes` is statistical (the packages'
 draws differ), and `initializers_seeded` holds each package against
-itself.  One case of `tests/test_nn.py` waits for a module not ported
-yet: `save_load_roundtrip`, for ROADMAP item 13.7 (`paddle.save`/`load`).
+itself.  `save_load_roundtrip` runs in each package and then across
+them: each loads the file the other wrote.
 """
 import inspect
 
@@ -88,6 +88,26 @@ def test_state_dict_roundtrip():
                                       net2(t(ns, x)).numpy())
     ref, port = both(lambda ns: ns.nn.Linear(4, 3))
     close(port(t(P, x)).numpy(), ref(t(R, x)).numpy())
+
+
+def test_save_load_roundtrip(tmp_path):
+    x = rnd(2, 4)
+    nets = {}
+    for ns in (R, P):
+        net = ns.nn.Linear(4, 3)
+        path = str(tmp_path / f"{ns.__name__}.pdparams")
+        ns.save(net.state_dict(), path)
+        loaded = ns.load(path)
+        net2 = ns.nn.Linear(4, 3)
+        net2.set_state_dict(loaded)
+        np.testing.assert_allclose(net(t(ns, x)).numpy(),
+                                   net2(t(ns, x)).numpy())
+        nets[ns] = (net, path)
+    for ns, other in ((R, P), (P, R)):
+        net, path = nets[other]
+        twin = ns.nn.Linear(4, 3)
+        twin.set_state_dict(ns.load(path))
+        close(twin(t(ns, x)).numpy(), net(t(other, x)).numpy())
 
 
 def test_softmax_cross_entropy():

@@ -29,8 +29,6 @@ ROOT = Path(__file__).resolve().parents[1]
 # the reference's public top-level names the port does not have yet, by
 # the ROADMAP Queue 1 item (13.n: item 13, sub-item n) each waits for
 LEFT_OUT = {
-    "amp": "13.5", "io": "13.6",
-    "save": "13.7", "load": "13.7", "framework": "13.7",
     "jit": "13.8", "static": "13.8", "to_static": "13.8",
     "enable_static": "13.8", "disable_static": "13.8",
     "DataParallel": "13.9",
